@@ -1,0 +1,109 @@
+"""NCUP flow upsampler (port of ``raft_ncup_tpu/nn/upsampler.py``'s
+``NConvUpsampler`` and ``build_upsampler``), NCHW.
+
+Forward (shipped config: scale 4, data used for guidance, channels
+folded into the batch, estimation at low resolution, no residuals):
+
+1. zero-stuff the low-res data x4 onto the high-res grid;
+2. area-resize the guidance to the low-res grid, concatenate it with the
+   data and run the weights-estimation net (sigmoid confidences);
+3. zero-stuff the confidences x4;
+4. fold channels into the batch (free in NCHW: a reshape) and run the
+   NConv U-Net on (data, confidence).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from raft_ncup_tpu_torch.config import UpsamplerConfig
+from raft_ncup_tpu_torch.nn.nconv_unet import NConvUNet
+from raft_ncup_tpu_torch.nn.weights_est import SimpleWeightsNet
+from raft_ncup_tpu_torch.ops.geometry import adaptive_area_resize_nchw
+from raft_ncup_tpu_torch.ops.nconv import zero_stuff_upsample_nchw
+
+
+class NConvUpsampler(nn.Module):
+    def __init__(
+        self,
+        cfg: UpsamplerConfig,
+        data_ch: int = 2,
+        guidance_ch: int = 128,
+        use_bn: bool = False,
+        nconv_impl: str = "xla",
+    ):
+        super().__init__()
+        if cfg.est_on_high_res or cfg.weights_est_net != "simple":
+            raise NotImplementedError(
+                "the port's NCUP upsampler covers the shipped configuration "
+                "(weights_est_net='simple', est_on_high_res=False); the other "
+                "variants land with a later slice"
+            )
+        self.cfg = cfg
+        west_in = guidance_ch + (data_ch if cfg.use_data_for_guidance else 0)
+        self.weights_est_net = SimpleWeightsNet(
+            west_in,
+            num_ch=cfg.weights_est_num_ch,
+            out_ch=data_ch,
+            filter_sz=cfg.weights_est_filter_sz,
+            dilation=cfg.weights_est_dilation,
+            use_bn=use_bn,
+        )
+        self.interpolation_net = NConvUNet(
+            in_ch=1 if cfg.channels_to_batch else data_ch,
+            channels_multiplier=cfg.channels_multiplier,
+            num_downsampling=cfg.num_downsampling,
+            encoder_filter_sz=cfg.encoder_filter_sz,
+            decoder_filter_sz=cfg.decoder_filter_sz,
+            out_filter_sz=cfg.out_filter_sz,
+            pos_fn=cfg.pos_fn,
+            use_bias=cfg.use_bias,
+            data_pooling=cfg.data_pooling,
+            shared_encoder=cfg.shared_encoder,
+            use_double_conv=cfg.use_double_conv,
+            impl=nconv_impl,
+        )
+
+    def forward(self, x_lowres: torch.Tensor, guidance: torch.Tensor) -> torch.Tensor:
+        """x_lowres (B, C, h, w) and guidance (B, G, gh, gw) -> (B, C, s*h, s*w)."""
+        cfg = self.cfg
+        s = cfg.scale
+        B, C, H, W = x_lowres.shape
+        x_highres = zero_stuff_upsample_nchw(x_lowres, s, s)
+        guid = adaptive_area_resize_nchw(guidance, (H, W))
+        west_in = (
+            torch.cat([x_lowres, guid], dim=1)
+            if cfg.use_data_for_guidance else guid
+        )
+        w_highres = zero_stuff_upsample_nchw(self.weights_est_net(west_in), s, s)
+        oh, ow = H * s, W * s
+        if cfg.channels_to_batch:
+            # Channel c of sample b lands at batch index b*C + c.
+            out, _ = self.interpolation_net(
+                x_highres.reshape(B * C, 1, oh, ow),
+                w_highres.reshape(B * C, 1, oh, ow),
+            )
+            out = out.reshape(B, C, oh, ow)
+        else:
+            out, _ = self.interpolation_net(x_highres, w_highres)
+        if cfg.use_residuals:
+            out = torch.where(x_highres > 0, x_highres, out)
+        return out
+
+
+def build_upsampler(
+    cfg: UpsamplerConfig, dataset: str, nconv_impl: str = "xla",
+    guidance_ch: int = 128,
+) -> NConvUpsampler:
+    """Upsampler factory. BatchNorm in the weights-estimation net is on
+    iff the model is configured for Sintel. The bilinear, PAC and DJIF
+    kinds land with a later slice."""
+    if cfg.kind == "nconv":
+        return NConvUpsampler(
+            cfg, guidance_ch=guidance_ch, use_bn=(dataset == "sintel"),
+            nconv_impl=nconv_impl,
+        )
+    raise NotImplementedError(
+        f"upsampler kind {cfg.kind!r} lands with a later slice of the port"
+    )

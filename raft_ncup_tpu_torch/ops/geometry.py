@@ -1,0 +1,110 @@
+"""Geometry and sampling ops (port of ``raft_ncup_tpu/ops/geometry.py``).
+
+Public functions take and return NHWC tensors and ``(B, ..., 2)``
+coordinates with x first, like the JAX package. The sampling semantics
+are PyTorch's ``grid_sample(align_corners=True, padding='zeros')`` after
+the pixel round trip the reference uses: each of the four corner taps
+contributes 0 iff that tap is out of bounds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def coords_grid(
+    batch: int, ht: int, wd: int, device=None, dtype=torch.float32
+) -> torch.Tensor:
+    """Pixel-coordinate grid (B, H, W, 2) with [..., 0] = x, [..., 1] = y."""
+    y, x = torch.meshgrid(
+        torch.arange(ht, device=device, dtype=dtype),
+        torch.arange(wd, device=device, dtype=dtype),
+        indexing="ij",
+    )
+    grid = torch.stack([x, y], dim=-1)
+    return grid[None].expand(batch, ht, wd, 2)
+
+
+def grid_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling at pixel coordinates with zero padding.
+
+    Args:
+      img:    (B, H, W, C)
+      coords: (B, ..., 2) pixel coordinates; [..., 0] = x, [..., 1] = y.
+    Returns:
+      (B, ..., C) sampled values.
+    """
+    B, H, W, C = img.shape
+    x = coords[..., 0]
+    y = coords[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    dx = x - x0
+    dy = y - y0
+
+    flat_img = img.reshape(B, H * W, C)
+    batch_shape = x.shape  # (B, ...)
+    out = torch.zeros(batch_shape + (C,), dtype=img.dtype, device=img.device)
+    if H * W == 0:
+        # An empty pyramid level (a small image pooled past 1x1): every
+        # tap is out of bounds.
+        return out
+    taps = (
+        (x0, y0, (1.0 - dx) * (1.0 - dy)),
+        (x0 + 1.0, y0, dx * (1.0 - dy)),
+        (x0, y0 + 1.0, (1.0 - dx) * dy),
+        (x0 + 1.0, y0 + 1.0, dx * dy),
+    )
+    for tx, ty, w in taps:
+        valid = (tx >= 0) & (tx <= W - 1) & (ty >= 0) & (ty <= H - 1)
+        xi = tx.clamp(0, W - 1).long()
+        yi = ty.clamp(0, H - 1).long()
+        flat_idx = (yi * W + xi).reshape(B, -1, 1).expand(-1, -1, C)
+        v = torch.gather(flat_img, 1, flat_idx).reshape(batch_shape + (C,))
+        out = out + torch.where(valid, w, torch.zeros_like(w))[..., None] * v
+    return out
+
+
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest-neighbour integer upsampling of (B, H, W, C):
+    out[i] = in[i // factor]."""
+    return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)
+
+
+def adaptive_area_resize_nchw(
+    x: torch.Tensor, out_hw: tuple[int, int]
+) -> torch.Tensor:
+    """:func:`adaptive_area_resize` on (B, C, H, W)."""
+    B, C, H, W = x.shape
+    oh, ow = out_hw
+    if oh == H and ow == W:
+        return x
+    if oh >= H and ow >= W:
+        if oh % H == 0 and ow % W == 0:
+            return x.repeat_interleave(oh // H, dim=2).repeat_interleave(
+                ow // W, dim=3
+            )
+        raise NotImplementedError("area upsample only for integer factors")
+    if H % oh == 0 and W % ow == 0:
+        fh, fw = H // oh, W // ow
+        return x.reshape(B, C, oh, fh, ow, fw).mean(dim=(3, 5))
+    raise NotImplementedError("area resize only for integer ratios")
+
+
+def adaptive_area_resize(
+    x: torch.Tensor, out_hw: tuple[int, int]
+) -> torch.Tensor:
+    """``F.interpolate(mode='area')`` for integer size ratios, on
+    (B, H, W, C)."""
+    return adaptive_area_resize_nchw(
+        x.permute(0, 3, 1, 2), out_hw
+    ).permute(0, 2, 3, 1)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pooling, VALID (an odd trailing row or column
+    is dropped), on (B, H, W, C)."""
+    B, H, W, C = x.shape
+    h2, w2 = H // 2, W // 2
+    x = x[:, : h2 * 2, : w2 * 2, :].reshape(B, h2, 2, w2, 2, C)
+    return x.mean(dim=(2, 4))

@@ -1,0 +1,133 @@
+"""Normalized-convolution primitives, the math under NCUP (port of
+``raft_ncup_tpu/ops/nconv.py``).
+
+The core op is a pair of convolutions sharing one non-negative kernel:
+
+    out  = conv(data * conf, w) / (conv(conf, w) + eps) [+ bias]
+    cout = conv(conf, w) / sum(w)        # propagated confidence
+
+``impl`` picks the plain composition (``"xla"``, the JAX package's name)
+or the fused kernel (``"pallas"``, CUDA in the port: ``ops/nconv_cuda.py``).
+Public functions keep the JAX layouts (NHWC data, HWIO weights); the
+``*_nchw`` forms are what the port's NCHW NCUP stack calls.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused, nconv2d_plain
+
+
+def positivity(raw: torch.Tensor, pos_fn: str = "softplus") -> torch.Tensor:
+    """Map a raw parameter to a non-negative kernel (softplus with
+    beta=10 by default: softplus(10 x) / 10). For 'softmax' the raw
+    parameter is (..., Cout)-last, as in the JAX package (HWIO)."""
+    pos_fn = pos_fn.lower()
+    if pos_fn == "softplus":
+        return F.softplus(10.0 * raw) / 10.0
+    if pos_fn == "exp":
+        return torch.exp(raw)
+    if pos_fn == "sigmoid":
+        return torch.sigmoid(raw)
+    if pos_fn == "softmax":
+        o = raw.shape[-1]
+        return torch.softmax(raw.reshape(-1, o), dim=0).reshape(raw.shape)
+    raise ValueError(f"unknown pos_fn: {pos_fn!r}")
+
+
+def nconv2d_nchw(
+    data: torch.Tensor,
+    conf: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    eps: float = 1e-20,
+    impl: str = "xla",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalized convolution on (B, Cin, H, W) with an OIHW weight that
+    is already non-negative; returns ``(out, conf_out)``."""
+    if impl == "pallas":
+        return nconv2d_fused(data, conf, weight, bias, eps)
+    if impl == "xla":
+        return nconv2d_plain(data, conf, weight, bias, eps)
+    raise ValueError(f"unknown nconv impl: {impl!r}")
+
+
+def nconv2d(
+    data: torch.Tensor,
+    conf: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    eps: float = 1e-20,
+    impl: str = "xla",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalized convolution in the JAX layouts: data, conf (B, H, W, Cin)
+    NHWC; weight (k, k, Cin, Cout) HWIO, already non-negative; bias
+    (Cout,) or None. Returns ``(out, conf_out)``, both (B, H, W, Cout)."""
+    out, conf_out = nconv2d_nchw(
+        data.permute(0, 3, 1, 2).contiguous(),
+        conf.permute(0, 3, 1, 2).contiguous(),
+        weight.permute(3, 2, 0, 1).contiguous(),
+        bias,
+        eps=eps,
+        impl=impl,
+    )
+    return out.permute(0, 2, 3, 1), conf_out.permute(0, 2, 3, 1)
+
+
+def downsample_data_conf_nchw(
+    data: torch.Tensor, conf: torch.Tensor, pooling_type: str = "conf_based"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`downsample_data_conf` on (B, C, H, W)."""
+    B, C, H, W = conf.shape
+
+    def blocks(x):  # (B, C, H/2, W/2, 4), window in row-major order
+        x = x.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 1, 2, 4, 3, 5)
+        return x.reshape(B, C, H // 2, W // 2, 4)
+
+    cb = blocks(conf)
+    conf_ds = cb.amax(dim=-1) / 4.0
+    if pooling_type == "conf_based":
+        idx = cb.argmax(dim=-1, keepdim=True)
+        data_ds = torch.gather(blocks(data), -1, idx)[..., 0]
+    elif pooling_type == "max_pooling":
+        data_ds = blocks(data).amax(dim=-1)
+    else:
+        raise ValueError(f"unknown pooling_type: {pooling_type!r}")
+    return data_ds, conf_ds
+
+
+def downsample_data_conf(
+    data: torch.Tensor, conf: torch.Tensor, pooling_type: str = "conf_based"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """2x2 stride-2 confidence-aware downsampling of (B, H, W, C): max-pool
+    the confidence and gather data at its argmax ('conf_based') or
+    max-pool the data ('max_pooling'); the pooled confidence is divided
+    by 4."""
+    d, c = downsample_data_conf_nchw(
+        data.permute(0, 3, 1, 2), conf.permute(0, 3, 1, 2), pooling_type
+    )
+    return d.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)
+
+
+def zero_stuff_upsample_nchw(
+    x: torch.Tensor, scale_h: int, scale_w: int
+) -> torch.Tensor:
+    """:func:`zero_stuff_upsample` on (B, C, H, W)."""
+    B, C, H, W = x.shape
+    out = x.new_zeros((B, C, H * scale_h, W * scale_w))
+    out[:, :, scale_h // 2:: scale_h, scale_w // 2:: scale_w] = x
+    return out
+
+
+def zero_stuff_upsample(
+    x: torch.Tensor, scale_h: int, scale_w: int
+) -> torch.Tensor:
+    """Scatter (B, H, W, C) samples into a zeroed high-res grid at stride
+    centers: ``out[:, sH//2::sH, sW//2::sW] = x``."""
+    return zero_stuff_upsample_nchw(
+        x.permute(0, 3, 1, 2), scale_h, scale_w
+    ).permute(0, 2, 3, 1)

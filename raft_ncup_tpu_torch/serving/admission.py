@@ -1,0 +1,83 @@
+"""Bounded admission queue with load shedding (port of
+``raft_ncup_tpu/serving/admission.py``, without the telemetry gauge and
+the streaming engine's distinct-key rule).
+
+With open-loop arrivals an unbounded queue turns overload into unbounded
+latency; a bounded queue turns it into a fast ``shed`` with a retry hint
+for the marginal request while the admitted ones keep their latency.
+``offer`` never blocks; ``pop_batch`` blocks for the first request, then
+pops FIFO-adjacent requests sharing its shape key, never reordering
+across shapes.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from typing import List, Optional
+
+from raft_ncup_tpu_torch.serving.request import FlowRequest
+
+
+class AdmissionQueue:
+    """Thread-safe bounded FIFO of admitted :class:`FlowRequest`."""
+
+    def __init__(self, capacity: int):
+        self.capacity = max(1, int(capacity))
+        self._q: deque = deque()
+        self._cond = threading.Condition()
+        self._closed = False
+        self._paused = False
+
+    def __len__(self) -> int:
+        with self._cond:
+            return len(self._q)
+
+    @property
+    def closed(self) -> bool:
+        with self._cond:
+            return self._closed
+
+    def offer(self, request: FlowRequest) -> bool:
+        """Admit ``request`` (True) or refuse it at once when full or
+        closed (False)."""
+        with self._cond:
+            if self._closed or len(self._q) >= self.capacity:
+                return False
+            self._q.append(request)
+            self._cond.notify()
+            return True
+
+    def close(self) -> None:
+        """Stop admitting; queued requests stay poppable (drain)."""
+        with self._cond:
+            self._closed = True
+            self._paused = False
+            self._cond.notify_all()
+
+    def set_paused(self, paused: bool) -> None:
+        """While paused, ``pop_batch`` yields nothing; admission goes on."""
+        with self._cond:
+            self._paused = bool(paused)
+            self._cond.notify_all()
+
+    def pop_batch(
+        self, max_n: int, timeout: Optional[float] = None
+    ) -> List[FlowRequest]:
+        """Pop the head plus up to ``max_n - 1`` FIFO-adjacent requests
+        with the same ``shape_key``. Returns ``[]`` on timeout or when
+        closed and empty."""
+        with self._cond:
+            while self._paused or not self._q:
+                if self._closed and not self._q:
+                    return []
+                if not self._cond.wait(timeout):
+                    return []
+            head = self._q.popleft()
+            batch = [head]
+            while (
+                self._q and len(batch) < max_n
+                and self._q[0].shape_key == head.shape_key
+            ):
+                batch.append(self._q.popleft())
+            return batch
