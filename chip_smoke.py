@@ -8,11 +8,16 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 2. builds both hand-written kernels from ``raft_ncup_tpu_torch/csrc``;
 3. holds the correlation-lookup kernel against its plain PyTorch version
    at the served shape (batch 2, 55x128 level 0, C=256, 4 levels, r=4)
-   and at a 1088x1920 shape (136x240 level 0), with CUDA-event times;
+   with random and with smooth flow, at 1088x1920 (136x240 level 0) and at
+   2176x3840 (272x480), with CUDA-event times, the bound of each row and
+   the tiles that took each of the kernel's two paths (checked against
+   ``corr_cuda.tile_paths``); then at edge cases (C 4 to 512, radius 0 to
+   8, odd levels down to 1x1, windows off every side);
 4. holds the fused NConv2d kernel against its plain version at the four
    NCUP layer shapes of one served batch of two (4 folded planes of
-   440x1024), and checks that both wrappers raise on CUDA inputs their
-   kernels do not take (gradients, other dtypes, strided layouts);
+   440x1024) and at edge cases (every k, Cout 8, bias, ragged, tiny and
+   misaligned planes), and checks that both wrappers raise on CUDA inputs
+   their kernels do not take (gradients, other dtypes, strided layouts);
 5. serves 8 Sintel-size (436x1024) requests through ``FlowServer`` with
    the flagship model on the card, checks every answer, checks that both
    kernels ran while serving, and holds one served pair against the same
@@ -101,20 +106,38 @@ def max_err(torch, a, b, atol, rtol) -> tuple[float, bool]:
 
 # ---------------------------------------------------------------- kernel A
 
-def corr_inputs(torch, gen, B, H, W, C, levels):
-    """Feature maps, and coords = grid + a seeded flow of up to +-20 px
-    with fractional offsets, with about 5% of the windows pushed fully
-    out of bounds (1000 px in a random direction)."""
+def random_flow(torch, gen, B, H, W):
+    """A seeded flow of up to +-20 px with fractional offsets, independent
+    per pixel, with about 5% of the windows pushed fully out of bounds
+    (1000 px in a random direction): the worst case for window reuse."""
+    flow = (torch.rand(B, H, W, 2, generator=gen) * 2 - 1) * 20
+    far = (torch.rand(B, H, W, 1, generator=gen) < 0.05).float()
+    away = torch.sign(torch.rand(B, H, W, 2, generator=gen) - 0.5) * 1000
+    return flow + far * away
+
+
+def smooth_flow(torch, gen, B, H, W, coarse=(4, 8)):
+    """A seeded coarse field of +-20 px (``coarse`` values per axis),
+    bilinearly upsampled to H x W, plus fractional offsets below 1 px:
+    smooth like the flow the model produces."""
+    field = (torch.rand(B, 2, *coarse, generator=gen) * 2 - 1) * 20
+    field = torch.nn.functional.interpolate(
+        field, size=(H, W), mode="bilinear", align_corners=True)
+    frac = torch.rand(B, H, W, 2, generator=gen) - 0.5
+    return field.permute(0, 2, 3, 1) + frac
+
+
+def corr_inputs(torch, gen, B, H, W, C, levels, mix="random"):
+    """Feature maps, and coords = grid + a ``random_flow`` or a
+    ``smooth_flow``."""
     from raft_ncup_tpu_torch.ops.corr_cuda import prepare_levels
 
     f1 = torch.randn(B, H, W, C, generator=gen)
     f2 = torch.randn(B, H, W, C, generator=gen)
     y, x = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
     grid = torch.stack([x, y], -1).float()[None].expand(B, H, W, 2)
-    flow = (torch.rand(B, H, W, 2, generator=gen) * 2 - 1) * 20
-    far = (torch.rand(B, H, W, 1, generator=gen) < 0.05).float()
-    away = torch.sign(torch.rand(B, H, W, 2, generator=gen) - 0.5) * 1000
-    coords = (grid + flow + far * away).contiguous().cuda()
+    flow = (smooth_flow if mix == "smooth" else random_flow)(torch, gen, B, H, W)
+    coords = (grid + flow).contiguous().cuda()
     f1s, lv = prepare_levels(f1.cuda(), f2.cuda(), levels)
     return f1s, lv, coords
 
@@ -142,31 +165,114 @@ def corr_work(torch, f1s, lv, coords, radius):
     return nbytes, 2 * C * positions + 7 * n_out
 
 
-def check_corr(torch, gen, flush, name, B, H, W, C=256, levels=4, radius=4):
+def corr_paths(torch, f1s, lv, coords, radius):
+    """One launch of the lookup on these inputs: its output and the tiles
+    that took each path, checked against the paths ``tile_paths``
+    predicts from the coords."""
+    from raft_ncup_tpu_torch.ops import corr_cuda
+
+    corr_cuda.reset_path_tiles()
+    out = corr_cuda.lookup_levels(f1s, lv, coords, radius)
+    paths = corr_cuda.path_tiles()
+    tiled, per_query = corr_cuda.tile_paths(
+        coords, [(t.shape[1], t.shape[2]) for t in lv], radius, f1s.shape[-1])
+    check(paths == {"tiled": tiled, "per_query": per_query},
+          f"corr lookup path tiles {paths} differ from the predicted "
+          f"{tiled} tiled / {per_query} per-query")
+    return out, paths
+
+
+def check_corr(torch, gen, flush, name, B, H, W, C=256, levels=4, radius=4,
+               mix="random", plain_reps=3):
     from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels, lookup_pyramid
 
-    f1s, lv, coords = corr_inputs(torch, gen, B, H, W, C, levels)
+    f1s, lv, coords = corr_inputs(torch, gen, B, H, W, C, levels, mix)
     launches0 = lookup_levels.launches
-    out = lookup_levels(f1s, lv, coords, radius)
-    torch.cuda.synchronize()
+    out, paths = corr_paths(torch, f1s, lv, coords, radius)
     ref = lookup_pyramid(f1s, lv, coords, radius)
     err, ok = max_err(torch, out, ref, **CORR_TOL)
+    del ref
     nbytes, flops = corr_work(torch, f1s, lv, coords, radius)
     ms = cuda_ms(torch, lambda: lookup_levels(f1s, lv, coords, radius), 20, flush)
-    plain_ms = cuda_ms(torch, lambda: lookup_pyramid(f1s, lv, coords, radius), 3, flush)
+    plain_ms = cuda_ms(torch, lambda: lookup_pyramid(f1s, lv, coords, radius),
+                       plain_reps, flush)
     t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
     row = dict(
-        shape=f"B={B} level0={H}x{W} C={C} L={levels} r={radius}",
+        shape=f"B={B} level0={H}x{W} C={C} L={levels} r={radius} {mix} flow",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
         bound_ms=max(t_bytes, t_ops),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         check_launches=lookup_levels.launches - launches0,
+        path_tiles=paths,
     )
     print(f"kernel A {name}: {row['shape']}: max|kernel-plain| {err:.3e} "
           f"(atol {CORR_TOL['atol']}) kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB); tiles {paths['tiled']} tiled, "
+          f"{paths['per_query']} per-query", flush=True)
     check(ok, f"corr lookup kernel disagrees with its plain version at {row['shape']}")
     return row
+
+
+def edge_coords(torch, gen, B, H, W):
+    """Batch element 0 near the grid (fractional offsets below 1 px),
+    element 1 with a third of its windows thrown up to 1.5 sizes away,
+    and every further element with each quadrant's windows pushed fully
+    out of bounds on another side (right, left, below, above)."""
+    y, x = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    grid = torch.stack([x, y], -1).float()[None].expand(B, H, W, 2).clone()
+    coords = grid + torch.rand(B, H, W, 2, generator=gen) * 2 - 1
+    size = float(max(H, W))
+    big = (torch.rand(H, W, 2, generator=gen) * 3 - 1.5) * size
+    coords[1] += big * (torch.rand(H, W, 1, generator=gen) < 0.33)
+    # 100 sizes: beyond the widest window (18 pixels of a level 8x coarser)
+    sides = torch.tensor([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]]) * 100 * size
+    quad = (2 * (y >= H // 2) + (x >= W // 2)).reshape(-1)
+    for b in range(2, B):
+        coords[b] += sides[(quad + b) % 4].reshape(H, W, 2)
+    return coords.contiguous()
+
+
+def check_corr_edges(torch, gen):
+    """Kernel A against its plain version at B=3 on 9x11 queries (levels
+    9x11, 4x5, 2x2, 1x1) for every C in {4, 8, 260, 512} and radius in
+    {0, 3, 8}, with fully out-of-bounds windows on every side, and on
+    smooth 32x48 coords, where the tiled path runs, at C=252 (a lane
+    without channels in the last chunk) r=4, C=4 r=8 and C=128 r=0."""
+    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_pyramid, prepare_levels
+
+    cases = [(3, 9, 11, C, r, "edge") for C in (4, 8, 260, 512) for r in (0, 3, 8)]
+    cases += [(2, 32, 48, 252, 4, "smooth"), (1, 32, 48, 4, 8, "smooth"),
+              (1, 32, 48, 128, 0, "smooth")]
+    worst, paths = 0.0, {"tiled": 0, "per_query": 0}
+    for B, H, W, C, r, kind in cases:
+        f1 = torch.randn(B, H, W, C, generator=gen)
+        f2 = torch.randn(B, H, W, C, generator=gen)
+        if kind == "edge":
+            coords = edge_coords(torch, gen, B, H, W)
+        else:
+            y, x = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+            grid = torch.stack([x, y], -1).float()[None].expand(B, H, W, 2)
+            coords = grid + smooth_flow(torch, gen, B, H, W, coarse=(2, 3)) / 4
+        f1s, lv = prepare_levels(f1.cuda(), f2.cuda(), 4)
+        coords = coords.contiguous().cuda()
+        out, p = corr_paths(torch, f1s, lv, coords, r)
+        ref = lookup_pyramid(f1s, lv, coords, r)
+        err, ok = max_err(torch, out, ref, **CORR_TOL)
+        check(ok, f"corr lookup kernel disagrees at B={B} {H}x{W} C={C} r={r} ({kind}): "
+                  f"{err:.3e}")
+        if kind == "edge":
+            for b in range(2, B):  # every window outside the level
+                check(not bool(out[b].any()), f"far windows not zero at C={C} r={r}")
+        worst = max(worst, err)
+        paths = {k: paths[k] + p[k] for k in paths}
+    check(paths["tiled"] > 0 and paths["per_query"] > 0,
+          f"corr edge cases did not take both paths: {paths}")
+    print(f"kernel A edge cases: {len(cases)} shapes (C in 4/8/260/512, r in 0/3/8, "
+          f"odd levels down to 1x1, far windows on every side, smooth r=0/4/8): "
+          f"max|kernel-plain| {worst:.3e} (atol {CORR_TOL['atol']}); tiles {paths}",
+          flush=True)
+    return worst
 
 
 # ---------------------------------------------------------------- kernel B
@@ -177,7 +283,11 @@ def nconv_work(B, H, W, k, cin, cout):
     (data*conf) and two multiply-adds per output channel, plus a divide,
     a bias add and a scale per output."""
     p = k // 2
-    taps = (H * k - p * (p + 1)) * (W * k - p * (p + 1))  # in-bounds, per plane
+
+    def along(n):  # in-bounds taps along one axis of n pixels
+        return sum(max(0, n - abs(d)) for d in range(-p, p + 1))
+
+    taps = along(H) * along(W)  # in-bounds, per plane
     nbytes = 4 * (2 * B * cin * H * W + cout * cin * k * k + 2 * B * cout * H * W)
     flops = B * cin * taps * (1 + 4 * cout) + 3 * B * cout * H * W
     return nbytes, flops
@@ -230,6 +340,47 @@ def check_nconv(torch, gen, flush, B=4, H=440, W=1024):
     return rows
 
 
+NCONV_EDGES = [  # (k, Cin, Cout, B, H, W, bias, aligned)
+    (1, 3, 8, 2, 5, 7, False, True),
+    (1, 2, 1, 3, 7, 9, False, True),     # the nconv_out kernel, W % 4 != 0
+    (3, 2, 8, 1, 17, 70, True, True),
+    (3, 4, 2, 2, 16, 64, False, True),   # decoder_0, exactly one tile
+    (3, 4, 2, 1, 19, 67, True, True),
+    (5, 1, 2, 2, 3, 3, False, True),     # nconv_in, a plane inside the halo
+    (5, 2, 2, 1, 33, 130, False, True),  # nconv_x2_0, ragged tiles
+    (5, 2, 2, 1, 20, 64, False, False),  # misaligned rows: scalar loads
+    (5, 3, 4, 2, 40, 100, True, True),
+    (7, 1, 8, 2, 1, 1, False, True),
+    (7, 2, 3, 1, 20, 131, True, True),
+    (7, 4, 8, 1, 64, 128, False, False),
+]
+
+
+def check_nconv_edges(torch, gen):
+    """Kernel B against its plain version for every k in {1, 3, 5, 7},
+    Cout = 8, with and without bias, on planes that are not multiples of
+    the 64x16 tile, smaller than one tile or its halo, and rows that are
+    not 16-byte aligned (a contiguous view one float into its storage)."""
+    from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused, nconv2d_plain
+
+    worst = 0.0
+    for k, cin, cout, B, H, W, with_bias, aligned in NCONV_EDGES:
+        d, c, w = nconv_inputs(torch, gen, B, H, W, k, cin, cout, False)
+        if not aligned:
+            d, c = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+                    for x in (d, c))
+        bias = torch.randn(cout, generator=gen).cuda() if with_bias else None
+        for a, b in zip(nconv2d_fused(d, c, w, bias), nconv2d_plain(d, c, w, bias)):
+            err, ok = max_err(torch, a, b, **NCONV_TOL)
+            check(ok, f"nconv kernel disagrees at k={k} {cin}->{cout} "
+                      f"({B}, {H}, {W}) bias={with_bias} aligned={aligned}: {err:.3e}")
+            worst = max(worst, err)
+    print(f"kernel B edge cases: {len(NCONV_EDGES)} shapes (k in 1/3/5/7, Cout 8, bias, "
+          f"ragged and tiny planes, misaligned rows): max|kernel-plain| {worst:.3e} "
+          f"(atol {NCONV_TOL['atol']}, rtol {NCONV_TOL['rtol']})", flush=True)
+    return worst
+
+
 def check_wrappers_refuse(torch):
     """On a CUDA tensor a wrapper launches its kernel or raises: inputs
     that need a gradient, another dtype or a non-contiguous layout raise
@@ -268,6 +419,7 @@ def check_wrappers_refuse(torch):
 def check_serve(torch, card):
     from raft_ncup_tpu_torch.config import ServeConfig, flagship_config
     from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.ops import corr_cuda
     from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
     from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
     from raft_ncup_tpu_torch.ops.padding import InputPadder
@@ -279,15 +431,18 @@ def check_serve(torch, card):
     pairs = make_pairs(SERVE_SIZE, SERVE_REQUESTS, seed=0)
     lookup_levels.launches = 0
     nconv2d_fused.launches = 0
+    corr_cuda.reset_path_tiles()
     report, responses = serve_pairs(model, cfg, pairs, SERVE_SIZE)
     torch.cuda.synchronize()
     launches = {"corr_lookup": lookup_levels.launches, "nconv": nconv2d_fused.launches}
+    served_paths = corr_cuda.path_tiles()
     print(f"serve: {report['serve_ok']}/{report['serve_requests']} ok at "
           f"{SERVE_SIZE[0]}x{SERVE_SIZE[1]}, batch sizes {cfg.batch_sizes}, "
           f"{cfg.iter_levels[0]} iterations; p50 {report['serve_p50_ms']} ms, "
           f"p99 {report['serve_p99_ms']} ms, {report['serve_pairs_per_sec']:.3f} pairs/s "
           f"on {card}; {report['stats']}; launches while serving "
-          f"(warm-up included) {launches}", flush=True)
+          f"(warm-up included) {launches}; corr lookup tiles by path {served_paths}",
+          flush=True)
     check(report["errors"] == 0, f"serve errors: {[r.detail for r in responses if not r.ok]}")
     for r in responses:
         check(r.ok, f"request {r.request_id} answered {r.status}: {r.detail}")
@@ -314,7 +469,7 @@ def check_serve(torch, card):
           f"(atol {FLOW_UP_TOL['atol']}), max|flow_up| {float(up_p.abs().max()):.3f}",
           flush=True)
     check(ok_lr and ok_up, "served flow disagrees with the plain-version model")
-    report.update(flow_lr_err=e_lr, flow_up_err=e_up)
+    report.update(flow_lr_err=e_lr, flow_up_err=e_up, corr_path_tiles=served_paths)
     return model, report, launches
 
 
@@ -419,8 +574,17 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 * 2**20 // 4, device="cuda")
     corr_served = check_corr(torch, gen, flush, "served shape", B=2, H=55, W=128)
+    corr_smooth = check_corr(torch, gen, flush, "served shape", B=2, H=55, W=128,
+                             mix="smooth")
+    served_paths = {k: corr_served["path_tiles"][k] + corr_smooth["path_tiles"][k]
+                    for k in ("tiled", "per_query")}
+    check(served_paths["tiled"] > 0 and served_paths["per_query"] > 0,
+          f"the served rows did not take both paths of the corr kernel: {served_paths}")
     corr_banded = check_corr(torch, gen, flush, "1080p shape", B=1, H=136, W=240)
+    corr_4k = check_corr(torch, gen, flush, "4K shape", B=1, H=272, W=480, plain_reps=1)
+    check_corr_edges(torch, gen)
     nconv_rows = check_nconv(torch, gen, flush)
+    check_nconv_edges(torch, gen)
     check_wrappers_refuse(torch)
     model, serve, launches = check_serve(torch, card)
     profile = profile_forward(torch, model, card)
@@ -437,6 +601,14 @@ def main() -> int:
              "main-path count of the same kernel)", route="cuda",
              source=corr_src, replaces="raft_ncup_tpu/ops/corr_pallas.py:672",
              launches=launches["corr_lookup"], **_kernel_numbers(corr_banded)),
+        dict(name="corr_lookup at the served shape with smooth flow (the same kernel)",
+             route="cuda", source=corr_src,
+             replaces="raft_ncup_tpu/ops/corr_pallas.py:422",
+             launches=launches["corr_lookup"], **_kernel_numbers(corr_smooth)),
+        dict(name="corr_lookup at 2176x3840 (the TPU's banded tier; the same kernel)",
+             route="cuda", source=corr_src,
+             replaces="raft_ncup_tpu/ops/corr_pallas.py:672",
+             launches=launches["corr_lookup"], **_kernel_numbers(corr_4k)),
         dict(name="nconv2d_fused (4 NCUP layers of one served batch of 2)", route="cuda",
              source="raft_ncup_tpu_torch/csrc/nconv.cu",
              replaces="raft_ncup_tpu/ops/nconv_pallas.py:125",
@@ -457,7 +629,8 @@ def main() -> int:
 
 
 def _kernel_numbers(row: dict) -> dict:
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "check_launches")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "check_launches",
+            "path_tiles")
     return {**{k: row[k] for k in keys}, "library_ms": None}
 
 

@@ -18,6 +18,15 @@ version, :func:`lookup_pyramid` (the on-the-fly lookup of
 ``ops/corr.py``); for a CUDA tensor it launches the kernel or raises.
 ``lookup_levels.launches`` counts the launches. Forward only in this
 slice: a CUDA call whose inputs require grad raises.
+
+Each tile of 2x4 queries at one level, one warp's work, takes one of two
+exact paths: the tiled path reads the bounding box of the tile's windows
+once for all 8 queries when the windows overlap enough (smooth flow,
+coarse levels); the per-query path reads each query's window (random
+flow, far windows, C above 256). The kernel counts the tiles of each
+path on the device; :func:`path_tiles` reads the counts and
+:func:`reset_path_tiles` zeroes them. :func:`tile_paths` states the same
+rule in plain tensor code.
 """
 
 from __future__ import annotations
@@ -38,6 +47,14 @@ SOURCE = "raft_ncup_tpu_torch/csrc/corr_lookup.cu"
 MAX_LEVELS = 8
 MAX_CHANNELS = 512
 MAX_RADIUS = 8
+# The kernel's tiling (csrc/corr_lookup.cu): tiles of TILE_H rows of TILE_W
+# queries. A tile takes the tiled path when C <= MAX_TILED_CHANNELS and
+# STRIP_RATIO * (pixels of the bounding box of its clipped windows) <= (sum
+# of the clipped windows' areas): each box pixel read serves at least
+# STRIP_RATIO window positions.
+TILE_H, TILE_W = 2, 4
+MAX_TILED_CHANNELS = 256
+STRIP_RATIO = 2
 # Query rows the plain version samples at once; bounds its peak memory.
 ROW_CHUNK = 8
 
@@ -90,6 +107,77 @@ def prepare_levels(
     return f1s, levels
 
 
+def tile_paths(
+    coords: torch.Tensor,
+    level_hw: Sequence[tuple[int, int]],
+    radius: int,
+    channels: int,
+) -> tuple[int, int]:
+    """(tiled, per_query): the number of tiles that take each path for
+    (B, H, W, 2) ``coords`` over levels of sizes ``level_hw`` and
+    ``channels`` channels, by the kernel's rule. Each window is clipped to
+    its level; a tile is tiled when ``channels`` is at most
+    ``MAX_TILED_CHANNELS`` and ``STRIP_RATIO`` times the pixels of the
+    bounding box of its clipped windows is at most the sum of their areas.
+    Plain tensor code on the coords' device."""
+    B, H, W, _ = coords.shape
+    ty, tx = -(-H // TILE_H), -(-W // TILE_W)
+    tiles = len(level_hw) * B * ty * tx
+    if channels > MAX_TILED_CHANNELS or tiles == 0:
+        return 0, tiles
+    k1 = 2 * radius + 2
+    pad = (0, tx * TILE_W - W, 0, ty * TILE_H - H)
+    far = float(2**29)
+
+    def per_tile(v, fill, reduce):
+        """(B, H, W) -> (B, ty, tx), the padding filled with ``fill``."""
+        v = torch.nn.functional.pad(v, pad, value=fill)
+        return reduce(v.reshape(B, ty, TILE_H, tx, TILE_W), dim=(2, 4))
+
+    tiled = 0
+    for lvl, (hl, wl) in enumerate(level_hw):
+        o = torch.floor(coords.float() / float(2**lvl)) - radius
+        ox = o[..., 0].clamp(-k1, wl)
+        oy = o[..., 1].clamp(-k1, hl)
+        x0, x1 = ox.clamp(min=0), (ox + k1).clamp(max=wl)
+        y0, y1 = oy.clamp(min=0), (oy + k1).clamp(max=hl)
+        some = (x0 < x1) & (y0 < y1)
+        area = torch.where(some, (x1 - x0) * (y1 - y0), 0.0)
+        bx0 = per_tile(x0.masked_fill(~some, far), far, torch.amin)
+        bx1 = per_tile(x1.masked_fill(~some, -far), -far, torch.amax)
+        by0 = per_tile(y0.masked_fill(~some, far), far, torch.amin)
+        by1 = per_tile(y1.masked_fill(~some, -far), -far, torch.amax)
+        npix = (bx1 - bx0).clamp(min=0) * (by1 - by0).clamp(min=0)
+        tiled += int((STRIP_RATIO * npix <= per_tile(area, 0.0, torch.sum)).sum())
+    return tiled, tiles - tiled
+
+
+_path_counts: dict[torch.device, torch.Tensor] = {}
+
+
+def _counts_buffer(device: torch.device) -> torch.Tensor:
+    buf = _path_counts.get(device)
+    if buf is None:
+        buf = _path_counts[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return buf
+
+
+def path_tiles() -> dict[str, int]:
+    """Tiles that took the tiled and the per-query path in every launch
+    since the last :func:`reset_path_tiles`, over all devices. Reads the
+    device counters, so it waits for the launches to finish."""
+    tiled = per_query = 0
+    for buf in _path_counts.values():
+        t, q = buf.tolist()
+        tiled, per_query = tiled + t, per_query + q
+    return {"tiled": tiled, "per_query": per_query}
+
+
+def reset_path_tiles() -> None:
+    for buf in _path_counts.values():
+        buf.zero_()
+
+
 _fn = None
 
 
@@ -103,7 +191,8 @@ def _launcher():
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         _fn = (lib, fn)
     return _fn
@@ -173,9 +262,9 @@ def lookup_levels(
         *[d for lv in f2_levels for d in (lv.shape[1], lv.shape[2])]
     )
     rc = fn(
-        f1s.data_ptr(), coords.data_ptr(), ptrs, hw, L, B, H * W, C, radius,
-        out.data_ptr(), f1s.device.index,
-        torch.cuda.current_stream(f1s.device).cuda_stream,
+        f1s.data_ptr(), coords.data_ptr(), ptrs, hw, L, B, H, W, C, radius,
+        STRIP_RATIO, out.data_ptr(), _counts_buffer(f1s.device).data_ptr(),
+        f1s.device.index, torch.cuda.current_stream(f1s.device).cuda_stream,
     )
     cuda_build.check(rc, lib, "corr_lookup_f32")
     lookup_levels.launches += 1

@@ -88,9 +88,26 @@ def _grid_fractional_oob(b, h, w):
     )
 
 
+def _smooth_field_coords(b, h, w):
+    """Grid + a seeded 3x4 coarse field of up to +-6 px, bilinearly
+    upsampled (the smooth flow the model produces), + sub-pixel noise."""
+    g = np.random.default_rng(5)
+    coarse = g.uniform(-6.0, 6.0, (b, 3, 4, 2))
+    ys, xs = np.linspace(0, 2, h), np.linspace(0, 3, w)
+    y0 = np.minimum(np.floor(ys).astype(int), 1)
+    x0 = np.minimum(np.floor(xs).astype(int), 2)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    c = coarse[:, y0][:, :, x0], coarse[:, y0][:, :, x0 + 1]
+    d = coarse[:, y0 + 1][:, :, x0], coarse[:, y0 + 1][:, :, x0 + 1]
+    field = (1 - fy) * ((1 - fx) * c[0] + fx * c[1]) + fy * ((1 - fx) * d[0] + fx * d[1])
+    noise = g.uniform(-0.5, 0.5, (b, h, w, 2))
+    return (_grid(b, h, w) + field + noise).astype(np.float32)
+
+
 CASES = {
     # name: (b, h, w, c, radius, levels, coords maker)
     "grid_fractional_oob": (6, 8, 12, 16, 3, 3, _grid_fractional_oob),
+    "smooth_field": (2, 12, 16, 12, 4, 3, _smooth_field_coords),
     # 9x11 -> 4x5 -> 2x2 -> 1x1: avg_pool2 drops an odd row and column,
     # and the deepest level is 1x1, at the flagship radius.
     "odd_sizes_1x1_deepest": (1, 9, 11, 8, 4, 4,
