@@ -174,11 +174,11 @@ def corr_paths(torch, f1s, lv, coords, radius):
     corr_cuda.reset_path_tiles()
     out = corr_cuda.lookup_levels(f1s, lv, coords, radius)
     paths = corr_cuda.path_tiles()
-    staged, per_query = corr_cuda.tile_paths(
-        coords, [(t.shape[1], t.shape[2]) for t in lv], radius)
-    check(paths == {"staged": staged, "per_query": per_query},
+    tiled, per_query = corr_cuda.tile_paths(
+        coords, [(t.shape[1], t.shape[2]) for t in lv], radius, f1s.shape[-1])
+    check(paths == {"tiled": tiled, "per_query": per_query},
           f"corr lookup path tiles {paths} differ from the predicted "
-          f"{staged} staged / {per_query} per-query")
+          f"{tiled} tiled / {per_query} per-query")
     return out, paths
 
 
@@ -208,7 +208,7 @@ def check_corr(torch, gen, flush, name, B, H, W, C=256, levels=4, radius=4,
     print(f"kernel A {name}: {row['shape']}: max|kernel-plain| {err:.3e} "
           f"(atol {CORR_TOL['atol']}) kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB); tiles {paths['staged']} staged, "
+          f"{nbytes / 1e6:.1f} MB); tiles {paths['tiled']} tiled, "
           f"{paths['per_query']} per-query", flush=True)
     check(ok, f"corr lookup kernel disagrees with its plain version at {row['shape']}")
     return row
@@ -237,14 +237,14 @@ def check_corr_edges(torch, gen):
     """Kernel A against its plain version at B=3 on 9x11 queries (levels
     9x11, 4x5, 2x2, 1x1) for every C in {4, 8, 260, 512} and radius in
     {0, 3, 8}, with fully out-of-bounds windows on every side, and on
-    smooth 32x48 coords, where the staged path runs, at C=252 (a lane
+    smooth 32x48 coords, where the tiled path runs, at C=252 (a lane
     without channels in the last chunk) r=4, C=4 r=8 and C=128 r=0."""
     from raft_ncup_tpu_torch.ops.corr_cuda import lookup_pyramid, prepare_levels
 
     cases = [(3, 9, 11, C, r, "edge") for C in (4, 8, 260, 512) for r in (0, 3, 8)]
     cases += [(2, 32, 48, 252, 4, "smooth"), (1, 32, 48, 4, 8, "smooth"),
               (1, 32, 48, 128, 0, "smooth")]
-    worst, paths = 0.0, {"staged": 0, "per_query": 0}
+    worst, paths = 0.0, {"tiled": 0, "per_query": 0}
     for B, H, W, C, r, kind in cases:
         f1 = torch.randn(B, H, W, C, generator=gen)
         f2 = torch.randn(B, H, W, C, generator=gen)
@@ -266,7 +266,7 @@ def check_corr_edges(torch, gen):
                 check(not bool(out[b].any()), f"far windows not zero at C={C} r={r}")
         worst = max(worst, err)
         paths = {k: paths[k] + p[k] for k in paths}
-    check(paths["staged"] > 0 and paths["per_query"] > 0,
+    check(paths["tiled"] > 0 and paths["per_query"] > 0,
           f"corr edge cases did not take both paths: {paths}")
     print(f"kernel A edge cases: {len(cases)} shapes (C in 4/8/260/512, r in 0/3/8, "
           f"odd levels down to 1x1, far windows on every side, smooth r=0/4/8): "
@@ -577,8 +577,8 @@ def main() -> int:
     corr_smooth = check_corr(torch, gen, flush, "served shape", B=2, H=55, W=128,
                              mix="smooth")
     served_paths = {k: corr_served["path_tiles"][k] + corr_smooth["path_tiles"][k]
-                    for k in ("staged", "per_query")}
-    check(served_paths["staged"] > 0 and served_paths["per_query"] > 0,
+                    for k in ("tiled", "per_query")}
+    check(served_paths["tiled"] > 0 and served_paths["per_query"] > 0,
           f"the served rows did not take both paths of the corr kernel: {served_paths}")
     corr_banded = check_corr(torch, gen, flush, "1080p shape", B=1, H=136, W=240)
     corr_4k = check_corr(torch, gen, flush, "4K shape", B=1, H=272, W=480, plain_reps=1)

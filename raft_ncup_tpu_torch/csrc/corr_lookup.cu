@@ -18,20 +18,71 @@
 //                             + fy (1-fx) P[ky+1][kx] + fy fx P[ky+1][kx+1]
 // f1s is fmap1 pre-scaled by 1/sqrt(C); taps are x-major, levels major.
 //
-// Design (a variant of the shipped one, kept in history for comparison).
-// One block of 8 warps takes a tile of 4x8 queries at one level, in four
-// groups of 2x4. Warp 0 works out the windows, each group's region (the
-// bounding box of its clipped windows) and the tile's box. When the box
-// holds at most 640 pixels and each region at most 384, with twice its
-// pixels at most the sum of its clipped window areas, the block stages the
-// box and the tile's f1 rows through shared memory in slices of 16
-// channels, a ring of up to 16 stages filled ahead with cp.async, and each
-// group's 64 threads hold the dot products of up to 6 region pixels with
-// the group's 8 queries in registers. Other tiles take the per-query path.
+// What bounds it on this card. The work is (K+1)^2 dot products of length C
+// per (query, level) in f32 FMA outside the tensor cores (67 TFLOP/s): about
+// 1.8 GFLOP against 52 MB at the served shape (batch 2, 55x128 queries,
+// C=256, r=4, 4 levels), so the operation bound is 27 us. What limits a
+// kernel is the operand traffic. Each fmap2 pixel is dotted with every
+// query whose window covers it: read once per (query, position), as a
+// 1 KB row per dot product, the lookup pulls about 3.5 GB through L1 and
+// L2 for 52 MB of distinct input, and the cache bandwidth (128 B per clock
+// and SM from L1) caps it far below the FMA rate.
+//
+// Design. One warp takes a tile of 2x4 neighbouring queries at one level;
+// blocks of 4 warps take 4 tiles side by side. Lane t works out the window
+// of query t % 8, clipped to the level; the warp reduces them to the tile's
+// bounding box (P pixels) and the sum S of the clipped windows' areas. Each
+// tile then takes one of two exact paths:
+//   - the tiled path, when C <= 256 and 2P <= S (kStripRatio; the windows
+//     overlap: smooth flow, coarse levels): the warp holds the 8 queries''
+//     f1 rows in registers, lanes splitting the channels, and walks the
+//     box 4 pixels a pass. Each pixel row is read once for the tile, and
+//     each element loaded feeds 8 FMAs (one per query), instead of one.
+//     The 32 partial sums of a pass (4 pixels x 8 queries) are reduced
+//     across the warp by a transposing butterfly of 31 shuffle-adds, with
+//     no selects: lane t holds sum i ^ t in register i, which costs only a
+//     lane-dependent choice of the pixel each 8-lane group loads into a
+//     slot (still 128 contiguous bytes) and a permutation of the f1 rows
+//     once per tile. Lane t ends with the sum of pixel t / 8 and query
+//     t % 8, and writes it into that query's patch if the pixel lies in
+//     its window.
+//   - the per-query path, for the other tiles (discontinuous or random
+//     flow, far windows, C > 256): the warp takes the tile's queries one
+//     by one, walks only the in-level positions of each window, 8 a pass
+//     (4 when C > 256) with their loads in flight together, and reduces
+//     the 8 sums by a transposing butterfly (9 shuffle-adds instead of the
+//     40 of a reduction per position).
+// Positions outside the level are never read: the patches start at zero.
+// Both paths end in the same bilinear blend from the patches in shared
+// memory. The tiles of each path are counted in path_tiles[0] (tiled) and
+// path_tiles[1] (per-query); corr_cuda.tile_paths states the same rule.
+//
+// What bounds this design on an H100: issue. The tiled path issues 437
+// instructions per pass of 4 pixels (256 FMAs, 31 shuffles, 35 adds, the
+// rest addressing); at the FMA rate its two 16-byte loads per lane and
+// pixel would keep L1 only about half busy. The per-query path reads each
+// window row once per query, near the L2 bandwidth on random flow (about
+// 1.3 GB of rows at level 0 of the served shape). The path rule's ratio
+// of 2 was timed against 1 and 3 (chip_compare.py): equal on smooth flow,
+// about 5% faster on random flow.
+//
+// Staging the box in shared memory does not pay here. A variant that gave
+// a block a tile of 4x8 queries, staged the tile's box through shared
+// memory in 16-channel slices (cp.async, a ring of up to 16 stages) and
+// let each thread hold the sums of up to 6 box pixels with 8 queries took
+// 1.9x this design's time on smooth flow and 1.26x on random flow
+// (chip_compare.py). Its threads cannot keep the f1 rows in registers
+// across their pixels, so they re-read 8 f1 chunks from shared memory for
+// every 4 channels. Those loads, not device memory, set its time: a level
+// alone took 0.122, 0.101, 0.092 and 0.078 ms from the finest to the
+// coarsest on smooth flow, where this design takes 0.084 down to 0.044.
+//
+// The first design (one warp per query and level, one 1 KB row load and a
+// 5-step shuffle reduction per position) took 0.389 ms at the served shape
+// on an H100 (15x its bound).
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <climits>
 #include <cstddef>
 
@@ -40,35 +91,20 @@ namespace {
 constexpr int kMaxLevels = 8;
 constexpr int kMaxRadius = 8;
 constexpr int kMaxChannels = 512;
-// A block's tile: kTileH rows of kTileW queries at one level, in kGroups
-// groups of kGroupH x kGroupW queries.
-constexpr int kTileH = 4;
-constexpr int kTileW = 8;
+constexpr int kTileH = 2;  // a warp's tile: kTileH rows of kTileW queries
+constexpr int kTileW = 4;
 constexpr int kTileQ = kTileH * kTileW;
-constexpr int kGroupH = 2;
-constexpr int kGroupW = 4;
-constexpr int kGroupQ = kGroupH * kGroupW;
-constexpr int kGroups = kTileQ / kGroupQ;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kGroupThreads = kThreads / kGroups;  // two warps per group
-constexpr int kPix = 6;                             // region pixels per thread
-constexpr int kGroupPixels = kGroupThreads * kPix;  // largest staged region
-constexpr int kRatio = 2;  // staged when kRatio * region <= sum of areas
-constexpr int kSlice = 16;                 // channels per stage
-constexpr int kPixel4 = kSlice / 4 + 1;    // float4 per staged pixel (odd)
-constexpr int kMaxBox = 640;               // largest staged box, pixels
-// A stage holds the box, a pixel of zeros and the tile's f1 rows, one
-// slice each; the shared memory holds a ring of stages, at least two.
-constexpr int kSmemPixels = 2 * (kMaxBox + 1 + kTileQ);
-constexpr int kMaxStages = 16;  // cp.async groups a thread may wait on: 15
-constexpr size_t kSmemBytes = (size_t)kSmemPixels * kPixel4 * 16;
-constexpr int kMaxK1 = 2 * kMaxRadius + 2;
-static_assert(kTileQ == 32, "warp 0 works out one window per lane");
-static_assert(kGroups == 4 && kGroupThreads == 64, "group layout");
-static_assert((size_t)kTileQ * kMaxK1 * kMaxK1 * 4 <= kSmemBytes,
-              "the patches fit in the stage buffers");
-static_assert(kThreads % 4 == 0, "a thread stages one 16-byte chunk column");
+constexpr int kWarps = 4;  // warps (tiles) per block
+constexpr int kTiledPixels = 4;  // box pixels per pass of the tiled path
+constexpr int kMaxTiledNV = 2;   // the tiled path takes C <= 256
+// A tile takes the tiled path when kStripRatio * (pixels of the bounding
+// box of its clipped windows) <= (sum of their areas). At least 1, so a
+// tiled box holds at most 8 (K+1)^2 pixels and split() stays exact.
+constexpr int kStripRatio = 2;
+// Blocks per SM the registers must allow: 3 (at most 168 registers a
+// thread). On an H100, 2 and 4 (which spills) were no faster.
+constexpr int kMinBlocks = 3;
+static_assert(kTileQ * kTiledPixels == 32, "one sum per lane after a pass");
 
 struct LevelTable {
   const float* ptr[kMaxLevels];
@@ -141,6 +177,23 @@ struct TransposeSteps<0, V> {
   static __device__ __forceinline__ void run(float (&)[V], int) {}
 };
 
+// The same reduction when lane t holds value i ^ t in register i (all 32
+// values): every step keeps register k and adds the partner's register
+// k + S, which holds the same value, so no step selects. Lane t ends with
+// the sum of value t.
+template <int S>
+struct XorSteps {
+  static __device__ __forceinline__ void run(float (&v)[32]) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k + S], S);
+    XorSteps<S / 2>::run(v);
+  }
+};
+template <>
+struct XorSteps<0> {
+  static __device__ __forceinline__ void run(float (&)[32]) {}
+};
+
 // Sums each of the V values across the 32 lanes and leaves lane t with the
 // sum of value t % V: a transposing butterfly over the low lane bits, then
 // plain steps over the others. V - 1 + log2(32 / V) shuffle-adds.
@@ -163,226 +216,235 @@ __device__ __forceinline__ void split(int p, int w, float inv_w, int& y,
   x = p - y * w;
 }
 
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid
-// (then src is not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Waits until at most n (< kMaxStages) of this thread's groups are pending.
-__device__ __forceinline__ void cp_async_wait_at_most(int n) {
-  switch (n) {
-#define CORR_WAIT(N) case N: cp_async_wait<N>(); break;
-    CORR_WAIT(0) CORR_WAIT(1) CORR_WAIT(2) CORR_WAIT(3) CORR_WAIT(4)
-    CORR_WAIT(5) CORR_WAIT(6) CORR_WAIT(7) CORR_WAIT(8) CORR_WAIT(9)
-    CORR_WAIT(10) CORR_WAIT(11) CORR_WAIT(12) CORR_WAIT(13) CORR_WAIT(14)
-#undef CORR_WAIT
-    default: cp_async_wait<kMaxStages - 1>();
-  }
-}
-
-// What warp 0 works out for the block and shares: each query's window and
-// its clipped part, each group's region (the bounding box of its queries'
-// clipped windows) and the tile's box (that of all of them).
-struct TileInfo {
-  int org[kTileQ][2];    // window origin (x, y)
-  float frac[kTileQ][2]; // sub-pixel offset (fx, fy)
-  int clip[kTileQ][3];   // clipped window: x0, y0, width
-  int area[kTileQ];      // its pixels (0: off the level or off the image)
-  int rect[kGroups + 1][4];  // x0, y0, width, height; the box last
-  int staged;
+// A warp's tile of 2x4 queries at one level: where it lies, lane t's query
+// (t % 8) with its window clipped to the level, the bounding box of the
+// tile's clipped windows and the path rule.
+struct Tile {
+  int b, l, y_base, x_base, Hl, Wl;
+  const float* level;  // the level's plane of batch element b
+  Window me;
+  int wx0, wy0, ww, area;  // this lane's clipped window (area 0: empty)
+  int bx0, by0, bw, npix;  // the box (npix 0: every window off the level)
+  bool tiled;
 };
 
-// Query u of group g, as an index into the tile (row-major).
-__device__ __forceinline__ int group_query(int g, int u) {
-  return (kGroupH * (g / (kTileW / kGroupW)) + u / kGroupW) * kTileW +
-         kGroupW * (g % (kTileW / kGroupW)) + u % kGroupW;
+__device__ __forceinline__ Tile tile_of(int tile, const float* coords,
+                                        const LevelTable& lv, int B, int H,
+                                        int W, int C, int radius, int tiles_y,
+                                        int tiles_x, int lane) {
+  Tile t;
+  int rest = tile;
+  const int tx = rest % tiles_x;
+  rest /= tiles_x;
+  const int ty = rest % tiles_y;
+  rest /= tiles_y;
+  t.b = rest % B;
+  t.l = rest / B;
+  // The level's entry by constant indices: a dynamic index into the kernel
+  // parameter would copy the whole table to local memory.
+  const float* base = lv.ptr[0];
+  t.Hl = lv.h[0];
+  t.Wl = lv.w[0];
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i)
+    if (i == t.l) {
+      base = lv.ptr[i];
+      t.Hl = lv.h[i];
+      t.Wl = lv.w[i];
+    }
+  t.level = base + (size_t)t.b * t.Hl * t.Wl * C;
+  t.y_base = ty * kTileH;
+  t.x_base = tx * kTileW;
+
+  const int K1 = 2 * radius + 2;
+  const int q = lane % kTileQ;
+  const int qy = t.y_base + q / kTileW;
+  const int qx = t.x_base + q % kTileW;
+  t.me = Window{-K1, -K1, 0.f, 0.f};  // a query off the image covers nothing
+  if (qy < H && qx < W)
+    t.me = window_of(coords, ((size_t)t.b * H + qy) * W + qx, t.l, radius,
+                     t.Hl, t.Wl);
+  t.wx0 = max(t.me.ox, 0);
+  t.wy0 = max(t.me.oy, 0);
+  const int wx1 = min(t.me.ox + K1, t.Wl);
+  const int wy1 = min(t.me.oy + K1, t.Hl);
+  const bool some = t.wx0 < wx1 && t.wy0 < wy1;
+  t.ww = wx1 - t.wx0;
+  t.area = some ? t.ww * (wy1 - t.wy0) : 0;
+  constexpr int kFar = 1 << 29;  // sentinels: no difference overflows
+  int bx0 = some ? t.wx0 : kFar, bx1 = some ? wx1 : -kFar;
+  int by0 = some ? t.wy0 : kFar, by1 = some ? wy1 : -kFar;
+  int sum_area = t.area;
+#pragma unroll
+  for (int o = 1; o < kTileQ; o <<= 1) {
+    bx0 = min(bx0, __shfl_xor_sync(0xffffffffu, bx0, o));
+    bx1 = max(bx1, __shfl_xor_sync(0xffffffffu, bx1, o));
+    by0 = min(by0, __shfl_xor_sync(0xffffffffu, by0, o));
+    by1 = max(by1, __shfl_xor_sync(0xffffffffu, by1, o));
+    sum_area += __shfl_xor_sync(0xffffffffu, sum_area, o);
+  }
+  t.bw = max(bx1 - bx0, 0);
+  t.npix = t.bw * max(by1 - by0, 0);
+  t.bx0 = t.npix > 0 ? bx0 : 0;  // no sentinel reaches an address
+  t.by0 = t.npix > 0 ? by0 : 0;
+  t.tiled = C <= kMaxTiledNV * 128 && kStripRatio * t.npix <= sum_area;
+  return t;
 }
 
-// Staged path: the tile's box and f1 rows pass through shared memory in
-// slices of kSlice channels, a ring of as many stages as fit (up to 16)
-// filled ahead with cp.async, so a small box has every slice in flight at
-// once. Each group's 64 threads split its region's pixels, kPix at most
-// each, and hold the dot products of their pixels with the group's 8
-// queries in registers: each staged element loaded feeds 8 FMAs, each f1
-// element (a broadcast) up to kPix. The sums land in the patches of the
-// queries whose windows hold the pixel.
-__device__ __forceinline__ void staged_path(
-    const TileInfo& ti, const float* __restrict__ f1s, const float* level,
-    int Wl, float4* smem, float* patches, int b, int H, int W, int C,
-    int K1, int y_base, int x_base, int tid) {
-  const int bx0 = ti.rect[kGroups][0];
-  const int by0 = ti.rect[kGroups][1];
-  const int bw = ti.rect[kGroups][2];
-  const int npix = bw * ti.rect[kGroups][3];
+// Bilinear blend of the tile's (K+1)^2 patches into each query's K*K taps
+// (x-major), by the whole warp.
+__device__ __forceinline__ void blend_tile(const Tile& t, const float* patch,
+                                           float* __restrict__ out, int H,
+                                           int W, int L, int radius,
+                                           int lane) {
+  const int K = 2 * radius + 1;
+  const int K1 = K + 1;
+  const float inv_k = 1.f / (float)K;
+  for (int u = 0; u < kTileQ; ++u) {
+    const float fx = __shfl_sync(0xffffffffu, t.me.fx, u);
+    const float fy = __shfl_sync(0xffffffffu, t.me.fy, u);
+    const int uy = t.y_base + u / kTileW;
+    const int ux = t.x_base + u % kTileW;
+    if (uy >= H || ux >= W) continue;
+    const float* pu = patch + u * K1 * K1;
+    float* orow = out + ((((size_t)t.b * H + uy) * W + ux) * L + t.l) * K * K;
+    for (int k = lane; k < K * K; k += 32) {
+      int kx, ky;
+      split(k, K, inv_k, kx, ky);
+      const float v00 = pu[ky * K1 + kx];
+      const float v01 = pu[ky * K1 + kx + 1];
+      const float v10 = pu[(ky + 1) * K1 + kx];
+      const float v11 = pu[(ky + 1) * K1 + kx + 1];
+      orow[k] = (1.f - fy) * (1.f - fx) * v00 + (1.f - fy) * fx * v01 +
+                fy * (1.f - fx) * v10 + fy * fx * v11;
+    }
+  }
+}
+
+// Tiled path, NV: float4 chunks of a channel row each lane holds (C <=
+// NV * 128, NV <= 2): the 8 queries' f1 rows in registers, the box 4 pixels
+// a pass, each loaded element used by all 8 queries.
+template <int NV>
+__device__ __forceinline__ void tiled_path(const Tile& t,
+                                           const float* __restrict__ f1s,
+                                           float* patch, int H, int W, int C,
+                                           int K1, int lane) {
+  const int C4 = C >> 2;
   const int KK1 = K1 * K1;
-  if (npix == 0) {  // every window off the level: all zeros
-    for (int e = tid; e < kTileQ * KK1; e += kThreads) patches[e] = 0.f;
-    return;
-  }
-  // A stage: npix box pixels, the zero pixel, the tile's f1 rows.
-  const int zero_pixel = npix;
-  const int f1_pixel = npix + 1;
-  const int stage4 = (npix + 1 + kTileQ) * kPixel4;  // float4 per stage
-  const int slices = (C + kSlice - 1) / kSlice;
-  const int stages = min(min(kSmemPixels / (npix + 1 + kTileQ), kMaxStages), slices);
-  const int g = tid / kGroupThreads;
-  const int gl = tid % kGroupThreads;
-  const int gx0 = ti.rect[g][0];
-  const int gy0 = ti.rect[g][1];
-  const int gw = ti.rect[g][2];
-  const int npg = gw * ti.rect[g][3];
-  const float inv_gw = 1.f / (float)max(gw, 1);
-  int off[kPix];  // float4 offset of this thread's pixels in a stage
+  // Value i of a pass is (pixel i / 8, query i % 8); lane t keeps value t.
+  // Lane t holds value i ^ t in register i (XorSteps): a[k] holds query
+  // k ^ q, and slot j of a pass pixel j ^ g.
+  const int q = lane % kTileQ;
+  const int g = lane / kTileQ;
+  float4 a[kTileQ][NV];
 #pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int rr = gl + kGroupThreads * k;
-    int ry, rx;
-    split(min(rr, max(npg - 1, 0)), max(gw, 1), inv_gw, ry, rx);
-    off[k] = (rr < npg ? (gy0 - by0 + ry) * bw + (gx0 - bx0 + rx) : zero_pixel) *
-             kPixel4;
-  }
-  const int f1_base = (f1_pixel + group_query(g, 0)) * kPixel4;
-
-  for (int e = tid; e < stages * kPixel4; e += kThreads)
-    smem[(e / kPixel4) * stage4 + zero_pixel * kPixel4 + e % kPixel4] =
-        make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const int chunk = tid & 3;  // the 16-byte chunk of a pixel this thread stages
-  const float inv_bw = 1.f / (float)bw;
-  const int staged_rows = npix + kTileQ;
-  auto stage = [&](int s) {
-    float4* buf = smem + (s % stages) * stage4;
-    const int c = s * kSlice + 4 * chunk;
-    const bool on = c < C;
-    for (int p = tid >> 2; p < staged_rows; p += kThreads / 4) {
-      const float* src;
-      bool valid = on;
-      int row;
-      if (p < npix) {
-        int y, x;
-        split(p, bw, inv_bw, y, x);
-        src = level + ((size_t)(by0 + y) * Wl + (bx0 + x)) * C + c;
-        row = p;
-      } else {
-        const int q = p - npix;
-        const int qy = y_base + q / kTileW;
-        const int qx = x_base + q % kTileW;
-        valid = valid && qy < H && qx < W;
-        src = f1s + (((size_t)b * H + qy) * W + qx) * C + c;
-        row = f1_pixel + q;
-      }
-      cp_async16(buf + row * kPixel4 + chunk, valid ? src : f1s, valid);
+  for (int u = 0; u < kTileQ; ++u) {
+    const int uy = t.y_base + u / kTileW;
+    const int ux = t.x_base + u % kTileW;
+    const bool in = uy < H && ux < W;
+    const float4* row = reinterpret_cast<const float4*>(
+        f1s + (((size_t)t.b * H + (in ? uy : 0)) * W + (in ? ux : 0)) * C);
+#pragma unroll
+    for (int jj = 0; jj < NV; ++jj) {
+      const int c4 = lane + 32 * jj;
+      a[u][jj] = in && c4 < C4 ? row[c4] : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-  };
-
-  float acc[kPix][kGroupQ];
-#pragma unroll
-  for (int k = 0; k < kPix; ++k)
-#pragma unroll
-    for (int u = 0; u < kGroupQ; ++u) acc[k][u] = 0.f;
-  for (int s = 0; s + 1 < stages; ++s) {
-    stage(s);
-    cp_async_commit();
   }
-  for (int s = 0; s < slices; ++s) {
-    // Stage s + stages - 1 goes into the stage that slice s - 1 used; a
-    // group is committed every pass (empty at the end), so slice s has
-    // landed once at most stages - 1 groups are pending.
-    if (s + stages - 1 < slices) stage(s + stages - 1);
-    cp_async_commit();
-    cp_async_wait_at_most(stages - 1);
-    __syncthreads();
-    const float4* sb = smem + (s % stages) * stage4;
+  // a[k] <- a[k ^ q]: a conditional swap for each bit of q.
 #pragma unroll
-    for (int h = 0; h < kSlice / 4; ++h) {
-      float4 a[kGroupQ];  // the same for both warps of the group: broadcast
+  for (int bit = 1; bit < kTileQ; bit <<= 1) {
+    const int swap = q & bit;
 #pragma unroll
-      for (int u = 0; u < kGroupQ; ++u)
-        a[u] = sb[f1_base + ((u / kGroupW) * kTileW + u % kGroupW) * kPixel4 + h];
+    for (int k = 0; k < kTileQ; ++k) {
+      if (k & bit) continue;
 #pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        if (gl + kGroupThreads * k < npg) {
-          const float4 v = sb[off[k] + h];
-#pragma unroll
-          for (int u = 0; u < kGroupQ; ++u) acc[k][u] = dot4(a[u], v, acc[k][u]);
-        }
+      for (int jj = 0; jj < NV; ++jj) {
+        const float4 lo = a[k][jj], hi = a[k | bit][jj];
+        a[k][jj] = make_float4(select(swap, hi.x, lo.x), select(swap, hi.y, lo.y),
+                               select(swap, hi.z, lo.z), select(swap, hi.w, lo.w));
+        a[k | bit][jj] = make_float4(select(swap, lo.x, hi.x), select(swap, lo.y, hi.y),
+                                     select(swap, lo.z, hi.z), select(swap, lo.w, hi.w));
       }
     }
-    __syncthreads();
   }
-
-  // The stage buffers become the patches: zero them, then scatter each
-  // sum to the queries whose windows hold its pixel.
-  for (int e = tid; e < kTileQ * KK1; e += kThreads) patches[e] = 0.f;
-  __syncthreads();
+  // Loads are not masked: a pixel past the box reads the box's last one
+  // (its sums are never written) and a chunk past C reads the row's last
+  // one (its f1 chunk is zero), so no register is zeroed per pass.
+  int c4s[NV];
 #pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int rr = gl + kGroupThreads * k;
-    if (rr < npg) {
-      int ry, rx;
-      split(rr, gw, inv_gw, ry, rx);
-      const int y = gy0 + ry;
-      const int x = gx0 + rx;
+  for (int jj = 0; jj < NV; ++jj) c4s[jj] = min(lane + 32 * jj, C4 - 1);
+  const float4* box = reinterpret_cast<const float4*>(t.level) +
+                      ((size_t)t.by0 * t.Wl + t.bx0) * C4;
+  const float inv_bw = 1.f / (float)max(t.bw, 1);
+  for (int p0 = 0; p0 < t.npix; p0 += kTiledPixels) {
+    float4 v[kTiledPixels][NV];
+    int my_y = 0, my_x = 0;  // box position of pixel p0 + g (slot 0)
 #pragma unroll
-      for (int u = 0; u < kGroupQ; ++u) {
-        const int q = group_query(g, u);
-        const int i = y - ti.org[q][1];
-        const int j = x - ti.org[q][0];
-        if (i >= 0 && i < K1 && j >= 0 && j < K1) patches[q * KK1 + i * K1 + j] = acc[k][u];
+    for (int j = 0; j < kTiledPixels; ++j) {
+      int sy, sx;  // box position of pixel p0 + (j ^ g), clamped to the box
+      split(min(p0 + (j ^ g), t.npix - 1), t.bw, inv_bw, sy, sx);
+      if (j == 0) {
+        my_y = sy;
+        my_x = sx;
       }
+      const float4* px = box + ((size_t)sy * t.Wl + sx) * C4;
+#pragma unroll
+      for (int jj = 0; jj < NV; ++jj) v[j][jj] = __ldg(px + c4s[jj]);
+    }
+    float sums[kTiledPixels * kTileQ];
+#pragma unroll
+    for (int j = 0; j < kTiledPixels; ++j)
+#pragma unroll
+      for (int k = 0; k < kTileQ; ++k) {
+        float acc = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < NV; ++jj) acc = dot4(a[k][jj], v[j][jj], acc);
+        sums[j * kTileQ + k] = acc;
+      }
+    XorSteps<16>::run(sums);
+    // sums[0]: pixel p0 + g with query q.
+    if (p0 + g < t.npix) {
+      const int i = t.by0 + my_y - t.me.oy;
+      const int jx = t.bx0 + my_x - t.me.ox;
+      if (i >= 0 && i < K1 && jx >= 0 && jx < K1) patch[q * KK1 + i * K1 + jx] = sums[0];
     }
   }
 }
 
-// Per-query path: warp w takes the tile's queries 4w .. 4w + 3 one by one,
-// each window's in-level positions V a pass with their loads in flight
-// together, reduced by a transposing butterfly.
+// Per-query path: the tile's queries one by one, each window's in-level
+// positions V a pass with their loads in flight together.
 template <int NV, int V>
-__device__ __forceinline__ void per_query_path(
-    const TileInfo& ti, const float* __restrict__ f1s, const float* level,
-    int Wl, float* patches, int b, int H, int W, int C, int K1, int y_base,
-    int x_base, int warp, int lane) {
+__device__ __forceinline__ void per_query_path(const Tile& t,
+                                               const float* __restrict__ f1s,
+                                               float* patch, int H, int W,
+                                               int C, int K1, int lane) {
   const int C4 = C >> 2;
   const int KK1 = K1 * K1;
   int c4s[NV];
 #pragma unroll
   for (int jj = 0; jj < NV; ++jj) c4s[jj] = min(lane + 32 * jj, C4 - 1);
-  constexpr int kPerWarp = kTileQ / kWarps;
-  for (int u = warp * kPerWarp; u < (warp + 1) * kPerWarp; ++u) {
-    for (int e = lane; e < KK1; e += 32) patches[u * KK1 + e] = 0.f;
-    const int n = ti.area[u];
+  for (int u = 0; u < kTileQ; ++u) {
+    const int n = __shfl_sync(0xffffffffu, t.area, u);
     if (n == 0) continue;  // off the image or off the level: zeros
-    __syncwarp();
-    const int ox = ti.org[u][0];
-    const int oy = ti.org[u][1];
-    const int x0 = ti.clip[u][0];
-    const int y0 = ti.clip[u][1];
-    const int ww = ti.clip[u][2];
-    const int uy = y_base + u / kTileW;
-    const int ux = x_base + u % kTileW;
+    const int ox = __shfl_sync(0xffffffffu, t.me.ox, u);
+    const int oy = __shfl_sync(0xffffffffu, t.me.oy, u);
+    const int x0 = __shfl_sync(0xffffffffu, t.wx0, u);
+    const int y0 = __shfl_sync(0xffffffffu, t.wy0, u);
+    const int ww = __shfl_sync(0xffffffffu, t.ww, u);
+    const int uy = t.y_base + u / kTileW;
+    const int ux = t.x_base + u % kTileW;
     const float4* row = reinterpret_cast<const float4*>(
-        f1s + (((size_t)b * H + uy) * W + ux) * C);
+        f1s + (((size_t)t.b * H + uy) * W + ux) * C);
     float4 a[NV];
 #pragma unroll
     for (int jj = 0; jj < NV; ++jj) {
       const int c4 = lane + 32 * jj;
       a[jj] = c4 < C4 ? row[c4] : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    // Unmasked loads: a position past the window reads its last one (never
-    // written), a chunk past C the row's last (its f1 chunk is zero).
-    const float4* win = reinterpret_cast<const float4*>(level) +
-                        ((size_t)y0 * Wl + x0) * C4;
+    // Unmasked loads, as in the tiled path: a position past the window
+    // reads its last one (never written), a chunk past C the row's last.
+    const float4* win = reinterpret_cast<const float4*>(t.level) +
+                        ((size_t)y0 * t.Wl + x0) * C4;
     const float inv_ww = 1.f / (float)ww;
     for (int p0 = 0; p0 < n; p0 += V) {
       float4 v[V][NV];
@@ -390,7 +452,7 @@ __device__ __forceinline__ void per_query_path(
       for (int s = 0; s < V; ++s) {
         int sy, sx;  // window position of in-level position p0 + s
         split(min(p0 + s, n - 1), ww, inv_ww, sy, sx);
-        const float4* px = win + ((size_t)sy * Wl + sx) * C4;
+        const float4* px = win + ((size_t)sy * t.Wl + sx) * C4;
 #pragma unroll
         for (int jj = 0; jj < NV; ++jj) v[s][jj] = __ldg(px + c4s[jj]);
       }
@@ -406,170 +468,47 @@ __device__ __forceinline__ void per_query_path(
       if (lane < V && p0 + lane < n) {
         int py, px;
         split(p0 + lane, ww, inv_ww, py, px);
-        patches[u * KK1 + (y0 + py - oy) * K1 + (x0 + px - ox)] = sum;
+        patch[u * KK1 + (y0 + py - oy) * K1 + (x0 + px - ox)] = sum;
       }
     }
   }
 }
 
-// One block per tile of 4x8 queries at one level; warp 0 works out the
-// windows and the rule picks the path for the whole block. NV: float4
-// chunks of a channel row each lane holds on the per-query path.
+// One warp per tile; the rule picks the path. NV: float4 chunks of a
+// channel row each lane holds (C <= NV * 128).
 template <int NV>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 corr_lookup_kernel(const float* __restrict__ f1s,
                    const float* __restrict__ coords, LevelTable lv,
                    float* __restrict__ out,
-                   unsigned long long* __restrict__ path_tiles, int B, int H,
-                   int W, int C, int L, int radius, int tiles_y, int tiles_x) {
-  extern __shared__ float4 smem[];
-  __shared__ TileInfo ti;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  int rest = blockIdx.x;
-  const int tx = rest % tiles_x;
-  rest /= tiles_x;
-  const int ty = rest % tiles_y;
-  rest /= tiles_y;
-  const int b = rest % B;
-  const int l = rest / B;
-  // The level's entry by constant indices: a dynamic index into the kernel
-  // parameter would copy the whole table to local memory.
-  const float* base = lv.ptr[0];
-  int Hl = lv.h[0];
-  int Wl = lv.w[0];
-#pragma unroll
-  for (int i = 1; i < kMaxLevels; ++i)
-    if (i == l) {
-      base = lv.ptr[i];
-      Hl = lv.h[i];
-      Wl = lv.w[i];
-    }
-  const float* level = base + (size_t)b * Hl * Wl * C;
-  const int y_base = ty * kTileH;
-  const int x_base = tx * kTileW;
+                   unsigned long long* __restrict__ path_tiles,
+                   int B, int H, int W, int C, int L, int radius,
+                   int tiles_y, int tiles_x, int n_tiles) {
+  extern __shared__ float smem[];
+  __shared__ int s_count[2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x < 2) s_count[threadIdx.x] = 0;
+  __syncthreads();
   const int K1 = 2 * radius + 2;
-  const int K = K1 - 1;
-
-  if (warp == 0) {
-    // Lane t: query t of the tile. Lane bits 0-1 and 3 run over a group's
-    // queries, bits 2 and 4 over the groups.
-    const int qy = y_base + lane / kTileW;
-    const int qx = x_base + lane % kTileW;
-    Window me{-K1, -K1, 0.f, 0.f};  // a query off the image covers nothing
-    if (qy < H && qx < W)
-      me = window_of(coords, ((size_t)b * H + qy) * W + qx, l, radius, Hl, Wl);
-    const int x0 = max(me.ox, 0);
-    const int y0 = max(me.oy, 0);
-    const int x1 = min(me.ox + K1, Wl);
-    const int y1 = min(me.oy + K1, Hl);
-    const bool some = x0 < x1 && y0 < y1;
-    ti.org[lane][0] = me.ox;
-    ti.org[lane][1] = me.oy;
-    ti.frac[lane][0] = me.fx;
-    ti.frac[lane][1] = me.fy;
-    ti.clip[lane][0] = x0;
-    ti.clip[lane][1] = y0;
-    ti.clip[lane][2] = x1 - x0;
-    ti.area[lane] = some ? (x1 - x0) * (y1 - y0) : 0;
-    constexpr int kFar = 1 << 29;  // sentinels: no difference overflows
-    int r[4] = {some ? x0 : kFar, some ? y0 : kFar, some ? x1 : -kFar,
-                some ? y1 : -kFar};
-    int area = ti.area[lane];
-    auto reduce = [&](int o) {
-      r[0] = min(r[0], __shfl_xor_sync(0xffffffffu, r[0], o));
-      r[1] = min(r[1], __shfl_xor_sync(0xffffffffu, r[1], o));
-      r[2] = max(r[2], __shfl_xor_sync(0xffffffffu, r[2], o));
-      r[3] = max(r[3], __shfl_xor_sync(0xffffffffu, r[3], o));
-    };
-    reduce(1);
-    reduce(2);
-    reduce(8);
-    area += __shfl_xor_sync(0xffffffffu, area, 1);
-    area += __shfl_xor_sync(0xffffffffu, area, 2);
-    area += __shfl_xor_sync(0xffffffffu, area, 8);
-    const int gw = max(r[2] - r[0], 0);
-    const int gh = max(r[3] - r[1], 0);
-    const bool pass = gw * gh <= kGroupPixels && kRatio * gw * gh <= area;
-    if ((lane & 0xb) == 0) {  // lanes 0, 4, 16, 20: groups 0-3
-      const int g = (lane >> 4) * (kTileW / kGroupW) + ((lane >> 2) & 1);
-      ti.rect[g][0] = gw * gh > 0 ? r[0] : 0;  // no sentinel reaches an address
-      ti.rect[g][1] = gw * gh > 0 ? r[1] : 0;
-      ti.rect[g][2] = gw;
-      ti.rect[g][3] = gh;
-    }
-    reduce(4);
-    reduce(16);
-    const int bw = max(r[2] - r[0], 0);
-    const int bh = max(r[3] - r[1], 0);
-    const bool all_pass = __all_sync(0xffffffffu, pass);
-    if (lane == 0) {
-      ti.rect[kGroups][0] = bw * bh > 0 ? r[0] : 0;
-      ti.rect[kGroups][1] = bw * bh > 0 ? r[1] : 0;
-      ti.rect[kGroups][2] = bw;
-      ti.rect[kGroups][3] = bh;
-      ti.staged = all_pass && bw * bh <= kMaxBox;
-    }
+  float* patch = smem + warp * kTileQ * K1 * K1;  // the tile's patches
+  const int tile = blockIdx.x * kWarps + warp;
+  if (tile < n_tiles) {  // uniform across the warp
+    const Tile t = tile_of(tile, coords, lv, B, H, W, C, radius, tiles_y,
+                           tiles_x, lane);
+    for (int e = lane; e < kTileQ * K1 * K1; e += 32) patch[e] = 0.f;
+    __syncwarp();
+    if (NV <= kMaxTiledNV && t.tiled)
+      tiled_path<NV <= kMaxTiledNV ? NV : 1>(t, f1s, patch, H, W, C, K1, lane);
+    else
+      per_query_path<NV, NV <= 2 ? 8 : 4>(t, f1s, patch, H, W, C, K1, lane);
+    __syncwarp();
+    blend_tile(t, patch, out, H, W, L, radius, lane);
+    if (lane == 0) atomicAdd(&s_count[t.tiled ? 0 : 1], 1);
   }
   __syncthreads();
-  const bool staged = ti.staged;
-  float* patches = reinterpret_cast<float*>(smem);
-  if (staged)
-    staged_path(ti, f1s, level, Wl, smem, patches, b, H, W, C, K1, y_base,
-                x_base, tid);
-  else
-    per_query_path<NV, NV <= 2 ? 8 : 4>(ti, f1s, level, Wl, patches, b, H, W,
-                                        C, K1, y_base, x_base, warp, lane);
-  __syncthreads();
-
-  // Bilinear blend of the patches into each query's K*K taps (x-major):
-  // warp w takes the tile's queries 4w .. 4w + 3.
-  const float inv_k = 1.f / (float)K;
-  constexpr int kPerWarp = kTileQ / kWarps;
-  for (int u = warp * kPerWarp; u < (warp + 1) * kPerWarp; ++u) {
-    const int uy = y_base + u / kTileW;
-    const int ux = x_base + u % kTileW;
-    if (uy >= H || ux >= W) continue;
-    const float fx = ti.frac[u][0];
-    const float fy = ti.frac[u][1];
-    const float* pu = patches + u * K1 * K1;
-    float* orow = out + ((((size_t)b * H + uy) * W + ux) * L + l) * K * K;
-    for (int k = lane; k < K * K; k += 32) {
-      int kx, ky;
-      split(k, K, inv_k, kx, ky);
-      const float v00 = pu[ky * K1 + kx];
-      const float v01 = pu[ky * K1 + kx + 1];
-      const float v10 = pu[(ky + 1) * K1 + kx];
-      const float v11 = pu[(ky + 1) * K1 + kx + 1];
-      orow[k] = (1.f - fy) * (1.f - fx) * v00 + (1.f - fy) * fx * v01 +
-                fy * (1.f - fx) * v10 + fy * fx * v11;
-    }
-  }
-  if (tid == 0 && path_tiles != nullptr)
-    atomicAdd(path_tiles + (staged ? 0 : 1), 1ull);
-}
-
-// Launches the kernel for NV, first raising its dynamic shared memory limit
-// above the default 48 KB, once per device.
-template <int NV>
-int launch(const float* f1s, const float* coords, const LevelTable& lv,
-           float* out, unsigned long long* path_tiles, int B, int H, int W,
-           int C, int L, int radius, int tiles_y, int tiles_x, unsigned blocks,
-           int device, cudaStream_t s) {
-  static std::atomic<unsigned long long> raised{0};  // one bit per device
-  const unsigned long long bit = 1ull << (device & 63);
-  if (!(raised.load() & bit)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        corr_lookup_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    raised.fetch_or(bit);
-  }
-  corr_lookup_kernel<NV><<<blocks, kThreads, kSmemBytes, s>>>(
-      f1s, coords, lv, out, path_tiles, B, H, W, C, L, radius, tiles_y,
-      tiles_x);
-  return (int)cudaGetLastError();
+  if (threadIdx.x < 2 && path_tiles != nullptr && s_count[threadIdx.x] > 0)
+    atomicAdd(path_tiles + threadIdx.x, (unsigned long long)s_count[threadIdx.x]);
 }
 
 }  // namespace
@@ -582,15 +521,11 @@ const char* kernel_error_string(int code) {
 
 // f1s: (B, H, W, C) f32, coords: (B, H, W, 2) f32, level_ptrs[l]:
 // (B, Hl, Wl, C) f32 with level_hw = {H0, W0, H1, W1, ...};
-// out: (B, H, W, L*K*K) f32. A block takes a tile of 4x8 queries at one
-// level, in four groups of 2x4; the tile takes the staged path when the
-// bounding box of its queries' clipped windows holds at most 640 pixels
-// and each group's region (the bounding box of its queries' clipped
-// windows) at most 384, and twice its pixels at most the sum of the
-// group's clipped window areas; else the per-query path. path_tiles: 2
-// 64-bit counts, to which the tiles that took the staged and the
-// per-query path are added, or null. Returns the CUDA error of the launch
-// (0 on success).
+// out: (B, H, W, L*K*K) f32. A tile of 2x4 queries takes the tiled path
+// when C <= 256 and 2 * (pixels of the bounding box of its clipped
+// windows) <= (sum of their areas). path_tiles: 2 64-bit counts, to which
+// the tiles that took the tiled and the per-query path are added, or
+// null. Returns the CUDA error of the launch (0 on success).
 int corr_lookup_f32(const float* f1s, const float* coords,
                     const void* const* level_ptrs, const int* level_hw,
                     int num_levels, int B, int H, int W, int C, int radius,
@@ -605,7 +540,7 @@ int corr_lookup_f32(const float* f1s, const float* coords,
   const int tiles_x = (W + kTileW - 1) / kTileW;
   const long long n_tiles = (long long)num_levels * B * tiles_y * tiles_x;
   if (n_tiles == 0) return 0;
-  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (n_tiles > INT_MAX - kWarps) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   LevelTable lv{};
@@ -614,13 +549,23 @@ int corr_lookup_f32(const float* f1s, const float* coords,
     lv.h[l] = level_hw[2 * l];
     lv.w[l] = level_hw[2 * l + 1];
   }
+  const int K1 = 2 * radius + 2;
+  // At most 4 * 8 * 18^2 floats (41 KB): no opt-in above 48 KB needed.
+  const size_t smem = (size_t)kWarps * kTileQ * K1 * K1 * sizeof(float);
+  const unsigned blocks = (unsigned)((n_tiles + kWarps - 1) / kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CORR_LAUNCH(NV)                                                    \
+  corr_lookup_kernel<NV><<<blocks, kWarps * 32, smem, s>>>(                \
+      f1s, coords, lv, out, path_tiles, B, H, W, C, num_levels, radius,    \
+      tiles_y, tiles_x, (int)n_tiles)
   switch ((C / 4 + 31) / 32) {
-    case 1: return launch<1>(f1s, coords, lv, out, path_tiles, B, H, W, C, num_levels, radius, tiles_y, tiles_x, (unsigned)n_tiles, device, s);
-    case 2: return launch<2>(f1s, coords, lv, out, path_tiles, B, H, W, C, num_levels, radius, tiles_y, tiles_x, (unsigned)n_tiles, device, s);
-    case 3: return launch<3>(f1s, coords, lv, out, path_tiles, B, H, W, C, num_levels, radius, tiles_y, tiles_x, (unsigned)n_tiles, device, s);
-    default: return launch<4>(f1s, coords, lv, out, path_tiles, B, H, W, C, num_levels, radius, tiles_y, tiles_x, (unsigned)n_tiles, device, s);
+    case 1: CORR_LAUNCH(1); break;
+    case 2: CORR_LAUNCH(2); break;
+    case 3: CORR_LAUNCH(3); break;
+    default: CORR_LAUNCH(4); break;
   }
+#undef CORR_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -19,14 +19,14 @@ version, :func:`lookup_pyramid` (the on-the-fly lookup of
 ``lookup_levels.launches`` counts the launches. Forward only in this
 slice: a CUDA call whose inputs require grad raises.
 
-Each tile of 4x8 queries at one level, one block's work, takes one of
-two exact paths: the staged path passes the bounding box of the tile's
-windows through shared memory once for all 32 queries when the windows
-overlap enough (smooth flow, coarse levels); the per-query path reads
-each query's window (random flow, far windows). The kernel counts the
-tiles of each path on the device; :func:`path_tiles` reads the counts
-and :func:`reset_path_tiles` zeroes them. :func:`tile_paths` states the
-same rule in plain tensor code.
+Each tile of 2x4 queries at one level, one warp's work, takes one of two
+exact paths: the tiled path reads the bounding box of the tile's windows
+once for all 8 queries when the windows overlap enough (smooth flow,
+coarse levels); the per-query path reads each query's window (random
+flow, far windows, C above 256). The kernel counts the tiles of each
+path on the device; :func:`path_tiles` reads the counts and
+:func:`reset_path_tiles` zeroes them. :func:`tile_paths` states the same
+rule in plain tensor code.
 """
 
 from __future__ import annotations
@@ -48,17 +48,14 @@ MAX_LEVELS = 8
 MAX_CHANNELS = 512
 MAX_RADIUS = 8
 # The kernel's tiling and path rule, as its constants in csrc/corr_lookup.cu
-# fix them: tiles of TILE_H rows of TILE_W queries, in groups of GROUP_H x
-# GROUP_W. A tile takes the staged path when the bounding box of its
-# queries' clipped windows holds at most MAX_BOX pixels and every group's
-# region (the bounding box of the group's clipped windows) at most
-# GROUP_PIXELS, with RATIO * (region pixels) <= (sum of the group's clipped
-# window areas): each staged pixel then serves at least RATIO positions.
-TILE_H, TILE_W = 4, 8
-GROUP_H, GROUP_W = 2, 4
-MAX_BOX = 640
-GROUP_PIXELS = 384
-RATIO = 2
+# (kTileH, kTileW, kMaxTiledNV, kStripRatio) fix them: tiles of TILE_H rows
+# of TILE_W queries. A tile takes the tiled path when C <= MAX_TILED_CHANNELS
+# and STRIP_RATIO * (pixels of the bounding box of its clipped windows) <=
+# (sum of the clipped windows' areas): each box pixel read serves at least
+# STRIP_RATIO window positions.
+TILE_H, TILE_W = 2, 4
+MAX_TILED_CHANNELS = 256
+STRIP_RATIO = 2
 # Query rows the plain version samples at once; bounds its peak memory.
 ROW_CHUNK = 8
 
@@ -115,31 +112,30 @@ def tile_paths(
     coords: torch.Tensor,
     level_hw: Sequence[tuple[int, int]],
     radius: int,
+    channels: int,
 ) -> tuple[int, int]:
-    """(staged, per_query): the number of tiles that take each path for
-    (B, H, W, 2) ``coords`` over levels of sizes ``level_hw``, by the
-    kernel's rule (see ``TILE_H`` above). Each window is clipped to its
-    level; a query off the image covers nothing. Plain tensor code on the
-    coords' device."""
+    """(tiled, per_query): the number of tiles that take each path for
+    (B, H, W, 2) ``coords`` over levels of sizes ``level_hw`` and
+    ``channels`` channels, by the kernel's rule. Each window is clipped to
+    its level; a tile is tiled when ``channels`` is at most
+    ``MAX_TILED_CHANNELS`` and ``STRIP_RATIO`` times the pixels of the
+    bounding box of its clipped windows is at most the sum of their areas.
+    Plain tensor code on the coords' device."""
     B, H, W, _ = coords.shape
     ty, tx = -(-H // TILE_H), -(-W // TILE_W)
     tiles = len(level_hw) * B * ty * tx
-    if tiles == 0:
-        return 0, 0
+    if channels > MAX_TILED_CHANNELS or tiles == 0:
+        return 0, tiles
     k1 = 2 * radius + 2
     pad = (0, tx * TILE_W - W, 0, ty * TILE_H - H)
     far = float(2**29)
-    gy, gx = TILE_H // GROUP_H, TILE_W // GROUP_W
 
-    def per_group(v, fill, reduce):
-        """(B, H, W) -> (B, ty, gy, tx, gx), the padding filled with ``fill``."""
+    def per_tile(v, fill, reduce):
+        """(B, H, W) -> (B, ty, tx), the padding filled with ``fill``."""
         v = torch.nn.functional.pad(v, pad, value=fill)
-        return reduce(v.reshape(B, ty, gy, GROUP_H, tx, gx, GROUP_W), dim=(3, 6))
+        return reduce(v.reshape(B, ty, TILE_H, tx, TILE_W), dim=(2, 4))
 
-    def size(lo, hi):
-        return (hi - lo).clamp(min=0)
-
-    staged = 0
+    tiled = 0
     for lvl, (hl, wl) in enumerate(level_hw):
         o = torch.floor(coords.float() / float(2**lvl)) - radius
         ox = o[..., 0].clamp(-k1, wl)
@@ -148,16 +144,13 @@ def tile_paths(
         y0, y1 = oy.clamp(min=0), (oy + k1).clamp(max=hl)
         some = (x0 < x1) & (y0 < y1)
         area = torch.where(some, (x1 - x0) * (y1 - y0), 0.0)
-        gx0 = per_group(x0.masked_fill(~some, far), far, torch.amin)
-        gx1 = per_group(x1.masked_fill(~some, -far), -far, torch.amax)
-        gy0 = per_group(y0.masked_fill(~some, far), far, torch.amin)
-        gy1 = per_group(y1.masked_fill(~some, -far), -far, torch.amax)
-        region = size(gx0, gx1) * size(gy0, gy1)
-        group_ok = (region <= GROUP_PIXELS) & (RATIO * region <= per_group(area, 0.0, torch.sum))
-        box = (size(gx0.amin(dim=(2, 4)), gx1.amax(dim=(2, 4)))
-               * size(gy0.amin(dim=(2, 4)), gy1.amax(dim=(2, 4))))
-        staged += int((group_ok.all(dim=4).all(dim=2) & (box <= MAX_BOX)).sum())
-    return staged, tiles - staged
+        bx0 = per_tile(x0.masked_fill(~some, far), far, torch.amin)
+        bx1 = per_tile(x1.masked_fill(~some, -far), -far, torch.amax)
+        by0 = per_tile(y0.masked_fill(~some, far), far, torch.amin)
+        by1 = per_tile(y1.masked_fill(~some, -far), -far, torch.amax)
+        npix = (bx1 - bx0).clamp(min=0) * (by1 - by0).clamp(min=0)
+        tiled += int((STRIP_RATIO * npix <= per_tile(area, 0.0, torch.sum)).sum())
+    return tiled, tiles - tiled
 
 
 _path_counts: dict[torch.device, torch.Tensor] = {}
@@ -171,14 +164,14 @@ def _counts_buffer(device: torch.device) -> torch.Tensor:
 
 
 def path_tiles() -> dict[str, int]:
-    """Tiles that took the staged and the per-query path in every launch
+    """Tiles that took the tiled and the per-query path in every launch
     since the last :func:`reset_path_tiles`, over all devices. Reads the
     device counters, so it waits for the launches to finish."""
-    staged = per_query = 0
+    tiled = per_query = 0
     for buf in _path_counts.values():
         t, q = buf.tolist()
-        staged, per_query = staged + t, per_query + q
-    return {"staged": staged, "per_query": per_query}
+        tiled, per_query = tiled + t, per_query + q
+    return {"tiled": tiled, "per_query": per_query}
 
 
 def reset_path_tiles() -> None:

@@ -1,6 +1,6 @@
 """The port stands alone: it imports nothing of JAX, flax or the JAX
 package, at run time (a fresh interpreter) or in its source (an AST scan
-of every module and of ``chip_smoke.py``)."""
+of every module and of ``chip_smoke.py`` and ``chip_compare.py``)."""
 
 import ast
 import os
@@ -17,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "raft_ncup_tpu")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_compare.py")]
     for root, _dirs, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

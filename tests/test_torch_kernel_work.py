@@ -5,17 +5,19 @@ shapes, on the CPU.
 ``chip_smoke.corr_work`` and ``chip_smoke.nconv_work`` give the bytes
 and operations of kernel A (the correlation lookup) and kernel B (the
 fused NConv2d) from this run's inputs; ``corr_cuda.tile_paths`` predicts
-which tiles of 4x8 queries take kernel A's staged path. Each is held here
+which tiles of 2x4 queries take kernel A's tiled path. Each is held here
 against a plain loop over every query, window position, pixel or tap.
 Importing ``chip_smoke`` needs no card: it decides only in ``main``.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import chip_compare
 import chip_smoke
 from raft_ncup_tpu_torch.ops import corr_cuda
 
@@ -94,64 +96,54 @@ def test_nconv_work_matches_brute_force(b, h, w, k, cin, cout):
     )
 
 
-def _bbox(rects):
-    """Pixels of the bounding box of (x0, x1, y0, y1) rects; 0 for none."""
-    if not rects:
-        return 0
-    return ((max(r[1] for r in rects) - min(r[0] for r in rects))
-            * (max(r[3] for r in rects) - min(r[2] for r in rects)))
-
-
-def _tile_paths_brute(coords, level_hw, radius):
-    """The kernel's rule, one tile, group and query at a time."""
+def _tile_paths_brute(coords, level_hw, radius, channels):
+    """The kernel's rule, one tile and one query at a time."""
     b, h, w, _ = coords.shape
     k1 = 2 * radius + 2
-    tiles = staged = 0
+    tiles = tiled = 0
     pts = coords.numpy().astype(np.float64)
-    gh, gw = corr_cuda.GROUP_H, corr_cuda.GROUP_W
     for lvl, (hl, wl) in enumerate(level_hw):
         for bb in range(b):
             for ty in range(0, h, corr_cuda.TILE_H):
                 for tx in range(0, w, corr_cuda.TILE_W):
                     tiles += 1
-                    ok, every = True, []
-                    for gy in range(ty, ty + corr_cuda.TILE_H, gh):
-                        for gx in range(tx, tx + corr_cuda.TILE_W, gw):
-                            rects = []
-                            for y in range(gy, min(gy + gh, h)):
-                                for x in range(gx, min(gx + gw, w)):
-                                    ox = min(max(math.floor(pts[bb, y, x, 0] / 2**lvl) - radius, -k1), wl)
-                                    oy = min(max(math.floor(pts[bb, y, x, 1] / 2**lvl) - radius, -k1), hl)
-                                    x0, x1 = max(ox, 0), min(ox + k1, wl)
-                                    y0, y1 = max(oy, 0), min(oy + k1, hl)
-                                    if x0 < x1 and y0 < y1:
-                                        rects.append((x0, x1, y0, y1))
-                            areas = sum((r[1] - r[0]) * (r[3] - r[2]) for r in rects)
-                            region = _bbox(rects)
-                            ok &= (region <= corr_cuda.GROUP_PIXELS
-                                   and corr_cuda.RATIO * region <= areas)
-                            every += rects
-                    staged += ok and _bbox(every) <= corr_cuda.MAX_BOX
-    return staged, tiles - staged
+                    rects = []
+                    for y in range(ty, min(ty + corr_cuda.TILE_H, h)):
+                        for x in range(tx, min(tx + corr_cuda.TILE_W, w)):
+                            ox = min(max(math.floor(pts[bb, y, x, 0] / 2**lvl) - radius, -k1), wl)
+                            oy = min(max(math.floor(pts[bb, y, x, 1] / 2**lvl) - radius, -k1), hl)
+                            x0, x1 = max(ox, 0), min(ox + k1, wl)
+                            y0, y1 = max(oy, 0), min(oy + k1, hl)
+                            if x0 < x1 and y0 < y1:
+                                rects.append((x0, x1, y0, y1))
+                    areas = sum((r[1] - r[0]) * (r[3] - r[2]) for r in rects)
+                    box = 0 if not rects else (
+                        (max(r[1] for r in rects) - min(r[0] for r in rects))
+                        * (max(r[3] for r in rects) - min(r[2] for r in rects)))
+                    tiled += (channels <= corr_cuda.MAX_TILED_CHANNELS
+                              and corr_cuda.STRIP_RATIO * box <= areas)
+    return tiled, tiles - tiled
 
 
 @pytest.mark.parametrize(
-    "radius,spread,size",
-    [(4, 2.0, (2, 9, 19)), (4, 40.0, (1, 12, 24)), (2, 8.0, (2, 7, 10)),
-     (6, 1.0, (1, 5, 9)), (8, 0.5, (1, 13, 17))],
-    ids=["smooth", "wide_random", "radius2", "radius6", "radius8_groups_over_limit"],
+    "radius,spread,size,channels",
+    [(4, 2.0, (2, 9, 19), 4), (4, 40.0, (1, 12, 24), 4), (2, 8.0, (2, 7, 10), 4),
+     (6, 1.0, (1, 5, 9), 4), (4, 1.0, (1, 6, 8), 260)],
+    ids=["smooth", "wide_random", "radius2", "radius6", "c260_all_per_query"],
 )
-def test_tile_paths_match_brute_force(radius, spread, size):
+def test_tile_paths_match_brute_force(radius, spread, size, channels):
     b, h, w = size
     _, lv, coords = _corr_operands(30 + radius, b, h, w, 4, 4, spread)
     level_hw = [(t.shape[1], t.shape[2]) for t in lv]
-    got = corr_cuda.tile_paths(coords, level_hw, radius)
-    assert got == _tile_paths_brute(coords, level_hw, radius)
+    got = corr_cuda.tile_paths(coords, level_hw, radius, channels)
+    assert got == _tile_paths_brute(coords, level_hw, radius, channels)
     assert sum(got) == len(lv) * b * -(-h // corr_cuda.TILE_H) * -(-w // corr_cuda.TILE_W)
+    if channels > corr_cuda.MAX_TILED_CHANNELS:
+        assert got[0] == 0
 
 
 def test_tile_paths_split_the_served_mixes():
-    """At the served shape, the smooth mix is mostly staged and the random
+    """At the served shape, the smooth mix is mostly tiled and the random
     mix takes both paths, so the card's served rows show both."""
     gen = torch.Generator().manual_seed(0)
     b, h, w = 2, 55, 128
@@ -159,9 +151,9 @@ def test_tile_paths_split_the_served_mixes():
     grid = torch.stack([x, y], -1).float()[None].expand(b, h, w, 2)
     level_hw = [(55, 128), (27, 64), (13, 32), (6, 16)]
     random = corr_cuda.tile_paths(grid + chip_smoke.random_flow(torch, gen, b, h, w),
-                                  level_hw, 4)
+                                  level_hw, 4, 256)
     smooth = corr_cuda.tile_paths(grid + chip_smoke.smooth_flow(torch, gen, b, h, w),
-                                  level_hw, 4)
+                                  level_hw, 4, 256)
     assert random[0] > 0 and random[1] > 0
     assert smooth[0] > 0.75 * sum(smooth)
 
@@ -212,3 +204,19 @@ def test_chip_smoke_exits_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_chip_compare_exits_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_compare.main(["."]) != 0
+    assert "compare:" not in capsys.readouterr().out
+
+
+def test_chip_compare_draws_its_inputs_with_this_chip_smoke():
+    """Every checkout compared sees the inputs of this checkout's
+    chip_smoke.py, at the shapes chip_smoke.py times."""
+    cs = chip_compare._chip_smoke()
+    assert os.path.samefile(cs.__file__, chip_smoke.__file__)
+    assert cs.corr_inputs.__code__.co_code == chip_smoke.corr_inputs.__code__.co_code
+    shapes = {(b, h, w) for _, b, h, w, _ in chip_compare.ROWS}
+    assert shapes == {(2, 55, 128), (1, 136, 240)}
