@@ -4,29 +4,48 @@
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit (the slice is f32: the model's
-   forward and the plain versions keep TF32 off themselves);
-2. builds both hand-written kernels from ``raft_ncup_tpu_torch/csrc``;
-3. holds the correlation-lookup kernel against its plain PyTorch version
-   at the served shape (batch 2, 55x128 level 0, C=256, 4 levels, r=4)
-   with random and with smooth flow, at 1088x1920 (136x240 level 0) and at
-   2176x3840 (272x480), with CUDA-event times, the bound of each row and
-   the tiles that took each of the kernel's two paths (checked against
+   forward, the train step and the plain versions keep TF32 off
+   themselves);
+2. builds the four hand-written kernels from ``raft_ncup_tpu_torch/csrc``,
+   all ``nvcc`` processes at once;
+3. holds the correlation-lookup kernel (A) against its plain PyTorch
+   version at the served shape (batch 2, 55x128 level 0, C=256, 4 levels,
+   r=4) with random and with smooth flow, at 1088x1920 (136x240 level 0)
+   and at 2176x3840 (272x480), with CUDA-event times, the bound of each row
+   and the tiles that took each of the kernel's two paths (checked against
    ``corr_cuda.tile_paths``); then at edge cases (C 4 to 512, radius 0 to
    8, odd levels down to 1x1, windows off every side);
-4. holds the fused NConv2d kernel against its plain version at the four
-   NCUP layer shapes of one served batch of two (4 folded planes of
+4. holds the fused NConv2d kernel (B) against its plain version at the
+   four NCUP layer shapes of one served batch of two (4 folded planes of
    440x1024) and at edge cases (every k, Cout 8, bias, ragged, tiny and
-   misaligned planes), and checks that both wrappers raise on CUDA inputs
-   their kernels do not take (gradients, other dtypes, strided layouts);
-5. serves 8 Sintel-size (436x1024) requests through ``FlowServer`` with
+   misaligned planes);
+5. holds the lookup (A) and its backward kernel (A') against the plain
+   lookup and its autograd at the training shape (batch 6, 50x90, C=256,
+   4 levels, r=4) with random and smooth flow (d f1s, each d f2 level,
+   d coords), and the NConv2d (B) and its backward kernel (B') against
+   their plain versions at the four NCUP layers of a training batch (12
+   planes of 400x720), B' also at edge cases, with the NaN places of
+   windows without confidence; then checks
+   that the wrappers raise on CUDA inputs their kernels do not take (other
+   dtypes, strided layouts), with or without a gradient;
+6. serves 8 Sintel-size (436x1024) requests through ``FlowServer`` with
    the flagship model on the card, checks every answer, checks that both
-   kernels ran while serving, and holds one served pair against the same
-   model run through the plain versions;
-6. traces forwards of the served model at batch 2 with ``torch.profiler``
+   forward kernels ran while serving, and holds one served pair against
+   the same model run through the plain versions;
+7. traces forwards of the served model at batch 2 with ``torch.profiler``
    and prints where the device time goes (wall and device ms per
    forward, idle share, time per kernel group, the top kernels);
-7. prints one JSON line describing the kernels, the card's name and
-   power limit, and, last, the JSON result line.
+8. trains the flagship 5 steps at ``scripts/train_raft_nc_things.sh``'s
+   configuration (batch 6 at 400x720, 12 iterations, remat on) through
+   all four kernels: finite losses, no step skipped, no plain version
+   called, every kernel launched; ms per step, peak memory with remat on
+   and off, and a trace of one step split by its forward, backward and
+   optimizer ranges (its ``train:`` line);
+9. holds one train step through the kernels against the same step
+   through the plain versions at batch 2, 400x720: the loss and every
+   gradient;
+10. prints one JSON line describing the kernels, the card's name and
+    power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
 device it exits non-zero at once; it never falls back to the CPU.
@@ -34,9 +53,11 @@ device it exits non-zero at once; it never falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -381,10 +402,241 @@ def check_nconv_edges(torch, gen):
     return worst
 
 
+# ------------------------------------------------------ backward kernels
+
+TRAIN_CORR = dict(B=6, H=50, W=90, C=256, levels=4, radius=4)  # a batch of 6 at 400x720
+TRAIN_PLANES = (12, 400, 720)  # NCUP folds the 2 flow channels of 6 pairs
+# Gradients against their plain versions, relative to the largest value of
+# each plain gradient: sums in another order, and with float atomics in an
+# order that changes from run to run. Kernel B' is held against its plain
+# version run in float64 (its NaN and infinite places against the float32
+# run): cuDNN's float32 weight gradient on small planes is itself off by up
+# to 2.1e-3 of its largest value, while the kernel stays within 1e-6. On
+# B''s edge planes, smaller than the kernel's window, d conf = Gdc * data +
+# Gc is a difference of two nearly equal terms (about 300 times the
+# result for a 1x1 plane and k=7), hence the looser bound there.
+GRAD_TOL = 1e-4
+GRAD_EDGE_TOL = 1e-3
+
+
+def nconv_bwd_errs(torch, got, args):
+    """(max |kernel - plain in float64| / max |plain in float64| over the
+    places where the float32 plain version is finite, whether the NaN and
+    infinite places equal the float32 plain version's, the max absolute
+    difference there) for each of B''s outputs."""
+    from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_backward_plain
+
+    ref = nconv2d_backward_plain(*args)
+    ref64 = nconv2d_backward_plain(*(None if x is None else x.double() for x in args))
+    errs = []
+    for a, r, r64 in zip(got, ref, ref64):
+        if r is None:
+            continue
+        same = grad_err(torch, a, r)[1]
+        fin = torch.isfinite(r)
+        scale = float(r64[fin].abs().max()) if bool(fin.any()) else 0.0
+        diff = float((a[fin].double() - r64[fin]).abs().max()) if bool(fin.any()) else 0.0
+        errs.append((diff / scale if scale > 0 else diff, same, diff))
+    return errs
+
+
+def grad_err(torch, a, b):
+    """(max |a - b| / max |b| over the finite values, whether a and b are
+    NaN or infinite at the same places and equal there, max |a - b| over
+    the finite values)."""
+    same_nonfinite = bool((torch.isfinite(a) == torch.isfinite(b)).all()) and bool(
+        (a[~torch.isfinite(b)].nan_to_num(0.0, 1.0, -1.0)
+         == b[~torch.isfinite(b)].nan_to_num(0.0, 1.0, -1.0)).all())
+    fin = torch.isfinite(b)
+    scale = float(b[fin].abs().max()) if bool(fin.any()) else 0.0
+    diff = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return (diff / scale if scale > 0 else diff), same_nonfinite, diff
+
+
+def corr_bwd_work(torch, f1s, lv, coords, radius, with_coords):
+    """(bytes, flops, atomics) of the lookup's backward on these inputs:
+    f1s, the levels, coords and the upstream gradient read once, d f1s and
+    each d level written once (and d coords); per in-level window position
+    2C flops into d f1s, 2C to scale f1 and add it into d f2 (C atomic adds),
+    plus 2C for the patch's dot product with d coords; per tap 8 flops for
+    the patch gradient (and 12 more for d coords)."""
+    B, H, W, C = f1s.shape
+    K = 2 * radius + 1
+    n_taps = B * H * W * len(lv) * K * K
+    # The forward's bytes (with g in place of its output), plus the writes.
+    nbytes, fwd_flops = corr_work(torch, f1s, lv, coords, radius)
+    positions = (fwd_flops - 7 * n_taps) // (2 * C)
+    nbytes += 4 * (f1s.numel() + sum(t.numel() for t in lv))
+    if with_coords:
+        nbytes += 4 * coords.numel()
+    flops = 4 * C * positions + 8 * n_taps
+    if with_coords:
+        flops += 2 * C * positions + 12 * n_taps
+    return nbytes, flops, C * positions
+
+
+def check_corr_bwd(torch, gen, flush, mix, plain_reps=1):
+    """Kernel A (the forward) and A' at the training shape against their
+    plain versions, on the card: the lookup, then d f1s, every d f2 level
+    and d coords against the autograd of the plain lookup. Times the
+    backward launch the model makes (d f1s and d f2, no d coords), with
+    the bound."""
+    from raft_ncup_tpu_torch.ops.corr_cuda import (
+        lookup_levels, lookup_levels_backward, lookup_pyramid, lookup_pyramid_backward)
+
+    s = TRAIN_CORR
+    f1s, lv, coords = corr_inputs(torch, gen, s["B"], s["H"], s["W"], s["C"],
+                                  s["levels"], mix)
+    r = s["radius"]
+    fwd_err, fwd_ok = max_err(torch, lookup_levels(f1s, lv, coords, r),
+                              lookup_pyramid(f1s, lv, coords, r), **CORR_TOL)
+    check(fwd_ok, f"corr lookup kernel disagrees with its plain version at the training "
+                  f"shape ({mix} flow): {fwd_err:.3e}")
+    K = 2 * r + 1
+    g = torch.randn(*coords.shape[:3], s["levels"] * K * K, generator=gen).cuda()
+    got = lookup_levels_backward(f1s, lv, coords, r, g)
+    torch.cuda.synchronize()
+    ref = lookup_pyramid_backward(f1s, lv, coords, r, g)
+    errs = {"d_f1s": grad_err(torch, got[0], ref[0]),
+            "d_coords": grad_err(torch, got[2], ref[2])}
+    for l, (a, b) in enumerate(zip(got[1], ref[1])):
+        errs[f"d_f2_level{l}"] = grad_err(torch, a, b)
+    del got, ref
+    model_path = (True, True, False)
+    ms = cuda_ms(torch, lambda: lookup_levels_backward(f1s, lv, coords, r, g, model_path),
+                 10, flush)
+    ms_no_atomics = cuda_ms(
+        torch, lambda: lookup_levels_backward(f1s, lv, coords, r, g, (True, False, False)),
+        10, flush)
+    plain_ms = cuda_ms(
+        torch, lambda: lookup_pyramid_backward(f1s, lv, coords, r, g, model_path),
+        plain_reps, flush)
+    nbytes, flops, atomics = corr_bwd_work(torch, f1s, lv, coords, r, False)
+    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    row = dict(
+        shape=f"B={s['B']} level0={s['H']}x{s['W']} C={s['C']} L={s['levels']} r={r} "
+              f"{mix} flow", max_abs_err=max(a for _, _, a in errs.values()),
+        max_rel_err=max(e for e, _, _ in errs.values()), ms=ms, ms_without_d_f2=ms_no_atomics,
+        plain_ms=plain_ms, bytes=nbytes, flops=flops, atomics=atomics,
+        bound_ms=max(t_bytes, t_ops), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        errors={k: e for k, (e, _, _) in errs.items()}, forward_max_abs_err=fwd_err)
+    print(f"kernel A at the training shape, {mix} flow: max|kernel-plain| {fwd_err:.3e} "
+          f"(atol {CORR_TOL['atol']})", flush=True)
+    print(f"kernel A' {row['shape']}: max |kernel-plain| / max |plain| "
+          f"{json.dumps(row['errors'])} (tolerance {GRAD_TOL}); kernel {ms:.4f} ms "
+          f"(without the d f2 atomics {ms_no_atomics:.4f} ms), plain {plain_ms:.2f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB, {atomics / 1e9:.3f} G atomic adds)", flush=True)
+    for name, (e, same, _) in errs.items():
+        check(same and e <= GRAD_TOL,
+              f"corr lookup backward kernel disagrees for {name} ({mix}): {e:.3e}")
+    return row
+
+
+def nconv_bwd_work(B, H, W, k, cin, cout, bias, with_gc=True):
+    """(bytes, flops) of the NConv2d backward: data, conf, weight, out,
+    conf_out, go (and gc, bias) read once, d data, d conf, d weight (and
+    d bias) written once; per in-bounds tap and input channel 8 flops per
+    output channel (two transposed convolutions and two weight-gradient
+    sums) and one multiply (data*conf); 12 flops per output pixel for gN,
+    gD and the reductions, 3 per input pixel for d data and d conf."""
+    p = k // 2
+
+    def along(n):
+        return sum(max(0, n - abs(d)) for d in range(-p, p + 1))
+
+    taps = along(H) * along(W)
+    n_in, n_out = B * cin * H * W, B * cout * H * W
+    nw = cout * cin * k * k
+    nbytes = 4 * (2 * n_in + nw + (3 + with_gc) * n_out + 2 * n_in + nw)
+    if bias:
+        nbytes += 4 * 2 * cout
+    flops = B * cin * taps * (1 + 8 * cout) + 12 * n_out + 3 * n_in
+    return nbytes, flops
+
+
+def check_nconv_bwd(torch, gen, flush):
+    """Kernels B (the forward) and B' against their plain versions at the
+    four NCUP layers of a training batch (12 planes of 400x720), B' with
+    the upstream gradients the model gives them (no gradient of
+    nconv_out's conf_out) and timed with its bound; then B' at the edge
+    shapes of kernel B, with bias, and with a zero-confidence region,
+    where both must give NaN at the same places."""
+    from raft_ncup_tpu_torch.ops.nconv_cuda import (
+        nconv2d_backward, nconv2d_backward_plain, nconv2d_fused, nconv2d_plain)
+
+    B, H, W = TRAIN_PLANES
+    rows = []
+    for name, k, cin, cout in NCUP_LAYERS:
+        d, c, w = nconv_inputs(torch, gen, B, H, W, k, cin, cout, name == "nconv_in")
+        out, conf_out = nconv2d_fused(d, c, w)
+        fwd = [max_err(torch, a, b, **NCONV_TOL)
+               for a, b in zip((out, conf_out), nconv2d_plain(d, c, w))]
+        check(all(ok for _, ok in fwd), f"nconv kernel disagrees with its plain version "
+                                        f"for {name} at the training planes")
+        go = torch.randn(out.shape, generator=gen).cuda()
+        gc = None if name == "nconv_out" else torch.randn(out.shape, generator=gen).cuda()
+        args = (d, c, w, None, out, conf_out, go, gc)
+        got = nconv2d_backward(*args)
+        torch.cuda.synchronize()
+        errs = nconv_bwd_errs(torch, got, args)
+        ms = cuda_ms(torch, lambda: nconv2d_backward(*args), 20, flush)
+        plain_ms = cuda_ms(torch, lambda: nconv2d_backward_plain(*args), 20, flush)
+        nbytes, flops = nconv_bwd_work(B, H, W, k, cin, cout, False, gc is not None)
+        t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+        row = dict(layer=name, shape=f"({B}, {cin}->{cout}, {H}, {W}) k={k}",
+                   max_abs_err=max(a for _, _, a in errs),
+                   max_rel_err=max(e for e, _, _ in errs), ms=ms, plain_ms=plain_ms,
+                   bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   forward_max_abs_err=max(e for e, _ in fwd))
+        print(f"kernel B {name} at the training planes: max|kernel-plain| "
+              f"{row['forward_max_abs_err']:.3e} (atol {NCONV_TOL['atol']}, "
+              f"rtol {NCONV_TOL['rtol']})", flush=True)
+        print(f"kernel B' {name}: {row['shape']}: max |kernel-plain| / max |plain| "
+              f"d data {errs[0][0]:.3e}, d conf {errs[1][0]:.3e}, d weight {errs[2][0]:.3e} "
+              f"(tolerance {GRAD_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        check(all(same and e <= GRAD_TOL for e, same, _ in errs),
+              f"nconv backward kernel disagrees with its plain version for {name}")
+        rows.append(row)
+    worst = 0.0
+    cases = [(k, cin, cout, b, h, w, bias, aligned, False)
+             for k, cin, cout, b, h, w, bias, aligned in NCONV_EDGES]
+    cases += [(3, 1, 2, 2, 40, 64, True, True, True), (5, 2, 2, 1, 33, 70, False, True, True)]
+    for k, cin, cout, b, h, w, with_bias, aligned, stuffed in cases:
+        d, c, wt = nconv_inputs(torch, gen, b, h, w, k, cin, cout, stuffed)
+        if stuffed:  # a corner with no confidence at all: D = 0 there
+            c[:, :, : h // 2, : w // 2] = 0
+        if not aligned:
+            d, c = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+                    for x in (d, c))
+        bias = torch.randn(cout, generator=gen).cuda() if with_bias else None
+        out, conf_out = nconv2d_fused(d, c, wt, bias)
+        go = torch.randn(out.shape, generator=gen).cuda()
+        gc = torch.randn(out.shape, generator=gen).cuda()
+        args = (d, c, wt, bias, out, conf_out, go, gc)
+        got = nconv2d_backward(*args)
+        for i, (e, same, _) in enumerate(nconv_bwd_errs(torch, got, args)):
+            check(same and e <= GRAD_EDGE_TOL,
+                  f"nconv backward kernel disagrees at k={k} {cin}->{cout} ({b}, {h}, {w}) "
+                  f"bias={with_bias} aligned={aligned} stuffed={stuffed}, output {i}: "
+                  f"{e:.3e} (same NaN/inf places: {same})")
+            worst = max(worst, e)
+        if stuffed:
+            check(not bool(torch.isfinite(got[1]).all()),
+                  "the zero-confidence case gave no NaN, so it tests nothing")
+    print(f"kernel B' edge cases: {len(cases)} shapes (k in 1/3/5/7, Cout 8, bias, ragged, "
+          f"tiny and misaligned planes, two with a zero-confidence corner whose NaN "
+          f"places agree): max |kernel-plain| / max |plain| {worst:.3e} "
+          f"(tolerance {GRAD_EDGE_TOL})", flush=True)
+    return rows
+
+
 def check_wrappers_refuse(torch):
     """On a CUDA tensor a wrapper launches its kernel or raises: inputs
-    that need a gradient, another dtype or a non-contiguous layout raise
-    instead of falling back to the plain version."""
+    of another dtype or a non-contiguous layout raise instead of falling
+    back to the plain version, with or without a gradient."""
     from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
     from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
 
@@ -394,16 +646,16 @@ def check_wrappers_refuse(torch):
     d = torch.randn(1, 1, 8, 8, device="cuda")
     w = torch.rand(2, 1, 3, 3, device="cuda")
     cases = [
-        ("corr, requires_grad", NotImplementedError,
-         lambda: lookup_levels(f1.clone().requires_grad_(), lv, co, 2)),
         ("corr, float64", TypeError, lambda: lookup_levels(f1.double(), lv, co, 2)),
         ("corr, non-contiguous", ValueError,
          lambda: lookup_levels(f1.transpose(1, 2), lv, co, 2)),
-        ("nconv, requires_grad", NotImplementedError,
-         lambda: nconv2d_fused(d, d, w.clone().requires_grad_())),
+        ("corr, float64 with a gradient", TypeError,
+         lambda: lookup_levels(f1.double().requires_grad_(), lv, co, 2)),
         ("nconv, float64", TypeError, lambda: nconv2d_fused(d.double(), d.double(), w)),
         ("nconv, non-contiguous", ValueError,
          lambda: nconv2d_fused(d.transpose(2, 3), d, w)),
+        ("nconv, non-contiguous with a gradient", ValueError,
+         lambda: nconv2d_fused(d.transpose(2, 3), d, w.clone().requires_grad_())),
     ]
     for what, exc, call in cases:
         try:
@@ -473,6 +725,260 @@ def check_serve(torch, card):
     return model, report, launches
 
 
+# ------------------------------------------------------------------- train
+
+# scripts/train_raft_nc_things.sh: raft_nc_dbl, stage things (BatchNorm
+# frozen; no BatchNorm in the upsampler), batch 6 at 400x720, 12 iterations,
+# AdamW at lr 1.25e-4 with wdecay 5e-5 and eps 1e-8, clip 1.0, gamma 0.8,
+# the cyclic schedule over num_steps + 100; the sentinel on. Seeded weights
+# and synthetic pairs: the pretrained trunk and FlyingThings3D are not in
+# the repository.
+TRAIN_CFG = dict(name="chip_smoke", stage="things", lr=1.25e-4, num_steps=100_000,
+                 batch_size=6, image_size=(400, 720), iters=12, wdecay=5e-5,
+                 epsilon=1e-8, clip=1.0, gamma=0.8)
+TRAIN_STEPS = 5
+PLAIN_VERSIONS = (  # (module, function): every plain version of the four kernels
+    ("ops.corr_cuda", "lookup_pyramid"), ("ops.corr_cuda", "lookup_pyramid_backward"),
+    ("ops.nconv_cuda", "nconv2d_plain"), ("ops.nconv_cuda", "nconv2d_backward_plain"),
+    ("ops.nconv", "nconv2d_plain"),
+)
+# One step through the kernels against the same step through the plain
+# versions: the loss within STEP_LOSS_RTOL and each gradient within
+# STEP_GRAD_TOL of its largest value, but for two kinds. Gradients below
+# NEGLIGIBLE of the step's largest are rounding noise (the biases ahead of
+# an instance norm: exactly zero) and are held by size. The upsampler's,
+# within UPSAMPLER_TOL: they reach it through NConv's d conf = sum w go
+# (d - out) / D, a difference of nearly equal terms while the flow it
+# averages is smooth (near zero at initialization), and its U-Net's
+# weights are near 2 in every layer, so their gradients are differences
+# of nearly equal channels (2.8e-3 and 3.4e-3 in two runs on an H100).
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_TOL = 1e-3
+NEGLIGIBLE = 1e-6
+UPSAMPLER_TOL = 1e-2
+
+
+def kernel_counters():
+    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels, lookup_levels_backward
+    from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_backward, nconv2d_fused
+
+    return {"corr_lookup": lookup_levels, "corr_lookup_bwd": lookup_levels_backward,
+            "nconv": nconv2d_fused, "nconv_bwd": nconv2d_backward}
+
+
+def reset_launches() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+@contextlib.contextmanager
+def counting_plain_versions():
+    """Count every call of a kernel's plain version while inside (the
+    calls still run)."""
+    import importlib
+
+    counts: dict[str, int] = {}
+    saved = []
+    for mod_name, fn_name in PLAIN_VERSIONS:
+        mod = importlib.import_module(f"raft_ncup_tpu_torch.{mod_name}")
+        fn = getattr(mod, fn_name)
+
+        def counted(*args, _fn=fn, _name=f"{mod_name}.{fn_name}", **kwargs):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+
+        saved.append((mod, fn_name, fn))
+        setattr(mod, fn_name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def profile_train_step(torch, step, state, batch) -> dict:
+    """One call of the train step ``step`` in a ``torch.profiler`` trace,
+    ended by a synchronise: its wall time, its kernel time and idle share,
+    and for each of the step's own ``record_function`` ranges (forward,
+    backward, optimizer) the host time of the range and the device time
+    of the kernels launched inside it, from any thread (autograd runs the
+    backward on its device thread), by kernel group, with the top kernels;
+    the synchronising calls inside the step; and the host ops that take
+    the most time."""
+    from raft_ncup_tpu_torch.training.step import PHASES
+
+    cpu = torch.autograd.DeviceType.CPU
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
+              if e.name in PHASES and e.device_type == cpu}
+    check(set(ranges) == set(PHASES), f"the trace lacks a phase of the step: {sorted(ranges)}")
+    kernels: dict[str, dict[str, list]] = {p: {} for p in PHASES}
+    for e in events:
+        if e.device_type != cpu or not e.kernels:
+            continue
+        phase = next((p for p, (a, b) in ranges.items() if a <= e.time_range.start <= b), None)
+        if phase is None:
+            continue
+        for k in e.kernels:
+            acc = kernels[phase].setdefault(k.name, [0.0, 0])
+            acc[0] += k.duration / 1e3
+            acc[1] += 1
+    # Every kernel, copy and fill on the card once: not the device spans
+    # that the profiler adds for the step's record_function ranges.
+    device = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)) / 1e3
+    # Host waits inside the step (the step itself reads nothing back).
+    syncs = sum(1 for e in events if e.device_type == cpu and "Synchronize" in e.name
+                and any(a <= e.time_range.start <= b for a, b in ranges.values()))
+    phases = {}
+    for p in PHASES:
+        groups: dict[str, float] = {}
+        for name, (ms, _) in kernels[p].items():
+            groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + ms
+        top = sorted(kernels[p].items(), key=lambda kv: -kv[1][0])[:8]
+        phases[p] = {"host_ms": (ranges[p][1] - ranges[p][0]) / 1e3,
+                     "device_ms": sum(ms for ms, _ in kernels[p].values()),
+                     "by_group": groups,
+                     "top": [{"kernel": k[:100], "ms": ms, "launches": n}
+                             for k, (ms, n) in top]}
+    host = sorted((e for e in prof.key_averages() if getattr(e, "device_type", None) == cpu),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"wall_ms": wall, "device_ms": device, "idle_share": 1.0 - device / wall,
+            "unattributed_device_ms": device - sum(v["device_ms"] for v in phases.values()),
+            "host_syncs_in_step": syncs,
+            "phases": phases,
+            "top_host_ops": [{"op": e.key[:80], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                              "calls": e.count} for e in host]}
+
+
+def check_train(torch, card) -> dict:
+    """The main path of this slice: 5 steps of the flagship's training at
+    the full configuration above, through both kernels and both backward
+    kernels; finite losses, no skipped step, no plain version called, every
+    kernel launched. Then the peak memory of one step without remat and a
+    profiled step."""
+    from raft_ncup_tpu_torch.config import TrainConfig, flagship_config
+    from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
+    from raft_ncup_tpu_torch.training.state import create_train_state
+    from raft_ncup_tpu_torch.training.step import make_train_step
+
+    cfg = TrainConfig(**TRAIN_CFG)
+    model_cfg = flagship_config(dataset=cfg.stage, corr_impl="pallas", nconv_impl="pallas")
+    state = create_train_state(model_cfg, cfg, "cuda")
+    data = SyntheticFlowDataset(cfg.image_size, seed=cfg.seed)
+    batches = [data.batch(i, cfg.batch_size, "cuda") for i in range(TRAIN_STEPS)]
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    losses, step_ms = [], []
+    reset_launches()
+    with counting_plain_versions() as plain_calls:
+        for i, batch in enumerate(batches):
+            if i == 1:  # the first step's autotuning tries large workspaces
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(metrics["loss"]))
+    launches = read_launches()
+    peak_remat = torch.cuda.max_memory_allocated()
+    skipped = int(state.sentinel["skipped"])
+    torch.cuda.reset_peak_memory_stats()
+    make_train_step(cfg, remat=False)(state, batches[0])
+    torch.cuda.synchronize()
+    peak_no_remat = torch.cuda.max_memory_allocated()
+    prof = profile_train_step(torch, step, state, batches[1])
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    report = {
+        "card": card,
+        "config": f"raft_nc_dbl stage {cfg.stage}, batch {cfg.batch_size} at "
+                  f"{cfg.image_size[0]}x{cfg.image_size[1]}, {cfg.iters} iterations, f32, "
+                  "remat on, sentinel on",
+        "losses": losses, "skipped": skipped, "step_ms": step_ms,
+        "median_ms_steps_2_to_5": statistics.median(step_ms[1:]),
+        "peak_gib_remat": peak_remat / 2**30, "peak_gib_no_remat": peak_no_remat / 2**30,
+        "launches": launches, "launches_per_step": per_step,
+        "plain_version_calls": plain_calls, "profile": prof,
+    }
+    print(f"train: {json.dumps(report)}", flush=True)
+    check(not plain_calls, f"plain versions ran during the train steps: {plain_calls}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite train loss: {losses}")
+    check(skipped == 0, f"the sentinel skipped {skipped} of {TRAIN_STEPS} steps")
+    for name, n in launches.items():
+        check(n > 0, f"the train steps never launched kernel {name}")
+    return report
+
+
+def _step_grads(torch, corr_impl, nconv_impl, batch, cfg):
+    from raft_ncup_tpu_torch.config import flagship_config
+    from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.training.state import state_for
+    from raft_ncup_tpu_torch.training.step import loss_and_grads
+
+    model = RAFT(flagship_config(dataset=cfg.stage, corr_impl=corr_impl, nconv_impl=nconv_impl),
+                 device="cuda", seed=0)
+    state = state_for(model, cfg)
+    loss, _, grads = loss_and_grads(state, batch, cfg)
+    out = float(loss), {n: g.detach() for (n, _), g in zip(state.named_params, grads)}
+    del model, state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_train_vs_plain(torch) -> dict:
+    """One step at batch 2, 400x720, from the same seeded weights and
+    batch, through the kernels and through the plain versions (the
+    on-the-fly lookup and the two-convolution NConv2d, differentiated by
+    autograd): the loss and every gradient tensor."""
+    from raft_ncup_tpu_torch.config import TrainConfig
+    from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
+
+    cfg = TrainConfig(**{**TRAIN_CFG, "batch_size": 2})
+    batch = SyntheticFlowDataset(cfg.image_size, seed=cfg.seed).batch(0, 2, "cuda")
+    reset_launches()
+    k_loss, k_grads = _step_grads(torch, "pallas", "pallas", batch, cfg)
+    check(all(n > 0 for n in read_launches().values()), "the kernel step skipped a kernel")
+    p_loss, p_grads = _step_grads(torch, "onthefly", "xla", batch, cfg)
+    gmax = max(float(g.abs().max()) for g in p_grads.values())
+    tols = {"default": STEP_GRAD_TOL, "upsampler": UPSAMPLER_TOL}
+    worst = {kind: (0.0, "") for kind in tols}
+    negligible, failures = [], []
+    for name, g in k_grads.items():
+        r = p_grads[name]
+        scale = float(r.abs().max())
+        if scale < NEGLIGIBLE * gmax:
+            negligible.append(name)
+            if float(g.abs().max()) >= NEGLIGIBLE * gmax:
+                failures.append(f"{name} is not negligible")
+            continue
+        kind = "upsampler" if name.startswith("upsampler.") else "default"
+        err = float((g - r).abs().max()) / scale
+        worst[kind] = max(worst[kind], (err, name))
+        if err > tols[kind]:
+            failures.append(f"{name}: {err:.3e} of its largest value (tolerance {tols[kind]})")
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    report = {"loss_kernels": k_loss, "loss_plain": p_loss, "loss_rel_diff": loss_rel,
+              "grad_rel_diff": worst, "tolerances": tols,
+              "negligible_tensors": len(negligible), "tensors": len(k_grads)}
+    print(f"train step, kernels vs plain versions (batch 2, 400x720): {json.dumps(report)}",
+          flush=True)
+    check(loss_rel <= STEP_LOSS_RTOL, f"kernel step loss {k_loss} vs plain {p_loss}")
+    check(not failures, f"kernel step gradients differ from the plain step's: {failures}")
+    return report
+
+
 # ----------------------------------------------------------------- profile
 
 PROFILE_BATCH = 2
@@ -482,10 +988,10 @@ _CONV_MARKERS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "implicit", "winogr
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    if "corr_lookup_kernel" in low:
-        return "corr_lookup_kernel"
-    if "nconv_kernel" in low:
-        return "nconv_kernel"
+    for group in ("corr_lookup_kernel", "corr_lookup_bwd_kernel", "nconv_kernel",
+                  "nconv_bwd_kernel"):
+        if group in low:
+            return group
     if any(m in low for m in _CONV_MARKERS):
         return "convolution"
     return "other"
@@ -585,47 +1091,88 @@ def main() -> int:
     check_corr_edges(torch, gen)
     nconv_rows = check_nconv(torch, gen, flush)
     check_nconv_edges(torch, gen)
+    corr_bwd = [check_corr_bwd(torch, gen, flush, mix) for mix in ("random", "smooth")]
+    nconv_bwd_rows = check_nconv_bwd(torch, gen, flush)
     check_wrappers_refuse(torch)
     model, serve, launches = check_serve(torch, card)
     profile = profile_forward(torch, model, card)
     check(profile["device_ms"] is not None, "the trace holds no device time")
+    del model
+    torch.cuda.empty_cache()
+    train = check_train(torch, card)
+    check(all(p["device_ms"] > 0 for p in train["profile"]["phases"].values()),
+          "a phase of the train trace holds no device time")
+    check_train_vs_plain(torch)
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.
+    # `launches` is the serve run's count for the forward kernels and the
+    # train run's for the backward kernels; `train_launches` the train run's
+    # for all four.
+    tl = train["launches"]
     corr_src = "raft_ncup_tpu_torch/csrc/corr_lookup.cu"
     kernels = [
         dict(name="corr_lookup at the served shape (the TPU's resident tier)", route="cuda",
              source=corr_src, replaces="raft_ncup_tpu/ops/corr_pallas.py:422",
-             launches=launches["corr_lookup"], **_kernel_numbers(corr_served)),
+             launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
+             **_kernel_numbers(corr_served)),
         dict(name="corr_lookup at 1088x1920 (the TPU's banded tier; launches are the "
              "main-path count of the same kernel)", route="cuda",
              source=corr_src, replaces="raft_ncup_tpu/ops/corr_pallas.py:672",
-             launches=launches["corr_lookup"], **_kernel_numbers(corr_banded)),
+             launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
+             **_kernel_numbers(corr_banded)),
         dict(name="corr_lookup at the served shape with smooth flow (the same kernel)",
              route="cuda", source=corr_src,
              replaces="raft_ncup_tpu/ops/corr_pallas.py:422",
-             launches=launches["corr_lookup"], **_kernel_numbers(corr_smooth)),
+             launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
+             **_kernel_numbers(corr_smooth)),
         dict(name="corr_lookup at 2176x3840 (the TPU's banded tier; the same kernel)",
              route="cuda", source=corr_src,
              replaces="raft_ncup_tpu/ops/corr_pallas.py:672",
-             launches=launches["corr_lookup"], **_kernel_numbers(corr_4k)),
+             launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
+             **_kernel_numbers(corr_4k)),
         dict(name="nconv2d_fused (4 NCUP layers of one served batch of 2)", route="cuda",
              source="raft_ncup_tpu_torch/csrc/nconv.cu",
              replaces="raft_ncup_tpu/ops/nconv_pallas.py:125",
-             launches=launches["nconv"],
-             max_abs_err=max(r["max_abs_err"] for r in nconv_rows),
-             ms=sum(r["ms"] for r in nconv_rows),
-             plain_ms=sum(r["plain_ms"] for r in nconv_rows),
-             bound_ms=sum(r["bound_ms"] for r in nconv_rows),
-             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in nconv_rows)
-             else "operations",
-             library_ms=None),
+             launches=launches["nconv"], train_launches=tl["nconv"],
+             **_summed_numbers(nconv_rows)),
     ]
+    for row in corr_bwd:
+        kernels.append(dict(
+            name=f"corr_lookup_bwd at the training shape, {row['shape'].split()[-2]} flow "
+                 "(no TPU kernel: JAX differentiates the XLA path)",
+            route="cuda", source="raft_ncup_tpu_torch/csrc/corr_lookup_bwd.cu",
+            replaces="raft_ncup_tpu/ops/corr_pallas.py:816",
+            launches=tl["corr_lookup_bwd"], train_launches=tl["corr_lookup_bwd"],
+            launches_per_step=train["launches_per_step"]["corr_lookup_bwd"],
+            max_abs_err=row["max_abs_err"], max_rel_err=row["max_rel_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            ms_without_d_f2=row["ms_without_d_f2"], atomics=row["atomics"]))
+    kernels.append(dict(
+        name="nconv2d backward (4 NCUP layers of a training batch, 12 planes of 400x720; "
+             "no TPU kernel: JAX differentiates the XLA path)",
+        route="cuda", source="raft_ncup_tpu_torch/csrc/nconv_bwd.cu",
+        replaces="raft_ncup_tpu/ops/nconv_pallas.py:179",
+        launches=tl["nconv_bwd"], train_launches=tl["nconv_bwd"],
+        launches_per_step=train["launches_per_step"]["nconv_bwd"],
+        max_rel_err=max(r["max_rel_err"] for r in nconv_bwd_rows),
+        **_summed_numbers(nconv_bwd_rows)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _summed_numbers(rows: list) -> dict:
+    """A kernel's numbers over its layer rows: times and bounds summed."""
+    return dict(
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+        bound_ms=sum(r["bound_ms"] for r in rows),
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
+        library_ms=None)
 
 
 def _kernel_numbers(row: dict) -> dict:

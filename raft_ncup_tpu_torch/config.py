@@ -1,10 +1,10 @@
-"""Typed, immutable configuration for the port's model and server.
+"""Typed, immutable configuration for the port's model, server and trainer.
 
 The port's own copy of ``raft_ncup_tpu/config.py``'s ``UpsamplerConfig``,
-``ModelConfig``, ``ServeConfig`` and ``flagship_config`` (the port imports
-nothing of the JAX package). Field names and defaults are the JAX
-package's, so one configuration means the same in both packages, with
-these differences of this slice:
+``ModelConfig``, ``ServeConfig``, ``TrainConfig`` and ``flagship_config``
+(the port imports nothing of the JAX package). Field names and defaults
+are the JAX package's, so one configuration means the same in both
+packages, with these differences of this slice:
 
 - ``ModelConfig.precision`` accepts only ``"f32"``; the bf16 presets are
   a later slice and raise here. The model's forward keeps TF32 off
@@ -17,6 +17,17 @@ these differences of this slice:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
   (the fused kernel, CUDA in the port). Its default is the JAX default.
 - ``ServeConfig`` has no ``mesh`` and no ``precision`` (one card, f32).
+- ``TrainConfig`` holds only the fields the port's trainer reads: no
+  ``validation``/``val_freq`` (validation during training), ``add_noise``,
+  ``load_pretrained``, ``data_parallel``/``spatial_parallel`` (the mesh),
+  ``sentinel_halt_after`` (the halt-and-rollback policy) or ``precision``;
+  they return with the slices that read them. The divergence sentinel
+  always runs, so there is no ``anomaly_sentinel`` switch, and its spike
+  factor, EMA decay and warm-up (``training/sentinel.py``) and the loss's
+  ``max_flow`` (``training/loss.py``) are constants at the JAX defaults,
+  since no flag of the JAX CLI that the port takes sets them. It carries
+  ``synthetic_style``, a field of the JAX package's ``DataConfig``: the
+  port trains on synthetic pairs only, so it needs no ``DataConfig`` yet.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 CORR_IMPLS = ("volume", "onthefly", "pallas")
+STAGES = ("chairs", "things", "sintel", "kitti")
 NCONV_IMPLS = ("xla", "pallas")
 
 
@@ -167,6 +179,52 @@ class ServeConfig:
     @property
     def max_batch(self) -> int:
         return self.batch_sizes[-1]
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters; names and defaults are the JAX package's
+    ``TrainConfig`` (the reference's train.py defaults)."""
+
+    name: str = "raft"
+    stage: str = "chairs"  # 'chairs' (BatchNorm trains) | 'things' | 'sintel' | 'kitti'
+    lr: float = 2e-5
+    num_steps: int = 100_000
+    batch_size: int = 6
+    image_size: tuple[int, int] = (384, 512)
+    iters: int = 12
+    wdecay: float = 5e-5
+    epsilon: float = 1e-8
+    clip: float = 1.0
+    gamma: float = 0.8
+    optimizer: str = "adamw"  # 'adamw' | 'adam'
+    scheduler: str = "cyclic"  # 'cyclic' (OneCycle-linear) | 'step'
+    scheduler_step: int = 20_000
+    sum_freq: int = 100
+    seed: int = 1234
+    restore_ckpt: str | None = None
+    checkpoint_dir: str = "checkpoints"
+    synthetic_style: str = "smooth"  # 'smooth' | 'rigid'
+
+    def __post_init__(self) -> None:
+        if self.stage not in STAGES:
+            raise ValueError(f"unknown stage: {self.stage!r}")
+        if self.optimizer.lower() not in ("adamw", "adam"):
+            raise NotImplementedError(f"{self.optimizer} optimizer is not implemented!")
+        if self.scheduler.lower() not in ("cyclic", "step"):
+            raise NotImplementedError(f"{self.scheduler} scheduler is not implemented!")
+        if self.synthetic_style not in ("smooth", "rigid"):
+            raise ValueError(f"unknown synthetic style: {self.synthetic_style!r}")
+
+    @property
+    def freeze_bn(self) -> bool:
+        # Every stage but chairs keeps BatchNorm in eval mode.
+        return self.stage != "chairs"
+
+    @property
+    def total_schedule_steps(self) -> int:
+        # OneCycle over num_steps + 100, as the reference configures it.
+        return self.num_steps + 100
 
 
 def flagship_config(dataset: str = "sintel", **overrides) -> ModelConfig:

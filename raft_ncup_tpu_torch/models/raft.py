@@ -1,4 +1,4 @@
-"""RAFT-NCUP model, test-mode forward (port of
+"""RAFT-NCUP model, test-mode and train-mode forward (port of
 ``raft_ncup_tpu/models/raft.py``).
 
 The JAX bundle (fnet / cnet / update_block / upsampler plus a functional
@@ -7,11 +7,21 @@ is a Python loop. Submodules run NCHW; the public forward takes and
 returns the JAX layouts (NHWC images and flows, (B, H, W, 2) coordinates
 with x first).
 
-This slice covers the flagship ``raft_nc_dbl`` variant in test mode
-(``apply(test_mode=True)`` with ``flow_init``), in f32 with TF32 off
-(``utils.device.f32_precision``), under ``torch.no_grad``: training, the ``raft`` and small variants, segments,
-early exit and warm-started GRU state are later slices. BatchNorm always
-uses its running statistics.
+This slice covers the flagship ``raft_nc_dbl`` variant, in f32 with TF32
+off (``utils.device.f32_precision``):
+
+- in eval mode, ``apply(test_mode=True)`` with ``flow_init``, under
+  ``torch.no_grad``; BatchNorm uses its running statistics;
+- in training mode (``model.train()``), ``apply(train=True)``: the
+  stacked per-iteration upsampled flow, the NCUP upsampler run every
+  iteration, coordinates detached at the start of each iteration, and
+  each iteration under ``torch.utils.checkpoint`` when ``remat`` (the
+  JAX ``jax.checkpoint``). BatchNorm trains unless :meth:`RAFT.freeze_bn`
+  put it back in eval mode (the JAX ``freeze_bn``); its running
+  statistics advance once per iteration, never again in the recompute.
+
+The ``raft`` and small variants, segments, early exit, warm-started GRU
+state and dropout are later slices.
 
 The model lives on the card unless the caller passes ``device="cpu"``;
 with no device and no CUDA, construction raises.
@@ -19,14 +29,16 @@ with no device and no CUDA, construction raises.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from raft_ncup_tpu_torch.config import ModelConfig
 from raft_ncup_tpu_torch.nn.extractor import BasicEncoder
-from raft_ncup_tpu_torch.nn.layers import init_weights
+from raft_ncup_tpu_torch.nn.layers import frozen_batch_stats, init_weights
 from raft_ncup_tpu_torch.nn.update import BasicUpdateBlock
 from raft_ncup_tpu_torch.nn.upsampler import build_upsampler
 from raft_ncup_tpu_torch.ops.corr import (
@@ -73,12 +85,14 @@ class RAFT(nn.Module):
         self.to(dev)
         self.device = dev
 
-    def train(self, mode: bool = True) -> "RAFT":
-        if mode:
-            raise NotImplementedError(
-                "the port's RAFT is inference-only in this slice"
-            )
-        return super().train(False)
+    def freeze_bn(self) -> "RAFT":
+        """Put every BatchNorm in eval mode (running statistics, no
+        update), as the reference's ``freeze_bn`` does for every stage but
+        chairs. ``train()`` undoes it."""
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.eval()
+        return self
 
     # ------------------------------------------------------------ pieces
 
@@ -136,7 +150,6 @@ class RAFT(nn.Module):
 
     # ----------------------------------------------------------- forward
 
-    @torch.no_grad()
     @f32_precision()
     def forward(
         self,
@@ -144,9 +157,19 @@ class RAFT(nn.Module):
         image2: torch.Tensor,
         iters: int = 12,
         flow_init: Optional[torch.Tensor] = None,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Test-mode forward: returns ``(flow_lr, flow_up)``, (B, H/8, W/8, 2)
-        and (B, H, W, 2) float32."""
+        remat: bool = True,
+    ):
+        """In eval mode, the test-mode forward: ``(flow_lr, flow_up)``,
+        (B, H/8, W/8, 2) and (B, H, W, 2) float32, without gradients. In
+        training mode, the train-mode forward: the upsampled flow of every
+        iteration, (iters, B, H, W, 2) float32, each iteration under
+        ``torch.utils.checkpoint`` when ``remat``."""
+        if self.training:
+            return self._forward_train(image1, image2, iters, flow_init, remat)
+        with torch.no_grad():
+            return self._forward_test(image1, image2, iters, flow_init)
+
+    def _forward_test(self, image1, image2, iters, flow_init):
         fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init)
         corr_fn = self._build_corr_fn(fmap1, fmap2)
         B, h8, w8, _ = coords1.shape
@@ -160,3 +183,37 @@ class RAFT(nn.Module):
             coords1 = coords1 + delta.permute(0, 2, 3, 1)
         flow_lr = coords1 - coords0
         return flow_lr, self._upsample(flow_lr, net)
+
+    def _forward_train(self, image1, image2, iters, flow_init, remat):
+        fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init)
+        corr_fn = self._build_corr_fn(fmap1, fmap2)
+        B, h8, w8, _ = coords1.shape
+        coords0 = coords_grid(B, h8, w8, device=coords1.device)
+
+        def step(net, coords1):
+            coords1 = coords1.detach()
+            corr = corr_fn(coords1)
+            flow = coords1 - coords0
+            net, delta = self.update_block(
+                net, inp, corr.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+            )
+            coords1 = coords1 + delta.permute(0, 2, 3, 1)
+            return net, coords1, self._upsample(coords1 - coords0, net)
+
+        preds = []
+        for _ in range(int(iters)):
+            if remat:
+                net, coords1, flow_up = checkpoint(
+                    step, net, coords1, use_reentrant=False,
+                    context_fn=_remat_contexts,
+                )
+            else:
+                net, coords1, flow_up = step(net, coords1)
+            preds.append(flow_up)
+        return torch.stack(preds)
+
+
+def _remat_contexts():
+    """(forward, recompute) contexts of a checkpointed iteration: the
+    recompute leaves BatchNorm's running statistics alone."""
+    return contextlib.nullcontext(), frozen_batch_stats()

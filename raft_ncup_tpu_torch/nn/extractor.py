@@ -46,7 +46,7 @@ class BasicEncoder(nn.Module):
     def __init__(self, output_dim: int = 128, norm_fn: str = "batch", dropout: float = 0.0):
         super().__init__()
         if dropout > 0:
-            raise NotImplementedError("encoder dropout lands with the training slice")
+            raise NotImplementedError("encoder dropout lands with a later slice of the port")
         self.conv1 = Conv2d(3, 64, 7, stride=2, init_mode="kaiming_out")
         self.norm1 = Norm(norm_fn, 64)
         layers = []

@@ -7,11 +7,17 @@ U(-1/sqrt(fan_in), 1/sqrt(fan_in)), or, with ``init_mode='kaiming_out'``
 (the encoders), kernel N(0, 2/fan_out). Initialization draws from an
 explicit ``torch.Generator`` (:func:`init_weights`), so a seed gives the
 same weights on every device.
+
+``BatchNorm2d`` trains as flax's ``BatchNorm`` does (biased batch
+variance in the running average); :func:`frozen_batch_stats` keeps its
+running statistics still while a checkpointed forward is recomputed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
@@ -67,13 +73,60 @@ class Conv2d(nn.Conv2d):
             self.bias.copy_(torch.rand(self.bias.shape, generator=gen) * 2 * b - b)
 
 
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """Within this context (on this thread) a training ``BatchNorm2d``
+    normalizes with its batch statistics but leaves its running statistics
+    as they are: the recompute context of a checkpointed forward, so each
+    forward updates them once, as the JAX model's scan carry does."""
+    prev = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = prev
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm as flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``.
+
+    In eval mode it normalizes with the running statistics, as torch does.
+    In training mode it normalizes with the batch mean and biased variance,
+    as torch does, but updates the running variance with the biased
+    variance (torch uses the unbiased one): ``running = 0.9 running + 0.1
+    batch`` for both. The batch variance is E[x^2] - E[x]^2, clipped at
+    zero, as flax computes it."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        if not getattr(_frozen, "on", False):
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+                self.running_var.mul_(1.0 - m).add_(m * var.detach())
+                self.num_batches_tracked.add_(1)
+        mul = (torch.rsqrt(var + self.eps) * self.weight).view(1, -1, 1, 1)
+        y = (xf - mean.view(1, -1, 1, 1)) * mul + self.bias.view(1, -1, 1, 1)
+        return y.to(x.dtype)
+
+
 def Norm(kind: str, channels: int) -> nn.Module:
     """Normalization by name, as the encoders use it: 'batch'
-    (BatchNorm2d, eps 1e-5, eval-mode running statistics), 'instance'
-    (per-sample, per-channel, no affine), 'none' (identity). 'group'
-    lands with the small model's slice."""
+    (:class:`BatchNorm2d`, eps 1e-5), 'instance' (per-sample, per-channel,
+    no affine), 'none' (identity). 'group' lands with the small model's
+    slice."""
     if kind == "batch":
-        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(channels)
     if kind == "instance":
         return nn.InstanceNorm2d(channels, eps=1e-5, affine=False)
     if kind == "none":

@@ -16,8 +16,13 @@ every iteration.
 :func:`lookup_levels` is the wrapper. For a CPU tensor it runs the plain
 version, :func:`lookup_pyramid` (the on-the-fly lookup of
 ``ops/corr.py``); for a CUDA tensor it launches the kernel or raises.
-``lookup_levels.launches`` counts the launches. Forward only in this
-slice: a CUDA call whose inputs require grad raises.
+``lookup_levels.launches`` counts the launches. When an input needs a
+gradient, the call goes through an ``autograd.Function`` whose backward
+is :func:`lookup_levels_backward`: the hand-written backward kernel
+``csrc/corr_lookup_bwd.cu`` on the card (``.launches`` counts it), the
+plain :func:`lookup_pyramid_backward` (the autograd of the plain
+version) on the CPU. The JAX op differentiates its XLA path the same way
+(``corr_pallas.py:816``).
 
 Each tile of 2x4 queries at one level, one warp's work, takes one of two
 exact paths: the tiled path reads the bounding box of the tile's windows
@@ -43,6 +48,7 @@ from raft_ncup_tpu_torch.ops.geometry import grid_sample
 from raft_ncup_tpu_torch.utils.device import f32_precision
 
 KERNEL = "corr_lookup"
+KERNEL_BWD = "corr_lookup_bwd"
 SOURCE = "raft_ncup_tpu_torch/csrc/corr_lookup.cu"
 MAX_LEVELS = 8
 MAX_CHANNELS = 512
@@ -93,6 +99,49 @@ def lookup_pyramid(
             per_level.append(corr.reshape(*corr.shape[:3], K * K))
         chunks.append(torch.cat(per_level, dim=-1))
     return torch.cat(chunks, dim=1)
+
+
+@f32_precision()
+def lookup_pyramid_backward(
+    f1s: torch.Tensor,
+    f2_levels: Sequence[torch.Tensor],
+    coords: torch.Tensor,
+    radius: int,
+    grad: torch.Tensor,
+    needs: tuple[bool, bool, bool] = (True, True, True),
+) -> tuple[torch.Tensor | None, list[torch.Tensor] | None, torch.Tensor | None]:
+    """Plain version of the backward kernel: the autograd of
+    :func:`lookup_pyramid`, ``ROW_CHUNK`` query rows at a time so that the
+    sampled windows of one chunk are alive at once.
+
+    ``grad`` is the (B, H, W, L*(2r+1)^2) upstream gradient; ``needs``
+    says which of (d f1s, d f2 levels, d coords) to return (None for the
+    others)."""
+    H = f1s.shape[1]
+    levels = [lv.detach().float().requires_grad_(needs[1]) for lv in f2_levels]
+    df1 = torch.zeros_like(f1s, dtype=torch.float32) if needs[0] else None
+    dco = torch.zeros_like(coords, dtype=torch.float32) if needs[2] else None
+    dlv = [torch.zeros_like(lv) for lv in levels] if needs[1] else None
+    for r0 in range(0, H, ROW_CHUNK):
+        rows = slice(r0, r0 + ROW_CHUNK)
+        f1c = f1s[:, rows].detach().float().requires_grad_(needs[0])
+        cc = coords[:, rows].detach().float().requires_grad_(needs[2])
+        wrt = [t for t, need in ((f1c, needs[0]), (cc, needs[2])) if need]
+        if needs[1]:
+            wrt += levels
+        if not wrt:
+            break
+        with torch.enable_grad():
+            out = lookup_pyramid(f1c, levels, cc, radius)
+            grads = list(torch.autograd.grad(out, wrt, grad[:, rows].float()))
+        if needs[0]:
+            df1[:, rows] = grads.pop(0)
+        if needs[2]:
+            dco[:, rows] = grads.pop(0)
+        if needs[1]:
+            for acc, d in zip(dlv, grads):
+                acc += d
+    return df1, dlv, dco
 
 
 def prepare_levels(
@@ -199,6 +248,15 @@ def _launcher():
     return _fn
 
 
+def _level_table(levels):
+    """The C arrays of the levels' pointers and of their (Hl, Wl)."""
+    ptrs = (ctypes.c_void_p * len(levels))(*[lv.data_ptr() for lv in levels])
+    hw = (ctypes.c_int * (2 * len(levels)))(
+        *[d for lv in levels for d in (lv.shape[1], lv.shape[2])]
+    )
+    return ptrs, hw
+
+
 def _check_operands(f1s, f2_levels, coords, radius) -> None:
     tensors = [f1s, coords, *f2_levels]
     dev = f1s.device
@@ -209,11 +267,6 @@ def _check_operands(f1s, f2_levels, coords, radius) -> None:
             raise TypeError(f"corr lookup: f32 only in this slice, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("corr lookup: operands must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "corr lookup kernel is forward-only in this slice; its "
-                "backward lands with the training slice"
-            )
     if f1s.dim() != 4 or coords.shape != (*f1s.shape[:3], 2):
         raise ValueError(
             f"corr lookup: f1s {tuple(f1s.shape)} / coords "
@@ -247,7 +300,19 @@ def lookup_levels(
     pyramid and (B, H, W, 2) coords -> (B, H, W, L*(2r+1)^2) f32.
 
     A CPU tensor takes :func:`lookup_pyramid`; a CUDA tensor launches
-    the kernel on the current stream or raises."""
+    the kernel on the current stream or raises. With an input that needs
+    a gradient the call is differentiable (:class:`_Lookup`)."""
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (f1s, coords, *f2_levels)
+    ):
+        return _Lookup.apply(f1s, coords, radius, *f2_levels)
+    return _lookup_forward(f1s, f2_levels, coords, radius)
+
+
+lookup_levels.launches = 0
+
+
+def _lookup_forward(f1s, f2_levels, coords, radius) -> torch.Tensor:
     if f1s.device.type == "cpu":
         return lookup_pyramid(f1s, f2_levels, coords, radius)
     if f1s.device.type != "cuda":
@@ -258,10 +323,7 @@ def lookup_levels(
     L = len(f2_levels)
     K = 2 * radius + 1
     out = torch.empty((B, H, W, L * K * K), dtype=torch.float32, device=f1s.device)
-    ptrs = (ctypes.c_void_p * L)(*[lv.data_ptr() for lv in f2_levels])
-    hw = (ctypes.c_int * (2 * L))(
-        *[d for lv in f2_levels for d in (lv.shape[1], lv.shape[2])]
-    )
+    ptrs, hw = _level_table(f2_levels)
     rc = fn(
         f1s.data_ptr(), coords.data_ptr(), ptrs, hw, L, B, H, W, C, radius,
         out.data_ptr(), _counts_buffer(f1s.device).data_ptr(),
@@ -272,7 +334,97 @@ def lookup_levels(
     return out
 
 
-lookup_levels.launches = 0
+class _Lookup(torch.autograd.Function):
+    """The lookup with its backward: the forward kernel (or plain version)
+    forward, :func:`lookup_levels_backward` backward. Saves only its
+    inputs, as the JAX op does."""
+
+    @staticmethod
+    def forward(ctx, f1s, coords, radius, *f2_levels):
+        ctx.radius = radius
+        ctx.save_for_backward(f1s, coords, *f2_levels)
+        return _lookup_forward(f1s, list(f2_levels), coords, radius)
+
+    @staticmethod
+    def backward(ctx, grad):
+        f1s, coords, *levels = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        needs = (need[0], any(need[3:]), need[1])
+        df1, dlv, dco = lookup_levels_backward(
+            f1s, levels, coords, ctx.radius, grad.contiguous(), needs
+        )
+        return (df1, dco, None, *(dlv if dlv is not None else [None] * len(levels)))
+
+
+_bwd_fn = None
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = cuda_build.load(KERNEL_BWD)
+        fn = lib.corr_lookup_bwd_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        _bwd_fn = (lib, fn)
+    return _bwd_fn
+
+
+def lookup_levels_backward(
+    f1s: torch.Tensor,
+    f2_levels: Sequence[torch.Tensor],
+    coords: torch.Tensor,
+    radius: int,
+    grad: torch.Tensor,
+    needs: tuple[bool, bool, bool] = (True, True, True),
+) -> tuple[torch.Tensor | None, list[torch.Tensor] | None, torch.Tensor | None]:
+    """The backward kernel's wrapper: the forward's operands and the
+    (B, H, W, L*(2r+1)^2) upstream ``grad`` -> (d f1s, [d f2 level],
+    d coords), each f32 or None where ``needs`` says it is not wanted.
+
+    A CPU tensor takes :func:`lookup_pyramid_backward`; a CUDA tensor
+    launches the kernel on the current stream or raises."""
+    if f1s.device.type == "cpu":
+        return lookup_pyramid_backward(f1s, f2_levels, coords, radius, grad, needs)
+    if f1s.device.type != "cuda":
+        raise ValueError(f"corr lookup: unsupported device {f1s.device}")
+    _check_operands(f1s, f2_levels, coords, radius)
+    B, H, W, C = f1s.shape
+    L = len(f2_levels)
+    K = 2 * radius + 1
+    if (
+        grad.device != f1s.device or grad.dtype != torch.float32
+        or not grad.is_contiguous() or grad.shape != (B, H, W, L * K * K)
+    ):
+        raise ValueError(
+            f"corr lookup backward: grad {tuple(grad.shape)} {grad.dtype} is not a "
+            f"contiguous f32 ({B}, {H}, {W}, {L * K * K}) on {f1s.device}"
+        )
+    lib, fn = _bwd_launcher()
+    df1 = torch.empty_like(f1s) if needs[0] else None
+    dlv = [torch.zeros_like(lv) for lv in f2_levels] if needs[1] else None
+    dco = torch.empty_like(coords) if needs[2] else None
+    ptrs, hw = _level_table(f2_levels)
+    gptrs = None if dlv is None else _level_table(dlv)[0]
+    rc = fn(
+        f1s.data_ptr(), coords.data_ptr(), ptrs, hw, L, B, H, W, C, radius,
+        grad.data_ptr(), None if df1 is None else df1.data_ptr(), gptrs,
+        None if dco is None else dco.data_ptr(),
+        f1s.device.index, torch.cuda.current_stream(f1s.device).cuda_stream,
+    )
+    cuda_build.check(rc, lib, "corr_lookup_bwd_f32")
+    lookup_levels_backward.launches += 1
+    return df1, dlv, dco
+
+
+lookup_levels_backward.launches = 0
 
 
 def corr_lookup_fused(

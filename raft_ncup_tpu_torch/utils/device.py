@@ -51,3 +51,20 @@ def f32_precision():
     finally:
         torch.backends.cudnn.allow_tf32 = conv
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@contextlib.contextmanager
+def cudnn_autotune():
+    """Run the enclosed code (or the decorated function) with cuDNN's
+    autotuner on (``torch.backends.cudnn.benchmark``), then restore the
+    caller's flag. The train step runs under it: at the training shapes,
+    cuDNN's heuristic picks for one f32 convolution an FFT algorithm that
+    launches a small complex GEMM per frequency, about 16,000 launches a
+    call; the autotuner times the candidates once per shape instead. It
+    changes which f32 algorithm runs, not the precision."""
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = prev

@@ -96,6 +96,60 @@ def test_nconv_work_matches_brute_force(b, h, w, k, cin, cout):
     )
 
 
+@pytest.mark.parametrize("with_coords", [False, True], ids=["model_path", "with_d_coords"])
+@pytest.mark.parametrize(
+    "b,h,w,c,levels,radius,spread",
+    [(1, 9, 11, 8, 4, 4, 3.0), (3, 5, 6, 12, 2, 3, 20.0)],
+    ids=["odd_1x1_deepest", "wide_flow"],
+)
+def test_corr_bwd_work_matches_brute_force(b, h, w, c, levels, radius, spread, with_coords):
+    """Kernel A' reads what the forward reads with the upstream gradient in
+    place of the output, and writes d f1s and every d level (and d coords);
+    4C flops and C atomic adds per in-level position, 8 flops per tap for
+    the patch gradient (and 2C and 12 more for d coords)."""
+    f1s, lv, coords = _corr_operands(40 + b, b, h, w, c, levels, spread)
+    _, fwd_flops = _corr_work_brute(f1s, lv, coords, radius)
+    n_taps = b * h * w * levels * (2 * radius + 1) ** 2
+    positions = (fwd_flops - 7 * n_taps) // (2 * c)
+    nbytes = 4 * (2 * f1s.numel() + coords.numel() + 2 * sum(t.numel() for t in lv) + n_taps)
+    flops = 4 * c * positions + 8 * n_taps
+    if with_coords:
+        nbytes += 4 * coords.numel()
+        flops += 2 * c * positions + 12 * n_taps
+    assert chip_smoke.corr_bwd_work(torch, f1s, lv, coords, radius, with_coords) == (
+        nbytes, flops, c * positions)
+
+
+def _nconv_bwd_work_brute(b, h, w, k, cin, cout, bias, with_gc):
+    p = k // 2
+    taps = 0
+    for y in range(h):
+        for x in range(w):
+            for ky in range(k):
+                for kx in range(k):
+                    taps += 0 <= y + ky - p < h and 0 <= x + kx - p < w
+    n_in, n_out, nw = b * cin * h * w, b * cout * h * w, cout * cin * k * k
+    reads = 2 * n_in + nw + 3 * n_out + (n_out if with_gc else 0) + (cout if bias else 0)
+    writes = 2 * n_in + nw + (cout if bias else 0)
+    flops = b * cin * taps * (1 + 8 * cout) + 12 * n_out + 3 * n_in
+    return 4 * (reads + writes), flops
+
+
+@pytest.mark.parametrize(
+    "b,h,w,k,cin,cout,bias,with_gc",
+    [(1, 5, 7, 1, 2, 1, False, False), (2, 9, 4, 3, 4, 2, True, True),
+     (1, 6, 11, 5, 1, 2, False, True), (3, 2, 3, 7, 2, 8, True, True)],
+    ids=["nconv_out_no_conf_grad", "k3_bias", "k5", "k7_plane_inside_halo"],
+)
+def test_nconv_bwd_work_matches_brute_force(b, h, w, k, cin, cout, bias, with_gc):
+    """Kernel B' reads data, conf, the weight, out, conf_out and go (and gc
+    and the bias), writes d data, d conf and d weight (and d bias); per
+    in-bounds tap and input channel 1 + 8 Cout flops, 12 per output pixel
+    and 3 per input pixel."""
+    assert chip_smoke.nconv_bwd_work(b, h, w, k, cin, cout, bias, with_gc) == (
+        _nconv_bwd_work_brute(b, h, w, k, cin, cout, bias, with_gc))
+
+
 def _tile_paths_brute(coords, level_hw, radius, channels):
     """The kernel's rule, one tile and one query at a time."""
     b, h, w, _ = coords.shape

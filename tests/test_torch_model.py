@@ -185,3 +185,15 @@ def test_unported_configurations_raise():
         model = RAFT(flagship_config(), device="cpu")
         x = torch.zeros(1, 60, 90, 3)
         model(x, x, iters=1)
+    with pytest.raises(NotImplementedError):  # encoder dropout is a later slice
+        RAFT(flagship_config(dropout=0.1), device="cpu")
+    # Training mode is ported: train() works, and the forward then returns
+    # every iteration's upsampled flow, differentiable.
+    model = RAFT(flagship_config(), device="cpu")
+    assert model.train() is model and model.training
+    x = torch.zeros(1, 64, 64, 3)
+    seq = model(x, x + 1.0, iters=2)
+    assert seq.shape == (2, 1, 64, 64, 2) and seq.requires_grad
+    model.eval()
+    flow_lr, flow_up = model(x, x, iters=1)
+    assert flow_up.shape == (1, 64, 64, 2) and not flow_up.requires_grad
