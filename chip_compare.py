@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the correlation-lookup kernel of several checkouts of this
-repository on the same inputs, on one NVIDIA card.
+"""Times the correlation-lookup kernel (A), its backward (A') and the
+NConv2d backward (B') of several checkouts of this repository on the
+same inputs, on one NVIDIA card.
 
     python3 chip_compare.py DIR [DIR ...]
 
@@ -11,19 +12,27 @@ given and then in reverse (A, B, B, A), so that a drift of the card
 over the run shows as a difference between a checkout's two runs. A
 process builds its checkout's kernel, draws the inputs from seed 0 with
 this script's ``chip_smoke.py`` (so every checkout sees the same
-inputs), and for each row
+inputs; the A' and B' rows draw from ``chip_smoke.backward_generator``,
+so they are the inputs that ``chip_smoke.py`` checks and times), and
+for each row
 
-- holds the kernel against its plain version, within ``CORR_TOL``;
-- times it as ``chip_smoke.py`` does (CUDA events over 20 runs, a cold
-  L2 before each);
-- reads the tiles of each of the kernel's paths, where the checkout
-  counts them.
+- holds the kernel against its plain version, within ``CORR_TOL`` for A
+  and within ``GRAD_TOL`` of each gradient's largest value for A' and B';
+- times it as ``chip_smoke.py`` does (CUDA events over 20 runs, 10 for
+  A', a cold L2 before each);
+- reads the tiles of each of the kernel's paths (and A''s d f2 row
+  adds), where the checkout counts them.
 
-For the served shape with smooth flow it also times each pyramid level
-alone, and the host's time per call of the kernel's wrapper (ctypes and
-launch, with the card busy behind it). Each result is one JSON line
-starting ``compare:``; the card's name and power limit come first. Any
-failed check exits non-zero.
+The rows: A at the served shape (random and smooth flow) and at
+1088x1920; A' at the training shape (B=6, 50x90, C=256) with random and
+smooth flow, as the model launches it (d f1s and d f2); B' at each of the
+four NCUP layers of a training batch (12 planes of 400x720), with the
+upstream gradients the model gives them. For the served shape with
+smooth flow it also times each pyramid level alone, and the host's time
+per call of the kernel's wrapper (ctypes and launch, with the card busy
+behind it). Each result is one JSON line starting ``compare:``; the
+card's name and power limit come first. Any failed check exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ ROWS = [  # (name, B, H, W, mix): level-0 query sizes as in chip_smoke.py
 ]
 RADIUS, CHANNELS, LEVELS = 4, 256, 4
 HOST_CALLS = 200
+BWD_MIXES = ("random", "smooth")  # kernel A' rows, at chip_smoke.TRAIN_CORR
 
 
 def _chip_smoke():
@@ -55,13 +65,21 @@ def _chip_smoke():
 
 
 def child(tree: str) -> int:
-    """Times the kernel of the checkout at ``tree``; prints a JSON line
+    """Times the kernels of the checkout at ``tree``; prints a JSON line
     per row."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
     cs = _chip_smoke()
-    from raft_ncup_tpu_torch.ops import corr_cuda
+    from raft_ncup_tpu_torch.ops import corr_cuda, cuda_build
+
+    cuda_build.build()
+    registers = {name: [ln.strip() for ln in cuda_build.build_log(name).splitlines()
+                        if "registers" in ln or "spill" in ln]
+                 for name in cuda_build.KERNELS}
+    if any(registers.values()):  # built in this process
+        print("compare: " + json.dumps(dict(tree=tree, row="build", ptxas=registers)),
+              flush=True)
 
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 * 2**20 // 4, device="cuda")
@@ -96,7 +114,64 @@ def child(tree: str) -> int:
             row["host_us_per_call"] = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
             torch.cuda.synchronize()
         print("compare: " + json.dumps(row), flush=True)
+    ok = backward_rows(torch, cs, flush, tree) and ok
     return 0 if ok else 1
+
+
+def backward_rows(torch, cs, flush, tree) -> bool:
+    """The A' rows (both mixes) and the B' rows (the four layers), each
+    set drawn from its own ``backward_generator`` as ``chip_smoke.py``
+    draws them; whether every row agreed with its plain version."""
+    ok = True
+    gen = cs.backward_generator(torch)
+    for mix in BWD_MIXES:
+        ok = corr_bwd_row(torch, cs, gen, flush, tree, mix) and ok
+    gen = cs.backward_generator(torch)
+    for name, k, cin, cout in cs.NCUP_LAYERS:
+        ok = nconv_bwd_row(torch, cs, gen, flush, tree, name, k, cin, cout) and ok
+    return ok
+
+
+def corr_bwd_row(torch, cs, gen, flush, tree, mix) -> bool:
+    """Kernel A' of the checkout at the training shape, as the model
+    launches it (d f1s and d f2), against the plain autograd; timed."""
+    from raft_ncup_tpu_torch.ops import corr_cuda
+
+    s = cs.TRAIN_CORR
+    f1s, lv, coords, g = cs.corr_bwd_inputs(torch, gen, mix)
+    needs = (True, True, False)
+
+    def run():
+        return corr_cuda.lookup_levels_backward(f1s, lv, coords, s["radius"], g, needs)
+
+    counted = hasattr(corr_cuda, "backward_counts")
+    if counted:
+        corr_cuda.reset_backward_counts()
+    got = run()
+    counts = corr_cuda.backward_counts() if counted else None
+    ref = corr_cuda.lookup_pyramid_backward(f1s, lv, coords, s["radius"], g, needs)
+    errs = [cs.grad_err(torch, got[0], ref[0])]
+    errs += [cs.grad_err(torch, a, b) for a, b in zip(got[1], ref[1])]
+    del got, ref
+    good = all(same and e <= cs.GRAD_TOL for e, same, _ in errs)
+    row = dict(tree=tree, row=f"A' training {mix}", max_rel_err=max(e for e, _, _ in errs),
+               ms=cs.cuda_ms(torch, run, 10, flush), counts=counts)
+    print("compare: " + json.dumps(row), flush=True)
+    return good
+
+
+def nconv_bwd_row(torch, cs, gen, flush, tree, name, k, cin, cout) -> bool:
+    """Kernel B' of the checkout at one NCUP layer of a training batch,
+    against its plain version in float64; timed."""
+    from raft_ncup_tpu_torch.ops import nconv_cuda
+
+    args = cs.nconv_bwd_inputs(torch, gen, name, k, cin, cout)
+    errs = cs.nconv_bwd_errs(torch, nconv_cuda.nconv2d_backward(*args), args)
+    good = all(same and e <= cs.GRAD_TOL for e, same, _ in errs)
+    row = dict(tree=tree, row=f"B' {name}", max_rel_err=max(e for e, _, _ in errs),
+               ms=cs.cuda_ms(torch, lambda: nconv_cuda.nconv2d_backward(*args), 20, flush))
+    print("compare: " + json.dumps(row), flush=True)
+    return good
 
 
 def main(trees: list[str]) -> int:

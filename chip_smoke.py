@@ -22,10 +22,13 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 5. holds the lookup (A) and its backward kernel (A') against the plain
    lookup and its autograd at the training shape (batch 6, 50x90, C=256,
    4 levels, r=4) with random and smooth flow (d f1s, each d f2 level,
-   d coords), and the NConv2d (B) and its backward kernel (B') against
-   their plain versions at the four NCUP layers of a training batch (12
-   planes of 400x720), B' also at edge cases, with the NaN places of
-   windows without confidence; then checks
+   d coords), with A''s device counts (tiles per path, d f2 row adds)
+   against ``corr_cuda.backward_work``, then A' at edge cases with and
+   without d coords; and the NConv2d (B) and its backward kernel (B')
+   against their plain versions at the four NCUP layers of a training
+   batch (12 planes of 400x720), B' also at edge cases, with the NaN
+   places of windows without confidence, and twice on the same inputs
+   with bit-equal d weight and d bias; then checks
    that the wrappers raise on CUDA inputs their kernels do not take (other
    dtypes, strided layouts), with or without a gradient;
 6. serves 8 Sintel-size (436x1024) requests through ``FlowServer`` with
@@ -38,7 +41,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 8. trains the flagship 5 steps at ``scripts/train_raft_nc_things.sh``'s
    configuration (batch 6 at 400x720, 12 iterations, remat on) through
    all four kernels: finite losses, no step skipped, no plain version
-   called, every kernel launched; ms per step, peak memory with remat on
+   called, each kernel launched as often as the step's structure says
+   (A 24, A' 12, B 96, B' 48 a step); ms per step, peak memory with remat on
    and off, and a trace of one step split by its forward, backward and
    optimizer ranges (its ``train:`` line);
 9. holds one train step through the kernels against the same step
@@ -419,6 +423,39 @@ GRAD_TOL = 1e-4
 GRAD_EDGE_TOL = 1e-3
 
 
+def backward_generator(torch):
+    """The generator kernel A''s rows at the training shape (both mixes,
+    in turn) and kernel B''s rows (the four layers, in turn) each draw from:
+    seed 0 of their own, so chip_compare.py draws the same inputs without
+    replaying this script's earlier phases."""
+    return torch.Generator().manual_seed(0)
+
+
+def corr_bwd_inputs(torch, gen, mix):
+    """Kernel A''s inputs at the training shape: f1s, the pyramid, coords
+    with ``mix`` flow, and the upstream gradient of the lookup."""
+    s = TRAIN_CORR
+    f1s, lv, coords = corr_inputs(torch, gen, s["B"], s["H"], s["W"], s["C"],
+                                  s["levels"], mix)
+    K = 2 * s["radius"] + 1
+    g = torch.randn(*coords.shape[:3], s["levels"] * K * K, generator=gen).cuda()
+    return f1s, lv, coords, g
+
+
+def nconv_bwd_inputs(torch, gen, name, k, cin, cout):
+    """Kernel B''s arguments at one NCUP layer of a training batch: data,
+    conf, weight, no bias, kernel B's outputs, and the upstream gradients
+    the model gives (none of nconv_out's conf_out)."""
+    from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
+
+    B, H, W = TRAIN_PLANES
+    d, c, w = nconv_inputs(torch, gen, B, H, W, k, cin, cout, name == "nconv_in")
+    out, conf_out = nconv2d_fused(d, c, w)
+    go = torch.randn(out.shape, generator=gen).cuda()
+    gc = None if name == "nconv_out" else torch.randn(out.shape, generator=gen).cuda()
+    return d, c, w, None, out, conf_out, go, gc
+
+
 def nconv_bwd_errs(torch, got, args):
     """(max |kernel - plain in float64| / max |plain in float64| over the
     places where the float32 plain version is finite, whether the NaN and
@@ -438,6 +475,11 @@ def nconv_bwd_errs(torch, got, args):
         diff = float((a[fin].double() - r64[fin]).abs().max()) if bool(fin.any()) else 0.0
         errs.append((diff / scale if scale > 0 else diff, same, diff))
     return errs
+
+
+def bit_equal(torch, a, b) -> bool:
+    """Whether two float32 tensors hold the same bits (NaN places too)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def grad_err(torch, a, b):
@@ -475,34 +517,49 @@ def corr_bwd_work(torch, f1s, lv, coords, radius, with_coords):
     return nbytes, flops, C * positions
 
 
+def corr_bwd_counts(torch, f1s, lv, coords, radius, g, needs):
+    """One launch of kernel A' on these inputs: its gradients and its device
+    counts (tiles per path, d f2 row adds), checked against the counts
+    ``backward_work`` states from the coords."""
+    from raft_ncup_tpu_torch.ops import corr_cuda
+
+    corr_cuda.reset_backward_counts()
+    got = corr_cuda.lookup_levels_backward(f1s, lv, coords, radius, g, needs)
+    counts = corr_cuda.backward_counts()
+    want = corr_cuda.backward_work(
+        coords, [(t.shape[1], t.shape[2]) for t in lv], radius, f1s.shape[-1], needs)
+    check(counts == want, f"corr lookup backward counts {counts} differ from the "
+                          f"predicted {want} (needs {needs})")
+    return got, counts
+
+
 def check_corr_bwd(torch, gen, flush, mix, plain_reps=1):
     """Kernel A (the forward) and A' at the training shape against their
     plain versions, on the card: the lookup, then d f1s, every d f2 level
-    and d coords against the autograd of the plain lookup. Times the
-    backward launch the model makes (d f1s and d f2, no d coords), with
-    the bound."""
+    and d coords against the autograd of the plain lookup, and the model's
+    launch (d f1s and d f2) again with its device counts. Times the model's
+    launch, with the bound."""
     from raft_ncup_tpu_torch.ops.corr_cuda import (
         lookup_levels, lookup_levels_backward, lookup_pyramid, lookup_pyramid_backward)
 
     s = TRAIN_CORR
-    f1s, lv, coords = corr_inputs(torch, gen, s["B"], s["H"], s["W"], s["C"],
-                                  s["levels"], mix)
+    f1s, lv, coords, g = corr_bwd_inputs(torch, gen, mix)
     r = s["radius"]
     fwd_err, fwd_ok = max_err(torch, lookup_levels(f1s, lv, coords, r),
                               lookup_pyramid(f1s, lv, coords, r), **CORR_TOL)
     check(fwd_ok, f"corr lookup kernel disagrees with its plain version at the training "
                   f"shape ({mix} flow): {fwd_err:.3e}")
-    K = 2 * r + 1
-    g = torch.randn(*coords.shape[:3], s["levels"] * K * K, generator=gen).cuda()
+    model_path = (True, True, False)
     got = lookup_levels_backward(f1s, lv, coords, r, g)
-    torch.cuda.synchronize()
+    model, counts = corr_bwd_counts(torch, f1s, lv, coords, r, g, model_path)
     ref = lookup_pyramid_backward(f1s, lv, coords, r, g)
     errs = {"d_f1s": grad_err(torch, got[0], ref[0]),
-            "d_coords": grad_err(torch, got[2], ref[2])}
-    for l, (a, b) in enumerate(zip(got[1], ref[1])):
+            "d_coords": grad_err(torch, got[2], ref[2]),
+            "model_d_f1s": grad_err(torch, model[0], ref[0])}
+    for l, (a, m, b) in enumerate(zip(got[1], model[1], ref[1])):
         errs[f"d_f2_level{l}"] = grad_err(torch, a, b)
-    del got, ref
-    model_path = (True, True, False)
+        errs[f"model_d_f2_level{l}"] = grad_err(torch, m, b)
+    del got, model, ref
     ms = cuda_ms(torch, lambda: lookup_levels_backward(f1s, lv, coords, r, g, model_path),
                  10, flush)
     ms_no_atomics = cuda_ms(
@@ -518,19 +575,79 @@ def check_corr_bwd(torch, gen, flush, mix, plain_reps=1):
               f"{mix} flow", max_abs_err=max(a for _, _, a in errs.values()),
         max_rel_err=max(e for e, _, _ in errs.values()), ms=ms, ms_without_d_f2=ms_no_atomics,
         plain_ms=plain_ms, bytes=nbytes, flops=flops, atomics=atomics,
+        atomics_issued=s["C"] * counts["d_f2_row_adds"], counts=counts,
         bound_ms=max(t_bytes, t_ops), bound_by="operations" if t_ops >= t_bytes else "bytes",
         errors={k: e for k, (e, _, _) in errs.items()}, forward_max_abs_err=fwd_err)
     print(f"kernel A at the training shape, {mix} flow: max|kernel-plain| {fwd_err:.3e} "
           f"(atol {CORR_TOL['atol']})", flush=True)
     print(f"kernel A' {row['shape']}: max |kernel-plain| / max |plain| "
           f"{json.dumps(row['errors'])} (tolerance {GRAD_TOL}); kernel {ms:.4f} ms "
-          f"(without the d f2 atomics {ms_no_atomics:.4f} ms), plain {plain_ms:.2f} ms, "
+          f"(without d f2 {ms_no_atomics:.4f} ms), plain {plain_ms:.2f} ms, "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB, {atomics / 1e9:.3f} G atomic adds)", flush=True)
+          f"{nbytes / 1e6:.1f} MB); (tile, level) pairs {counts['tiled']} tiled / "
+          f"{counts['per_query']} per-query, {counts['d_f2_row_adds']} d f2 row adds: "
+          f"{row['atomics_issued'] / 1e9:.3f} G scalar atomic adds where one per window "
+          f"position would be {atomics / 1e9:.3f} G", flush=True)
     for name, (e, same, _) in errs.items():
         check(same and e <= GRAD_TOL,
               f"corr lookup backward kernel disagrees for {name} ({mix}): {e:.3e}")
     return row
+
+
+def check_corr_bwd_edges(torch, gen):
+    """Kernel A' against the autograd of the plain lookup, with and without
+    d coords, at the forward's edge coords on 9x11 queries (not multiples
+    of the 2x4 tile; levels 9x11, 4x5, 2x2, 1x1; windows fully off every
+    side) for C in {4, 512} and radius in {0, 8}, and on smooth 33x47
+    coords, where the tiled path runs, at C=252 (a lane without channels
+    in the second slice) r=4, C=4 r=8 and C=128 r=0; each launch's device
+    counts against ``backward_work``. Every gradient within GRAD_TOL of its
+    largest value."""
+    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_pyramid_backward, prepare_levels
+
+    cases = [(3, 9, 11, C, r, "edge") for C in (4, 512) for r in (0, 8)]
+    cases += [(2, 33, 47, 252, 4, "smooth"), (1, 33, 47, 4, 8, "smooth"),
+              (1, 33, 47, 128, 0, "smooth")]
+    worst = {"d_f1s": 0.0, "d_f2": 0.0, "d_coords": 0.0}
+    totals = {"tiled": 0, "per_query": 0, "d_f2_row_adds": 0}
+    for B, H, W, C, r, kind in cases:
+        f1 = torch.randn(B, H, W, C, generator=gen)
+        f2 = torch.randn(B, H, W, C, generator=gen)
+        if kind == "edge":
+            coords = edge_coords(torch, gen, B, H, W)
+        else:
+            y, x = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+            grid = torch.stack([x, y], -1).float()[None].expand(B, H, W, 2)
+            coords = grid + smooth_flow(torch, gen, B, H, W, coarse=(2, 3)) / 4
+        f1s, lv = prepare_levels(f1.cuda(), f2.cuda(), 4)
+        coords = coords.contiguous().cuda()
+        K = 2 * r + 1
+        g = torch.randn(B, H, W, 4 * K * K, generator=gen).cuda()
+        ref = lookup_pyramid_backward(f1s, lv, coords, r, g)
+        for needs in ((True, True, False), (True, True, True)):
+            got, counts = corr_bwd_counts(torch, f1s, lv, coords, r, g, needs)
+            errs = {"d_f1s": grad_err(torch, got[0], ref[0])}
+            errs["d_f2"] = max((grad_err(torch, a, b) for a, b in zip(got[1], ref[1])),
+                               key=lambda e: e[0])
+            if needs[2]:
+                errs["d_coords"] = grad_err(torch, got[2], ref[2])
+            for name, (e, same, _) in errs.items():
+                check(same and e <= GRAD_TOL,
+                      f"corr lookup backward kernel disagrees for {name} at B={B} {H}x{W} "
+                      f"C={C} r={r} ({kind}, needs {needs}): {e:.3e}")
+                worst[name] = max(worst[name], e)
+            if kind == "edge":  # every window of elements 2.. outside every level
+                check(not bool(got[0][2:].any()), f"far windows gave d f1s at C={C} r={r}")
+                if needs[2]:
+                    check(not bool(got[2][2:].any()), f"far windows gave d coords at C={C}")
+            totals = {k: totals[k] + counts[k] for k in totals}
+    check(totals["tiled"] > 0 and totals["per_query"] > 0,
+          f"kernel A' edge cases did not take both paths: {totals}")
+    print(f"kernel A' edge cases: {len(cases)} shapes x (without, with d coords) (C in "
+          f"4/252/128/512, r in 0/4/8, 9x11 and 33x47 queries, levels down to 1x1, far "
+          f"windows on every side): max |kernel-plain| / max |plain| {json.dumps(worst)} "
+          f"(tolerance {GRAD_TOL}); counts {totals}", flush=True)
+    return worst
 
 
 def nconv_bwd_work(B, H, W, k, cin, cout, bias, with_gc=True):
@@ -555,6 +672,17 @@ def nconv_bwd_work(B, H, W, k, cin, cout, bias, with_gc=True):
     return nbytes, flops
 
 
+def check_backward(torch, gen, flush):
+    """Kernels A' and B' on the card: A' at the training shape (random,
+    then smooth flow) and B' at the NCUP layers, each from its own
+    ``backward_generator``, and A''s edge phase from ``gen``. Returns
+    their rows."""
+    rows_gen = backward_generator(torch)
+    corr_bwd = [check_corr_bwd(torch, rows_gen, flush, mix) for mix in ("random", "smooth")]
+    check_corr_bwd_edges(torch, gen)
+    return corr_bwd, check_nconv_bwd(torch, backward_generator(torch), flush)
+
+
 def check_nconv_bwd(torch, gen, flush):
     """Kernels B (the forward) and B' against their plain versions at the
     four NCUP layers of a training batch (12 planes of 400x720), B' with
@@ -568,17 +696,17 @@ def check_nconv_bwd(torch, gen, flush):
     B, H, W = TRAIN_PLANES
     rows = []
     for name, k, cin, cout in NCUP_LAYERS:
-        d, c, w = nconv_inputs(torch, gen, B, H, W, k, cin, cout, name == "nconv_in")
-        out, conf_out = nconv2d_fused(d, c, w)
+        args = nconv_bwd_inputs(torch, gen, name, k, cin, cout)
+        d, c, w, _, out, conf_out, _, gc = args
         fwd = [max_err(torch, a, b, **NCONV_TOL)
                for a, b in zip((out, conf_out), nconv2d_plain(d, c, w))]
         check(all(ok for _, ok in fwd), f"nconv kernel disagrees with its plain version "
                                         f"for {name} at the training planes")
-        go = torch.randn(out.shape, generator=gen).cuda()
-        gc = None if name == "nconv_out" else torch.randn(out.shape, generator=gen).cuda()
-        args = (d, c, w, None, out, conf_out, go, gc)
         got = nconv2d_backward(*args)
+        again = nconv2d_backward(*args)
         torch.cuda.synchronize()
+        check(bit_equal(torch, got[2], again[2]),
+              f"nconv backward kernel's d weight differs between two runs for {name}")
         errs = nconv_bwd_errs(torch, got, args)
         ms = cuda_ms(torch, lambda: nconv2d_backward(*args), 20, flush)
         plain_ms = cuda_ms(torch, lambda: nconv2d_backward_plain(*args), 20, flush)
@@ -617,6 +745,10 @@ def check_nconv_bwd(torch, gen, flush):
         gc = torch.randn(out.shape, generator=gen).cuda()
         args = (d, c, wt, bias, out, conf_out, go, gc)
         got = nconv2d_backward(*args)
+        again = nconv2d_backward(*args)
+        check(all(a is None or bit_equal(torch, a, b) for a, b in zip(got[2:], again[2:])),
+              f"nconv backward kernel's d weight or d bias differs between two runs at "
+              f"k={k} {cin}->{cout} ({b}, {h}, {w})")
         for i, (e, same, _) in enumerate(nconv_bwd_errs(torch, got, args)):
             check(same and e <= GRAD_EDGE_TOL,
                   f"nconv backward kernel disagrees at k={k} {cin}->{cout} ({b}, {h}, {w}) "
@@ -881,8 +1013,11 @@ def check_train(torch, card) -> dict:
     batches = [data.batch(i, cfg.batch_size, "cuda") for i in range(TRAIN_STEPS)]
     step = make_train_step(cfg)
     torch.cuda.synchronize()
+    from raft_ncup_tpu_torch.ops import corr_cuda
+
     losses, step_ms = [], []
     reset_launches()
+    corr_cuda.reset_backward_counts()
     with counting_plain_versions() as plain_calls:
         for i, batch in enumerate(batches):
             if i == 1:  # the first step's autotuning tries large workspaces
@@ -893,6 +1028,7 @@ def check_train(torch, card) -> dict:
             step_ms.append(1e3 * (time.perf_counter() - t0))
             losses.append(float(metrics["loss"]))
     launches = read_launches()
+    bwd_counts = corr_cuda.backward_counts()
     peak_remat = torch.cuda.max_memory_allocated()
     skipped = int(state.sentinel["skipped"])
     torch.cuda.reset_peak_memory_stats()
@@ -910,14 +1046,18 @@ def check_train(torch, card) -> dict:
         "median_ms_steps_2_to_5": statistics.median(step_ms[1:]),
         "peak_gib_remat": peak_remat / 2**30, "peak_gib_no_remat": peak_no_remat / 2**30,
         "launches": launches, "launches_per_step": per_step,
+        "corr_lookup_bwd_counts": bwd_counts,
         "plain_version_calls": plain_calls, "profile": prof,
     }
     print(f"train: {json.dumps(report)}", flush=True)
     check(not plain_calls, f"plain versions ran during the train steps: {plain_calls}")
     check(all(math.isfinite(x) for x in losses), f"non-finite train loss: {losses}")
     check(skipped == 0, f"the sentinel skipped {skipped} of {TRAIN_STEPS} steps")
-    for name, n in launches.items():
-        check(n > 0, f"the train steps never launched kernel {name}")
+    # Per step: the lookup in each iteration's forward and in remat's
+    # recompute, its backward once an iteration; the 4 NCUP layers likewise.
+    want = {"corr_lookup": 2 * cfg.iters, "corr_lookup_bwd": cfg.iters,
+            "nconv": 8 * cfg.iters, "nconv_bwd": 4 * cfg.iters}
+    check(per_step == want, f"launches per step {per_step}, want {want}")
     return report
 
 
@@ -988,9 +1128,12 @@ _CONV_MARKERS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "implicit", "winogr
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    for group in ("corr_lookup_kernel", "corr_lookup_bwd_kernel", "nconv_kernel",
-                  "nconv_bwd_kernel"):
-        if group in low:
+    # A' launches corr_lookup_bwd_tile_kernel (or _query_kernel with d
+    # coords); B' nconv_bwd_kernel and nconv_bwd_finalize.
+    for marker, group in (("corr_lookup_bwd", "corr_lookup_bwd_kernel"),
+                          ("corr_lookup_kernel", "corr_lookup_kernel"),
+                          ("nconv_bwd", "nconv_bwd_kernel"), ("nconv_kernel", "nconv_kernel")):
+        if marker in low:
             return group
     if any(m in low for m in _CONV_MARKERS):
         return "convolution"
@@ -1091,8 +1234,7 @@ def main() -> int:
     check_corr_edges(torch, gen)
     nconv_rows = check_nconv(torch, gen, flush)
     check_nconv_edges(torch, gen)
-    corr_bwd = [check_corr_bwd(torch, gen, flush, mix) for mix in ("random", "smooth")]
-    nconv_bwd_rows = check_nconv_bwd(torch, gen, flush)
+    corr_bwd, nconv_bwd_rows = check_backward(torch, gen, flush)
     check_wrappers_refuse(torch)
     model, serve, launches = check_serve(torch, card)
     profile = profile_forward(torch, model, card)
@@ -1148,7 +1290,8 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], max_rel_err=row["max_rel_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
-            ms_without_d_f2=row["ms_without_d_f2"], atomics=row["atomics"]))
+            ms_without_d_f2=row["ms_without_d_f2"], counts=row["counts"],
+            atomics=row["atomics"], atomics_issued=row["atomics_issued"]))
     kernels.append(dict(
         name="nconv2d backward (4 NCUP layers of a training batch, 12 planes of 400x720; "
              "no TPU kernel: JAX differentiates the XLA path)",
@@ -1157,6 +1300,7 @@ def main() -> int:
         launches=tl["nconv_bwd"], train_launches=tl["nconv_bwd"],
         launches_per_step=train["launches_per_step"]["nconv_bwd"],
         max_rel_err=max(r["max_rel_err"] for r in nconv_bwd_rows),
+        layer_ms={r["layer"]: r["ms"] for r in nconv_bwd_rows},
         **_summed_numbers(nconv_bwd_rows)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -32,6 +32,13 @@ flow, far windows, C above 256). The kernel counts the tiles of each
 path on the device; :func:`path_tiles` reads the counts and
 :func:`reset_path_tiles` zeroes them. :func:`tile_paths` states the same
 rule in plain tensor code.
+
+The backward kernel takes the same tiles and the same rule per level: a
+tiled tile sums its box once and adds one d f2 row per covered box pixel,
+a per-query tile adds a row per window position (every tile, when d
+coords is asked for). :func:`backward_counts` reads its device counts
+(tiles per path, d f2 row adds), :func:`reset_backward_counts` zeroes
+them and :func:`backward_work` states them in tensor code.
 """
 
 from __future__ import annotations
@@ -157,6 +164,69 @@ def prepare_levels(
     return f1s, levels
 
 
+def _tile_windows(coords, level_hw, radius):
+    """Per level, the clipped windows of every tile's queries:
+    ``(x0, x1, y0, y1, some)``, each (B, ty, tx, TILE_H * TILE_W) with the
+    queries of a tile row-major and the padding past the image empty;
+    ``some`` says whether a window holds a pixel of its level. Coordinates
+    are integral floats."""
+    B, H, W, _ = coords.shape
+    ty, tx = -(-H // TILE_H), -(-W // TILE_W)
+    k1 = 2 * radius + 2
+    pad = (0, tx * TILE_W - W, 0, ty * TILE_H - H)
+
+    def per_tile(v):
+        """(B, H, W) -> (B, ty, tx, TILE_H * TILE_W), the padding empty."""
+        v = torch.nn.functional.pad(v, pad, value=float(-k1))
+        v = v.reshape(B, ty, TILE_H, tx, TILE_W).permute(0, 1, 3, 2, 4)
+        return v.reshape(B, ty, tx, TILE_H * TILE_W)
+
+    for lvl, (hl, wl) in enumerate(level_hw):
+        o = torch.floor(coords.float() / float(2**lvl)) - radius
+        ox = per_tile(o[..., 0].clamp(-k1, wl))
+        oy = per_tile(o[..., 1].clamp(-k1, hl))
+        x0, x1 = ox.clamp(min=0), (ox + k1).clamp(max=wl)
+        y0, y1 = oy.clamp(min=0), (oy + k1).clamp(max=hl)
+        yield x0, x1, y0, y1, (x0 < x1) & (y0 < y1)
+
+
+def _tile_rule(x0, x1, y0, y1, some):
+    """(tiled, areas): whether each tile takes the tiled path by the
+    kernels' box rule (channels aside), and the sum of its windows' areas."""
+    far = float(2**29)
+    area = torch.where(some, (x1 - x0) * (y1 - y0), 0.0).sum(-1)
+    bx0 = x0.masked_fill(~some, far).amin(-1)
+    bx1 = x1.masked_fill(~some, -far).amax(-1)
+    by0 = y0.masked_fill(~some, far).amin(-1)
+    by1 = y1.masked_fill(~some, -far).amax(-1)
+    npix = (bx1 - bx0).clamp(min=0) * (by1 - by0).clamp(min=0)
+    return STRIP_RATIO * npix <= area, area
+
+
+def _union_area(x0, x1, y0, y1, some):
+    """Pixels covered by at least one of the (..., n) clipped windows, by
+    inclusion and exclusion over the 2^n - 1 subsets, each subset's
+    intersection built from a smaller one's."""
+    far = float(2**29)
+    x0, y0 = x0.masked_fill(~some, far), y0.masked_fill(~some, far)
+    x1, y1 = x1.masked_fill(~some, -far), y1.masked_fill(~some, -far)
+    n = x0.shape[-1]
+    inter = [None] * (1 << n)
+    total = torch.zeros(x0.shape[:-1], dtype=torch.float64, device=x0.device)
+    for subset in range(1, 1 << n):
+        top = subset.bit_length() - 1
+        rest = subset & ~(1 << top)
+        box = (x0[..., top], x1[..., top], y0[..., top], y1[..., top])
+        if rest:
+            r = inter[rest]
+            box = (torch.maximum(r[0], box[0]), torch.minimum(r[1], box[1]),
+                   torch.maximum(r[2], box[2]), torch.minimum(r[3], box[3]))
+        inter[subset] = box
+        area = (box[1] - box[0]).clamp(min=0) * (box[3] - box[2]).clamp(min=0)
+        total += area.double() if bin(subset).count("1") % 2 else -area.double()
+    return total
+
+
 def tile_paths(
     coords: torch.Tensor,
     level_hw: Sequence[tuple[int, int]],
@@ -171,35 +241,42 @@ def tile_paths(
     bounding box of its clipped windows is at most the sum of their areas.
     Plain tensor code on the coords' device."""
     B, H, W, _ = coords.shape
-    ty, tx = -(-H // TILE_H), -(-W // TILE_W)
-    tiles = len(level_hw) * B * ty * tx
+    tiles = len(level_hw) * B * -(-H // TILE_H) * -(-W // TILE_W)
     if channels > MAX_TILED_CHANNELS or tiles == 0:
         return 0, tiles
-    k1 = 2 * radius + 2
-    pad = (0, tx * TILE_W - W, 0, ty * TILE_H - H)
-    far = float(2**29)
-
-    def per_tile(v, fill, reduce):
-        """(B, H, W) -> (B, ty, tx), the padding filled with ``fill``."""
-        v = torch.nn.functional.pad(v, pad, value=fill)
-        return reduce(v.reshape(B, ty, TILE_H, tx, TILE_W), dim=(2, 4))
-
-    tiled = 0
-    for lvl, (hl, wl) in enumerate(level_hw):
-        o = torch.floor(coords.float() / float(2**lvl)) - radius
-        ox = o[..., 0].clamp(-k1, wl)
-        oy = o[..., 1].clamp(-k1, hl)
-        x0, x1 = ox.clamp(min=0), (ox + k1).clamp(max=wl)
-        y0, y1 = oy.clamp(min=0), (oy + k1).clamp(max=hl)
-        some = (x0 < x1) & (y0 < y1)
-        area = torch.where(some, (x1 - x0) * (y1 - y0), 0.0)
-        bx0 = per_tile(x0.masked_fill(~some, far), far, torch.amin)
-        bx1 = per_tile(x1.masked_fill(~some, -far), -far, torch.amax)
-        by0 = per_tile(y0.masked_fill(~some, far), far, torch.amin)
-        by1 = per_tile(y1.masked_fill(~some, -far), -far, torch.amax)
-        npix = (bx1 - bx0).clamp(min=0) * (by1 - by0).clamp(min=0)
-        tiled += int((STRIP_RATIO * npix <= per_tile(area, 0.0, torch.sum)).sum())
+    tiled = sum(int(_tile_rule(*win)[0].sum())
+                for win in _tile_windows(coords, level_hw, radius))
     return tiled, tiles - tiled
+
+
+def backward_work(
+    coords: torch.Tensor,
+    level_hw: Sequence[tuple[int, int]],
+    radius: int,
+    channels: int,
+    needs: tuple[bool, bool, bool] = (True, True, False),
+) -> dict[str, int]:
+    """What the backward kernel does for these coords, by its rule: the
+    (tile, level) pairs that take its tiled and its per-query path, and
+    the rows of C floats it adds into the d f2 levels. With d coords
+    (``needs[2]``) every tile takes the per-query path; otherwise a tile
+    takes the forward's path (:func:`tile_paths`). A per-query tile adds
+    a row per in-level window position, a tiled one a row per pixel of its
+    box that some window covers; no rows without d f2 (``needs[1]``).
+    Plain tensor code on the coords' device."""
+    B, H, W, _ = coords.shape
+    tiles = len(level_hw) * B * -(-H // TILE_H) * -(-W // TILE_W)
+    tiled = adds = 0
+    for win in _tile_windows(coords, level_hw, radius):
+        rule, area = _tile_rule(*win)
+        if needs[2] or channels > MAX_TILED_CHANNELS:
+            rule = torch.zeros_like(rule)
+        tiled += int(rule.sum())
+        if needs[1]:
+            adds += int(area[~rule].sum())
+            if bool(rule.any()):
+                adds += int(_union_area(*(t[rule] for t in win)).sum())
+    return {"tiled": tiled, "per_query": tiles - tiled, "d_f2_row_adds": adds}
 
 
 _path_counts: dict[torch.device, torch.Tensor] = {}
@@ -225,6 +302,33 @@ def path_tiles() -> dict[str, int]:
 
 def reset_path_tiles() -> None:
     for buf in _path_counts.values():
+        buf.zero_()
+
+
+_bwd_counts: dict[torch.device, torch.Tensor] = {}
+
+
+def _bwd_counts_buffer(device: torch.device) -> torch.Tensor:
+    buf = _bwd_counts.get(device)
+    if buf is None:
+        buf = _bwd_counts[device] = torch.zeros(3, dtype=torch.int64, device=device)
+    return buf
+
+
+def backward_counts() -> dict[str, int]:
+    """The backward kernel's (tile, level) pairs on its tiled and its
+    per-query path and its d f2 row adds, in every launch since the last
+    :func:`reset_backward_counts`, over all devices; :func:`backward_work`
+    states them in tensor code. Reads the device counters, so it waits for
+    the launches to finish."""
+    total = [0, 0, 0]
+    for buf in _bwd_counts.values():
+        total = [a + b for a, b in zip(total, buf.tolist())]
+    return dict(zip(("tiled", "per_query", "d_f2_row_adds"), total))
+
+
+def reset_backward_counts() -> None:
+    for buf in _bwd_counts.values():
         buf.zero_()
 
 
@@ -371,7 +475,7 @@ def _bwd_launcher():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         _bwd_fn = (lib, fn)
     return _bwd_fn
@@ -417,6 +521,7 @@ def lookup_levels_backward(
         f1s.data_ptr(), coords.data_ptr(), ptrs, hw, L, B, H, W, C, radius,
         grad.data_ptr(), None if df1 is None else df1.data_ptr(), gptrs,
         None if dco is None else dco.data_ptr(),
+        _bwd_counts_buffer(f1s.device).data_ptr(),
         f1s.device.index, torch.cuda.current_stream(f1s.device).cuda_stream,
     )
     cuda_build.check(rc, lib, "corr_lookup_bwd_f32")

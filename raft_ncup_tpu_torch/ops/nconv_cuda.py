@@ -222,7 +222,10 @@ def _bwd_launcher():
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
-        _bwd_fn = (lib, fn)
+        scratch = lib.nconv_bwd_scratch_floats
+        scratch.restype = ctypes.c_longlong
+        scratch.argtypes = [ctypes.c_int] * 6
+        _bwd_fn = (lib, fn, scratch)
     return _bwd_fn
 
 
@@ -235,7 +238,9 @@ def nconv2d_backward(
     a bias.
 
     A CPU tensor takes :func:`nconv2d_backward_plain`; a CUDA tensor
-    launches the kernel on the current stream or raises."""
+    launches the kernel on the current stream or raises. d weight and
+    d bias are summed over the kernel's tiles in a fixed order, so they
+    are equal bit for bit from run to run."""
     if data.device.type == "cpu":
         return nconv2d_backward_plain(
             data, conf, weight, bias, out, conf_out, g_out, g_conf, eps
@@ -254,12 +259,16 @@ def nconv2d_backward(
                 f"nconv backward: {tuple(t.shape)} {t.dtype} is not a contiguous "
                 f"f32 ({B}, {cout}, {H}, {W}) on {data.device}"
             )
-    lib, fn = _bwd_launcher()
+    lib, fn, scratch = _bwd_launcher()
     d_data = torch.empty_like(data)
     d_conf = torch.empty_like(conf)
-    d_weight = torch.zeros_like(weight)
-    d_bias = None if bias is None else torch.zeros_like(bias)
-    gsum = torch.zeros(cout, dtype=torch.float32, device=data.device)
+    d_weight = torch.empty_like(weight)
+    d_bias = None if bias is None else torch.empty_like(bias)
+    # Each block's partial sums of d weight, d bias and the weight-sum term,
+    # which the kernel's second launch adds up in a fixed order.
+    part = torch.empty(
+        max(scratch(B, cin, cout, H, W, k), 1), dtype=torch.float32, device=data.device
+    )
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -268,7 +277,7 @@ def nconv2d_backward(
         data.data_ptr(), conf.data_ptr(), weight.data_ptr(), ptr(bias),
         out.data_ptr(), conf_out.data_ptr(), ptr(g_out), ptr(g_conf),
         d_data.data_ptr(), d_conf.data_ptr(), d_weight.data_ptr(), ptr(d_bias),
-        gsum.data_ptr(), B, cin, cout, H, W, k, eps,
+        part.data_ptr(), B, cin, cout, H, W, k, eps,
         data.device.index, torch.cuda.current_stream(data.device).cuda_stream,
     )
     cuda_build.check(rc, lib, "nconv_bwd_f32")
