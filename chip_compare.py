@@ -149,7 +149,7 @@ def corr_bwd_row(torch, cs, gen, flush, tree, mix) -> bool:
         corr_cuda.reset_backward_counts()
     got = run()
     counts = corr_cuda.backward_counts() if counted else None
-    ref = corr_cuda.lookup_pyramid_backward(f1s, lv, coords, s["radius"], g, needs)
+    ref = cs.corr_bwd_ref(torch, f1s, lv, coords, s["radius"], g, needs)
     errs = [cs.grad_err(torch, got[0], ref[0])]
     errs += [cs.grad_err(torch, a, b) for a, b in zip(got[1], ref[1])]
     del got, ref

@@ -13,18 +13,20 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    r=4) with random and with smooth flow, at 1088x1920 (136x240 level 0)
    and at 2176x3840 (272x480), with CUDA-event times, the bound of each row
    and the tiles that took each of the kernel's two paths (checked against
-   ``corr_cuda.tile_paths``); then at edge cases (C 4 to 512, radius 0 to
-   8, odd levels down to 1x1, windows off every side);
+   ``corr_cuda.tile_paths``), and at the small model's served shape (C=128,
+   r=3) with both mixes; then at edge cases (C 4 to 512, radius 0 to 8,
+   odd levels down to 1x1, windows off every side);
 4. holds the fused NConv2d kernel (B) against its plain version at the
    four NCUP layer shapes of one served batch of two (4 folded planes of
    440x1024) and at edge cases (every k, Cout 8, bias, ragged, tiny and
    misaligned planes);
 5. holds the lookup (A) and its backward kernel (A') against the plain
    lookup and its autograd at the training shape (batch 6, 50x90, C=256,
-   4 levels, r=4) with random and smooth flow (d f1s, each d f2 level,
-   d coords), with A''s device counts (tiles per path, d f2 row adds)
-   against ``corr_cuda.backward_work``, then A' at edge cases with and
-   without d coords; and the NConv2d (B) and its backward kernel (B')
+   4 levels, r=4) and at the small model's (C=128, r=3), each with random
+   and smooth flow (d f1s, each d f2 level, d coords, against the plain
+   autograd in float64), with A''s device counts (tiles per path, d f2 row
+   adds) against ``corr_cuda.backward_work``, then A' at edge cases with
+   and without d coords; and the NConv2d (B) and its backward kernel (B')
    against their plain versions at the four NCUP layers of a training
    batch (12 planes of 400x720), B' also at edge cases, with the NaN
    places of windows without confidence, and twice on the same inputs
@@ -32,12 +34,15 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    that the wrappers raise on CUDA inputs their kernels do not take (other
    dtypes, strided layouts), with or without a gradient;
 6. serves 8 Sintel-size (436x1024) requests through ``FlowServer`` with
-   the flagship model on the card, checks every answer, checks that both
-   forward kernels ran while serving, and holds one served pair against
-   the same model run through the plain versions;
-7. traces forwards of the served model at batch 2 with ``torch.profiler``
-   and prints where the device time goes (wall and device ms per
-   forward, idle share, time per kernel group, the top kernels);
+   each of the flagship, ``raft`` and small ``raft`` on the card, every
+   kernel count set to 0 just before each and read just after; checks
+   every answer, that exactly the path's forward kernels ran (A, and B
+   for the flagship; 12 lookups a batch), and holds one served pair
+   against the same model run through the plain versions;
+7. traces forwards of the served flagship and ``raft`` at batch 2 with
+   ``torch.profiler`` and prints where the device time goes (wall and
+   device ms per forward, idle share, time per kernel group, the top
+   kernels);
 8. trains the flagship 5 steps at ``scripts/train_raft_nc_things.sh``'s
    configuration (batch 6 at 400x720, 12 iterations, remat on) through
    all four kernels: finite losses, no step skipped, no plain version
@@ -47,7 +52,10 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    optimizer ranges (its ``train:`` line);
 9. holds one train step through the kernels against the same step
    through the plain versions at batch 2, 400x720: the loss and every
-   gradient;
+   gradient; then trains ``raft`` and small ``raft`` 3 steps each at the
+   same configuration (A 24 and A' 12 a step, no B or B'), each with
+   its own launch counts, and holds a kernel step of each against a
+   plain-version step;
 10. prints one JSON line describing the kernels, the card's name and
     power limit, and, last, the JSON result line.
 
@@ -409,13 +417,21 @@ def check_nconv_edges(torch, gen):
 # ------------------------------------------------------ backward kernels
 
 TRAIN_CORR = dict(B=6, H=50, W=90, C=256, levels=4, radius=4)  # a batch of 6 at 400x720
+SMALL_TRAIN_CORR = dict(TRAIN_CORR, C=128, radius=3)  # the small model's fnet and radius
 TRAIN_PLANES = (12, 400, 720)  # NCUP folds the 2 flow channels of 6 pairs
 # Gradients against their plain versions, relative to the largest value of
 # each plain gradient: sums in another order, and with float atomics in an
-# order that changes from run to run. Kernel B' is held against its plain
-# version run in float64 (its NaN and infinite places against the float32
-# run): cuDNN's float32 weight gradient on small planes is itself off by up
-# to 2.1e-3 of its largest value, while the kernel stays within 1e-6. On
+# order that changes from run to run. Kernel A' is held against its plain
+# version run in float64: in float32 the plain version rounds each window
+# tap's position on its own, and a query within float32 rounding of an
+# integer (x = 59.999996 in the small model's smooth-flow row) gets taps on
+# both sides of it, where the bilinear weights' derivative jumps: its d
+# coords there were off by 3.4e-3 of the largest value against float64,
+# while the kernel takes one fraction per query and level. Kernel B' is
+# held against its plain version run in float64 too (its NaN and infinite
+# places against the float32 run): cuDNN's float32 weight gradient on small
+# planes is itself off by up to 2.1e-3 of its largest value, while the
+# kernel stays within 1e-6. On
 # B''s edge planes, smaller than the kernel's window, d conf = Gdc * data +
 # Gc is a difference of two nearly equal terms (about 300 times the
 # result for a 1x1 plane and k=7), hence the looser bound there.
@@ -431,10 +447,11 @@ def backward_generator(torch):
     return torch.Generator().manual_seed(0)
 
 
-def corr_bwd_inputs(torch, gen, mix):
-    """Kernel A''s inputs at the training shape: f1s, the pyramid, coords
-    with ``mix`` flow, and the upstream gradient of the lookup."""
-    s = TRAIN_CORR
+def corr_bwd_inputs(torch, gen, mix, s=None):
+    """Kernel A''s inputs at the training shape ``s`` (default
+    ``TRAIN_CORR``): f1s, the pyramid, coords with ``mix`` flow, and the
+    upstream gradient of the lookup."""
+    s = s or TRAIN_CORR
     f1s, lv, coords = corr_inputs(torch, gen, s["B"], s["H"], s["W"], s["C"],
                                   s["levels"], mix)
     K = 2 * s["radius"] + 1
@@ -517,6 +534,15 @@ def corr_bwd_work(torch, f1s, lv, coords, radius, with_coords):
     return nbytes, flops, C * positions
 
 
+def corr_bwd_ref(torch, f1s, lv, coords, radius, g, needs=(True, True, True)):
+    """The plain version of kernel A' run in float64: what A' is held
+    against."""
+    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_pyramid_backward
+
+    return lookup_pyramid_backward(f1s.double(), [t.double() for t in lv], coords.double(),
+                                   radius, g.double(), needs)
+
+
 def corr_bwd_counts(torch, f1s, lv, coords, radius, g, needs):
     """One launch of kernel A' on these inputs: its gradients and its device
     counts (tiles per path, d f2 row adds), checked against the counts
@@ -533,17 +559,18 @@ def corr_bwd_counts(torch, f1s, lv, coords, radius, g, needs):
     return got, counts
 
 
-def check_corr_bwd(torch, gen, flush, mix, plain_reps=1):
-    """Kernel A (the forward) and A' at the training shape against their
-    plain versions, on the card: the lookup, then d f1s, every d f2 level
-    and d coords against the autograd of the plain lookup, and the model's
-    launch (d f1s and d f2) again with its device counts. Times the model's
-    launch, with the bound."""
+def check_corr_bwd(torch, gen, flush, mix, plain_reps=1, s=None):
+    """Kernel A (the forward) and A' at the training shape ``s`` (default
+    ``TRAIN_CORR``) against their plain versions, on the card: the lookup,
+    then d f1s, every d f2 level and d coords against the autograd of the
+    plain lookup in float64, and the model's launch (d f1s and d f2) again
+    with its device counts. Times the model's launch, with the bound, and
+    the float32 plain version."""
     from raft_ncup_tpu_torch.ops.corr_cuda import (
         lookup_levels, lookup_levels_backward, lookup_pyramid, lookup_pyramid_backward)
 
-    s = TRAIN_CORR
-    f1s, lv, coords, g = corr_bwd_inputs(torch, gen, mix)
+    s = s or TRAIN_CORR
+    f1s, lv, coords, g = corr_bwd_inputs(torch, gen, mix, s)
     r = s["radius"]
     fwd_err, fwd_ok = max_err(torch, lookup_levels(f1s, lv, coords, r),
                               lookup_pyramid(f1s, lv, coords, r), **CORR_TOL)
@@ -552,7 +579,7 @@ def check_corr_bwd(torch, gen, flush, mix, plain_reps=1):
     model_path = (True, True, False)
     got = lookup_levels_backward(f1s, lv, coords, r, g)
     model, counts = corr_bwd_counts(torch, f1s, lv, coords, r, g, model_path)
-    ref = lookup_pyramid_backward(f1s, lv, coords, r, g)
+    ref = corr_bwd_ref(torch, f1s, lv, coords, r, g)
     errs = {"d_f1s": grad_err(torch, got[0], ref[0]),
             "d_coords": grad_err(torch, got[2], ref[2]),
             "model_d_f1s": grad_err(torch, model[0], ref[0])}
@@ -603,7 +630,7 @@ def check_corr_bwd_edges(torch, gen):
     in the second slice) r=4, C=4 r=8 and C=128 r=0; each launch's device
     counts against ``backward_work``. Every gradient within GRAD_TOL of its
     largest value."""
-    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_pyramid_backward, prepare_levels
+    from raft_ncup_tpu_torch.ops.corr_cuda import prepare_levels
 
     cases = [(3, 9, 11, C, r, "edge") for C in (4, 512) for r in (0, 8)]
     cases += [(2, 33, 47, 252, 4, "smooth"), (1, 33, 47, 4, 8, "smooth"),
@@ -623,7 +650,7 @@ def check_corr_bwd_edges(torch, gen):
         coords = coords.contiguous().cuda()
         K = 2 * r + 1
         g = torch.randn(B, H, W, 4 * K * K, generator=gen).cuda()
-        ref = lookup_pyramid_backward(f1s, lv, coords, r, g)
+        ref = corr_bwd_ref(torch, f1s, lv, coords, r, g)
         for needs in ((True, True, False), (True, True, True)):
             got, counts = corr_bwd_counts(torch, f1s, lv, coords, r, g, needs)
             errs = {"d_f1s": grad_err(torch, got[0], ref[0])}
@@ -673,14 +700,18 @@ def nconv_bwd_work(B, H, W, k, cin, cout, bias, with_gc=True):
 
 
 def check_backward(torch, gen, flush):
-    """Kernels A' and B' on the card: A' at the training shape (random,
-    then smooth flow) and B' at the NCUP layers, each from its own
-    ``backward_generator``, and A''s edge phase from ``gen``. Returns
-    their rows."""
+    """Kernels A' and B' on the card: A' at the flagship's training shape
+    and at the small model's (random, then smooth flow, each shape from
+    its own ``backward_generator``), B' at the NCUP layers (from its own),
+    and A''s edge phase from ``gen``. Returns A''s rows at each shape and
+    B''s rows."""
     rows_gen = backward_generator(torch)
     corr_bwd = [check_corr_bwd(torch, rows_gen, flush, mix) for mix in ("random", "smooth")]
+    rows_gen = backward_generator(torch)
+    corr_bwd_small = [check_corr_bwd(torch, rows_gen, flush, mix, s=SMALL_TRAIN_CORR)
+                      for mix in ("random", "smooth")]
     check_corr_bwd_edges(torch, gen)
-    return corr_bwd, check_nconv_bwd(torch, backward_generator(torch), flush)
+    return corr_bwd, corr_bwd_small, check_nconv_bwd(torch, backward_generator(torch), flush)
 
 
 def check_nconv_bwd(torch, gen, flush):
@@ -800,43 +831,80 @@ def check_wrappers_refuse(torch):
 
 # ------------------------------------------------------------------- serve
 
-def check_serve(torch, card):
-    from raft_ncup_tpu_torch.config import ServeConfig, flagship_config
+def model_config(variant, small, **kw):
+    from raft_ncup_tpu_torch.config import ModelConfig
+
+    return ModelConfig(variant=variant, small=small, **kw)
+
+
+def model_label(variant, small) -> str:
+    return variant + (" small" if small else "")
+
+
+def line_name(phase, label) -> str:
+    """The name of a phase's JSON line: the flagship's keeps the bare
+    phase name (``train:``, ``profile:``), another model's adds its label."""
+    return phase if label == "raft_nc_dbl" else f"{phase} {label}"
+
+
+def on_path(variant, train) -> set:
+    """The kernels a model of ``variant`` launches: the lookup (A) always,
+    NConv2d (B) with NCUP, and in training their backward kernels."""
+    fwd = {"corr_lookup"} | ({"nconv"} if variant == "raft_nc_dbl" else set())
+    bwd = {"corr_lookup_bwd"} | ({"nconv_bwd"} if variant == "raft_nc_dbl" else set())
+    return fwd | bwd if train else fwd
+
+
+def check_launches(launches, variant, train, what) -> None:
+    """Every kernel of the path launched at least once, and no other."""
+    want = on_path(variant, train)
+    check(all(launches[k] > 0 for k in want) and not any(
+        n for k, n in launches.items() if k not in want),
+        f"{what}: launches {launches}, want at least one of each of {sorted(want)} only")
+
+
+def check_serve(torch, card, variant="raft_nc_dbl", small=False):
+    """Serve ``SERVE_REQUESTS`` requests at ``SERVE_SIZE`` with one model
+    (seeded weights, both kernels, f32), every kernel count set to 0 just
+    before and read just after; check every answer, the kernels of the
+    path (one lookup per GRU iteration of each batch) and one served pair
+    against the same weights through the plain versions."""
     from raft_ncup_tpu_torch.models.raft import RAFT
     from raft_ncup_tpu_torch.ops import corr_cuda
-    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
-    from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
     from raft_ncup_tpu_torch.ops.padding import InputPadder
     from raft_ncup_tpu_torch.serve import make_pairs, serve_pairs
+    from raft_ncup_tpu_torch.config import ServeConfig
 
+    label = model_label(variant, small)
     cfg = ServeConfig(batch_sizes=(1, 2), iter_levels=(12,), queue_capacity=16)
-    model = RAFT(flagship_config(corr_impl="pallas", nconv_impl="pallas"),
+    model = RAFT(model_config(variant, small, corr_impl="pallas", nconv_impl="pallas"),
                  device="cuda", seed=0)
     pairs = make_pairs(SERVE_SIZE, SERVE_REQUESTS, seed=0)
-    lookup_levels.launches = 0
-    nconv2d_fused.launches = 0
+    reset_launches()
     corr_cuda.reset_path_tiles()
     report, responses = serve_pairs(model, cfg, pairs, SERVE_SIZE)
     torch.cuda.synchronize()
-    launches = {"corr_lookup": lookup_levels.launches, "nconv": nconv2d_fused.launches}
+    launches = read_launches()
     served_paths = corr_cuda.path_tiles()
-    print(f"serve: {report['serve_ok']}/{report['serve_requests']} ok at "
+    per_batch = report["corr_kernel_launches"] / report["serve_batches"]
+    print(f"serve {label}: {report['serve_ok']}/{report['serve_requests']} ok at "
           f"{SERVE_SIZE[0]}x{SERVE_SIZE[1]}, batch sizes {cfg.batch_sizes}, "
           f"{cfg.iter_levels[0]} iterations; p50 {report['serve_p50_ms']} ms, "
           f"p99 {report['serve_p99_ms']} ms, {report['serve_pairs_per_sec']:.3f} pairs/s "
           f"on {card}; {report['stats']}; launches while serving "
-          f"(warm-up included) {launches}; corr lookup tiles by path {served_paths}",
-          flush=True)
+          f"(warm-up included) {launches}, corr lookups per served batch {per_batch}; "
+          f"corr lookup tiles by path {served_paths}", flush=True)
     check(report["errors"] == 0, f"serve errors: {[r.detail for r in responses if not r.ok]}")
     for r in responses:
         check(r.ok, f"request {r.request_id} answered {r.status}: {r.detail}")
         check(r.flow.shape == (*SERVE_SIZE, 2), f"flow shape {r.flow.shape}")
         check(bool(torch.isfinite(torch.from_numpy(r.flow)).all()), "non-finite flow")
-    check(report["corr_kernel_launches"] > 0, "served without the corr kernel")
-    check(report["nconv_kernel_launches"] > 0, "served without the nconv kernel")
+    check_launches(launches, variant, False, f"serve {label}")
+    check(per_batch == cfg.iter_levels[0],
+          f"serve {label}: {per_batch} corr lookups per batch, want {cfg.iter_levels[0]}")
 
     # One served pair against the same weights through the plain versions.
-    plain = RAFT(flagship_config(corr_impl="onthefly", nconv_impl="xla"),
+    plain = RAFT(model_config(variant, small, corr_impl="onthefly", nconv_impl="xla"),
                  device="cuda", seed=0)
     plain.load_state_dict(model.state_dict(), strict=True)
     padder = InputPadder((*SERVE_SIZE, 3), mode="sintel")
@@ -848,12 +916,14 @@ def check_serve(torch, card):
     up_p = padder.unpad(up_p)[0]
     e_lr, ok_lr = max_err(torch, lr_k, lr_p, **FLOW_LR_TOL)
     e_up, ok_up = max_err(torch, served_up, up_p, **FLOW_UP_TOL)
-    print(f"served pair vs plain versions: max|flow_lr diff| {e_lr:.3e} "
+    print(f"served {label} pair vs plain versions: max|flow_lr diff| {e_lr:.3e} "
           f"(atol {FLOW_LR_TOL['atol']}), max|flow_up diff| {e_up:.3e} "
           f"(atol {FLOW_UP_TOL['atol']}), max|flow_up| {float(up_p.abs().max()):.3f}",
           flush=True)
-    check(ok_lr and ok_up, "served flow disagrees with the plain-version model")
-    report.update(flow_lr_err=e_lr, flow_up_err=e_up, corr_path_tiles=served_paths)
+    check(ok_lr and ok_up, f"served {label} flow disagrees with the plain-version model")
+    report.update(flow_lr_err=e_lr, flow_up_err=e_up, corr_path_tiles=served_paths,
+                  corr_launches_per_batch=per_batch)
+    del plain
     return model, report, launches
 
 
@@ -869,6 +939,9 @@ TRAIN_CFG = dict(name="chip_smoke", stage="things", lr=1.25e-4, num_steps=100_00
                  batch_size=6, image_size=(400, 720), iters=12, wdecay=5e-5,
                  epsilon=1e-8, clip=1.0, gamma=0.8)
 TRAIN_STEPS = 5
+VARIANT_TRAIN_STEPS = 3  # the other trained models: fewer steps, the same width
+SERVED_MODELS = (("raft_nc_dbl", False), ("raft", False), ("raft", True))  # (variant, small)
+TRAINED_MODELS = (("raft", False), ("raft", True))  # besides the flagship
 PLAIN_VERSIONS = (  # (module, function): every plain version of the four kernels
     ("ops.corr_cuda", "lookup_pyramid"), ("ops.corr_cuda", "lookup_pyramid_backward"),
     ("ops.nconv_cuda", "nconv2d_plain"), ("ops.nconv_cuda", "nconv2d_backward_plain"),
@@ -995,22 +1068,27 @@ def profile_train_step(torch, step, state, batch) -> dict:
                               "calls": e.count} for e in host]}
 
 
-def check_train(torch, card) -> dict:
-    """The main path of this slice: 5 steps of the flagship's training at
-    the full configuration above, through both kernels and both backward
-    kernels; finite losses, no skipped step, no plain version called, every
-    kernel launched. Then the peak memory of one step without remat and a
-    profiled step."""
-    from raft_ncup_tpu_torch.config import TrainConfig, flagship_config
+def check_train(torch, card, variant="raft_nc_dbl", small=False, steps=TRAIN_STEPS,
+                extras=True) -> dict:
+    """A main path: ``steps`` steps of one model's training at the full
+    configuration above, through the lookup kernel and its backward (and,
+    with NCUP, the NConv2d kernel and its backward), every kernel count set
+    to 0 just before and read just after; finite losses, no skipped step,
+    no plain version called, each kernel launched as often as the step's
+    structure says. With ``extras``, then the peak memory of one step
+    without remat and a profiled step."""
+    from raft_ncup_tpu_torch.config import TrainConfig
     from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
     from raft_ncup_tpu_torch.training.state import create_train_state
     from raft_ncup_tpu_torch.training.step import make_train_step
 
+    label = model_label(variant, small)
     cfg = TrainConfig(**TRAIN_CFG)
-    model_cfg = flagship_config(dataset=cfg.stage, corr_impl="pallas", nconv_impl="pallas")
+    model_cfg = model_config(variant, small, dataset=cfg.stage, corr_impl="pallas",
+                             nconv_impl="pallas")
     state = create_train_state(model_cfg, cfg, "cuda")
     data = SyntheticFlowDataset(cfg.image_size, seed=cfg.seed)
-    batches = [data.batch(i, cfg.batch_size, "cuda") for i in range(TRAIN_STEPS)]
+    batches = [data.batch(i, cfg.batch_size, "cuda") for i in range(steps)]
     step = make_train_step(cfg)
     torch.cuda.synchronize()
     from raft_ncup_tpu_torch.ops import corr_cuda
@@ -1031,44 +1109,48 @@ def check_train(torch, card) -> dict:
     bwd_counts = corr_cuda.backward_counts()
     peak_remat = torch.cuda.max_memory_allocated()
     skipped = int(state.sentinel["skipped"])
-    torch.cuda.reset_peak_memory_stats()
-    make_train_step(cfg, remat=False)(state, batches[0])
-    torch.cuda.synchronize()
-    peak_no_remat = torch.cuda.max_memory_allocated()
-    prof = profile_train_step(torch, step, state, batches[1])
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    per_step = {k: v / steps for k, v in launches.items()}
     report = {
         "card": card,
-        "config": f"raft_nc_dbl stage {cfg.stage}, batch {cfg.batch_size} at "
+        "config": f"{label} stage {cfg.stage}, batch {cfg.batch_size} at "
                   f"{cfg.image_size[0]}x{cfg.image_size[1]}, {cfg.iters} iterations, f32, "
                   "remat on, sentinel on",
         "losses": losses, "skipped": skipped, "step_ms": step_ms,
-        "median_ms_steps_2_to_5": statistics.median(step_ms[1:]),
-        "peak_gib_remat": peak_remat / 2**30, "peak_gib_no_remat": peak_no_remat / 2**30,
+        f"median_ms_steps_2_to_{steps}": statistics.median(step_ms[1:]),
+        "peak_gib_remat": peak_remat / 2**30,
         "launches": launches, "launches_per_step": per_step,
         "corr_lookup_bwd_counts": bwd_counts,
-        "plain_version_calls": plain_calls, "profile": prof,
+        "plain_version_calls": plain_calls,
     }
-    print(f"train: {json.dumps(report)}", flush=True)
-    check(not plain_calls, f"plain versions ran during the train steps: {plain_calls}")
-    check(all(math.isfinite(x) for x in losses), f"non-finite train loss: {losses}")
-    check(skipped == 0, f"the sentinel skipped {skipped} of {TRAIN_STEPS} steps")
+    if extras:
+        torch.cuda.reset_peak_memory_stats()
+        make_train_step(cfg, remat=False)(state, batches[0])
+        torch.cuda.synchronize()
+        report["peak_gib_no_remat"] = torch.cuda.max_memory_allocated() / 2**30
+        report["profile"] = profile_train_step(torch, step, state, batches[1])
+    print(f"{line_name('train', label)}: {json.dumps(report)}", flush=True)
+    check(not plain_calls, f"plain versions ran during the {label} train steps: {plain_calls}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite {label} train loss: {losses}")
+    check(skipped == 0, f"the sentinel skipped {skipped} of {steps} {label} steps")
+    check_launches(launches, variant, True, f"train {label}")
     # Per step: the lookup in each iteration's forward and in remat's
     # recompute, its backward once an iteration; the 4 NCUP layers likewise.
+    ncup = variant == "raft_nc_dbl"
     want = {"corr_lookup": 2 * cfg.iters, "corr_lookup_bwd": cfg.iters,
-            "nconv": 8 * cfg.iters, "nconv_bwd": 4 * cfg.iters}
-    check(per_step == want, f"launches per step {per_step}, want {want}")
+            "nconv": 8 * cfg.iters if ncup else 0, "nconv_bwd": 4 * cfg.iters if ncup else 0}
+    check(per_step == want, f"{label} launches per step {per_step}, want {want}")
+    del state, batches
+    torch.cuda.empty_cache()
     return report
 
 
-def _step_grads(torch, corr_impl, nconv_impl, batch, cfg):
-    from raft_ncup_tpu_torch.config import flagship_config
+def _step_grads(torch, variant, small, corr_impl, nconv_impl, batch, cfg):
     from raft_ncup_tpu_torch.models.raft import RAFT
     from raft_ncup_tpu_torch.training.state import state_for
     from raft_ncup_tpu_torch.training.step import loss_and_grads
 
-    model = RAFT(flagship_config(dataset=cfg.stage, corr_impl=corr_impl, nconv_impl=nconv_impl),
-                 device="cuda", seed=0)
+    model = RAFT(model_config(variant, small, dataset=cfg.stage, corr_impl=corr_impl,
+                              nconv_impl=nconv_impl), device="cuda", seed=0)
     state = state_for(model, cfg)
     loss, _, grads = loss_and_grads(state, batch, cfg)
     out = float(loss), {n: g.detach() for (n, _), g in zip(state.named_params, grads)}
@@ -1077,7 +1159,7 @@ def _step_grads(torch, corr_impl, nconv_impl, batch, cfg):
     return out
 
 
-def check_train_vs_plain(torch) -> dict:
+def check_train_vs_plain(torch, variant="raft_nc_dbl", small=False) -> dict:
     """One step at batch 2, 400x720, from the same seeded weights and
     batch, through the kernels and through the plain versions (the
     on-the-fly lookup and the two-convolution NConv2d, differentiated by
@@ -1085,12 +1167,13 @@ def check_train_vs_plain(torch) -> dict:
     from raft_ncup_tpu_torch.config import TrainConfig
     from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
 
+    label = model_label(variant, small)
     cfg = TrainConfig(**{**TRAIN_CFG, "batch_size": 2})
     batch = SyntheticFlowDataset(cfg.image_size, seed=cfg.seed).batch(0, 2, "cuda")
     reset_launches()
-    k_loss, k_grads = _step_grads(torch, "pallas", "pallas", batch, cfg)
-    check(all(n > 0 for n in read_launches().values()), "the kernel step skipped a kernel")
-    p_loss, p_grads = _step_grads(torch, "onthefly", "xla", batch, cfg)
+    k_loss, k_grads = _step_grads(torch, variant, small, "pallas", "pallas", batch, cfg)
+    check_launches(read_launches(), variant, True, f"the {label} kernel step")
+    p_loss, p_grads = _step_grads(torch, variant, small, "onthefly", "xla", batch, cfg)
     gmax = max(float(g.abs().max()) for g in p_grads.values())
     tols = {"default": STEP_GRAD_TOL, "upsampler": UPSAMPLER_TOL}
     worst = {kind: (0.0, "") for kind in tols}
@@ -1109,13 +1192,14 @@ def check_train_vs_plain(torch) -> dict:
         if err > tols[kind]:
             failures.append(f"{name}: {err:.3e} of its largest value (tolerance {tols[kind]})")
     loss_rel = abs(k_loss - p_loss) / abs(p_loss)
-    report = {"loss_kernels": k_loss, "loss_plain": p_loss, "loss_rel_diff": loss_rel,
-              "grad_rel_diff": worst, "tolerances": tols,
+    report = {"model": label, "loss_kernels": k_loss, "loss_plain": p_loss,
+              "loss_rel_diff": loss_rel, "grad_rel_diff": worst, "tolerances": tols,
               "negligible_tensors": len(negligible), "tensors": len(k_grads)}
     print(f"train step, kernels vs plain versions (batch 2, 400x720): {json.dumps(report)}",
           flush=True)
-    check(loss_rel <= STEP_LOSS_RTOL, f"kernel step loss {k_loss} vs plain {p_loss}")
-    check(not failures, f"kernel step gradients differ from the plain step's: {failures}")
+    check(loss_rel <= STEP_LOSS_RTOL, f"{label} kernel step loss {k_loss} vs plain {p_loss}")
+    check(not failures, f"{label} kernel step gradients differ from the plain step's: "
+                        f"{failures}")
     return report
 
 
@@ -1142,7 +1226,7 @@ def _kernel_group(name: str) -> str:
 
 def profile_forward(torch, model, card) -> dict:
     """Where a served batch's time goes: ``PROFILE_REPS`` traced forwards
-    of the served model at batch 2, 436x1024 (padded to 440x1024), 12
+    of a served model at batch 2, 436x1024 (padded to 440x1024), 12
     iterations. ``wall_ms`` is host time per forward ending in a
     synchronise, ``device_ms`` the summed kernel time per forward from the
     trace, ``idle_share`` 1 - device_ms / wall_ms. With no device time in
@@ -1176,8 +1260,10 @@ def profile_forward(torch, model, card) -> dict:
     for name, ms in kernels.items():
         groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    label = model_label(model.cfg.variant, model.cfg.small)
     prof_report = {
         "card": card,
+        "model": label,
         "shape": f"batch {PROFILE_BATCH} at {h}x{w} (padded {i1.shape[1]}x{i1.shape[2]}), "
                  "12 iterations, f32",
         "wall_ms": wall_ms,
@@ -1186,7 +1272,7 @@ def profile_forward(torch, model, card) -> dict:
         "by_group": groups,
         "top": [{"kernel": k[:120], "ms": v} for k, v in top],
     }
-    print(f"profile: {json.dumps(prof_report)}", flush=True)
+    print(f"{line_name('profile', label)}: {json.dumps(prof_report)}", flush=True)
     return prof_report
 
 
@@ -1231,20 +1317,41 @@ def main() -> int:
           f"the served rows did not take both paths of the corr kernel: {served_paths}")
     corr_banded = check_corr(torch, gen, flush, "1080p shape", B=1, H=136, W=240)
     corr_4k = check_corr(torch, gen, flush, "4K shape", B=1, H=272, W=480, plain_reps=1)
+    # The small model's served shape (fnet 128, radius 3), from a generator
+    # of its own so the rows above and below keep their inputs.
+    small_gen = torch.Generator().manual_seed(0)
+    corr_small = [check_corr(torch, small_gen, flush, "small model's served shape", B=2,
+                             H=55, W=128, C=128, radius=3, mix=mix)
+                  for mix in ("random", "smooth")]
     check_corr_edges(torch, gen)
     nconv_rows = check_nconv(torch, gen, flush)
     check_nconv_edges(torch, gen)
-    corr_bwd, nconv_bwd_rows = check_backward(torch, gen, flush)
+    corr_bwd, corr_bwd_small, nconv_bwd_rows = check_backward(torch, gen, flush)
     check_wrappers_refuse(torch)
-    model, serve, launches = check_serve(torch, card)
-    profile = profile_forward(torch, model, card)
-    check(profile["device_ms"] is not None, "the trace holds no device time")
-    del model
-    torch.cuda.empty_cache()
+
+    # The main paths, each with the kernel counts set to 0 just before it
+    # and read just after: serving the flagship, raft and small raft, then
+    # training them.
+    paths = {}
+    for variant, small in SERVED_MODELS:
+        label = model_label(variant, small)
+        model, _, paths[f"serve {label}"] = check_serve(torch, card, variant, small)
+        if not small:
+            profile = profile_forward(torch, model, card)
+            check(profile["device_ms"] is not None, "the trace holds no device time")
+        del model
+        torch.cuda.empty_cache()
+    launches = paths["serve raft_nc_dbl"]
     train = check_train(torch, card)
     check(all(p["device_ms"] > 0 for p in train["profile"]["phases"].values()),
           "a phase of the train trace holds no device time")
+    paths["train raft_nc_dbl"] = train["launches"]
     check_train_vs_plain(torch)
+    for variant, small in TRAINED_MODELS:
+        label = model_label(variant, small)
+        paths[f"train {label}"] = check_train(
+            torch, card, variant, small, steps=VARIANT_TRAIN_STEPS, extras=False)["launches"]
+        check_train_vs_plain(torch, variant, small)
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.
@@ -1252,41 +1359,58 @@ def main() -> int:
     # train run's for the backward kernels; `train_launches` the train run's
     # for all four.
     tl = train["launches"]
+    small_served = paths["serve raft small"]["corr_lookup"]
+    small_trained = paths["train raft small"]["corr_lookup_bwd"]
+
+    def by_path(kernel):
+        return {"launches_by_path": {p: l[kernel] for p, l in paths.items() if l[kernel]}}
+
     corr_src = "raft_ncup_tpu_torch/csrc/corr_lookup.cu"
     kernels = [
         dict(name="corr_lookup at the served shape (the TPU's resident tier)", route="cuda",
              source=corr_src, replaces="raft_ncup_tpu/ops/corr_pallas.py:422",
              launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
-             **_kernel_numbers(corr_served)),
+             **_kernel_numbers(corr_served), **by_path("corr_lookup")),
         dict(name="corr_lookup at 1088x1920 (the TPU's banded tier; launches are the "
              "main-path count of the same kernel)", route="cuda",
              source=corr_src, replaces="raft_ncup_tpu/ops/corr_pallas.py:672",
              launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
-             **_kernel_numbers(corr_banded)),
+             **_kernel_numbers(corr_banded), **by_path("corr_lookup")),
         dict(name="corr_lookup at the served shape with smooth flow (the same kernel)",
              route="cuda", source=corr_src,
              replaces="raft_ncup_tpu/ops/corr_pallas.py:422",
              launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
-             **_kernel_numbers(corr_smooth)),
+             **_kernel_numbers(corr_smooth), **by_path("corr_lookup")),
         dict(name="corr_lookup at 2176x3840 (the TPU's banded tier; the same kernel)",
              route="cuda", source=corr_src,
              replaces="raft_ncup_tpu/ops/corr_pallas.py:672",
              launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
-             **_kernel_numbers(corr_4k)),
+             **_kernel_numbers(corr_4k), **by_path("corr_lookup")),
         dict(name="nconv2d_fused (4 NCUP layers of one served batch of 2)", route="cuda",
              source="raft_ncup_tpu_torch/csrc/nconv.cu",
              replaces="raft_ncup_tpu/ops/nconv_pallas.py:125",
              launches=launches["nconv"], train_launches=tl["nconv"],
-             **_summed_numbers(nconv_rows)),
+             **_summed_numbers(nconv_rows), **by_path("nconv")),
     ]
-    for row in corr_bwd:
+    for row in corr_small:
         kernels.append(dict(
-            name=f"corr_lookup_bwd at the training shape, {row['shape'].split()[-2]} flow "
+            name=f"corr_lookup at the small model's served shape (C=128, r=3), "
+                 f"{row['shape'].split()[-2]} flow (the same kernel; launches are the small "
+                 "raft serve's)", route="cuda", source=corr_src,
+            replaces="raft_ncup_tpu/ops/corr_pallas.py:422", launches=small_served,
+            **_kernel_numbers(row), **by_path("corr_lookup")))
+    bwd_rows = [(row, "the training shape", tl["corr_lookup_bwd"], TRAIN_STEPS)
+                for row in corr_bwd]
+    bwd_rows += [(row, "the small model's training shape (C=128, r=3)", small_trained,
+                  VARIANT_TRAIN_STEPS) for row in corr_bwd_small]
+    for row, shape, n, steps in bwd_rows:
+        kernels.append(dict(
+            name=f"corr_lookup_bwd at {shape}, {row['shape'].split()[-2]} flow "
                  "(no TPU kernel: JAX differentiates the XLA path)",
             route="cuda", source="raft_ncup_tpu_torch/csrc/corr_lookup_bwd.cu",
             replaces="raft_ncup_tpu/ops/corr_pallas.py:816",
-            launches=tl["corr_lookup_bwd"], train_launches=tl["corr_lookup_bwd"],
-            launches_per_step=train["launches_per_step"]["corr_lookup_bwd"],
+            launches=n, train_launches=n, launches_per_step=n / steps,
+            **by_path("corr_lookup_bwd"),
             max_abs_err=row["max_abs_err"], max_rel_err=row["max_rel_err"],
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
@@ -1301,7 +1425,7 @@ def main() -> int:
         launches_per_step=train["launches_per_step"]["nconv_bwd"],
         max_rel_err=max(r["max_rel_err"] for r in nconv_bwd_rows),
         layer_ms={r["layer"]: r["ms"] for r in nconv_bwd_rows},
-        **_summed_numbers(nconv_bwd_rows)))
+        **_summed_numbers(nconv_bwd_rows), **by_path("nconv_bwd")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,10 @@ its XLA path:
 - the fused normalized convolution (``ops/nconv_cuda.py``), for
   ``ModelConfig.nconv_impl == "pallas"``.
 
+Models: the flagship ``raft_nc_dbl`` (NCUP or bilinear upsampling),
+the ``raft`` baseline with convex upsampling, and the small model of
+either variant (``small_model_config``).
+
 Entry points: ``python -m raft_ncup_tpu_torch.serve`` and
 ``python -m raft_ncup_tpu_torch.train``.
 """
@@ -27,4 +31,5 @@ from raft_ncup_tpu_torch.config import (  # noqa: F401
     TrainConfig,
     UpsamplerConfig,
     flagship_config,
+    small_model_config,
 )

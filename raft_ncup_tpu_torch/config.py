@@ -9,9 +9,9 @@ packages, with these differences of this slice:
 - ``ModelConfig.precision`` accepts only ``"f32"``; the bf16 presets are
   a later slice and raise here. The model's forward keeps TF32 off
   (``utils.device.f32_precision``), so f32 means f32 on the card too.
-- ``ModelConfig`` has no ``align_corners`` (read only by the bilinear
-  upsampler) and no ``freeze_raft`` (a training mask); they return with
-  the slices that read them, so no field here is silently ignored.
+- Settings of later slices raise here rather than being ignored:
+  ``dropout > 0`` and ``freeze_raft`` (the rest of training), and the
+  ``pac`` and ``djif`` upsampler kinds (the PAC slice).
 - ``ModelConfig.nconv_impl`` carries the normalized-convolution switch
   that the JAX package reads from its ``RAFT_NCUP_NCONV_IMPL`` knob:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
@@ -37,6 +37,8 @@ from dataclasses import dataclass, field
 CORR_IMPLS = ("volume", "onthefly", "pallas")
 STAGES = ("chairs", "things", "sintel", "kitti")
 NCONV_IMPLS = ("xla", "pallas")
+UPSAMPLER_KINDS = ("nconv", "bilinear")
+WEIGHTS_EST_NETS = ("simple", "unet", "binary")
 
 
 @dataclass(frozen=True)
@@ -72,6 +74,16 @@ class UpsamplerConfig:
     weights_est_filter_sz: tuple[int, ...] = (3, 3, 1)
     weights_est_dilation: tuple[int, ...] = (1, 1, 1)
 
+    def __post_init__(self) -> None:
+        if self.kind in ("pac", "djif"):
+            raise NotImplementedError(
+                f"upsampler kind {self.kind!r} lands with the PAC slice of the port"
+            )
+        if self.kind not in UPSAMPLER_KINDS:
+            raise ValueError(f"unknown upsampler kind: {self.kind!r}")
+        if self.weights_est_net not in WEIGHTS_EST_NETS:
+            raise ValueError(f"unknown weights_est_net: {self.weights_est_net!r}")
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -82,6 +94,9 @@ class ModelConfig:
     dropout: float = 0.0
     precision: str = "f32"
     mixed_precision: bool = False
+    # align_corners of the bilinear x8 upsampling of the small model's
+    # flow (``ops.geometry.upflow``).
+    align_corners: bool = True
     corr_levels: int = 4
     corr_radius: int = 4
     # 'volume' materializes the all-pairs volume; 'onthefly' samples
@@ -92,6 +107,8 @@ class ModelConfig:
     nconv_impl: str = "xla"
     # BatchNorm in the NCUP weights-estimation net: ON for sintel only.
     dataset: str = "sintel"
+    # Train only the upsampler, the RAFT trunk frozen.
+    freeze_raft: bool = False
     upsampler: UpsamplerConfig = field(default_factory=UpsamplerConfig)
 
     def __post_init__(self) -> None:
@@ -101,7 +118,15 @@ class ModelConfig:
             raise NotImplementedError(
                 f"precision {self.precision!r} (mixed_precision="
                 f"{self.mixed_precision}): the port runs f32 only; the bf16 "
-                "presets land with a later slice"
+                "presets land with the bf16 slice"
+            )
+        if self.dropout > 0:
+            raise NotImplementedError(
+                "encoder dropout lands with the port's slice for the rest of training"
+            )
+        if self.freeze_raft:
+            raise NotImplementedError(
+                "freeze_raft lands with the port's slice for the rest of training"
             )
         if self.corr_impl not in CORR_IMPLS:
             raise ValueError(f"unknown corr_impl: {self.corr_impl!r}")
@@ -225,6 +250,11 @@ class TrainConfig:
     def total_schedule_steps(self) -> int:
         # OneCycle over num_steps + 100, as the reference configures it.
         return self.num_steps + 100
+
+
+def small_model_config(variant: str = "raft", **overrides) -> ModelConfig:
+    """The RAFT-small preset: hidden 96, context 64, fnet 128, radius 3."""
+    return ModelConfig(variant=variant, small=True, **overrides)
 
 
 def flagship_config(dataset: str = "sintel", **overrides) -> ModelConfig:

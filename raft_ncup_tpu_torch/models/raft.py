@@ -1,4 +1,4 @@
-"""RAFT-NCUP model, test-mode and train-mode forward (port of
+"""RAFT and RAFT-NCUP models, test-mode and train-mode forward (port of
 ``raft_ncup_tpu/models/raft.py``).
 
 The JAX bundle (fnet / cnet / update_block / upsampler plus a functional
@@ -7,21 +7,32 @@ is a Python loop. Submodules run NCHW; the public forward takes and
 returns the JAX layouts (NHWC images and flows, (B, H, W, 2) coordinates
 with x first).
 
-This slice covers the flagship ``raft_nc_dbl`` variant, in f32 with TF32
-off (``utils.device.f32_precision``):
+Variants, as in the JAX package, in f32 with TF32 off
+(``utils.device.f32_precision``):
 
-- in eval mode, ``apply(test_mode=True)`` with ``flow_init``, under
-  ``torch.no_grad``; BatchNorm uses its running statistics;
-- in training mode (``model.train()``), ``apply(train=True)``: the
-  stacked per-iteration upsampled flow, the NCUP upsampler run every
-  iteration, coordinates detached at the start of each iteration, and
-  each iteration under ``torch.utils.checkpoint`` when ``remat`` (the
-  JAX ``jax.checkpoint``). BatchNorm trains unless :meth:`RAFT.freeze_bn`
-  put it back in eval mode (the JAX ``freeze_bn``); its running
-  statistics advance once per iteration, never again in the recompute.
+- ``raft_nc_dbl`` (full size or small): no mask head; the low-res flow
+  goes nearest x2, through the configured upsampler (NCUP or bilinear)
+  x4 with the GRU state as guidance, then x8 in value;
+- ``raft``, full size: the update block's mask head and convex
+  upsampling x8;
+- ``raft``, small: bilinear ``upflow`` x8 with ``cfg.align_corners``.
 
-The ``raft`` and small variants, segments, early exit, warm-started GRU
-state and dropout are later slices.
+In eval mode, ``apply(test_mode=True)`` with ``flow_init``, under
+``torch.no_grad``; BatchNorm uses its running statistics. The upsampling
+runs once, after the loop; the convex mask reads only the final GRU
+state, so it is computed there once (the JAX model carries every
+iteration's mask to the same end).
+
+In training mode (``model.train()``), ``apply(train=True)``: the stacked
+per-iteration upsampled flow, the upsampling (mask included) run every
+iteration, coordinates detached at the start of each iteration, and
+each iteration under ``torch.utils.checkpoint`` when ``remat`` (the
+JAX ``jax.checkpoint``). BatchNorm trains unless :meth:`RAFT.freeze_bn`
+put it back in eval mode (the JAX ``freeze_bn``); its running
+statistics advance once per iteration, never again in the recompute.
+
+Segments, early exit, warm-started GRU state and dropout are later
+slices.
 
 The model lives on the card unless the caller passes ``device="cpu"``;
 with no device and no CUDA, construction raises.
@@ -37,9 +48,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from raft_ncup_tpu_torch.config import ModelConfig
-from raft_ncup_tpu_torch.nn.extractor import BasicEncoder
+from raft_ncup_tpu_torch.nn.extractor import Encoder
 from raft_ncup_tpu_torch.nn.layers import frozen_batch_stats, init_weights
-from raft_ncup_tpu_torch.nn.update import BasicUpdateBlock
+from raft_ncup_tpu_torch.nn.update import BasicUpdateBlock, SmallUpdateBlock
 from raft_ncup_tpu_torch.nn.upsampler import build_upsampler
 from raft_ncup_tpu_torch.ops.corr import (
     build_corr_pyramid,
@@ -47,7 +58,12 @@ from raft_ncup_tpu_torch.ops.corr import (
     corr_lookup_onthefly,
 )
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels, prepare_levels
-from raft_ncup_tpu_torch.ops.geometry import coords_grid, upsample_nearest
+from raft_ncup_tpu_torch.ops.geometry import (
+    convex_upsample_nchw,
+    coords_grid,
+    upflow,
+    upsample_nearest,
+)
 from raft_ncup_tpu_torch.utils.device import f32_precision, resolve_device
 
 
@@ -65,21 +81,26 @@ class RAFT(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.variant != "raft_nc_dbl" or cfg.small:
-            raise NotImplementedError(
-                f"variant {cfg.variant!r} (small={cfg.small}) lands with a "
-                "later slice; the port runs raft_nc_dbl"
-            )
         dev = resolve_device(device)
         self.cfg = cfg
         hdim, cdim = cfg.hidden_dim, cfg.context_dim
-        self.fnet = BasicEncoder(cfg.fnet_dim, "instance", cfg.dropout)
-        self.cnet = BasicEncoder(hdim + cdim, "batch", cfg.dropout)
-        self.update_block = BasicUpdateBlock(cfg.corr_planes, hdim, cdim)
-        # NCUP consumes the 2-channel flow with the GRU state as guidance.
-        self.upsampler = build_upsampler(
-            cfg.upsampler, cfg.dataset, cfg.nconv_impl, guidance_ch=hdim
-        )
+        if cfg.small:
+            self.fnet = Encoder(cfg.fnet_dim, "instance", small=True)
+            self.cnet = Encoder(hdim + cdim, "none", small=True)
+            self.update_block = SmallUpdateBlock(cfg.corr_planes, hdim, cdim)
+        else:
+            self.fnet = Encoder(cfg.fnet_dim, "instance")
+            self.cnet = Encoder(hdim + cdim, "batch")
+            self.update_block = BasicUpdateBlock(
+                cfg.corr_planes, hdim, cdim, use_mask_head=(cfg.variant == "raft")
+            )
+        self.upsampler = None
+        if cfg.variant == "raft_nc_dbl":
+            # The upsampler takes the 2-channel flow with the GRU state as
+            # guidance.
+            self.upsampler = build_upsampler(
+                cfg.upsampler, cfg.dataset, cfg.nconv_impl, guidance_ch=hdim
+            )
         init_weights(self, torch.Generator().manual_seed(int(seed)))
         self.eval()
         self.to(dev)
@@ -143,10 +164,18 @@ class RAFT(nn.Module):
         )
 
     def _upsample(self, flow_lr: torch.Tensor, net: torch.Tensor) -> torch.Tensor:
-        """nearest x2, NCUP x4, values x8: (B, h, w, 2) -> (B, 8h, 8w, 2)."""
-        flow2 = upsample_nearest(flow_lr, 2).permute(0, 3, 1, 2).contiguous()
-        hr = self.upsampler(flow2, net)
-        return (8.0 * hr).permute(0, 2, 3, 1)
+        """(B, h, w, 2) low-res flow and the NCHW GRU state ``net`` ->
+        (B, 8h, 8w, 2), per variant: nearest x2, the upsampler x4 and
+        values x8 (raft_nc_dbl); convex upsampling with the mask of
+        ``net`` (raft); bilinear x8 (small raft)."""
+        if self.upsampler is not None:
+            flow2 = upsample_nearest(flow_lr, 2).permute(0, 3, 1, 2).contiguous()
+            hr = self.upsampler(flow2, net)
+            return (8.0 * hr).permute(0, 2, 3, 1)
+        if self.cfg.small:
+            return upflow(flow_lr, 8, self.cfg.align_corners)
+        mask = self.update_block.mask_logits(net)
+        return convex_upsample_nchw(flow_lr.permute(0, 3, 1, 2), mask, 8).permute(0, 2, 3, 1)
 
     # ----------------------------------------------------------- forward
 

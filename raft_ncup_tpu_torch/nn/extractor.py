@@ -1,10 +1,12 @@
 """Feature and context encoders (port of ``raft_ncup_tpu/nn/extractor.py``).
 
-Stride-8 CNN, NCHW: a 7x7/s2 stem and three 2-block residual stages
-(64 -> 96 -> 128 at strides 1, 2, 2), then a 1x1 output conv. Submodule
-names follow the reference's torch module tree (``conv1``, ``norm1``,
-``layer1.0.conv1``, ``layer2.0.downsample.0``, ...), so the carried
-state dict (``utils/jax_weights.py``) keys match it.
+Stride-8 CNN, NCHW: a 7x7/s2 stem and three 2-block stages at strides 1,
+2, 2, then a 1x1 output conv. The full-size encoder has a stem of 64 and
+residual stages of 64 -> 96 -> 128; the small one a stem of 32 and
+bottleneck stages of 32 -> 64 -> 96. Submodule names follow the
+reference's torch module tree (``conv1``, ``norm1``, ``layer1.0.conv1``,
+``layer2.0.downsample.0``, ...), so the carried state dict
+(``utils/jax_weights.py``) keys match it.
 """
 
 from __future__ import annotations
@@ -39,26 +41,57 @@ class ResidualBlock(nn.Module):
         return torch.relu(x + y)
 
 
-class BasicEncoder(nn.Module):
-    """The stride-8 encoder of the full-size model: fnet with instance
-    norm, cnet with batch norm."""
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 at a quarter of the planes, each conv
+    normalized, and an identity or 1x1 downsample shortcut."""
 
-    def __init__(self, output_dim: int = 128, norm_fn: str = "batch", dropout: float = 0.0):
+    def __init__(self, in_planes: int, planes: int, norm_fn: str, stride: int = 1):
         super().__init__()
-        if dropout > 0:
-            raise NotImplementedError("encoder dropout lands with a later slice of the port")
-        self.conv1 = Conv2d(3, 64, 7, stride=2, init_mode="kaiming_out")
-        self.norm1 = Norm(norm_fn, 64)
+        p4 = planes // 4
+        self.conv1 = Conv2d(in_planes, p4, 1, init_mode="kaiming_out")
+        self.norm1 = Norm(norm_fn, p4)
+        self.conv2 = Conv2d(p4, p4, 3, stride=stride, init_mode="kaiming_out")
+        self.norm2 = Norm(norm_fn, p4)
+        self.conv3 = Conv2d(p4, planes, 1, init_mode="kaiming_out")
+        self.norm3 = Norm(norm_fn, planes)
+        self.downsample = None
+        if stride != 1:
+            self.downsample = nn.Sequential(
+                Conv2d(in_planes, planes, 1, stride=stride, init_mode="kaiming_out"),
+                Norm(norm_fn, planes),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.norm1(self.conv1(x)))
+        y = torch.relu(self.norm2(self.conv2(y)))
+        y = torch.relu(self.norm3(self.conv3(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return torch.relu(x + y)
+
+
+class Encoder(nn.Module):
+    """The stride-8 encoder; ``small`` selects the bottleneck variant.
+    The fnet takes instance norm; the cnet batch norm (full size) or none
+    (small)."""
+
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch", small: bool = False):
+        super().__init__()
+        stem = 32 if small else 64
+        stages = (32, 64, 96) if small else (64, 96, 128)
+        block = BottleneckBlock if small else ResidualBlock
+        self.conv1 = Conv2d(3, stem, 7, stride=2, init_mode="kaiming_out")
+        self.norm1 = Norm(norm_fn, stem)
         layers = []
-        in_planes = 64
-        for i, (dim, stride) in enumerate(zip((64, 96, 128), (1, 2, 2)), start=1):
+        in_planes = stem
+        for dim, stride in zip(stages, (1, 2, 2)):
             layers.append(nn.Sequential(
-                ResidualBlock(in_planes, dim, norm_fn, stride),
-                ResidualBlock(dim, dim, norm_fn, 1),
+                block(in_planes, dim, norm_fn, stride),
+                block(dim, dim, norm_fn, 1),
             ))
             in_planes = dim
         self.layer1, self.layer2, self.layer3 = layers
-        self.conv2 = Conv2d(128, output_dim, 1, init_mode="kaiming_out")
+        self.conv2 = Conv2d(in_planes, output_dim, 1, init_mode="kaiming_out")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.norm1(self.conv1(x)))

@@ -73,6 +73,25 @@ class Conv2d(nn.Conv2d):
             self.bias.copy_(torch.rand(self.bias.shape, generator=gen) * 2 * b - b)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no padding) with the seeded init of torch's
+    default: kernel and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), where
+    torch reads fan_in from the (in, out, kh, kw) weight's dim 1,
+    out * kh * kw."""
+
+    def reset_parameters(self) -> None:
+        # Weights are drawn by init_weights() from an explicit generator.
+        pass
+
+    @torch.no_grad()
+    def init_from(self, gen: torch.Generator) -> None:
+        _, cout, kh, kw = self.weight.shape
+        b = 1.0 / math.sqrt(cout * kh * kw)
+        self.weight.copy_(torch.rand(self.weight.shape, generator=gen) * 2 * b - b)
+        if self.bias is not None:
+            self.bias.copy_(torch.rand(self.bias.shape, generator=gen) * 2 * b - b)
+
+
 _frozen = threading.local()
 
 
@@ -123,8 +142,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 def Norm(kind: str, channels: int) -> nn.Module:
     """Normalization by name, as the encoders use it: 'batch'
     (:class:`BatchNorm2d`, eps 1e-5), 'instance' (per-sample, per-channel,
-    no affine), 'none' (identity). 'group' lands with the small model's
-    slice."""
+    no affine), 'none' (identity). No configuration of the model reaches
+    the JAX package's 'group' norm: the small fnet uses 'instance' and
+    the small cnet 'none'."""
     if kind == "batch":
         return BatchNorm2d(channels)
     if kind == "instance":

@@ -1,7 +1,7 @@
-"""NCUP flow upsampler (port of ``raft_ncup_tpu/nn/upsampler.py``'s
-``NConvUpsampler`` and ``build_upsampler``), NCHW.
+"""Final flow upsamplers (port of ``raft_ncup_tpu/nn/upsampler.py``'s
+``NConvUpsampler``, ``BilinearUpsampler`` and ``build_upsampler``), NCHW.
 
-Forward (shipped config: scale 4, data used for guidance, channels
+NCUP forward (shipped config: scale 4, data used for guidance, channels
 folded into the batch, estimation at low resolution, no residuals):
 
 1. zero-stuff the low-res data x4 onto the high-res grid;
@@ -10,6 +10,12 @@ folded into the batch, estimation at low resolution, no residuals):
 3. zero-stuff the confidences x4;
 4. fold channels into the batch (free in NCHW: a reshape) and run the
    NConv U-Net on (data, confidence).
+
+With ``est_on_high_res`` step 2 runs at high resolution instead, on the
+zero-stuffed data and the guidance resized bilinearly (align_corners),
+and step 3 falls away. The weights net is ``SimpleWeightsNet``,
+``UNetWeightsNet`` or, for ``weights_est_net='binary'``, none: the
+confidence is 1 where the data is positive, else 0.
 """
 
 from __future__ import annotations
@@ -19,8 +25,11 @@ from torch import nn
 
 from raft_ncup_tpu_torch.config import UpsamplerConfig
 from raft_ncup_tpu_torch.nn.nconv_unet import NConvUNet
-from raft_ncup_tpu_torch.nn.weights_est import SimpleWeightsNet
-from raft_ncup_tpu_torch.ops.geometry import adaptive_area_resize_nchw
+from raft_ncup_tpu_torch.nn.weights_est import SimpleWeightsNet, UNetWeightsNet
+from raft_ncup_tpu_torch.ops.geometry import (
+    adaptive_area_resize_nchw,
+    bilinear_resize_align_corners_nchw,
+)
 from raft_ncup_tpu_torch.ops.nconv import zero_stuff_upsample_nchw
 
 
@@ -34,22 +43,22 @@ class NConvUpsampler(nn.Module):
         nconv_impl: str = "xla",
     ):
         super().__init__()
-        if cfg.est_on_high_res or cfg.weights_est_net != "simple":
-            raise NotImplementedError(
-                "the port's NCUP upsampler covers the shipped configuration "
-                "(weights_est_net='simple', est_on_high_res=False); the other "
-                "variants land with a later slice"
-            )
         self.cfg = cfg
         west_in = guidance_ch + (data_ch if cfg.use_data_for_guidance else 0)
-        self.weights_est_net = SimpleWeightsNet(
-            west_in,
-            num_ch=cfg.weights_est_num_ch,
-            out_ch=data_ch,
-            filter_sz=cfg.weights_est_filter_sz,
-            dilation=cfg.weights_est_dilation,
-            use_bn=use_bn,
-        )
+        self.weights_est_net = None
+        if cfg.weights_est_net == "simple":
+            self.weights_est_net = SimpleWeightsNet(
+                west_in,
+                num_ch=cfg.weights_est_num_ch,
+                out_ch=data_ch,
+                filter_sz=cfg.weights_est_filter_sz,
+                dilation=cfg.weights_est_dilation,
+                use_bn=use_bn,
+            )
+        elif cfg.weights_est_net == "unet":
+            self.weights_est_net = UNetWeightsNet(
+                west_in, num_ch=cfg.weights_est_num_ch, out_ch=data_ch
+            )
         self.interpolation_net = NConvUNet(
             in_ch=1 if cfg.channels_to_batch else data_ch,
             channels_multiplier=cfg.channels_multiplier,
@@ -70,14 +79,20 @@ class NConvUpsampler(nn.Module):
         cfg = self.cfg
         s = cfg.scale
         B, C, H, W = x_lowres.shape
-        x_highres = zero_stuff_upsample_nchw(x_lowres, s, s)
-        guid = adaptive_area_resize_nchw(guidance, (H, W))
-        west_in = (
-            torch.cat([x_lowres, guid], dim=1)
-            if cfg.use_data_for_guidance else guid
-        )
-        w_highres = zero_stuff_upsample_nchw(self.weights_est_net(west_in), s, s)
         oh, ow = H * s, W * s
+        x_highres = zero_stuff_upsample_nchw(x_lowres, s, s)
+        if cfg.est_on_high_res:
+            data = x_highres
+            guid = bilinear_resize_align_corners_nchw(guidance, (oh, ow))
+        else:
+            data = x_lowres
+            guid = adaptive_area_resize_nchw(guidance, (H, W))
+        if self.weights_est_net is None:
+            w = (data > 0).to(x_lowres.dtype)
+        else:
+            west_in = torch.cat([data, guid], dim=1) if cfg.use_data_for_guidance else guid
+            w = self.weights_est_net(west_in)
+        w_highres = w if cfg.est_on_high_res else zero_stuff_upsample_nchw(w, s, s)
         if cfg.channels_to_batch:
             # Channel c of sample b lands at batch index b*C + c.
             out, _ = self.interpolation_net(
@@ -92,18 +107,32 @@ class NConvUpsampler(nn.Module):
         return out
 
 
+class BilinearUpsampler(nn.Module):
+    """The bilinear baseline: x ``cfg.scale`` with align_corners; it has no
+    weights and ignores the guidance."""
+
+    def __init__(self, cfg: UpsamplerConfig):
+        super().__init__()
+        self.cfg = cfg
+
+    def forward(self, x_lowres: torch.Tensor, guidance: torch.Tensor) -> torch.Tensor:
+        _, _, H, W = x_lowres.shape
+        s = self.cfg.scale
+        return bilinear_resize_align_corners_nchw(x_lowres, (H * s, W * s))
+
+
 def build_upsampler(
     cfg: UpsamplerConfig, dataset: str, nconv_impl: str = "xla",
     guidance_ch: int = 128,
-) -> NConvUpsampler:
-    """Upsampler factory. BatchNorm in the weights-estimation net is on
-    iff the model is configured for Sintel. The bilinear, PAC and DJIF
-    kinds land with a later slice."""
+) -> nn.Module:
+    """Upsampler factory. BatchNorm in the simple weights-estimation net
+    is on iff the model is configured for Sintel. ``UpsamplerConfig``
+    refuses the PAC and DJIF kinds, a later slice."""
     if cfg.kind == "nconv":
         return NConvUpsampler(
             cfg, guidance_ch=guidance_ch, use_bn=(dataset == "sintel"),
             nconv_impl=nconv_impl,
         )
-    raise NotImplementedError(
-        f"upsampler kind {cfg.kind!r} lands with a later slice of the port"
-    )
+    if cfg.kind == "bilinear":
+        return BilinearUpsampler(cfg)
+    raise ValueError(f"unknown upsampler kind: {cfg.kind!r}")

@@ -73,6 +73,10 @@ STRIP_RATIO = 2
 ROW_CHUNK = 8
 
 
+def _plain_dtype(f1s: torch.Tensor) -> torch.dtype:
+    return torch.float64 if f1s.dtype == torch.float64 else torch.float32
+
+
 @f32_precision()
 def lookup_pyramid(
     f1s: torch.Tensor,
@@ -89,19 +93,22 @@ def lookup_pyramid(
       f2_levels: the pooled fmap2 pyramid, each (B, Hl, Wl, C).
       coords: (B, H, W, 2) query positions in level-0 pixels, x first.
     Returns:
-      (B, H, W, L * (2r+1)^2) float32, level-major then x-major taps.
+      (B, H, W, L * (2r+1)^2) float32 (float64 for float64 ``f1s``, the
+      reference the kernels' checks hold their results against),
+      level-major then x-major taps.
     """
     B, H, W, C = f1s.shape
     K = 2 * radius + 1
+    dt = _plain_dtype(f1s)
     delta = _delta_window(radius, coords.device)
     chunks = []
     for r0 in range(0, H, ROW_CHUNK):
-        f1c = f1s[:, r0: r0 + ROW_CHUNK].float()
-        cc = coords[:, r0: r0 + ROW_CHUNK].float()
+        f1c = f1s[:, r0: r0 + ROW_CHUNK].to(dt)
+        cc = coords[:, r0: r0 + ROW_CHUNK].to(dt)
         per_level = []
         for lvl, f2l in enumerate(f2_levels):
             taps = cc[:, :, :, None, None, :] / (2**lvl) + delta
-            sampled = grid_sample(f2l.float(), taps)  # (B, rc, W, K, K, C)
+            sampled = grid_sample(f2l.to(dt), taps)  # (B, rc, W, K, K, C)
             corr = torch.einsum("brwijc,brwc->brwij", sampled, f1c)
             per_level.append(corr.reshape(*corr.shape[:3], K * K))
         chunks.append(torch.cat(per_level, dim=-1))
@@ -123,16 +130,18 @@ def lookup_pyramid_backward(
 
     ``grad`` is the (B, H, W, L*(2r+1)^2) upstream gradient; ``needs``
     says which of (d f1s, d f2 levels, d coords) to return (None for the
-    others)."""
+    others). Like the forward it computes in float64 for float64
+    ``f1s``."""
     H = f1s.shape[1]
-    levels = [lv.detach().float().requires_grad_(needs[1]) for lv in f2_levels]
-    df1 = torch.zeros_like(f1s, dtype=torch.float32) if needs[0] else None
-    dco = torch.zeros_like(coords, dtype=torch.float32) if needs[2] else None
+    dt = _plain_dtype(f1s)
+    levels = [lv.detach().to(dt).requires_grad_(needs[1]) for lv in f2_levels]
+    df1 = torch.zeros_like(f1s, dtype=dt) if needs[0] else None
+    dco = torch.zeros_like(coords, dtype=dt) if needs[2] else None
     dlv = [torch.zeros_like(lv) for lv in levels] if needs[1] else None
     for r0 in range(0, H, ROW_CHUNK):
         rows = slice(r0, r0 + ROW_CHUNK)
-        f1c = f1s[:, rows].detach().float().requires_grad_(needs[0])
-        cc = coords[:, rows].detach().float().requires_grad_(needs[2])
+        f1c = f1s[:, rows].detach().to(dt).requires_grad_(needs[0])
+        cc = coords[:, rows].detach().to(dt).requires_grad_(needs[2])
         wrt = [t for t, need in ((f1c, needs[0]), (cc, needs[2])) if need]
         if needs[1]:
             wrt += levels
@@ -140,7 +149,7 @@ def lookup_pyramid_backward(
             break
         with torch.enable_grad():
             out = lookup_pyramid(f1c, levels, cc, radius)
-            grads = list(torch.autograd.grad(out, wrt, grad[:, rows].float()))
+            grads = list(torch.autograd.grad(out, wrt, grad[:, rows].to(dt)))
         if needs[0]:
             df1[:, rows] = grads.pop(0)
         if needs[2]:

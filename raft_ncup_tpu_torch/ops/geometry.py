@@ -10,6 +10,7 @@ contributes 0 iff that tap is out of bounds.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def coords_grid(
@@ -108,3 +109,69 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     h2, w2 = H // 2, W // 2
     x = x[:, : h2 * 2, : w2 * 2, :].reshape(B, h2, 2, w2, 2, C)
     return x.mean(dim=(2, 4))
+
+
+def bilinear_resize_align_corners_nchw(
+    x: torch.Tensor, out_hw: tuple[int, int]
+) -> torch.Tensor:
+    """:func:`bilinear_resize_align_corners` on (B, C, H, W)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=True)
+
+
+def bilinear_resize_align_corners(
+    x: torch.Tensor, out_hw: tuple[int, int]
+) -> torch.Tensor:
+    """Bilinear resize of (B, H, W, C) with ``align_corners=True``: the
+    corner pixels of input and output coincide, so output pixel i reads
+    input position i * (H - 1) / (H_out - 1) (0 for a 1-pixel output)."""
+    return bilinear_resize_align_corners_nchw(
+        x.permute(0, 3, 1, 2), out_hw
+    ).permute(0, 2, 3, 1)
+
+
+def upflow(flow: torch.Tensor, factor: int = 8, align_corners: bool = True) -> torch.Tensor:
+    """Bilinear flow upsampling of (B, H, W, 2): resize x ``factor`` and
+    scale the values by ``factor``. ``align_corners=False`` samples at
+    half-pixel centres, clamped at the borders."""
+    B, H, W, _ = flow.shape
+    up = F.interpolate(
+        flow.permute(0, 3, 1, 2), size=(H * factor, W * factor),
+        mode="bilinear", align_corners=align_corners,
+    )
+    return factor * up.permute(0, 2, 3, 1)
+
+
+def extract_3x3_patches(x: torch.Tensor) -> torch.Tensor:
+    """3x3 patches with zero padding 1 in the tap order of
+    ``F.unfold(x, [3, 3], padding=1)``: tap k = ky * 3 + kx reads input
+    pixel (h - 1 + ky, w - 1 + kx). (B, H, W, C) -> (B, H, W, 9, C)."""
+    B, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.stack(
+        [xp[:, ky : ky + H, kx : kx + W, :] for ky in range(3) for kx in range(3)],
+        dim=3,
+    )
+
+
+def convex_upsample_nchw(
+    flow: torch.Tensor, mask: torch.Tensor, factor: int = 8
+) -> torch.Tensor:
+    """:func:`convex_upsample` on (B, 2, H, W) flow and (B, 9 f f, H, W)
+    mask logits, returning (B, 2, f H, f W)."""
+    B, C, H, W = flow.shape
+    f = factor
+    m = torch.softmax(mask.reshape(B, 1, 9, f, f, H, W), dim=2)
+    patches = F.unfold(f * flow, [3, 3], padding=1).reshape(B, C, 9, 1, 1, H, W)
+    up = (m * patches).sum(dim=2)  # (B, C, i, j, H, W)
+    return up.permute(0, 1, 4, 2, 5, 3).reshape(B, C, H * f, W * f)
+
+
+def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """RAFT's learned convex upsampling of (B, H, W, 2) flow with
+    (B, H, W, 9 f f) mask logits: each output pixel (h f + i, w f + j) is
+    a softmax-weighted mix of the 3x3 neighbourhood of flow pixel (h, w),
+    scaled by f. Mask channel c = k f^2 + i f + j, k the tap (row-major),
+    the reference's layout, so its checkpoints map weight for weight."""
+    return convex_upsample_nchw(
+        flow.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2), factor
+    ).permute(0, 2, 3, 1)

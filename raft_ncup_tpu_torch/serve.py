@@ -1,12 +1,15 @@
-"""Serve the flagship RAFT-NCUP model: ``python -m raft_ncup_tpu_torch.serve``.
+"""Serve a RAFT model: ``python -m raft_ncup_tpu_torch.serve``.
 
 Port of the plain (non-stream, non-replica) branch of the root
 ``serve.py``: build the model, wrap it in a :class:`FlowServer`, warm it
 up, submit ``--num_requests`` frame pairs, drain, and print one JSON
-report line. The model is the flagship ``raft_nc_dbl`` with both fused
-kernels (``corr_impl="pallas"``, ``nconv_impl="pallas"``), f32, with
-random weights drawn from ``--seed``. Request pairs come from a numpy
-generator seeded by ``--seed``.
+report line. The model comes from the JAX CLI's flags ``--model``,
+``--small``, ``--align_corners`` and ``--upsampler_bi``; by default it is
+the flagship ``raft_nc_dbl`` with NCUP (the JAX CLI defaults to
+``raft``). It runs both hand-written kernels (``corr_impl="pallas"``,
+``nconv_impl="pallas"``), f32, with random weights drawn from
+``--seed``. Request pairs come from a numpy generator seeded by
+``--seed``.
 
 It runs on the card unless ``--device cpu`` is given; with no CUDA and
 no ``--device`` it raises.
@@ -22,7 +25,8 @@ import time
 import numpy as np
 import torch
 
-from raft_ncup_tpu_torch.config import ServeConfig, flagship_config
+from raft_ncup_tpu_torch.cli import add_model_args, model_config_from_args
+from raft_ncup_tpu_torch.config import ServeConfig
 from raft_ncup_tpu_torch.models.raft import RAFT
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
@@ -49,6 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the model weights and of the request pairs")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
+    add_model_args(p)
     return p
 
 
@@ -92,6 +97,7 @@ def serve_pairs(model: RAFT, cfg: ServeConfig, pairs, size_hw) -> tuple[dict, li
         "warmup_configs": warmed,
         "warmup_s": warmup_s,
         "completed": stats.completed,
+        "serve_batches": stats.batches,
         "shed": stats.shed,
         "timeouts": stats.timeouts,
         "rejected": stats.rejected,
@@ -111,12 +117,12 @@ def main(argv=None) -> int:
         iter_levels=args.iter_levels,
     )
     model = RAFT(
-        flagship_config(corr_impl="pallas", nconv_impl="pallas"),
-        device=args.device, seed=args.seed,
+        model_config_from_args(args, dataset="sintel"), device=args.device, seed=args.seed,
     )
     size_hw = (args.size[0], args.size[1])
     pairs = make_pairs(size_hw, args.num_requests, args.seed)
     report, _ = serve_pairs(model, cfg, pairs, size_hw)
+    report.update(variant=model.cfg.variant, small=model.cfg.small)
     if model.device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(model.device)
     print(json.dumps(report), flush=True)

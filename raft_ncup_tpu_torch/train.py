@@ -1,14 +1,15 @@
-"""Train the flagship RAFT-NCUP model: ``python -m raft_ncup_tpu_torch.train``.
+"""Train a RAFT model: ``python -m raft_ncup_tpu_torch.train``.
 
 Port of the root ``train.py`` with ``raft_ncup_tpu/cli.py``'s
-``parse_train``, for what this slice supports: the flagship
-``raft_nc_dbl`` with both hand-written kernels (``corr_impl="pallas"``,
-``nconv_impl="pallas"``) and their backward kernels, f32 with TF32 off,
-trained on procedural pairs (``data/synthetic.py``, the JAX trainer's
-``--synthetic_ok`` data) from weights drawn from ``--seed``. The upsampler
-has BatchNorm for the sintel stage only, and BatchNorm trains in the
-chairs stage only, as in the JAX trainer. The flags keep the JAX CLI's
-names:
+``parse_train``, for what the port supports: the model the flags
+``--model``, ``--small``, ``--align_corners`` and ``--upsampler_bi``
+select (by default the flagship ``raft_nc_dbl`` with NCUP), with both
+hand-written kernels (``corr_impl="pallas"``, ``nconv_impl="pallas"``)
+and their backward kernels, f32 with TF32 off, trained on procedural
+pairs (``data/synthetic.py``, the JAX trainer's ``--synthetic_ok`` data)
+from weights drawn from ``--seed``. NCUP's simple weights net has
+BatchNorm for the sintel stage only, and BatchNorm trains in the chairs
+stage only, as in the JAX trainer. The flags keep the JAX CLI's names:
 
     python -m raft_ncup_tpu_torch.train --name raft_nc_things --stage things \\
         --num_steps 100000 --batch_size 6 --lr 0.000125 --image_size 400 720 \\
@@ -17,7 +18,8 @@ names:
 Metrics go to stdout and ``<checkpoint_dir>/<name>/log.txt`` every
 ``--sum_freq`` steps; the whole train state is saved at the end to
 ``<checkpoint_dir>/<name>/step_<N>.pt``, which ``--restore_ckpt`` (the
-file or its directory) resumes exactly. The last line of stdout is one
+file or its directory) resumes exactly, with the model configuration it
+saved (the model flags are then not read). The last line of stdout is one
 JSON summary. It runs on the card unless ``--device cpu`` is given; with
 no CUDA and no ``--device`` it raises.
 """
@@ -33,7 +35,8 @@ import time
 
 import torch
 
-from raft_ncup_tpu_torch.config import STAGES, TrainConfig, flagship_config
+from raft_ncup_tpu_torch.cli import add_model_args, model_config_from_args
+from raft_ncup_tpu_torch.config import STAGES, TrainConfig
 from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
 from raft_ncup_tpu_torch.training import checkpoint
 from raft_ncup_tpu_torch.training.logger import Logger
@@ -67,6 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["smooth", "rigid"])
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
+    add_model_args(p)
     return p
 
 
@@ -89,10 +93,7 @@ def main(argv=None) -> int:
     if cfg.restore_ckpt:
         state = checkpoint.restore(cfg.restore_ckpt, cfg, device)
     else:
-        model_cfg = flagship_config(
-            dataset=cfg.stage, corr_impl="pallas", nconv_impl="pallas"
-        )
-        state = create_train_state(model_cfg, cfg, device)
+        state = create_train_state(model_config_from_args(args, cfg.stage), cfg, device)
     run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
     logger = Logger(run_dir, dataclasses.asdict(cfg), cfg.sum_freq)
     data = SyntheticFlowDataset(cfg.image_size, seed=cfg.seed, style=cfg.synthetic_style)
@@ -112,6 +113,7 @@ def main(argv=None) -> int:
     logger.close()
     summary = {
         "steps": state.step - first, "step": state.step, "checkpoint": path,
+        "variant": state.model.cfg.variant, "small": state.model.cfg.small,
         "seconds": seconds, "device": str(device),
         "skipped": int(state.sentinel["skipped"]),
         **{k: float(v) for k, v in metrics.items()},

@@ -5,13 +5,16 @@ nested dicts of numpy arrays (``{'params': ..., 'batch_stats': ...}``;
 any mapping works, so flax's FrozenDict does too, and no flax is needed).
 Output: a state dict keyed by the reference's torch module tree, which
 is the port's (``fnet.layer1.0.conv1.weight``,
-``update_block.gru.convz1.bias``,
+``update_block.gru.convz1.bias``, ``update_block.mask.0.weight``,
 ``upsampler.weights_est_net.conv.0.1.running_mean``,
+``upsampler.weights_est_net.up0_conv.conv.1.0.weight``,
 ``upsampler.interpolation_net.nconv_in.weight_p``, ...). The mapping is
 the port's own copy of the one the JAX package's ``utils/torch_export``
 applies:
 
-- conv ``kernel`` (HWIO) -> ``weight`` (OIHW);
+- conv ``kernel`` (HWIO) -> ``weight`` (OIHW); a transposed conv's
+  ``kernel`` (kh, kw, out, in) -> ``weight`` (in, out, kh, kw) by the same
+  transpose;
 - NConv ``weight_p`` (HWIO) -> ``weight_p`` (OIHW), the raw parameter:
   the port maps it through the positivity function at every call;
 - norm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
@@ -53,6 +56,9 @@ def _segment(seg: str, in_weights_est: bool) -> list[str]:
         return ["downsample", "0"]
     if seg == "downsample_norm":
         return ["downsample", "1"]
+    if seg in ("mask_conv1", "mask_conv2"):
+        # The mask head is a Sequential (conv, ReLU, conv).
+        return ["mask", "0" if seg == "mask_conv1" else "2"]
     for name in ("nconv_x2", "decoder", "encoder"):
         m = re.fullmatch(rf"{name}_(\d+)", seg)
         if m:

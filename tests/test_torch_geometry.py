@@ -13,7 +13,7 @@ import torch
 from raft_ncup_tpu.nn.extractor import BasicEncoder as JaxBasicEncoder
 from raft_ncup_tpu.nn.update import BasicUpdateBlock as JaxBasicUpdateBlock
 from raft_ncup_tpu.ops import geometry as jgeo
-from raft_ncup_tpu_torch.nn.extractor import BasicEncoder
+from raft_ncup_tpu_torch.nn.extractor import Encoder
 from raft_ncup_tpu_torch.nn.update import BasicUpdateBlock
 from raft_ncup_tpu_torch.ops import geometry as pgeo
 from raft_ncup_tpu_torch.utils.jax_weights import load_jax_variables
@@ -70,7 +70,7 @@ def test_basic_encoder_matches_jax(norm_fn):
     for bn in jax.tree_util.tree_leaves(variables.get("batch_stats", {})):
         bn[...] = g.uniform(0.5, 1.5, bn.shape)  # non-trivial, positive
     ref = np.asarray(jax.jit(jenc.apply)(variables, jnp.asarray(x)))
-    enc = load_jax_variables(BasicEncoder(64, norm_fn), variables).eval()
+    enc = load_jax_variables(Encoder(64, norm_fn), variables).eval()
     with torch.no_grad():
         out = _nhwc(enc(_nchw(x)))
     assert out.shape == ref.shape == (2, 4, 6, 64)

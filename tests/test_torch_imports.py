@@ -46,7 +46,10 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert not {k: v for k, v in bad.items() if v}
 
 
-@pytest.mark.parametrize("module", ["raft_ncup_tpu_torch", "raft_ncup_tpu_torch.serve"])
+@pytest.mark.parametrize(
+    "module",
+    ["raft_ncup_tpu_torch", "raft_ncup_tpu_torch.serve", "raft_ncup_tpu_torch.train"],
+)
 def test_fresh_import_loads_no_jax(module):
     code = (
         f"import sys, importlib; importlib.import_module({module!r}); "

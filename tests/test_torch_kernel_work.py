@@ -188,8 +188,10 @@ def _tile_paths_brute(coords, level_hw, radius, channels):
 @pytest.mark.parametrize(
     "radius,spread,size,channels",
     [(4, 2.0, (2, 9, 19), 4), (4, 40.0, (1, 12, 24), 4), (2, 8.0, (2, 7, 10), 4),
-     (6, 1.0, (1, 5, 9), 4), (4, 1.0, (1, 6, 8), 260)],
-    ids=["smooth", "wide_random", "radius2", "radius6", "c260_all_per_query"],
+     (6, 1.0, (1, 5, 9), 4), (4, 1.0, (1, 6, 8), 260),
+     (3, 2.0, (2, 9, 19), 128), (3, 40.0, (1, 12, 24), 128)],
+    ids=["smooth", "wide_random", "radius2", "radius6", "c260_all_per_query",
+         "small_model_smooth", "small_model_wide_random"],
 )
 def test_tile_paths_match_brute_force(radius, spread, size, channels):
     b, h, w = size
@@ -361,10 +363,14 @@ MODEL, WITH_D_COORDS, NO_D_F2 = (True, True, False), (True, True, True), (True, 
      ("edge", 0, 0.0, (3, 9, 11), 512, MODEL),
      ("smooth", 4, 20.0, (1, 10, 13), 512, MODEL),
      ("smooth", 4, 20.0, (2, 11, 19), 256, WITH_D_COORDS),
-     ("edge", 4, 0.0, (3, 9, 11), 256, NO_D_F2)],
+     ("edge", 4, 0.0, (3, 9, 11), 256, NO_D_F2),
+     ("smooth", 3, 20.0, (2, 11, 19), 128, MODEL),
+     ("operands", 3, 40.0, (1, 12, 24), 128, MODEL),
+     ("edge", 3, 0.0, (3, 9, 11), 128, MODEL)],
     ids=["smooth", "smooth_radius0", "near_grid_far_windows", "wide_random",
          "radius0_far_windows", "edge_every_border", "edge_radius0_c512", "smooth_c512",
-         "with_d_coords", "without_d_f2"],
+         "with_d_coords", "without_d_f2", "small_model_smooth", "small_model_wide_random",
+         "small_model_edge"],
 )
 def test_backward_work_matches_brute_force(kind, radius, spread, size, channels, needs):
     b, h, w = size
@@ -609,12 +615,16 @@ def test_chip_compare_backward_rows_time_what_chip_smoke_checks(monkeypatch):
     """chip_compare's A' and B' rows and chip_smoke's backward phases draw
     the same inputs, in the same order, whatever chip_smoke drew before:
     A' random then smooth from one fresh ``backward_generator``, B' at the
-    four layers from another. Both sides run on the CPU at tiny shapes
-    (each wrapper takes its plain version there)."""
+    four layers from another; chip_smoke's A' rows at the small model's
+    shape draw from a third, so they change none of those. Both sides run
+    on the CPU at tiny shapes (each wrapper takes its plain version
+    there)."""
     monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda *a, **k: 0.0)
     monkeypatch.setattr(chip_smoke, "TRAIN_CORR",
                         dict(B=1, H=6, W=9, C=8, levels=2, radius=2))
+    monkeypatch.setattr(chip_smoke, "SMALL_TRAIN_CORR",
+                        dict(B=1, H=6, W=9, C=4, levels=2, radius=1))
     monkeypatch.setattr(chip_smoke, "TRAIN_PLANES", (1, 12, 20))
     monkeypatch.setattr(chip_smoke, "NCONV_EDGES", [])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -631,9 +641,11 @@ def test_chip_compare_backward_rows_time_what_chip_smoke_checks(monkeypatch):
     side = []
     real_corr, real_nconv = chip_smoke.corr_bwd_inputs, chip_smoke.nconv_bwd_inputs
 
-    def corr(torch_, gen, mix):
-        got = real_corr(torch_, gen, mix)
-        drawn.setdefault(side[-1], []).append((f"A' {mix}", got))
+    def corr(torch_, gen, mix, s=None):
+        got = real_corr(torch_, gen, mix, s)
+        small = s is chip_smoke.SMALL_TRAIN_CORR
+        drawn.setdefault(side[-1] + (" small" if small else ""), []).append(
+            (f"A' {mix}", got))
         return got
 
     def nconv(torch_, gen, name, *shape):
@@ -660,6 +672,8 @@ def test_chip_compare_backward_rows_time_what_chip_smoke_checks(monkeypatch):
     names = [[n for n, _ in drawn[k]] for k in ("smoke", "compare")]
     assert names[0] == names[1] == ["A' random", "A' smooth"] + [
         f"B' {name}" for name, *_ in chip_smoke.NCUP_LAYERS]
+    assert [n for n, _ in drawn["smoke small"]] == ["A' random", "A' smooth"]
+    assert "compare small" not in drawn
     for (_, a), (_, b) in zip(drawn["smoke"], drawn["compare"]):
         for x, y in zip(flat(a), flat(b), strict=True):
             assert (x is None and y is None) or torch.equal(x, y)

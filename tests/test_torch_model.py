@@ -25,7 +25,12 @@ import torch
 from raft_ncup_tpu.config import flagship_config as jax_flagship_config
 from raft_ncup_tpu.models.raft import RAFT as JaxRAFT
 from raft_ncup_tpu.utils.torch_export import export_torch_state
-from raft_ncup_tpu_torch.config import ModelConfig, flagship_config
+from raft_ncup_tpu_torch.config import (
+    ModelConfig,
+    UpsamplerConfig,
+    flagship_config,
+    small_model_config,
+)
 from raft_ncup_tpu_torch.models.raft import RAFT
 from raft_ncup_tpu_torch.utils import device as device_mod
 from raft_ncup_tpu_torch.utils.jax_weights import carry_state_dict, load_jax_variables
@@ -173,20 +178,29 @@ def test_forward_runs_with_tf32_off_and_restores_the_callers_flags(monkeypatch):
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError):
+    """The settings of later slices raise, each naming its slice: bf16,
+    the PAC and DJIF upsamplers, encoder dropout and ``freeze_raft``. The
+    variants and heads of this slice build; a size not divisible by 8
+    raises; training mode works."""
+    with pytest.raises(NotImplementedError, match="bf16 slice"):
         flagship_config(precision="bf16_infer")
-    with pytest.raises(NotImplementedError):
-        RAFT(ModelConfig(variant="raft"), device="cpu")
-    # Fields no module of this slice reads are absent, not silently ignored.
-    for knob in ({"align_corners": False}, {"freeze_raft": True}):
-        with pytest.raises(TypeError):
-            ModelConfig(**knob)
+    for kind in ("pac", "djif"):
+        with pytest.raises(NotImplementedError, match="PAC slice"):
+            UpsamplerConfig(kind=kind)
+    for knob in ({"dropout": 0.1}, {"freeze_raft": True}):
+        with pytest.raises(NotImplementedError, match="rest of training"):
+            flagship_config(**knob)
+    for bad in ({"kind": "nearest"}, {"weights_est_net": "mlp"}):
+        with pytest.raises(ValueError):
+            UpsamplerConfig(**bad)
+    for cfg in (ModelConfig(variant="raft"), small_model_config(align_corners=False),
+                small_model_config("raft_nc_dbl"),
+                flagship_config(upsampler=UpsamplerConfig(kind="bilinear"))):
+        assert RAFT(cfg, device="cpu").cfg == cfg
     with pytest.raises(ValueError):
         model = RAFT(flagship_config(), device="cpu")
         x = torch.zeros(1, 60, 90, 3)
         model(x, x, iters=1)
-    with pytest.raises(NotImplementedError):  # encoder dropout is a later slice
-        RAFT(flagship_config(dropout=0.1), device="cpu")
     # Training mode is ported: train() works, and the forward then returns
     # every iteration's upsampled flow, differentiable.
     model = RAFT(flagship_config(), device="cpu")
