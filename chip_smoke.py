@@ -3,7 +3,7 @@
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It
 
-1. prints the card's name and power limit (the slice is f32: the model's
+1. prints the card's name and power limit (under f32 the model's
    forward, the train step and the plain versions keep TF32 off
    themselves);
 2. builds the four hand-written kernels from ``raft_ncup_tpu_torch/csrc``,
@@ -56,7 +56,23 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    same configuration (A 24 and A' 12 a step, no B or B'), each with
    its own launch counts, and holds a kernel step of each against a
    plain-version step;
-10. prints one JSON line describing the kernels, the card's name and
+10. runs the bf16 presets: kernel A on bf16 features (its
+    ``corr_lookup_bf16`` entry) at the served shape with both mixes, at
+    1088x1920 and at the small model's served shape with both mixes, each
+    against its plain version on the same bf16 values (atol 1e-4), with
+    its bound at 2 bytes a feature and the f32 kernel's time on the same
+    values; at the flagship's training shape with both mixes, the
+    lookup's autograd on bf16 features (kernel A on bf16, A' on f32
+    copies, bf16 cotangents) against the float64 plain autograd of the
+    same bf16 values; serves the flagship, ``raft`` and small ``raft``
+    under ``bf16_infer`` (``ServeConfig.precision`` over the f32-built
+    models: every lookup on bf16, NCUP's 4 NConv2d launches a batch at
+    f32, one served pair within ``FORWARD_EPE_BUDGET`` of the f32 forward
+    and within ``BF16_PLAIN_SHARE`` of that distance of the bf16
+    plain-version forward); traces the flagship's bf16 forward; and trains the flagship
+    3 steps under ``bf16_train`` (the f32 path's launches, lookups on
+    bf16, A', B and B' on f32, parameters and moments f32, a traced step);
+11. prints one JSON line describing the kernels, the card's name and
     power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
@@ -89,6 +105,21 @@ NCUP_LAYERS = [  # (name, k, Cin, Cout)
 ]
 SERVE_SIZE = (436, 1024)
 SERVE_REQUESTS = 8
+# A bf16 served pair against the same preset's plain-version forward: the
+# kernel and the plain version sum the same bf16 products in another f32
+# order, so their lookups differ by about 1e-6 relative; in a bf16 forward
+# such a difference flips roundings that the 12 iterations amplify. On the
+# CPU, a 1e-6 relative perturbation of every lookup moves a 128x256 bf16
+# forward by 0.177 (flagship), 0.097 (raft) and 0.145 (small raft) of the
+# mean EPE that bf16 itself moves it from f32
+# (tests/test_torch_precision.py::
+# test_lookup_rounding_moves_a_bf16_forward_less_than_the_card_allows).
+# So the pair must lie within half that distance.
+BF16_PLAIN_SHARE = 0.5
+BF16_SERVED = (("raft_nc_dbl", False), ("raft", False), ("raft", True))  # (variant, small)
+# One rounding to bf16 (8 significant bits) moves a value by at most this
+# share of it: half a unit in the last place, 2^-8 of the leading power of 2.
+BF16_ROUNDING = 2.0 ** -8
 
 
 class CheckFailed(RuntimeError):
@@ -160,9 +191,9 @@ def smooth_flow(torch, gen, B, H, W, coarse=(4, 8)):
     return field.permute(0, 2, 3, 1) + frac
 
 
-def corr_inputs(torch, gen, B, H, W, C, levels, mix="random"):
-    """Feature maps, and coords = grid + a ``random_flow`` or a
-    ``smooth_flow``."""
+def corr_inputs(torch, gen, B, H, W, C, levels, mix="random", dtype=None):
+    """Feature maps prepared at ``dtype`` (default f32), and coords = grid +
+    a ``random_flow`` or a ``smooth_flow``."""
     from raft_ncup_tpu_torch.ops.corr_cuda import prepare_levels
 
     f1 = torch.randn(B, H, W, C, generator=gen)
@@ -171,19 +202,22 @@ def corr_inputs(torch, gen, B, H, W, C, levels, mix="random"):
     grid = torch.stack([x, y], -1).float()[None].expand(B, H, W, 2)
     flow = (smooth_flow if mix == "smooth" else random_flow)(torch, gen, B, H, W)
     coords = (grid + flow).contiguous().cuda()
-    f1s, lv = prepare_levels(f1.cuda(), f2.cuda(), levels)
+    f1s, lv = prepare_levels(f1.cuda(), f2.cuda(), levels, dtype)
     return f1s, lv, coords
 
 
 def corr_work(torch, f1s, lv, coords, radius):
     """(bytes, flops) the lookup needs for these inputs: every input read
-    once and the output written once; two flops per multiply-add of the
-    dot products at in-bounds patch positions (out-of-bounds ones need
-    none), plus 7 per output tap for the bilinear blend."""
+    once and the output written once (features at their own size, 4 bytes
+    in f32 and 2 in bf16; coords and output f32); two flops per
+    multiply-add of the dot products at in-bounds patch positions
+    (out-of-bounds ones need none), plus 7 per output tap for the bilinear
+    blend. The sums are f32 for bf16 features too."""
     B, H, W, C = f1s.shape
     K = 2 * radius + 1
     n_out = B * H * W * len(lv) * K * K
-    nbytes = 4 * (f1s.numel() + coords.numel() + sum(t.numel() for t in lv) + n_out)
+    nbytes = (f1s.element_size() * f1s.numel() + 4 * coords.numel()
+              + sum(t.element_size() * t.numel() for t in lv) + 4 * n_out)
     k1 = torch.arange(K + 1, device=coords.device, dtype=torch.float32)
     positions = 0
     for l, t in enumerate(lv):
@@ -216,10 +250,14 @@ def corr_paths(torch, f1s, lv, coords, radius):
 
 
 def check_corr(torch, gen, flush, name, B, H, W, C=256, levels=4, radius=4,
-               mix="random", plain_reps=3):
+               mix="random", plain_reps=3, dtype=None):
+    """One row of kernel A: its output against the plain version on the
+    same inputs, its paths, its time, the plain version's and its bound.
+    With bf16 features (``dtype``) the plain version upcasts the same bf16
+    values, and the f32 kernel is also timed on those values in f32."""
     from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels, lookup_pyramid
 
-    f1s, lv, coords = corr_inputs(torch, gen, B, H, W, C, levels, mix)
+    f1s, lv, coords = corr_inputs(torch, gen, B, H, W, C, levels, mix, dtype)
     launches0 = lookup_levels.launches
     out, paths = corr_paths(torch, f1s, lv, coords, radius)
     ref = lookup_pyramid(f1s, lv, coords, radius)
@@ -230,16 +268,25 @@ def check_corr(torch, gen, flush, name, B, H, W, C=256, levels=4, radius=4,
     plain_ms = cuda_ms(torch, lambda: lookup_pyramid(f1s, lv, coords, radius),
                        plain_reps, flush)
     t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    features = str(f1s.dtype).removeprefix("torch.")
     row = dict(
-        shape=f"B={B} level0={H}x{W} C={C} L={levels} r={radius} {mix} flow",
+        shape=f"B={B} level0={H}x{W} C={C} L={levels} r={radius} {features} {mix} flow",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
         bound_ms=max(t_bytes, t_ops),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         check_launches=lookup_levels.launches - launches0,
         path_tiles=paths,
     )
+    if f1s.dtype != torch.float32:
+        f1w, lvw = f1s.float(), [t.float() for t in lv]
+        row["f32_kernel_ms_same_values"] = cuda_ms(
+            torch, lambda: lookup_levels(f1w, lvw, coords, radius), 20, flush)
+        del f1w, lvw
     print(f"kernel A {name}: {row['shape']}: max|kernel-plain| {err:.3e} "
-          f"(atol {CORR_TOL['atol']}) kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"(atol {CORR_TOL['atol']}) kernel {ms:.4f} ms"
+          + (f" (f32 kernel on the same values {row['f32_kernel_ms_same_values']:.4f} ms)"
+             if "f32_kernel_ms_same_values" in row else "")
+          + f", plain {plain_ms:.3f} ms, "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {flops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB); tiles {paths['tiled']} tiled, "
           f"{paths['per_query']} per-query", flush=True)
@@ -447,13 +494,13 @@ def backward_generator(torch):
     return torch.Generator().manual_seed(0)
 
 
-def corr_bwd_inputs(torch, gen, mix, s=None):
+def corr_bwd_inputs(torch, gen, mix, s=None, dtype=None):
     """Kernel A''s inputs at the training shape ``s`` (default
-    ``TRAIN_CORR``): f1s, the pyramid, coords with ``mix`` flow, and the
-    upstream gradient of the lookup."""
+    ``TRAIN_CORR``): f1s, the pyramid (features at ``dtype``, default f32),
+    coords with ``mix`` flow, and the upstream gradient of the lookup."""
     s = s or TRAIN_CORR
     f1s, lv, coords = corr_inputs(torch, gen, s["B"], s["H"], s["W"], s["C"],
-                                  s["levels"], mix)
+                                  s["levels"], mix, dtype)
     K = 2 * s["radius"] + 1
     g = torch.randn(*coords.shape[:3], s["levels"] * K * K, generator=gen).cuda()
     return f1s, lv, coords, g
@@ -619,6 +666,84 @@ def check_corr_bwd(torch, gen, flush, mix, plain_reps=1, s=None):
         check(same and e <= GRAD_TOL,
               f"corr lookup backward kernel disagrees for {name} ({mix}): {e:.3e}")
     return row
+
+
+def bf16_grad_err(torch, a, ref):
+    """(max over the values of (|a - ref| - BF16_ROUNDING |ref|) / max |ref|,
+    whether a is finite where ref is) for a bf16 gradient ``a`` against its
+    float64 reference: what is left of the difference once the one
+    rounding to bf16 is allowed for."""
+    a, ref = a.double(), ref.double()
+    scale = float(ref.abs().max())
+    excess = float(((a - ref).abs() - BF16_ROUNDING * ref.abs()).clamp(min=0).max())
+    same = bool((torch.isfinite(a) == torch.isfinite(ref)).all())
+    return (excess / scale if scale > 0 else excess), same
+
+
+def check_corr_bwd_bf16(torch, gen, mix):
+    """The lookup as ``bf16_train`` runs it, at the training shape, on the
+    card: kernel A on bf16 features against its plain version on the same
+    bf16 values (CORR_TOL); then the lookup's autograd on those operands
+    (``lookup_levels`` with bf16 features that need a gradient: kernel A
+    forward, kernel A' on f32 copies of the saved bf16 operands, the
+    cotangents cast back to bf16), with the model's gradients (d f1s, d
+    f2) and with d coords too, against the float64 autograd of the plain
+    lookup on the same bf16 values. d coords (f32) within GRAD_TOL of its
+    largest value; d f1s and each d f2 level are bf16, so within GRAD_TOL
+    of their largest value (times 1 + BF16_ROUNDING) once one rounding to
+    bf16 (BF16_ROUNDING of each value) is allowed for."""
+    from raft_ncup_tpu_torch.ops.corr_cuda import (
+        lookup_levels, lookup_levels_backward, lookup_pyramid)
+
+    bf16, s = torch.bfloat16, TRAIN_CORR
+    f1s, lv, coords, g = corr_bwd_inputs(torch, gen, mix, s, bf16)
+    r = s["radius"]
+    fwd_err, fwd_ok = max_err(torch, lookup_levels(f1s, lv, coords, r),
+                              lookup_pyramid(f1s, lv, coords, r), **CORR_TOL)
+    check(fwd_ok, f"corr lookup kernel disagrees with its plain version on bf16 features "
+                  f"at the training shape ({mix} flow): {fwd_err:.3e}")
+    ref = corr_bwd_ref(torch, f1s, lv, coords, r, g)
+    errs = {}
+    for with_coords in (False, True):
+        tag = "with d coords, " if with_coords else ""
+        x1 = f1s.detach().requires_grad_()
+        xl = [t.detach().requires_grad_() for t in lv]
+        xc = coords.detach().requires_grad_(with_coords)
+        before = (dict(lookup_levels.launches_by_dtype), lookup_levels_backward.launches)
+        out = lookup_levels(x1, xl, xc, r)
+        grads = torch.autograd.grad(out, [x1, *xl] + ([xc] if with_coords else []), g)
+        fwd = {k: n - before[0].get(k, 0) for k, n in lookup_levels.launches_by_dtype.items()}
+        check({k: n for k, n in fwd.items() if n} == {"bfloat16": 1}
+              and lookup_levels_backward.launches - before[1] == 1,
+              f"the bf16 lookup's autograd launched kernel A {fwd} and A' "
+              f"{lookup_levels_backward.launches - before[1]} times, want once each")
+        d1, dl = grads[0], grads[1:1 + len(lv)]
+        check(d1.dtype == bf16 and all(d.dtype == bf16 for d in dl),
+              f"the bf16 lookup's cotangents are {d1.dtype} / {[d.dtype for d in dl]}, "
+              f"want the operands' bf16")
+        e, same = bf16_grad_err(torch, d1, ref[0])
+        errs[f"{tag}d_f1s"] = (e, same)
+        for l, (a, b) in enumerate(zip(dl, ref[1])):
+            errs[f"{tag}d_f2_level{l}"] = bf16_grad_err(torch, a, b)
+        if with_coords:
+            dc = grads[-1]
+            check(dc.dtype == torch.float32, f"d coords is {dc.dtype}, want float32")
+            e, same, _ = grad_err(torch, dc, ref[2])
+            errs["with d coords, d_coords"] = (e, same)
+        del out, grads
+    bf16_tol = GRAD_TOL * (1 + BF16_ROUNDING)
+    print(f"kernel A on bf16 features at the training shape, {mix} flow: max|kernel-plain| "
+          f"{fwd_err:.3e} (atol {CORR_TOL['atol']}); its autograd (A' on f32 copies, "
+          f"cotangents back to bf16) against the float64 plain autograd, max excess over "
+          f"one bf16 rounding / max |plain| {json.dumps({k: e for k, (e, _) in errs.items()})} "
+          f"(tolerance {bf16_tol:.6g}; d coords {GRAD_TOL})", flush=True)
+    for name, (e, same) in errs.items():
+        tol = GRAD_TOL if name.endswith("d_coords") else bf16_tol
+        check(same and e <= tol,
+              f"the bf16 lookup's autograd disagrees for {name} ({mix}): {e:.3e}")
+    return dict(shape=f"B={s['B']} level0={s['H']}x{s['W']} C={s['C']} L={s['levels']} "
+                      f"r={r} bfloat16 {mix} flow",
+                forward_max_abs_err=fwd_err, errors={k: e for k, (e, _) in errs.items()})
 
 
 def check_corr_bwd_edges(torch, gen):
@@ -799,26 +924,44 @@ def check_nconv_bwd(torch, gen, flush):
 def check_wrappers_refuse(torch):
     """On a CUDA tensor a wrapper launches its kernel or raises: inputs
     of another dtype or a non-contiguous layout raise instead of falling
-    back to the plain version, with or without a gradient."""
-    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
-    from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
+    back to the plain version, with or without a gradient. Kernel A takes
+    f32 or bf16 features, one dtype for all; A', B and B' take f32 only."""
+    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels, lookup_levels_backward
+    from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_backward, nconv2d_fused
 
     f1 = torch.randn(1, 8, 8, 16, device="cuda")
     lv = [torch.randn(1, 8, 8, 16, device="cuda")]
     co = torch.zeros(1, 8, 8, 2, device="cuda")
+    g = torch.zeros(1, 8, 8, 25, device="cuda")
     d = torch.randn(1, 1, 8, 8, device="cuda")
     w = torch.rand(2, 1, 3, 3, device="cuda")
+    o = torch.zeros(1, 2, 8, 8, device="cuda")
+    half = [t.bfloat16() for t in lv]
     cases = [
         ("corr, float64", TypeError, lambda: lookup_levels(f1.double(), lv, co, 2)),
+        ("corr, float16", TypeError,
+         lambda: lookup_levels(f1.half(), [t.half() for t in lv], co, 2)),
+        ("corr, bf16 f1 with f32 levels", TypeError,
+         lambda: lookup_levels(f1.bfloat16(), lv, co, 2)),
+        ("corr, f32 f1 with bf16 levels", TypeError, lambda: lookup_levels(f1, half, co, 2)),
         ("corr, non-contiguous", ValueError,
          lambda: lookup_levels(f1.transpose(1, 2), lv, co, 2)),
+        ("corr, bf16 non-contiguous", ValueError,
+         lambda: lookup_levels(f1.bfloat16().transpose(1, 2), half, co, 2)),
         ("corr, float64 with a gradient", TypeError,
          lambda: lookup_levels(f1.double().requires_grad_(), lv, co, 2)),
+        ("corr backward, bf16", TypeError,
+         lambda: lookup_levels_backward(f1.bfloat16(), half, co, 2, g)),
         ("nconv, float64", TypeError, lambda: nconv2d_fused(d.double(), d.double(), w)),
+        ("nconv, bf16", TypeError,
+         lambda: nconv2d_fused(d.bfloat16(), d.bfloat16(), w.bfloat16())),
         ("nconv, non-contiguous", ValueError,
          lambda: nconv2d_fused(d.transpose(2, 3), d, w)),
         ("nconv, non-contiguous with a gradient", ValueError,
          lambda: nconv2d_fused(d.transpose(2, 3), d, w.clone().requires_grad_())),
+        ("nconv backward, bf16", TypeError,
+         lambda: nconv2d_backward(d.bfloat16(), d.bfloat16(), w.bfloat16(), None,
+                                  o, o, o, None)),
     ]
     for what, exc, call in cases:
         try:
@@ -837,8 +980,9 @@ def model_config(variant, small, **kw):
     return ModelConfig(variant=variant, small=small, **kw)
 
 
-def model_label(variant, small) -> str:
-    return variant + (" small" if small else "")
+def model_label(variant, small, precision="f32") -> str:
+    return variant + (" small" if small else "") + (
+        "" if precision == "f32" else f" {precision}")
 
 
 def line_name(phase, label) -> str:
@@ -863,20 +1007,26 @@ def check_launches(launches, variant, train, what) -> None:
         f"{what}: launches {launches}, want at least one of each of {sorted(want)} only")
 
 
-def check_serve(torch, card, variant="raft_nc_dbl", small=False):
+def check_serve(torch, card, variant="raft_nc_dbl", small=False, precision=None):
     """Serve ``SERVE_REQUESTS`` requests at ``SERVE_SIZE`` with one model
     (seeded weights, both kernels, f32), every kernel count set to 0 just
     before and read just after; check every answer, the kernels of the
     path (one lookup per GRU iteration of each batch) and one served pair
-    against the same weights through the plain versions."""
+    against the same weights through the plain versions. With a
+    ``precision`` preset the server runs the same f32-built model under it
+    (``ServeConfig.precision``): every lookup on bf16 features, NCUP's 4
+    NConv2d launches a batch at f32, and one served pair within
+    ``FORWARD_EPE_BUDGET`` of the f32 forward and within ``BF16_PLAIN_SHARE``
+    of that distance of the same preset's plain-version forward."""
     from raft_ncup_tpu_torch.models.raft import RAFT
     from raft_ncup_tpu_torch.ops import corr_cuda
     from raft_ncup_tpu_torch.ops.padding import InputPadder
     from raft_ncup_tpu_torch.serve import make_pairs, serve_pairs
     from raft_ncup_tpu_torch.config import ServeConfig
 
-    label = model_label(variant, small)
-    cfg = ServeConfig(batch_sizes=(1, 2), iter_levels=(12,), queue_capacity=16)
+    label = model_label(variant, small, precision or "f32")
+    cfg = ServeConfig(batch_sizes=(1, 2), iter_levels=(12,), queue_capacity=16,
+                      precision=precision)
     model = RAFT(model_config(variant, small, corr_impl="pallas", nconv_impl="pallas"),
                  device="cuda", seed=0)
     pairs = make_pairs(SERVE_SIZE, SERVE_REQUESTS, seed=0)
@@ -885,6 +1035,7 @@ def check_serve(torch, card, variant="raft_nc_dbl", small=False):
     report, responses = serve_pairs(model, cfg, pairs, SERVE_SIZE)
     torch.cuda.synchronize()
     launches = read_launches()
+    by_dtype = read_corr_launches_by_dtype()
     served_paths = corr_cuda.path_tiles()
     per_batch = report["corr_kernel_launches"] / report["serve_batches"]
     print(f"serve {label}: {report['serve_ok']}/{report['serve_requests']} ok at "
@@ -893,7 +1044,8 @@ def check_serve(torch, card, variant="raft_nc_dbl", small=False):
           f"p99 {report['serve_p99_ms']} ms, {report['serve_pairs_per_sec']:.3f} pairs/s "
           f"on {card}; {report['stats']}; launches while serving "
           f"(warm-up included) {launches}, corr lookups per served batch {per_batch}; "
-          f"corr lookup tiles by path {served_paths}", flush=True)
+          f"corr lookup tiles by path {served_paths}; corr launches by feature dtype "
+          f"{by_dtype}; report precision {report['precision']}", flush=True)
     check(report["errors"] == 0, f"serve errors: {[r.detail for r in responses if not r.ok]}")
     for r in responses:
         check(r.ok, f"request {r.request_id} answered {r.status}: {r.detail}")
@@ -902,6 +1054,9 @@ def check_serve(torch, card, variant="raft_nc_dbl", small=False):
     check_launches(launches, variant, False, f"serve {label}")
     check(per_batch == cfg.iter_levels[0],
           f"serve {label}: {per_batch} corr lookups per batch, want {cfg.iter_levels[0]}")
+    if precision is not None:
+        return check_served_preset(torch, model, variant, small, precision, pairs, responses,
+                                   report, by_dtype, launches, label)
 
     # One served pair against the same weights through the plain versions.
     plain = RAFT(model_config(variant, small, corr_impl="onthefly", nconv_impl="xla"),
@@ -923,6 +1078,55 @@ def check_serve(torch, card, variant="raft_nc_dbl", small=False):
     check(ok_lr and ok_up, f"served {label} flow disagrees with the plain-version model")
     report.update(flow_lr_err=e_lr, flow_up_err=e_up, corr_path_tiles=served_paths,
                   corr_launches_per_batch=per_batch)
+    del plain
+    return model, report, launches
+
+
+def check_served_preset(torch, model, variant, small, precision, pairs, responses, report,
+                        by_dtype, launches, label):
+    """The checks of a served preset (see ``check_serve``)."""
+    from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.ops.padding import InputPadder
+    from raft_ncup_tpu_torch.precision import FORWARD_EPE_BUDGET
+
+    check(report["precision"] == precision, f"serve {label}: report names "
+                                            f"{report['precision']}")
+    check(by_dtype == {"bfloat16": launches["corr_lookup"]},
+          f"serve {label}: corr launches by feature dtype {by_dtype}, want every one of "
+          f"the {launches['corr_lookup']} on bfloat16")
+    nconv_per_batch = report["nconv_kernel_launches"] / report["serve_batches"]
+    want_nconv = 4 if variant == "raft_nc_dbl" else 0
+    check(nconv_per_batch == want_nconv,
+          f"serve {label}: {nconv_per_batch} NConv2d launches per batch, want {want_nconv}")
+    plain = RAFT(model_config(variant, small, corr_impl="onthefly", nconv_impl="xla",
+                              precision=precision), device="cuda", seed=0)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    padder = InputPadder((*SERVE_SIZE, 3), mode="sintel")
+    a, b = (torch.from_numpy(x)[None].cuda() for x in pairs[0])
+    p1, p2 = padder.pad(a, b)
+    served = torch.from_numpy(responses[0].flow).cuda()
+    _, up_f32 = model(p1, p2, iters=12)
+    _, up_plain = plain(p1, p2, iters=12)
+    up_f32, up_plain = padder.unpad(up_f32)[0], padder.unpad(up_plain)[0]
+
+    def epe(x, y):
+        return float((x - y).norm(dim=-1).mean())
+
+    e_f32, e_plain = epe(served, up_f32), epe(served, up_plain)
+    print(f"served {label} pair: mean EPE against the f32 forward {e_f32:.4e} px (budget "
+          f"{FORWARD_EPE_BUDGET}), against the {precision} plain-version forward "
+          f"{e_plain:.4e} px (tolerance {BF16_PLAIN_SHARE} x {e_f32:.4e}); max|diff| "
+          f"{float((served - up_f32).abs().max()):.3e} / "
+          f"{float((served - up_plain).abs().max()):.3e}; max|flow_up| "
+          f"{float(up_f32.abs().max()):.3f}; output {responses[0].flow.dtype}", flush=True)
+    check(responses[0].flow.dtype.name == "float32", f"served {label} flow is not f32")
+    check(e_f32 <= FORWARD_EPE_BUDGET, f"served {label} pair: mean EPE {e_f32} against "
+                                       f"the f32 forward, budget {FORWARD_EPE_BUDGET}")
+    check(e_plain <= BF16_PLAIN_SHARE * e_f32,
+          f"served {label} pair: mean EPE {e_plain} against the plain-version forward, "
+          f"tolerance {BF16_PLAIN_SHARE} x {e_f32}")
+    report.update(epe_vs_f32=e_f32, epe_vs_plain=e_plain, corr_launches_by_dtype=by_dtype,
+                  nconv_launches_per_batch=nconv_per_batch)
     del plain
     return model, report, launches
 
@@ -972,12 +1176,19 @@ def kernel_counters():
 
 
 def reset_launches() -> None:
+    """Every kernel's launch count to 0, kernel A's by feature dtype too."""
     for fn in kernel_counters().values():
         fn.launches = 0
+    kernel_counters()["corr_lookup"].launches_by_dtype.clear()
 
 
 def read_launches() -> dict[str, int]:
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def read_corr_launches_by_dtype() -> dict[str, int]:
+    """Kernel A's launches since ``reset_launches``, by the features' dtype."""
+    return dict(kernel_counters()["corr_lookup"].launches_by_dtype)
 
 
 @contextlib.contextmanager
@@ -1069,23 +1280,27 @@ def profile_train_step(torch, step, state, batch) -> dict:
 
 
 def check_train(torch, card, variant="raft_nc_dbl", small=False, steps=TRAIN_STEPS,
-                extras=True) -> dict:
+                extras=True, precision="f32", profile=None) -> dict:
     """A main path: ``steps`` steps of one model's training at the full
     configuration above, through the lookup kernel and its backward (and,
     with NCUP, the NConv2d kernel and its backward), every kernel count set
     to 0 just before and read just after; finite losses, no skipped step,
     no plain version called, each kernel launched as often as the step's
     structure says. With ``extras``, then the peak memory of one step
-    without remat and a profiled step."""
+    without remat; with ``profile`` (default: ``extras``) a profiled step.
+    Under ``precision`` bf16_train the lookup takes bf16 features, and its
+    backward, NConv2d and its backward take f32 (their wrappers raise on
+    anything else), with the same launches as f32."""
     from raft_ncup_tpu_torch.config import TrainConfig
     from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
     from raft_ncup_tpu_torch.training.state import create_train_state
     from raft_ncup_tpu_torch.training.step import make_train_step
 
-    label = model_label(variant, small)
-    cfg = TrainConfig(**TRAIN_CFG)
+    label = model_label(variant, small, precision)
+    profile = extras if profile is None else profile
+    cfg = TrainConfig(**TRAIN_CFG, precision=precision)
     model_cfg = model_config(variant, small, dataset=cfg.stage, corr_impl="pallas",
-                             nconv_impl="pallas")
+                             nconv_impl="pallas", precision=precision)
     state = create_train_state(model_cfg, cfg, "cuda")
     data = SyntheticFlowDataset(cfg.image_size, seed=cfg.seed)
     batches = [data.batch(i, cfg.batch_size, "cuda") for i in range(steps)]
@@ -1106,6 +1321,7 @@ def check_train(torch, card, variant="raft_nc_dbl", small=False, steps=TRAIN_STE
             step_ms.append(1e3 * (time.perf_counter() - t0))
             losses.append(float(metrics["loss"]))
     launches = read_launches()
+    by_dtype = read_corr_launches_by_dtype()
     bwd_counts = corr_cuda.backward_counts()
     peak_remat = torch.cuda.max_memory_allocated()
     skipped = int(state.sentinel["skipped"])
@@ -1113,20 +1329,22 @@ def check_train(torch, card, variant="raft_nc_dbl", small=False, steps=TRAIN_STE
     report = {
         "card": card,
         "config": f"{label} stage {cfg.stage}, batch {cfg.batch_size} at "
-                  f"{cfg.image_size[0]}x{cfg.image_size[1]}, {cfg.iters} iterations, f32, "
-                  "remat on, sentinel on",
+                  f"{cfg.image_size[0]}x{cfg.image_size[1]}, {cfg.iters} iterations, "
+                  f"{precision}, remat on, sentinel on",
         "losses": losses, "skipped": skipped, "step_ms": step_ms,
         f"median_ms_steps_2_to_{steps}": statistics.median(step_ms[1:]),
         "peak_gib_remat": peak_remat / 2**30,
         "launches": launches, "launches_per_step": per_step,
         "corr_lookup_bwd_counts": bwd_counts,
         "plain_version_calls": plain_calls,
+        "corr_launches_by_feature_dtype": by_dtype,
     }
     if extras:
         torch.cuda.reset_peak_memory_stats()
         make_train_step(cfg, remat=False)(state, batches[0])
         torch.cuda.synchronize()
         report["peak_gib_no_remat"] = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
         report["profile"] = profile_train_step(torch, step, state, batches[1])
     print(f"{line_name('train', label)}: {json.dumps(report)}", flush=True)
     check(not plain_calls, f"plain versions ran during the {label} train steps: {plain_calls}")
@@ -1139,6 +1357,12 @@ def check_train(torch, card, variant="raft_nc_dbl", small=False, steps=TRAIN_STE
     want = {"corr_lookup": 2 * cfg.iters, "corr_lookup_bwd": cfg.iters,
             "nconv": 8 * cfg.iters if ncup else 0, "nconv_bwd": 4 * cfg.iters if ncup else 0}
     check(per_step == want, f"{label} launches per step {per_step}, want {want}")
+    want_dtype = "float32" if precision == "f32" else "bfloat16"
+    check(by_dtype == {want_dtype: launches["corr_lookup"]},
+          f"{label}: corr launches by feature dtype {by_dtype}, want {want_dtype} only")
+    check(all(p.dtype == torch.float32 for p in state.model.parameters())
+          and all(t.dtype == torch.float32 for t in state.optimizer.mu + state.optimizer.nu),
+          f"{label}: a parameter or an optimizer moment is not f32")
     del state, batches
     torch.cuda.empty_cache()
     return report
@@ -1260,12 +1484,12 @@ def profile_forward(torch, model, card) -> dict:
     for name, ms in kernels.items():
         groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    label = model_label(model.cfg.variant, model.cfg.small)
+    label = model_label(model.cfg.variant, model.cfg.small, model.policy.name)
     prof_report = {
         "card": card,
         "model": label,
         "shape": f"batch {PROFILE_BATCH} at {h}x{w} (padded {i1.shape[1]}x{i1.shape[2]}), "
-                 "12 iterations, f32",
+                 f"12 iterations, {model.policy.name}",
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
@@ -1323,10 +1547,27 @@ def main() -> int:
     corr_small = [check_corr(torch, small_gen, flush, "small model's served shape", B=2,
                              H=55, W=128, C=128, radius=3, mix=mix)
                   for mix in ("random", "smooth")]
+    # Kernel A on bf16 features (the bf16 presets), from a generator of its
+    # own: the served shape with both mixes, 1088x1920 and the small model's
+    # served shape with both mixes.
+    bf16_gen = torch.Generator().manual_seed(0)
+    bf16 = torch.bfloat16
+    corr_bf16 = [check_corr(torch, bf16_gen, flush, "served shape, bf16", B=2, H=55, W=128,
+                            mix=mix, dtype=bf16) for mix in ("random", "smooth")]
+    corr_bf16.append(check_corr(torch, bf16_gen, flush, "1080p shape, bf16", B=1, H=136,
+                                W=240, dtype=bf16))
+    corr_bf16 += [check_corr(torch, bf16_gen, flush, "small model's served shape, bf16", B=2,
+                             H=55, W=128, C=128, radius=3, mix=mix, dtype=bf16)
+                  for mix in ("random", "smooth")]
     check_corr_edges(torch, gen)
     nconv_rows = check_nconv(torch, gen, flush)
     check_nconv_edges(torch, gen)
     corr_bwd, corr_bwd_small, nconv_bwd_rows = check_backward(torch, gen, flush)
+    # The lookup's autograd on bf16 features, as bf16_train runs it, at the
+    # flagship's training shape (both mixes from a generator of its own).
+    bf16_bwd_gen = backward_generator(torch)
+    for mix in ("random", "smooth"):
+        check_corr_bwd_bf16(torch, bf16_bwd_gen, mix)
     check_wrappers_refuse(torch)
 
     # The main paths, each with the kernel counts set to 0 just before it
@@ -1342,6 +1583,22 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
     launches = paths["serve raft_nc_dbl"]
+    # The bf16 presets: the flagship, raft and small raft served under
+    # bf16_infer (the f32-built models, ServeConfig.precision), the
+    # flagship's bf16 forward traced, and the flagship trained under
+    # bf16_train.
+    for variant, small in BF16_SERVED:
+        label = model_label(variant, small, "bf16_infer")
+        model, _, paths[f"serve {label}"] = check_serve(torch, card, variant, small,
+                                                        "bf16_infer")
+        if variant == "raft_nc_dbl":
+            profile = profile_forward(torch, model.with_policy("bf16_infer"), card)
+            check(profile["device_ms"] is not None, "the bf16 trace holds no device time")
+        del model
+        torch.cuda.empty_cache()
+    train_bf16 = check_train(torch, card, steps=VARIANT_TRAIN_STEPS, extras=False,
+                             precision="bf16_train", profile=True)
+    paths["train raft_nc_dbl bf16_train"] = train_bf16["launches"]
     train = check_train(torch, card)
     check(all(p["device_ms"] > 0 for p in train["profile"]["phases"].values()),
           "a phase of the train trace holds no device time")
@@ -1392,6 +1649,23 @@ def main() -> int:
              launches=launches["nconv"], train_launches=tl["nconv"],
              **_summed_numbers(nconv_rows), **by_path("nconv")),
     ]
+    # The bf16 rows at the flagship's shapes give the flagship's bf16_infer
+    # serve and bf16_train runs; those at the small model's shape the small
+    # raft's bf16_infer serve (no phase trains it under bf16).
+    bf16_flagship = dict(
+        launches=paths["serve raft_nc_dbl bf16_infer"]["corr_lookup"],
+        train_launches=train_bf16["launches"]["corr_lookup"])
+    bf16_small = dict(launches=paths["serve raft small bf16_infer"]["corr_lookup"])
+    bf16_tiers = [(":422", bf16_flagship, "the flagship's bf16_infer serve's")] * 2 + [
+        (":672", bf16_flagship, "the flagship's bf16_infer serve's")] + [
+        (":422", bf16_small, "the small raft's bf16_infer serve's")] * 2
+    for row, (tier, counts, whose) in zip(corr_bf16, bf16_tiers):
+        kernels.append(dict(
+            name=f"corr_lookup on bf16 features, {row['shape']} (the same kernel, its "
+                 f"corr_lookup_bf16 entry; launches are {whose})",
+            route="cuda", source=corr_src, replaces=f"raft_ncup_tpu/ops/corr_pallas.py{tier}",
+            **counts, f32_kernel_ms_same_values=row["f32_kernel_ms_same_values"],
+            **_kernel_numbers(row), **by_path("corr_lookup")))
     for row in corr_small:
         kernels.append(dict(
             name=f"corr_lookup at the small model's served shape (C=128, r=3), "

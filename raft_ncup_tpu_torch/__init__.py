@@ -19,7 +19,9 @@ its XLA path:
 
 Models: the flagship ``raft_nc_dbl`` (NCUP or bilinear upsampling),
 the ``raft`` baseline with convex upsampling, and the small model of
-either variant (``small_model_config``).
+either variant (``small_model_config``), each under the precision
+presets ``f32`` (the default), ``bf16_infer`` and ``bf16_train``
+(``precision/policy.py``).
 
 Entry points: ``python -m raft_ncup_tpu_torch.serve`` and
 ``python -m raft_ncup_tpu_torch.train``.

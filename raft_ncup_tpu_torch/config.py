@@ -4,11 +4,8 @@ The port's own copy of ``raft_ncup_tpu/config.py``'s ``UpsamplerConfig``,
 ``ModelConfig``, ``ServeConfig``, ``TrainConfig`` and ``flagship_config``
 (the port imports nothing of the JAX package). Field names and defaults
 are the JAX package's, so one configuration means the same in both
-packages, with these differences of this slice:
+packages, with these differences:
 
-- ``ModelConfig.precision`` accepts only ``"f32"``; the bf16 presets are
-  a later slice and raise here. The model's forward keeps TF32 off
-  (``utils.device.f32_precision``), so f32 means f32 on the card too.
 - Settings of later slices raise here rather than being ignored:
   ``dropout > 0`` and ``freeze_raft`` (the rest of training), and the
   ``pac`` and ``djif`` upsampler kinds (the PAC slice).
@@ -16,23 +13,31 @@ packages, with these differences of this slice:
   that the JAX package reads from its ``RAFT_NCUP_NCONV_IMPL`` knob:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
   (the fused kernel, CUDA in the port). Its default is the JAX default.
-- ``ServeConfig`` has no ``mesh`` and no ``precision`` (one card, f32).
+- ``ServeConfig`` has no ``mesh`` (one card).
 - ``TrainConfig`` holds only the fields the port's trainer reads: no
   ``validation``/``val_freq`` (validation during training), ``add_noise``,
-  ``load_pretrained``, ``data_parallel``/``spatial_parallel`` (the mesh),
-  ``sentinel_halt_after`` (the halt-and-rollback policy) or ``precision``;
-  they return with the slices that read them. The divergence sentinel
+  ``load_pretrained``, ``data_parallel``/``spatial_parallel`` (the mesh)
+  or ``sentinel_halt_after`` (the halt-and-rollback policy); they return
+  with the slices that read them. The divergence sentinel
   always runs, so there is no ``anomaly_sentinel`` switch, and its spike
   factor, EMA decay and warm-up (``training/sentinel.py``) and the loss's
   ``max_flow`` (``training/loss.py``) are constants at the JAX defaults,
   since no flag of the JAX CLI that the port takes sets them. It carries
   ``synthetic_style``, a field of the JAX package's ``DataConfig``: the
   port trains on synthetic pairs only, so it needs no ``DataConfig`` yet.
-"""
 
+Precision (``precision/policy.py``): ``ModelConfig.precision`` names a
+preset (``f32``, ``bf16_infer``, ``bf16_train``); the legacy
+``mixed_precision`` bool alone resolves to ``bf16_infer``, and an explicit
+preset wins (``ModelConfig.precision_policy``). Under f32 the model's
+forward keeps TF32 off (``utils.device.f32_precision``), so f32 means f32
+on the card too.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+from raft_ncup_tpu_torch.precision import PrecisionPolicy, resolve_policy
 
 CORR_IMPLS = ("volume", "onthefly", "pallas")
 STAGES = ("chairs", "things", "sintel", "kitti")
@@ -92,7 +97,10 @@ class ModelConfig:
     variant: str = "raft_nc_dbl"
     small: bool = False
     dropout: float = 0.0
+    # Precision preset: 'f32' | 'bf16_infer' | 'bf16_train'.
     precision: str = "f32"
+    # Legacy bool: True with the default precision resolves to
+    # 'bf16_infer'; an explicit preset wins.
     mixed_precision: bool = False
     # align_corners of the bilinear x8 upsampling of the small model's
     # flow (``ops.geometry.upflow``).
@@ -114,12 +122,7 @@ class ModelConfig:
     def __post_init__(self) -> None:
         if self.variant not in ("raft", "raft_nc_dbl"):
             raise ValueError(f"unknown model variant: {self.variant!r}")
-        if self.precision != "f32" or self.mixed_precision:
-            raise NotImplementedError(
-                f"precision {self.precision!r} (mixed_precision="
-                f"{self.mixed_precision}): the port runs f32 only; the bf16 "
-                "presets land with the bf16 slice"
-            )
+        resolve_policy(self.precision)  # raises on an unknown preset
         if self.dropout > 0:
             raise NotImplementedError(
                 "encoder dropout lands with the port's slice for the rest of training"
@@ -132,6 +135,14 @@ class ModelConfig:
             raise ValueError(f"unknown corr_impl: {self.corr_impl!r}")
         if self.nconv_impl not in NCONV_IMPLS:
             raise ValueError(f"unknown nconv_impl: {self.nconv_impl!r}")
+
+    @property
+    def precision_policy(self) -> PrecisionPolicy:
+        """The resolved policy: the legacy ``mixed_precision`` bool maps
+        onto 'bf16_infer' when no explicit preset was chosen."""
+        if self.precision == "f32" and self.mixed_precision:
+            return resolve_policy("bf16_infer")
+        return resolve_policy(self.precision)
 
     @property
     def hidden_dim(self) -> int:
@@ -161,10 +172,9 @@ class ServeConfig:
     """Online flow-serving knobs (see ``serving/server.py``).
 
     Same fields and defaults as the JAX package's ``ServeConfig`` except
-    ``mesh`` and ``precision``, which this slice does not have, and
-    ``cache_size``, ``inflight`` and ``drain_depth``, which belong to the
-    JAX executable cache and async drain the port does not need (PyTorch
-    runs eagerly).
+    ``mesh``, which the port does not have, and ``cache_size``,
+    ``inflight`` and ``drain_depth``, which belong to the JAX executable
+    cache and async drain the port does not need (PyTorch runs eagerly).
     """
 
     # Admission-queue capacity: a full queue sheds with retry_after_s.
@@ -182,8 +192,13 @@ class ServeConfig:
     pad_bucket: int = 0
     min_image_hw: int = 16
     max_image_hw: tuple[int, int] = (2176, 3840)
+    # The precision preset the server's forwards run under; None inherits
+    # the model's own policy.
+    precision: str | None = None
 
     def __post_init__(self) -> None:
+        if self.precision is not None:
+            resolve_policy(self.precision)  # raises on an unknown preset
         bs = tuple(int(b) for b in self.batch_sizes)
         if not bs or any(b <= 0 for b in bs) or list(bs) != sorted(set(bs)):
             raise ValueError(
@@ -230,8 +245,14 @@ class TrainConfig:
     restore_ckpt: str | None = None
     checkpoint_dir: str = "checkpoints"
     synthetic_style: str = "smooth"  # 'smooth' | 'rigid'
+    # Training precision preset: 'f32' or 'bf16_train' (bf16 compute, f32
+    # master weights). It names the model's resolved preset: the train
+    # entry derives it from the model's flags (or a resumed checkpoint),
+    # and a train state raises when the two differ.
+    precision: str = "f32"
 
     def __post_init__(self) -> None:
+        resolve_policy(self.precision)  # raises on an unknown preset
         if self.stage not in STAGES:
             raise ValueError(f"unknown stage: {self.stage!r}")
         if self.optimizer.lower() not in ("adamw", "adam"):

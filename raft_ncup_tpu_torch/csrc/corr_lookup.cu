@@ -80,6 +80,23 @@
 // The first design (one warp per query and level, one 1 KB row load and a
 // 5-step shuffle reduction per position) took 0.389 ms at the served shape
 // on an H100 (15x its bound).
+//
+// Operands in bf16. Under the bf16 precision presets the Pallas kernels
+// stage bf16 f1 rows and f2 patches and upcast both to f32 before the dot
+// products (corr_pallas.py:355-356, :517-518); the output stays f32. Here
+// the kernel is templated on the features' storage type (float, or bf16_t:
+// the upper half of an f32's bits): each 4-channel chunk is one 16-byte
+// load in f32 and one 8-byte load in bf16, widened to a float4 in
+// registers, so the lane-to-channel map, the transposing butterflies, the
+// path rule and every sum are those of the f32 kernel, in f32. What should
+// bound it: half the operand bytes (the output, 4 bytes a tap, is then
+// the larger part of the byte bound) and the same FMAs, plus 4
+// conversions (a shift or a mask each) per chunk loaded, on a tiled path
+// that is already bound by issue rather than by bytes. So expect it near
+// the f32 kernel's time, not half of it; making it faster is later work.
+// On an H100 at the served shape it took 0.267 ms on random flow and 0.154
+// ms on smooth flow, against 0.329 and 0.155 ms for the f32 kernel on the
+// same values (chip_smoke.py): only the per-query path gained.
 
 #include <cuda_runtime.h>
 
@@ -87,6 +104,22 @@
 #include <cstddef>
 
 namespace {
+
+// bf16 storage: the upper 16 bits of an f32 (round-to-nearest-even done by
+// the caller). Widening is a shift or a mask; no conversion instruction.
+struct bf16_t {
+  unsigned short bits;
+};
+
+// A 4-channel chunk c4 of a channel row, widened to f32.
+__device__ __forceinline__ float4 load4(const float* row, int c4) {
+  return __ldg(reinterpret_cast<const float4*>(row) + c4);
+}
+__device__ __forceinline__ float4 load4(const bf16_t* row, int c4) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(row) + c4);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
 
 constexpr int kMaxLevels = 8;
 constexpr int kMaxRadius = 8;
@@ -107,7 +140,7 @@ constexpr int kMinBlocks = 3;
 static_assert(kTileQ * kTiledPixels == 32, "one sum per lane after a pass");
 
 struct LevelTable {
-  const float* ptr[kMaxLevels];
+  const void* ptr[kMaxLevels];  // (B, Hl, Wl, C) of the features' type
   int h[kMaxLevels];
   int w[kMaxLevels];
 };
@@ -219,20 +252,22 @@ __device__ __forceinline__ void split(int p, int w, float inv_w, int& y,
 // A warp's tile of 2x4 queries at one level: where it lies, lane t's query
 // (t % 8) with its window clipped to the level, the bounding box of the
 // tile's clipped windows and the path rule.
+template <typename T>
 struct Tile {
   int b, l, y_base, x_base, Hl, Wl;
-  const float* level;  // the level's plane of batch element b
+  const T* level;  // the level's plane of batch element b
   Window me;
   int wx0, wy0, ww, area;  // this lane's clipped window (area 0: empty)
   int bx0, by0, bw, npix;  // the box (npix 0: every window off the level)
   bool tiled;
 };
 
-__device__ __forceinline__ Tile tile_of(int tile, const float* coords,
-                                        const LevelTable& lv, int B, int H,
-                                        int W, int C, int radius, int tiles_y,
-                                        int tiles_x, int lane) {
-  Tile t;
+template <typename T>
+__device__ __forceinline__ Tile<T> tile_of(int tile, const float* coords,
+                                           const LevelTable& lv, int B, int H,
+                                           int W, int C, int radius,
+                                           int tiles_y, int tiles_x, int lane) {
+  Tile<T> t;
   int rest = tile;
   const int tx = rest % tiles_x;
   rest /= tiles_x;
@@ -242,7 +277,7 @@ __device__ __forceinline__ Tile tile_of(int tile, const float* coords,
   t.l = rest / B;
   // The level's entry by constant indices: a dynamic index into the kernel
   // parameter would copy the whole table to local memory.
-  const float* base = lv.ptr[0];
+  const void* base = lv.ptr[0];
   t.Hl = lv.h[0];
   t.Wl = lv.w[0];
 #pragma unroll
@@ -252,7 +287,7 @@ __device__ __forceinline__ Tile tile_of(int tile, const float* coords,
       t.Hl = lv.h[i];
       t.Wl = lv.w[i];
     }
-  t.level = base + (size_t)t.b * t.Hl * t.Wl * C;
+  t.level = static_cast<const T*>(base) + (size_t)t.b * t.Hl * t.Wl * C;
   t.y_base = ty * kTileH;
   t.x_base = tx * kTileW;
 
@@ -293,7 +328,8 @@ __device__ __forceinline__ Tile tile_of(int tile, const float* coords,
 
 // Bilinear blend of the tile's (K+1)^2 patches into each query's K*K taps
 // (x-major), by the whole warp.
-__device__ __forceinline__ void blend_tile(const Tile& t, const float* patch,
+template <typename T>
+__device__ __forceinline__ void blend_tile(const Tile<T>& t, const float* patch,
                                            float* __restrict__ out, int H,
                                            int W, int L, int radius,
                                            int lane) {
@@ -324,9 +360,9 @@ __device__ __forceinline__ void blend_tile(const Tile& t, const float* patch,
 // Tiled path, NV: float4 chunks of a channel row each lane holds (C <=
 // NV * 128, NV <= 2): the 8 queries' f1 rows in registers, the box 4 pixels
 // a pass, each loaded element used by all 8 queries.
-template <int NV>
-__device__ __forceinline__ void tiled_path(const Tile& t,
-                                           const float* __restrict__ f1s,
+template <typename T, int NV>
+__device__ __forceinline__ void tiled_path(const Tile<T>& t,
+                                           const T* __restrict__ f1s,
                                            float* patch, int H, int W, int C,
                                            int K1, int lane) {
   const int C4 = C >> 2;
@@ -342,12 +378,11 @@ __device__ __forceinline__ void tiled_path(const Tile& t,
     const int uy = t.y_base + u / kTileW;
     const int ux = t.x_base + u % kTileW;
     const bool in = uy < H && ux < W;
-    const float4* row = reinterpret_cast<const float4*>(
-        f1s + (((size_t)t.b * H + (in ? uy : 0)) * W + (in ? ux : 0)) * C);
+    const T* row = f1s + (((size_t)t.b * H + (in ? uy : 0)) * W + (in ? ux : 0)) * C;
 #pragma unroll
     for (int jj = 0; jj < NV; ++jj) {
       const int c4 = lane + 32 * jj;
-      a[u][jj] = in && c4 < C4 ? row[c4] : make_float4(0.f, 0.f, 0.f, 0.f);
+      a[u][jj] = in && c4 < C4 ? load4(row, c4) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
   // a[k] <- a[k ^ q]: a conditional swap for each bit of q.
@@ -373,8 +408,7 @@ __device__ __forceinline__ void tiled_path(const Tile& t,
   int c4s[NV];
 #pragma unroll
   for (int jj = 0; jj < NV; ++jj) c4s[jj] = min(lane + 32 * jj, C4 - 1);
-  const float4* box = reinterpret_cast<const float4*>(t.level) +
-                      ((size_t)t.by0 * t.Wl + t.bx0) * C4;
+  const T* box = t.level + ((size_t)t.by0 * t.Wl + t.bx0) * C;
   const float inv_bw = 1.f / (float)max(t.bw, 1);
   for (int p0 = 0; p0 < t.npix; p0 += kTiledPixels) {
     float4 v[kTiledPixels][NV];
@@ -387,9 +421,9 @@ __device__ __forceinline__ void tiled_path(const Tile& t,
         my_y = sy;
         my_x = sx;
       }
-      const float4* px = box + ((size_t)sy * t.Wl + sx) * C4;
+      const T* px = box + ((size_t)sy * t.Wl + sx) * C;
 #pragma unroll
-      for (int jj = 0; jj < NV; ++jj) v[j][jj] = __ldg(px + c4s[jj]);
+      for (int jj = 0; jj < NV; ++jj) v[j][jj] = load4(px, c4s[jj]);
     }
     float sums[kTiledPixels * kTileQ];
 #pragma unroll
@@ -413,9 +447,9 @@ __device__ __forceinline__ void tiled_path(const Tile& t,
 
 // Per-query path: the tile's queries one by one, each window's in-level
 // positions V a pass with their loads in flight together.
-template <int NV, int V>
-__device__ __forceinline__ void per_query_path(const Tile& t,
-                                               const float* __restrict__ f1s,
+template <typename T, int NV, int V>
+__device__ __forceinline__ void per_query_path(const Tile<T>& t,
+                                               const T* __restrict__ f1s,
                                                float* patch, int H, int W,
                                                int C, int K1, int lane) {
   const int C4 = C >> 2;
@@ -433,18 +467,16 @@ __device__ __forceinline__ void per_query_path(const Tile& t,
     const int ww = __shfl_sync(0xffffffffu, t.ww, u);
     const int uy = t.y_base + u / kTileW;
     const int ux = t.x_base + u % kTileW;
-    const float4* row = reinterpret_cast<const float4*>(
-        f1s + (((size_t)t.b * H + uy) * W + ux) * C);
+    const T* row = f1s + (((size_t)t.b * H + uy) * W + ux) * C;
     float4 a[NV];
 #pragma unroll
     for (int jj = 0; jj < NV; ++jj) {
       const int c4 = lane + 32 * jj;
-      a[jj] = c4 < C4 ? row[c4] : make_float4(0.f, 0.f, 0.f, 0.f);
+      a[jj] = c4 < C4 ? load4(row, c4) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     // Unmasked loads, as in the tiled path: a position past the window
     // reads its last one (never written), a chunk past C the row's last.
-    const float4* win = reinterpret_cast<const float4*>(t.level) +
-                        ((size_t)y0 * t.Wl + x0) * C4;
+    const T* win = t.level + ((size_t)y0 * t.Wl + x0) * C;
     const float inv_ww = 1.f / (float)ww;
     for (int p0 = 0; p0 < n; p0 += V) {
       float4 v[V][NV];
@@ -452,9 +484,9 @@ __device__ __forceinline__ void per_query_path(const Tile& t,
       for (int s = 0; s < V; ++s) {
         int sy, sx;  // window position of in-level position p0 + s
         split(min(p0 + s, n - 1), ww, inv_ww, sy, sx);
-        const float4* px = win + ((size_t)sy * t.Wl + sx) * C4;
+        const T* px = win + ((size_t)sy * t.Wl + sx) * C;
 #pragma unroll
-        for (int jj = 0; jj < NV; ++jj) v[s][jj] = __ldg(px + c4s[jj]);
+        for (int jj = 0; jj < NV; ++jj) v[s][jj] = load4(px, c4s[jj]);
       }
       float sums[V];
 #pragma unroll
@@ -474,11 +506,11 @@ __device__ __forceinline__ void per_query_path(const Tile& t,
   }
 }
 
-// One warp per tile; the rule picks the path. NV: float4 chunks of a
-// channel row each lane holds (C <= NV * 128).
-template <int NV>
+// One warp per tile; the rule picks the path. T: the features' storage
+// type; NV: 4-channel chunks of a channel row each lane holds (C <= NV * 128).
+template <typename T, int NV>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-corr_lookup_kernel(const float* __restrict__ f1s,
+corr_lookup_kernel(const T* __restrict__ f1s,
                    const float* __restrict__ coords, LevelTable lv,
                    float* __restrict__ out,
                    unsigned long long* __restrict__ path_tiles,
@@ -494,14 +526,14 @@ corr_lookup_kernel(const float* __restrict__ f1s,
   float* patch = smem + warp * kTileQ * K1 * K1;  // the tile's patches
   const int tile = blockIdx.x * kWarps + warp;
   if (tile < n_tiles) {  // uniform across the warp
-    const Tile t = tile_of(tile, coords, lv, B, H, W, C, radius, tiles_y,
-                           tiles_x, lane);
+    const Tile<T> t = tile_of<T>(tile, coords, lv, B, H, W, C, radius, tiles_y,
+                                 tiles_x, lane);
     for (int e = lane; e < kTileQ * K1 * K1; e += 32) patch[e] = 0.f;
     __syncwarp();
     if (NV <= kMaxTiledNV && t.tiled)
-      tiled_path<NV <= kMaxTiledNV ? NV : 1>(t, f1s, patch, H, W, C, K1, lane);
+      tiled_path<T, NV <= kMaxTiledNV ? NV : 1>(t, f1s, patch, H, W, C, K1, lane);
     else
-      per_query_path<NV, NV <= 2 ? 8 : 4>(t, f1s, patch, H, W, C, K1, lane);
+      per_query_path<T, NV, NV <= 2 ? 8 : 4>(t, f1s, patch, H, W, C, K1, lane);
     __syncwarp();
     blend_tile(t, patch, out, H, W, L, radius, lane);
     if (lane == 0) atomicAdd(&s_count[t.tiled ? 0 : 1], 1);
@@ -509,6 +541,49 @@ corr_lookup_kernel(const float* __restrict__ f1s,
   __syncthreads();
   if (threadIdx.x < 2 && path_tiles != nullptr && s_count[threadIdx.x] > 0)
     atomicAdd(path_tiles + threadIdx.x, (unsigned long long)s_count[threadIdx.x]);
+}
+
+// Checks the shape, then launches corr_lookup_kernel<T, NV> for C's NV.
+template <typename T>
+int launch(const T* f1s, const float* coords, const void* const* level_ptrs,
+           const int* level_hw, int num_levels, int B, int H, int W, int C,
+           int radius, float* out, unsigned long long* path_tiles, int device,
+           void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || C < 4 || C % 4 ||
+      C > kMaxChannels || radius < 0 || radius > kMaxRadius || B < 0 ||
+      H < 0 || W < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * H * W > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int tiles_y = (H + kTileH - 1) / kTileH;
+  const int tiles_x = (W + kTileW - 1) / kTileW;
+  const long long n_tiles = (long long)num_levels * B * tiles_y * tiles_x;
+  if (n_tiles == 0) return 0;
+  if (n_tiles > INT_MAX - kWarps) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  LevelTable lv{};
+  for (int l = 0; l < num_levels; ++l) {
+    lv.ptr[l] = level_ptrs[l];
+    lv.h[l] = level_hw[2 * l];
+    lv.w[l] = level_hw[2 * l + 1];
+  }
+  const int K1 = 2 * radius + 2;
+  // At most 4 * 8 * 18^2 floats (41 KB): no opt-in above 48 KB needed.
+  const size_t smem = (size_t)kWarps * kTileQ * K1 * K1 * sizeof(float);
+  const unsigned blocks = (unsigned)((n_tiles + kWarps - 1) / kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CORR_LAUNCH(NV)                                                    \
+  corr_lookup_kernel<T, NV><<<blocks, kWarps * 32, smem, s>>>(             \
+      f1s, coords, lv, out, path_tiles, B, H, W, C, num_levels, radius,    \
+      tiles_y, tiles_x, (int)n_tiles)
+  switch ((C / 4 + 31) / 32) {
+    case 1: CORR_LAUNCH(1); break;
+    case 2: CORR_LAUNCH(2); break;
+    case 3: CORR_LAUNCH(3); break;
+    default: CORR_LAUNCH(4); break;
+  }
+#undef CORR_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -525,47 +600,27 @@ const char* kernel_error_string(int code) {
 // when C <= 256 and 2 * (pixels of the bounding box of its clipped
 // windows) <= (sum of their areas). path_tiles: 2 64-bit counts, to which
 // the tiles that took the tiled and the per-query path are added, or
-// null. Returns the CUDA error of the launch (0 on success).
+// null. Feature rows 16-byte aligned. Returns the CUDA error of the launch
+// (0 on success).
 int corr_lookup_f32(const float* f1s, const float* coords,
                     const void* const* level_ptrs, const int* level_hw,
                     int num_levels, int B, int H, int W, int C, int radius,
                     float* out, unsigned long long* path_tiles, int device,
                     void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || C < 4 || C % 4 ||
-      C > kMaxChannels || radius < 0 || radius > kMaxRadius || B < 0 ||
-      H < 0 || W < 0)
-    return (int)cudaErrorInvalidValue;
-  if ((long long)B * H * W > INT_MAX) return (int)cudaErrorInvalidValue;
-  const int tiles_y = (H + kTileH - 1) / kTileH;
-  const int tiles_x = (W + kTileW - 1) / kTileW;
-  const long long n_tiles = (long long)num_levels * B * tiles_y * tiles_x;
-  if (n_tiles == 0) return 0;
-  if (n_tiles > INT_MAX - kWarps) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  LevelTable lv{};
-  for (int l = 0; l < num_levels; ++l) {
-    lv.ptr[l] = static_cast<const float*>(level_ptrs[l]);
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-  }
-  const int K1 = 2 * radius + 2;
-  // At most 4 * 8 * 18^2 floats (41 KB): no opt-in above 48 KB needed.
-  const size_t smem = (size_t)kWarps * kTileQ * K1 * K1 * sizeof(float);
-  const unsigned blocks = (unsigned)((n_tiles + kWarps - 1) / kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CORR_LAUNCH(NV)                                                    \
-  corr_lookup_kernel<NV><<<blocks, kWarps * 32, smem, s>>>(                \
-      f1s, coords, lv, out, path_tiles, B, H, W, C, num_levels, radius,    \
-      tiles_y, tiles_x, (int)n_tiles)
-  switch ((C / 4 + 31) / 32) {
-    case 1: CORR_LAUNCH(1); break;
-    case 2: CORR_LAUNCH(2); break;
-    case 3: CORR_LAUNCH(3); break;
-    default: CORR_LAUNCH(4); break;
-  }
-#undef CORR_LAUNCH
-  return (int)cudaGetLastError();
+  return launch<float>(f1s, coords, level_ptrs, level_hw, num_levels, B, H,
+                       W, C, radius, out, path_tiles, device, stream);
+}
+
+// The same with f1s and every level in bf16 (feature rows 8-byte aligned):
+// the sums are f32, and coords and out stay f32.
+int corr_lookup_bf16(const void* f1s, const float* coords,
+                     const void* const* level_ptrs, const int* level_hw,
+                     int num_levels, int B, int H, int W, int C, int radius,
+                     float* out, unsigned long long* path_tiles, int device,
+                     void* stream) {
+  return launch<bf16_t>(static_cast<const bf16_t*>(f1s), coords, level_ptrs,
+                        level_hw, num_levels, B, H, W, C, radius, out,
+                        path_tiles, device, stream);
 }
 
 }  // extern "C"

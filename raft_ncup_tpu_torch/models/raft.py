@@ -7,8 +7,7 @@ is a Python loop. Submodules run NCHW; the public forward takes and
 returns the JAX layouts (NHWC images and flows, (B, H, W, 2) coordinates
 with x first).
 
-Variants, as in the JAX package, in f32 with TF32 off
-(``utils.device.f32_precision``):
+Variants, as in the JAX package:
 
 - ``raft_nc_dbl`` (full size or small): no mask head; the low-res flow
   goes nearest x2, through the configured upsampler (NCUP or bilinear)
@@ -31,6 +30,15 @@ JAX ``jax.checkpoint``). BatchNorm trains unless :meth:`RAFT.freeze_bn`
 put it back in eval mode (the JAX ``freeze_bn``); its running
 statistics advance once per iteration, never again in the recompute.
 
+Precision (``precision/policy.py``), as in the JAX package: the
+configuration's policy gives the trunk's convolutions (both encoders,
+the update block and the mask head) their compute dtype, and the
+correlation features their dtype; the coordinates, the upsampling (NCUP
+or convex, so kernels B and B' take f32) and the outputs stay f32. Under
+f32 the forward adds no cast and runs with TF32 off
+(``utils.device.f32_precision``). :meth:`RAFT.with_policy` runs the same
+parameters under another preset.
+
 Segments, early exit, warm-started GRU state and dropout are later
 slices.
 
@@ -41,6 +49,7 @@ with no device and no CUDA, construction raises.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -58,6 +67,7 @@ from raft_ncup_tpu_torch.ops.corr import (
     corr_lookup_onthefly,
 )
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels, prepare_levels
+from raft_ncup_tpu_torch.precision import PrecisionPolicy, resolve_policy
 from raft_ncup_tpu_torch.ops.geometry import (
     convex_upsample_nchw,
     coords_grid,
@@ -83,16 +93,19 @@ class RAFT(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.policy = cfg.precision_policy
+        dtype = self.policy.module_dtype
         hdim, cdim = cfg.hidden_dim, cfg.context_dim
         if cfg.small:
-            self.fnet = Encoder(cfg.fnet_dim, "instance", small=True)
-            self.cnet = Encoder(hdim + cdim, "none", small=True)
-            self.update_block = SmallUpdateBlock(cfg.corr_planes, hdim, cdim)
+            self.fnet = Encoder(cfg.fnet_dim, "instance", small=True, dtype=dtype)
+            self.cnet = Encoder(hdim + cdim, "none", small=True, dtype=dtype)
+            self.update_block = SmallUpdateBlock(cfg.corr_planes, hdim, cdim, dtype)
         else:
-            self.fnet = Encoder(cfg.fnet_dim, "instance")
-            self.cnet = Encoder(hdim + cdim, "batch")
+            self.fnet = Encoder(cfg.fnet_dim, "instance", dtype=dtype)
+            self.cnet = Encoder(hdim + cdim, "batch", dtype=dtype)
             self.update_block = BasicUpdateBlock(
-                cfg.corr_planes, hdim, cdim, use_mask_head=(cfg.variant == "raft")
+                cfg.corr_planes, hdim, cdim, use_mask_head=(cfg.variant == "raft"),
+                dtype=dtype,
             )
         self.upsampler = None
         if cfg.variant == "raft_nc_dbl":
@@ -105,6 +118,22 @@ class RAFT(nn.Module):
         self.eval()
         self.to(dev)
         self.device = dev
+
+    def with_policy(self, spec: str | PrecisionPolicy | None) -> "RAFT":
+        """This model under the precision preset ``spec``: ``self`` when it
+        is the model's own, else a model built at the preset's dtypes that
+        holds this model's parameters and buffers themselves (shared, not
+        copied), on the same device."""
+        policy = resolve_policy(spec)
+        if policy == self.policy:
+            return self
+        cfg = dataclasses.replace(self.cfg, precision=policy.name, mixed_precision=False)
+        view = RAFT(cfg, device="meta")  # no memory: the tensors come next
+        view.load_state_dict(self.state_dict(), strict=True, assign=True)
+        view.device = self.device
+        for mine, theirs in zip(view.modules(), self.modules()):
+            mine.training = theirs.training  # a frozen BatchNorm stays frozen
+        return view
 
     def freeze_bn(self) -> "RAFT":
         """Put every BatchNorm in eval mode (running statistics, no
@@ -132,7 +161,8 @@ class RAFT(nn.Module):
         img1 = img1.permute(0, 3, 1, 2)
         img2 = img2.permute(0, 3, 1, 2)
         fmaps = self.fnet(torch.cat([img1, img2], dim=0))
-        fmap1, fmap2 = fmaps.permute(0, 2, 3, 1).split(B, dim=0)
+        # The correlation features at the policy's corr dtype.
+        fmap1, fmap2 = fmaps.permute(0, 2, 3, 1).to(self.policy.corr).split(B, dim=0)
         cnet = self.cnet(img1)
         hdim = self.cfg.hidden_dim
         net = torch.tanh(cnet[:, :hdim])
@@ -149,16 +179,17 @@ class RAFT(nn.Module):
         cfg = self.cfg
         radius = cfg.resolved_corr_radius
         levels = cfg.corr_levels
+        dtype = self.policy.corr
         if cfg.corr_impl == "volume":
-            pyramid = build_corr_pyramid(fmap1, fmap2, levels)
+            pyramid = build_corr_pyramid(fmap1, fmap2, levels, dtype)
             return lambda coords: corr_lookup(pyramid, coords, radius)
         if cfg.corr_impl == "onthefly":
             return lambda coords: corr_lookup_onthefly(
-                fmap1, fmap2, coords, radius, levels
+                fmap1, fmap2, coords, radius, levels, dtype
             )
         # 'pallas': the fused lookup kernel. Pooling and the 1/sqrt(C)
         # scale happen once per pair; each iteration is one launch.
-        f1s, f2_levels = prepare_levels(fmap1, fmap2, levels)
+        f1s, f2_levels = prepare_levels(fmap1, fmap2, levels, dtype)
         return lambda coords: lookup_levels(
             f1s, f2_levels, coords.contiguous(), radius
         )
@@ -167,15 +198,29 @@ class RAFT(nn.Module):
         """(B, h, w, 2) low-res flow and the NCHW GRU state ``net`` ->
         (B, 8h, 8w, 2), per variant: nearest x2, the upsampler x4 and
         values x8 (raft_nc_dbl); convex upsampling with the mask of
-        ``net`` (raft); bilinear x8 (small raft)."""
+        ``net`` (raft); bilinear x8 (small raft). The upsampling runs at
+        the policy's upsampler dtype (f32): the guidance and the mask
+        logits are cast to it."""
+        up = self.policy.upsampler
         if self.upsampler is not None:
             flow2 = upsample_nearest(flow_lr, 2).permute(0, 3, 1, 2).contiguous()
-            hr = self.upsampler(flow2, net)
+            hr = self.upsampler(flow2, net.to(up))
             return (8.0 * hr).permute(0, 2, 3, 1)
         if self.cfg.small:
             return upflow(flow_lr, 8, self.cfg.align_corners)
-        mask = self.update_block.mask_logits(net)
+        mask = self.update_block.mask_logits(net).to(up)
         return convex_upsample_nchw(flow_lr.permute(0, 3, 1, 2), mask, 8).permute(0, 2, 3, 1)
+
+    def _refine(self, corr_fn, coords0, coords1, net, inp):
+        """One GRU iteration: the lookup, the update block on the flow at
+        the GRU state's dtype, and the delta joined to the f32
+        coordinates. Returns ``(net, coords1)``."""
+        corr = corr_fn(coords1)
+        flow = (coords1 - coords0).to(net.dtype)
+        net, delta = self.update_block(
+            net, inp, corr.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+        )
+        return net, coords1 + delta.permute(0, 2, 3, 1).to(self.policy.coord)
 
     # ----------------------------------------------------------- forward
 
@@ -204,14 +249,9 @@ class RAFT(nn.Module):
         B, h8, w8, _ = coords1.shape
         coords0 = coords_grid(B, h8, w8, device=coords1.device)
         for _ in range(int(iters)):
-            corr = corr_fn(coords1)
-            flow = coords1 - coords0
-            net, delta = self.update_block(
-                net, inp, corr.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
-            )
-            coords1 = coords1 + delta.permute(0, 2, 3, 1)
+            net, coords1 = self._refine(corr_fn, coords0, coords1, net, inp)
         flow_lr = coords1 - coords0
-        return flow_lr, self._upsample(flow_lr, net)
+        return flow_lr, self._upsample(flow_lr, net).to(self.policy.output)
 
     def _forward_train(self, image1, image2, iters, flow_init, remat):
         fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init)
@@ -220,13 +260,7 @@ class RAFT(nn.Module):
         coords0 = coords_grid(B, h8, w8, device=coords1.device)
 
         def step(net, coords1):
-            coords1 = coords1.detach()
-            corr = corr_fn(coords1)
-            flow = coords1 - coords0
-            net, delta = self.update_block(
-                net, inp, corr.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
-            )
-            coords1 = coords1 + delta.permute(0, 2, 3, 1)
+            net, coords1 = self._refine(corr_fn, coords0, coords1.detach(), net, inp)
             return net, coords1, self._upsample(coords1 - coords0, net)
 
         preds = []

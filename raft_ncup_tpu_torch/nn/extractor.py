@@ -6,7 +6,8 @@ residual stages of 64 -> 96 -> 128; the small one a stem of 32 and
 bottleneck stages of 32 -> 64 -> 96. Submodule names follow the
 reference's torch module tree (``conv1``, ``norm1``, ``layer1.0.conv1``,
 ``layer2.0.downsample.0``, ...), so the carried state dict
-(``utils/jax_weights.py``) keys match it.
+(``utils/jax_weights.py``) keys match it. ``dtype`` is every convolution's
+compute dtype (``None``: the input's); the norms compute in f32.
 """
 
 from __future__ import annotations
@@ -20,16 +21,19 @@ from raft_ncup_tpu_torch.nn.layers import Conv2d, Norm
 class ResidualBlock(nn.Module):
     """Two 3x3 convs and an identity or 1x1 downsample shortcut."""
 
-    def __init__(self, in_planes: int, planes: int, norm_fn: str, stride: int = 1):
+    def __init__(self, in_planes: int, planes: int, norm_fn: str, stride: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, init_mode="kaiming_out")
+        self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, init_mode="kaiming_out",
+                            dtype=dtype)
         self.norm1 = Norm(norm_fn, planes)
-        self.conv2 = Conv2d(planes, planes, 3, init_mode="kaiming_out")
+        self.conv2 = Conv2d(planes, planes, 3, init_mode="kaiming_out", dtype=dtype)
         self.norm2 = Norm(norm_fn, planes)
         self.downsample = None
         if stride != 1:
             self.downsample = nn.Sequential(
-                Conv2d(in_planes, planes, 1, stride=stride, init_mode="kaiming_out"),
+                Conv2d(in_planes, planes, 1, stride=stride, init_mode="kaiming_out",
+                       dtype=dtype),
                 Norm(norm_fn, planes),
             )
 
@@ -45,19 +49,21 @@ class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 (strided) -> 1x1 at a quarter of the planes, each conv
     normalized, and an identity or 1x1 downsample shortcut."""
 
-    def __init__(self, in_planes: int, planes: int, norm_fn: str, stride: int = 1):
+    def __init__(self, in_planes: int, planes: int, norm_fn: str, stride: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         p4 = planes // 4
-        self.conv1 = Conv2d(in_planes, p4, 1, init_mode="kaiming_out")
+        self.conv1 = Conv2d(in_planes, p4, 1, init_mode="kaiming_out", dtype=dtype)
         self.norm1 = Norm(norm_fn, p4)
-        self.conv2 = Conv2d(p4, p4, 3, stride=stride, init_mode="kaiming_out")
+        self.conv2 = Conv2d(p4, p4, 3, stride=stride, init_mode="kaiming_out", dtype=dtype)
         self.norm2 = Norm(norm_fn, p4)
-        self.conv3 = Conv2d(p4, planes, 1, init_mode="kaiming_out")
+        self.conv3 = Conv2d(p4, planes, 1, init_mode="kaiming_out", dtype=dtype)
         self.norm3 = Norm(norm_fn, planes)
         self.downsample = None
         if stride != 1:
             self.downsample = nn.Sequential(
-                Conv2d(in_planes, planes, 1, stride=stride, init_mode="kaiming_out"),
+                Conv2d(in_planes, planes, 1, stride=stride, init_mode="kaiming_out",
+                       dtype=dtype),
                 Norm(norm_fn, planes),
             )
 
@@ -75,23 +81,24 @@ class Encoder(nn.Module):
     The fnet takes instance norm; the cnet batch norm (full size) or none
     (small)."""
 
-    def __init__(self, output_dim: int = 128, norm_fn: str = "batch", small: bool = False):
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch", small: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         stem = 32 if small else 64
         stages = (32, 64, 96) if small else (64, 96, 128)
         block = BottleneckBlock if small else ResidualBlock
-        self.conv1 = Conv2d(3, stem, 7, stride=2, init_mode="kaiming_out")
+        self.conv1 = Conv2d(3, stem, 7, stride=2, init_mode="kaiming_out", dtype=dtype)
         self.norm1 = Norm(norm_fn, stem)
         layers = []
         in_planes = stem
         for dim, stride in zip(stages, (1, 2, 2)):
             layers.append(nn.Sequential(
-                block(in_planes, dim, norm_fn, stride),
-                block(dim, dim, norm_fn, 1),
+                block(in_planes, dim, norm_fn, stride, dtype),
+                block(dim, dim, norm_fn, 1, dtype),
             ))
             in_planes = dim
         self.layer1, self.layer2, self.layer3 = layers
-        self.conv2 = Conv2d(in_planes, output_dim, 1, init_mode="kaiming_out")
+        self.conv2 = Conv2d(in_planes, output_dim, 1, init_mode="kaiming_out", dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.norm1(self.conv1(x)))

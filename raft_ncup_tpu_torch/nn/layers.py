@@ -11,6 +11,15 @@ same weights on every device.
 ``BatchNorm2d`` trains as flax's ``BatchNorm`` does (biased batch
 variance in the running average); :func:`frozen_batch_stats` keeps its
 running statistics still while a checkpointed forward is recomputed.
+
+Mixed precision, as in the JAX package: parameters live in f32. A
+``Conv2d`` built with a compute ``dtype`` (bf16 under the bf16 presets)
+casts its input, weight and bias to it at use and computes there; with
+``dtype=None`` it follows its input and adds no cast. With a compute
+dtype the bias is added after the convolution, in that dtype, as the JAX
+layer adds it (cuDNN's path in PyTorch adds a bias after the convolution
+too, so this costs the card nothing). Normalizations always compute in f32
+and return their input's dtype.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ def _pair(v) -> tuple[int, int]:
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with k//2 padding by default and a seeded init."""
+    """``nn.Conv2d`` with k//2 padding by default, a seeded init and a
+    compute ``dtype`` (``None``: the input's)."""
 
     def __init__(
         self,
@@ -42,6 +52,7 @@ class Conv2d(nn.Conv2d):
         padding=None,
         bias: bool = True,
         init_mode: str = "torch",
+        dtype: torch.dtype | None = None,
     ):
         kh, kw = _pair(kernel_size)
         if padding is None:
@@ -53,6 +64,15 @@ class Conv2d(nn.Conv2d):
             in_channels, out_channels, (kh, kw), stride=stride,
             padding=padding, dilation=dilation, bias=bias,
         )
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return self._conv_forward(x, self.weight, self.bias)
+        y = self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
 
     def reset_parameters(self) -> None:
         # Weights are drawn by init_weights() from an explicit generator.
@@ -92,6 +112,12 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             self.bias.copy_(torch.rand(self.bias.shape, generator=gen) * 2 * b - b)
 
 
+def _norm_input(x: torch.Tensor) -> torch.Tensor:
+    """A normalization's input at its compute dtype: f32, or float64 for a
+    float64 input (a replay in float64 stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 _frozen = threading.local()
 
 
@@ -117,14 +143,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     as torch does, but updates the running variance with the biased
     variance (torch uses the unbiased one): ``running = 0.9 running + 0.1
     batch`` for both. The batch variance is E[x^2] - E[x]^2, clipped at
-    zero, as flax computes it."""
+    zero, as flax computes it. It computes in f32 and returns the input's
+    dtype."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            return super().forward(_norm_input(x)).to(x.dtype)
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
@@ -139,6 +166,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """Per-sample, per-channel normalization without affine, eps 1e-5,
+    computed in f32 and returned in the input's dtype."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, affine=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(_norm_input(x)).to(x.dtype)
+
+
 def Norm(kind: str, channels: int) -> nn.Module:
     """Normalization by name, as the encoders use it: 'batch'
     (:class:`BatchNorm2d`, eps 1e-5), 'instance' (per-sample, per-channel,
@@ -148,7 +186,7 @@ def Norm(kind: str, channels: int) -> nn.Module:
     if kind == "batch":
         return BatchNorm2d(channels)
     if kind == "instance":
-        return nn.InstanceNorm2d(channels, eps=1e-5, affine=False)
+        return InstanceNorm2d(channels)
     if kind == "none":
         return nn.Identity()
     raise ValueError(f"unknown norm kind: {kind!r}")

@@ -11,7 +11,10 @@
   ``corr_lookup_onthefly``.
 
 All functions are NHWC; the output is (B, H, W, L * (2r+1)^2) in
-level-major, then x-major tap order.
+level-major, then x-major tap order, f32. ``dtype`` is the correlation
+features' storage dtype (the precision policy's ``corr``; default f32):
+the volume or the fmap2 pyramid is stored and pooled at it, each level
+rounded to it, as the JAX package does; sums are taken in f32.
 """
 
 from __future__ import annotations
@@ -41,15 +44,18 @@ def _delta_window(radius: int, device=None) -> torch.Tensor:
 
 
 def build_corr_pyramid(
-    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4
+    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4,
+    dtype: torch.dtype | None = None,
 ) -> CorrPyramid:
     """All-pairs correlation of two (B, H, W, C) maps and its 2x2
-    average pyramid."""
+    average pyramid, stored at ``dtype``: the maps are rounded to it, the
+    dot products summed in f32 and the volume rounded to it."""
     B, H, W, C = fmap1.shape
-    f1 = fmap1.reshape(B, H * W, C).float()
-    f2 = fmap2.reshape(B, H * W, C).float()
+    dtype = dtype or torch.float32
+    f1 = fmap1.reshape(B, H * W, C).to(dtype).float()
+    f2 = fmap2.reshape(B, H * W, C).to(dtype).float()
     corr = torch.einsum("bxc,byc->bxy", f1, f2) / math.sqrt(C)
-    corr = corr.reshape(B, H * W, H, W)
+    corr = corr.to(dtype).reshape(B, H * W, H, W)
     levels = [corr]
     for _ in range(num_levels - 1):
         n, q, h, w = levels[-1].shape
@@ -77,12 +83,14 @@ def corr_lookup(
 
 
 def _pool_fmap_pyramid(
-    fmap2: torch.Tensor, num_levels: int
+    fmap2: torch.Tensor, num_levels: int, dtype: torch.dtype | None = None
 ) -> list[torch.Tensor]:
     """Average-pool fmap2 into a pyramid. Pooling the features and then
     correlating equals pooling the correlation volume, because the 2x2
-    mean acts on the fmap2 axes only and correlation is linear in fmap2."""
-    levels = [fmap2]
+    mean acts on the fmap2 axes only and correlation is linear in fmap2.
+    With ``dtype``, fmap2 is rounded to it first and each level is pooled
+    from the level above as rounded to it."""
+    levels = [fmap2 if dtype is None else fmap2.to(dtype)]
     for _ in range(num_levels - 1):
         levels.append(avg_pool2(levels[-1]))
     return levels
@@ -94,13 +102,15 @@ def corr_lookup_onthefly(
     coords: torch.Tensor,
     radius: int,
     num_levels: int = 4,
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Equivalent to ``corr_lookup(build_corr_pyramid(f1, f2), coords, r)``
     up to float associativity, without materializing the volume.
-    fmap1, fmap2: (B, H, W, C); coords: (B, H, W, 2)."""
+    fmap1, fmap2: (B, H, W, C), rounded to ``dtype``; coords: (B, H, W, 2)."""
     from raft_ncup_tpu_torch.ops.corr_cuda import lookup_pyramid
 
     C = fmap1.shape[-1]
-    f2_levels = _pool_fmap_pyramid(fmap2.float(), num_levels)
-    f1s = fmap1.float() * (1.0 / math.sqrt(C))
+    dtype = dtype or torch.float32
+    f2_levels = _pool_fmap_pyramid(fmap2, num_levels, dtype)
+    f1s = fmap1.to(dtype).float() * (1.0 / math.sqrt(C))
     return lookup_pyramid(f1s, f2_levels, coords, radius)

@@ -13,10 +13,21 @@ fmap1 stay plain tensor code around the launch (:func:`prepare_levels`);
 the model prepares them once per pair and calls :func:`lookup_levels`
 every iteration.
 
+The features are f32 or, under the bf16 precision presets, bf16, as the
+Pallas kernels take them (``corr_pallas.py:718-719``): the scaled fmap1
+and each pooled level rounded to bf16. The kernel has an entry point for
+each (``corr_lookup_f32``, ``corr_lookup_bf16``); both sum in f32 and
+write f32. The backward kernel takes f32 only: the backward of a bf16
+lookup upcasts its saved operands first, as JAX differentiates its f32
+XLA path (``corr_pallas.py:816-832``), and returns the cotangents at the
+operands' dtype.
+
 :func:`lookup_levels` is the wrapper. For a CPU tensor it runs the plain
 version, :func:`lookup_pyramid` (the on-the-fly lookup of
 ``ops/corr.py``); for a CUDA tensor it launches the kernel or raises.
-``lookup_levels.launches`` counts the launches. When an input needs a
+``lookup_levels.launches`` counts the launches, and
+``lookup_levels.launches_by_dtype`` counts them by the features' dtype
+(``"float32"``, ``"bfloat16"``). When an input needs a
 gradient, the call goes through an ``autograd.Function`` whose backward
 is :func:`lookup_levels_backward`: the hand-written backward kernel
 ``csrc/corr_lookup_bwd.cu`` on the card (``.launches`` counts it), the
@@ -60,6 +71,10 @@ SOURCE = "raft_ncup_tpu_torch/csrc/corr_lookup.cu"
 MAX_LEVELS = 8
 MAX_CHANNELS = 512
 MAX_RADIUS = 8
+# The features' dtypes the forward kernel takes, each with its entry point
+# and the alignment of a 4-channel chunk (one vector load).
+FEATURE_DTYPES = {torch.float32: ("corr_lookup_f32", 16),
+                  torch.bfloat16: ("corr_lookup_bf16", 8)}
 # The kernel's tiling and path rule, as its constants in csrc/corr_lookup.cu
 # (kTileH, kTileW, kMaxTiledNV, kStripRatio) fix them: tiles of TILE_H rows
 # of TILE_W queries. A tile takes the tiled path when C <= MAX_TILED_CHANNELS
@@ -161,16 +176,24 @@ def lookup_pyramid_backward(
 
 
 def prepare_levels(
-    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int
+    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """(B, H, W, C) maps -> (fmap1 * 1/sqrt(C), pooled fmap2 pyramid),
-    f32 and contiguous: the operands of :func:`lookup_levels`."""
-    C = fmap1.shape[-1]
-    f1s = (fmap1.float() * (1.0 / math.sqrt(C))).contiguous()
-    levels = [
-        lv.contiguous() for lv in _pool_fmap_pyramid(fmap2.float(), num_levels)
-    ]
-    return f1s, levels
+    contiguous at ``dtype`` (default f32): the operands of
+    :func:`lookup_levels`. As JAX's ``(fmap1 * scale).astype(dtype)``, the
+    product is taken at fmap1's dtype (a bf16 fmap1 takes the scale
+    rounded to bf16, as a JAX scalar takes the array's dtype) and rounded
+    to ``dtype``; fmap2 is rounded to ``dtype`` and each level pooled from
+    the level above as rounded (``ops.corr._pool_fmap_pyramid``)."""
+    dtype = dtype or torch.float32
+    scale = 1.0 / math.sqrt(fmap1.shape[-1])
+    if fmap1.dtype == torch.bfloat16:
+        f1s = fmap1 * float(torch.tensor(scale, dtype=torch.bfloat16))
+    else:
+        f1s = fmap1.float() * scale
+    levels = _pool_fmap_pyramid(fmap2, num_levels, dtype)
+    return f1s.to(dtype).contiguous(), [lv.contiguous() for lv in levels]
 
 
 def _tile_windows(coords, level_hw, radius):
@@ -341,14 +364,14 @@ def reset_backward_counts() -> None:
         buf.zero_()
 
 
-_fn = None
+_fns: dict[torch.dtype, tuple] = {}
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
+def _launcher(dtype: torch.dtype):
+    """The library and the entry point for features of ``dtype``."""
+    if dtype not in _fns:
         lib = cuda_build.load(KERNEL)
-        fn = lib.corr_lookup_f32
+        fn = getattr(lib, FEATURE_DTYPES[dtype][0])
         fn.restype = ctypes.c_int
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,
@@ -357,8 +380,8 @@ def _launcher():
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
-        _fn = (lib, fn)
-    return _fn
+        _fns[dtype] = (lib, fn)
+    return _fns[dtype]
 
 
 def _level_table(levels):
@@ -370,14 +393,24 @@ def _level_table(levels):
     return ptrs, hw
 
 
-def _check_operands(f1s, f2_levels, coords, radius) -> None:
+def _check_operands(f1s, f2_levels, coords, radius, dtypes=(torch.float32,)) -> None:
+    """Raise unless the operands are what the kernel takes: features of one
+    dtype out of ``dtypes``, f32 coords, all contiguous on one device."""
     tensors = [f1s, coords, *f2_levels]
     dev = f1s.device
+    if f1s.dtype not in dtypes:
+        raise TypeError(
+            f"corr lookup: features of {f1s.dtype}; this kernel takes {list(dtypes)}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"corr lookup: coords of {coords.dtype}, want float32")
+    for lv in f2_levels:
+        if lv.dtype != f1s.dtype:
+            raise TypeError(
+                f"corr lookup: f1s of {f1s.dtype} and a level of {lv.dtype}: "
+                "the features take one dtype")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"corr lookup: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"corr lookup: f32 only in this slice, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("corr lookup: operands must be contiguous")
     if f1s.dim() != 4 or coords.shape != (*f1s.shape[:3], 2):
@@ -398,9 +431,10 @@ def _check_operands(f1s, f2_levels, coords, radius) -> None:
             raise ValueError(
                 f"corr lookup: level {tuple(lv.shape)} is not (B, Hl, Wl, C)"
             )
+    align = FEATURE_DTYPES[f1s.dtype][1]
     for t in (f1s, *f2_levels):
-        if t.data_ptr() % 16:
-            raise ValueError("corr lookup: feature rows must be 16-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"corr lookup: feature rows must be {align}-byte aligned")
 
 
 def lookup_levels(
@@ -410,7 +444,8 @@ def lookup_levels(
     radius: int,
 ) -> torch.Tensor:
     """The kernel's wrapper: (B, H, W, C) pre-scaled queries, the pooled
-    pyramid and (B, H, W, 2) coords -> (B, H, W, L*(2r+1)^2) f32.
+    pyramid (all f32 or all bf16) and (B, H, W, 2) f32 coords ->
+    (B, H, W, L*(2r+1)^2) f32.
 
     A CPU tensor takes :func:`lookup_pyramid`; a CUDA tensor launches
     the kernel on the current stream or raises. With an input that needs
@@ -423,6 +458,7 @@ def lookup_levels(
 
 
 lookup_levels.launches = 0
+lookup_levels.launches_by_dtype = {}
 
 
 def _lookup_forward(f1s, f2_levels, coords, radius) -> torch.Tensor:
@@ -430,8 +466,8 @@ def _lookup_forward(f1s, f2_levels, coords, radius) -> torch.Tensor:
         return lookup_pyramid(f1s, f2_levels, coords, radius)
     if f1s.device.type != "cuda":
         raise ValueError(f"corr lookup: unsupported device {f1s.device}")
-    _check_operands(f1s, f2_levels, coords, radius)
-    lib, fn = _launcher()
+    _check_operands(f1s, f2_levels, coords, radius, tuple(FEATURE_DTYPES))
+    lib, fn = _launcher(f1s.dtype)
     B, H, W, C = f1s.shape
     L = len(f2_levels)
     K = 2 * radius + 1
@@ -442,15 +478,20 @@ def _lookup_forward(f1s, f2_levels, coords, radius) -> torch.Tensor:
         out.data_ptr(), _counts_buffer(f1s.device).data_ptr(),
         f1s.device.index, torch.cuda.current_stream(f1s.device).cuda_stream,
     )
-    cuda_build.check(rc, lib, "corr_lookup_f32")
+    cuda_build.check(rc, lib, FEATURE_DTYPES[f1s.dtype][0])
     lookup_levels.launches += 1
+    by_dtype = lookup_levels.launches_by_dtype
+    key = str(f1s.dtype).removeprefix("torch.")
+    by_dtype[key] = by_dtype.get(key, 0) + 1
     return out
 
 
 class _Lookup(torch.autograd.Function):
     """The lookup with its backward: the forward kernel (or plain version)
     forward, :func:`lookup_levels_backward` backward. Saves only its
-    inputs, as the JAX op does."""
+    inputs, as the JAX op does: bf16 operands stay bf16 until the backward
+    upcasts them to f32 copies for the f32 backward kernel (or plain
+    version); the cotangents return at the operands' dtype."""
 
     @staticmethod
     def forward(ctx, f1s, coords, radius, *f2_levels):
@@ -463,10 +504,16 @@ class _Lookup(torch.autograd.Function):
         f1s, coords, *levels = ctx.saved_tensors
         need = ctx.needs_input_grad
         needs = (need[0], any(need[3:]), need[1])
+        up = _plain_dtype(f1s)  # bf16 -> f32; f32 and a float64 replay stay
         df1, dlv, dco = lookup_levels_backward(
-            f1s, levels, coords, ctx.radius, grad.contiguous(), needs
+            f1s.to(up).contiguous(), [lv.to(up).contiguous() for lv in levels],
+            coords, ctx.radius, grad.contiguous(), needs,
         )
-        return (df1, dco, None, *(dlv if dlv is not None else [None] * len(levels)))
+        if df1 is not None:
+            df1 = df1.to(f1s.dtype)
+        dlv = ([None] * len(levels) if dlv is None
+               else [d.to(lv.dtype) for d, lv in zip(dlv, levels)])
+        return (df1, dco, None, *dlv)
 
 
 _bwd_fn = None
@@ -547,8 +594,10 @@ def corr_lookup_fused(
     coords: torch.Tensor,
     radius: int,
     num_levels: int = 4,
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Counterpart of ``corr_lookup_pallas``: (B, H, W, C) x2 + (B, H, W, 2)
-    -> (B, H, W, L*(2r+1)^2) f32, without the correlation volume."""
-    f1s, levels = prepare_levels(fmap1, fmap2, num_levels)
+    -> (B, H, W, L*(2r+1)^2) f32, without the correlation volume, the
+    features at ``dtype`` (default f32)."""
+    f1s, levels = prepare_levels(fmap1, fmap2, num_levels, dtype)
     return lookup_levels(f1s, levels, coords.float().contiguous(), radius)

@@ -104,11 +104,13 @@ def adaptive_area_resize(
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 average pooling, VALID (an odd trailing row or column
-    is dropped), on (B, H, W, C)."""
+    is dropped), on (B, H, W, C). The mean is taken in f32 (float64 for a
+    float64 input) and rounded once to the input's dtype."""
     B, H, W, C = x.shape
     h2, w2 = H // 2, W // 2
     x = x[:, : h2 * 2, : w2 * 2, :].reshape(B, h2, 2, w2, 2, C)
-    return x.mean(dim=(2, 4))
+    wide = torch.promote_types(x.dtype, torch.float32)
+    return x.to(wide).mean(dim=(2, 4)).to(x.dtype)
 
 
 def bilinear_resize_align_corners_nchw(

@@ -119,7 +119,8 @@ def _check_operands(data, conf, weight, bias) -> None:
         if t.device != data.device:
             raise ValueError(f"nconv: tensors on {t.device} and {data.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"nconv: f32 only in this slice, got {t.dtype}")
+            # The upsampler runs f32 under every precision preset.
+            raise TypeError(f"nconv: f32 only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("nconv: operands must be contiguous")
     if data.dim() != 4 or conf.shape != data.shape:

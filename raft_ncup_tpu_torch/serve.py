@@ -7,9 +7,11 @@ report line. The model comes from the JAX CLI's flags ``--model``,
 ``--small``, ``--align_corners`` and ``--upsampler_bi``; by default it is
 the flagship ``raft_nc_dbl`` with NCUP (the JAX CLI defaults to
 ``raft``). It runs both hand-written kernels (``corr_impl="pallas"``,
-``nconv_impl="pallas"``), f32, with random weights drawn from
+``nconv_impl="pallas"``), with random weights drawn from
 ``--seed``. Request pairs come from a numpy generator seeded by
-``--seed``.
+``--seed``. ``--precision`` (or ``--mixed_precision``) sets the model's
+preset, f32 by default; ``--serve_precision`` runs the server's forwards
+under another preset with the same weights.
 
 It runs on the card unless ``--device cpu`` is given; with no CUDA and
 no ``--device`` it raises.
@@ -30,6 +32,7 @@ from raft_ncup_tpu_torch.config import ServeConfig
 from raft_ncup_tpu_torch.models.raft import RAFT
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
+from raft_ncup_tpu_torch.precision import PRESET_NAMES
 from raft_ncup_tpu_torch.serving import FlowServer, nearest_rank_ms
 
 
@@ -51,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bounded admission queue; a full queue sheds")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the model weights and of the request pairs")
+    p.add_argument("--serve_precision", default=d.precision, choices=list(PRESET_NAMES),
+                   help="precision preset the server's forwards run under "
+                   "(default: the model's own, from --precision)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
     add_model_args(p)
@@ -115,6 +121,7 @@ def main(argv=None) -> int:
         queue_capacity=args.queue_capacity,
         batch_sizes=args.serve_batch_sizes,
         iter_levels=args.iter_levels,
+        precision=args.serve_precision,
     )
     model = RAFT(
         model_config_from_args(args, dataset="sintel"), device=args.device, seed=args.seed,

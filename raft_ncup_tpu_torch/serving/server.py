@@ -23,7 +23,14 @@ dispatcher waits for the batch's result (the copy to the host) and
 completes its handles itself. Telemetry, meshes and early exit land with
 later slices.
 
-**Drain contract** (``drain()``): stop admitting (new submits shed with
+**Precision**: ``ServeConfig.precision`` names the preset the server's
+forwards run under; ``None`` inherits the model's own. Another preset runs
+the model's own parameters at that preset's dtypes
+(``RAFT.with_policy``): no weight is copied. The report names the
+resolved preset.
+
+**Drain contract** (``drain()``, also on leaving a ``with FlowServer(...)``
+block): stop admitting (new submits shed with
 ``detail="draining"``), flush every admitted request through compute,
 stop the dispatcher and return the final ``ServeStats``.
 """
@@ -71,6 +78,10 @@ class FlowServer:
     ):
         self.cfg = cfg or ServeConfig()
         self.model = model
+        # The model under the server's preset (itself when it inherits).
+        self._net = model if self.cfg.precision is None else model.with_policy(
+            self.cfg.precision)
+        self.policy = self._net.policy
         self.device = model.device
         self._clock = clock
         self.stats = ServeStats()
@@ -191,7 +202,10 @@ class FlowServer:
             depth = len(self._queue) + len(batch)
             try:
                 self._process(batch, depth)
-            except Exception as e:  # the fault is the server's: answer it
+            except BaseException as e:  # noqa: BLE001 - per-request status
+                # The fault is the server's: every still-pending request of
+                # the batch gets an `error` response (those the batch already
+                # answered keep theirs) and the loop serves the next batch.
                 detail = f"{e!r}\n{traceback.format_exc()}"
                 for req in batch:
                     if self._complete(req.request_id, FlowResponse(
@@ -252,7 +266,7 @@ class FlowServer:
         (B, H, W, 2) full-resolution flow on the host."""
         i1 = torch.from_numpy(img1).to(self.device)
         i2 = torch.from_numpy(img2).to(self.device)
-        _, flow_up = self.model(i1, i2, iters=iters)
+        _, flow_up = self._net(i1, i2, iters=iters)
         return flow_up.cpu().numpy()
 
     def _poison_error(self, req: FlowRequest) -> Optional[str]:
@@ -310,6 +324,10 @@ class FlowServer:
     def resume(self) -> None:
         self._queue.set_paused(False)
 
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
     def drain(self, timeout: Optional[float] = None) -> ServeStats:
         """Stop admitting, flush everything admitted, stop the dispatcher
         and return the final stats. Idempotent."""
@@ -332,4 +350,11 @@ class FlowServer:
             "budget_drops": self.budget.drops,
             "budget_recoveries": self.budget.recoveries,
             "device": str(self.device),
+            "precision": self.policy.name,
         }
+
+    def __enter__(self) -> "FlowServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.drain()

@@ -5,7 +5,9 @@ Port of the root ``train.py`` with ``raft_ncup_tpu/cli.py``'s
 ``--model``, ``--small``, ``--align_corners`` and ``--upsampler_bi``
 select (by default the flagship ``raft_nc_dbl`` with NCUP), with both
 hand-written kernels (``corr_impl="pallas"``, ``nconv_impl="pallas"``)
-and their backward kernels, f32 with TF32 off, trained on procedural
+and their backward kernels, f32 with TF32 off unless ``--precision
+bf16_train`` (bf16 compute with f32 master weights) or
+``--mixed_precision`` asks for bf16, trained on procedural
 pairs (``data/synthetic.py``, the JAX trainer's ``--synthetic_ok`` data)
 from weights drawn from ``--seed``. NCUP's simple weights net has
 BatchNorm for the sintel stage only, and BatchNorm trains in the chairs
@@ -19,7 +21,8 @@ Metrics go to stdout and ``<checkpoint_dir>/<name>/log.txt`` every
 ``--sum_freq`` steps; the whole train state is saved at the end to
 ``<checkpoint_dir>/<name>/step_<N>.pt``, which ``--restore_ckpt`` (the
 file or its directory) resumes exactly, with the model configuration it
-saved (the model flags are then not read). The last line of stdout is one
+saved (the model flags are then not read, and a ``--precision`` that
+differs from the checkpoint's raises). The last line of stdout is one
 JSON summary. It runs on the card unless ``--device cpu`` is given; with
 no CUDA and no ``--device`` it raises.
 """
@@ -36,7 +39,7 @@ import time
 import torch
 
 from raft_ncup_tpu_torch.cli import add_model_args, model_config_from_args
-from raft_ncup_tpu_torch.config import STAGES, TrainConfig
+from raft_ncup_tpu_torch.config import STAGES, ModelConfig, TrainConfig
 from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
 from raft_ncup_tpu_torch.training import checkpoint
 from raft_ncup_tpu_torch.training.logger import Logger
@@ -75,6 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
+    """The train configuration the flags select; its ``precision`` is the
+    model flags' resolved preset (``--mixed_precision`` alone gives
+    ``bf16_infer``)."""
     return TrainConfig(
         name=args.name, stage=args.stage, lr=args.lr, num_steps=args.num_steps,
         batch_size=args.batch_size, image_size=tuple(args.image_size),
@@ -83,7 +89,20 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         scheduler=args.scheduler, sum_freq=args.sum_freq, seed=args.seed,
         restore_ckpt=args.restore_ckpt, checkpoint_dir=args.checkpoint_dir,
         synthetic_style=args.synthetic_style,
+        precision=model_config_from_args(args, args.stage).precision_policy.name,
     )
+
+
+def resumed_precision(args: argparse.Namespace, saved: ModelConfig) -> str:
+    """The preset a resumed run trains under: its checkpoint's. A
+    ``--precision`` or ``--mixed_precision`` that asks for another raises."""
+    ours = saved.precision_policy.name
+    if args.precision is not None or args.mixed_precision:
+        asked = model_config_from_args(args, args.stage).precision_policy.name
+        if asked != ours:
+            raise ValueError(f"the flags ask for precision {asked!r}, but the checkpoint "
+                             f"was trained under {ours!r}; a resumed run keeps its own")
+    return ours
 
 
 def main(argv=None) -> int:
@@ -91,6 +110,8 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     device = resolve_device(args.device)
     if cfg.restore_ckpt:
+        saved = checkpoint.saved_model_config(cfg.restore_ckpt)
+        cfg = dataclasses.replace(cfg, precision=resumed_precision(args, saved))
         state = checkpoint.restore(cfg.restore_ckpt, cfg, device)
     else:
         state = create_train_state(model_config_from_args(args, cfg.stage), cfg, device)
@@ -114,6 +135,7 @@ def main(argv=None) -> int:
     summary = {
         "steps": state.step - first, "step": state.step, "checkpoint": path,
         "variant": state.model.cfg.variant, "small": state.model.cfg.small,
+        "precision": state.model.policy.name,
         "seconds": seconds, "device": str(device),
         "skipped": int(state.sentinel["skipped"]),
         **{k: float(v) for k, v in metrics.items()},

@@ -70,10 +70,21 @@ def _model_cfg(d: dict) -> ModelConfig:
     return ModelConfig(**{**d, "upsampler": UpsamplerConfig(**ups)})
 
 
+def _load(path: str) -> dict:
+    return torch.load(latest(path), map_location="cpu", weights_only=True)
+
+
+def saved_model_config(path: str) -> ModelConfig:
+    """The model configuration saved at ``path`` (a file or a run
+    directory)."""
+    return _model_cfg(_load(path)["model_cfg"])
+
+
 def restore(path: str, cfg: TrainConfig, device=None) -> TrainState:
     """The train state saved at ``path`` (a file or a run directory), on
-    ``device``, with ``cfg``'s optimizer and schedule."""
-    payload = torch.load(latest(path), map_location="cpu", weights_only=True)
+    ``device``, with ``cfg``'s optimizer and schedule. Raises when
+    ``cfg.precision`` is not the saved model's preset."""
+    payload = _load(path)
     model = RAFT(_model_cfg(payload["model_cfg"]), device=device)
     model.load_state_dict(payload["model"], strict=True)
     state = state_for(model, cfg)

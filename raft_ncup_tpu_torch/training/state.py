@@ -39,6 +39,12 @@ def create_train_state(
 
 
 def state_for(model: RAFT, train_cfg: TrainConfig) -> TrainState:
-    """A step-0 train state around an existing ``model``."""
+    """A step-0 train state around an existing ``model``. Raises when the
+    model's precision preset is not ``train_cfg.precision``: the step
+    would run one preset while the run's configuration names another."""
+    if model.policy.name != train_cfg.precision:
+        raise ValueError(
+            f"the model's precision preset is {model.policy.name!r} but the train "
+            f"configuration's is {train_cfg.precision!r}; they must agree")
     opt = Optimizer([p for _, p in model.named_parameters()], train_cfg)
     return TrainState(model=model, optimizer=opt, sentinel=init_sentinel(model.device))

@@ -19,6 +19,13 @@ model's forward does: cuDNN's convolutions would otherwise take TF32 in
 the backward. Both run with cuDNN's autotuner on
 (``utils.device.cudnn_autotune``). The metrics come back as 0-d tensors
 on the device: the step reads nothing back to the host.
+
+Under ``bf16_train`` (``TrainConfig.precision``, which the train entry sets
+from the same ``--precision`` flag as the model's configuration) the model computes in bf16 with f32
+master weights, as the JAX package's preset does: its convolutions cast
+their f32 parameters at use, so the gradients autograd returns, the
+optimizer's moments, the loss (from the f32 flow), the gradient norm and
+the sentinel's arithmetic all stay f32 with no cast here.
 """
 
 from __future__ import annotations

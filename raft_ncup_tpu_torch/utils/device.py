@@ -5,11 +5,11 @@ entry) run on the card unless the caller asks for the CPU. With no
 device given and no CUDA present they raise: nothing carries on quietly
 on the CPU.
 
-The port computes in f32 (``ModelConfig.precision`` accepts only
-``"f32"``), but cuDNN convolutions default to TF32 on the card.
-:func:`f32_precision` turns TF32 off around the model's forward and the
-kernels' plain versions, so every caller gets f32 without setting
-process-wide flags itself.
+Under the ``f32`` precision preset the port computes in f32, but cuDNN
+convolutions default to TF32 on the card. :func:`f32_precision` turns
+TF32 off around the model's forward and the kernels' plain versions, so
+every caller gets f32 without setting process-wide flags itself. (The
+flags do not touch bf16 convolutions, which the bf16 presets run.)
 """
 
 from __future__ import annotations

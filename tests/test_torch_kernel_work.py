@@ -78,6 +78,22 @@ def test_corr_work_matches_brute_force(b, h, w, c, levels, radius, spread):
     )
 
 
+@pytest.mark.parametrize(
+    "b,h,w,c,levels,radius,spread",
+    [(1, 9, 11, 8, 4, 4, 3.0), (3, 5, 6, 12, 2, 3, 20.0)],
+    ids=["odd_1x1_deepest", "wide_flow"],
+)
+def test_corr_work_counts_bf16_features_at_two_bytes(b, h, w, c, levels, radius, spread):
+    """Kernel A on bf16 operands: the same operations (the sums are f32),
+    and 2 bytes per feature beside the 4 of each coordinate and output tap."""
+    f1s, lv, coords = _corr_operands(20 + b, b, h, w, c, levels, spread)
+    f32_bytes, flops = _corr_work_brute(f1s, lv, coords, radius)
+    features = f1s.numel() + sum(t.numel() for t in lv)
+    f1h, lvh = corr_cuda.prepare_levels(f1s, lv[0], levels, torch.bfloat16)
+    assert chip_smoke.corr_work(torch, f1h, lvh, coords, radius) == (
+        f32_bytes - 2 * features, flops)
+
+
 def _nconv_work_brute(b, h, w, k, cin, cout):
     p = k // 2
     taps = 0

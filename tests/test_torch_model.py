@@ -178,12 +178,20 @@ def test_forward_runs_with_tf32_off_and_restores_the_callers_flags(monkeypatch):
 
 
 def test_unported_configurations_raise():
-    """The settings of later slices raise, each naming its slice: bf16,
-    the PAC and DJIF upsamplers, encoder dropout and ``freeze_raft``. The
+    """The settings of later slices raise, each naming its slice: the PAC
+    and DJIF upsamplers, encoder dropout and ``freeze_raft``. The bf16
+    presets build with their policy, and an unknown preset raises. The
     variants and heads of this slice build; a size not divisible by 8
     raises; training mode works."""
-    with pytest.raises(NotImplementedError, match="bf16 slice"):
-        flagship_config(precision="bf16_infer")
+    for preset, legacy in (("bf16_infer", False), ("bf16_train", False), ("f32", True)):
+        cfg = flagship_config(precision=preset, mixed_precision=legacy)
+        model = RAFT(cfg, device="cpu")
+        want = "bf16_infer" if legacy else preset
+        assert model.policy.name == cfg.precision_policy.name == want
+        assert model.fnet.conv1.dtype == torch.bfloat16
+        assert model.fnet.conv1.weight.dtype == torch.float32
+    with pytest.raises(ValueError, match="unknown precision preset"):
+        flagship_config(precision="fp8")
     for kind in ("pac", "djif"):
         with pytest.raises(NotImplementedError, match="PAC slice"):
             UpsamplerConfig(kind=kind)

@@ -116,6 +116,51 @@ def test_server_turns_a_model_fault_into_error_status(model, monkeypatch):
     assert stats.errors == 1
 
 
+def test_server_is_a_context_manager_that_drains_on_exit(model):
+    """``with FlowServer(...) as server`` returns the server and drains it
+    on exit, as the JAX server does; ``draining`` says so."""
+    g = np.random.default_rng(6)
+    cfg = ServeConfig(batch_sizes=(1,), iter_levels=(1,), queue_capacity=4)
+    with FlowServer(model, cfg) as server:
+        assert isinstance(server, FlowServer) and not server.draining
+        handle = server.submit(*_pair(g, 40, 48))
+    assert server.draining
+    assert handle.done() and handle.result(0).status == "ok"
+    late = server.submit(*_pair(g, 40, 48)).result(timeout=1)
+    assert late.status == "shed" and late.detail == "draining"
+
+
+class _Abort(BaseException):
+    """Not an ``Exception``: what a ``KeyboardInterrupt`` or a
+    ``SystemExit`` raised inside a batch looks like to the dispatcher."""
+
+
+def test_server_answers_a_base_exception_and_keeps_serving(model, monkeypatch):
+    """A ``BaseException`` in one batch answers that batch's requests with
+    ``error`` and the dispatcher goes on with the queue behind it."""
+    server = FlowServer(model, ServeConfig(batch_sizes=(1,), iter_levels=(1,)))
+    real = server._forward
+    calls = []
+
+    def abort_once(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 1:
+            raise _Abort("batch aborted")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(server, "_forward", abort_once)
+    g = np.random.default_rng(7)
+    server.pause()  # two batches of one, queued before the first runs
+    first = server.submit(*_pair(g, 40, 48))
+    second = server.submit(*_pair(g, 40, 48))
+    server.resume()
+    stats = server.drain()
+    r1, r2 = first.result(timeout=1), second.result(timeout=1)
+    assert r1.status == "error" and "batch aborted" in r1.detail
+    assert r2.status == "ok" and r2.flow.shape == (40, 48, 2)
+    assert (stats.errors, stats.completed) == (1, 1)
+
+
 def test_serve_entry_prints_one_report_line(capsys):
     rc = serve_mod.main([
         "--device", "cpu", "--size", "40", "48", "--num_requests", "2",
