@@ -72,7 +72,20 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     plain-version forward); traces the flagship's bf16 forward; and trains the flagship
     3 steps under ``bf16_train`` (the f32 path's launches, lookups on
     bf16, A', B and B' on f32, parameters and moments f32, a traced step);
-11. prints one JSON line describing the kernels, the card's name and
+11. runs the evaluate paths, each forward a replay of a CUDA graph
+    (``inference/pipeline.ShapeCachedForward``): the flagship's
+    ``validate_synthetic`` and ``validate_synthetic_rigid`` at 436x1024,
+    32 iterations, batch 2, 8 pairs each, in f32 and under ``bf16_infer``
+    (one capture per key, A 32 and B 4 launches every forward, the metrics
+    against a float64 host fold of eager forwards, a replay against the
+    eager forward, in f32 the plain-version forward); ``validate_sintel_warm``
+    over synthetic Sintel-layout sequences written with the port's PNG and
+    ``.flo`` codecs, against the same warm chain run eagerly; a traced
+    replayed forward beside each eager one (its ``profile ... graph:``
+    line, with the graph pool's bytes); and the evaluate entry on a
+    ``.pth`` written by ``save_reference_pth`` and the demo entry on PNG
+    frames, each in its own process;
+12. prints one JSON line describing the kernels, the card's name and
     power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
@@ -88,6 +101,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1448,28 +1462,47 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_forward(torch, model, card) -> dict:
+def profile_forward(torch, model, card, replay=False) -> dict:
     """Where a served batch's time goes: ``PROFILE_REPS`` traced forwards
     of a served model at batch 2, 436x1024 (padded to 440x1024), 12
-    iterations. ``wall_ms`` is host time per forward ending in a
-    synchronise, ``device_ms`` the summed kernel time per forward from the
-    trace, ``idle_share`` 1 - device_ms / wall_ms. With no device time in
-    the trace, ``device_ms`` is null rather than a host number."""
+    iterations, on contiguous NHWC batches (as the server's), with cuDNN's
+    autotuned algorithms; eager, or with ``replay`` replays of the
+    forward's CUDA graph (``ShapeCachedForward``; its line adds ``graph``,
+    and the pool's bytes). ``wall_ms`` is host time per forward ending in a synchronise,
+    ``device_ms`` the summed kernel time per forward from the trace,
+    ``idle_share`` 1 - device_ms / wall_ms. With no device time in the
+    trace, ``device_ms`` is null rather than a host number."""
     import numpy as np
+    from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
     from raft_ncup_tpu_torch.ops.padding import InputPadder
+    from raft_ncup_tpu_torch.utils.device import cudnn_autotune
 
     h, w = SERVE_SIZE
     imgs = np.random.default_rng(1).uniform(0, 255, (2, PROFILE_BATCH, h, w, 3))
     padder = InputPadder((h, w, 3), mode="sintel")
-    i1, i2 = padder.pad(*(torch.from_numpy(x.astype(np.float32)).cuda() for x in imgs))
-    for _ in range(2):
-        model(i1, i2, iters=12)
+    # Contiguous NHWC, as the server and the validators hand the model
+    # their batches (the layout decides cuDNN's layout and algorithms).
+    i1, i2 = (t.contiguous() for t in padder.pad(
+        *(torch.from_numpy(x.astype(np.float32)).cuda() for x in imgs)))
+    if replay:
+        fwd = ShapeCachedForward(model)
+
+        def run():
+            return fwd.forward(i1, i2, iters=12)
+    else:
+        def run():
+            return model(i1, i2, iters=12)
+    # cuDNN keeps the algorithms it times under the autotuner, as every
+    # capture does, so eager and replayed forwards run the same ones.
+    with cudnn_autotune():
+        for _ in range(2):
+            run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_REPS):
-            model(i1, i2, iters=12)
+            run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_REPS
     kernels: dict[str, float] = {}
@@ -1496,8 +1529,318 @@ def profile_forward(torch, model, card) -> dict:
         "by_group": groups,
         "top": [{"kernel": k[:120], "ms": v} for k, v in top],
     }
-    print(f"{line_name('profile', label)}: {json.dumps(prof_report)}", flush=True)
+    if replay:
+        prof_report["graph"] = {"stats": dict(fwd.stats),
+                                "pool_bytes": sum(fwd.pool_bytes.values())}
+    name = line_name("profile", label) + (" graph" if replay else "")
+    print(f"{name}: {json.dumps(prof_report)}", flush=True)
     return prof_report
+
+
+# -------------------------------------------------------------- evaluation
+
+# The evaluate paths: the flagship's synthetic validators at the Sintel
+# size, 32 iterations (Sintel's), batch 2, 8 pairs each; the warm-start
+# validator over synthetic Sintel-layout sequences of EVAL_FRAMES frames
+# written with the port's codecs. Each forward replays a CUDA graph.
+EVAL_ITERS = 32
+EVAL_BATCH = 2
+EVAL_PAIRS = 8
+EVAL_SEQUENCES = 2
+EVAL_FRAMES = 4
+# A replay against an eager forward under the same flags runs the same
+# kernels on the same inputs: equal bit for bit is expected, 1e-6 allowed.
+REPLAY_TOL = 1e-6
+# The card's float32 sums against a float64 fold of the same flows.
+ACC_RTOL = 1e-5
+
+
+def _host_metrics(kind, ups, gts, bands=None) -> dict:
+    """``finalize`` of a float64 fold on the host of (B, H, W, 2) flows."""
+    import numpy as np
+    from raft_ncup_tpu_torch.inference import metrics
+
+    acc = np.zeros(metrics.ACC_SIZES[kind])
+    for k, (up, gt) in enumerate(zip(ups, gts)):
+        epe = np.sqrt(((up.astype(np.float64) - gt) ** 2).sum(-1))
+        acc[0] += epe.sum()
+        acc[1] += epe.size
+        if kind == "px":
+            acc[2:5] += [(epe < t).sum() for t in (1.0, 3.0, 5.0)]
+        if kind == "epe_band":
+            band = bands[k].astype(np.float64)
+            acc[2:6] += [(epe * band).sum(), band.sum(), (epe * (1 - band)).sum(),
+                         (1 - band).sum()]
+    return metrics.finalize(kind, acc)
+
+
+def _close(got: dict, want: dict, rtol) -> float:
+    """The largest relative difference of two metric dicts."""
+    check(set(got) == set(want), f"metric keys {sorted(got)} against {sorted(want)}")
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want)
+
+
+def eval_model(torch, precision="f32", dataset="sintel"):
+    from raft_ncup_tpu_torch.models.raft import RAFT
+
+    model = RAFT(model_config("raft_nc_dbl", False, corr_impl="pallas", nconv_impl="pallas",
+                              dataset=dataset), device="cuda", seed=0)
+    return model.with_policy(precision)
+
+
+def check_eval(torch, card, precision="f32") -> tuple[dict, dict]:
+    """The flagship's ``validate_synthetic`` and ``validate_synthetic_rigid``
+    at 436x1024, 32 iterations, batch 2, 8 pairs each, under ``precision``,
+    through one ``ShapeCachedForward``; the kernel counts set to 0 just
+    before and read just after. Checks: one capture per key (2) and no
+    eviction; A 32 and B 4 launches for every forward run (each capture's
+    eager warm-up and every replay); every lookup on the preset's feature
+    dtype; the metrics within ``ACC_RTOL`` of a float64 host fold of eager
+    forwards of the same batches; every batch's replayed flows within
+    ``REPLAY_TOL`` of the eager forward's; in f32, the first batch's also
+    within the flow tolerances of the plain-version forward."""
+    import numpy as np
+    from raft_ncup_tpu_torch import evaluation
+    from raft_ncup_tpu_torch.config import DataConfig
+    from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset, flow_boundary_mask
+    from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+    from raft_ncup_tpu_torch.ops.padding import InputPadder
+
+    model = eval_model(torch, precision)
+    label = model_label("raft_nc_dbl", False, precision)
+    fwd = ShapeCachedForward(model)
+    cfg = DataConfig(num_workers=4)
+    kw = dict(iters=EVAL_ITERS, batch_size=EVAL_BATCH, size_hw=SERVE_SIZE, length=EVAL_PAIRS,
+              fwd=fwd)
+    reset_launches()
+    t0 = time.perf_counter()
+    results = {"smooth": evaluation.validate_synthetic(model, cfg, **kw),
+               "rigid": evaluation.validate_synthetic_rigid(model, cfg, **kw)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    by_dtype = read_corr_launches_by_dtype()
+    stats = dict(fwd.stats)
+    batches = 2 * EVAL_PAIRS // EVAL_BATCH
+    forwards = 2 * stats["compiles"] + stats["hits"]  # a capture runs one eager warm-up
+    check(stats == {"compiles": 2, "hits": batches - 2, "evictions": 0},
+          f"evaluate {label}: cache stats {stats}, want 2 captures, {batches - 2} hits")
+    check_launches(launches, "raft_nc_dbl", False, f"evaluate {label}")
+    check(launches["corr_lookup"] == EVAL_ITERS * forwards and launches["nconv"] == 4 * forwards,
+          f"evaluate {label}: launches {launches} for {forwards} forwards of "
+          f"{EVAL_ITERS} iterations")
+    feature = "float32" if precision == "f32" else "bfloat16"
+    check(by_dtype == {feature: launches["corr_lookup"]},
+          f"evaluate {label}: corr launches by feature dtype {by_dtype}")
+    pool = sum(fwd.pool_bytes.values())
+
+    replay_err, plain = 0.0, {}
+    folds = {}
+    padder = InputPadder((*SERVE_SIZE, 3), mode="sintel")
+    for style, kind in (("smooth", "epe"), ("rigid", "epe_band")):
+        ds = SyntheticFlowDataset(SERVE_SIZE, length=EVAL_PAIRS, seed=999, style=style)
+        ups, gts, bands = [], [], []
+        for b in range(0, EVAL_PAIRS, EVAL_BATCH):
+            samples = [ds.sample(i) for i in range(b, b + EVAL_BATCH)]
+            # Contiguous, as the validator's host-padded batches: under bf16
+            # cuDNN picks its algorithms by the input's layout too.
+            i1, i2 = (t.contiguous() for t in padder.pad(
+                *(torch.stack([s[k] for s in samples]).cuda().float()
+                  for k in ("image1", "image2"))))
+            lr, up = model(i1, i2, iters=EVAL_ITERS)
+            ups.append(padder.unpad(up).cpu().numpy())
+            gts.append(np.stack([s["flow"].numpy() for s in samples]))
+            bands.append(np.stack([flow_boundary_mask(s["flow"]) for s in samples]))
+            g_lr, g_up = fwd.forward(i1, i2, EVAL_ITERS)
+            replay_err = max(replay_err, float((g_lr - lr).abs().max()),
+                             float((g_up - up).abs().max()))
+            if precision == "f32" and not plain:
+                plain = check_plain_forward(torch, model, i1, i2, lr, up, label)
+        folds[style] = _host_metrics(kind, ups, gts, bands)
+    prefixes = {"smooth": "synthetic", "rigid": "synthetic_rigid"}
+    got = {style: {k.removeprefix(prefixes[style]).lstrip("_") or "epe": v
+                   for k, v in results[style].items()} for style in results}
+    acc_err = max(_close(got[s], folds[s], ACC_RTOL) for s in folds)
+    report = {"card": card, "model": label, "results": results, "host_fold": folds,
+              "wall_s": wall,
+              "pairs_per_sec": 2 * EVAL_PAIRS / wall, "stats": stats, "launches": launches,
+              "corr_launches_by_dtype": by_dtype, "graph_pool_bytes": pool,
+              "replay_vs_eager_max_abs": replay_err, "metrics_vs_host_fold_max_rel": acc_err,
+              **plain}
+    print(f"{line_name('evaluate', label)}: {json.dumps(report)}", flush=True)
+    check(replay_err <= REPLAY_TOL, f"evaluate {label}: a replay differs from the eager "
+                                    f"forward by {replay_err}")
+    check(acc_err <= ACC_RTOL, f"evaluate {label}: metrics differ from the host fold by "
+                               f"{acc_err} relative")
+    return report, launches
+
+
+def check_plain_forward(torch, model, i1, i2, lr, up, label) -> dict:
+    """One f32 batch's flows against the same weights through the plain
+    versions (flow_lr atol 2e-3, flow_up atol 5e-3, rtol 1e-3)."""
+    from raft_ncup_tpu_torch.models.raft import RAFT
+
+    plain = RAFT(model_config("raft_nc_dbl", False, corr_impl="onthefly", nconv_impl="xla",
+                              dataset=model.cfg.dataset), device="cuda", seed=0)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    lr_p, up_p = plain(i1, i2, iters=EVAL_ITERS)
+    e_lr, ok_lr = max_err(torch, lr, lr_p, **FLOW_LR_TOL)
+    e_up, ok_up = max_err(torch, up, up_p, **FLOW_UP_TOL)
+    check(ok_lr and ok_up, f"evaluate {label}: flows against the plain versions: "
+                           f"flow_lr {e_lr}, flow_up {e_up}")
+    return {"flow_lr_vs_plain": e_lr, "flow_up_vs_plain": e_up}
+
+
+def write_sintel_sequences(root: str, seed: int = 0) -> None:
+    """A Sintel-layout training split (clean and final) of
+    ``EVAL_SEQUENCES`` scenes of ``EVAL_FRAMES`` frames at the Sintel size,
+    written with the port's codecs: each scene a smooth random image
+    shifted by a whole number of pixels per frame, its flow that shift."""
+    import numpy as np
+    from raft_ncup_tpu_torch.io import write_flo, write_png
+
+    rng = np.random.default_rng(seed)
+    h, w = SERVE_SIZE
+    for s in range(EVAL_SEQUENCES):
+        coarse = rng.uniform(0, 255, (h // 16 + 1, w // 16 + 1, 3))
+        base = np.kron(coarse, np.ones((16, 16, 1)))[:h, :w]
+        dy, dx = (int(v) for v in rng.integers(-6, 7, size=2))
+        scene = f"scene_{s}"
+        for dstype in ("clean", "final"):
+            d = os.path.join(root, "training", dstype, scene)
+            os.makedirs(d, exist_ok=True)
+            for f in range(EVAL_FRAMES):
+                frame = np.roll(base, (f * dy, f * dx), axis=(0, 1))
+                if dstype == "final":
+                    frame = frame + rng.normal(0, 4, frame.shape)
+                write_png(os.path.join(d, f"frame_{f:04d}.png"),
+                          np.clip(frame, 0, 255).astype(np.uint8))
+        fd = os.path.join(root, "training", "flow", scene)
+        os.makedirs(fd, exist_ok=True)
+        for f in range(EVAL_FRAMES - 1):
+            flow = np.broadcast_to(np.float32([dx, dy]), (h, w, 2))
+            write_flo(os.path.join(fd, f"frame_{f:04d}.flo"), flow)
+
+
+def check_eval_warm(torch, card, root: str) -> tuple[dict, dict]:
+    """``validate_sintel_warm`` of the f32 flagship over the sequences of
+    :func:`write_sintel_sequences` (PNG frames and ``.flo`` flows through
+    the port's codecs and its Sintel reader), 32 iterations, each frame
+    warm-started from the splat of the previous one on the card. Checks
+    one capture and no eviction, A 32 and B 4 launches a forward run, and
+    the metrics within ``ACC_RTOL`` of a float64 host fold of the same
+    chain run eagerly (which also compares every replay with its eager
+    forward)."""
+    import numpy as np
+    from raft_ncup_tpu_torch import evaluation
+    from raft_ncup_tpu_torch.config import DataConfig
+    from raft_ncup_tpu_torch.data.datasets import MpiSintel
+    from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+    from raft_ncup_tpu_torch.ops.padding import InputPadder
+    from raft_ncup_tpu_torch.ops.warmstart import forward_interpolate_batch
+
+    model = eval_model(torch)
+    fwd = ShapeCachedForward(model)
+    cfg = DataConfig(root_sintel=root, num_workers=4)
+    reset_launches()
+    t0 = time.perf_counter()
+    results = evaluation.validate_sintel_warm(model, cfg, iters=EVAL_ITERS, fwd=fwd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    stats = dict(fwd.stats)
+    frames = 2 * EVAL_SEQUENCES * (EVAL_FRAMES - 1)
+    forwards = 2 * stats["compiles"] + stats["hits"]
+    check(stats == {"compiles": 1, "hits": frames - 1, "evictions": 0},
+          f"evaluate warm: cache stats {stats}")
+    check_launches(launches, "raft_nc_dbl", False, "evaluate warm")
+    check(launches["corr_lookup"] == EVAL_ITERS * forwards and launches["nconv"] == 4 * forwards,
+          f"evaluate warm: launches {launches} for {forwards} forwards")
+    err = 0.0
+    for dstype in ("clean", "final"):
+        ds = MpiSintel(split="training", root=root, dstype=dstype)
+        ups, gts, prev, scene_prev = [], [], None, None
+        for i in range(len(ds)):
+            s = ds.sample(i)
+            if ds.extra_info[i][0] != scene_prev:
+                prev = None
+            scene_prev = ds.extra_info[i][0]
+            padder = InputPadder((1, *s["image1"].shape), mode="sintel")
+            p1, p2 = (t.contiguous() for t in padder.pad(
+                *(torch.from_numpy(s[k].astype(np.float32))[None].cuda()
+                  for k in ("image1", "image2"))))
+            if prev is None:
+                prev = torch.zeros((1, p1.shape[1] // 8, p1.shape[2] // 8, 2), device="cuda")
+            lr, up = model(p1, p2, iters=EVAL_ITERS, flow_init=prev)
+            prev = forward_interpolate_batch(lr)
+            ups.append(padder.unpad(up).cpu().numpy())
+            gts.append(s["flow"][None])
+        m = _host_metrics("px", ups, gts)
+        got = {k: results[f"warm_{dstype}" + (f"_{k}" if k != "epe" else "")] for k in m}
+        err = max(err, _close(got, m, ACC_RTOL))
+    report = {"card": card, "results": results, "wall_s": wall, "frames": frames,
+              "stats": stats, "launches": launches, "metrics_vs_eager_chain_max_rel": err,
+              "graph_pool_bytes": sum(fwd.pool_bytes.values())}
+    print(f"evaluate raft_nc_dbl sintel_warm: {json.dumps(report)}", flush=True)
+    check(err <= ACC_RTOL, f"evaluate warm: metrics differ from the eager chain by {err}")
+    return report, launches
+
+
+def _run_entry(args: list, what: str) -> str:
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=HERE, capture_output=True,
+                          text=True, timeout=900)
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def check_entries(torch, card, tmp: str) -> dict:
+    """The evaluate and demo entries in their own processes on the card.
+    A flagship's weights written by ``save_reference_pth`` go through
+    ``python -m raft_ncup_tpu_torch.evaluate --dataset synthetic`` (12
+    iterations, batch 4, 32 pairs at 96x128: the validator's defaults),
+    whose results must equal the same validator run here within
+    ``ACC_RTOL``; then the demo runs on PNG frames the port's codec wrote
+    and its PNGs are read back."""
+    import numpy as np
+    from raft_ncup_tpu_torch import evaluation
+    from raft_ncup_tpu_torch.io import read_png, write_png
+    from raft_ncup_tpu_torch.training.checkpoint import save_reference_pth
+
+    # The evaluate entry builds the model for its --dataset (no BatchNorm
+    # in NCUP's weights net outside Sintel), the demo for Sintel.
+    model = eval_model(torch, dataset="synthetic")
+    pth = save_reference_pth(model, os.path.join(tmp, "synthetic.pth"))
+    want = evaluation.validate_synthetic(model)
+    out = _run_entry(["raft_ncup_tpu_torch.evaluate", "--model", "raft_nc_dbl", "--dataset",
+                      "synthetic", "--restore_ckpt", pth], "the evaluate entry")
+    got = json.loads(out.strip().splitlines()[-1])
+    err = _close(got["results"], want, ACC_RTOL)
+    check(err <= ACC_RTOL and got["cache"]["compiles"] == 1 and got["device"].startswith("cuda"),
+          f"the evaluate entry gave {got}, want {want}")
+    del model
+    frames = os.path.join(tmp, "frames")
+    os.makedirs(frames)
+    rng = np.random.default_rng(2)
+    img = rng.uniform(0, 255, (SERVE_SIZE[0] // 8 + 1, SERVE_SIZE[1] // 8 + 1, 3))
+    img = np.kron(img, np.ones((8, 8, 1)))[:SERVE_SIZE[0], :SERVE_SIZE[1]]
+    for f in range(3):
+        write_png(os.path.join(frames, f"f{f}.png"),
+                  np.roll(img, (f, 2 * f), axis=(0, 1)).astype(np.uint8))
+    pth_sintel = save_reference_pth(eval_model(torch), os.path.join(tmp, "sintel.pth"))
+    demo_out = os.path.join(tmp, "demo")
+    _run_entry(["raft_ncup_tpu_torch.demo", "--path", frames, "--output", demo_out,
+                "--restore_ckpt", pth_sintel, "--iters", "12"], "the demo entry")
+    written = sorted(os.listdir(demo_out))
+    check(written == ["f0_flow.png", "f1_flow.png"], f"the demo wrote {written}")
+    for name in written:
+        vis = read_png(os.path.join(demo_out, name))
+        check(vis.shape == (2 * SERVE_SIZE[0], *SERVE_SIZE[1:], 3), f"demo PNG {vis.shape}")
+    report = {"card": card, "evaluate_results": got["results"], "in_process": want,
+              "max_rel": err, "evaluate_cache": got["cache"],
+              "evaluate_graph_pool_bytes": got.get("graph_pool_bytes"), "demo_pngs": written}
+    print(f"entries: {json.dumps(report)}", flush=True)
+    return report
 
 
 def main() -> int:
@@ -1596,6 +1939,23 @@ def main() -> int:
             check(profile["device_ms"] is not None, "the bf16 trace holds no device time")
         del model
         torch.cuda.empty_cache()
+    # The evaluate paths: the flagship's synthetic validators in f32 and
+    # under bf16_infer, the warm-start validator over sequences written with
+    # the port's codecs, replayed forwards traced beside the eager ones, and
+    # the evaluate and demo entries in processes of their own.
+    for precision in ("f32", "bf16_infer"):
+        label = model_label("raft_nc_dbl", False, precision)
+        _, paths[f"evaluate {label} synthetic"] = check_eval(torch, card, precision)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_sintel_sequences(os.path.join(tmp, "Sintel"))
+        _, paths["evaluate raft_nc_dbl sintel_warm"] = check_eval_warm(
+            torch, card, os.path.join(tmp, "Sintel"))
+        for precision in ("f32", "bf16_infer"):
+            profile = profile_forward(torch, eval_model(torch, precision), card, replay=True)
+            check(profile["device_ms"] is not None, "the replay's trace holds no device time")
+            torch.cuda.empty_cache()
+        check_entries(torch, card, tmp)
     train_bf16 = check_train(torch, card, steps=VARIANT_TRAIN_STEPS, extras=False,
                              precision="bf16_train", profile=True)
     paths["train raft_nc_dbl bf16_train"] = train_bf16["launches"]

@@ -24,7 +24,11 @@ packages, with these differences:
   ``max_flow`` (``training/loss.py``) are constants at the JAX defaults,
   since no flag of the JAX CLI that the port takes sets them. It carries
   ``synthetic_style``, a field of the JAX package's ``DataConfig``: the
-  port trains on synthetic pairs only, so it needs no ``DataConfig`` yet.
+  port trains on synthetic pairs only.
+- ``DataConfig`` holds only the fields the validators and submission
+  writers read (``evaluation.py``): the chairs, Sintel and KITTI roots, the chairs split
+  file (the port's own copy), ``num_workers``, ``device_prefetch``,
+  ``eval_cache_size``, ``eval_pad_bucket`` and ``synthetic_style``.
 
 Precision (``precision/policy.py``): ``ModelConfig.precision`` names a
 preset (``f32``, ``bf16_infer``, ``bf16_train``); the legacy
@@ -35,6 +39,7 @@ on the card too.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 from raft_ncup_tpu_torch.precision import PrecisionPolicy, resolve_policy
@@ -172,9 +177,9 @@ class ServeConfig:
     """Online flow-serving knobs (see ``serving/server.py``).
 
     Same fields and defaults as the JAX package's ``ServeConfig`` except
-    ``mesh``, which the port does not have, and ``cache_size``,
-    ``inflight`` and ``drain_depth``, which belong to the JAX executable
-    cache and async drain the port does not need (PyTorch runs eagerly).
+    ``mesh``, which the port does not have, and ``inflight`` and
+    ``drain_depth``, which belong to the JAX dispatch throttle and async
+    drain the server does not use (it waits for each batch's result).
     """
 
     # Admission-queue capacity: a full queue sheds with retry_after_s.
@@ -195,6 +200,9 @@ class ServeConfig:
     # The precision preset the server's forwards run under; None inherits
     # the model's own policy.
     precision: str | None = None
+    # Bound on the cached CUDA graphs (LRU), one per (padded shape, batch
+    # size, iteration level): at least their product for one shape.
+    cache_size: int = 16
 
     def __post_init__(self) -> None:
         if self.precision is not None:
@@ -271,6 +279,33 @@ class TrainConfig:
     def total_schedule_steps(self) -> int:
         # OneCycle over num_steps + 100, as the reference configures it.
         return self.num_steps + 100
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset roots and the evaluation pipeline's settings; names and
+    defaults are the JAX package's ``DataConfig``."""
+
+    root_chairs: str = "datasets/FlyingChairs_release/data"
+    root_sintel: str = "datasets/Sintel"
+    root_kitti: str = "datasets/KITTI"
+    chairs_split_file: str = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "data", "chairs_split.txt")
+    num_workers: int = 2
+    # Batches staged and copied to the card ahead of compute.
+    device_prefetch: int = 2
+    # Bound on the cached per-shape CUDA graphs (LRU); each distinct
+    # (padded shape, iterations, metric kind) captures once.
+    eval_cache_size: int = 8
+    # Round padded eval shapes up to multiples of this (0 = off); KITTI.
+    eval_pad_bucket: int = 0
+    synthetic_style: str = "smooth"  # 'smooth' | 'rigid'
+
+    def __post_init__(self) -> None:
+        if self.synthetic_style not in ("smooth", "rigid"):
+            raise ValueError(f"unknown synthetic style: {self.synthetic_style!r}")
+        if self.eval_pad_bucket % 8:
+            raise ValueError(f"eval_pad_bucket {self.eval_pad_bucket} must be a multiple of 8")
 
 
 def small_model_config(variant: str = "raft", **overrides) -> ModelConfig:

@@ -1,2 +1,4 @@
-"""Data for the port's trainer: procedural flow pairs (the real dataset
-readers and augmentors wait for the datasets)."""
+"""Data: procedural flow pairs (``synthetic``) for the trainer and the
+synthetic validators, and the validation datasets (``datasets``: Sintel,
+FlyingChairs, KITTI). The training readers and augmentors are not
+ported yet."""

@@ -154,6 +154,21 @@ def make_rigid_pair(gen, size_hw, max_mag=12.0, n_shapes=(2, 4), device="cpu") -
     }
 
 
+def flow_boundary_mask(flow, thresh: float = 2.0, band_px: int = 3) -> np.ndarray:
+    """(H, W) bool mask of pixels within ``band_px`` of a flow discontinuity:
+    a forward-difference gradient magnitude above ``thresh`` px, dilated by
+    a (2 band_px + 1)^2 square. The JAX package dilates with ``cv2.dilate``,
+    whose default border adds nothing; a max-pool pads with -inf, which is
+    the same. ``flow`` is an (H, W, 2) array or tensor."""
+    flow = np.asarray(flow, np.float32)
+    gx = np.abs(np.diff(flow, axis=1, append=flow[:, -1:])).sum(-1)
+    gy = np.abs(np.diff(flow, axis=0, append=flow[-1:])).sum(-1)
+    edge = torch.from_numpy(((gx + gy) > thresh).astype(np.float32))
+    k = 2 * band_px + 1
+    band = F.max_pool2d(edge[None, None], k, stride=1, padding=band_px)
+    return band[0, 0].numpy() > 0
+
+
 class SyntheticFlowDataset:
     """Fixed-length procedural dataset: sample ``index`` depends only on
     ``(seed, index)``."""

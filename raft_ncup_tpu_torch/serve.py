@@ -13,6 +13,12 @@ the flagship ``raft_nc_dbl`` with NCUP (the JAX CLI defaults to
 preset, f32 by default; ``--serve_precision`` runs the server's forwards
 under another preset with the same weights.
 
+Every forward runs through the server's per-shape CUDA graphs
+(``inference/pipeline.ShapeCachedForward``), captured at warm-up; the
+report line carries the cache's ``executables`` stats (captures, hits,
+evictions) and ``graph_pool_bytes``, as the JAX entry's report carries its
+executables.
+
 It runs on the card unless ``--device cpu`` is given; with no CUDA and
 no ``--device`` it raises.
 """

@@ -13,21 +13,24 @@ Data path (one dispatcher thread; clients submit from their own threads):
    non-finite pixels alone (``rejected``) while its batch-mates proceed.
 3. **budget**: one ``IterationBudgetController.decide`` per batch.
 4. **dispatch**: host-side edge pad, zero rows up to the nearest allowed
-   batch size, one test-mode forward of the model on its device.
-5. **complete**: copy the flow to the host, crop each row back to its
-   native shape and complete its handle.
+   batch size, and one test-mode forward through the server's
+   ``ShapeCachedForward``: a captured CUDA graph per (padded shape, batch
+   size, iteration level) on the card, the eager forward on the CPU.
+5. **complete**: copy the flow to the host (out of the graph's outputs,
+   before the next replay), crop each row back to its native shape and
+   complete its handle.
 
-PyTorch runs eagerly, so the JAX package's executable cache, dispatch
-throttle and asynchronous drain worker have no counterpart here: the
-dispatcher waits for the batch's result (the copy to the host) and
-completes its handles itself. Telemetry, meshes and early exit land with
-later slices.
+The dispatcher waits for the batch's result (the copy to the host) and
+completes its handles itself: the JAX package's dispatch throttle and
+asynchronous drain worker have no counterpart here. Telemetry, meshes
+and early exit land with later slices.
 
 **Precision**: ``ServeConfig.precision`` names the preset the server's
 forwards run under; ``None`` inherits the model's own. Another preset runs
 the model's own parameters at that preset's dtypes
 (``RAFT.with_policy``): no weight is copied. The report names the
-resolved preset.
+resolved preset and carries the cache's ``executables`` stats (captures,
+hits, evictions) and the device memory its graphs reserved.
 
 **Drain contract** (``drain()``, also on leaving a ``with FlowServer(...)``
 block): stop admitting (new submits shed with
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.config import ServeConfig
+from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
 from raft_ncup_tpu_torch.ops.padding import InputPadder
 from raft_ncup_tpu_torch.serving.admission import AdmissionQueue
 from raft_ncup_tpu_torch.serving.budget import IterationBudgetController
@@ -78,10 +82,11 @@ class FlowServer:
     ):
         self.cfg = cfg or ServeConfig()
         self.model = model
-        # The model under the server's preset (itself when it inherits).
-        self._net = model if self.cfg.precision is None else model.with_policy(
-            self.cfg.precision)
-        self.policy = self._net.policy
+        # One cached forward per (padded shape, batch size, iterations),
+        # under the server's preset (the model's own when it inherits).
+        self._fwd = ShapeCachedForward(model, cache_size=self.cfg.cache_size,
+                                       policy=self.cfg.precision)
+        self.policy = self._fwd.policy
         self.device = model.device
         self._clock = clock
         self.stats = ServeStats()
@@ -262,11 +267,9 @@ class FlowServer:
         self._note_service((done - t_dispatch) / len(live))
 
     def _forward(self, img1: np.ndarray, img2: np.ndarray, iters: int) -> np.ndarray:
-        """One test-mode forward on the model's device; returns the
+        """One test-mode forward through the cached forward; returns the
         (B, H, W, 2) full-resolution flow on the host."""
-        i1 = torch.from_numpy(img1).to(self.device)
-        i2 = torch.from_numpy(img2).to(self.device)
-        _, flow_up = self._net(i1, i2, iters=iters)
+        _, flow_up = self._fwd.forward(torch.from_numpy(img1), torch.from_numpy(img2), iters)
         return flow_up.cpu().numpy()
 
     def _poison_error(self, req: FlowRequest) -> Optional[str]:
@@ -303,19 +306,21 @@ class FlowServer:
     # ------------------------------------------------------------- lifecycle
 
     def warmup(self, size_hw: tuple) -> int:
-        """Run every (batch size, iteration level) the dispatcher may use
-        once, at the padded shape of ``size_hw``, so no request pays a
-        first-use cost (kernel build, cuDNN algorithm choice). Returns the
-        number of configurations run."""
+        """Capture every (batch size, iteration level) the dispatcher may
+        use, at the padded shape of ``size_hw``, so no request pays a
+        first-use cost (kernel build, cuDNN's autotuning, which the cache
+        runs at each capture, the capture itself). Returns the number of
+        forwards captured."""
         h, w = (int(v) for v in size_hw)
         padder = InputPadder((h, w, 3), mode="sintel", bucket=self.cfg.pad_bucket)
         (t, b), (le, r) = padder.pad_spec
         ph, pw = h + t + b, w + le + r
+        before = self._fwd.stats["compiles"]
         for n in self.cfg.batch_sizes:
             zeros = np.zeros((n, ph, pw, 3), np.float32)
             for iters in self.cfg.iter_levels:
                 self._forward(zeros, zeros, iters)
-        return len(self.cfg.batch_sizes) * len(self.cfg.iter_levels)
+        return self._fwd.stats["compiles"] - before
 
     def pause(self) -> None:
         """Stop assembling new batches; queued requests wait."""
@@ -351,6 +356,8 @@ class FlowServer:
             "budget_recoveries": self.budget.recoveries,
             "device": str(self.device),
             "precision": self.policy.name,
+            "executables": dict(self._fwd.stats),
+            "graph_pool_bytes": sum(self._fwd.pool_bytes.values()),
         }
 
     def __enter__(self) -> "FlowServer":

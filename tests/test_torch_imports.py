@@ -48,7 +48,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "module",
-    ["raft_ncup_tpu_torch", "raft_ncup_tpu_torch.serve", "raft_ncup_tpu_torch.train"],
+    ["raft_ncup_tpu_torch", "raft_ncup_tpu_torch.serve", "raft_ncup_tpu_torch.train",
+     "raft_ncup_tpu_torch.evaluate", "raft_ncup_tpu_torch.demo"],
 )
 def test_fresh_import_loads_no_jax(module):
     code = (

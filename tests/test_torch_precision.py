@@ -463,7 +463,7 @@ def test_serve_precision_runs_the_same_weights_at_the_preset():
     for m, preset in ((model, "bf16_infer"), (built, None), (model, None)):
         with FlowServer(m, ServeConfig(**cfg, precision=preset)) as server:
             handles = [server.submit(a, b) for a, b in pairs]
-            served.append(server._net)
+            served.append(server._fwd.model_for()[0])
         flows.append([h.result(0).flow for h in handles])
         reports.append(server.report()["precision"])
     assert reports == ["bf16_infer", "bf16_infer", "f32"]

@@ -130,6 +130,23 @@ def test_server_is_a_context_manager_that_drains_on_exit(model):
     assert late.status == "shed" and late.detail == "draining"
 
 
+def test_server_runs_through_its_shape_cache(model):
+    """The warm-up builds one cache entry per (batch size, iteration level)
+    at the padded shape, and served batches hit them; the report carries
+    the cache's stats, as the JAX server's ``executables``."""
+    g = np.random.default_rng(7)
+    cfg = ServeConfig(batch_sizes=(1, 2), iter_levels=(2, 1), queue_capacity=8)
+    with FlowServer(model, cfg) as server:
+        assert server.warmup(NATIVE) == 4
+        server.pause()
+        handles = [server.submit(*_pair(g, *NATIVE)) for _ in range(3)]
+        server.resume()
+    assert all(h.result(60).status == "ok" for h in handles)
+    report = server.report()
+    assert report["executables"] == {"compiles": 4, "hits": 2, "evictions": 0}
+    assert report["graph_pool_bytes"] == 0  # CPU entries hold no graph
+
+
 class _Abort(BaseException):
     """Not an ``Exception``: what a ``KeyboardInterrupt`` or a
     ``SystemExit`` raised inside a batch looks like to the dispatcher."""
