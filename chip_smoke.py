@@ -85,7 +85,25 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     line, with the graph pool's bytes); and the evaluate entry on a
     ``.pth`` written by ``save_reference_pth`` and the demo entry on PNG
     frames, each in its own process;
-12. prints one JSON line describing the kernels, the card's name and
+12. trains the flagship from files in-process through the train entry
+    (``train.main``) with ``scripts/train_raft_nc_things.sh``'s flag lines
+    minus ``--compressed_ft``: a FlyingThings3D-layout tree at 540x960
+    (PNG frames warped by their PFM flows, both directions, clean and
+    final), read and augmented by the loader's threads and copied ahead by
+    the device prefetcher, validated on a Sintel-layout tree, warm-started
+    from a ``raft`` .pth written by ``save_reference_pth``: (a) f32, 8 steps
+    validating every 4; (b) ``sigterm@3`` (exit 75) and a resume to step 8
+    (its batch stream equal to (a)'s by hash, its restored state equal to
+    ``step_3.pt``, its losses within ``RESUME_LOSS_RTOL`` of (a)'s); (c)
+    ``nan@5,nan@6,nan@7`` with ``--sentinel_halt_after 3`` (exit 76, the
+    live parameters equal to ``step_4.pt``); (d) ``bf16_train``, 5 steps;
+    (e) ``--freeze_raft --add_noise --dropout 0.1``, 2 steps (the trunk
+    unchanged). Every step launches A 24, A' 12, B 96 and B' 48 times, every
+    prefetched batch equals its host batch, and no plain version runs; per
+    run it prints step and iteration walls beside the synthetic step, the
+    host ms per sample, the prefetcher's waits, tile paths (and a synthetic
+    step's), and peak memory per step;
+13. prints one JSON line describing the kernels, the card's name and
     power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
@@ -1829,7 +1847,8 @@ def check_entries(torch, card, tmp: str) -> dict:
                   np.roll(img, (f, 2 * f), axis=(0, 1)).astype(np.uint8))
     pth_sintel = save_reference_pth(eval_model(torch), os.path.join(tmp, "sintel.pth"))
     demo_out = os.path.join(tmp, "demo")
-    _run_entry(["raft_ncup_tpu_torch.demo", "--path", frames, "--output", demo_out,
+    _run_entry(["raft_ncup_tpu_torch.demo", "--model", "raft_nc_dbl", "--path", frames,
+                "--output", demo_out,
                 "--restore_ckpt", pth_sintel, "--iters", "12"], "the demo entry")
     written = sorted(os.listdir(demo_out))
     check(written == ["f0_flow.png", "f1_flow.png"], f"the demo wrote {written}")
@@ -1841,6 +1860,361 @@ def check_entries(torch, card, tmp: str) -> dict:
               "evaluate_graph_pool_bytes": got.get("graph_pool_bytes"), "demo_pngs": written}
     print(f"entries: {json.dumps(report)}", flush=True)
     return report
+
+
+# --------------------------------------------------- training from files
+
+THINGS_SIZE = (540, 960)  # FlyingThings3D's native frame size
+THINGS_SEQUENCES = 2
+THINGS_FRAMES = 8
+# A resumed run on the card: the batch stream and the restored state are
+# held bit for bit; the losses after the resume within RESUME_LOSS_RTOL of
+# the uninterrupted run's (kernel A' sums with atomics and cuDNN's autotuner
+# may pick nondeterministic algorithms, so the states drift apart slowly).
+RESUME_LOSS_RTOL = 2e-2
+
+
+def write_things_tree(root: str, seed: int = 0) -> None:
+    """A FlyingThings3D-layout training tree at the native 540x960: clean
+    and final passes of ``THINGS_SEQUENCES`` sequences of ``THINGS_FRAMES``
+    PNG frames (left camera) and PFM flows into the future and into the
+    past, written with the port's codecs. Each sequence's frames are warped
+    by one flow: a translation of up to 40 px plus a smooth part of up to
+    8 px, so that the loss can fall."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from raft_ncup_tpu_torch.io import write_pfm, write_png
+
+    g = np.random.default_rng(seed)
+    h, w = THINGS_SIZE
+
+    def smooth(channels, cell, scale):
+        coarse = torch.from_numpy(g.normal(0, scale, (1, channels, h // cell + 2, w // cell + 2)))
+        return F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=False)[0]
+
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                            torch.arange(w, dtype=torch.float64), indexing="ij")
+    for s in range(THINGS_SEQUENCES):
+        seq = os.path.join("TRAIN", "A", f"{s:04d}")
+        flow = smooth(2, 64, 4.0).clamp(-8, 8)
+        flow[0] += float(g.uniform(-40, 40))
+        flow[1] += float(g.uniform(-15, 15))
+        grid = torch.stack([(xx - flow[0]) * 2 / (w - 1) - 1, (yy - flow[1]) * 2 / (h - 1) - 1],
+                           dim=-1)[None]
+        frame = (smooth(3, 8, 60.0) + 128.0)[None]
+        frames = []
+        for _ in range(THINGS_FRAMES):
+            frames.append(frame[0].permute(1, 2, 0).clamp(0, 255).round().to(torch.uint8).numpy())
+            # Backward warp: frame k+1 at x is frame k at x - flow(x).
+            frame = F.grid_sample(frame, grid, mode="bilinear", padding_mode="reflection",
+                                  align_corners=True)
+        for dstype in ("frames_cleanpass", "frames_finalpass"):
+            d = os.path.join(root, dstype, seq, "left")
+            os.makedirs(d, exist_ok=True)
+            for i, f in enumerate(frames):
+                if dstype == "frames_finalpass":
+                    f = np.clip(f + g.normal(0, 4, f.shape), 0, 255).astype(np.uint8)
+                write_png(os.path.join(d, f"{6 + i:04d}.png"), f)
+        f3 = np.zeros((h, w, 3), np.float32)
+        for direction, sign in (("into_future", 1.0), ("into_past", -1.0)):
+            d = os.path.join(root, "optical_flow", seq, direction, "left")
+            os.makedirs(d, exist_ok=True)
+            f3[..., :2] = sign * flow.permute(1, 2, 0).numpy()
+            for i in range(THINGS_FRAMES):
+                write_pfm(os.path.join(d, f"OpticalFlowInto_{6 + i:04d}_L.pfm"), f3)
+
+
+def script_flags(script: str) -> list:
+    """The flags of a shipped training script's ``python train.py`` line,
+    its own ``$EXP`` name kept, ``"$@"`` left out."""
+    import shlex
+
+    text = open(os.path.join(HERE, "scripts", script)).read().replace("\\\n", " ")
+    for line in text.splitlines():
+        toks = shlex.split(line.strip()) if line.strip().startswith("python") else []
+        if "train.py" in toks:
+            toks = toks[toks.index("train.py") + 1:]
+            return [t.replace("$EXP", "exp") for t in toks if t != "$@"]
+    raise CheckFailed(f"no python train.py line in scripts/{script}")
+
+
+def _same_bytes(a, b) -> bool:
+    """Bit for bit: the same dtype, shape and bytes (tensors on the host)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.contiguous().numpy().tobytes() == b.contiguous().numpy().tobytes())
+
+
+def _digest(arrays: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(arrays[k].tobytes())
+    return h.hexdigest()[:16]
+
+
+class _Instruments:
+    """What a train-from-files run records, hooked into the train entry:
+    each consumed batch's digest on the host (as the loader made it) and
+    on the card (after the prefetcher's stream wait), each step's wall,
+    loss, peak memory, kernel launches and lookup tile paths, and the train
+    state the entry builds."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.host, self.card, self.steps, self.states = [], [], [], []
+        self.restored = None
+        self._t_iter = None
+
+    def install(self, stack):
+        import collections
+
+        from raft_ncup_tpu_torch import train as train_mod
+        from raft_ncup_tpu_torch.data.device_prefetch import DevicePrefetcher
+        from raft_ncup_tpu_torch.ops import corr_cuda
+
+        torch, inst = self.torch, self
+
+        class CheckedPrefetcher(DevicePrefetcher):
+            """Each batch's host digest, taken on the worker in order, is
+            held against its copy on the card when the consumer gets it."""
+
+            def __init__(self, *a, **kw):
+                self._digests = collections.deque()
+                super().__init__(*a, **kw)
+
+            def _transfer(self, batch):
+                self._digests.append(_digest({k: v for k, v in batch.items()
+                                              if k != "extra_info"}))
+                return super()._transfer(batch)
+
+            def __next__(self):
+                inst._t_iter = time.perf_counter()
+                batch = super().__next__()
+                inst.host.append(self._digests.popleft())
+                inst.card.append(_digest({k: v.cpu().numpy() for k, v in batch.items()}))
+                return batch
+
+        make_step, create, restore = (train_mod.make_train_step, train_mod.create_train_state,
+                                      train_mod._restore)
+
+        def timed_step_factory(cfg, *a, **kw):
+            step = make_step(cfg, *a, **kw)
+
+            def timed(state, batch):
+                before = read_launches()
+                corr_cuda.reset_path_tiles()
+                corr_cuda.reset_backward_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                metrics = step(state, batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                after = read_launches()
+                inst.steps.append(dict(
+                    step=state.step, ms=1e3 * (t1 - t0),
+                    # From the call for its batch to the end of the step.
+                    iteration_ms=1e3 * (t1 - inst._t_iter),
+                    loss=float(metrics["loss"]), bad=float(metrics["bad_step"]),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    launches={k: after[k] - before[k] for k in after},
+                    path_tiles=corr_cuda.path_tiles(),
+                    bwd_counts=corr_cuda.backward_counts()))
+                return metrics
+
+            return timed
+
+        def keep_state(*a, **kw):
+            inst.states.append(create(*a, **kw))
+            return inst.states[-1]
+
+        def checked_restore(state, path, *a, **kw):
+            restore(state, path, *a, **kw)
+            from raft_ncup_tpu_torch.training import checkpoint as ckpt_mod
+
+            saved = torch.load(ckpt_mod.latest(path), map_location="cpu", weights_only=True)
+            live = state.model.state_dict()
+            inst.restored = saved["step"] == state.step and all(
+                _same_bytes(live[k].cpu(), v) for k, v in saved["model"].items()) and all(
+                _same_bytes(a.cpu(), b) for a, b in zip(
+                    state.optimizer.mu + state.optimizer.nu,
+                    saved["optimizer"]["mu"] + saved["optimizer"]["nu"]))
+
+        for name, fn in (("DevicePrefetcher", CheckedPrefetcher),
+                         ("make_train_step", timed_step_factory),
+                         ("create_train_state", keep_state), ("_restore", checked_restore)):
+            stack.callback(setattr, train_mod, name, getattr(train_mod, name))
+            setattr(train_mod, name, fn)
+
+
+def _train_files_run(torch, label, argv, want_status):
+    """One in-process run of the train entry with ``argv``, every kernel
+    count set to 0 just before it and read just after, plain versions
+    counted; returns its summary, launches and instruments."""
+    import io
+
+    from raft_ncup_tpu_torch import train as train_mod
+
+    inst = _Instruments(torch)
+    out = io.StringIO()
+    reset_launches()
+    with contextlib.ExitStack() as stack:
+        inst.install(stack)
+        with counting_plain_versions() as plain, contextlib.redirect_stdout(out):
+            status = train_mod.main(argv)
+    launches = read_launches()
+    lines = out.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1])
+    check(status == want_status == summary["status"],
+          f"train from files {label}: exit {status}, want {want_status}")
+    check(not plain, f"plain versions ran in train from files {label}: {plain}")
+    check(all(v > 0 for k, v in launches.items()),
+          f"train from files {label}: a kernel of the path did not launch: {launches}")
+    return summary, launches, inst, [ln for ln in lines if ln.startswith("[val @")]
+
+
+def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
+    """Train the flagship from files in-process through ``train.main`` with
+    ``scripts/train_raft_nc_things.sh``'s flag lines minus ``--compressed_ft``:
+    a FlyingThings3D-layout tree at 540x960 read and augmented on the host
+    by the loader's threads and copied ahead by the device prefetcher,
+    validated on a Sintel-layout tree, warm-started from a ``raft`` .pth.
+    (a) f32, 8 steps, validating every 4; (b) ``sigterm@3``: exit 75, then
+    a resume to step 8, its batch stream equal to (a)'s, its restored state
+    equal to ``step_3.pt`` bit for bit, its losses within
+    ``RESUME_LOSS_RTOL`` of (a)'s; (c) ``nan@5,nan@6,nan@7`` with
+    ``--sentinel_halt_after 3 --sum_freq 1``: exit 76 and the live
+    parameters equal to ``step_4.pt``; (d) ``bf16_train``, 5 steps; (e)
+    ``--freeze_raft --add_noise --dropout 0.1``, 2 steps: the trunk
+    unchanged bit for bit, A' launched. Every step launches A 24, A' 12,
+    B 96 and B' 48 times; every prefetched batch equals its host batch."""
+    from raft_ncup_tpu_torch.cli import parse_train
+    from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
+    from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.ops import corr_cuda
+    from raft_ncup_tpu_torch.training.checkpoint import save_reference_pth
+    from raft_ncup_tpu_torch.training.step import make_train_step
+
+    t_write = time.perf_counter()
+    things, sintel = os.path.join(tmp, "FlyingThings3D"), os.path.join(tmp, "Sintel")
+    write_things_tree(things)
+    if not os.path.isdir(sintel):
+        write_sintel_sequences(sintel)
+    source = RAFT(model_config("raft", False), device="cuda", seed=3)
+    pth = save_reference_pth(source, os.path.join(tmp, "raft-things.pth"))
+    trunk = {k: v.detach().cpu() for k, v in source.state_dict().items()}
+    del source
+    t_write = time.perf_counter() - t_write
+    base = [t for t in script_flags("train_raft_nc_things.sh") if t != "--compressed_ft"]
+    i = base.index("--load_pretrained")
+    base[i + 1] = pth
+    base += ["--root_things", things, "--root_sintel", sintel]
+    want = {"corr_lookup": 24, "corr_lookup_bwd": 12, "nconv": 96, "nconv_bwd": 48}
+
+    def run(label, ckdir, steps, *extra, status=0):
+        argv = base + ["--checkpoint_dir", os.path.join(tmp, ckdir), "--num_steps", str(steps),
+                       *extra]
+        t0 = time.perf_counter()
+        summary, launches, inst, vals = _train_files_run(torch, label, argv, status)
+        seconds = time.perf_counter() - t0
+        for s in inst.steps:
+            check(s["launches"] == want, f"{label}: step {s['step']} launched "
+                                         f"{s['launches']}, want {want}")
+        check(inst.host == inst.card, f"{label}: a prefetched batch differs from its host batch")
+        ms = [s["ms"] for s in inst.steps]
+        its = [s["iteration_ms"] for s in inst.steps]
+        row = {
+            "card": card, "exit": summary["status"], "steps": len(inst.steps),
+            "seconds": seconds, "losses": [s["loss"] for s in inst.steps],
+            "step_ms": ms, "median_step_ms": statistics.median(ms[1:]) if len(ms) > 1 else ms[0],
+            "median_iteration_ms": statistics.median(its[1:]) if len(its) > 1 else None,
+            "synthetic_median_step_ms_same_call": synthetic_ms,
+            "loader_host_ms_per_sample": summary["loader"]["host_ms_per_sample"],
+            "loader_samples": summary["loader"]["samples"],
+            "prefetch_waits": summary["prefetch"]["waits"],
+            "prefetch_wait_ms": summary["prefetch"]["wait_ms"],
+            "launches_per_step": inst.steps[-1]["launches"], "launches_total": launches,
+            "path_tiles_per_step": [s["path_tiles"] for s in inst.steps],
+            "bwd_counts_last_step": inst.steps[-1]["bwd_counts"],
+            "peak_gib_per_step": [s["peak_gib"] for s in inst.steps],
+            "validations": vals, "skipped": summary["skipped"],
+        }
+        return row, inst, launches
+
+    report, paths = {}, {}
+    # (a) f32, 8 steps, validating at 4 and 8.
+    a, inst_a, paths["a"] = run("(a) f32", "a", 8, "--val_freq", "4")
+    check(all(math.isfinite(x) for x in a["losses"]) and a["skipped"] == 0,
+          f"(a): losses {a['losses']}, skipped {a['skipped']}")
+    check(len(a["validations"]) == 2, f"(a): validations {a['validations']}")
+    state = inst_a.states[-1]
+    peaks = a["peak_gib_per_step"]
+    a["peak_gib_before_first_validation"] = max(peaks[1:4])
+    a["peak_gib_after_first_validation"] = max(peaks[4:])
+    # One synthetic batch through the same state, for the tile paths of a
+    # synthetic step beside a loader-fed one.
+    cfg = parse_train(base + ["--num_steps", "8"])[2]
+    syn = SyntheticFlowDataset(cfg.image_size, seed=cfg.seed).batch(0, cfg.batch_size, "cuda")
+    corr_cuda.reset_path_tiles()
+    make_train_step(cfg)(state, syn)
+    a["synthetic_step_path_tiles"] = corr_cuda.path_tiles()
+    del state, syn
+    inst_a.states.clear()
+    torch.cuda.empty_cache()
+    report["a"] = a
+    # (b) sigterm@3: exit 75, then a resume to step 8.
+    b1, inst_b1, _ = run("(b) sigterm@3", "b", 8, "--val_freq", "4", "--chaos", "sigterm@3",
+                         status=75)
+    b2, inst_b2, paths["b"] = run("(b) resumed", "b", 8, "--val_freq", "4", "--restore_ckpt",
+                                  os.path.join(tmp, "b", "exp"))
+    check(inst_b2.restored is True, "(b): the restored state differs from step_3.pt")
+    stream = inst_b1.host + inst_b2.host
+    check(stream == inst_a.host, "(b): the resumed batch stream differs from (a)'s")
+    resumed = b1["losses"] + b2["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, a["losses"]))
+    check(rel <= RESUME_LOSS_RTOL, f"(b): losses {resumed} against (a)'s {a['losses']}")
+    report["b"] = {"interrupted": b1, "resumed": b2, "loss_max_rel_diff_vs_a": rel,
+                   "batch_hashes_equal": True, "restored_bitwise": True}
+    torch.cuda.empty_cache()
+    # (c) three NaN batches in a row: exit 76, rolled back to step_4.pt.
+    c, inst_c, paths["c"] = run("(c) nan@5,6,7", "c", 8, "--chaos", "nan@5,nan@6,nan@7",
+                                "--sentinel_halt_after", "3", "--sum_freq", "1",
+                                "--val_freq", "4", status=76)
+    saved = torch.load(os.path.join(tmp, "c", "exp", "step_4.pt"), weights_only=True)
+    live = inst_c.states[-1].model.state_dict()
+    check(all(_same_bytes(live[k].cpu(), v) for k, v in saved["model"].items()),
+          "(c): the rolled-back parameters differ from step_4.pt")
+    check(all(math.isfinite(x) for x in c["losses"][:5]), f"(c): losses {c['losses']}")
+    c["rolled_back_bitwise_to"] = "step_4.pt"
+    inst_c.states.clear()
+    report["c"] = c
+    torch.cuda.empty_cache()
+    # (d) bf16_train, 5 steps.
+    d, _, paths["d"] = run("(d) bf16_train", "d", 5, "--precision", "bf16_train")
+    check(all(math.isfinite(x) for x in d["losses"]), f"(d): losses {d['losses']}")
+    report["d"] = d
+    torch.cuda.empty_cache()
+    # (e) freeze_raft with noise and dropout, 2 steps.
+    e, inst_e, paths["e"] = run("(e) freeze_raft", "e", 2, "--freeze_raft", "--add_noise",
+                                "--dropout", "0.1")
+    live = inst_e.states[-1].model.state_dict()
+    check(all(_same_bytes(live[k].cpu(), v) for k, v in trunk.items()
+              if k in live and not k.endswith("num_batches_tracked")),
+          "(e): a trunk tensor moved under --freeze_raft")
+    check(all(math.isfinite(x) for x in e["losses"]), f"(e): losses {e['losses']}")
+    e["trunk_unchanged_bitwise"] = True
+    inst_e.states.clear()
+    report["e"] = e
+    torch.cuda.empty_cache()
+    for key in ("a", "c", "d", "e"):
+        print(f"train from files ({key}): {json.dumps(report[key])}", flush=True)
+    for part in ("interrupted", "resumed"):
+        print(f"train from files (b) {part}: {json.dumps(report['b'].pop(part))}", flush=True)
+    print(f"train from files (b): {json.dumps(report['b'])}", flush=True)
+    print(f"train from files: tree written in {t_write:.2f} s", flush=True)
+    return {f"train from files ({k})": v for k, v in paths.items()}
 
 
 def main() -> int:
@@ -1969,6 +2343,11 @@ def main() -> int:
         paths[f"train {label}"] = check_train(
             torch, card, variant, small, steps=VARIANT_TRAIN_STEPS, extras=False)["launches"]
         check_train_vs_plain(torch, variant, small)
+    # The flagship trained from files through the train entry (loader,
+    # augmentation, device prefetch, validation, checkpoints, chaos).
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(check_train_files(torch, card, tmp,
+                                       train[f"median_ms_steps_2_to_{TRAIN_STEPS}"]))
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.

@@ -6,29 +6,15 @@ The port's own copy of ``raft_ncup_tpu/config.py``'s ``UpsamplerConfig``,
 are the JAX package's, so one configuration means the same in both
 packages, with these differences:
 
-- Settings of later slices raise here rather than being ignored:
-  ``dropout > 0`` and ``freeze_raft`` (the rest of training), and the
+- Settings of later slices raise here rather than being ignored: the
   ``pac`` and ``djif`` upsampler kinds (the PAC slice).
 - ``ModelConfig.nconv_impl`` carries the normalized-convolution switch
   that the JAX package reads from its ``RAFT_NCUP_NCONV_IMPL`` knob:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
   (the fused kernel, CUDA in the port). Its default is the JAX default.
 - ``ServeConfig`` has no ``mesh`` (one card).
-- ``TrainConfig`` holds only the fields the port's trainer reads: no
-  ``validation``/``val_freq`` (validation during training), ``add_noise``,
-  ``load_pretrained``, ``data_parallel``/``spatial_parallel`` (the mesh)
-  or ``sentinel_halt_after`` (the halt-and-rollback policy); they return
-  with the slices that read them. The divergence sentinel
-  always runs, so there is no ``anomaly_sentinel`` switch, and its spike
-  factor, EMA decay and warm-up (``training/sentinel.py``) and the loss's
-  ``max_flow`` (``training/loss.py``) are constants at the JAX defaults,
-  since no flag of the JAX CLI that the port takes sets them. It carries
-  ``synthetic_style``, a field of the JAX package's ``DataConfig``: the
-  port trains on synthetic pairs only.
-- ``DataConfig`` holds only the fields the validators and submission
-  writers read (``evaluation.py``): the chairs, Sintel and KITTI roots, the chairs split
-  file (the port's own copy), ``num_workers``, ``device_prefetch``,
-  ``eval_cache_size``, ``eval_pad_bucket`` and ``synthetic_style``.
+- ``TrainConfig`` has no ``data_parallel``/``spatial_parallel`` (the
+  mesh: one card).
 
 Precision (``precision/policy.py``): ``ModelConfig.precision`` names a
 preset (``f32``, ``bf16_infer``, ``bf16_train``); the legacy
@@ -128,14 +114,8 @@ class ModelConfig:
         if self.variant not in ("raft", "raft_nc_dbl"):
             raise ValueError(f"unknown model variant: {self.variant!r}")
         resolve_policy(self.precision)  # raises on an unknown preset
-        if self.dropout > 0:
-            raise NotImplementedError(
-                "encoder dropout lands with the port's slice for the rest of training"
-            )
-        if self.freeze_raft:
-            raise NotImplementedError(
-                "freeze_raft lands with the port's slice for the rest of training"
-            )
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1): {self.dropout!r}")
         if self.corr_impl not in CORR_IMPLS:
             raise ValueError(f"unknown corr_impl: {self.corr_impl!r}")
         if self.nconv_impl not in NCONV_IMPLS:
@@ -245,14 +225,32 @@ class TrainConfig:
     epsilon: float = 1e-8
     clip: float = 1.0
     gamma: float = 0.8
+    # Ground truth at least this large (pixels) is left out of the loss.
+    max_flow: float = 400.0
     optimizer: str = "adamw"  # 'adamw' | 'adam'
     scheduler: str = "cyclic"  # 'cyclic' (OneCycle-linear) | 'step'
     scheduler_step: int = 20_000
+    # Gaussian noise on both frames, its stddev drawn from U(0, 5) per step.
+    add_noise: bool = False
+    # Validators (``evaluation.VALIDATORS``) run every ``val_freq`` steps.
+    validation: tuple[str, ...] = ()
+    val_freq: int = 5000
     sum_freq: int = 100
     seed: int = 1234
     restore_ckpt: str | None = None
+    # A reference .pth or a port run directory whose trunk warm-starts the model.
+    load_pretrained: str | None = None
     checkpoint_dir: str = "checkpoints"
-    synthetic_style: str = "smooth"  # 'smooth' | 'rigid'
+    # The divergence sentinel (``training/sentinel.py``): a step with a
+    # non-finite loss or gradient norm, or a norm above
+    # ``sentinel_spike_factor`` times its average (armed after
+    # ``sentinel_warmup`` good steps), keeps the old state; the trainer halts
+    # and rolls back after ``sentinel_halt_after`` bad steps in a row.
+    anomaly_sentinel: bool = True
+    sentinel_spike_factor: float = 20.0
+    sentinel_ema_decay: float = 0.99
+    sentinel_warmup: int = 10
+    sentinel_halt_after: int = 10
     # Training precision preset: 'f32' or 'bf16_train' (bf16 compute, f32
     # master weights). It names the model's resolved preset: the train
     # entry derives it from the model's flags (or a resumed checkpoint),
@@ -267,8 +265,8 @@ class TrainConfig:
             raise NotImplementedError(f"{self.optimizer} optimizer is not implemented!")
         if self.scheduler.lower() not in ("cyclic", "step"):
             raise NotImplementedError(f"{self.scheduler} scheduler is not implemented!")
-        if self.synthetic_style not in ("smooth", "rigid"):
-            raise ValueError(f"unknown synthetic style: {self.synthetic_style!r}")
+        if self.val_freq < 1 or self.sum_freq < 1:
+            raise ValueError("val_freq and sum_freq must be positive")
 
     @property
     def freeze_bn(self) -> bool:
@@ -287,18 +285,30 @@ class DataConfig:
     defaults are the JAX package's ``DataConfig``."""
 
     root_chairs: str = "datasets/FlyingChairs_release/data"
+    root_things: str = "datasets/FlyingThings3D"
     root_sintel: str = "datasets/Sintel"
     root_kitti: str = "datasets/KITTI"
+    root_hd1k: str = "datasets/HD1k"
     chairs_split_file: str = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "data", "chairs_split.txt")
+    # FlyingThings3D's webp frames and npz flows.
+    compressed_ft: bool = False
     num_workers: int = 2
+    # Ready host batches the loader queues ahead of the trainer.
+    prefetch: int = 2
     # Batches staged and copied to the card ahead of compute.
     device_prefetch: int = 2
+    # A failed dataset read retries this many times, its delay doubling
+    # from io_retry_backoff_s, before the sample is quarantined.
+    io_retries: int = 3
+    io_retry_backoff_s: float = 0.05
     # Bound on the cached per-shape CUDA graphs (LRU); each distinct
     # (padded shape, iterations, metric kind) captures once.
     eval_cache_size: int = 8
     # Round padded eval shapes up to multiples of this (0 = off); KITTI.
     eval_pad_bucket: int = 0
+    # Train on procedural pairs when no dataset is on disk.
+    synthetic_ok: bool = False
     synthetic_style: str = "smooth"  # 'smooth' | 'rigid'
 
     def __post_init__(self) -> None:

@@ -1,4 +1,5 @@
-"""Data: procedural flow pairs (``synthetic``) for the trainer and the
-synthetic validators, and the validation datasets (``datasets``: Sintel,
-FlyingChairs, KITTI). The training readers and augmentors are not
-ported yet."""
+"""Data: the datasets (``datasets``: Sintel, FlyingChairs, KITTI,
+FlyingThings3D, HD1K and the training mixtures), their augmentors
+(``augment``), procedural flow pairs (``synthetic``), the threaded batch
+loader (``loader``) and the prefetch of batches to the card
+(``device_prefetch``)."""

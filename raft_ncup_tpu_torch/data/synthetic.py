@@ -185,7 +185,12 @@ class SyntheticFlowDataset:
     def __len__(self) -> int:
         return self.length
 
-    def sample(self, index: int, device="cpu") -> dict:
+    def sample(self, index: int, rng=None, device="cpu") -> dict:
+        """Pair ``index``: uint8 images and float32 flow and valid, as
+        tensors on ``device``; on the CPU these are the host arrays the
+        loader (``data/loader.py``) stacks. ``rng``, the loader's
+        per-sample generator, is not drawn from: the pair depends on
+        ``(seed, index)`` only."""
         make = make_rigid_pair if self.style == "rigid" else make_pair
         return make(_generator(self.seed, index), self.size_hw, self.max_mag, device=device)
 
@@ -193,7 +198,7 @@ class SyntheticFlowDataset:
         """The batch of train step ``step``: samples ``step * batch_size``
         onwards (modulo the length), stacked, on ``device``."""
         samples = [
-            self.sample((step * batch_size + i) % self.length, device)
+            self.sample((step * batch_size + i) % self.length, device=device)
             for i in range(batch_size)
         ]
         return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}

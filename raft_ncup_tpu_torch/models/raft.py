@@ -39,8 +39,10 @@ f32 the forward adds no cast and runs with TF32 off
 (``utils.device.f32_precision``). :meth:`RAFT.with_policy` runs the same
 parameters under another preset.
 
-Segments, early exit, warm-started GRU state and dropout are later
-slices.
+Encoder dropout (``cfg.dropout``) acts in training mode only and draws
+its masks from ``dropout_generator`` (the train step seeds one per step;
+``None`` uses PyTorch's default generator). Segments, early exit and a
+warm-started GRU state are later slices.
 
 The model lives on the card unless the caller passes ``device="cpu"``;
 with no device and no CUDA, construction raises.
@@ -96,13 +98,14 @@ class RAFT(nn.Module):
         self.policy = cfg.precision_policy
         dtype = self.policy.module_dtype
         hdim, cdim = cfg.hidden_dim, cfg.context_dim
+        drop = cfg.dropout
         if cfg.small:
-            self.fnet = Encoder(cfg.fnet_dim, "instance", small=True, dtype=dtype)
-            self.cnet = Encoder(hdim + cdim, "none", small=True, dtype=dtype)
+            self.fnet = Encoder(cfg.fnet_dim, "instance", small=True, dtype=dtype, dropout=drop)
+            self.cnet = Encoder(hdim + cdim, "none", small=True, dtype=dtype, dropout=drop)
             self.update_block = SmallUpdateBlock(cfg.corr_planes, hdim, cdim, dtype)
         else:
-            self.fnet = Encoder(cfg.fnet_dim, "instance", dtype=dtype)
-            self.cnet = Encoder(hdim + cdim, "batch", dtype=dtype)
+            self.fnet = Encoder(cfg.fnet_dim, "instance", dtype=dtype, dropout=drop)
+            self.cnet = Encoder(hdim + cdim, "batch", dtype=dtype, dropout=drop)
             self.update_block = BasicUpdateBlock(
                 cfg.corr_planes, hdim, cdim, use_mask_head=(cfg.variant == "raft"),
                 dtype=dtype,
@@ -115,6 +118,7 @@ class RAFT(nn.Module):
                 cfg.upsampler, cfg.dataset, cfg.nconv_impl, guidance_ch=hdim
             )
         init_weights(self, torch.Generator().manual_seed(int(seed)))
+        self.dropout_generator: Optional[torch.Generator] = None
         self.eval()
         self.to(dev)
         self.device = dev
@@ -160,10 +164,11 @@ class RAFT(nn.Module):
         img2 = 2.0 * (image2.float() / 255.0) - 1.0
         img1 = img1.permute(0, 3, 1, 2)
         img2 = img2.permute(0, 3, 1, 2)
-        fmaps = self.fnet(torch.cat([img1, img2], dim=0))
+        gen = self.dropout_generator
+        fmaps = self.fnet(torch.cat([img1, img2], dim=0), gen)
         # The correlation features at the policy's corr dtype.
         fmap1, fmap2 = fmaps.permute(0, 2, 3, 1).to(self.policy.corr).split(B, dim=0)
-        cnet = self.cnet(img1)
+        cnet = self.cnet(img1, gen)
         hdim = self.cfg.hidden_dim
         net = torch.tanh(cnet[:, :hdim])
         inp = torch.relu(cnet[:, hdim:])

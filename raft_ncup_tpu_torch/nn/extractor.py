@@ -8,6 +8,11 @@ reference's torch module tree (``conv1``, ``norm1``, ``layer1.0.conv1``,
 ``layer2.0.downsample.0``, ...), so the carried state dict
 (``utils/jax_weights.py``) keys match it. ``dtype`` is every convolution's
 compute dtype (``None``: the input's); the norms compute in f32.
+
+``dropout`` > 0 drops whole output channels per sample in training mode,
+as the JAX package's ``nn.Dropout(rate, broadcast_dims=(1, 2))`` on NHWC
+(``Dropout2d``'s mask): a kept channel is divided by ``1 - dropout``. The
+mask draws from the ``generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -82,8 +87,9 @@ class Encoder(nn.Module):
     (small)."""
 
     def __init__(self, output_dim: int = 128, norm_fn: str = "batch", small: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         stem = 32 if small else 64
         stages = (32, 64, 96) if small else (64, 96, 128)
         block = BottleneckBlock if small else ResidualBlock
@@ -100,7 +106,19 @@ class Encoder(nn.Module):
         self.layer1, self.layer2, self.layer3 = layers
         self.conv2 = Conv2d(in_planes, output_dim, 1, init_mode="kaiming_out", dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = torch.relu(self.norm1(self.conv1(x)))
         x = self.layer3(self.layer2(self.layer1(x)))
-        return self.conv2(x)
+        x = self.conv2(x)
+        if self.dropout > 0 and self.training:
+            x = channel_dropout(x, self.dropout, generator)
+        return x
+
+
+def channel_dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """Zero whole channels of NCHW ``x`` per sample with probability
+    ``rate``, dividing the kept ones by ``1 - rate``."""
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape[:2] + (1, 1), device=x.device).bernoulli_(keep,
+                                                                       generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,6 +1,6 @@
 """Save and restore the whole train state (port of
-``raft_ncup_tpu/training/checkpoint.py``'s resume path), and load or
-write model weights for evaluation.
+``raft_ncup_tpu/training/checkpoint.py``), warm-start a model's trunk,
+and load or write model weights for evaluation.
 
 One ``torch.save`` file per save, ``<checkpoint_dir>/<name>/step_<N>.pt``:
 the step, the model's state dict (parameters and BatchNorm statistics),
@@ -22,21 +22,36 @@ block's last conv), and the NConv U-Net's shared encoder stages as
 port holds each tensor once; :func:`reference_aliases` names the second
 names, :func:`load_reference_pth` accepts exactly the reference's key
 set and :func:`save_reference_pth` writes it.
+
+:class:`CheckpointManager` keeps a run directory's ``step_<N>.pt`` files
+(the latest five), each written to a temporary file and renamed into
+place, with retried writes and a ``resume_meta.json`` that every restore
+checks first. Its :meth:`CheckpointManager.restore` writes into the live
+state in place (``copy_``), so the tensors that CUDA graphs and the
+optimizer hold stay the same objects. :func:`load_pretrained_trunk`
+warm-starts the RAFT trunk from a reference ``.pth`` or a port run
+directory, as ``--load_pretrained`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import glob
+import json
 import os
 import re
+import sys
+from typing import Optional
 
 import torch
 from torch import nn
 
 from raft_ncup_tpu_torch.config import ModelConfig, TrainConfig, UpsamplerConfig
 from raft_ncup_tpu_torch.models.raft import RAFT
+from raft_ncup_tpu_torch.resilience.retry import RetryStats, retry_io
 from raft_ncup_tpu_torch.training.state import TrainState, state_for
+
+METADATA_FILE = "resume_meta.json"
 
 
 def checkpoint_path(cfg: TrainConfig, step: int) -> str:
@@ -60,9 +75,23 @@ def save(state: TrainState, cfg: TrainConfig, path: str | None = None) -> str:
         "train_cfg": dataclasses.asdict(cfg),
     }
     tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):  # a failed write leaves no partial file
+            os.remove(tmp)
     return path
+
+
+def _steps(directory: str) -> list[tuple[int, str]]:
+    """The ``(N, path)`` of every ``step_<N>.pt`` in ``directory``, by N."""
+    found = []
+    for f in glob.glob(os.path.join(directory, "step_*.pt")):
+        m = re.fullmatch(r"step_(\d+)\.pt", os.path.basename(f))
+        if m:
+            found.append((int(m.group(1)), f))
+    return sorted(found)
 
 
 def latest(path: str) -> str:
@@ -70,14 +99,10 @@ def latest(path: str) -> str:
     largest N in the directory ``path``."""
     if os.path.isfile(path):
         return path
-    found = []
-    for f in glob.glob(os.path.join(path, "step_*.pt")):
-        m = re.fullmatch(r"step_(\d+)\.pt", os.path.basename(f))
-        if m:
-            found.append((int(m.group(1)), f))
+    found = _steps(path)
     if not found:
         raise FileNotFoundError(f"no step_<N>.pt checkpoint under {path!r}")
-    return max(found)[1]
+    return found[-1][1]
 
 
 def _model_cfg(d: dict) -> ModelConfig:
@@ -99,19 +124,189 @@ def restore(path: str, cfg: TrainConfig, device=None) -> TrainState:
     """The train state saved at ``path`` (a file or a run directory), on
     ``device``, with ``cfg``'s optimizer and schedule. Raises when
     ``cfg.precision`` is not the saved model's preset."""
+    return restore_into(state_for(RAFT(saved_model_config(path), device=device), cfg), path)
+
+
+@torch.no_grad()
+def restore_into(state: TrainState, path: str) -> TrainState:
+    """Write the train state saved at ``path`` (a file or a run directory)
+    into ``state`` in place: the model's parameters and buffers, the
+    optimizer's moments and count and the sentinel's counters take the
+    saved values by ``copy_``, so every tensor stays the object it was.
+    The saved model configuration must be ``state``'s."""
     payload = _load(path)
-    model = RAFT(_model_cfg(payload["model_cfg"]), device=device)
-    model.load_state_dict(payload["model"], strict=True)
-    state = state_for(model, cfg)
-    opt = payload["optimizer"]
-    state.optimizer.load_state_dict({
-        "mu": [t.to(model.device) for t in opt["mu"]],
-        "nu": [t.to(model.device) for t in opt["nu"]],
-        "count": opt["count"].to(model.device),
-    })
+    saved = _model_cfg(payload["model_cfg"])
+    if saved != state.model.cfg:
+        raise ValueError(f"{latest(path)} holds another model ({saved}) than the one "
+                         f"it is restored into ({state.model.cfg})")
+    state.model.load_state_dict(payload["model"], strict=True)
+    state.optimizer.load_state_dict(payload["optimizer"])
+    for k, v in payload["sentinel"].items():
+        state.sentinel[k].copy_(v)
     state.step = int(payload["step"])
-    state.sentinel = {k: v.to(model.device) for k, v in payload["sentinel"].items()}
     return state
+
+
+class CheckpointManager:
+    """The ``step_<N>.pt`` files of one run directory.
+
+    ``metadata`` (``resilience.preemption.resume_metadata``: variant,
+    configuration fingerprint, seed) is written beside the files at every
+    save and checked before every restore, so a resume with another
+    architecture or seed fails with a clear message. A save writes a
+    temporary file and renames it into place; the write retries on
+    ``OSError`` with bounded backoff, counted in ``retry_stats``. Only the
+    latest ``max_to_keep`` files stay."""
+
+    def __init__(self, directory: str, max_to_keep: int = 5,
+                 metadata: Optional[dict] = None, save_retries: int = 2):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self._metadata = dict(metadata) if metadata else None
+        self._save_retries = save_retries
+        self.retry_stats = RetryStats()
+
+    def _retry(self, fn, desc: str):
+        return retry_io(fn, attempts=self._save_retries, base_delay_s=0.2,
+                        stats=self.retry_stats, desc=desc, log=self._log_retry)
+
+    @staticmethod
+    def _log_retry(msg: str) -> None:
+        print(f"CheckpointManager {msg}", file=sys.stderr)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step}.pt")
+
+    def save(self, state: TrainState, cfg: TrainConfig) -> str:
+        """Write ``state`` as ``step_<state.step>.pt``, the metadata beside
+        it, and drop the files beyond the latest ``max_to_keep``."""
+        path = self.path(state.step)
+        self._retry(lambda: save(state, cfg, path), f"checkpoint save @{state.step}")
+        self._write_metadata()
+        for _, old in _steps(self.directory)[:-self.max_to_keep]:
+            os.remove(old)
+        return path
+
+    def _write_metadata(self) -> None:
+        if self._metadata is None:
+            return
+        path = os.path.join(self.directory, METADATA_FILE)
+
+        def write() -> None:
+            tmp = f"{path}.tmp{os.getpid()}"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(self._metadata, f, indent=2, sort_keys=True)
+                f.write("\n")
+            os.replace(tmp, path)
+
+        self._retry(write, "resume-metadata write")
+
+    def saved_metadata(self) -> Optional[dict]:
+        path = os.path.join(self.directory, METADATA_FILE)
+        if not os.path.exists(path):
+            return None
+        with open(path, encoding="utf-8") as f:
+            return json.load(f)
+
+    def verify_metadata(self) -> None:
+        """Raise, naming each field, when the directory's metadata differs
+        from this run's."""
+        saved = self.saved_metadata()
+        if self._metadata is None or saved is None:
+            return
+        mismatch = {k: (saved[k], v) for k, v in self._metadata.items()
+                    if k in saved and saved[k] != v}
+        if mismatch:
+            detail = "; ".join(f"{k}: checkpoint has {a!r}, this run expects {b!r}"
+                               for k, (a, b) in sorted(mismatch.items()))
+            raise ValueError(
+                f"refusing to restore from {self.directory}: resume metadata mismatch "
+                f"({detail}); restore with the checkpointed run's model flags and seed")
+
+    @property
+    def latest_step(self) -> Optional[int]:
+        found = _steps(self.directory)
+        return found[-1][0] if found else None
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
+        """Check the metadata, then write the latest (or ``step``'s) saved
+        state into ``state`` in place (:func:`restore_into`)."""
+        self.verify_metadata()
+        step = self.latest_step if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no step_<N>.pt checkpoint under {self.directory!r}")
+        return restore_into(state, self.path(step))
+
+
+def _allowed_source_keys(model: RAFT) -> list[str]:
+    """Patterns of source keys a warm start may leave unmatched: the
+    upsampler (the trunk only is loaded) and, when ``model`` has no mask
+    head, a stock RAFT's (the reference loads it, then deletes it)."""
+    allow = [r"^upsampler\."]
+    if not any(k.startswith("update_block.mask.") for k in model.state_dict()):
+        allow.append(r"^update_block\.mask\.")
+    return allow
+
+
+@torch.no_grad()
+def load_pretrained_trunk(path: str, model: RAFT) -> RAFT:
+    """Warm-start ``model``'s RAFT trunk from ``path``, as ``--load_pretrained``
+    does (reference: core/raft_nc_dbl.py:57-66); the upsampler keeps its
+    initial values either way, and ``num_batches_tracked`` its own.
+
+    - A reference ``.pth`` file (JAX ``checkpoint.py:248-269``): every key
+      but the reference's second names of a tensor must name a tensor of
+      the trunk; a stock RAFT's mask head may go unmatched only when
+      ``model`` has none.
+    - A port run directory or ``step_<N>.pt`` (JAX ``_merge_trunk``): its
+      model's tensors are merged by name; keys with no destination are
+      allowed, but a top-level component (``fnet``, ``cnet``, ...) that
+      matches nothing raises.
+
+    A shape mismatch raises. The values are copied into the model's
+    tensors. Returns ``model``."""
+    dest = model.state_dict()
+    merged = dict(dest)
+    if os.path.isdir(path) or path.endswith(".pt"):
+        source = _load(path)["model"]
+        matched, seen = set(), set()
+        for key, val in source.items():
+            top = key.split(".")[0]
+            if top == "upsampler" or key.endswith("num_batches_tracked"):
+                continue
+            seen.add(top)
+            if key in dest:
+                _check_shape(key, val, dest[key])
+                merged[key] = val
+                matched.add(top)
+        if seen - matched:
+            raise ValueError(f"{path}: pretrained components matched nothing in the "
+                             f"destination model: {sorted(seen - matched)}")
+    else:
+        source = torch.load(path, map_location="cpu", weights_only=True)
+        source = {k.removeprefix("module."): v for k, v in source.items()}
+        aliases = reference_aliases(model)
+        allow = [re.compile(p) for p in _allowed_source_keys(model)]
+        unmatched = []
+        for key, val in source.items():
+            if key in aliases or key.endswith("num_batches_tracked"):
+                continue
+            if key in dest and not key.startswith("upsampler."):
+                _check_shape(key, val, dest[key])
+                merged[key] = val
+            elif not any(p.search(key) for p in allow):
+                unmatched.append(key)
+        if unmatched:
+            raise KeyError(f"{path}: {len(unmatched)} keys name nothing in the model, "
+                           f"e.g. {unmatched[:5]}")
+    model.load_state_dict(merged, strict=True)
+    return model
+
+
+def _check_shape(key: str, val: torch.Tensor, want: torch.Tensor) -> None:
+    if tuple(val.shape) != tuple(want.shape):
+        raise ValueError(f"shape mismatch for {key}: {tuple(val.shape)} in the checkpoint, "
+                         f"{tuple(want.shape)} in the model")
 
 
 def load_model_weights(model: RAFT, path: str) -> RAFT:

@@ -60,5 +60,13 @@ class Logger:
         print(line, flush=True)
         self.write_text(line)
 
+    def write_dict(self, step: int, results: Mapping[str, float]) -> None:
+        """Print and log one validation's results (reference:
+        train.py:151-161)."""
+        line = f"[val @ {step}] " + json.dumps(
+            {k: round(float(v), 5) for k, v in results.items()})
+        print(line, flush=True)
+        self.write_text(line)
+
     def close(self) -> None:
         self._txt.close()

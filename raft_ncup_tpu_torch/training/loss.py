@@ -4,7 +4,8 @@
 Gamma-weighted L1 over the per-iteration flow predictions, as the
 reference computes it: the per-iteration term is ``mean(valid * |pred -
 gt|)`` over all elements (invalid pixels count in the denominator);
-validity is ``valid >= 0.5`` and ``|flow_gt| < MAX_FLOW``; the metrics
+validity is ``valid >= 0.5`` and ``|flow_gt| < max_flow`` (the
+configuration's ``TrainConfig.max_flow``, 400 by default); the metrics
 (epe, 1px, 3px, 5px) are taken on the final prediction over valid pixels.
 """
 
@@ -12,21 +13,19 @@ from __future__ import annotations
 
 import torch
 
-# Ground truth at least this large (pixels) is left out of the loss.
-MAX_FLOW = 400.0
-
 
 def sequence_loss(
     flow_preds: torch.Tensor,
     flow_gt: torch.Tensor,
     valid: torch.Tensor,
     gamma: float = 0.8,
+    max_flow: float = 400.0,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """flow_preds (T, B, H, W, 2), flow_gt (B, H, W, 2), valid (B, H, W)
     -> (scalar loss, metrics of 0-d tensors on the device)."""
     n = flow_preds.shape[0]
     mag = torch.sqrt(torch.sum(flow_gt**2, dim=-1))
-    valid = (valid >= 0.5) & (mag < MAX_FLOW)
+    valid = (valid >= 0.5) & (mag < max_flow)
     vmask = valid[None, ..., None].to(flow_preds.dtype)
     weights = gamma ** torch.arange(
         n - 1, -1, -1, dtype=flow_preds.dtype, device=flow_preds.device

@@ -11,7 +11,10 @@ computes the same update, term for term:
 - Adam's moments with bias correction at the incremented count, then
   ``mu_hat / (sqrt(nu_hat) + eps)``, plus ``wdecay * param`` for AdamW;
 - the step is ``-lr(count)`` times that, the schedule read at the count
-  *before* the update.
+  *before* the update;
+- under ``freeze_raft`` only the upsampler's parameters are trainable
+  (``multi_transform`` with ``set_to_zero`` for the rest), and the clip
+  reads the norm of their gradients only.
 
 The schedule is the JAX ``onecycle_linear`` (torch's ``OneCycleLR`` with
 linear annealing, over ``num_steps + 100`` steps) or ``step_lr``; both
@@ -23,7 +26,7 @@ sentinel can keep the old ones with a select.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -78,24 +81,57 @@ def build_schedule(cfg: TrainConfig) -> Schedule:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, as ``optax.global_norm``."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+    """sqrt of the sum of squares of every element, as ``optax.global_norm``
+    (a norm per tensor, by one multi-tensor launch, then their norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+@torch.no_grad()
+def select_into(dsts: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor],
+                keep_old: torch.Tensor) -> None:
+    """``dst.copy_(torch.where(keep_old, dst, src))`` for each pair, in a
+    few launches: the tensors of each dtype are flattened into one buffer,
+    selected once and copied back by one multi-tensor copy."""
+    groups: dict = {}
+    for d, s in zip(dsts, srcs):
+        groups.setdefault(d.dtype, []).append((d, s))
+    for pairs in groups.values():
+        d_list = [d for d, _ in pairs]
+        flat = torch.where(keep_old, torch.cat([d.reshape(-1) for d in d_list]),
+                           torch.cat([s.reshape(-1) for _, s in pairs]))
+        views = [v.view_as(d) for v, d in zip(flat.split([d.numel() for d in d_list]), d_list)]
+        torch._foreach_copy_(d_list, views)
 
 
 class Optimizer:
     """Global-norm clip, then AdamW or Adam with the configured schedule,
     over ``params`` (a list of tensors). Holds the moments ``mu`` and
-    ``nu`` (zero at first) and the update ``count`` (a 0-d int32 tensor
-    on the parameters' device)."""
+    ``nu`` (zero at first) of the trainable parameters and the update
+    ``count`` (a 0-d int32 tensor on the parameters' device).
+
+    ``trainable`` (one bool per parameter; all by default) freezes the
+    others, as the JAX package's ``multi_transform`` with ``set_to_zero``
+    does for ``freeze_raft``: a frozen parameter gets no update, no weight
+    decay and no moments, and the clip takes the norm of the trainable
+    gradients only (:meth:`clip_norm`).
+
+    The update runs as multi-tensor (``torch._foreach_*``) ops, a few
+    launches for all parameters together."""
 
     b1 = 0.9
     b2 = 0.999
 
-    def __init__(self, params: Sequence[torch.Tensor], cfg: TrainConfig):
+    def __init__(self, params: Sequence[torch.Tensor], cfg: TrainConfig,
+                 trainable: Optional[Sequence[bool]] = None):
         name = cfg.optimizer.lower()
         if name not in ("adamw", "adam"):
             raise NotImplementedError(f"{cfg.optimizer} optimizer is not implemented!")
-        self.params = list(params)
+        params = list(params)
+        trainable = [True] * len(params) if trainable is None else list(trainable)
+        if len(trainable) != len(params) or not any(trainable):
+            raise ValueError("trainable needs one flag per parameter, at least one set")
+        self.train_idx = [i for i, t in enumerate(trainable) if t]
+        self.params = [params[i] for i in self.train_idx]
         self.schedule = build_schedule(cfg)
         self.clip = float(cfg.clip)
         self.eps = float(cfg.epsilon)
@@ -109,47 +145,53 @@ class Optimizer:
         """The learning rate the next update applies (a 0-d tensor)."""
         return self.schedule(self.count)
 
+    def trainable_grads(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """The gradients of the trainable parameters, from one per parameter."""
+        return [grads[i] for i in self.train_idx]
+
+    def clip_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm the clip reads: over the trainable gradients of
+        ``grads`` (one per parameter)."""
+        return global_norm(self.trainable_grads(grads))
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], grad_norm: torch.Tensor):
-        """Candidate ``(params, mu, nu, count)`` after one update with
-        ``grads`` (their global norm given); nothing is written."""
-        trigger = grad_norm < self.clip
+        """Candidate ``(params, mu, nu, count)`` of the trainable parameters
+        after one update with ``grads`` (one per parameter the optimizer was
+        built over), where ``grad_norm`` is :meth:`clip_norm`'s; nothing is
+        written."""
+        grads = self.trainable_grads(grads)
+        # Clipping scales by clip / norm only when the norm reaches the clip.
+        factor = torch.where(grad_norm < self.clip, torch.ones_like(grad_norm),
+                             self.clip / grad_norm)
         count_inc = self.count + 1
         c = count_inc.to(torch.float32)
         # A Python float to the power of a tensor: a tensor made from b1
         # on the card would be a host-to-device copy that synchronises.
         bc1 = 1.0 - torch.pow(self.b1, c)
         bc2 = 1.0 - torch.pow(self.b2, c)
-        step = -self.lr()
-        new_p, new_mu, new_nu = [], [], []
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g = torch.where(trigger, g, (g / grad_norm) * self.clip)
-            mu = (1 - self.b1) * g + self.b1 * mu
-            nu = (1 - self.b2) * (g * g) + self.b2 * nu
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.wdecay:
-                u = u + self.wdecay * p
-            new_p.append(p + u * step)
-            new_mu.append(mu)
-            new_nu.append(nu)
-        return new_p, new_mu, new_nu, count_inc
+        g = torch._foreach_mul(grads, factor)
+        mu = torch._foreach_mul(self.mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1 - self.b1)
+        nu = torch._foreach_mul(self.nu, self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1 - self.b2)
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        if self.wdecay:
+            torch._foreach_add_(u, self.params, alpha=self.wdecay)
+        torch._foreach_mul_(u, -self.lr())
+        new_p = torch._foreach_add(self.params, u)
+        return new_p, mu, nu, count_inc
 
     @torch.no_grad()
     def commit(self, new_p, new_mu, new_nu, new_count, keep_old: torch.Tensor) -> None:
         """Write a candidate from :meth:`update`, selecting each value on
         the device: the old one where ``keep_old`` (a 0-d bool tensor) is
         true."""
-
-        def put(dst, src):
-            dst.copy_(torch.where(keep_old, dst, src))
-
-        for dst, src in zip(self.params, new_p):
-            put(dst, src)
-        for dst, src in zip(self.mu, new_mu):
-            put(dst, src)
-        for dst, src in zip(self.nu, new_nu):
-            put(dst, src)
-        put(self.count, new_count)
+        select_into([*self.params, *self.mu, *self.nu, self.count],
+                    [*new_p, *new_mu, *new_nu, new_count], keep_old)
 
     def state_dict(self) -> dict:
         return {"mu": [t.clone() for t in self.mu], "nu": [t.clone() for t in self.nu],
@@ -157,6 +199,9 @@ class Optimizer:
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
+        if len(state["mu"]) != len(self.mu):
+            raise ValueError(f"the saved optimizer holds {len(state['mu'])} moments, this "
+                             f"one {len(self.mu)} (another model or freeze_raft setting)")
         for dst, src in zip(self.mu, state["mu"]):
             dst.copy_(src)
         for dst, src in zip(self.nu, state["nu"]):

@@ -1,9 +1,10 @@
 """The divergence sentinel (port of ``raft_ncup_tpu/resilience/anomaly.py``).
 
 A step is bad when its loss or gradient norm is not finite, or when the
-gradient norm spikes above ``SPIKE_FACTOR`` times its running average
-(armed after ``WARMUP`` good steps); the constants are the JAX
-``TrainConfig`` defaults. A bad step keeps
+gradient norm spikes above ``sentinel_spike_factor`` times its running
+average (an EMA of decay ``sentinel_ema_decay``, armed after
+``sentinel_warmup`` good steps): the ``TrainConfig`` fields, with the JAX
+package's defaults. A bad step keeps
 the parameters, the optimizer's moments and count, and the BatchNorm
 statistics bit for bit (the train step selects on the device), while the
 step counter still advances. The counters live on the device as 0-d
@@ -14,9 +15,7 @@ from __future__ import annotations
 
 import torch
 
-SPIKE_FACTOR = 20.0
-EMA_DECAY = 0.99
-WARMUP = 10
+from raft_ncup_tpu_torch.config import TrainConfig
 
 
 def init_sentinel(device) -> dict[str, torch.Tensor]:
@@ -33,12 +32,13 @@ def judge(
     sentinel: dict[str, torch.Tensor],
     loss: torch.Tensor,
     grad_norm: torch.Tensor,
+    cfg: TrainConfig,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """(bad, the updated counters) for one step; ``bad`` is a 0-d bool
-    tensor."""
+    """(bad, the updated counters) for one step under ``cfg``'s sentinel
+    settings; ``bad`` is a 0-d bool tensor."""
     finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
-    warmed = sentinel["good"] >= WARMUP
-    spike = warmed & (grad_norm > SPIKE_FACTOR * sentinel["ema_grad_norm"])
+    warmed = sentinel["good"] >= cfg.sentinel_warmup
+    spike = warmed & (grad_norm > cfg.sentinel_spike_factor * sentinel["ema_grad_norm"])
     bad = ~finite | spike
     bad_i = bad.to(torch.int32)
     ema = torch.where(
@@ -47,7 +47,8 @@ def judge(
         torch.where(
             sentinel["good"] == 0,
             grad_norm,
-            EMA_DECAY * sentinel["ema_grad_norm"] + (1.0 - EMA_DECAY) * grad_norm,
+            cfg.sentinel_ema_decay * sentinel["ema_grad_norm"]
+            + (1.0 - cfg.sentinel_ema_decay) * grad_norm,
         ),
     )
     return bad, {

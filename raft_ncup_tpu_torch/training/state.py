@@ -1,6 +1,7 @@
 """The train state (port of ``raft_ncup_tpu/training/state.py``): the
 model (parameters and BatchNorm statistics), the optimizer (moments and
-update count), the step counter and the sentinel's counters. PyTorch
+update count; under ``freeze_raft`` the upsampler's parameters only),
+the step counter and the sentinel's counters. PyTorch
 updates them in place; :mod:`training.checkpoint` saves and restores the
 whole state, so a resumed run continues exactly."""
 
@@ -46,5 +47,10 @@ def state_for(model: RAFT, train_cfg: TrainConfig) -> TrainState:
         raise ValueError(
             f"the model's precision preset is {model.policy.name!r} but the train "
             f"configuration's is {train_cfg.precision!r}; they must agree")
-    opt = Optimizer([p for _, p in model.named_parameters()], train_cfg)
+    named = list(model.named_parameters())
+    trainable = None
+    if model.cfg.freeze_raft:
+        # Only the upsampler trains (reference: core/raft_nc_dbl.py:70-75).
+        trainable = [name.startswith("upsampler.") for name, _ in named]
+    opt = Optimizer([p for _, p in named], train_cfg, trainable)
     return TrainState(model=model, optimizer=opt, sentinel=init_sentinel(model.device))

@@ -255,7 +255,8 @@ def test_evaluate_entry_on_the_cpu(tmp_path, capsys, data, flagship):
     root, jcfg, _ = data
     pth = str(tmp_path / "ref.pth")
     save_torch_checkpoint(pth, variables)
-    args = ["--device", "cpu", "--dataset", "sintel", "--root_sintel", str(root / "Sintel"),
+    args = ["--device", "cpu", "--model", "raft_nc_dbl", "--dataset", "sintel",
+            "--root_sintel", str(root / "Sintel"),
             "--iters", str(ITERS), "--num_workers", "1", "--restore_ckpt", pth]
     assert evaluate_mod.main(args) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

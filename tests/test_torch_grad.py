@@ -114,6 +114,50 @@ def test_lookup_backward_computes_only_what_is_needed():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_lookup_backward_at_a_query_a_float32_step_below_an_integer():
+    """A query at x = 59.999996 (ROADMAP queue 3, entry 3), radius 3, two
+    levels: at level 1 the tap x/2 + 3 = 32.999998 rounds to 33 in float32,
+    so a float32 computation that places each tap on its own puts taps on
+    both sides of an integer, where the bilinear weights' derivative jumps.
+    JAX's float32 VJP of ``corr_lookup_onthefly`` jumps exactly as the
+    port's float32 plain backward does: both miss the float64 d coords by
+    about 2% of the largest value there (and agree with each other within
+    ``GRAD_TOL``), while every other query stays within ``GRAD_TOL``. Kernel
+    A' takes one fraction per query and level and agreed with float64
+    within 2.1e-6 on the card, so it is the more exact side."""
+    from raft_ncup_tpu.ops.corr import corr_lookup_onthefly
+
+    g = np.random.default_rng(0)
+    b, h, w, c, radius, levels = 1, 8, 80, 8, 3, 2
+    f1 = g.normal(size=(b, h, w, c)).astype(np.float32)
+    f2 = g.normal(size=(b, h, w, c)).astype(np.float32)
+    y, x = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    coords = (np.stack([x, y], -1)[None]
+              + g.uniform(-0.4, 0.4, (b, h, w, 2))).astype(np.float32)
+    coords[0, 3, 7] = (np.float32(59.999996), np.float32(3.25))
+    k = 2 * radius + 1
+    up = g.normal(size=(b, h, w, levels * k * k)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b_, c_: corr_lookup_onthefly(a, b_, c_, radius, levels),
+                     *(jnp.asarray(t) for t in (f1, f2, coords)))
+    jax32 = np.asarray(vjp(jnp.asarray(up))[2], np.float64)
+
+    def port(dt):
+        t = [torch.from_numpy(a).to(dt) for a in (f1, f2, coords, up)]
+        f1s, lv = corr_cuda.prepare_levels(t[0], t[1], levels, dt)
+        return corr_cuda.lookup_pyramid_backward(f1s, lv, t[2], radius, t[3],
+                                                 (False, False, True))[2].numpy()
+
+    port32, port64 = port(torch.float32).astype(np.float64), port(torch.float64)
+    scale = np.abs(port64).max()
+    at = np.zeros((b, h, w), bool)
+    at[0, 3, 7] = True
+    for got in (port32, jax32):
+        err = np.abs(got - port64) / scale
+        assert err[at][0, 0] > 1e-2  # the jump, in x
+        assert err[~at].max() <= GRAD_TOL and err[at][0, 1] <= GRAD_TOL
+    assert np.abs(port32 - jax32).max() <= GRAD_TOL * scale
+
+
 # ------------------------------------------------------------ NConv2d (B')
 
 def _nconv_inputs(seed, b, h, w, k, cin, cout, zero_region):

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports nothing of JAX, flax or the JAX
-package, at run time (a fresh interpreter) or in its source (an AST scan
-of every module and of ``chip_smoke.py`` and ``chip_compare.py``)."""
+"""The port stands alone: it imports nothing of JAX, flax, the JAX
+package, OpenCV or Pillow (the card machine has none of them), at run
+time (a fresh interpreter) or in its source (an AST scan of every module
+and of ``chip_smoke.py`` and ``chip_compare.py``)."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ import torch  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "raft_ncup_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "raft_ncup_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "raft_ncup_tpu", "cv2", "PIL")
 
 
 def _port_sources():

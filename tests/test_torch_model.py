@@ -179,7 +179,8 @@ def test_forward_runs_with_tf32_off_and_restores_the_callers_flags(monkeypatch):
 
 def test_unported_configurations_raise():
     """The settings of later slices raise, each naming its slice: the PAC
-    and DJIF upsamplers, encoder dropout and ``freeze_raft``. The bf16
+    and DJIF upsamplers. Encoder dropout and ``freeze_raft`` build (a
+    dropout outside [0, 1) raises). The bf16
     presets build with their policy, and an unknown preset raises. The
     variants and heads of this slice build; a size not divisible by 8
     raises; training mode works."""
@@ -196,8 +197,9 @@ def test_unported_configurations_raise():
         with pytest.raises(NotImplementedError, match="PAC slice"):
             UpsamplerConfig(kind=kind)
     for knob in ({"dropout": 0.1}, {"freeze_raft": True}):
-        with pytest.raises(NotImplementedError, match="rest of training"):
-            flagship_config(**knob)
+        assert RAFT(flagship_config(**knob), device="cpu").cfg == flagship_config(**knob)
+    with pytest.raises(ValueError, match="dropout"):
+        flagship_config(dropout=1.0)
     for bad in ({"kind": "nearest"}, {"weights_est_net": "mlp"}):
         with pytest.raises(ValueError):
             UpsamplerConfig(**bad)

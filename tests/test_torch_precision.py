@@ -81,6 +81,7 @@ from raft_ncup_tpu.resilience.anomaly import init_sentinel as jax_init_sentinel
 from raft_ncup_tpu.training import optim as jax_optim
 from raft_ncup_tpu.training.state import TrainState as JaxTrainState
 from raft_ncup_tpu.utils.torch_import import import_torch_state
+from raft_ncup_tpu_torch import cli as cli_mod
 from raft_ncup_tpu_torch import precision
 from raft_ncup_tpu_torch import serve as serve_mod
 from raft_ncup_tpu_torch import train as train_mod
@@ -193,7 +194,7 @@ def test_cli_resolves_the_preset_as_jax(argv):
     ref = jax_model_config_from_args(jp.parse_args(argv), dataset="sintel")
     assert ours.precision_policy.name == ref.precision_policy.name
     # The train configuration names the preset the model resolves to.
-    train = train_mod.config_from_args(train_mod.build_parser().parse_args(
+    train = cli_mod.train_config_from_args(cli_mod.build_train_parser().parse_args(
         ["--stage", "things", *argv]))
     assert train.precision == ours.precision_policy.name
     serve = serve_mod.build_parser().parse_args(argv + ["--serve_precision", "bf16_infer"])
@@ -429,7 +430,8 @@ def test_train_precision_names_the_model_preset(tmp_path, capsys):
 
     def entry(steps, *extra):
         return train_mod.main([
-            "--name", "mixed", "--stage", "chairs", "--num_steps", str(steps),
+            "--name", "mixed", "--stage", "chairs", "--model", "raft_nc_dbl", "--synthetic_ok",
+            "--num_steps", str(steps),
             "--batch_size", "1", "--image_size", str(H), str(W), "--iters", "1",
             "--sum_freq", "1", "--checkpoint_dir", str(tmp_path), "--device", "cpu",
             *extra])

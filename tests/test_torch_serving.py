@@ -180,7 +180,7 @@ def test_server_answers_a_base_exception_and_keeps_serving(model, monkeypatch):
 
 def test_serve_entry_prints_one_report_line(capsys):
     rc = serve_mod.main([
-        "--device", "cpu", "--size", "40", "48", "--num_requests", "2",
+        "--device", "cpu", "--model", "raft_nc_dbl", "--size", "40", "48", "--num_requests", "2",
         "--iter_levels", "1", "--serve_batch_sizes", "1,2", "--seed", "1",
     ])
     lines = capsys.readouterr().out.strip().splitlines()

@@ -415,9 +415,9 @@ def test_nan_batch_leaves_the_state_unchanged():
 
 
 def _entry_args(tmp, name, steps, *extra):
-    return ["--name", name, "--stage", "chairs", "--num_steps", str(steps),
-            "--batch_size", "1", "--image_size", str(H), str(W), "--iters", "1",
-            "--sum_freq", "2", "--lr", "1e-4", "--checkpoint_dir", str(tmp),
+    return ["--name", name, "--stage", "chairs", "--model", "raft_nc_dbl", "--synthetic_ok",
+            "--num_steps", str(steps), "--batch_size", "1", "--image_size", str(H), str(W),
+            "--iters", "1", "--sum_freq", "2", "--lr", "1e-4", "--checkpoint_dir", str(tmp),
             "--device", "cpu", *extra]
 
 

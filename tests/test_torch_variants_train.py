@@ -39,6 +39,7 @@ from raft_ncup_tpu.parallel.step import make_train_step as jax_make_train_step
 from raft_ncup_tpu.resilience.anomaly import init_sentinel as jax_init_sentinel
 from raft_ncup_tpu.training.state import TrainState as JaxTrainState
 from raft_ncup_tpu_torch import train as train_entry
+from raft_ncup_tpu_torch.cli import build_train_parser
 from raft_ncup_tpu_torch.config import ModelConfig, TrainConfig
 from raft_ncup_tpu_torch.models.raft import RAFT
 from raft_ncup_tpu_torch.training import checkpoint
@@ -171,7 +172,7 @@ def test_variant_train_step_matches_jax(case):
 
 
 def _entry_args(tmp, steps, *extra):
-    return ["--name", "small", "--stage", "chairs", "--num_steps", str(steps),
+    return ["--name", "small", "--stage", "chairs", "--synthetic_ok", "--num_steps", str(steps),
             "--batch_size", "1", "--image_size", "64", "96", "--iters", "2",
             "--sum_freq", "1", "--lr", "1e-4", "--checkpoint_dir", str(tmp),
             "--scheduler", "step", "--device", "cpu", *extra]
@@ -221,10 +222,10 @@ def test_variant_checkpoint_round_trip(kw, tmp_path):
 
 
 def test_train_flags_select_the_model():
-    parse = functools.partial(train_entry.build_parser().parse_args)
+    parse = functools.partial(build_train_parser().parse_args)
     from raft_ncup_tpu_torch.cli import model_config_from_args
 
-    base = ["--stage", "things"]
+    base = ["--stage", "things", "--model", "raft_nc_dbl"]
     cfg = model_config_from_args(parse(base), "things")
     assert (cfg.variant, cfg.small, cfg.upsampler.kind) == ("raft_nc_dbl", False, "nconv")
     cfg = model_config_from_args(
