@@ -103,7 +103,27 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     run it prints step and iteration walls beside the synthetic step, the
     host ms per sample, the prefetcher's waits, tile paths (and a synthetic
     step's), and peak memory per step;
-13. prints one JSON line describing the kernels, the card's name and
+13. runs the stages, early exit and streaming of the flagship: ``encode ->
+    refine_segment x S -> finalize`` at batch 2, 440x1024, 12 iterations,
+    against the forward for S in 1, 2, 4 (A 12 and B 4 launches each); the
+    serve entry's plain branch (8 requests at 436x1024, batch sizes 1 and 2,
+    level 12) with early exit off and then on at a tolerance taken between
+    the pairs' first-iteration norms (per batch: executed iterations,
+    segments replayed, A 4 a segment, flag reads; every row against the
+    eager run truncated at its executed iterations; the EPE budget at a
+    level of 2, also on the serve entry's answers at that level, detection
+    on against off; a traced early-exit forward); the serve entry's ``--stream``
+    branch (4 streams of 8 frames, batch sizes 1, 2, 4, 12 iterations) in
+    f32, under ``bf16_infer`` and with ``--carry_net`` (3 captures, all at
+    warm-up; A 12 and B 4 a step; every frame against the plain-version
+    forward fed the engine's own previous state; ``bf16_infer`` frames as
+    a served bf16 pair, against the f32 and bf16 plain versions), and
+    under chaos
+    (``corruptframe@4,abandon@7``: one reset; ``sigterm@5``: exit 75 with
+    everything admitted answered; in rounds, the corrupt frame's
+    batch-mates bit for bit those of a run without it and the reset
+    stream's next frame bit for bit a cold start);
+14. prints one JSON line describing the kernels, the card's name and
     power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
@@ -2217,6 +2237,492 @@ def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
     return {f"train from files ({k})": v for k, v in paths.items()}
 
 
+# ------------------------------------------- stages, early exit, streaming
+
+# The serve entry's flagship drives of this section: the plain branch with
+# 8 requests at the Sintel size (batch sizes 1 and 2, level 12), and the
+# stream branch with 4 streams of 8 frames (batch sizes 1, 2, 4; 12
+# iterations; 8 slots). Weights and traffic from seed 0.
+def serve_ee_args(level: int) -> list:
+    return ["--model", "raft_nc_dbl", "--size", str(SERVE_SIZE[0]), str(SERVE_SIZE[1]),
+            "--num_requests", str(SERVE_REQUESTS), "--iter_levels", str(level),
+            "--serve_batch_sizes", "1,2", "--queue_capacity", "16"]
+
+
+SERVE_EE_ARGS = serve_ee_args(12)
+STREAM_ARGS = ["--stream", "--model", "raft_nc_dbl", "--size", str(SERVE_SIZE[0]),
+               str(SERVE_SIZE[1]), "--n_streams", "4", "--frames_per_stream", "8",
+               "--stream_iters", "12", "--stream_batch_sizes", "1,2,4", "--stream_capacity", "8"]
+STREAM_CHAOS = "corruptframe@4,abandon@7"
+STREAM_SIGTERM = "sigterm@5"
+STAGE_SPLITS = (1, 2, 4)
+EE_EPE_LEVEL = 2  # JAX's early-exit EPE test: a converged row skips one step
+
+
+def flagship(torch):
+    """The flagship on the card with both kernels, seeded weights."""
+    from raft_ncup_tpu_torch.models.raft import RAFT
+
+    return RAFT(model_config("raft_nc_dbl", False, corr_impl="pallas", nconv_impl="pallas"),
+                device="cuda", seed=0)
+
+
+def plain_flagship(torch, model, precision="f32"):
+    """The same weights through the plain versions, at ``precision``."""
+    from raft_ncup_tpu_torch.models.raft import RAFT
+
+    plain = RAFT(model_config("raft_nc_dbl", False, corr_impl="onthefly", nconv_impl="xla",
+                              precision=precision), device="cuda", seed=0)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    return plain
+
+
+def padded_batch(torch, pairs):
+    """(B, 440, 1024, 3) contiguous batches of Sintel-size pairs, edge-padded
+    as the server pads them."""
+    import numpy as np
+    from raft_ncup_tpu_torch.ops.padding import InputPadder
+
+    (t, b), (le, r) = InputPadder((*SERVE_SIZE, 3), mode="sintel").pad_spec
+    pad = ((0, 0), (t, b), (le, r), (0, 0))
+    return tuple(torch.from_numpy(np.pad(np.stack(x).astype(np.float32), pad, mode="edge"))
+                 .cuda().contiguous() for x in zip(*pairs))
+
+
+def bit_err(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_stages(torch, card) -> dict:
+    """``encode -> refine_segment x S -> finalize`` of the flagship at batch
+    2, 440x1024, 12 iterations, against its forward on the same inputs,
+    for S in ``STAGE_SPLITS``: bit for bit expected, ``REPLAY_TOL``
+    allowed; each composition launches A 12 and B 4 times."""
+    from raft_ncup_tpu_torch.serve import make_pairs
+    from raft_ncup_tpu_torch.utils.device import cudnn_autotune
+
+    model = flagship(torch)
+    i1, i2 = padded_batch(torch, make_pairs(SERVE_SIZE, 2, seed=3))
+    with cudnn_autotune():  # cuDNN keeps these algorithms for every run below
+        want = model(i1, i2, iters=12)
+    rows = []
+    for segments in STAGE_SPLITS:
+        reset_launches()
+        carry = model.encode(i1, i2)
+        for _ in range(segments):
+            carry = model.refine_segment(carry, 12 // segments)
+        got = model.finalize(carry)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        err = max(bit_err(torch, g, w) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        rows.append({"segments": segments, "max_abs_err": err, "bitwise": same,
+                     "launches": launches})
+        check(err <= REPLAY_TOL, f"stages S={segments}: {err} from the forward")
+        check(launches == {"corr_lookup": 12, "corr_lookup_bwd": 0, "nconv": 4,
+                           "nconv_bwd": 0}, f"stages S={segments}: launches {launches}")
+    print(f"stages: {json.dumps({'card': card, 'rows': rows})}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return rows[-1]["launches"]
+
+
+@contextlib.contextmanager
+def earlyexit_env(tol):
+    """The serve entry's early-exit knobs: on at ``tol``, or off (None)."""
+    saved = {k: os.environ.pop(k, None) for k in ("RAFT_TORCH_EARLYEXIT",
+                                                 "RAFT_TORCH_EARLYEXIT_TOL")}
+    if tol is not None:
+        os.environ["RAFT_TORCH_EARLYEXIT"] = "1"
+        os.environ["RAFT_TORCH_EARLYEXIT_TOL"] = repr(float(tol))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def recorded_forwards(torch):
+    """Record every ``ShapeCachedForward.forward`` call while inside: its
+    inputs, outputs, early-exit segments and flag reads, and the kernel
+    launches it added."""
+    from raft_ncup_tpu_torch.inference import pipeline
+
+    orig = pipeline.ShapeCachedForward.forward
+    records: list = []
+
+    def forward(self, image1, image2, iters, flow_init=None, policy=None, early_exit_tol=None):
+        before = read_launches()
+        out = orig(self, image1, image2, iters, flow_init, policy, early_exit_tol)
+        after = read_launches()
+        records.append({"i1": image1, "i2": image2, "iters": iters, "out": out,
+                        "ee": dict(self.last_earlyexit) if early_exit_tol is not None else None,
+                        "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+    pipeline.ShapeCachedForward.forward = forward
+    try:
+        yield records
+    finally:
+        pipeline.ShapeCachedForward.forward = orig
+
+
+def first_iteration_tol(torch, model, pairs) -> tuple[float, list]:
+    """JAX's splitting tolerance: midway between the pairs' smallest and
+    largest mean |flow_lr| after one iteration (the first delta)."""
+    norms = []
+    for k in range(0, len(pairs), 2):
+        i1, i2 = padded_batch(torch, pairs[k:k + 2])
+        lr, _ = model(i1, i2, iters=1)
+        norms += lr.abs().mean(dim=(1, 2, 3)).tolist()
+    return (min(norms) + max(norms)) / 2.0, norms
+
+
+def trace_call(torch, fn) -> dict:
+    """Wall and device ms of one traced call (ending in a synchronise), the
+    device's idle share and its time by kernel group; ``device_ms`` null
+    when the trace holds no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and us > 0:
+            groups[_kernel_group(e.key)] = groups.get(_kernel_group(e.key), 0.0) + us / 1e3
+    device_ms = sum(groups.values()) or None
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
+            "by_group": groups}
+
+
+def trace_step(torch, model, rec, precision) -> dict:
+    """Where a stream step's time goes: one traced step of batch 4 (the
+    recorded batch's frames, cold) in an engine of its own, after its
+    capture and a replay; and the warm-start splat alone, by CUDA events."""
+    from raft_ncup_tpu_torch.config import StreamConfig
+    from raft_ncup_tpu_torch.ops.warmstart import forward_interpolate_batch
+    from raft_ncup_tpu_torch.streaming import StreamEngine
+
+    n = len(rec["slots"])
+    engine = StreamEngine(model, StreamConfig(capacity=8, frame_hw=SERVE_SIZE, iters=12,
+                                              batch_sizes=(n,), precision=precision))
+    try:
+        engine.warmup()
+        args = (rec["img1"], rec["img2"], list(range(n)), [1.0] * n)
+        engine._run_step(*args)
+        out = trace_call(torch, lambda: engine._run_step(*args))
+    finally:
+        engine.drain()
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")
+    prev = rec["prev"]["flow"].float()
+    out["splat_ms"] = cuda_ms(torch, lambda: forward_interpolate_batch(prev, 1024), 10, flush)
+    out["batch"] = n
+    return out
+
+
+def check_early_exit(torch, card) -> dict:
+    """The flagship through the serve entry's plain branch, f32, 8 requests
+    at 436x1024 (batch sizes 1 and 2, level 12), with early exit off and
+    then on at JAX's splitting tolerance from the served pairs' first
+    iteration. Per early-exit batch: its rows' executed iterations, the
+    segments replayed, A launches (4 a segment), B 4, the flag reads on
+    the host; each row against the eager run truncated at its executed
+    iterations (bit for bit expected, ``REPLAY_TOL`` allowed). The EPE
+    budget is held as JAX's test holds it, at a level of 2: on one batch
+    of a cache of its own, and on the serve entry's answers at that level
+    with detection on against off. The level-12 EPE against the
+    detection-off run is reported."""
+    import numpy as np
+    from raft_ncup_tpu_torch import serve as serve_mod
+    from raft_ncup_tpu_torch.inference.pipeline import EARLYEXIT_SEGMENT, ShapeCachedForward
+    from raft_ncup_tpu_torch.precision import EARLYEXIT_EPE_BUDGET
+    from raft_ncup_tpu_torch.serving import SyntheticTraffic
+
+    pairs = [(a, b) for _, a, b in SyntheticTraffic(SERVE_SIZE, SERVE_REQUESTS, seed=0)]
+    probe = flagship(torch)
+    tol, norms = first_iteration_tol(torch, probe, pairs)
+    del probe
+    runs, paths = {}, {}
+    for label, ee in (("off", None), ("on", tol)):
+        with earlyexit_env(ee), recorded_forwards(torch) as records:
+            reset_launches()
+            rc, report, responses, model = serve_mod.run(SERVE_EE_ARGS)
+            torch.cuda.synchronize()
+            paths[label] = read_launches()
+        check(rc == 0 and all(r.ok for r in responses), f"early exit {label}: rc {rc}")
+        runs[label] = (report, responses, records[2:], model)  # 2 warm-up forwards
+    report, responses, batches, model = runs["on"]
+    rows, worst = [], 0.0
+    for rec in batches:
+        lr, up, ex = rec["out"]
+        seg, n = rec["ee"]["segments"], rec["ee"]["syncs"]
+        check(rec["launches"]["corr_lookup"] == EARLYEXIT_SEGMENT * seg
+              and rec["launches"]["nconv"] == 4,
+              f"early-exit batch: launches {rec['launches']} for {seg} segments")
+        i1, i2 = (t.cuda().contiguous() for t in (rec["i1"], rec["i2"]))
+        for k in sorted(set(ex.tolist())):
+            want_lr, want_up = model(i1, i2, iters=k)
+            for r in (ex == k).nonzero().flatten().tolist():
+                worst = max(worst, bit_err(torch, up[r], want_up[r]),
+                            bit_err(torch, lr[r], want_lr[r]))
+        rows.append({"rows": len(ex), "exec_iters": ex.tolist(), "segments": seg,
+                     "flag_reads": n, "result_copies": 1, "launches": rec["launches"]})
+    check(worst <= REPLAY_TOL, f"early exit: a row is {worst} from its truncated run")
+    off_flows = [r.flow for r in runs["off"][1]]
+    epe12 = float(np.mean([np.linalg.norm(r.flow - f, axis=-1).mean()
+                           for r, f in zip(responses, off_flows)]))
+    fwd = ShapeCachedForward(model)
+    i1, i2 = padded_batch(torch, pairs[:2])
+    _, up_ee, ex2 = fwd.forward(i1, i2, EE_EPE_LEVEL, early_exit_tol=tol)
+    _, up_full = fwd.forward(i1, i2, EE_EPE_LEVEL)
+    epe2 = float((up_ee - up_full).norm(dim=-1).mean())
+    check(epe2 <= EARLYEXIT_EPE_BUDGET, f"early exit at level {EE_EPE_LEVEL}: mean EPE "
+                                        f"{epe2} against the budget {EARLYEXIT_EPE_BUDGET}")
+    served2 = {}
+    for label, ee in (("off", None), ("on", tol)):
+        with earlyexit_env(ee):
+            rc, rep2, resp2, _ = serve_mod.run(serve_ee_args(EE_EPE_LEVEL))
+        check(rc == 0 and all(r.ok for r in resp2),
+              f"early exit {label} at level {EE_EPE_LEVEL}: rc {rc}")
+        served2[label] = (rep2, resp2)
+    epe2_served = float(np.mean([np.linalg.norm(a.flow - b.flow, axis=-1).mean()
+                                 for a, b in zip(served2["on"][1], served2["off"][1])]))
+    check(epe2_served <= EARLYEXIT_EPE_BUDGET,
+          f"served early exit at level {EE_EPE_LEVEL}: mean EPE {epe2_served} against the "
+          f"detection-off run, budget {EARLYEXIT_EPE_BUDGET}")
+    fwd.forward(i1, i2, 12, early_exit_tol=tol)  # captured before the trace
+    trace = trace_call(torch, lambda: fwd.forward(i1, i2, 12, early_exit_tol=tol))
+    trace.update(fwd.last_earlyexit)
+    out = {
+        "card": card, "tol": tol, "first_iteration_norms": norms,
+        "pairs_per_sec": {k: runs[k][0]["serve_pairs_per_sec"] for k in runs},
+        "p50_ms": {k: runs[k][0]["serve_p50_ms"] for k in runs},
+        "p99_ms": {k: runs[k][0]["serve_p99_ms"] for k in runs},
+        "batches": rows, "earlyexit": report["earlyexit"],
+        "budget_expected_iters": report["budget_expected_iters"],
+        "truncated_max_abs_err": worst, "epe_level12_vs_off": epe12,
+        f"epe_level{EE_EPE_LEVEL}": epe2, f"exec_level{EE_EPE_LEVEL}": ex2.tolist(),
+        f"served_epe_level{EE_EPE_LEVEL}": epe2_served,
+        f"served_earlyexit_level{EE_EPE_LEVEL}": served2["on"][0]["earlyexit"],
+        "traced_forward": trace, "launches": paths,
+        "note": "untrained weights: the convergence pattern is an artefact of them",
+    }
+    print(f"early exit served: {json.dumps(out)}", flush=True)
+    del runs, model, fwd
+    torch.cuda.empty_cache()
+    return paths["on"]
+
+
+@contextlib.contextmanager
+def recorded_steps(torch):
+    """Record every stream step while inside: its inputs, the slot table's
+    rows it read (cloned on the card before the step) and its outputs."""
+    from raft_ncup_tpu_torch.streaming import engine as engine_mod
+
+    orig = engine_mod.StreamEngine._run_step
+    records: list = []
+
+    def run_step(self, img1, img2, slot_idx, cold):
+        idx = torch.as_tensor(slot_idx, dtype=torch.int64, device=self.device)
+        prev = {k: t.index_select(0, idx).clone() for k, t in self._table.items()}
+        flow_up, bad = orig(self, img1, img2, slot_idx, cold)
+        records.append({"img1": img1, "img2": img2, "slots": list(slot_idx),
+                        "cold": list(cold), "prev": prev, "flow_up": flow_up, "bad": bad,
+                        "scratch": self.cfg.capacity, "chunk": self.cfg.splat_chunk})
+        return flow_up, bad
+
+    engine_mod.StreamEngine._run_step = run_step
+    try:
+        yield records
+    finally:
+        engine_mod.StreamEngine._run_step = orig
+
+
+def check_stream_steps(torch, model, steps, precision, carry_net) -> dict:
+    """Each answered frame of the recorded steps against the plain-version
+    forward of its batch, fed the flow_init (and under ``carry_net`` the
+    GRU state) the engine built from its own previous state: f32 within
+    the served tolerance; under ``bf16_infer``, as a served bf16 pair is
+    held, within ``FORWARD_EPE_BUDGET`` of the f32 plain-version forward
+    fed the same state, and within ``BF16_PLAIN_SHARE`` of that distance
+    of the bf16 plain-version forward."""
+    from raft_ncup_tpu_torch.ops.warmstart import forward_interpolate_batch
+    from raft_ncup_tpu_torch.precision import FORWARD_EPE_BUDGET
+
+    plain = plain_flagship(torch, model, precision)
+    plain_f32 = None if precision == "f32" else plain_flagship(torch, model)
+    worst, epes, shares, frames = 0.0, [], [], 0
+    for rec in steps:
+        real = [k for k, s in enumerate(rec["slots"]) if s != rec["scratch"]]
+        if not real:
+            continue  # a warm-up step
+        cold = torch.tensor(rec["cold"], device=rec["prev"]["warm"].device)
+        warm = rec["prev"]["warm"] * (1.0 - cold) > 0.5
+        splat = forward_interpolate_batch(rec["prev"]["flow"].float(), rec["chunk"])
+        finit = torch.where(warm[:, None, None, None], splat, torch.zeros_like(splat))
+        kw = {"net_init": rec["prev"]["net"], "net_warm": warm} if carry_net else {}
+        i1, i2 = (torch.from_numpy(x).cuda() for x in (rec["img1"], rec["img2"]))
+        _, up = plain(i1, i2, iters=12, flow_init=finit, **kw)
+        if plain_f32 is not None:
+            _, up_f32 = plain_f32(i1, i2, iters=12, flow_init=finit, **kw)
+        served = torch.from_numpy(rec["flow_up"]).cuda()
+        for k in real:
+            if rec["bad"][k]:
+                continue
+            frames += 1
+            if precision == "f32":
+                e, ok = max_err(torch, served[k], up[k], **FLOW_UP_TOL)
+                worst = max(worst, e)
+                check(ok, f"stream frame against the plain versions: {e}")
+            else:
+                e_f32 = float((served[k] - up_f32[k]).norm(dim=-1).mean())
+                e_plain = float((served[k] - up[k]).norm(dim=-1).mean())
+                epes.append(e_f32)
+                shares.append(e_plain / e_f32)
+                check(e_f32 <= FORWARD_EPE_BUDGET,
+                      f"stream frame: mean EPE {e_f32} against the f32 plain-version "
+                      f"forward, budget {FORWARD_EPE_BUDGET}")
+                check(e_plain <= BF16_PLAIN_SHARE * e_f32,
+                      f"stream frame: mean EPE {e_plain} against the {precision} "
+                      f"plain-version forward, tolerance {BF16_PLAIN_SHARE} x {e_f32}")
+    del plain, plain_f32
+    return {"frames_checked": frames, "flow_up_max_abs_err": worst,
+            "max_epe_vs_f32": max(epes) if epes else None,
+            "max_share_of_f32_epe_vs_plain": max(shares) if shares else None}
+
+
+def run_stream_entry(torch, argv) -> tuple:
+    """One run of the serve entry's stream branch, every kernel count set
+    to 0 just before it; returns ``(rc, report, responses, model, steps,
+    launches)``."""
+    from raft_ncup_tpu_torch import serve as serve_mod
+
+    with recorded_steps(torch) as steps:
+        reset_launches()
+        rc, report, responses, model = serve_mod.run(argv)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    return rc, report, responses, model, steps, launches
+
+
+def check_stream(torch, card, precision="f32", carry_net=False) -> dict:
+    """The serve entry's ``--stream`` drive (``STREAM_ARGS``): every frame
+    answered, 3 captures (one a batch size, all at warm-up), A 12 and B 4
+    launches a step, and every frame against the plain versions."""
+    label = "stream" + ("" if precision == "f32" else f" {precision}") + (
+        " carry_net" if carry_net else "")
+    argv = STREAM_ARGS + (["--stream_precision", precision] if precision != "f32" else []) + (
+        ["--carry_net"] if carry_net else [])
+    rc, report, responses, model, steps, launches = run_stream_entry(torch, argv)
+    check(rc == 0 and report["errors"] == 0 and len(responses) == 32
+          and all(r.ok for r in responses), f"{label}: rc {rc}, {report['stats']}")
+    check(report["executables"]["compiles"] == 3 and report["warmup_steps"] == 3,
+          f"{label}: captures {report['executables']}, want 3, all at warm-up")
+    per_step = {"corr_lookup": report["corr_kernel_launches"] / report["stream_batches"],
+                "nconv": report["nconv_kernel_launches"] / report["stream_batches"]}
+    check(per_step == {"corr_lookup": 12, "nconv": 4}, f"{label}: launches a step {per_step}")
+    check_launches(launches, "raft_nc_dbl", False, label)
+    held = check_stream_steps(torch, model, steps, precision, carry_net)
+    full = [rec for rec in steps if rec["scratch"] not in rec["slots"] and len(rec["slots"]) == 4]
+    step = trace_step(torch, model, full[-1], precision) if full and not carry_net else None
+    out = {"card": card, "traced_step": step, "frames_per_sec": report["stream_frames_per_sec"],
+           "p50_ms": report["stream_p50_ms"], "p99_ms": report["stream_p99_ms"],
+           "batches": report["stream_batches"], "captures": report["executables"],
+           "slot_table_bytes": report["slot_table_bytes"],
+           "graph_pool_bytes": report["graph_pool_bytes"], "launches_per_step": per_step,
+           "launches": launches, "precision": report["precision"], **held}
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    del model, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stream_rounds(torch, model, frames, corrupt=None, skip=None) -> dict:
+    """The engine driven in rounds (pause, one frame of each stream,
+    resume), as the CPU isolation test drives it, so that two runs batch
+    the same frames: ``{(stream, frame): response}`` and the stats."""
+    import numpy as np
+    from raft_ncup_tpu_torch.config import StreamConfig
+    from raft_ncup_tpu_torch.streaming import StreamEngine
+
+    engine = StreamEngine(model, StreamConfig(capacity=8, frame_hw=SERVE_SIZE, iters=12,
+                                              batch_sizes=(1, 2, 4)))
+    out = {}
+    try:
+        engine.warmup()
+        for f in sorted({f for _, f in frames}):
+            engine.pause()
+            handles = []
+            for sid in sorted({s for s, _ in frames}):
+                if (sid, f) not in frames or (skip and sid == skip[0] and f < skip[1]):
+                    continue
+                i1, i2 = frames[(sid, f)]
+                if (sid, f) == corrupt:
+                    i1 = np.full(i1.shape, np.nan, np.float32)
+                handles.append(((sid, f), engine.submit(sid, i1, i2, frame_index=f)))
+            engine.resume()
+            out.update((k, h.result(300)) for k, h in handles)
+    finally:
+        stats = engine.drain()
+    return out, stats, engine.report()["executables"]
+
+
+def check_stream_chaos(torch, card) -> dict:
+    """The serve entry's stream branch under ``STREAM_CHAOS`` (one reset, no
+    error) and ``STREAM_SIGTERM`` (exit 75, everything admitted answered);
+    then the isolation contract in rounds on the same schedule: the corrupt
+    frame's batch-mates bit for bit those of the run without it, the reset
+    stream's next frame bit for bit a cold start, and no capture after
+    warm-up."""
+    from raft_ncup_tpu_torch.resilience import EXIT_PREEMPTED, ChaosSpec
+    from raft_ncup_tpu_torch.streaming import StreamTraffic
+
+    rc, report, _, model, _, launches = run_stream_entry(
+        torch, STREAM_ARGS + ["--chaos", STREAM_CHAOS])
+    check(rc == 0 and (report["resets"], report["errors"]) == (1, 0),
+          f"stream chaos: rc {rc}, {report['stats']}")
+    rc_t, report_t, _, _, _, _ = run_stream_entry(
+        torch, STREAM_ARGS + ["--chaos", STREAM_SIGTERM])
+    check(rc_t == EXIT_PREEMPTED and report_t["interrupted"]
+          and report_t["completed"] == report_t["accepted"] == 5 and report_t["errors"] == 0,
+          f"stream sigterm: rc {rc_t}, {report_t['stats']}")
+    sched = StreamTraffic(SERVE_SIZE, 4, 8, seed=0, chaos=ChaosSpec.parse("abandon@7"))
+    frames = {(sid, f): (i1, i2) for _, sid, f, i1, i2 in sched}
+    corrupt = ("stream-0", 1)  # schedule slot 4 of 4 streams
+    base, _, _ = stream_rounds(torch, model, frames)
+    hit, stats, captures = stream_rounds(torch, model, frames, corrupt=corrupt)
+    cold, _, _ = stream_rounds(torch, model, frames, skip=(corrupt[0], corrupt[1] + 1))
+    mates = [k for k in base if k[0] != corrupt[0]]
+    check(stats.resets == 1 and hit[corrupt].status == "rejected",
+          f"stream isolation: {stats.summary()}")
+    differ = [k for k in mates if not (hit[k].ok and (hit[k].flow == base[k].flow).all())]
+    check(not differ, f"stream isolation: batch-mates changed by the corrupt frame: {differ}")
+    nxt = (corrupt[0], corrupt[1] + 1)
+    check((hit[nxt].flow == cold[nxt].flow).all(),
+          "stream isolation: the reset stream's next frame is not a cold start")
+    check(captures == {"compiles": 3, "hits": stats.batches, "evictions": 0},
+          f"stream isolation: captures {captures}")
+    out = {"card": card, "chaos": STREAM_CHAOS, "resets": report["resets"],
+           "errors": report["errors"], "frames_per_sec": report["stream_frames_per_sec"],
+           "sigterm": {"rc": rc_t, "accepted": report_t["accepted"],
+                       "completed": report_t["completed"]},
+           "isolation": {"batch_mates_bitwise": len(mates), "reset_next_frame_cold": True,
+                         "captures": captures},
+           "launches": launches}
+    print(f"stream chaos: {json.dumps(out)}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2330,6 +2836,16 @@ def main() -> int:
             check(profile["device_ms"] is not None, "the replay's trace holds no device time")
             torch.cuda.empty_cache()
         check_entries(torch, card, tmp)
+    # The stages, early exit and streaming: the flagship's stage composition
+    # against its forward, the serve entry with early exit off and on, and
+    # its --stream branch in f32, under bf16_infer, under chaos and with
+    # carry_net.
+    paths["stages raft_nc_dbl"] = check_stages(torch, card)
+    paths["early exit served"] = check_early_exit(torch, card)
+    paths["stream raft_nc_dbl"] = check_stream(torch, card)
+    paths["stream raft_nc_dbl bf16_infer"] = check_stream(torch, card, "bf16_infer")
+    paths["stream chaos"] = check_stream_chaos(torch, card)
+    paths["stream carry_net"] = check_stream(torch, card, carry_net=True)
     train_bf16 = check_train(torch, card, steps=VARIANT_TRAIN_STEPS, extras=False,
                              precision="bf16_train", profile=True)
     paths["train raft_nc_dbl bf16_train"] = train_bf16["launches"]
@@ -2362,10 +2878,15 @@ def main() -> int:
         return {"launches_by_path": {p: l[kernel] for p, l in paths.items() if l[kernel]}}
 
     corr_src = "raft_ncup_tpu_torch/csrc/corr_lookup.cu"
+    # The launches of this slice's paths beside the served ones.
+    new_paths = {k: {"stream_launches": paths["stream raft_nc_dbl"][k],
+                     "early_exit_launches": paths["early exit served"][k]}
+                 for k in ("corr_lookup", "nconv")}
     kernels = [
         dict(name="corr_lookup at the served shape (the TPU's resident tier)", route="cuda",
              source=corr_src, replaces="raft_ncup_tpu/ops/corr_pallas.py:422",
              launches=launches["corr_lookup"], train_launches=tl["corr_lookup"],
+             **new_paths["corr_lookup"],
              **_kernel_numbers(corr_served), **by_path("corr_lookup")),
         dict(name="corr_lookup at 1088x1920 (the TPU's banded tier; launches are the "
              "main-path count of the same kernel)", route="cuda",
@@ -2386,6 +2907,7 @@ def main() -> int:
              source="raft_ncup_tpu_torch/csrc/nconv.cu",
              replaces="raft_ncup_tpu/ops/nconv_pallas.py:125",
              launches=launches["nconv"], train_launches=tl["nconv"],
+             **new_paths["nconv"],
              **_summed_numbers(nconv_rows), **by_path("nconv")),
     ]
     # The bf16 rows at the flagship's shapes give the flagship's bf16_infer

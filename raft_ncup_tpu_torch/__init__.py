@@ -3,7 +3,7 @@
 The JAX package ``raft_ncup_tpu`` is the reference this package is held
 against; nothing here imports it (or JAX). The layout mirrors it module
 for module (``config``, ``ops``, ``nn``, ``models``, ``serving``,
-``training``, ``data``), and public functions keep its layouts: NHWC
+``streaming``, ``training``, ``data``), and public functions keep its layouts: NHWC
 images, flows and feature maps, ``(B, H, W, 2)`` coordinates with x
 first.
 
@@ -23,13 +23,15 @@ either variant (``small_model_config``), each under the precision
 presets ``f32`` (the default), ``bf16_infer`` and ``bf16_train``
 (``precision/policy.py``).
 
-Entry points: ``python -m raft_ncup_tpu_torch.serve`` and
-``python -m raft_ncup_tpu_torch.train``.
+Entry points: ``python -m raft_ncup_tpu_torch.serve`` (requests, or
+video streams with ``--stream``), ``python -m raft_ncup_tpu_torch.train``,
+``evaluate`` and ``demo``.
 """
 
 from raft_ncup_tpu_torch.config import (  # noqa: F401
     ModelConfig,
     ServeConfig,
+    StreamConfig,
     TrainConfig,
     UpsamplerConfig,
     flagship_config,

@@ -11,6 +11,9 @@ port's model always runs the hand-written kernels (``corr_impl="pallas"``,
 ``nconv_impl="pallas"``), on the card kernels A and B and their backward
 kernels. The PAC and DJIF upsamplers raise (ROADMAP.md, queue 1 item 5).
 
+The serve entry's serving and streaming knobs (:func:`add_serve_args`,
+:func:`add_stream_args`) take the JAX CLI's names and defaults.
+
 The train entry's parser (:func:`build_train_parser`, :func:`parse_train`)
 and the evaluate entry's (:func:`build_eval_parser`, :func:`parse_eval`)
 take the JAX CLI's flags, with ``--device`` in place of ``--platform``.
@@ -30,6 +33,8 @@ from raft_ncup_tpu_torch.config import (
     STAGES,
     DataConfig,
     ModelConfig,
+    ServeConfig,
+    StreamConfig,
     TrainConfig,
     UpsamplerConfig,
 )
@@ -52,6 +57,14 @@ def str2intlist(v: str) -> tuple[int, ...]:
     if not isinstance(out, (list, tuple)):
         raise argparse.ArgumentTypeError(f"int list expected, got {v!r}")
     return tuple(int(x) for x in out)
+
+
+def str2ints(v: str) -> tuple[int, ...]:
+    """A bare comma list, ``"24,16,8"`` (the serving flags)."""
+    try:
+        return tuple(int(x) for x in v.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"comma-joined ints expected: {v!r}")
 
 
 # The reference's upsampler class names and the kinds they select.
@@ -213,6 +226,102 @@ def _refuse_mesh(sizes: Sequence[Optional[int]]) -> None:
         raise ValueError(
             "--data_parallel, --spatial_parallel and --mesh above one card are not in the "
             "port yet: they land with its multi-GPU slice (ROADMAP.md, queue 1 item 9)")
+
+
+# ------------------------------------------------------------------ serve
+
+
+def add_serve_args(parser: argparse.ArgumentParser) -> None:
+    """The request server's knobs (``ServeConfig``)."""
+    d = ServeConfig()
+    parser.add_argument("--queue_capacity", type=int, default=d.queue_capacity,
+                        help="bounded admission queue; a full queue sheds with a "
+                        "retry-after hint")
+    parser.add_argument("--serve_batch_sizes", type=str2ints, default=d.batch_sizes,
+                        help="allowed micro-batch sizes, ascending (e.g. '1,2,4'); a batch "
+                        "pads up to the nearest")
+    parser.add_argument("--iter_levels", type=str2ints, default=d.iter_levels,
+                        help="anytime GRU iteration levels, descending (e.g. '24,16,8')")
+    parser.add_argument("--high_water", type=float, default=d.high_water,
+                        help="queue occupancy that degrades the budget one level")
+    parser.add_argument("--low_water", type=float, default=d.low_water,
+                        help="occupancy counting toward the budget's recovery")
+    parser.add_argument("--recover_patience", type=int, default=d.recover_patience,
+                        help="consecutive calm decisions before the budget recovers a level")
+    parser.add_argument("--deadline_s", type=float, default=d.default_deadline_s,
+                        help="default per-request deadline in seconds (unset: none)")
+    parser.add_argument("--serve_pad_bucket", type=int, default=d.pad_bucket,
+                        help="round padded request shapes up to multiples of this (0: off)")
+    parser.add_argument("--serve_cache_size", type=int, default=d.cache_size,
+                        help="bound of the cached CUDA graphs (LRU)")
+    parser.add_argument("--serve_precision", default=d.precision,
+                        choices=list(PRESET_NAMES),
+                        help="precision preset the server's forwards run under "
+                        "(default: the model's own, from --precision)")
+
+
+def serve_config_from_args(args: argparse.Namespace) -> ServeConfig:
+    return ServeConfig(
+        queue_capacity=args.queue_capacity,
+        batch_sizes=tuple(args.serve_batch_sizes),
+        iter_levels=tuple(args.iter_levels),
+        high_water=args.high_water,
+        low_water=args.low_water,
+        recover_patience=args.recover_patience,
+        default_deadline_s=args.deadline_s,
+        pad_bucket=args.serve_pad_bucket,
+        cache_size=args.serve_cache_size,
+        precision=args.serve_precision,
+    )
+
+
+def add_stream_args(parser: argparse.ArgumentParser) -> None:
+    """The stream engine's knobs (``StreamConfig``)."""
+    d = StreamConfig()
+    parser.add_argument("--stream_capacity", type=int, default=d.capacity,
+                        help="slot-table size, the bound on concurrent streams; admission "
+                        "beyond it sheds with a retry hint")
+    parser.add_argument("--stream_batch_sizes", type=str2ints, default=d.batch_sizes,
+                        help="allowed step batch sizes, ascending; one graph each, "
+                        "captured at warm-up")
+    parser.add_argument("--stream_iters", type=int, default=d.iters,
+                        help="GRU iterations per frame")
+    parser.add_argument("--stream_queue_capacity", type=int, default=d.queue_capacity,
+                        help="bounded frame admission queue (frames, all streams)")
+    parser.add_argument("--max_frame_gap", type=int, default=d.max_frame_gap,
+                        help="frame-index gap beyond which the warm state is stale and "
+                        "the frame starts cold")
+    parser.add_argument("--idle_timeout_s", type=float, default=d.idle_timeout_s,
+                        help="idle or abandoned streams lose their slot after this long "
+                        "with nothing in flight")
+    parser.add_argument("--carry_net", type=str2bool, nargs="?", const=True,
+                        default=d.carry_net,
+                        help="also carry the GRU state across frames (an extension of the "
+                        "reference's flow-only warm start)")
+    parser.add_argument("--anomaly_max_flow", type=float, default=d.anomaly_max_flow,
+                        help="a low-res flow beyond this resets its stream to a cold start")
+    parser.add_argument("--stream_pad_bucket", type=int, default=d.pad_bucket,
+                        help="round padded frame shapes up to multiples of this (0: off)")
+    parser.add_argument("--stream_precision", default=d.precision,
+                        choices=list(PRESET_NAMES),
+                        help="precision preset of the engine's forwards and of the slot "
+                        "table's state (default: the model's own)")
+
+
+def stream_config_from_args(args: argparse.Namespace, frame_hw: tuple[int, int]) -> StreamConfig:
+    return StreamConfig(
+        capacity=args.stream_capacity,
+        frame_hw=tuple(frame_hw),
+        pad_bucket=args.stream_pad_bucket,
+        iters=args.stream_iters,
+        batch_sizes=tuple(args.stream_batch_sizes),
+        queue_capacity=args.stream_queue_capacity,
+        max_frame_gap=args.max_frame_gap,
+        idle_timeout_s=args.idle_timeout_s,
+        carry_net=args.carry_net,
+        anomaly_max_flow=args.anomaly_max_flow,
+        precision=args.stream_precision,
+    )
 
 
 # ------------------------------------------------------------------ train

@@ -1,7 +1,8 @@
 """Typed, immutable configuration for the port's model, server and trainer.
 
 The port's own copy of ``raft_ncup_tpu/config.py``'s ``UpsamplerConfig``,
-``ModelConfig``, ``ServeConfig``, ``TrainConfig`` and ``flagship_config``
+``ModelConfig``, ``ServeConfig``, ``StreamConfig``, ``TrainConfig`` and
+``flagship_config``
 (the port imports nothing of the JAX package). Field names and defaults
 are the JAX package's, so one configuration means the same in both
 packages, with these differences:
@@ -12,7 +13,10 @@ packages, with these differences:
   that the JAX package reads from its ``RAFT_NCUP_NCONV_IMPL`` knob:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
   (the fused kernel, CUDA in the port). Its default is the JAX default.
-- ``ServeConfig`` has no ``mesh`` (one card).
+- ``ServeConfig`` and ``StreamConfig`` have no ``mesh`` (one card), nor
+  ``inflight`` and ``drain_depth``: the server and the stream engine wait
+  for each batch's result on their dispatcher thread, so they have no
+  dispatch throttle and no asynchronous drain to bound.
 - ``TrainConfig`` has no ``data_parallel``/``spatial_parallel`` (the
   mesh: one card).
 
@@ -202,6 +206,90 @@ class ServeConfig:
         ) or len(set(lv)) != len(lv):
             raise ValueError(
                 f"iter_levels must be strictly descending positives: {lv!r}"
+            )
+
+    @property
+    def max_batch(self) -> int:
+        return self.batch_sizes[-1]
+
+
+@dataclass(frozen=True)
+class StreamConfig:
+    """Streaming video engine knobs (see ``streaming/engine.py``): the JAX
+    package's fields and defaults, less those named in the module
+    docstring.
+
+    One engine serves one padded frame shape: every admitted frame must
+    pad (``InputPadder(mode='sintel', bucket=pad_bucket)``) to the shape
+    the slot table was allocated at, so the engine's step entries are
+    exactly ``len(batch_sizes)`` and no stream event (admission, eviction,
+    anomaly reset, slot reuse) captures a graph. ``capacity`` bounds the
+    slot table: ``h/8 * w/8 * (2 + hidden_dim if carry_net)`` elements of
+    state a stream, allocated once.
+    """
+
+    # Concurrent-stream bound = slot-table size; admission beyond it sheds
+    # with a retry hint (the soonest idle expiry), it never queues.
+    capacity: int = 8
+    # Native frame size the engine serves (frames whose padded shape
+    # matches are admitted too).
+    frame_hw: tuple[int, int] = (96, 128)
+    pad_bucket: int = 0  # as ServeConfig.pad_bucket
+    iters: int = 12  # fixed GRU iterations (one step entry per batch size)
+    # Allowed batch sizes, ascending; a batch never holds two frames of
+    # one stream.
+    batch_sizes: tuple[int, ...] = (1, 2, 4)
+    # Frame admission queue bound (frames, across all streams).
+    queue_capacity: int = 64
+    # A frame whose index gap to its stream's previously admitted frame
+    # exceeds this starts cold (never from stale state).
+    max_frame_gap: int = 1
+    # A stream with no admitted frame for this long and nothing in flight
+    # loses its slot.
+    idle_timeout_s: float = 30.0
+    # Also carry the GRU state across frames (an extension of the
+    # reference's flow-only warm start).
+    carry_net: bool = False
+    # A frame whose low-res flow is non-finite or exceeds this magnitude
+    # resets its stream to a cold start (batch-mates untouched).
+    anomaly_max_flow: float = 1e4
+    # Shed hint before any service-time estimate exists.
+    default_retry_after_s: float = 0.25
+    # ShapeCachedForward LRU bound: at least len(batch_sizes), so no
+    # step entry is evicted and captured again after warm-up.
+    cache_size: int = 8
+    # Query chunk of the warm-start splat: bounds its transient distance
+    # matrix at chunk * (h/8 * w/8) floats a stream row.
+    splat_chunk: int = 1024
+    # The engine's precision preset: its forwards' dtypes and the slot
+    # table's state dtype (``PrecisionPolicy.state``); None inherits the
+    # model's own.
+    precision: str | None = None
+
+    def __post_init__(self) -> None:
+        if self.precision is not None:
+            resolve_policy(self.precision)  # raises on an unknown preset
+        bs = tuple(int(b) for b in self.batch_sizes)
+        if not bs or any(b <= 0 for b in bs) or list(bs) != sorted(set(bs)):
+            raise ValueError(
+                f"batch_sizes must be ascending unique positives: {bs!r}"
+            )
+        if self.pad_bucket and self.pad_bucket % 8:
+            raise ValueError(
+                f"pad_bucket {self.pad_bucket} must be a multiple of 8"
+            )
+        if self.cache_size < len(bs):
+            raise ValueError(
+                f"cache_size {self.cache_size} must be >= len(batch_sizes) "
+                f"({len(bs)}): one step entry a batch size"
+            )
+        if self.capacity < 1:
+            raise ValueError(f"capacity must be >= 1: {self.capacity}")
+        if self.iters < 1:
+            raise ValueError(f"iters must be >= 1: {self.iters}")
+        if self.max_frame_gap < 1:
+            raise ValueError(
+                f"max_frame_gap must be >= 1: {self.max_frame_gap}"
             )
 
     @property

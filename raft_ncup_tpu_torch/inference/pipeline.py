@@ -13,7 +13,9 @@ drain off the dispatch thread.
   stream wait on the copy's event.
 - **compute** (:class:`ShapeCachedForward`): one captured CUDA graph per
   (padded shape, batch, iterations, warm start, metric kind and pad,
-  precision preset), in an LRU of ``cache_size`` entries. A graph holds
+  precision preset, early-exit tolerance), in an LRU of ``cache_size``
+  entries, beside the entries a caller builds (``custom``: the stream
+  engine's step). A graph holds
   the test-mode forward and, for validation, the metric fold
   (``inference/metrics.py``), so a validation pass replays one graph per
   batch and pulls a few sums at its end. It is PyTorch's counterpart of
@@ -25,12 +27,29 @@ drain off the dispatch thread.
   each is copied to pinned host memory behind the dispatch, and a worker
   thread hands it to a callback once its event has completed.
 
+**Early exit** (``forward(..., early_exit_tol=...)``): JAX's batch exit is
+a ``lax.while_loop`` whose condition stays on the device, and a captured
+CUDA graph cannot stop early. The early-exit entry is three graphs over
+one set of carry buffers that live outside the graphs' pool: the encode
+(with the pair's prepared correlation pyramid), one segment of
+``segment_length(iters)`` iterations that freezes and detects per
+iteration, and the finalize. The host replays the segment until every
+row has converged or the level is reached, reading one flag byte after
+each segment but the last: a synchronisation each (counted in
+``earlyexit``). The flow and each row's executed iterations equal the
+monolithic early exit's, since a frozen row neither moves nor pays; a
+fully converged batch wastes at most ``segment - 1`` iterations. The
+knobs ``RAFT_TORCH_EARLYEXIT`` and ``RAFT_TORCH_EARLYEXIT_TOL`` are read
+by :func:`env_earlyexit_tol`, which ``FlowServer`` calls once.
+
 The JAX package's mesh, cost ledger and telemetry arguments are not
 ported.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import queue
 import sys
 import threading
@@ -45,7 +64,30 @@ from raft_ncup_tpu_torch.inference import metrics as metrics_mod
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
 from raft_ncup_tpu_torch.precision import resolve_policy
-from raft_ncup_tpu_torch.utils.device import cudnn_autotune
+from raft_ncup_tpu_torch.utils.device import cudnn_autotune, f32_precision
+
+# Iterations per replayed segment of the early-exit forward: it divides
+# every default level (the server's 24, 16 and 8, the stream's 12). A level
+# it does not divide replays segments of ``gcd(level, 4)``.
+EARLYEXIT_SEGMENT = 4
+
+
+def segment_length(iters: int) -> int:
+    """Iterations per segment graph of an early-exit forward of ``iters``."""
+    return math.gcd(int(iters), EARLYEXIT_SEGMENT)
+
+
+def env_earlyexit_tol() -> Optional[float]:
+    """The early-exit knobs as a tolerance, or None when detection is off:
+    ``RAFT_TORCH_EARLYEXIT=1`` turns it on (default off) and
+    ``RAFT_TORCH_EARLYEXIT_TOL`` sets the tolerance in low-res pixels
+    (default 0.05), the JAX package's ``RAFT_NCUP_EARLYEXIT`` and
+    ``RAFT_NCUP_EARLYEXIT_TOL`` under the port's prefix. The model and the
+    cache take the tolerance as an argument and never read the
+    environment."""
+    if os.environ.get("RAFT_TORCH_EARLYEXIT") != "1":
+        return None
+    return float(os.environ.get("RAFT_TORCH_EARLYEXIT_TOL", "0.05"))
 
 
 class SamplePrefetcher:
@@ -371,53 +413,66 @@ class _EagerEntry:
         return self._fn(*args)
 
 
+def _capture(key, fn: Callable, args: tuple, pool, device):
+    """Run ``fn(*args)`` once eagerly on a side stream, then capture it
+    into a CUDA graph in ``pool``, both under ``cudnn_autotune``. Returns
+    ``(graph, outputs, launches, pool bytes added)``; the wrappers' launch
+    counts moved by the capture are taken back (``launches`` is what each
+    replay adds). A failed capture raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with cudnn_autotune():
+        with torch.cuda.stream(side):
+            fn(*args)
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                out = fn(*args)
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of {key} failed: {e!r}") from e
+        finally:
+            after = _launch_counts()
+            _set_launch_counts(before)
+    return (graph, out, _launch_delta(after, before),
+            torch.cuda.memory_reserved(device) - reserved)
+
+
 class _GraphEntry:
     """One captured CUDA graph of ``fn`` over static copies of ``args``.
 
     ``fn`` runs once eagerly on a side stream first (the kernels' libraries
     load, cuDNN's autotuner times its algorithms, the lookup's path
     counters are created), then once under capture, into the memory
-    ``pool``. Both run under ``utils.device.cudnn_autotune``: cuDNN keeps
-    the algorithm it timed for each convolution's shape, so the graph, and
-    any later eager forward at that shape, runs it. Its heuristic would
-    pick FFT algorithms for the flagship's f32 convolutions, which hold a
-    workspace of gigabytes in the graph's pool.
+    ``pool`` (:func:`_capture`). Both run under
+    ``utils.device.cudnn_autotune``: cuDNN keeps the algorithm it timed for
+    each convolution's shape, so the graph, and any later eager forward at
+    that shape, runs it. Its heuristic would pick FFT algorithms for the
+    flagship's f32 convolutions, which hold a workspace of gigabytes in the
+    graph's pool.
 
     The kernel wrappers count their launches while ``fn`` is captured,
     though the capture launches nothing: those counts are taken back, and
     every replay adds them (``launches``). A call copies its arguments into
     the static inputs, replays the graph and returns copies of the static
     outputs, so a result outlives the next replay. A failed capture raises;
-    nothing falls back to the eager forward."""
+    nothing falls back to the eager forward. Tensors ``fn`` reaches other
+    than through its arguments (the stream engine's slot table) are
+    captured by address and updated in place."""
 
     def __init__(self, key, fn: Callable, args: tuple, pool):
         device = args[0].device
         # Contiguous whatever the first call's strides: cuDNN picks its
         # algorithms by the layout too, so every key computes one way.
         self.static_in = tuple(a.clone(memory_format=torch.contiguous_format) for a in args)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with cudnn_autotune():
-            with torch.cuda.stream(side):
-                fn(*self.static_in)
-            torch.cuda.current_stream(device).wait_stream(side)
-            torch.cuda.synchronize(device)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(device)
-            before = _launch_counts()
-            self.graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-                    out = fn(*self.static_in)
-            except Exception as e:
-                raise RuntimeError(f"CUDA graph capture of {key} failed: {e!r}") from e
-            finally:
-                after = _launch_counts()
-                _set_launch_counts(before)
+        self.graph, out, self.launches, self.pool_bytes = _capture(
+            key, fn, self.static_in, pool, device)
         self.static_out = out if isinstance(out, tuple) else (out,)
         self._single = not isinstance(out, tuple)
-        self.launches = _launch_delta(after, before)
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
 
     def __call__(self, *args):
         for dst, src in zip(self.static_in, args):
@@ -428,10 +483,110 @@ class _GraphEntry:
         return outs[0] if self._single else outs
 
 
+class _EarlyExitEntry:
+    """The early-exit forward of one key: ``(flow_lr, flow_up,
+    exec_iters)``.
+
+    Three stages work on one set of carry buffers: ``encode`` fills them
+    (the GRU state, coordinates, context, the prepared correlation
+    pyramid, an all-False ``converged`` and zero ``exec_iters``), each
+    ``segment`` advances them in place by ``segment_length(iters)``
+    iterations with per-iteration freeze and detection
+    (``RAFT._advance``) and writes ``converged.all()`` into a flag byte,
+    and ``finalize`` upsamples them. The host runs the segment until the
+    flag is set or the level is reached. On the card each stage is a
+    CUDA graph (:func:`_capture`) and the buffers, allocated before the
+    captures and outside the pool, are read and written by address, so
+    no graph's pool memory holds state another graph reads. On the CPU
+    the stages run eagerly. ``counters`` gains each call's forwards,
+    replayed segments and flag reads; ``last`` holds the latest call's."""
+
+    def __init__(self, key, model, iters: int, tol: float, args: tuple, pool, counters: dict):
+        self.seg = segment_length(iters)
+        self.n_seg = int(iters) // self.seg
+        self.counters = counters
+        self.last: dict = {}
+        device = args[0].device
+        self.static_in = tuple(a.clone(memory_format=torch.contiguous_format) for a in args)
+        bufs: dict = {}
+        self._bufs = bufs
+
+        def encode(i1, i2, finit=None):
+            carry = model.encode(i1, i2, flow_init=finit, early_exit=True)
+            vals = {k: carry[k] for k in ("net", "coords1", "inp", "converged", "exec_iters")}
+            with torch.no_grad():
+                vals["corr"] = model.corr_state(carry["fmap1"], carry["fmap2"])
+            vals["done"] = carry["converged"].all()
+            if not bufs:  # the first, eager run sizes the buffers
+                bufs.update({k: tuple(torch.empty_like(t) for t in v) if k == "corr"
+                             else torch.empty_like(v) for k, v in vals.items()})
+            for k, v in vals.items():
+                for dst, src in zip(*((bufs[k], v) if k == "corr" else ((bufs[k],), (v,)))):
+                    dst.copy_(src)
+
+        def segment():
+            corr_fn = model.corr_fn_from(bufs["corr"])
+            carry = {k: bufs[k] for k in ("net", "coords1", "inp", "converged", "exec_iters")}
+            with torch.no_grad(), f32_precision():
+                out = model._advance(carry, self.seg, corr_fn, tol)
+            for k in ("net", "coords1", "converged", "exec_iters"):
+                bufs[k].copy_(out[k])
+            bufs["done"].copy_(out["converged"].all())
+
+        def finalize():
+            flow_lr, flow_up = model.finalize({"net": bufs["net"], "coords1": bufs["coords1"]})
+            return flow_lr, flow_up, bufs["exec_iters"]
+
+        if pool is None:
+            self._encode, self._segment, self._finalize = encode, segment, finalize
+            self.pool_bytes = 0
+            return
+        graphs = []
+        self.pool_bytes = 0
+        for name, fn, fn_args in (("encode", encode, self.static_in), ("segment", segment, ()),
+                                  ("finalize", finalize, ())):
+            graph, out, launches, grown = _capture((*key, name), fn, fn_args, pool, device)
+            graphs.append((graph, launches))
+            self.pool_bytes += grown
+            if name == "finalize":
+                self.static_out = out
+
+        def replayer(graph, launches):
+            def replay(*_):
+                graph.replay()
+                _add_launches(launches)
+            return replay
+
+        self._encode, self._segment, self._finalize = (replayer(*g) for g in graphs)
+
+    def __call__(self, *args):
+        for dst, src in zip(self.static_in, args):
+            dst.copy_(src, non_blocking=True)
+        self._encode(*self.static_in)
+        segments = syncs = 0
+        for s in range(self.n_seg):
+            self._segment()
+            segments += 1
+            if s + 1 == self.n_seg:
+                break
+            syncs += 1
+            if bool(self._bufs["done"].item()):  # one byte to the host: a synchronisation
+                break
+        out = self._finalize()
+        if out is None:
+            out = self.static_out
+        self.last = {"segments": segments, "syncs": syncs, "iters_run": segments * self.seg}
+        self.counters["forwards"] += 1
+        self.counters["segments"] += segments
+        self.counters["syncs"] += syncs
+        return tuple(t.clone() for t in out)
+
+
 class ShapeCachedForward:
     """A bounded LRU of the test-mode forward per key: (padded shape and
-    batch, iterations, warm start, metric kind and pad, precision preset),
-    the JAX package's key without its mesh.
+    batch, iterations, warm start, metric kind and pad, precision preset,
+    early-exit tolerance), the JAX package's key without its mesh, and of
+    the entries callers build (:meth:`custom`).
 
     On a CUDA model an entry is a captured CUDA graph (:class:`_GraphEntry`);
     on a CPU model it is the eager forward, which is the tests' path and
@@ -466,6 +621,11 @@ class ShapeCachedForward:
         self._models: dict = {}
         self._pool = None  # the graphs' shared memory pool, made at the first capture
         self.stats = {"compiles": 0, "hits": 0, "evictions": 0}
+        # Early-exit forwards, the segments they replayed and the flags
+        # they read on the host (one synchronisation each), and the
+        # latest forward's.
+        self.earlyexit = {"forwards": 0, "segments": 0, "syncs": 0}
+        self.last_earlyexit: dict = {}
 
     @property
     def pool_bytes(self) -> dict:
@@ -488,18 +648,24 @@ class ShapeCachedForward:
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, dtype)
 
-    def _run(self, key: tuple, fn: Callable, args: tuple):
+    def _pool_for_capture(self):
+        """The graphs' shared pool on the card (made at the first capture),
+        None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _get(self, key: tuple, build: Callable):
+        """The entry of ``key``, built by ``build()`` on a miss; counts a
+        capture, a hit or an eviction."""
         entry = self._entries.get(key)
         if entry is not None:
             self._entries.move_to_end(key)
             self.stats["hits"] += 1
-            return entry(*args)
-        if self.device.type == "cuda":
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            entry = _GraphEntry(key, fn, args, self._pool)
-        else:
-            entry = _EagerEntry(fn)
+            return entry
+        entry = build()
         self._entries[key] = entry
         self.stats["compiles"] += 1
         if len(self._entries) > self.cache_size:
@@ -508,17 +674,48 @@ class ShapeCachedForward:
             print(f"ShapeCachedForward: evicting {evicted} (LRU bound {self.cache_size}); "
                   "recurring evictions re-pay captures: raise eval_cache_size or bucket "
                   "the pads (eval_pad_bucket)", file=sys.stderr)
-        return entry(*args)
+        return entry
 
-    def forward(self, image1, image2, iters: int, flow_init=None, policy=None):
+    def _graph_or_eager(self, key: tuple, fn: Callable, args: tuple):
+        pool = self._pool_for_capture()
+        return _EagerEntry(fn) if pool is None else _GraphEntry(key, fn, args, pool)
+
+    def _run(self, key: tuple, fn: Callable, args: tuple):
+        return self._get(key, lambda: self._graph_or_eager(key, fn, args))(*args)
+
+    def custom(self, key: tuple, build: Callable, args: tuple):
+        """Run a caller's function through this cache: ``build()`` returns
+        the function, called on ``args`` (tensors on the model's device),
+        captured as a CUDA graph on the card at the key's first use and
+        replayed after, run eagerly on the CPU. The key is namespaced as
+        ``("custom", *key)``; the stream engine's step per batch size is
+        one. Returns the function's result."""
+        full = ("custom",) + tuple(key)
+        return self._get(full, lambda: self._graph_or_eager(full, build(), args))(*args)
+
+    def forward(self, image1, image2, iters: int, flow_init=None, policy=None,
+                early_exit_tol: Optional[float] = None):
         """Test-mode forward of (B, H, W, 3) images (padded to a stride of
         8; numpy or tensors): ``(flow_lr, flow_up)`` on the model's
-        device."""
+        device. With ``early_exit_tol`` the key grows ``("earlyexit",
+        tol)`` and the result is ``(flow_lr, flow_up, exec_iters)``
+        (:class:`_EarlyExitEntry`)."""
         model, pol = self.model_for(policy)
         args = (self._tensor(image1), self._tensor(image2))
         if flow_init is not None:
             args += (self._tensor(flow_init),)
         key = (tuple(args[0].shape), int(iters), flow_init is not None, pol.name)
+        if early_exit_tol is not None:
+            key += (("earlyexit", float(early_exit_tol)),)
+
+            def build():
+                return _EarlyExitEntry(key, model, iters, float(early_exit_tol), args,
+                                       self._pool_for_capture(), self.earlyexit)
+
+            entry = self._get(key, build)
+            out = entry(*args)
+            self.last_earlyexit = entry.last
+            return out
 
         def fn(i1, i2, finit=None):
             return model(i1, i2, iters=iters, flow_init=finit)

@@ -20,7 +20,23 @@ In eval mode, ``apply(test_mode=True)`` with ``flow_init``, under
 ``torch.no_grad``; BatchNorm uses its running statistics. The upsampling
 runs once, after the loop; the convex mask reads only the final GRU
 state, so it is computed there once (the JAX model carries every
-iteration's mask to the same end).
+iteration's mask to the same end). The test-mode options are JAX's:
+
+- warm start: ``net_init`` (B, H/8, W/8, hidden) replaces the context
+  encoder's initial GRU state in the rows where ``net_warm`` is True, by
+  a select, so a cold row is bit for bit a run without carry; ``inp``,
+  the current frame's context, is never carried. ``return_net`` appends
+  the final GRU state (NHWC);
+- early exit: with ``early_exit_tol`` a row whose mean |delta| (f32, in
+  low-res pixels) falls below the tolerance is converged from the next
+  iteration on, and its ``net`` and ``coords1`` are frozen by select; the
+  loop stops once every row has converged. ``return_exec_iters`` appends
+  each row's count of iterations it was active at entry. The convex mask
+  is computed from the final ``net``, so a frozen ``net`` gives the
+  frozen mask and no mask rides the loop;
+- stages: ``encode -> refine_segment x S -> finalize`` equals the
+  forward. All three and the forward run one step body (``_step``), as
+  JAX's ``_make_step``.
 
 In training mode (``model.train()``), ``apply(train=True)``: the stacked
 per-iteration upsampled flow, the upsampling (mask included) run every
@@ -41,8 +57,7 @@ parameters under another preset.
 
 Encoder dropout (``cfg.dropout``) acts in training mode only and draws
 its masks from ``dropout_generator`` (the train step seeds one per step;
-``None`` uses PyTorch's default generator). Segments, early exit and a
-warm-started GRU state are later slices.
+``None`` uses PyTorch's default generator).
 
 The model lives on the card unless the caller passes ``device="cpu"``;
 with no device and no CUDA, construction raises.
@@ -64,6 +79,7 @@ from raft_ncup_tpu_torch.nn.layers import frozen_batch_stats, init_weights
 from raft_ncup_tpu_torch.nn.update import BasicUpdateBlock, SmallUpdateBlock
 from raft_ncup_tpu_torch.nn.upsampler import build_upsampler
 from raft_ncup_tpu_torch.ops.corr import (
+    CorrPyramid,
     build_corr_pyramid,
     corr_lookup,
     corr_lookup_onthefly,
@@ -150,10 +166,10 @@ class RAFT(nn.Module):
 
     # ------------------------------------------------------------ pieces
 
-    def _encode(self, image1, image2, flow_init=None):
-        """Normalize, siamese fnet, context cnet, initial coordinates.
-        Returns NHWC ``fmap1, fmap2``, NCHW ``net, inp`` and NHWC
-        ``coords1``."""
+    def _encode(self, image1, image2, flow_init=None, net_init=None, net_warm=None):
+        """Normalize, siamese fnet, context cnet, the warm-start select and
+        the initial coordinates. Returns NHWC ``fmap1, fmap2``, NCHW ``net,
+        inp`` and NHWC ``coords1``."""
         B, H, W, _ = image1.shape
         if H % 8 or W % 8:
             raise ValueError(
@@ -172,32 +188,53 @@ class RAFT(nn.Module):
         hdim = self.cfg.hidden_dim
         net = torch.tanh(cnet[:, :hdim])
         inp = torch.relu(cnet[:, hdim:])
+        if net_init is not None:
+            # The carried state, in the cold state's memory layout, replaces
+            # it per row by a select, never a blend: a cold row stays bit for
+            # bit the run without carry.
+            carried = torch.empty_like(net).copy_(net_init.permute(0, 3, 1, 2))
+            if net_warm is None:
+                net = carried
+            else:
+                net = torch.where(net_warm.to(torch.bool)[:, None, None, None], carried, net)
         coords1 = coords_grid(B, H // 8, W // 8, device=image1.device)
         if flow_init is not None:
             coords1 = coords1 + flow_init
         return fmap1, fmap2, net, inp, coords1.contiguous()
 
-    def _build_corr_fn(self, fmap1, fmap2) -> Callable[[torch.Tensor], torch.Tensor]:
-        """Correlation-lookup closure over one pair's (B, h, w, C) feature
-        maps, per ``cfg.corr_impl``; maps (B, h, w, 2) coords to
-        (B, h, w, corr_planes)."""
+    def corr_state(self, fmap1, fmap2) -> tuple:
+        """What the correlation lookup reads, built once per pair from the
+        (B, h, w, C) feature maps, per ``cfg.corr_impl``: the pooled
+        correlation pyramid ('volume'), the maps themselves ('onthefly'),
+        or the scaled fmap1 and the pooled fmap2 levels, the kernel's
+        operands ('pallas'). A tuple of tensors, so a caller can keep it
+        in buffers of its own."""
         cfg = self.cfg
-        radius = cfg.resolved_corr_radius
-        levels = cfg.corr_levels
         dtype = self.policy.corr
         if cfg.corr_impl == "volume":
-            pyramid = build_corr_pyramid(fmap1, fmap2, levels, dtype)
-            return lambda coords: corr_lookup(pyramid, coords, radius)
+            return build_corr_pyramid(fmap1, fmap2, cfg.corr_levels, dtype).levels
+        if cfg.corr_impl == "onthefly":
+            return fmap1, fmap2
+        # 'pallas': pooling and the 1/sqrt(C) scale happen once per pair.
+        f1s, f2_levels = prepare_levels(fmap1, fmap2, cfg.corr_levels, dtype)
+        return (f1s, *f2_levels)
+
+    def corr_fn_from(self, state: tuple) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The lookup over a :meth:`corr_state`: maps (B, h, w, 2) coords to
+        (B, h, w, corr_planes); 'pallas' is one kernel launch a call."""
+        cfg = self.cfg
+        radius = cfg.resolved_corr_radius
+        if cfg.corr_impl == "volume":
+            return lambda coords: corr_lookup(CorrPyramid(levels=tuple(state)), coords, radius)
         if cfg.corr_impl == "onthefly":
             return lambda coords: corr_lookup_onthefly(
-                fmap1, fmap2, coords, radius, levels, dtype
+                state[0], state[1], coords, radius, cfg.corr_levels, self.policy.corr
             )
-        # 'pallas': the fused lookup kernel. Pooling and the 1/sqrt(C)
-        # scale happen once per pair; each iteration is one launch.
-        f1s, f2_levels = prepare_levels(fmap1, fmap2, levels, dtype)
-        return lambda coords: lookup_levels(
-            f1s, f2_levels, coords.contiguous(), radius
-        )
+        return lambda coords: lookup_levels(state[0], list(state[1:]), coords.contiguous(), radius)
+
+    def _build_corr_fn(self, fmap1, fmap2) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The correlation-lookup closure over one pair's feature maps."""
+        return self.corr_fn_from(self.corr_state(fmap1, fmap2))
 
     def _upsample(self, flow_lr: torch.Tensor, net: torch.Tensor) -> torch.Tensor:
         """(B, h, w, 2) low-res flow and the NCHW GRU state ``net`` ->
@@ -216,16 +253,56 @@ class RAFT(nn.Module):
         mask = self.update_block.mask_logits(net).to(up)
         return convex_upsample_nchw(flow_lr.permute(0, 3, 1, 2), mask, 8).permute(0, 2, 3, 1)
 
-    def _refine(self, corr_fn, coords0, coords1, net, inp):
-        """One GRU iteration: the lookup, the update block on the flow at
-        the GRU state's dtype, and the delta joined to the f32
-        coordinates. Returns ``(net, coords1)``."""
+    def _step(self, corr_fn, coords0, inp, net, coords1, converged=None, tol=None):
+        """One GRU iteration, the single step body of every loop (test,
+        train, segments): the lookup, the update block on the flow at the
+        GRU state's dtype, and the delta joined to the f32 coordinates.
+        Returns ``(net, coords1, converged)``.
+
+        With ``tol``, ``converged`` is the (B,) mask at step entry: those
+        rows keep their ``net`` and ``coords1`` (a select, so a row that
+        converged after k iterations is bit for bit its state after k),
+        and a row converges when its mean |delta| is below ``tol``. The
+        iteration that detects convergence still commits its update."""
         corr = corr_fn(coords1)
         flow = (coords1 - coords0).to(net.dtype)
-        net, delta = self.update_block(
+        new_net, delta = self.update_block(
             net, inp, corr.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
         )
-        return net, coords1 + delta.permute(0, 2, 3, 1).to(self.policy.coord)
+        delta = delta.permute(0, 2, 3, 1).to(self.policy.coord)
+        new_coords = coords1 + delta
+        if tol is None:
+            return new_net, new_coords, converged
+        keep = converged[:, None, None, None]
+        new_net = torch.where(keep, net, new_net)
+        new_coords = torch.where(keep, coords1, new_coords)
+        dnorm = delta.abs().mean(dim=(1, 2, 3))
+        return new_net, new_coords, converged | (dnorm < tol)
+
+    def _advance(self, carry: dict, iters: int, corr_fn, early_exit_tol=None,
+                 stop_early: bool = False) -> dict:
+        """``iters`` iterations of :meth:`_step` on a segment carry. With a
+        tolerance each row pays an iteration it was active at entry
+        (``exec_iters``), and ``stop_early`` ends the loop once every row
+        has converged (a read on the host)."""
+        net, coords1 = carry["net"], carry["coords1"]
+        B, h8, w8, _ = coords1.shape
+        coords0 = coords_grid(B, h8, w8, device=coords1.device)
+        converged = carry.get("converged")
+        exec_iters = carry.get("exec_iters")
+        for _ in range(int(iters)):
+            if early_exit_tol is not None and stop_early and bool(converged.all()):
+                break
+            frozen = converged
+            net, coords1, converged = self._step(
+                corr_fn, coords0, carry["inp"], net, coords1, converged, early_exit_tol
+            )
+            if early_exit_tol is not None:
+                exec_iters = exec_iters + (~frozen).to(torch.int32)
+        out = dict(carry, net=net, coords1=coords1)
+        if early_exit_tol is not None:
+            out.update(converged=converged, exec_iters=exec_iters)
+        return out
 
     # ----------------------------------------------------------- forward
 
@@ -237,35 +314,48 @@ class RAFT(nn.Module):
         iters: int = 12,
         flow_init: Optional[torch.Tensor] = None,
         remat: bool = True,
+        net_init: Optional[torch.Tensor] = None,
+        net_warm: Optional[torch.Tensor] = None,
+        return_net: bool = False,
+        early_exit_tol: Optional[float] = None,
+        return_exec_iters: bool = False,
     ):
         """In eval mode, the test-mode forward: ``(flow_lr, flow_up)``,
-        (B, H/8, W/8, 2) and (B, H, W, 2) float32, without gradients. In
-        training mode, the train-mode forward: the upsampled flow of every
-        iteration, (iters, B, H, W, 2) float32, each iteration under
-        ``torch.utils.checkpoint`` when ``remat``."""
+        (B, H/8, W/8, 2) and (B, H, W, 2) float32, without gradients, plus
+        the final GRU state (B, H/8, W/8, hidden) with ``return_net`` and
+        the (B,) int32 executed iterations with ``return_exec_iters``
+        (which needs ``early_exit_tol``). In training mode, the train-mode
+        forward: the upsampled flow of every iteration, (iters, B, H, W,
+        2) float32, each iteration under ``torch.utils.checkpoint`` when
+        ``remat``. ``net_init``/``net_warm`` warm-start the GRU in both."""
+        if self.training and (early_exit_tol is not None or return_exec_iters or return_net):
+            raise ValueError("early_exit_tol, return_exec_iters and return_net require "
+                             "test_mode (eval mode)")
+        if return_exec_iters and early_exit_tol is None:
+            raise ValueError("return_exec_iters requires early_exit_tol (without detection "
+                             "every row runs the full budget)")
         if self.training:
-            return self._forward_train(image1, image2, iters, flow_init, remat)
+            return self._forward_train(image1, image2, iters, flow_init, remat,
+                                       net_init, net_warm)
         with torch.no_grad():
-            return self._forward_test(image1, image2, iters, flow_init)
+            carry = self.encode(image1, image2, flow_init, net_init, net_warm,
+                                early_exit=early_exit_tol is not None)
+            corr_fn = self._build_corr_fn(carry["fmap1"], carry["fmap2"])
+            carry = self._advance(carry, iters, corr_fn, early_exit_tol, stop_early=True)
+            result = self.finalize(carry, return_net=return_net)
+            if return_exec_iters:
+                result = result + (carry["exec_iters"],)
+            return result
 
-    def _forward_test(self, image1, image2, iters, flow_init):
-        fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init)
-        corr_fn = self._build_corr_fn(fmap1, fmap2)
-        B, h8, w8, _ = coords1.shape
-        coords0 = coords_grid(B, h8, w8, device=coords1.device)
-        for _ in range(int(iters)):
-            net, coords1 = self._refine(corr_fn, coords0, coords1, net, inp)
-        flow_lr = coords1 - coords0
-        return flow_lr, self._upsample(flow_lr, net).to(self.policy.output)
-
-    def _forward_train(self, image1, image2, iters, flow_init, remat):
-        fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init)
+    def _forward_train(self, image1, image2, iters, flow_init, remat, net_init, net_warm):
+        fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init,
+                                                       net_init, net_warm)
         corr_fn = self._build_corr_fn(fmap1, fmap2)
         B, h8, w8, _ = coords1.shape
         coords0 = coords_grid(B, h8, w8, device=coords1.device)
 
         def step(net, coords1):
-            net, coords1 = self._refine(corr_fn, coords0, coords1.detach(), net, inp)
+            net, coords1, _ = self._step(corr_fn, coords0, inp, net, coords1.detach())
             return net, coords1, self._upsample(coords1 - coords0, net)
 
         preds = []
@@ -279,6 +369,60 @@ class RAFT(nn.Module):
                 net, coords1, flow_up = step(net, coords1)
             preds.append(flow_up)
         return torch.stack(preds)
+
+    # ------------------------------------------------------------ stages
+
+    @f32_precision()
+    @torch.no_grad()
+    def encode(self, image1, image2, flow_init=None, net_init=None, net_warm=None,
+               early_exit: bool = False) -> dict:
+        """The test-mode forward before its first iteration, as a segment
+        carry with JAX's keys: the state an iteration changes (``net``,
+        NCHW, and ``coords1``), the pair's context (``inp``, NCHW, and
+        ``fmap1``/``fmap2``, NHWC), and with ``early_exit`` the (B,)
+        ``converged`` mask (all False) and ``exec_iters`` (zeros)."""
+        fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init,
+                                                       net_init, net_warm)
+        carry = {"net": net, "coords1": coords1, "inp": inp, "fmap1": fmap1, "fmap2": fmap2}
+        if early_exit:
+            B = net.shape[0]
+            carry["converged"] = torch.zeros(B, dtype=torch.bool, device=net.device)
+            carry["exec_iters"] = torch.zeros(B, dtype=torch.int32, device=net.device)
+        return carry
+
+    @f32_precision()
+    @torch.no_grad()
+    def refine_segment(self, carry: dict, iters: int, early_exit_tol=None) -> dict:
+        """Advance a carry by ``iters`` iterations and return the new carry.
+        The lookup is rebuilt from the carry's own feature maps (bit for
+        bit the same pyramid every segment). With ``early_exit_tol`` (a
+        carry from ``encode(..., early_exit=True)``) the freeze acts per
+        iteration, as in the forward, but a row active at the segment's
+        entry pays the whole segment, JAX's rule: ``exec_iters`` is
+        ``ceil(exec / iters) * iters`` of the forward's."""
+        if early_exit_tol is not None and "converged" not in carry:
+            raise ValueError("early_exit_tol requires a carry seeded with "
+                             "encode(..., early_exit=True)")
+        corr_fn = self._build_corr_fn(carry["fmap1"], carry["fmap2"])
+        out = self._advance(carry, iters, corr_fn, early_exit_tol)
+        if early_exit_tol is not None:
+            active = (~carry["converged"]).to(torch.int32)
+            out["exec_iters"] = carry["exec_iters"] + int(iters) * active
+        return out
+
+    @f32_precision()
+    @torch.no_grad()
+    def finalize(self, carry: dict, return_net: bool = False):
+        """Upsample a finished carry: ``(flow_lr, flow_up)``, plus the GRU
+        state (B, H/8, W/8, hidden), NHWC, with ``return_net`` (the warm
+        start's hand-off to the next frame)."""
+        net, coords1 = carry["net"], carry["coords1"]
+        B, h8, w8, _ = coords1.shape
+        flow_lr = coords1 - coords_grid(B, h8, w8, device=coords1.device)
+        flow_up = self._upsample(flow_lr, net).to(self.policy.output)
+        if return_net:
+            return flow_lr, flow_up, net.permute(0, 2, 3, 1)
+        return flow_lr, flow_up
 
 
 def _remat_contexts():

@@ -58,8 +58,10 @@ def grid_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     )
     for tx, ty, w in taps:
         valid = (tx >= 0) & (tx <= W - 1) & (ty >= 0) & (ty <= H - 1)
-        xi = tx.clamp(0, W - 1).long()
-        yi = ty.clamp(0, H - 1).long()
+        # A NaN coordinate (a corrupt frame's row) is invalid; its index is
+        # clamped into the image like any other, as JAX's gather clamps.
+        xi = tx.clamp(0, W - 1).nan_to_num(0.0).long()
+        yi = ty.clamp(0, H - 1).nan_to_num(0.0).long()
         flat_idx = (yi * W + xi).reshape(B, -1, 1).expand(-1, -1, C)
         v = torch.gather(flat_img, 1, flat_idx).reshape(batch_shape + (C,))
         out = out + torch.where(valid, w, torch.zeros_like(w))[..., None] * v

@@ -5,6 +5,7 @@
 from raft_ncup_tpu_torch.precision.policy import (  # noqa: F401
     BF16_INFER,
     BF16_TRAIN,
+    EARLYEXIT_EPE_BUDGET,
     F32,
     FORWARD_EPE_BUDGET,
     PRESET_NAMES,

@@ -39,6 +39,10 @@ _ALLOWED = ("float32", "bfloat16")
 # JAX package's values (``raft_ncup_tpu/precision/policy.py:75-76``).
 FORWARD_EPE_BUDGET = 0.5  # px: test-mode forward / serving
 TRAIN_LOSS_RTOL = 0.15  # relative per-step loss-trajectory tolerance
+# The mean end-point error an early-exit forward may add against its own
+# full-budget twin (same inputs, same weights, no detection), in pixels
+# (``raft_ncup_tpu/precision/policy.py:87``).
+EARLYEXIT_EPE_BUDGET = 0.5  # px: early exit vs the full budget
 
 _F32 = torch.float32
 
@@ -92,6 +96,14 @@ class PrecisionPolicy:
         """Correlation feature dtype: the compute dtype. Under bf16 the
         lookup kernel reads bf16 f1 rows and f2 levels and accumulates in
         f32."""
+        return self.compute
+
+    @property
+    def state(self) -> torch.dtype:
+        """The streaming slot table's recurrent-state dtype (the previous
+        low-res flow and the optional GRU state): the compute dtype, so the
+        bf16 presets halve the table. The stream step upcasts to ``coord``
+        before the warm-start splat."""
         return self.compute
 
     @property

@@ -15,10 +15,13 @@ training kinds:
 - ``sigterm@S``: a real SIGTERM reaches the trainer right after it
   completes ``S`` attempted steps, so it must save and exit 75.
 
-The serving (``burst``, ``poison``), streaming (``corruptframe``,
-``abandon``) and fleet kinds (``killreplica``, ``stallreplica``,
-``drainreplica``, ``partitionhost``, ``killsupervisor``) are parsed and
-not acted on until the port's serving tiers read them.
+The serve entry acts on the serving kinds (``burst``, ``poison``,
+``sigterm``: ``serving/traffic.py``) and the streaming kinds
+(``corruptframe``, ``abandon``, ``burst``, ``sigterm``:
+``streaming/traffic.py``). The fleet kinds (``killreplica``,
+``stallreplica``, ``drainreplica``, ``partitionhost``,
+``killsupervisor``) are parsed and not acted on until the port has fleet
+replicas (ROADMAP.md, queue 1 item 7).
 """
 
 from __future__ import annotations

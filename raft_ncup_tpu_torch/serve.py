@@ -1,26 +1,51 @@
 """Serve a RAFT model: ``python -m raft_ncup_tpu_torch.serve``.
 
-Port of the plain (non-stream, non-replica) branch of the root
-``serve.py``: build the model, wrap it in a :class:`FlowServer`, warm it
-up, submit ``--num_requests`` frame pairs, drain, and print one JSON
-report line. The model comes from the JAX CLI's flags ``--model``,
-``--small``, ``--align_corners`` and ``--upsampler_bi``; by default it is
-the flagship ``raft_nc_dbl`` with NCUP (the JAX CLI defaults to
-``raft``). It runs both hand-written kernels (``corr_impl="pallas"``,
-``nconv_impl="pallas"``), with random weights drawn from
-``--seed``. Request pairs come from a numpy generator seeded by
-``--seed``. ``--precision`` (or ``--mixed_precision``) sets the model's
-preset, f32 by default; ``--serve_precision`` runs the server's forwards
-under another preset with the same weights.
+Port of the root ``serve.py``'s plain branch and its ``--stream`` branch.
+The plain branch builds the model, wraps it in a :class:`FlowServer`,
+warms it up, replays ``--num_requests`` synthetic requests at
+``--interval_ms`` (``serving.SyntheticTraffic``), drains, and prints one
+JSON report line. ``--stream`` stands up a
+:class:`raft_ncup_tpu_torch.streaming.StreamEngine` instead, captures its
+step per batch size, and replays ``--n_streams`` concurrent streams of
+``--frames_per_stream`` frames (``streaming.StreamTraffic``).
 
-Every forward runs through the server's per-shape CUDA graphs
+The model comes from the JAX CLI's model flags. ``--model`` defaults to
+``raft``, as in the JAX CLI; the flagship is ``--model raft_nc_dbl``
+(NCUP). Both hand-written kernels run (``corr_impl="pallas"``,
+``nconv_impl="pallas"``). The weights come from ``--restore_ckpt`` (a
+port ``step_<N>.pt`` or run directory, or a reference ``.pth``) or are
+drawn from ``--seed``. ``--precision`` (or ``--mixed_precision``) sets the
+model's preset; ``--serve_precision`` and ``--stream_precision`` run the
+server's or the engine's forwards under another preset with the same
+weights. Early exit is on when ``RAFT_TORCH_EARLYEXIT=1`` (tolerance
+``RAFT_TORCH_EARLYEXIT_TOL``, default 0.05).
+
+Chaos (``--chaos``, comma-joined): ``burst@N``, ``poison@N`` and
+``sigterm@N`` for the server; ``corruptframe@N``, ``abandon@N``,
+``burst@N`` and ``sigterm@N`` with ``--stream``. SIGTERM or SIGINT stops
+the submissions, everything admitted is answered, and the process exits
+75 (``EXIT_PREEMPTED``); otherwise it exits 0, or 1 when a request got an
+``error``.
+
+Every forward runs through per-shape CUDA graphs
 (``inference/pipeline.ShapeCachedForward``), captured at warm-up; the
-report line carries the cache's ``executables`` stats (captures, hits,
-evictions) and ``graph_pool_bytes``, as the JAX entry's report carries its
-executables.
+report carries the cache's ``executables`` (captures, hits, evictions),
+the graphs' pool bytes and the kernels' launches after warm-up.
+
+Left out, each refused with its ROADMAP.md item (queue 1): telemetry,
+SLOs and the flight recorder (``--report``, ``--telemetry_jsonl``,
+``--healthz_file``, ``--flight_dir``: item 8), fleet replicas
+(``--replica_socket``: item 7) and the mesh (``--mesh``: item 9).
 
 It runs on the card unless ``--device cpu`` is given; with no CUDA and
 no ``--device`` it raises.
+
+Examples::
+
+    python -m raft_ncup_tpu_torch.serve --device cpu --size 32 48 --num_requests 4 \\
+        --iter_levels 2,1 --serve_batch_sizes 1,2 --small
+    python -m raft_ncup_tpu_torch.serve --model raft_nc_dbl --size 436 1024 --stream \\
+        --n_streams 4 --frames_per_stream 8 --stream_iters 12 --chaos corruptframe@4
 """
 
 from __future__ import annotations
@@ -33,38 +58,60 @@ import time
 import numpy as np
 import torch
 
-from raft_ncup_tpu_torch.cli import add_model_args, model_config_from_args
-from raft_ncup_tpu_torch.config import ServeConfig
+from raft_ncup_tpu_torch.cli import (
+    add_model_args,
+    add_serve_args,
+    add_stream_args,
+    model_config_from_args,
+    serve_config_from_args,
+    stream_config_from_args,
+)
+from raft_ncup_tpu_torch.evaluate import load_model
 from raft_ncup_tpu_torch.models.raft import RAFT
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
-from raft_ncup_tpu_torch.precision import PRESET_NAMES
-from raft_ncup_tpu_torch.serving import FlowServer, nearest_rank_ms
+from raft_ncup_tpu_torch.resilience import EXIT_PREEMPTED, ChaosSpec, PreemptionHandler
+from raft_ncup_tpu_torch.serving import FlowServer, SyntheticTraffic, nearest_rank_ms, replay
+from raft_ncup_tpu_torch.streaming import StreamEngine, StreamTraffic, replay_streams
 
-
-def _ints(s: str) -> tuple[int, ...]:
-    return tuple(int(x) for x in s.split(",") if x.strip())
+# The root entry's flags of slices the port does not have yet, and the
+# ROADMAP.md (queue 1) item that brings each.
+_LATER = {"report": 8, "telemetry_jsonl": 8, "healthz_file": 8, "flight_dir": 8,
+          "replica_socket": 7, "mesh": 9}
 
 
 def build_parser() -> argparse.ArgumentParser:
-    d = ServeConfig()
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--restore_ckpt", default=None,
+                   help="a port step_<N>.pt or run directory, or a reference .pth "
+                   "(default: weights drawn from --seed)")
+    p.add_argument("--num_requests", type=int, default=32)
+    p.add_argument("--interval_ms", type=float, default=0.0,
+                   help="steady gap between arrivals (0: as fast as the submitter goes)")
     p.add_argument("--size", type=int, nargs=2, default=[96, 128],
                    metavar=("H", "W"), help="request frame size")
-    p.add_argument("--num_requests", type=int, default=32)
-    p.add_argument("--iter_levels", type=_ints, default=d.iter_levels,
-                   help="anytime GRU iteration levels, descending (e.g. 24,16,8)")
-    p.add_argument("--serve_batch_sizes", type=_ints, default=d.batch_sizes,
-                   help="allowed micro-batch sizes, ascending (e.g. 1,2,4)")
-    p.add_argument("--queue_capacity", type=int, default=d.queue_capacity,
-                   help="bounded admission queue; a full queue sheds")
+    p.add_argument("--burst_size", type=int, default=8,
+                   help="requests (or streams) per burst@N chaos event")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the model weights and of the request pairs")
-    p.add_argument("--serve_precision", default=d.precision, choices=list(PRESET_NAMES),
-                   help="precision preset the server's forwards run under "
-                   "(default: the model's own, from --precision)")
+                   help="seed of the model weights and of the synthetic traffic")
+    p.add_argument("--style", default="smooth", choices=["smooth", "rigid"],
+                   help="synthetic traffic content")
+    p.add_argument("--chaos", default=None,
+                   help="deterministic faults: burst@N, poison@N, sigterm@N (serving) or "
+                   "corruptframe@N, abandon@N, burst@N, sigterm@N (--stream)")
+    p.add_argument("--stream", action="store_true",
+                   help="drive the streaming video engine instead of the request server")
+    p.add_argument("--n_streams", type=int, default=4,
+                   help="[--stream] concurrent synthetic streams")
+    p.add_argument("--frames_per_stream", type=int, default=8,
+                   help="[--stream] frames submitted per stream")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
+    for flag, item in _LATER.items():
+        p.add_argument(f"--{flag}", nargs="*", default=None,
+                       help=f"not in the port yet (ROADMAP.md, queue 1 item {item})")
+    add_serve_args(p)
+    add_stream_args(p)
     add_model_args(p)
     return p
 
@@ -84,17 +131,24 @@ def make_pairs(size_hw, n: int, seed: int) -> list[tuple[np.ndarray, np.ndarray]
     return pairs
 
 
-def serve_pairs(model: RAFT, cfg: ServeConfig, pairs, size_hw) -> tuple[dict, list]:
-    """Warm a :class:`FlowServer` up for ``size_hw``, submit every pair,
-    drain, and return ``(report, responses)``. The report counts the
-    kernel launches made while serving (after the warm-up)."""
+def _launches() -> tuple:
+    return lookup_levels.launches, nconv2d_fused.launches
+
+
+def serve_traffic(model: RAFT, cfg, traffic, size_hw, *, preempt=None,
+                  sigterm_after=None) -> tuple[dict, list, bool]:
+    """Warm a :class:`FlowServer` up for ``size_hw``, replay ``traffic``
+    (``(due_s, image1, image2)`` items), drain, and return ``(report,
+    responses, interrupted)``. The report counts the kernel launches made
+    while serving (after the warm-up)."""
     server = FlowServer(model, cfg)
     t0 = time.monotonic()
     warmed = server.warmup(size_hw)
     warmup_s = time.monotonic() - t0
-    launches0 = (lookup_levels.launches, nconv2d_fused.launches)
+    launches0 = _launches()
     t0 = time.monotonic()
-    handles = [server.submit(a, b) for a, b in pairs]
+    handles, interrupted = replay(server, traffic, preempt=preempt,
+                                  sigterm_after=sigterm_after)
     stats = server.drain()
     wall = time.monotonic() - t0
     responses = [h.result(timeout=60.0) for h in handles]
@@ -106,8 +160,10 @@ def serve_pairs(model: RAFT, cfg: ServeConfig, pairs, size_hw) -> tuple[dict, li
         "serve_pairs_per_sec": stats.completed / wall if wall > 0 else None,
         "serve_p50_ms": nearest_rank_ms(lat, 0.50),
         "serve_p99_ms": nearest_rank_ms(lat, 0.99),
+        "interrupted": interrupted,
         "warmup_configs": warmed,
         "warmup_s": warmup_s,
+        "accepted": stats.accepted,
         "completed": stats.completed,
         "serve_batches": stats.batches,
         "shed": stats.shed,
@@ -118,28 +174,106 @@ def serve_pairs(model: RAFT, cfg: ServeConfig, pairs, size_hw) -> tuple[dict, li
         "nconv_kernel_launches": nconv2d_fused.launches - launches0[1],
         **server.report(),
     }
+    return report, responses, interrupted
+
+
+def serve_pairs(model: RAFT, cfg, pairs, size_hw) -> tuple[dict, list]:
+    """:func:`serve_traffic` of ``pairs``, all due at once: ``(report,
+    responses)``."""
+    report, responses, _ = serve_traffic(model, cfg, [(0.0, a, b) for a, b in pairs], size_hw)
     return report, responses
 
 
-def main(argv=None) -> int:
+def stream_traffic(model: RAFT, cfg, traffic, *, preempt=None,
+                   sigterm_after=None) -> tuple[dict, list, bool, StreamEngine]:
+    """Stand up a :class:`StreamEngine`, capture its steps, replay
+    ``traffic`` (``(due_s, stream_id, frame_index, image1, image2)``
+    items), drain, and return ``(report, responses, interrupted,
+    engine)``. The report counts the kernel launches made while streaming
+    (after the warm-up)."""
+    engine = StreamEngine(model, cfg)
+    t0 = time.monotonic()
+    warmed = engine.warmup()
+    warmup_s = time.monotonic() - t0
+    launches0 = _launches()
+    t0 = time.monotonic()
+    handles, interrupted = replay_streams(engine, traffic, preempt=preempt,
+                                          sigterm_after=sigterm_after)
+    stats = engine.drain()
+    wall = time.monotonic() - t0
+    responses = [h.result(timeout=60.0) for h in handles]
+    lat = [r.latency_s for r in responses if r.ok and r.latency_s is not None]
+    report = {
+        "stream_frames": len(handles),
+        "stream_ok": len(lat),
+        "stream_wall_s": wall,
+        "stream_frames_per_sec": stats.completed / wall if wall > 0 else None,
+        "stream_p50_ms": nearest_rank_ms(lat, 0.50),
+        "stream_p99_ms": nearest_rank_ms(lat, 0.99),
+        "interrupted": interrupted,
+        "warmup_steps": warmed,
+        "warmup_s": warmup_s,
+        "accepted": stats.accepted,
+        "completed": stats.completed,
+        "resets": stats.resets,
+        "shed_streams": stats.shed_streams,
+        "shed_frames": stats.shed_frames,
+        "errors": stats.errors,
+        "stream_batches": stats.batches,
+        "corr_kernel_launches": lookup_levels.launches - launches0[0],
+        "nconv_kernel_launches": nconv2d_fused.launches - launches0[1],
+        **engine.report(),
+    }
+    return report, responses, interrupted, engine
+
+
+def run(argv=None) -> tuple[int, dict, list, RAFT]:
+    """Parse ``argv`` and serve: ``(exit code, report, responses,
+    model)``; :func:`main` prints the report."""
     args = build_parser().parse_args(argv)
-    cfg = ServeConfig(
-        queue_capacity=args.queue_capacity,
-        batch_sizes=args.serve_batch_sizes,
-        iter_levels=args.iter_levels,
-        precision=args.serve_precision,
-    )
-    model = RAFT(
-        model_config_from_args(args, dataset="sintel"), device=args.device, seed=args.seed,
-    )
+    later = [f"--{k} (ROADMAP.md, queue 1 item {n})" for k, n in _LATER.items()
+             if getattr(args, k) is not None]
+    if later:
+        raise ValueError(f"not in the port yet: {', '.join(later)}")
+    model = load_model(model_config_from_args(args, dataset="sintel"), args.restore_ckpt,
+                       args.device, args.seed)
     size_hw = (args.size[0], args.size[1])
-    pairs = make_pairs(size_hw, args.num_requests, args.seed)
-    report, _ = serve_pairs(model, cfg, pairs, size_hw)
+    chaos = ChaosSpec.parse(args.chaos)
+    if chaos.active:
+        print(f"chaos: {chaos.render()}", file=sys.stderr)
+    # The schedule is made before the clock starts: the rates measure the
+    # server or the engine, not the synthetic frame generator.
+    with PreemptionHandler() as preempt:
+        if args.stream:
+            traffic = list(StreamTraffic(size_hw, args.n_streams, args.frames_per_stream,
+                                         seed=args.seed, interval_s=args.interval_ms / 1000.0,
+                                         burst_size=args.burst_size, chaos=chaos,
+                                         style=args.style))
+            report, responses, interrupted, _ = stream_traffic(
+                model, stream_config_from_args(args, size_hw), traffic, preempt=preempt,
+                sigterm_after=chaos.sigterm_after)
+        else:
+            traffic = list(SyntheticTraffic(size_hw, args.num_requests, seed=args.seed,
+                                            interval_s=args.interval_ms / 1000.0,
+                                            burst_size=args.burst_size, chaos=chaos,
+                                            style=args.style))
+            report, responses, interrupted = serve_traffic(
+                model, serve_config_from_args(args), traffic, size_hw, preempt=preempt,
+                sigterm_after=chaos.sigterm_after)
     report.update(variant=model.cfg.variant, small=model.cfg.small)
     if model.device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(model.device)
+    if interrupted:
+        print("serve: drained after a signal; every admitted request was answered; "
+              f"exiting {EXIT_PREEMPTED}", file=sys.stderr)
+        return EXIT_PREEMPTED, report, responses, model
+    return (0 if report["errors"] == 0 else 1), report, responses, model
+
+
+def main(argv=None) -> int:
+    rc, report, _, _ = run(argv)
     print(json.dumps(report), flush=True)
-    return 0 if report["errors"] == 0 else 1
+    return rc
 
 
 if __name__ == "__main__":

@@ -1,26 +1,25 @@
 """Bounded admission queue with load shedding (port of
-``raft_ncup_tpu/serving/admission.py``, without the telemetry gauge and
-the streaming engine's distinct-key rule).
+``raft_ncup_tpu/serving/admission.py``, without the telemetry gauge).
 
 With open-loop arrivals an unbounded queue turns overload into unbounded
 latency; a bounded queue turns it into a fast ``shed`` with a retry hint
 for the marginal request while the admitted ones keep their latency.
 ``offer`` never blocks; ``pop_batch`` blocks for the first request, then
 pops FIFO-adjacent requests sharing its shape key, never reordering
-across shapes.
+across shapes; the stream engine's rule (``distinct_fn``) takes at most
+one frame of a stream into a batch.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import List, Optional
-
-from raft_ncup_tpu_torch.serving.request import FlowRequest
+from typing import Callable, List, Optional
 
 
 class AdmissionQueue:
-    """Thread-safe bounded FIFO of admitted :class:`FlowRequest`."""
+    """Thread-safe bounded FIFO of admitted requests (``FlowRequest`` or
+    the stream engine's ``FrameRequest``)."""
 
     def __init__(self, capacity: int):
         self.capacity = max(1, int(capacity))
@@ -38,7 +37,7 @@ class AdmissionQueue:
         with self._cond:
             return self._closed
 
-    def offer(self, request: FlowRequest) -> bool:
+    def offer(self, request) -> bool:
         """Admit ``request`` (True) or refuse it at once when full or
         closed (False)."""
         with self._cond:
@@ -62,11 +61,20 @@ class AdmissionQueue:
             self._cond.notify_all()
 
     def pop_batch(
-        self, max_n: int, timeout: Optional[float] = None
-    ) -> List[FlowRequest]:
+        self,
+        max_n: int,
+        timeout: Optional[float] = None,
+        distinct_fn: Optional[Callable] = None,
+    ) -> List:
         """Pop the head plus up to ``max_n - 1`` FIFO-adjacent requests
         with the same ``shape_key``. Returns ``[]`` on timeout or when
-        closed and empty."""
+        closed and empty.
+
+        ``distinct_fn``: at most one popped request per value. A second
+        frame of a stream must read the state its predecessor writes, so
+        a duplicate is skipped in place (it keeps its position and its
+        stream's order) and the scan goes on to later requests of the same
+        key; it still stops at the first request of another key."""
         with self._cond:
             while self._paused or not self._q:
                 if self._closed and not self._q:
@@ -75,9 +83,24 @@ class AdmissionQueue:
                     return []
             head = self._q.popleft()
             batch = [head]
-            while (
-                self._q and len(batch) < max_n
-                and self._q[0].shape_key == head.shape_key
-            ):
-                batch.append(self._q.popleft())
+            if distinct_fn is None:
+                while (
+                    self._q and len(batch) < max_n
+                    and self._q[0].shape_key == head.shape_key
+                ):
+                    batch.append(self._q.popleft())
+                return batch
+            seen = {distinct_fn(head)}
+            i = 0
+            while i < len(self._q) and len(batch) < max_n:
+                req = self._q[i]
+                if req.shape_key != head.shape_key:
+                    break  # never reorder across shape keys
+                d = distinct_fn(req)
+                if d in seen:
+                    i += 1  # same stream: keeps its position and order
+                    continue
+                del self._q[i]
+                batch.append(req)
+                seen.add(d)
             return batch

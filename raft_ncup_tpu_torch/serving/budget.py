@@ -1,6 +1,6 @@
 """Load-adaptive anytime iteration budget with hysteresis (port of
-``raft_ncup_tpu/serving/budget.py``, without pipeline segments, the SLO
-input and the early-exit cost model, which land with later slices).
+``raft_ncup_tpu/serving/budget.py``, without the SLO input, which lands
+with telemetry: ROADMAP.md, queue 1 item 8).
 
 RAFT refines flow iteratively, and stopping early gives a coarser but
 valid field, so the iteration count is a latency/quality knob the server
@@ -8,11 +8,21 @@ turns under load. The level set is small and fixed (descending).
 Degrading is immediate (occupancy >= ``high_water`` moves one level
 down); recovering needs ``recover_patience`` consecutive decisions at or
 below ``low_water``, so a load sitting on a threshold does not flap.
+
+Early exit feeds the controller each batch's mean executed iterations
+(:meth:`IterationBudgetController.note_executed`); their EWMA is its model
+of what a request costs, and :meth:`decide` scales occupancy by it. An
+unfed controller is the worst-case controller. With ``segments`` > 1
+every level must fall on a segment boundary
+(``inference/pipe_schedule.validate_segment_levels``), checked at
+construction.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
+
+from raft_ncup_tpu_torch.inference.pipe_schedule import validate_segment_levels
 
 
 class IterationBudgetController:
@@ -25,6 +35,7 @@ class IterationBudgetController:
         high_water: float = 0.75,
         low_water: float = 0.25,
         recover_patience: int = 4,
+        segments: int = 1,
     ):
         levels = tuple(int(x) for x in levels)
         if not levels or any(x <= 0 for x in levels):
@@ -33,6 +44,8 @@ class IterationBudgetController:
             raise ValueError(
                 f"iteration levels must be strictly descending: {levels!r}"
             )
+        validate_segment_levels(levels, segments)
+        self.segments = int(segments)
         if not 0.0 <= low_water < high_water <= 1.0:
             raise ValueError(
                 f"want 0 <= low_water < high_water <= 1, got "
@@ -48,6 +61,10 @@ class IterationBudgetController:
         self.drops = 0
         self.recoveries = 0
         self.decisions: List[int] = [0] * len(levels)
+        # Executed-iterations EWMA (early exit); None until the first
+        # observation, when the controller assumes the top level.
+        self._exec_ewma: Optional[float] = None
+        self.exec_alpha = 0.25
 
     @property
     def level(self) -> int:
@@ -58,10 +75,35 @@ class IterationBudgetController:
         """Current budget without making a decision."""
         return self.levels[self._level]
 
+    def note_executed(self, executed_iters: float) -> None:
+        """Feed one batch's mean executed iteration count, clamped into
+        [1, levels[0]] so a bogus observation cannot corrupt the scale."""
+        x = min(float(self.levels[0]), max(1.0, float(executed_iters)))
+        if self._exec_ewma is None:
+            self._exec_ewma = x
+        else:
+            a = self.exec_alpha
+            self._exec_ewma = a * x + (1.0 - a) * self._exec_ewma
+
+    @property
+    def expected_iters(self) -> float:
+        """The per-request cost model: the executed-iterations EWMA, or
+        the top level before any observation."""
+        if self._exec_ewma is None:
+            return float(self.levels[0])
+        return self._exec_ewma
+
+    def expected_scale(self) -> float:
+        """The share of the top level a request is expected to cost (1.0
+        unfed): a queue of requests that exit after half their budget is
+        half the work its depth says."""
+        return min(1.0, self.expected_iters / float(self.levels[0]))
+
     def decide(self, queue_depth: int) -> int:
         """Observe ``queue_depth``, maybe move one level, and return the
-        iteration budget for the batch being assembled."""
-        occ = min(1.0, max(0, int(queue_depth)) / self.capacity)
+        iteration budget for the batch being assembled. Occupancy is the
+        depth's share of the capacity scaled by :meth:`expected_scale`."""
+        occ = min(1.0, (max(0, int(queue_depth)) / self.capacity) * self.expected_scale())
         if occ >= self.high_water:
             self._calm = 0
             if self._level < len(self.levels) - 1:
@@ -83,5 +125,6 @@ class IterationBudgetController:
         per = " ".join(f"{it}it={n}" for it, n in zip(self.levels, self.decisions))
         return (
             f"budget: level={self._level} ({self.iters} iters) "
+            f"expected={self.expected_iters:.1f} "
             f"drops={self.drops} recoveries={self.recoveries} [{per}]"
         )

@@ -22,8 +22,18 @@ Data path (one dispatcher thread; clients submit from their own threads):
 
 The dispatcher waits for the batch's result (the copy to the host) and
 completes its handles itself: the JAX package's dispatch throttle and
-asynchronous drain worker have no counterpart here. Telemetry, meshes
-and early exit land with later slices.
+asynchronous drain worker have no counterpart here. Telemetry and meshes
+land with later slices (ROADMAP.md, queue 1 items 8 and 9).
+
+**Early exit** (``RAFT_TORCH_EARLYEXIT=1``, tolerance
+``RAFT_TORCH_EARLYEXIT_TOL``, read once at construction by
+``inference.pipeline.env_earlyexit_tol``): each batch runs the early-exit
+forward of its dispatched level, a response's ``iters`` is that level,
+and the batch's mean executed iterations over its live rows (the zero pad
+rows converge at once) feed ``budget.note_executed``. ``warmup`` captures
+the early-exit entries then, so no request pays a capture. The report's
+``earlyexit`` counts the forwards, the segments they replayed and the
+flags they read on the host.
 
 **Precision**: ``ServeConfig.precision`` names the preset the server's
 forwards run under; ``None`` inherits the model's own. Another preset runs
@@ -49,7 +59,7 @@ import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.config import ServeConfig
-from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward, env_earlyexit_tol
 from raft_ncup_tpu_torch.ops.padding import InputPadder
 from raft_ncup_tpu_torch.serving.admission import AdmissionQueue
 from raft_ncup_tpu_torch.serving.budget import IterationBudgetController
@@ -88,6 +98,7 @@ class FlowServer:
                                        policy=self.cfg.precision)
         self.policy = self._fwd.policy
         self.device = model.device
+        self._earlyexit_tol = env_earlyexit_tol()
         self._clock = clock
         self.stats = ServeStats()
         self._queue = AdmissionQueue(self.cfg.queue_capacity)
@@ -251,8 +262,10 @@ class FlowServer:
         rows2 += [zeros] * pad_rows
         self.stats.note_batch(pad_rows)
         t_dispatch = self._clock()
-        host_flow = self._forward(np.stack(rows1), np.stack(rows2), iters)
+        host_flow, host_exec = self._forward(np.stack(rows1), np.stack(rows2), iters)
         done = self._clock()
+        if host_exec is not None:
+            self.budget.note_executed(float(host_exec[: len(live)].mean()))
         for k, req in enumerate(live):
             (t, b), (le, r) = req.pad_spec
             hh, ww = host_flow.shape[1], host_flow.shape[2]
@@ -266,11 +279,18 @@ class FlowServer:
         # hint (measuring from submit would count the queue wait twice).
         self._note_service((done - t_dispatch) / len(live))
 
-    def _forward(self, img1: np.ndarray, img2: np.ndarray, iters: int) -> np.ndarray:
-        """One test-mode forward through the cached forward; returns the
-        (B, H, W, 2) full-resolution flow on the host."""
-        _, flow_up = self._fwd.forward(torch.from_numpy(img1), torch.from_numpy(img2), iters)
-        return flow_up.cpu().numpy()
+    def _forward(self, img1: np.ndarray, img2: np.ndarray, iters: int) -> tuple:
+        """One test-mode forward through the cached forward, the early-exit
+        one when detection is on; returns the (B, H, W, 2) full-resolution
+        flow on the host and the (B,) executed iterations (None without
+        detection)."""
+        i1, i2 = torch.from_numpy(img1), torch.from_numpy(img2)
+        if self._earlyexit_tol is None:
+            _, flow_up = self._fwd.forward(i1, i2, iters)
+            return flow_up.cpu().numpy(), None
+        _, flow_up, exec_iters = self._fwd.forward(i1, i2, iters,
+                                                   early_exit_tol=self._earlyexit_tol)
+        return flow_up.cpu().numpy(), exec_iters.cpu().numpy()
 
     def _poison_error(self, req: FlowRequest) -> Optional[str]:
         for name, img in (("image1", req.image1), ("image2", req.image2)):
@@ -309,8 +329,8 @@ class FlowServer:
         """Capture every (batch size, iteration level) the dispatcher may
         use, at the padded shape of ``size_hw``, so no request pays a
         first-use cost (kernel build, cuDNN's autotuning, which the cache
-        runs at each capture, the capture itself). Returns the number of
-        forwards captured."""
+        runs at each capture, the capture itself); with early exit on,
+        the early-exit entries. Returns the number of entries captured."""
         h, w = (int(v) for v in size_hw)
         padder = InputPadder((h, w, 3), mode="sintel", bucket=self.cfg.pad_bucket)
         (t, b), (le, r) = padder.pad_spec
@@ -356,8 +376,11 @@ class FlowServer:
             "budget_recoveries": self.budget.recoveries,
             "device": str(self.device),
             "precision": self.policy.name,
+            "budget_expected_iters": round(self.budget.expected_iters, 3),
             "executables": dict(self._fwd.stats),
             "graph_pool_bytes": sum(self._fwd.pool_bytes.values()),
+            "earlyexit_tol": self._earlyexit_tol,
+            "earlyexit": dict(self._fwd.earlyexit),
         }
 
     def __enter__(self) -> "FlowServer":

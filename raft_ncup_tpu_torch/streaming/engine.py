@@ -1,0 +1,535 @@
+"""The multi-stream video engine: warm start on the card over a slot table
+of fixed capacity, with per-stream fault isolation (port of
+``raft_ncup_tpu/streaming/engine.py``, without telemetry, health and the
+mesh: ROADMAP.md, queue 1 items 8 and 9).
+
+Data path (one dispatcher thread; clients submit from their own threads):
+
+1. **stream admission** (in ``submit``): an unknown ``stream_id`` claims
+   the lowest free slot; a full table first evicts idle-expired streams,
+   then sheds with ``retry_after_s``, the time until the soonest slot is
+   reclaimable. A stream without a slot cannot make progress, so stream
+   overload sheds instead of queueing.
+2. **frame admission**: shape and dtype checks (the padded shape must be
+   the slot table's), frame indices strictly increasing per stream, the
+   staleness rule (an index gap above ``max_frame_gap`` makes the frame
+   cold), then a non-blocking ``AdmissionQueue.offer``.
+3. **assemble**: ``pop_batch(..., distinct_fn=stream)`` pops a FIFO run
+   of frames of distinct streams (two frames of one stream are chained
+   through the slot table, never batched) and pads with zero rows up to
+   the nearest batch size; pad rows target the scratch slot.
+4. **step** (one CUDA graph per batch size, through
+   ``ShapeCachedForward.custom``): gather each row's previous state by
+   slot index, upcast it to the f32 coordinate dtype and splat it
+   (``ops/warmstart.forward_interpolate_batch``, free of host
+   synchronisation) where the row is warm, run the forward with that
+   ``flow_init`` (and ``net_init``/``net_warm`` under ``carry_net``),
+   flag each row whose low-res flow is not finite or exceeds
+   ``anomaly_max_flow``, and write the new state back in place
+   (``index_copy_``), a flagged row reset to cold. The slot table is
+   allocated at construction, before any capture and outside the graphs'
+   pool, and the graphs read and write it by address.
+5. **deliver** (the dispatcher waits for the batch's copy to the host): a
+   flagged row answers ``rejected`` (its stream just went cold), the
+   others ``ok`` with the flow cropped to their native shape.
+
+Isolation: a corrupt frame affects one batch row and one slot. Its
+batch-mates' flows are bit for bit those of a run without it (test-mode
+rows are independent, and every mask is a select), and its stream's next
+frame is a cold start. Kernel A clamps a NaN query's window into its
+level and a tile's box and path rule never span batch rows
+(``csrc/corr_lookup.cu``), so a NaN row cannot change a batch-mate's
+lookup. Eviction and slot reuse touch no device memory, so the engine's
+graphs are exactly ``len(batch_sizes)``, all captured at ``warmup`` (or,
+without it, at a batch size's first use), and always on scratch-slot,
+all-cold rows: a capture's eager run writes the slot table.
+
+Drain: ``drain()`` stops stream and frame admission, answers every
+admitted frame through compute, stops the dispatcher and returns the
+stats (the serve entry's ``--stream`` wires it to SIGTERM: exit 75).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import traceback
+from dataclasses import dataclass, field
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_ncup_tpu_torch.config import StreamConfig
+from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+from raft_ncup_tpu_torch.ops.padding import InputPadder
+from raft_ncup_tpu_torch.ops.warmstart import forward_interpolate_batch
+from raft_ncup_tpu_torch.serving.admission import AdmissionQueue
+from raft_ncup_tpu_torch.serving.request import (
+    STATUS_ERROR,
+    STATUS_OK,
+    STATUS_REJECTED,
+    STATUS_SHED,
+    FlowResponse,
+    ServeHandle,
+)
+from raft_ncup_tpu_torch.streaming.slots import SlotRegistry, init_slot_table
+
+_POLL_S = 0.05  # dispatcher wake cadence while the queue is idle
+
+
+@dataclass
+class FrameRequest:
+    """One admitted frame of one stream, queued for dispatch."""
+
+    request_id: int
+    stream_id: str
+    slot: int
+    frame_index: int
+    image1: np.ndarray
+    image2: np.ndarray
+    cold: bool  # forced cold start (first frame, or a gap above max_frame_gap)
+    submit_time: float
+    pad_spec: tuple
+    shape_key: Tuple[int, int]  # padded (H, W): the queue's batching key
+
+
+@dataclass(eq=False)
+class StreamStats:
+    """Counts of one run; clients, the dispatcher and ``drain`` write them
+    through :meth:`note`."""
+
+    submitted: int = 0
+    accepted: int = 0
+    completed: int = 0
+    shed_streams: int = 0  # stream admission refused (table full)
+    shed_frames: int = 0  # frame admission refused (queue full, draining)
+    rejected: int = 0  # malformed frames (admission checks)
+    resets: int = 0  # anomaly resets delivered
+    errors: int = 0
+    batches: int = 0
+    padded_rows: int = 0
+    streams_opened: int = 0
+    streams_closed: int = 0
+    streams_evicted: int = 0
+    cold_starts: int = 0  # frames admitted cold (first frame, gap)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def note(self, field_name: str, delta: int = 1) -> None:
+        with self._lock:
+            setattr(self, field_name, getattr(self, field_name) + delta)
+
+    def summary(self) -> str:
+        return (
+            f"submitted={self.submitted} accepted={self.accepted} "
+            f"completed={self.completed} shed_streams={self.shed_streams} "
+            f"shed_frames={self.shed_frames} rejected={self.rejected} "
+            f"resets={self.resets} errors={self.errors} "
+            f"batches={self.batches} padded_rows={self.padded_rows} "
+            f"opened={self.streams_opened} closed={self.streams_closed} "
+            f"evicted={self.streams_evicted} cold_starts={self.cold_starts}"
+        )
+
+
+class StreamEngine:
+    """Serve many concurrent video streams with one port ``RAFT`` model, on
+    the model's device. ``clock`` is injectable and must be monotonic. The
+    engine owns one dispatcher thread from construction until
+    :meth:`drain`."""
+
+    def __init__(self, model, cfg: Optional[StreamConfig] = None, *,
+                 clock: Callable[[], float] = time.monotonic):
+        self.cfg = cfg or StreamConfig()
+        self._clock = clock
+        self.stats = StreamStats()
+        h, w = self.cfg.frame_hw
+        (t, b), (le, r) = InputPadder((int(h), int(w), 3), mode="sintel",
+                                      bucket=self.cfg.pad_bucket).pad_spec
+        self._ph, self._pw = int(h) + t + b, int(w) + le + r
+        self._hidden = model.cfg.hidden_dim if self.cfg.carry_net else 0
+        # The step entries, one per batch size, under the engine's preset.
+        self._fwd = ShapeCachedForward(model, cache_size=self.cfg.cache_size,
+                                       policy=self.cfg.precision)
+        self._policy = self._fwd.policy
+        self.device = model.device
+        # Before any capture and outside the graphs' pool: the step graphs
+        # read and write it by address.
+        self._table = init_slot_table(self.cfg.capacity, self._ph // 8, self._pw // 8,
+                                      self._hidden, dtype=self._policy.state,
+                                      device=self.device)
+        # Held around every step run: the dispatcher's batches and warmup's
+        # captures (a capture fails if another thread uses the card).
+        self._step_lock = threading.Lock()
+        self._captured: set = set()  # batch sizes whose step entry is built
+        self._queue = AdmissionQueue(self.cfg.queue_capacity)
+        self.registry = SlotRegistry(self.cfg.capacity)
+        self._reg_lock = threading.Lock()
+        self._handles: dict[int, ServeHandle] = {}
+        self._service_ema: Optional[float] = None
+        self._ema_lock = threading.Lock()
+        self._next_id = 0
+        self._id_lock = threading.Lock()
+        self.warmed: list = []  # (padded H, padded W, batch, iters), see warmup()
+        self._occupancy_sum = 0  # sampled at each dispatched batch
+        self._draining = threading.Event()
+        self._thread = threading.Thread(target=self._dispatch_loop, name="stream-dispatch",
+                                        daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------ admission
+
+    def submit(self, stream_id: str, image1, image2, *,
+               frame_index: Optional[int] = None) -> ServeHandle:
+        """Submit the next frame pair of ``stream_id``; returns a handle at
+        once, which completes with one terminal status. An unknown stream
+        is admitted on first use (a slot, or a shed). ``frame_index``
+        defaults to the last admitted + 1; indices must increase, and a
+        gap above ``max_frame_gap`` starts the frame cold."""
+        self.stats.note("submitted")
+        handle = ServeHandle()
+        with self._id_lock:
+            rid = self._next_id
+            self._next_id += 1
+        if self._draining.is_set():
+            self.stats.note("shed_frames")
+            handle.complete(FlowResponse(rid, STATUS_SHED, retry_after_s=self._retry_after(),
+                                         detail="draining"))
+            return handle
+        err = self._frame_error(image1) or self._frame_error(image2)
+        if err is None and image1.shape != image2.shape:
+            err = f"frame shapes differ: {image1.shape} vs {image2.shape}"
+        if err is not None:
+            self.stats.note("rejected")
+            handle.complete(FlowResponse(rid, STATUS_REJECTED, detail=err))
+            return handle
+
+        now = self._clock()
+        native_hw = (int(image1.shape[0]), int(image1.shape[1]))
+        with self._reg_lock:
+            state = self.registry.get(stream_id)
+            if state is None:
+                evicted = self.registry.evict_expired(now, self.cfg.idle_timeout_s)
+                self.stats.note("streams_evicted", len(evicted))
+                state = self.registry.admit(stream_id, native_hw, now)
+                if state is None:
+                    self.stats.note("shed_streams")
+                    hint = self.registry.soonest_expiry_s(now, self.cfg.idle_timeout_s)
+                    handle.complete(FlowResponse(rid, STATUS_SHED,
+                                                 retry_after_s=round(hint, 4),
+                                                 detail="stream table full"))
+                    return handle
+                self.stats.note("streams_opened")
+            if state.native_hw != native_hw:
+                self.stats.note("rejected")
+                handle.complete(FlowResponse(
+                    rid, STATUS_REJECTED,
+                    detail=f"stream {stream_id!r} is {state.native_hw}, got frame {native_hw}"))
+                return handle
+            if state.closing:
+                self.stats.note("shed_frames")
+                handle.complete(FlowResponse(rid, STATUS_SHED, detail="stream closing"))
+                return handle
+            last = state.last_frame_index
+            idx = frame_index if frame_index is not None else (0 if last is None else last + 1)
+            if last is not None and idx <= last:
+                self.stats.note("rejected")
+                handle.complete(FlowResponse(
+                    rid, STATUS_REJECTED,
+                    detail=(f"out-of-order frame index {idx} (last admitted {last}) "
+                            f"for stream {stream_id!r}")))
+                return handle
+            cold = last is None or (idx - last) > self.cfg.max_frame_gap
+            req = FrameRequest(
+                request_id=rid, stream_id=stream_id, slot=state.slot, frame_index=idx,
+                image1=image1, image2=image2, cold=cold, submit_time=now,
+                pad_spec=self._pad_spec_for(native_hw), shape_key=(self._ph, self._pw),
+            )
+            self._handles[rid] = handle
+            if not self._queue.offer(req):
+                self._handles.pop(rid, None)
+                self.stats.note("shed_frames")
+                handle.complete(FlowResponse(rid, STATUS_SHED,
+                                             retry_after_s=self._retry_after(),
+                                             detail="frame queue full"))
+                return handle
+            # Only once the offer holds: a shed frame must not advance its
+            # stream's index or keep it warm.
+            state.last_frame_index = idx
+            state.last_activity = now
+            state.pending += 1
+            state.frames_admitted += 1
+        if cold:
+            self.stats.note("cold_starts")
+        self.stats.note("accepted")
+        return handle
+
+    def close_stream(self, stream_id: str) -> bool:
+        """Stop admitting frames of ``stream_id``; its slot frees once every
+        admitted frame is answered. False for an unknown stream."""
+        with self._reg_lock:
+            state = self.registry.get(stream_id)
+            if state is None:
+                return False
+            state.closing = True
+            if state.pending == 0:
+                self.registry.release(stream_id)
+                self.stats.note("streams_closed")
+        return True
+
+    def _frame_error(self, image) -> Optional[str]:
+        shape = getattr(image, "shape", None)
+        dtype = getattr(image, "dtype", None)
+        if shape is None or dtype is None:
+            return f"not an array: {type(image).__name__}"
+        if len(shape) != 3 or shape[-1] != 3:
+            return f"want (H, W, 3), got shape {tuple(shape)}"
+        if np.dtype(dtype).kind not in "uif":
+            return f"non-numeric dtype {dtype}"
+        h, w = int(shape[0]), int(shape[1])
+        (t, b), (le, r) = self._pad_spec_for((h, w))
+        if (h + t + b, w + le + r) != (self._ph, self._pw):
+            return (f"frame {h}x{w} pads to {(h + t + b, w + le + r)}, but this engine "
+                    f"serves the {(self._ph, self._pw)} slot table (one padded shape an "
+                    "engine)")
+        return None
+
+    def _pad_spec_for(self, native_hw: Tuple[int, int]) -> tuple:
+        h, w = native_hw
+        return InputPadder((h, w, 3), mode="sintel", bucket=self.cfg.pad_bucket).pad_spec
+
+    def _retry_after(self) -> float:
+        with self._ema_lock:
+            per_frame = self._service_ema
+        if per_frame is None:
+            return self.cfg.default_retry_after_s
+        return round((len(self._queue) + 1) * per_frame, 4)
+
+    # ------------------------------------------------------------- dispatch
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            batch = self._queue.pop_batch(self.cfg.max_batch, timeout=_POLL_S,
+                                          distinct_fn=lambda r: r.stream_id)
+            if not batch:
+                if self._queue.closed and not len(self._queue):
+                    return
+                # Idle tick: abandoned streams lose their slots even when no
+                # admission forces the scan.
+                with self._reg_lock:
+                    evicted = self.registry.evict_expired(self._clock(),
+                                                          self.cfg.idle_timeout_s)
+                self.stats.note("streams_evicted", len(evicted))
+                continue
+            try:
+                self._process(batch)
+            except BaseException as e:  # noqa: BLE001 - per-frame status
+                # The fault is the engine's: every frame of the batch still
+                # pending answers `error`, and the engine keeps serving.
+                detail = f"{e!r}\n{traceback.format_exc()}"
+                for req in batch:
+                    if self._complete(req.request_id, FlowResponse(
+                            req.request_id, STATUS_ERROR, detail=detail)):
+                        self._finish_frame(req)
+                        self.stats.note("errors")
+
+    def _step_fn(self):
+        """The step of one batch: ``(img1, img2, slot_idx, cold) ->
+        (flow_up, bad)``, updating the slot table in place."""
+        model, policy = self._fwd.model_for()
+        table, cfg = self._table, self.cfg
+        carry_net = bool(self._hidden)
+
+        def step(img1, img2, slot_idx, cold):
+            # Storage may be bf16; the splat is coordinate arithmetic, f32.
+            prev = table["flow"].index_select(0, slot_idx).to(policy.coord)
+            warm = table["warm"].index_select(0, slot_idx) * (1.0 - cold) > 0.5
+            splat = forward_interpolate_batch(prev, cfg.splat_chunk)
+            finit = torch.where(warm[:, None, None, None], splat, torch.zeros_like(splat))
+            kw = {}
+            if carry_net:
+                kw = {"net_init": table["net"].index_select(0, slot_idx), "net_warm": warm}
+            flow_lr, flow_up, net = model(img1, img2, iters=cfg.iters, flow_init=finit,
+                                          return_net=True, **kw)
+            bad = (~torch.isfinite(flow_lr).flatten(1).all(1)
+                   | ~torch.isfinite(flow_up).flatten(1).all(1)
+                   | (flow_lr.abs().flatten(1).amax(1) > cfg.anomaly_max_flow))
+            good = ~bad[:, None, None, None]
+            # Pad rows all write the scratch row: with duplicate indices the
+            # winner of index_copy_ is undefined on CUDA, which is harmless,
+            # since a pad row is cold and the scratch row is never read warm.
+            table["flow"].index_copy_(0, slot_idx, torch.where(
+                good, flow_lr, torch.zeros_like(flow_lr)).to(table["flow"].dtype))
+            table["warm"].index_copy_(0, slot_idx, (~bad).to(table["warm"].dtype))
+            if carry_net:
+                net = net.to(table["net"].dtype)
+                table["net"].index_copy_(0, slot_idx, torch.where(good, net,
+                                                                  torch.zeros_like(net)))
+            return flow_up, bad
+
+        return step
+
+    def _step(self, img1: np.ndarray, img2: np.ndarray, slot_idx, cold) -> tuple:
+        """One step through the cache; returns ``(flow_up, bad)`` on the
+        card. The caller holds the step lock."""
+        args = (torch.from_numpy(img1).to(self.device), torch.from_numpy(img2).to(self.device),
+                torch.as_tensor(slot_idx, dtype=torch.int64).to(self.device),
+                torch.as_tensor(cold, dtype=torch.float32).to(self.device))
+        return self._fwd.custom(("stream", img1.shape[0], self._policy.name), self._step_fn,
+                                args)
+
+    def _ensure_captured(self, n: int) -> None:
+        """Build the step entry of batch size ``n`` on scratch-slot,
+        all-cold rows. A capture runs the step once eagerly before
+        capturing it, and that run writes the slot table: built on a live
+        batch, it would hand each warm row its own new flow as the previous
+        state. ``cache_size >= len(batch_sizes)`` keeps every entry once
+        built. The caller holds the step lock."""
+        if n in self._captured:
+            return
+        zeros = np.zeros((n, self._ph, self._pw, 3), np.float32)
+        self._step(zeros, zeros, [self.cfg.capacity] * n, [1.0] * n)
+        self._captured.add(n)
+
+    def _run_step(self, img1: np.ndarray, img2: np.ndarray, slot_idx, cold) -> tuple:
+        """One step of a live batch (its batch size's entry built first if
+        need be); returns ``(flow_up, bad)`` on the host."""
+        with self._step_lock:
+            self._ensure_captured(img1.shape[0])
+            flow_up, bad = self._step(img1, img2, slot_idx, cold)
+            return flow_up.cpu().numpy(), bad.cpu().numpy()
+
+    def _process(self, batch: list) -> None:
+        n_rows = next(b for b in self.cfg.batch_sizes if b >= len(batch))
+        pad_rows = n_rows - len(batch)
+        zeros = np.zeros((self._ph, self._pw, 3), np.float32)
+        rows1 = [self._stage(r.image1, r.pad_spec) for r in batch] + [zeros] * pad_rows
+        rows2 = [self._stage(r.image2, r.pad_spec) for r in batch] + [zeros] * pad_rows
+        slot_idx = [r.slot for r in batch] + [self.cfg.capacity] * pad_rows
+        cold = [1.0 if r.cold else 0.0 for r in batch] + [1.0] * pad_rows
+        self.stats.note("batches")
+        self.stats.note("padded_rows", pad_rows)
+        with self._reg_lock:
+            self._occupancy_sum += self.registry.occupancy
+        t_dispatch = self._clock()
+        host_flow, host_bad = self._run_step(np.stack(rows1), np.stack(rows2), slot_idx, cold)
+        done = self._clock()
+        for k, req in enumerate(batch):
+            bad = bool(host_bad[k])
+            if bad:
+                resp = FlowResponse(req.request_id, STATUS_REJECTED,
+                                    latency_s=done - req.submit_time,
+                                    detail="anomaly in the step: stream reset to a cold start")
+            else:
+                (t, b), (le, r) = req.pad_spec
+                hh, ww = host_flow.shape[1], host_flow.shape[2]
+                resp = FlowResponse(req.request_id, STATUS_OK,
+                                    flow=host_flow[k, t: hh - b, le: ww - r, :],
+                                    iters=self.cfg.iters, latency_s=done - req.submit_time)
+            if not self._complete(req.request_id, resp):
+                continue
+            self._finish_frame(req, reset=bad)
+            self.stats.note("resets" if bad else "completed")
+        self._note_service((done - t_dispatch) / max(1, len(batch)))
+
+    def _finish_frame(self, req: FrameRequest, reset: bool = False) -> None:
+        """A frame's terminal bookkeeping: its stream's pending count, a
+        deferred close, its reset count."""
+        with self._reg_lock:
+            state = self.registry.get(req.stream_id)
+            if state is None:
+                return
+            state.pending = max(0, state.pending - 1)
+            state.frames_completed += 1
+            if reset:
+                state.resets += 1
+            if state.closing and state.pending == 0:
+                self.registry.release(req.stream_id)
+                self.stats.note("streams_closed")
+
+    def _stage(self, image, pad_spec) -> np.ndarray:
+        (t, b), (le, r) = pad_spec
+        arr = np.asarray(image, np.float32)
+        if t or b or le or r:
+            arr = np.pad(arr, ((t, b), (le, r), (0, 0)), mode="edge")
+        return arr
+
+    def _complete(self, rid: int, response: FlowResponse) -> bool:
+        handle = self._handles.pop(rid, None)
+        if handle is None:
+            return False
+        handle.complete(response)
+        return True
+
+    def _note_service(self, per_frame_s: float) -> None:
+        with self._ema_lock:
+            prev = self._service_ema
+            self._service_ema = per_frame_s if prev is None else 0.8 * prev + 0.2 * per_frame_s
+
+    # ------------------------------------------------------------ lifecycle
+
+    def warmup(self) -> int:
+        """Capture the step of every batch size against the scratch slot
+        (cold pad rows only, so no stream's state moves), with the
+        dispatcher held: new batches wait (pause) and one already popped
+        finishes first (the step lock). Returns the captures made."""
+        before = self._fwd.stats["compiles"]
+        self._queue.set_paused(True)
+        try:
+            for n in self.cfg.batch_sizes:
+                with self._step_lock:
+                    self._ensure_captured(n)
+                self.warmed.append((self._ph, self._pw, n, self.cfg.iters))
+        finally:
+            self._queue.set_paused(False)
+        return self._fwd.stats["compiles"] - before
+
+    def pause(self) -> None:
+        """Stop assembling new batches; queued and new frames wait."""
+        self._queue.set_paused(True)
+
+    def resume(self) -> None:
+        self._queue.set_paused(False)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def drain(self, timeout: Optional[float] = None) -> StreamStats:
+        """Stop admitting, answer every admitted frame, stop the dispatcher
+        and return the stats. Idempotent."""
+        self._draining.set()
+        self._queue.close()  # also clears a pause: the drain must finish
+        if self._thread.is_alive():
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                raise TimeoutError(f"stream dispatcher did not drain within {timeout}s "
+                                   f"({len(self._queue)} frames still queued)")
+        return self.stats
+
+    def report(self) -> dict:
+        """One JSON-able summary: the stats, the slot table's occupancy and
+        bytes, and the step entries' captures."""
+        with self._reg_lock:
+            occupancy = self.registry.occupancy
+            peak = self.registry.peak_occupancy
+            evicted = self.registry.evicted_total
+        return {
+            "stats": self.stats.summary(),
+            "capacity": self.cfg.capacity,
+            "occupancy": occupancy,
+            "peak_occupancy": peak,
+            "mean_occupancy": round(self._occupancy_sum / max(1, self.stats.batches), 2),
+            "evicted": evicted,
+            "executables": dict(self._fwd.stats),
+            "precision": self._policy.name,
+            "slot_table_bytes": sum(t.numel() * t.element_size()
+                                    for t in self._table.values()),
+            "graph_pool_bytes": sum(self._fwd.pool_bytes.values()),
+            "device": str(self.device),
+        }
+
+    def __enter__(self) -> "StreamEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.drain()

@@ -40,6 +40,9 @@ def _imported_roots(path):
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 20 and os.path.exists(files[0])
+    scanned = {os.path.relpath(f, PKG) for f in files}
+    assert {os.path.join("streaming", n) for n in
+            ("__init__.py", "engine.py", "slots.py", "traffic.py")} <= scanned
     bad = {
         os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
         for f in files
@@ -50,7 +53,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 @pytest.mark.parametrize(
     "module",
     ["raft_ncup_tpu_torch", "raft_ncup_tpu_torch.serve", "raft_ncup_tpu_torch.train",
-     "raft_ncup_tpu_torch.evaluate", "raft_ncup_tpu_torch.demo"],
+     "raft_ncup_tpu_torch.evaluate", "raft_ncup_tpu_torch.demo",
+     "raft_ncup_tpu_torch.streaming"],
 )
 def test_fresh_import_loads_no_jax(module):
     code = (
