@@ -123,7 +123,31 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     everything admitted answered; in rounds, the corrupt frame's
     batch-mates bit for bit those of a run without it and the reset
     stream's next frame bit for bit a cold start);
-14. prints one JSON line describing the kernels, the card's name and
+14. runs the telemetry of the flagship through the serve entry with every
+    output on (``--report --telemetry_jsonl --healthz_file --flight_dir``,
+    cadence 0.1 s, SLO windows scaled by 0.01): the plain branch's 8
+    requests under ``poison@3,sigterm@6`` (exit 75; every registry counter
+    equal to its legacy report key through the alias table; A 12 and B 4 a
+    batch; the healthz file READY before the replay and DRAINING after,
+    polled every 5 ms and never torn; one ``poison_quarantine`` and one
+    ``preemption_drain`` dump, each loaded; a cost-ledger entry of positive
+    FLOPs, capture ms and pool bytes for every captured key; the ``slo``
+    block; the JSONL tolerant to a cut tail) and the ``--stream`` branch's 4
+    streams of 8 frames under ``corruptframe@4`` (one
+    ``stream_anomaly_reset`` dump, the stream counters equal to their legacy
+    keys, the slot-occupancy gauge, health READY then DRAINING); every
+    telemetry primitive called while a spin kernel runs, the spin's event
+    still pending after them, and ``host_number`` refusing a CUDA scalar;
+    the same 8 requests with telemetry on and off, 3 times each, in turns
+    (``serve_telemetry_overhead_pct``, reported beside the JAX package's 3%
+    budget, not held); the ledger's MFU of the replayed f32 and
+    ``bf16_infer`` forwards at batch 2, beside the analytic count; and the
+    train entry's ``--profile_steps 2`` on synthetic pairs at the shipped
+    configuration (the Chrome trace holds A, A', B and B' by kernel name,
+    each as often as the two traced steps launched it); phase 12's runs (b)
+    and (c) each bank one flight dump (``preemption_drain``,
+    ``sentinel_halt``);
+15. prints one JSON line describing the kernels, the card's name and
     power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
@@ -259,29 +283,11 @@ def corr_inputs(torch, gen, B, H, W, C, levels, mix="random", dtype=None):
 
 
 def corr_work(torch, f1s, lv, coords, radius):
-    """(bytes, flops) the lookup needs for these inputs: every input read
-    once and the output written once (features at their own size, 4 bytes
-    in f32 and 2 in bf16; coords and output f32); two flops per
-    multiply-add of the dot products at in-bounds patch positions
-    (out-of-bounds ones need none), plus 7 per output tap for the bilinear
-    blend. The sums are f32 for bf16 features too."""
-    B, H, W, C = f1s.shape
-    K = 2 * radius + 1
-    n_out = B * H * W * len(lv) * K * K
-    nbytes = (f1s.element_size() * f1s.numel() + 4 * coords.numel()
-              + sum(t.element_size() * t.numel() for t in lv) + 4 * n_out)
-    k1 = torch.arange(K + 1, device=coords.device, dtype=torch.float32)
-    positions = 0
-    for l, t in enumerate(lv):
-        hl, wl = t.shape[1], t.shape[2]
-        p = coords.reshape(-1, 2) / float(2 ** l)
-        o = torch.floor(p) - radius
-        ix = o[:, 0:1] + k1
-        iy = o[:, 1:2] + k1
-        cx = ((ix >= 0) & (ix < wl)).sum(1)
-        cy = ((iy >= 0) & (iy < hl)).sum(1)
-        positions += int((cx * cy).sum())
-    return nbytes, 2 * C * positions + 7 * n_out
+    """(bytes, flops) the lookup needs for these inputs
+    (``corr_cuda.lookup_work``, which the cost ledger also counts with)."""
+    from raft_ncup_tpu_torch.ops.corr_cuda import lookup_work
+
+    return lookup_work(f1s, lv, coords, radius)
 
 
 def corr_paths(torch, f1s, lv, coords, radius):
@@ -410,19 +416,11 @@ def check_corr_edges(torch, gen):
 # ---------------------------------------------------------------- kernel B
 
 def nconv_work(B, H, W, k, cin, cout):
-    """(bytes, flops): data, conf, weight read once, out and conf_out
-    written once; per in-bounds tap and input channel one multiply
-    (data*conf) and two multiply-adds per output channel, plus a divide,
-    a bias add and a scale per output."""
-    p = k // 2
+    """(bytes, flops) of one fused NConv2d (``nconv_cuda.nconv_work``,
+    which the cost ledger also counts with)."""
+    from raft_ncup_tpu_torch.ops.nconv_cuda import nconv_work as work
 
-    def along(n):  # in-bounds taps along one axis of n pixels
-        return sum(max(0, n - abs(d)) for d in range(-p, p + 1))
-
-    taps = along(H) * along(W)  # in-bounds, per plane
-    nbytes = 4 * (2 * B * cin * H * W + cout * cin * k * k + 2 * B * cout * H * W)
-    flops = B * cin * taps * (1 + 4 * cout) + 3 * B * cout * H * W
-    return nbytes, flops
+    return work(B, H, W, k, cin, cout)
 
 
 def nconv_inputs(torch, gen, B, H, W, k, cin, cout, stuffed):
@@ -2095,6 +2093,16 @@ def _train_files_run(torch, label, argv, want_status):
     return summary, launches, inst, [ln for ln in lines if ln.startswith("[val @")]
 
 
+def flight_triggers(directory: str) -> list:
+    """The triggers of the flight dumps in ``directory``, each loaded."""
+    from raft_ncup_tpu_torch.observability import load_dump
+
+    if not os.path.isdir(directory):
+        return []
+    return sorted(load_dump(os.path.join(directory, n))["trigger"]
+                  for n in os.listdir(directory))
+
+
 def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
     """Train the flagship from files in-process through ``train.main`` with
     ``scripts/train_raft_nc_things.sh``'s flag lines minus ``--compressed_ft``:
@@ -2106,7 +2114,9 @@ def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
     equal to ``step_3.pt`` bit for bit, its losses within
     ``RESUME_LOSS_RTOL`` of (a)'s; (c) ``nan@5,nan@6,nan@7`` with
     ``--sentinel_halt_after 3 --sum_freq 1``: exit 76 and the live
-    parameters equal to ``step_4.pt``; (d) ``bf16_train``, 5 steps; (e)
+    parameters equal to ``step_4.pt``; (b)'s first run and (c) each bank
+    one flight dump under ``<run_dir>/flight`` (``preemption_drain``,
+    ``sentinel_halt``); (d) ``bf16_train``, 5 steps; (e)
     ``--freeze_raft --add_noise --dropout 0.1``, 2 steps: the trunk
     unchanged bit for bit, A' launched. Every step launches A 24, A' 12,
     B 96 and B' 48 times; every prefetched batch equals its host batch."""
@@ -2190,6 +2200,8 @@ def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
     b2, inst_b2, paths["b"] = run("(b) resumed", "b", 8, "--val_freq", "4", "--restore_ckpt",
                                   os.path.join(tmp, "b", "exp"))
     check(inst_b2.restored is True, "(b): the restored state differs from step_3.pt")
+    b1["flight_dumps"] = flight_triggers(os.path.join(tmp, "b", "exp", "flight"))
+    check(b1["flight_dumps"] == ["preemption_drain"], f"(b): flight dumps {b1['flight_dumps']}")
     stream = inst_b1.host + inst_b2.host
     check(stream == inst_a.host, "(b): the resumed batch stream differs from (a)'s")
     resumed = b1["losses"] + b2["losses"]
@@ -2208,6 +2220,8 @@ def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
           "(c): the rolled-back parameters differ from step_4.pt")
     check(all(math.isfinite(x) for x in c["losses"][:5]), f"(c): losses {c['losses']}")
     c["rolled_back_bitwise_to"] = "step_4.pt"
+    c["flight_dumps"] = flight_triggers(os.path.join(tmp, "c", "exp", "flight"))
+    check(c["flight_dumps"] == ["sentinel_halt"], f"(c): flight dumps {c['flight_dumps']}")
     inst_c.states.clear()
     report["c"] = c
     torch.cuda.empty_cache()
@@ -2250,9 +2264,11 @@ def serve_ee_args(level: int) -> list:
 
 
 SERVE_EE_ARGS = serve_ee_args(12)
+STREAM_CAPACITY = 8
 STREAM_ARGS = ["--stream", "--model", "raft_nc_dbl", "--size", str(SERVE_SIZE[0]),
                str(SERVE_SIZE[1]), "--n_streams", "4", "--frames_per_stream", "8",
-               "--stream_iters", "12", "--stream_batch_sizes", "1,2,4", "--stream_capacity", "8"]
+               "--stream_iters", "12", "--stream_batch_sizes", "1,2,4", "--stream_capacity",
+               str(STREAM_CAPACITY)]
 STREAM_CHAOS = "corruptframe@4,abandon@7"
 STREAM_SIGTERM = "sigterm@5"
 STAGE_SPLITS = (1, 2, 4)
@@ -2530,10 +2546,10 @@ def recorded_steps(torch):
     orig = engine_mod.StreamEngine._run_step
     records: list = []
 
-    def run_step(self, img1, img2, slot_idx, cold):
+    def run_step(self, img1, img2, slot_idx, cold, *span):
         idx = torch.as_tensor(slot_idx, dtype=torch.int64, device=self.device)
         prev = {k: t.index_select(0, idx).clone() for k, t in self._table.items()}
-        flow_up, bad = orig(self, img1, img2, slot_idx, cold)
+        flow_up, bad = orig(self, img1, img2, slot_idx, cold, *span)
         records.append({"img1": img1, "img2": img2, "slots": list(slot_idx),
                         "cold": list(cold), "prev": prev, "flow_up": flow_up, "bad": bad,
                         "scratch": self.cfg.capacity, "chunk": self.cfg.splat_chunk})
@@ -2723,6 +2739,443 @@ def check_stream_chaos(torch, card) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- telemetry
+
+TELEMETRY_SERVE_CHAOS = "poison@3,sigterm@6"
+TELEMETRY_STREAM_CHAOS = "corruptframe@4"
+TELEMETRY_SLO_SCALE = 0.01  # the SLO windows shrunk to a run of seconds
+OVERHEAD_RUNS = 3  # serve runs each with telemetry on and off, interleaved
+OVERHEAD_BUDGET_PCT = 3.0  # the JAX package's budget (docs/OBSERVABILITY.md)
+SPIN_CYCLES = 1_000_000_000  # about 0.5 s of device time
+
+
+def _stats_fields(summary: str) -> dict:
+    """A ``stats`` summary line as a dict of its integer fields (the stream
+    engine abbreviates three of them)."""
+    names = {"opened": "streams_opened", "closed": "streams_closed",
+             "evicted": "streams_evicted"}
+    out = {}
+    for part in summary.split():
+        key, _, value = part.partition("=")
+        if value.lstrip("-").isdigit():
+            out[names.get(key, key)] = int(value)
+    return out
+
+
+def check_mirrors(report: dict, subsystem: str, what: str) -> dict:
+    """Every registry counter of ``subsystem`` equal to its legacy stats
+    field through the alias table, and the cache's counters to its
+    ``executables``; returns the pairs compared."""
+    from raft_ncup_tpu_torch.observability import LEGACY_KEY_ALIASES
+
+    counters = report["telemetry"]["metrics"]["counters"]
+    legacy = _stats_fields(report["stats"])
+    pairs = {}
+    for field, name in LEGACY_KEY_ALIASES[subsystem].items():
+        pairs[field] = (legacy[field], counters.get(name, 0))
+    for field, name in LEGACY_KEY_ALIASES["inference"].items():
+        pairs[f"executables.{field}"] = (report["executables"][field], counters.get(name, 0))
+    bad = {k: v for k, v in pairs.items() if v[0] != v[1]}
+    check(not bad, f"{what}: registry counters differ from the legacy keys: {bad}")
+    return pairs
+
+
+class HealthzPoller:
+    """Read a healthz file every few ms on a thread while inside: every read
+    that finds the file must parse (it is replaced atomically, never
+    written in place); records the states read."""
+
+    def __init__(self, path: str):
+        import threading
+
+        self.path, self.reads, self.torn, self.states = path, 0, 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            try:
+                with open(self.path, encoding="utf-8") as fh:
+                    text = fh.read()
+            except FileNotFoundError:
+                continue
+            self.reads += 1
+            try:
+                state = json.loads(text)["overall"]
+            except (ValueError, KeyError):
+                self.torn += 1
+                continue
+            if not self.states or self.states[-1] != state:
+                self.states.append(state)
+
+    def __enter__(self) -> "HealthzPoller":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+@contextlib.contextmanager
+def healthz_at_replay(path: str, seen: list):
+    """Read the healthz file just before the serve entry replays its
+    traffic (after the warm-up; the telemetry cadence has written it)."""
+    from raft_ncup_tpu_torch import serve as serve_mod
+
+    saved = serve_mod.replay, serve_mod.replay_streams
+
+    def reading(fn):
+        def wrapped(*args, **kwargs):
+            with open(path, encoding="utf-8") as fh:
+                seen.append(json.load(fh))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    serve_mod.replay, serve_mod.replay_streams = (reading(f) for f in saved)
+    try:
+        yield seen
+    finally:
+        serve_mod.replay, serve_mod.replay_streams = saved
+
+
+def run_telemetry_entry(torch, argv, tmp: str, label: str) -> tuple:
+    """The serve entry in process with every telemetry output on, kernel
+    counts set to 0 just before and read just after, the healthz file
+    polled and read back before the replay; returns ``(rc, report,
+    responses, launches, files)``."""
+    from raft_ncup_tpu_torch import serve as serve_mod
+
+    files = {k: os.path.join(tmp, f"{label}_{k}") for k in ("healthz.json", "t.jsonl",
+                                                            "flight")}
+    argv = argv + ["--report", "--healthz_file", files["healthz.json"],
+                   "--telemetry_jsonl", files["t.jsonl"], "--flight_dir", files["flight"],
+                   "--telemetry_interval_s", "0.1",
+                   "--slo_window_scale", str(TELEMETRY_SLO_SCALE)]
+    seen: list = []
+    with HealthzPoller(files["healthz.json"]) as poller, healthz_at_replay(
+            files["healthz.json"], seen):
+        reset_launches()
+        rc, report, responses, _ = serve_mod.run(argv)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    files.update(poller=poller, at_replay=seen)
+    return rc, report, responses, launches, files
+
+
+def slo_breaches(report: dict, specs) -> dict:
+    """For each declared SLO, the bad events the run's registry recorded
+    against it, read from the report's metrics as the SLO engine reads the
+    registry: a ratio's bad counter, a latency histogram's observations
+    above the threshold's bucket, a gauge's peak over its bound (1 or 0)."""
+    metrics = report["telemetry"]["metrics"]
+    out = {}
+    for spec in specs:
+        if spec.sli == "ratio":
+            out[spec.name] = metrics["counters"].get(spec.bad, 0)
+        elif spec.sli == "latency":
+            hist = metrics["histograms"].get(spec.histogram, {"count": 0, "buckets": {}})
+            good = sum(c for u, c in hist["buckets"].items()
+                       if u != "+Inf" and float(u) <= spec.threshold_ms)
+            out[spec.name] = hist["count"] - good
+        else:
+            gauge = metrics["gauges"].get(spec.gauge)
+            out[spec.name] = int(gauge is not None and gauge["peak"] > spec.max_value)
+    return out
+
+
+def check_telemetry_files(files: dict, report: dict, specs, triggers: list,
+                          what: str) -> dict:
+    """The healthz file (READY before the replay, DRAINING at the end, never
+    torn), the flight dumps (each loadable: ``triggers`` once each, and
+    beside them only ``slo_page`` dumps, one for each page the report's
+    ``slo`` block counts unless the recorder's rate limit merged them, each
+    naming a declared SLO that the run's own metrics breach) and the JSONL
+    (tolerant to a tail cut mid-write). An SLO page depends on the run's
+    latencies, so whether one fires is reported; that it is backed is held."""
+    from raft_ncup_tpu_torch.observability import load_dump, read_jsonl_tolerant
+
+    subsystem = specs[0].subsystem
+    poller = files["poller"]
+    (first,) = files["at_replay"]
+    with open(files["healthz.json"], encoding="utf-8") as fh:
+        last = json.load(fh)
+    check(first["health"][subsystem]["state"] == "ready" and first["overall"] == "ready",
+          f"{what}: healthz before the replay reads {first['health']}")
+    check(last["health"][subsystem]["state"] == "draining" and last["draining"],
+          f"{what}: healthz at the end reads {last['health']}")
+    check(poller.reads > 0 and poller.torn == 0 and
+          not os.path.exists(files["healthz.json"] + ".tmp"),
+          f"{what}: healthz polled {poller.reads} times, {poller.torn} torn")
+    loaded = [load_dump(os.path.join(files["flight"], n))
+              for n in sorted(os.listdir(files["flight"]))]
+    got = sorted(d["trigger"] for d in loaded)
+    faults = [t for t in got if t != "slo_page"]
+    check(faults == sorted(triggers), f"{what}: flight dumps {got}, want {sorted(triggers)} "
+          "and slo_page dumps only beside them")
+    slo = report["slo"]
+    check(slo is not None and slo["specs"] == [s.name for s in specs],
+          f"{what}: slo block {slo}, want the specs {[s.name for s in specs]}")
+    breaches = slo_breaches(report, specs)
+    paged = sorted(d["context"]["slo"] for d in loaded if d["trigger"] == "slo_page")
+    check(len(paged) <= slo["pages_total"] and bool(paged) == (slo["pages_total"] > 0),
+          f"{what}: {len(paged)} slo_page dumps for {slo['pages_total']} pages")
+    check(all(breaches.get(name, 0) > 0 for name in paged),
+          f"{what}: slo_page dumps for {paged}, bad events recorded {breaches}")
+    records, skipped = read_jsonl_tolerant(files["t.jsonl"])
+    with open(files["t.jsonl"], "a", encoding="utf-8") as fh:
+        fh.write('{"name": "telemetry_snapshot", "repo')  # a tail cut mid-write
+    again, skipped_after = read_jsonl_tolerant(files["t.jsonl"])
+    check(skipped == 0 and skipped_after == 1 and again == records and records,
+          f"{what}: JSONL {len(records)} records, skipped {skipped} then {skipped_after}")
+    return {"healthz_states_polled": poller.states, "healthz_reads": poller.reads,
+            "healthz_torn": poller.torn, "dumps": got, "slo_pages": slo["pages_total"],
+            "slo_paged": paged, "slo_bad_events": breaches, "jsonl_snapshots": len(records),
+            "jsonl_first_state": records[0]["report"]["health"][subsystem]["state"],
+            "jsonl_last_state": records[-1]["report"]["health"][subsystem]["state"]}
+
+
+def check_no_sync(torch, tmp: str) -> dict:
+    """Call every telemetry primitive while a spin kernel runs: none may wait
+    for the card (the spin's event still pending after them), and
+    ``host_number`` refuses a CUDA scalar without reading it."""
+    from raft_ncup_tpu_torch import observability as obs
+
+    tel = obs.Telemetry()
+    tel.flight = obs.FlightRecorder(os.path.join(tmp, "nosync_flight"))
+    tel.slo = obs.SloEngine(obs.serve_slos(window_scale=0.01), tel)
+    scalar = torch.ones((), device="cuda")
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(SPIN_CYCLES)
+    done.record()
+    t0 = time.perf_counter()
+    timings = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        fn()
+        timings[name] = 1e6 * (time.perf_counter() - t)
+
+    timed("inc", lambda: tel.inc("serve_requests_submitted_total"))
+    timed("gauge_set", lambda: tel.gauge_set("serve_queue_depth", 3))
+    timed("observe_ms", lambda: tel.observe_ms("serve_queue_wait", 1.5, request_id=1))
+    timed("hist_observe", lambda: tel.hist_observe("serve_e2e_ms", 12.0))
+
+    def span():
+        with tel.span("serve_dispatch", batch_id=0, request_ids=[1], mesh="nomesh",
+                      policy="f32") as sp:
+            sp.set(iters=12)
+
+    timed("span", span)
+    timed("event", lambda: tel.event("inference_executable_compile", key="k"))
+    timed("slo_evaluate", tel.slo.evaluate)
+    timed("write_healthz", lambda: obs.write_healthz(os.path.join(tmp, "nosync.json"), tel))
+    timed("flight_dump", lambda: tel.flight_dump("poison_quarantine", request_id=1))
+
+    def refuse():
+        try:
+            obs.host_number(scalar)
+        except TypeError:
+            return
+        raise CheckFailed("host_number accepted a CUDA scalar")
+
+    timed("host_number_refuses_cuda_scalar", refuse)
+    elapsed_ms = 1e3 * (time.perf_counter() - t0)
+    pending = not done.query()
+    check(pending, f"a telemetry primitive waited for the card ({elapsed_ms:.1f} ms of calls "
+          "finished after the spin kernel)")
+    torch.cuda.synchronize()
+    check(tel.flight.dumps == 1, "the no-sync flight dump was not written")
+    return {"spin_pending_after_calls": pending, "calls_ms": elapsed_ms, "host_us": timings}
+
+
+def ledger_mfu(torch, model, card_kind: str, precision: str) -> dict:
+    """The cost ledger of the flagship's batch-2 forward at 440x1024, 12
+    iterations, under ``precision``: its counted FLOPs (aten and kernels)
+    beside the analytic count, the replayed forward's device ms (CUDA
+    events, 10 replays) and the MFU against the preset's peak."""
+    from raft_ncup_tpu_torch.inference.costs import CostLedger, mfu, peak_flops
+    from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+    from raft_ncup_tpu_torch.observability import Telemetry
+    from raft_ncup_tpu_torch.utils.flops import _ncup_flops, forward_flops
+
+    ledger = CostLedger()
+    fwd = ShapeCachedForward(model, policy=precision, telemetry=Telemetry(enabled=False),
+                             cost_ledger=ledger)
+    gen = torch.Generator().manual_seed(0)
+    shape = (PROFILE_BATCH, 440, 1024, 3)
+    i1, i2 = (torch.rand(shape, generator=gen).mul(255).cuda() for _ in range(2))
+    fwd.forward(i1, i2, 12)
+    (entry,) = ledger.snapshot()["entries"].values()
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")
+    ms = cuda_ms(torch, lambda: fwd.forward(i1, i2, 12), 10, flush)
+    dtype = "bf16" if precision.startswith("bf16") else "f32"
+    peak = peak_flops("cuda", card_kind, dtype)
+    analytic = forward_flops(model.cfg, PROFILE_BATCH, 440, 1024, 12)
+    ncup = PROFILE_BATCH * _ncup_flops(model.cfg, 440, 1024, batch_mult=2)
+    row = {"precision": precision, "ledger_flops": entry["flops"],
+           "flops_by_source": entry["flops_by_source"], "capture_ms": entry["capture_ms"],
+           "graph_pool_reserved_bytes": entry["memory_stats"]["graph_pool_reserved_bytes"],
+           "analytic_forward_flops": analytic,
+           "analytic_with_ncup_once": analytic - 11 * ncup,
+           "ledger_over_analytic": entry["flops"] / analytic,
+           "replay_ms": ms, "peak_flops": peak, "mfu": mfu(entry["flops"], 1e3 / ms, peak)}
+    check(entry["flops"] > 0 and row["mfu"] is not None,
+          f"MFU of the {precision} forward: {row}")
+    fwd.clear()
+    return row
+
+
+def check_telemetry(torch, card, tmp: str) -> dict:
+    """The telemetry of the flagship at 436x1024, 12 iterations, through the
+    serve entry with every output on: (a) 8 requests under
+    ``poison@3,sigterm@6`` (exit 75; registry counters equal to the legacy
+    keys; A 12 and B 4 a batch; healthz READY before the replay and
+    DRAINING after, never torn; one poison_quarantine and one
+    preemption_drain dump; a ledger entry of positive FLOPs, capture ms and
+    pool bytes for every captured key; the ``slo`` block; the JSONL
+    tolerant to a cut tail); (b) ``--stream`` with 4 streams of 8 frames
+    under ``corruptframe@4`` (one stream_anomaly_reset dump, the stream
+    counters equal to the legacy keys, the slot-occupancy gauge, health
+    READY then DRAINING; A 12 and B 4 a step); (c) no telemetry primitive
+    waits for the card; (d) the same 8 requests served with telemetry on and
+    off, 3 times each, interleaved: ``serve_telemetry_overhead_pct``
+    (reported, not held); and the ledger's MFU of the replayed f32 and
+    ``bf16_infer`` forwards. Returns the launches of (a) and (b)."""
+    from raft_ncup_tpu_torch import serve as serve_mod
+    from raft_ncup_tpu_torch.config import ServeConfig
+    from raft_ncup_tpu_torch.inference.costs import CostLedger, set_cost_ledger
+    from raft_ncup_tpu_torch.observability import (Telemetry, serve_slos, set_telemetry,
+                                                   stream_slos)
+
+    kind = torch.cuda.get_device_name(0)
+    paths = {}
+    # (a) the plain branch under chaos.
+    rc, rep, responses, paths["telemetry serve"], files = run_telemetry_entry(
+        torch, SERVE_EE_ARGS + ["--chaos", TELEMETRY_SERVE_CHAOS], tmp, "serve")
+    check(rc == 75, f"telemetry serve: exit {rc}, want 75")
+    check_launches(paths["telemetry serve"], "raft_nc_dbl", False, "telemetry serve")
+    per_batch = (rep["corr_kernel_launches"] / rep["serve_batches"],
+                 rep["nconv_kernel_launches"] / rep["serve_batches"])
+    check(per_batch == (12, 4), f"telemetry serve: launches per batch {per_batch}, want 12, 4")
+    mirrors = check_mirrors(rep, "serve", "telemetry serve")
+    held = check_telemetry_files(files, rep, serve_slos(window_scale=TELEMETRY_SLO_SCALE),
+                                 ["poison_quarantine", "preemption_drain"], "telemetry serve")
+    entries = rep["cost_ledger"]["entries"]
+    check(len(entries) == rep["executables"]["compiles"] > 0 and all(
+        e["flops"] > 0 and e["capture_ms"] > 0
+        and e["memory_stats"]["graph_pool_reserved_bytes"] > 0 for e in entries.values()),
+        f"telemetry serve: ledger {json.dumps(entries)[:400]}")
+    check(rep["slo"] is not None and rep["slo"]["specs"], "telemetry serve: no slo block")
+    check(all(r.status in ("ok", "rejected") for r in responses),
+          f"telemetry serve: statuses {[r.status for r in responses]}")
+    print(f"telemetry serve: exit {rc}, {rep['stats']}; launches {paths['telemetry serve']} "
+          f"(A, B per batch {per_batch}); mirrors {mirrors}; files {json.dumps(held)}; "
+          f"slo paging {rep['slo']['paging']}, pages {rep['slo']['pages_total']}; stages "
+          f"{json.dumps(rep['stages'])}; ledger "
+          f"{json.dumps({k: [e['flops'], e['capture_ms'], e['memory_stats']] for k, e in entries.items()})}; "
+          f"on {card}", flush=True)
+    # (b) the stream branch under chaos.
+    rc, srep, _, paths["telemetry stream"], sfiles = run_telemetry_entry(
+        torch, STREAM_ARGS + ["--chaos", TELEMETRY_STREAM_CHAOS], tmp, "stream")
+    check(rc == 0 and srep["resets"] == 1, f"telemetry stream: exit {rc}, {srep['stats']}")
+    check_launches(paths["telemetry stream"], "raft_nc_dbl", False, "telemetry stream")
+    steps = srep["stream_batches"]
+    per_step = (srep["corr_kernel_launches"] / steps, srep["nconv_kernel_launches"] / steps)
+    check(per_step == (12, 4), f"telemetry stream: launches per step {per_step}")
+    smirrors = check_mirrors(srep, "stream", "telemetry stream")
+    sheld = check_telemetry_files(
+        sfiles, srep, stream_slos(STREAM_CAPACITY, window_scale=TELEMETRY_SLO_SCALE),
+        ["stream_anomaly_reset"], "telemetry stream")
+    occ = srep["telemetry"]["metrics"]["gauges"].get("stream_slot_occupancy")
+    check(occ is not None and occ["peak"] > 0, f"telemetry stream: occupancy gauge {occ}")
+    check(srep["health"]["state"] == "draining", f"telemetry stream: {srep['health']}")
+    print(f"telemetry stream: {srep['stats']}; p50 {srep['stream_p50_ms']} ms, p99 "
+          f"{srep['stream_p99_ms']} ms; launches {paths['telemetry stream']} (A, B per "
+          f"step {per_step}); mirrors {smirrors}; occupancy gauge {occ}; files "
+          f"{json.dumps(sheld)}; on {card}", flush=True)
+    # (c) no synchronisation.
+    nosync = check_no_sync(torch, tmp)
+    print(f"telemetry no sync: {json.dumps(nosync)}", flush=True)
+    # (d) overhead: the same requests with telemetry on and off, in turns.
+    model = flagship(torch)
+    pairs = serve_mod.make_pairs(SERVE_SIZE, SERVE_REQUESTS, seed=0)
+    cfg = ServeConfig(batch_sizes=(1, 2), iter_levels=(12,), queue_capacity=16)
+    p50 = {True: [], False: []}
+    for _ in range(OVERHEAD_RUNS):
+        for on in (True, False):
+            prev, prev_ledger = set_telemetry(Telemetry(enabled=on)), set_cost_ledger(
+                CostLedger())
+            try:
+                orep, oresp = serve_mod.serve_pairs(model, cfg, pairs, SERVE_SIZE)
+            finally:
+                set_telemetry(prev)
+                set_cost_ledger(prev_ledger)
+            check(orep["serve_ok"] == SERVE_REQUESTS, f"overhead run: {orep['stats']}")
+            p50[on].append(orep["serve_p50_ms"])
+    on_ms, off_ms = statistics.median(p50[True]), statistics.median(p50[False])
+    overhead = {"serve_p50_ms_runs_on": p50[True], "serve_p50_ms_runs_off": p50[False],
+                "serve_p50_ms": on_ms, "serve_p50_ms_notelemetry": off_ms,
+                "serve_telemetry_overhead_pct": round(100.0 * (on_ms - off_ms) / off_ms, 2),
+                "budget_pct_jax": OVERHEAD_BUDGET_PCT}
+    print(f"telemetry overhead: {json.dumps(overhead)} (reported, not held) on {card}",
+          flush=True)
+    # The ledger's MFU of the replayed forward, f32 and bf16_infer.
+    mfus = [ledger_mfu(torch, model, kind, p) for p in ("f32", "bf16_infer")]
+    for row in mfus:
+        print(f"telemetry mfu {row['precision']}: {json.dumps(row)} on {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_profile_steps(torch, card, tmp: str, sintel: str) -> dict:
+    """``--profile_steps 2`` on the train entry: the flagship at
+    ``scripts/train_raft_nc_things.sh``'s configuration on synthetic pairs,
+    3 steps (the first untraced). The Chrome trace under
+    ``<run_dir>/profile`` holds kernels A, A', B and B' by their kernel
+    names, each as often as the two traced steps launched it; every kernel
+    count set to 0 before the run and read after it."""
+    import re
+
+    base = [t for t in script_flags("train_raft_nc_things.sh") if t != "--compressed_ft"]
+    i = base.index("--load_pretrained")
+    del base[i:i + 2]
+    ckdir = os.path.join(tmp, "profiled")
+    argv = base + ["--synthetic_ok", "--root_sintel", sintel, "--checkpoint_dir", ckdir,
+                   "--num_steps", "3", "--profile_steps", "2"]
+    t0 = time.perf_counter()
+    summary, launches, inst, _ = _train_files_run(torch, "profile_steps", argv, 0)
+    seconds = time.perf_counter() - t0
+    run_dir = os.path.join(ckdir, "exp")
+    traces = [os.path.join(run_dir, "profile", n)
+              for n in os.listdir(os.path.join(run_dir, "profile"))]
+    check(len(traces) == 1, f"profile_steps: traces {traces}")
+    with open(os.path.join(run_dir, "log.txt")) as fh:
+        check("profile trace written to" in fh.read(), "profile_steps: no log line")
+    with open(traces[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    patterns = {"corr_lookup": r"\bcorr_lookup_kernel<", "corr_lookup_bwd":
+                r"\bcorr_lookup_bwd_(tile|query)_kernel\b", "nconv": r"\bnconv_kernel<",
+                "nconv_bwd": r"\bnconv_bwd_kernel<"}
+    in_trace = {k: 0 for k in patterns}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for k, pat in patterns.items():
+                if re.search(pat, e.get("name", "")):
+                    in_trace[k] += 1
+    traced = inst.steps[1:3]
+    want = {k: sum(s["launches"][k] for s in traced) for k in patterns}
+    check(in_trace == want and all(want.values()),
+          f"profile_steps: kernels in the trace {in_trace}, the traced steps launched {want}")
+    row = {"card": card, "seconds": seconds, "trace_bytes": os.path.getsize(traces[0]),
+           "kernel_events_in_trace": in_trace, "launches_of_traced_steps": want,
+           "launches_per_step": inst.steps[-1]["launches"], "status": summary["status"]}
+    print(f"telemetry profile_steps: {json.dumps(row)}", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2846,6 +3299,11 @@ def main() -> int:
     paths["stream raft_nc_dbl bf16_infer"] = check_stream(torch, card, "bf16_infer")
     paths["stream chaos"] = check_stream_chaos(torch, card)
     paths["stream carry_net"] = check_stream(torch, card, carry_net=True)
+    # Telemetry: the serve entry with every output on (plain and --stream
+    # branches, under chaos), no synchronisation, its overhead and the cost
+    # ledger's MFU.
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(check_telemetry(torch, card, tmp))
     train_bf16 = check_train(torch, card, steps=VARIANT_TRAIN_STEPS, extras=False,
                              precision="bf16_train", profile=True)
     paths["train raft_nc_dbl bf16_train"] = train_bf16["launches"]
@@ -2864,6 +3322,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_train_files(torch, card, tmp,
                                        train[f"median_ms_steps_2_to_{TRAIN_STEPS}"]))
+        paths["telemetry profile_steps"] = check_profile_steps(
+            torch, card, tmp, os.path.join(tmp, "Sintel"))
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.

@@ -358,7 +358,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--spatial_parallel", type=int, default=1,
                         help="spatial cards (above 1: not in the port yet)")
     parser.add_argument("--profile_steps", type=int, default=0,
-                        help="trace early steps (not in the port yet: ROADMAP queue 1 item 8)")
+                        help="trace this many steps after the first with torch.profiler "
+                        "into <checkpoint_dir>/<name>/profile (a Chrome trace)")
     parser.add_argument("--strict_guards", action="store_true",
                         help="live sync and recompile guards (not in the port yet: "
                         "ROADMAP queue 1 item 10)")
@@ -416,9 +417,6 @@ def parse_train(argv: Optional[Sequence[str]] = None):
     the JAX CLI's ``parse_train`` returns them."""
     args = build_train_parser().parse_args(argv)
     _refuse_mesh((args.data_parallel, args.spatial_parallel))
-    if args.profile_steps:
-        raise ValueError("--profile_steps is not in the port yet: tracing lands with "
-                         "its telemetry slice (ROADMAP.md, queue 1 item 8)")
     if args.strict_guards:
         raise ValueError("--strict_guards is not in the port yet: it lands with the "
                          "analysis slice (ROADMAP.md, queue 1 item 10)")

@@ -42,8 +42,16 @@ fully converged batch wastes at most ``segment - 1`` iterations. The
 knobs ``RAFT_TORCH_EARLYEXIT`` and ``RAFT_TORCH_EARLYEXIT_TOL`` are read
 by :func:`env_earlyexit_tol`, which ``FlowServer`` calls once.
 
-The JAX package's mesh, cost ledger and telemetry arguments are not
-ported.
+**Telemetry and the cost ledger** (``telemetry=`` and ``cost_ledger=``,
+the process defaults when not given): the cache's hits, captures and
+evictions land as the JAX package's canonical counters
+(``LEGACY_KEY_ALIASES["inference"]``), and a capture or an eviction as a
+ring event carrying the key. Every new key's counted run
+(:func:`_capture`'s eager run on the card, the eager entry's first call on
+the CPU) records its cost in the ledger (``inference/costs.py``) under the
+cache's key; an early-exit entry records its three graphs.
+
+The JAX package's mesh argument is not ported.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import os
 import queue
 import sys
 import threading
+import time
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, Optional
@@ -61,10 +70,16 @@ import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.inference import metrics as metrics_mod
+from raft_ncup_tpu_torch.inference.costs import counting_flops, get_cost_ledger
+from raft_ncup_tpu_torch.observability import get_telemetry
+from raft_ncup_tpu_torch.observability.telemetry import LEGACY_KEY_ALIASES
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
 from raft_ncup_tpu_torch.precision import resolve_policy
 from raft_ncup_tpu_torch.utils.device import cudnn_autotune, f32_precision
+
+_EXEC_CANON = LEGACY_KEY_ALIASES["inference"]
+MESH_FP = "nomesh"  # the JAX package's fingerprint of a key without a mesh (the port has none)
 
 # Iterations per replayed segment of the early-exit forward: it divides
 # every default level (the server's 24, 16 and 8, the stream's 12). A level
@@ -402,27 +417,41 @@ def _add_launches(delta: tuple) -> None:
 
 
 class _EagerEntry:
-    """A CPU model's entry: the forward run as it is."""
+    """A CPU model's entry: the forward run as it is. Its first call is
+    counted and handed to ``record(flops, ms, pool bytes)`` (the cost
+    ledger's entry)."""
 
     pool_bytes = 0
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, record: Callable):
         self._fn = fn
+        self._record = record
 
     def __call__(self, *args):
-        return self._fn(*args)
+        if self._record is None:
+            return self._fn(*args)
+        record, self._record = self._record, None
+        t0 = time.perf_counter()
+        with counting_flops() as flops:
+            out = self._fn(*args)
+        record(flops, 1e3 * (time.perf_counter() - t0), 0)
+        return out
 
 
-def _capture(key, fn: Callable, args: tuple, pool, device):
+def _capture(key, fn: Callable, args: tuple, pool, device, record: Callable):
     """Run ``fn(*args)`` once eagerly on a side stream, then capture it
     into a CUDA graph in ``pool``, both under ``cudnn_autotune``. Returns
     ``(graph, outputs, launches, pool bytes added)``; the wrappers' launch
     counts moved by the capture are taken back (``launches`` is what each
-    replay adds). A failed capture raises."""
+    replay adds). A failed capture raises. The eager run, and only it, is
+    counted (``inference.costs.counting_flops``), and ``record(flops, ms,
+    pool bytes added)`` gets the count, the wall time of the whole build
+    and the pool's growth (the cost ledger's entry)."""
+    t0 = time.perf_counter()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with cudnn_autotune():
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), counting_flops() as flops:
             fn(*args)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
@@ -438,8 +467,9 @@ def _capture(key, fn: Callable, args: tuple, pool, device):
         finally:
             after = _launch_counts()
             _set_launch_counts(before)
-    return (graph, out, _launch_delta(after, before),
-            torch.cuda.memory_reserved(device) - reserved)
+    grown = torch.cuda.memory_reserved(device) - reserved
+    record(flops, 1e3 * (time.perf_counter() - t0), grown)
+    return graph, out, _launch_delta(after, before), grown
 
 
 class _GraphEntry:
@@ -464,13 +494,13 @@ class _GraphEntry:
     than through its arguments (the stream engine's slot table) are
     captured by address and updated in place."""
 
-    def __init__(self, key, fn: Callable, args: tuple, pool):
+    def __init__(self, key, fn: Callable, args: tuple, pool, record: Callable):
         device = args[0].device
         # Contiguous whatever the first call's strides: cuDNN picks its
         # algorithms by the layout too, so every key computes one way.
         self.static_in = tuple(a.clone(memory_format=torch.contiguous_format) for a in args)
         self.graph, out, self.launches, self.pool_bytes = _capture(
-            key, fn, self.static_in, pool, device)
+            key, fn, self.static_in, pool, device, record)
         self.static_out = out if isinstance(out, tuple) else (out,)
         self._single = not isinstance(out, tuple)
 
@@ -499,9 +529,12 @@ class _EarlyExitEntry:
     captures and outside the pool, are read and written by address, so
     no graph's pool memory holds state another graph reads. On the CPU
     the stages run eagerly. ``counters`` gains each call's forwards,
-    replayed segments and flag reads; ``last`` holds the latest call's."""
+    replayed segments and flag reads; ``last`` holds the latest call's.
+    ``record(stage)`` returns the cost ledger's recorder of one stage: each
+    stage's counted run is recorded under a key of its own."""
 
-    def __init__(self, key, model, iters: int, tol: float, args: tuple, pool, counters: dict):
+    def __init__(self, key, model, iters: int, tol: float, args: tuple, pool, counters: dict,
+                 record: Callable):
         self.seg = segment_length(iters)
         self.n_seg = int(iters) // self.seg
         self.counters = counters
@@ -537,15 +570,18 @@ class _EarlyExitEntry:
             flow_lr, flow_up = model.finalize({"net": bufs["net"], "coords1": bufs["coords1"]})
             return flow_lr, flow_up, bufs["exec_iters"]
 
+        stages = (("encode", encode, self.static_in), ("segment", segment, ()),
+                  ("finalize", finalize, ()))
         if pool is None:
-            self._encode, self._segment, self._finalize = encode, segment, finalize
+            self._encode, self._segment, self._finalize = (
+                _EagerEntry(fn, record(name)) for name, fn, _ in stages)
             self.pool_bytes = 0
             return
         graphs = []
         self.pool_bytes = 0
-        for name, fn, fn_args in (("encode", encode, self.static_in), ("segment", segment, ()),
-                                  ("finalize", finalize, ())):
-            graph, out, launches, grown = _capture((*key, name), fn, fn_args, pool, device)
+        for name, fn, fn_args in stages:
+            graph, out, launches, grown = _capture((*key, name), fn, fn_args, pool, device,
+                                                   record(name))
             graphs.append((graph, launches))
             self.pool_bytes += grown
             if name == "finalize":
@@ -610,9 +646,13 @@ class ShapeCachedForward:
     ``policy`` (a preset name; default the model's own) names the preset
     the forwards run under; ``forward`` and ``metrics`` take a per-call
     override. Another preset runs the model's parameters through
-    ``RAFT.with_policy``."""
+    ``RAFT.with_policy``.
 
-    def __init__(self, model, cache_size: int = 8, policy=None):
+    ``telemetry`` and ``cost_ledger`` default to the process's hub and
+    ledger (see the module docstring)."""
+
+    def __init__(self, model, cache_size: int = 8, policy=None, telemetry=None,
+                 cost_ledger=None):
         self.model = model
         self.device = model.device
         self.policy = resolve_policy(policy) if policy is not None else model.policy
@@ -626,6 +666,8 @@ class ShapeCachedForward:
         # latest forward's.
         self.earlyexit = {"forwards": 0, "segments": 0, "syncs": 0}
         self.last_earlyexit: dict = {}
+        self._tel = telemetry if telemetry is not None else get_telemetry()
+        self.costs = cost_ledger if cost_ledger is not None else get_cost_ledger()
 
     @property
     def pool_bytes(self) -> dict:
@@ -659,26 +701,47 @@ class ShapeCachedForward:
 
     def _get(self, key: tuple, build: Callable):
         """The entry of ``key``, built by ``build()`` on a miss; counts a
-        capture, a hit or an eviction."""
+        capture, a hit or an eviction, in ``stats`` and in the telemetry
+        registry. Hits are counters only: a ring event per replayed batch
+        would crowd out the events the ring exists to keep."""
         entry = self._entries.get(key)
         if entry is not None:
             self._entries.move_to_end(key)
             self.stats["hits"] += 1
+            self._tel.inc(_EXEC_CANON["hits"])
             return entry
         entry = build()
         self._entries[key] = entry
         self.stats["compiles"] += 1
+        self._tel.inc(_EXEC_CANON["compiles"])
+        self._tel.event("inference_executable_compile", key=str(key))
         if len(self._entries) > self.cache_size:
             evicted, _ = self._entries.popitem(last=False)
             self.stats["evictions"] += 1
+            self._tel.inc(_EXEC_CANON["evictions"])
+            self._tel.event("inference_executable_evict", key=str(evicted))
             print(f"ShapeCachedForward: evicting {evicted} (LRU bound {self.cache_size}); "
                   "recurring evictions re-pay captures: raise eval_cache_size or bucket "
                   "the pads (eval_pad_bucket)", file=sys.stderr)
         return entry
 
+    def _recorder(self, key: tuple) -> Callable:
+        """The cost ledger's recorder of ``key``'s counted run:
+        ``record(flops, ms, pool bytes)``."""
+        ledger_key = f"{self.device.type}|{key}"
+        meta = _ledger_meta(key)
+
+        def record(flops: dict, ms: float, pool_bytes: int) -> None:
+            self.costs.record(ledger_key, flops=flops, capture_ms=ms, pool_bytes=pool_bytes,
+                              backend=self.device.type, **meta)
+
+        return record
+
     def _graph_or_eager(self, key: tuple, fn: Callable, args: tuple):
         pool = self._pool_for_capture()
-        return _EagerEntry(fn) if pool is None else _GraphEntry(key, fn, args, pool)
+        record = self._recorder(key)
+        return (_EagerEntry(fn, record) if pool is None
+                else _GraphEntry(key, fn, args, pool, record))
 
     def _run(self, key: tuple, fn: Callable, args: tuple):
         return self._get(key, lambda: self._graph_or_eager(key, fn, args))(*args)
@@ -710,7 +773,8 @@ class ShapeCachedForward:
 
             def build():
                 return _EarlyExitEntry(key, model, iters, float(early_exit_tol), args,
-                                       self._pool_for_capture(), self.earlyexit)
+                                       self._pool_for_capture(), self.earlyexit,
+                                       lambda stage: self._recorder((*key, stage)))
 
             entry = self._get(key, build)
             out = entry(*args)
@@ -751,3 +815,25 @@ class ShapeCachedForward:
             return (acc_out, flow_lr) if warm else acc_out
 
         return self._run(key, fn, args)
+
+
+def _ledger_meta(key: tuple) -> dict:
+    """The structured identity of a cache key for its ledger entry
+    (``raft_ncup_tpu/inference/pipeline.py``'s ``_ledger_meta`` for the
+    port's keys): kind, shape, iterations and preset, the early-exit
+    tolerance and, for an early-exit graph, its stage."""
+    if key and isinstance(key[0], tuple):
+        # forward: (shape, iters, warm, policy[, ("earlyexit", tol)][, stage])
+        meta = {"kind": "forward", "shape": key[0], "iters": key[1], "policy": key[3]}
+        for part in key[4:]:
+            if isinstance(part, tuple) and len(part) == 2 and part[0] == "earlyexit":
+                meta["earlyexit_tol"] = part[1]
+            elif isinstance(part, str):
+                meta["stage"] = part
+        return meta
+    if key and key[0] == "metrics":
+        # ("metrics", img_shape, flow_shape, extras, iters, kind, pad, warm, policy)
+        return {"kind": "metrics", "shape": key[1], "iters": key[4], "policy": key[8]}
+    if key and key[0] == "custom":
+        return {"kind": "custom", "name": key[1] if len(key) > 1 else None}
+    return {}

@@ -1,0 +1,343 @@
+"""Monotonic-clock span tracer: per-stage latency spans and point events
+carrying correlation ids through serving, streaming and the graph cache
+(port of ``raft_ncup_tpu/observability/spans.py``).
+
+A **span** is one timed stage (``serve_dispatch``, ``stream_drain``...); a
+**point event** is an instant fact (``stream_slot_evicted``,
+``io_retry``...). Both carry correlation attributes (request id, stream
+id, batch id, precision preset), so a request's journey through
+admission, batching, dispatch and delivery can be reassembled from the
+ring afterwards (``for_attr``).
+
+Spans are HOST spans: a span around a CUDA graph replay measures the host
+time from launch to the host's copy of the result, never device time
+(the profile phases of ``chip_smoke.py`` measure that). Everything here is
+stdlib: the clock is ``time.monotonic`` (injectable), records live in a
+bounded ring, and attribute values are host scalars or strings: a tensor
+given to a span raises ``TypeError`` before anything could synchronise
+(``telemetry.host_number``).
+
+Finishing a span feeds ``{name}_ms`` in the registry, so per-stage p50
+and p99 come from the same histograms as the rest of telemetry; a point
+event feeds ``{name}_total``. Profiler labels are not this module's job:
+``utils/profiling.stage_annotation`` (``torch.profiler.record_function``)
+labels the dispatch stages on a profiler's timeline.
+
+**Cross-process traces** (docs/OBSERVABILITY.md "Trace propagation"): a
+request that crosses a process boundary carries a :class:`TraceContext`
+(``trace_id``, the parent ``span_id``, the sender-to-receiver clock
+offset). On the wire it is an optional plain dict; on each side it becomes
+an ordinary ``trace_id`` attribute, and ``aggregate.py`` stitches the
+exported rings into one tree. Every ring record stamps ``t_s``, its start
+on the producer's monotonic clock.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+from raft_ncup_tpu_torch.observability.telemetry import (
+    MetricsRegistry,
+    host_number,
+)
+
+DEFAULT_SPAN_CAPACITY = 2048
+
+_ATTR_OK_TYPES = (str, bool, type(None))
+
+
+def new_trace_id() -> str:
+    """A fresh 16-hex trace id (host entropy; one per fleet request)."""
+    return os.urandom(8).hex()
+
+
+def new_span_id() -> str:
+    """A fresh 8-hex span id (parenting label for cross-process spans)."""
+    return os.urandom(4).hex()
+
+
+@dataclass(frozen=True)
+class TraceContext:
+    """Serializable trace context carried across a process boundary.
+
+    ``trace_id`` names the whole request journey; ``span_id`` is the
+    sender-side parent span the receiver's spans nest under;
+    ``clock_offset_s`` is the handshake's estimate of ``receiver_mono -
+    sender_mono`` (so ``sent_s + clock_offset_s`` is the send instant on
+    the RECEIVER's clock and per-hop deltas are meaningful across
+    processes); ``sent_s`` is the sender's monotonic clock at send time.
+
+    The wire form is a plain dict and deliberately OPTIONAL in every
+    frame schema: ``from_wire`` returns ``None`` for an absent or
+    malformed value, so an old peer's frames (no context) and a new
+    peer's frames (context present) both parse everywhere (the
+    wire-compat check pins the consumer side to ``.get``).
+    """
+
+    trace_id: str
+    span_id: str
+    clock_offset_s: float = 0.0
+    sent_s: Optional[float] = None
+
+    def to_wire(self) -> dict:
+        out = {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "clock_offset_s": round(float(self.clock_offset_s), 9),
+        }
+        if self.sent_s is not None:
+            out["sent_s"] = round(float(self.sent_s), 9)
+        return out
+
+    @classmethod
+    def from_wire(cls, value) -> Optional["TraceContext"]:
+        if not isinstance(value, dict):
+            return None
+        tid = value.get("trace_id")
+        if not isinstance(tid, str) or not tid:
+            return None
+        try:
+            sent = value.get("sent_s")
+            return cls(
+                trace_id=tid,
+                span_id=str(value.get("span_id") or ""),
+                clock_offset_s=float(value.get("clock_offset_s") or 0.0),
+                sent_s=None if sent is None else float(sent),
+            )
+        except (TypeError, ValueError):
+            return None
+
+    def child(self, span_id: str, *, clock_offset_s: Optional[float] = None,
+              sent_s: Optional[float] = None) -> "TraceContext":
+        """The same trace, re-parented under ``span_id`` (the next hop's
+        inbound context)."""
+        return TraceContext(
+            trace_id=self.trace_id,
+            span_id=span_id,
+            clock_offset_s=(
+                self.clock_offset_s if clock_offset_s is None
+                else clock_offset_s
+            ),
+            sent_s=sent_s,
+        )
+
+
+def _host_attr(name: str, key: str, value):
+    """Validate one span attribute as host data (scalar, string, or a
+    small tuple/list of those) — never a device array."""
+    if isinstance(value, _ATTR_OK_TYPES):
+        return value
+    if isinstance(value, (tuple, list)):
+        return [_host_attr(name, key, v) for v in value]
+    if isinstance(value, int):
+        # bool handled above; plain ints (request ids) pass untouched.
+        return value
+    return host_number(value, f"span {name} attr {key!r}")
+
+
+class Span:
+    """One in-progress or finished stage. Created by
+    :meth:`SpanTracer.span`; ``duration_ms`` is valid after exit."""
+
+    __slots__ = ("name", "attrs", "start_s", "end_s")
+
+    def __init__(self, name: str, attrs: dict, start_s: float):
+        self.name = name
+        self.attrs = attrs
+        self.start_s = start_s
+        self.end_s: Optional[float] = None
+
+    @property
+    def duration_ms(self) -> Optional[float]:
+        if self.end_s is None:
+            return None
+        return (self.end_s - self.start_s) * 1000.0
+
+    def set(self, **attrs) -> None:
+        """Attach correlation attributes mid-span (e.g. the batch id is
+        only known after assembly)."""
+        for k, v in attrs.items():
+            self.attrs[k] = _host_attr(self.name, k, v)
+
+    def record(self) -> dict:
+        # ``t_s`` is the span's start on the tracer's monotonic clock:
+        # the absolute anchor aggregate.py needs to order records and
+        # compute per-hop deltas across processes (after translating
+        # through the handshake's clock offsets).
+        rec = {
+            "name": self.name,
+            "attrs": dict(self.attrs),
+            "t_s": round(self.start_s, 6),
+        }
+        if self.end_s is not None:
+            rec["duration_ms"] = round(self.duration_ms, 3)
+        return rec
+
+
+class _SpanContext:
+    """Context manager yielded by :meth:`SpanTracer.span`."""
+
+    __slots__ = ("_tracer", "span")
+
+    def __init__(self, tracer: "SpanTracer", span: Span):
+        self._tracer = tracer
+        self.span = span
+
+    def __enter__(self) -> Span:
+        return self.span
+
+    def __exit__(self, *exc) -> None:
+        self._tracer._finish(self.span)
+
+
+class _NoopSpan:
+    """Shared do-nothing span for disabled tracers: the hot path pays
+    one attribute lookup and a with-statement, nothing else."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+class SpanTracer:
+    """Bounded ring of finished spans + point events, with registry
+    feeding. Thread-safe: clients, the dispatcher, and drain workers all
+    produce concurrently."""
+
+    def __init__(
+        self,
+        registry: Optional[MetricsRegistry] = None,
+        capacity: int = DEFAULT_SPAN_CAPACITY,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.registry = registry
+        self.clock = clock
+        self._records: deque = deque(maxlen=max(1, int(capacity)))
+        self._dropped = 0
+        self._lock = threading.Lock()
+
+    # -------------------------------------------------------- producers
+
+    def span(self, name: str, **attrs) -> _SpanContext:
+        """``with tracer.span("serve_dispatch", batch_id=7) as sp: ...``
+        — measures wall time on the tracer's monotonic clock, records
+        the span, and observes ``{name}_ms`` in the registry."""
+        checked = {
+            k: _host_attr(name, k, v) for k, v in attrs.items()
+        }
+        return _SpanContext(self, Span(name, checked, self.clock()))
+
+    def _finish(self, span: Span) -> None:
+        span.end_s = self.clock()
+        self._append(span.record())
+        if self.registry is not None:
+            self.registry.histogram(
+                f"{span.name}_ms"
+            ).observe_ms(span.duration_ms)
+
+    def event(self, name: str, **attrs) -> None:
+        """Point event: recorded in the ring and counted as
+        ``{name}_total`` in the registry."""
+        checked = {
+            k: _host_attr(name, k, v) for k, v in attrs.items()
+        }
+        self._append({
+            "name": name, "attrs": checked, "event": True,
+            "t_s": round(self.clock(), 6),
+        })
+        if self.registry is not None:
+            self.registry.counter(f"{name}_total").inc()
+
+    def observe_ms(self, name: str, ms, **attrs) -> None:
+        """Record an externally-timed duration as if it were a span —
+        the per-request queue-wait case, where the interval's endpoints
+        live in different threads and a context manager cannot wrap it."""
+        ms = host_number(ms, f"span {name} duration")
+        checked = {
+            k: _host_attr(name, k, v) for k, v in attrs.items()
+        }
+        self._append({
+            "name": name, "attrs": checked, "duration_ms": round(ms, 3),
+            # Start estimate: the interval ended "now" on this clock.
+            "t_s": round(self.clock() - ms / 1e3, 6),
+        })
+        if self.registry is not None:
+            self.registry.histogram(f"{name}_ms").observe_ms(ms)
+
+    def _append(self, record: dict) -> None:
+        with self._lock:
+            if len(self._records) == self._records.maxlen:
+                self._dropped += 1
+            self._records.append(record)
+
+    # --------------------------------------------------------- consumers
+
+    def records(self, name: Optional[str] = None) -> List[dict]:
+        with self._lock:
+            recs = list(self._records)
+        if name is None:
+            return recs
+        return [r for r in recs if r["name"] == name]
+
+    def for_attr(self, **match) -> List[dict]:
+        """Correlation query: records whose attrs contain every given
+        key with an equal value — or whose list-valued attr CONTAINS
+        the value. A singular key also matches its plural list attr
+        (``request_id=12`` matches a batch span's ``request_ids``
+        containing 12), so ``tracer.for_attr(request_id=12)``
+        reassembles request 12's whole journey: its own queue-wait plus
+        every batch-level stage that carried it.
+
+        The matching itself is ``flight.match_records`` — ONE
+        implementation shared with the offline postmortem tool, so the
+        live tracer and a dumped ring can never drift semantically.
+        """
+        from raft_ncup_tpu_torch.observability.flight import match_records
+
+        return match_records(self.records(), **match)
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    def stage_summary(self) -> Dict[str, dict]:
+        """Per-stage latency breakdown from the registry's ``*_ms``
+        histograms: {stage: {count, p50_ms, p99_ms}} — what ``report()``
+        embeds alongside the legacy keys."""
+        if self.registry is None:
+            return {}
+        out: Dict[str, dict] = {}
+        for name in self.registry.names():
+            if not name.endswith("_ms"):
+                continue
+            m = self.registry.get(name)
+            snap_fn = getattr(m, "percentile_ms", None)
+            if snap_fn is None:
+                continue  # a gauge that happens to end in _ms
+            out[name[: -len("_ms")]] = {
+                "count": m.count,
+                "p50_ms": m.percentile_ms(0.50),
+                "p99_ms": m.percentile_ms(0.99),
+            }
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._records.clear()
+            self._dropped = 0

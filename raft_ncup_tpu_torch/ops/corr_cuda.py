@@ -459,6 +459,35 @@ def lookup_levels(
 
 lookup_levels.launches = 0
 lookup_levels.launches_by_dtype = {}
+# A list while ``inference.costs.counting_flops`` counts a run: each launch
+# appends its operations (``lookup_work``).
+lookup_levels.work_log = None
+
+
+def lookup_work(f1s, f2_levels, coords, radius) -> tuple[int, int]:
+    """(bytes, operations) one lookup needs for these inputs: every input
+    read once and the output written once (features at their own size, 4
+    bytes in f32 and 2 in bf16; coords and output f32); two operations per
+    multiply-add of the dot products at in-bounds patch positions
+    (out-of-bounds ones need none), plus 7 per output tap for the bilinear
+    blend. Reads the in-bounds count back to the host."""
+    B, H, W, C = f1s.shape
+    K = 2 * radius + 1
+    n_out = B * H * W * len(f2_levels) * K * K
+    nbytes = (f1s.element_size() * f1s.numel() + 4 * coords.numel()
+              + sum(t.element_size() * t.numel() for t in f2_levels) + 4 * n_out)
+    k1 = torch.arange(K + 1, device=coords.device, dtype=torch.float32)
+    positions = 0
+    for l, t in enumerate(f2_levels):
+        hl, wl = t.shape[1], t.shape[2]
+        p = coords.reshape(-1, 2) / float(2 ** l)
+        o = torch.floor(p) - radius
+        ix = o[:, 0:1] + k1
+        iy = o[:, 1:2] + k1
+        cx = ((ix >= 0) & (ix < wl)).sum(1)
+        cy = ((iy >= 0) & (iy < hl)).sum(1)
+        positions += int((cx * cy).sum())
+    return nbytes, 2 * C * positions + 7 * n_out
 
 
 def _lookup_forward(f1s, f2_levels, coords, radius) -> torch.Tensor:
@@ -483,6 +512,8 @@ def _lookup_forward(f1s, f2_levels, coords, radius) -> torch.Tensor:
     by_dtype = lookup_levels.launches_by_dtype
     key = str(f1s.dtype).removeprefix("torch.")
     by_dtype[key] = by_dtype.get(key, 0) + 1
+    if lookup_levels.work_log is not None:
+        lookup_levels.work_log.append(lookup_work(f1s, f2_levels, coords, radius)[1])
     return out
 
 

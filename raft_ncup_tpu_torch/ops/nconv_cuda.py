@@ -162,6 +162,25 @@ def nconv2d_fused(
 
 
 nconv2d_fused.launches = 0
+# A list while ``inference.costs.counting_flops`` counts a run: each launch
+# appends its operations (``nconv_work``).
+nconv2d_fused.work_log = None
+
+
+def nconv_work(B, H, W, k, cin, cout) -> tuple[int, int]:
+    """(bytes, operations) of one fused NConv2d: data, conf and weight read
+    once, out and conf_out written once; per in-bounds tap and input
+    channel one multiply (data*conf) and two multiply-adds per output
+    channel, plus a divide, a bias add and a scale per output."""
+    p = k // 2
+
+    def along(n):  # in-bounds taps along one axis of n pixels
+        return sum(max(0, n - abs(d)) for d in range(-p, p + 1))
+
+    taps = along(H) * along(W)  # in-bounds, per plane
+    nbytes = 4 * (2 * B * cin * H * W + cout * cin * k * k + 2 * B * cout * H * W)
+    flops = B * cin * taps * (1 + 4 * cout) + 3 * B * cout * H * W
+    return nbytes, flops
 
 
 def _nconv_forward(data, conf, weight, bias, eps):
@@ -183,6 +202,8 @@ def _nconv_forward(data, conf, weight, bias, eps):
     )
     cuda_build.check(rc, lib, "nconv_f32")
     nconv2d_fused.launches += 1
+    if nconv2d_fused.work_log is not None:
+        nconv2d_fused.work_log.append(nconv_work(B, H, W, k, cin, cout)[1])
     return out, conf_out
 
 

@@ -64,6 +64,11 @@ class PreemptionHandler:
             self._restore()
             return
         self._requested = True
+        # A lifecycle event for the timeline (host-only: a ring append and
+        # a counter).
+        from raft_ncup_tpu_torch.observability import get_telemetry
+
+        get_telemetry().event("preemption_signal", signum=int(signum))
         print(f"preemption: received signal {signum}; will checkpoint and exit at the "
               "next step boundary", file=sys.stderr)
 

@@ -1,11 +1,14 @@
 """Bounded exponential-backoff retry of host I/O (port of
-``raft_ncup_tpu/resilience/retry.py``, without the telemetry events).
+``raft_ncup_tpu/resilience/retry.py``).
 
 A transient read or write error (an NFS stall during a dataset read or a
 checkpoint save) must not end a long run, and an unbounded retry must not
 hang it: every retry here is bounded, backs off exponentially and is
 counted in a :class:`RetryStats`, which the trainer writes to ``log.txt``
-at the end of the run.
+at the end of the run. Every retry, give-up and quarantine is also a
+telemetry event (``io_retry``, ``io_giveup``, ``io_sample_quarantined``),
+whose counters carry the canonical names
+(``LEGACY_KEY_ALIASES["retry"]``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Tuple, TypeVar
+
+from raft_ncup_tpu_torch.observability import get_telemetry
 
 T = TypeVar("T")
 
@@ -42,6 +47,7 @@ class RetryStats:
             if index in self.quarantined:
                 return False
             self.quarantined.append(index)
+        get_telemetry().event("io_sample_quarantined", index=index)
         return True
 
     @property
@@ -78,10 +84,12 @@ def retry_io(
             if attempt >= attempts:
                 if stats is not None:
                     stats.note_giveup()
+                get_telemetry().event("io_giveup", desc=desc)
                 raise
             attempt += 1
             if stats is not None:
                 stats.note_retry()
+            get_telemetry().event("io_retry", desc=desc, attempt=attempt)
             if log is not None:
                 log(f"{desc}: attempt {attempt}/{attempts} failed ({e}); "
                     f"retrying in {delay:.2f}s")

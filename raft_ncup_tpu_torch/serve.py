@@ -32,9 +32,23 @@ Every forward runs through per-shape CUDA graphs
 report carries the cache's ``executables`` (captures, hits, evictions),
 the graphs' pool bytes and the kernels' launches after warm-up.
 
-Left out, each refused with its ROADMAP.md item (queue 1): telemetry,
-SLOs and the flight recorder (``--report``, ``--telemetry_jsonl``,
-``--healthz_file``, ``--flight_dir``: item 8), fleet replicas
+Telemetry (``observability/``), as the root entry wires it: each run gets
+a hub and a cost ledger of its own (``run`` is re-entrant in one process,
+as the root entry's process is one run), disabled by
+``RAFT_TORCH_TELEMETRY=0``. The declared SLOs (``serve_slos``, or
+``stream_slos`` with ``--stream``; windows scaled by
+``--slo_window_scale``) are evaluated every ``--telemetry_interval_s``, and
+then ``--telemetry_jsonl`` gets a snapshot and ``--healthz_file`` is
+rewritten atomically; fault triggers (poison quarantine, anomaly reset,
+the SIGTERM drain, an SLO page) bank flight dumps in ``--flight_dir``
+(default ``flight_recorder``, or ``RAFT_TORCH_FLIGHT_DIR``; '' disables).
+The report always carries ``slo``; ``--report`` adds ``telemetry`` (the
+registry, stage p50/p99, health) and ``cost_ledger`` (each captured key's
+FLOPs, capture ms and pool bytes). The files keep the JAX package's
+formats, so its ``scripts/trace_report.py`` and ``scripts/postmortem.py``
+read them.
+
+Left out, each refused with its ROADMAP.md item (queue 1): fleet replicas
 (``--replica_socket``: item 7) and the mesh (``--mesh``: item 9).
 
 It runs on the card unless ``--device cpu`` is given; with no CUDA and
@@ -51,6 +65,7 @@ Examples::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -67,17 +82,58 @@ from raft_ncup_tpu_torch.cli import (
     stream_config_from_args,
 )
 from raft_ncup_tpu_torch.evaluate import load_model
+from raft_ncup_tpu_torch.inference.costs import CostLedger, set_cost_ledger
+from raft_ncup_tpu_torch.inference.pipeline import MESH_FP
 from raft_ncup_tpu_torch.models.raft import RAFT
+from raft_ncup_tpu_torch.observability import (
+    FlightRecorder,
+    JsonlSink,
+    PeriodicSnapshot,
+    SloEngine,
+    Telemetry,
+    get_telemetry,
+    serve_slos,
+    set_telemetry,
+    stream_slos,
+    telemetry_report,
+)
+from raft_ncup_tpu_torch.observability.export import TELEMETRY_ENV
+from raft_ncup_tpu_torch.observability.flight import FLIGHT_ENV
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
 from raft_ncup_tpu_torch.resilience import EXIT_PREEMPTED, ChaosSpec, PreemptionHandler
 from raft_ncup_tpu_torch.serving import FlowServer, SyntheticTraffic, nearest_rank_ms, replay
 from raft_ncup_tpu_torch.streaming import StreamEngine, StreamTraffic, replay_streams
+from raft_ncup_tpu_torch.utils.knobs import knob_enabled, knob_raw
 
 # The root entry's flags of slices the port does not have yet, and the
 # ROADMAP.md (queue 1) item that brings each.
-_LATER = {"report": 8, "telemetry_jsonl": 8, "healthz_file": 8, "flight_dir": 8,
-          "replica_socket": 7, "mesh": 9}
+_LATER = {"replica_socket": 7, "mesh": 9}
+
+
+@contextlib.contextmanager
+def _telemetry_export(args, tel: Telemetry):
+    """The telemetry cadence for the run (root ``serve.py``'s): SLO
+    evaluation always, a ``--telemetry_jsonl`` snapshot and a
+    ``--healthz_file`` rewrite when asked. The snapshot thread's final tick
+    runs before the sink closes, so the last report (the drained state)
+    reaches the file."""
+    with contextlib.ExitStack() as stack:
+        sink = stack.enter_context(JsonlSink(args.telemetry_jsonl)) \
+            if args.telemetry_jsonl else None
+        stack.enter_context(PeriodicSnapshot(tel, sink, args.telemetry_interval_s,
+                                             healthz_path=args.healthz_file))
+        yield
+
+
+def _attach_observability(args, tel: Telemetry, *, stream: bool) -> None:
+    """Arm the hub's consumer half: the declared SLO set (serve or stream)
+    and the flight recorder in ``--flight_dir`` ('' disables it)."""
+    if args.flight_dir:
+        tel.flight = FlightRecorder(args.flight_dir)
+    specs = (stream_slos(args.stream_capacity, window_scale=args.slo_window_scale)
+             if stream else serve_slos(window_scale=args.slo_window_scale))
+    tel.slo = SloEngine(specs, tel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -107,6 +163,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="[--stream] frames submitted per stream")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
+    p.add_argument("--report", action="store_true",
+                   help="add the telemetry report (registry, stage p50/p99, health) and the "
+                   "cost ledger to the printed JSON")
+    p.add_argument("--telemetry_jsonl", default=None, metavar="PATH",
+                   help="write periodic telemetry snapshots to this bounded JSONL file")
+    p.add_argument("--telemetry_interval_s", type=float, default=5.0,
+                   help="cadence of the snapshots, the healthz rewrites and the SLO "
+                   "evaluation")
+    p.add_argument("--healthz_file", default=None, metavar="PATH",
+                   help="rewrite this JSON file atomically on the telemetry cadence with "
+                   "the health states and SLO verdicts (DRAINING rides the exit-75 drain)")
+    p.add_argument("--flight_dir", default=knob_raw(FLIGHT_ENV, "flight_recorder"),
+                   help="flight-recorder directory: every fault trigger (poison quarantine, "
+                   "anomaly reset, SIGTERM drain, SLO page) banks one atomic "
+                   "flight_<trigger>_<ts>.json here ('' disables)")
+    p.add_argument("--slo_window_scale", type=float, default=1.0,
+                   help="scale the declared SLOs' 5 min / 1 h burn-rate windows (e.g. 0.01 "
+                   "for a run of seconds)")
     for flag, item in _LATER.items():
         p.add_argument(f"--{flag}", nargs="*", default=None,
                        help=f"not in the port yet (ROADMAP.md, queue 1 item {item})")
@@ -136,20 +210,31 @@ def _launches() -> tuple:
 
 
 def serve_traffic(model: RAFT, cfg, traffic, size_hw, *, preempt=None,
-                  sigterm_after=None) -> tuple[dict, list, bool]:
+                  sigterm_after=None, export=contextlib.nullcontext) -> tuple[dict, list, bool]:
     """Warm a :class:`FlowServer` up for ``size_hw``, replay ``traffic``
     (``(due_s, image1, image2)`` items), drain, and return ``(report,
     responses, interrupted)``. The report counts the kernel launches made
-    while serving (after the warm-up)."""
+    while serving (after the warm-up). The server binds the process's
+    telemetry hub; ``export()`` encloses the replay and the drain (the
+    entry's telemetry cadence), and a drain after a signal banks a
+    ``preemption_drain`` flight dump."""
+    tel = get_telemetry()
     server = FlowServer(model, cfg)
     t0 = time.monotonic()
     warmed = server.warmup(size_hw)
     warmup_s = time.monotonic() - t0
+    # The identity the healthz file advertises: the warmed set and preset.
+    tel.identity.update({"mesh": MESH_FP, "precision": server.policy.name,
+                         "warmed": [list(x) for x in server.warmed]})
     launches0 = _launches()
     t0 = time.monotonic()
-    handles, interrupted = replay(server, traffic, preempt=preempt,
-                                  sigterm_after=sigterm_after)
-    stats = server.drain()
+    with export():
+        handles, interrupted = replay(server, traffic, preempt=preempt,
+                                      sigterm_after=sigterm_after)
+        stats = server.drain()
+        if interrupted:
+            # Banked after the flush: the dump describes the drained state.
+            tel.flight_dump("preemption_drain", completed=stats.completed, shed=stats.shed)
     wall = time.monotonic() - t0
     responses = [h.result(timeout=60.0) for h in handles]
     lat = [r.latency_s for r in responses if r.ok]
@@ -173,6 +258,7 @@ def serve_traffic(model: RAFT, cfg, traffic, size_hw, *, preempt=None,
         "corr_kernel_launches": lookup_levels.launches - launches0[0],
         "nconv_kernel_launches": nconv2d_fused.launches - launches0[1],
         **server.report(),
+        "slo": tel.slo.snapshot() if tel.slo is not None else None,
     }
     return report, responses, interrupted
 
@@ -184,22 +270,29 @@ def serve_pairs(model: RAFT, cfg, pairs, size_hw) -> tuple[dict, list]:
     return report, responses
 
 
-def stream_traffic(model: RAFT, cfg, traffic, *, preempt=None,
-                   sigterm_after=None) -> tuple[dict, list, bool, StreamEngine]:
+def stream_traffic(model: RAFT, cfg, traffic, *, preempt=None, sigterm_after=None,
+                   export=contextlib.nullcontext) -> tuple[dict, list, bool, StreamEngine]:
     """Stand up a :class:`StreamEngine`, capture its steps, replay
     ``traffic`` (``(due_s, stream_id, frame_index, image1, image2)``
     items), drain, and return ``(report, responses, interrupted,
     engine)``. The report counts the kernel launches made while streaming
-    (after the warm-up)."""
+    (after the warm-up). Telemetry as in :func:`serve_traffic`."""
+    tel = get_telemetry()
     engine = StreamEngine(model, cfg)
     t0 = time.monotonic()
     warmed = engine.warmup()
     warmup_s = time.monotonic() - t0
+    tel.identity.update({"mesh": MESH_FP, "precision": engine._policy.name,
+                         "warmed": [list(x) for x in engine.warmed]})
     launches0 = _launches()
     t0 = time.monotonic()
-    handles, interrupted = replay_streams(engine, traffic, preempt=preempt,
-                                          sigterm_after=sigterm_after)
-    stats = engine.drain()
+    with export():
+        handles, interrupted = replay_streams(engine, traffic, preempt=preempt,
+                                              sigterm_after=sigterm_after)
+        stats = engine.drain()
+        if interrupted:
+            tel.flight_dump("preemption_drain", completed=stats.completed,
+                            shed_frames=stats.shed_frames)
     wall = time.monotonic() - t0
     responses = [h.result(timeout=60.0) for h in handles]
     lat = [r.latency_s for r in responses if r.ok and r.latency_s is not None]
@@ -223,20 +316,44 @@ def stream_traffic(model: RAFT, cfg, traffic, *, preempt=None,
         "corr_kernel_launches": lookup_levels.launches - launches0[0],
         "nconv_kernel_launches": nconv2d_fused.launches - launches0[1],
         **engine.report(),
+        "slo": tel.slo.snapshot() if tel.slo is not None else None,
     }
     return report, responses, interrupted, engine
 
 
 def run(argv=None) -> tuple[int, dict, list, RAFT]:
     """Parse ``argv`` and serve: ``(exit code, report, responses,
-    model)``; :func:`main` prints the report."""
+    model)``; :func:`main` prints the report. The run's telemetry hub and
+    cost ledger are the process defaults while it runs; the previous ones
+    come back after."""
     args = build_parser().parse_args(argv)
     later = [f"--{k} (ROADMAP.md, queue 1 item {n})" for k, n in _LATER.items()
              if getattr(args, k) is not None]
     if later:
         raise ValueError(f"not in the port yet: {', '.join(later)}")
+    tel, ledger = Telemetry(enabled=knob_enabled(TELEMETRY_ENV)), CostLedger()
+    prev_tel, prev_ledger = set_telemetry(tel), set_cost_ledger(ledger)
+    try:
+        rc, report, responses, model = _run(args, tel)
+    finally:
+        set_telemetry(prev_tel)
+        set_cost_ledger(prev_ledger)
+    if args.report:
+        report["telemetry"] = telemetry_report(tel)
+        # Each captured key's cost, recorded when it was built: host
+        # dicts, nothing to wait for.
+        report["cost_ledger"] = ledger.snapshot()
+    return rc, report, responses, model
+
+
+def _run(args, tel: Telemetry) -> tuple[int, dict, list, RAFT]:
     model = load_model(model_config_from_args(args, dataset="sintel"), args.restore_ckpt,
                        args.device, args.seed)
+    _attach_observability(args, tel, stream=args.stream)
+
+    def export():
+        return _telemetry_export(args, tel)
+
     size_hw = (args.size[0], args.size[1])
     chaos = ChaosSpec.parse(args.chaos)
     if chaos.active:
@@ -251,7 +368,7 @@ def run(argv=None) -> tuple[int, dict, list, RAFT]:
                                          style=args.style))
             report, responses, interrupted, _ = stream_traffic(
                 model, stream_config_from_args(args, size_hw), traffic, preempt=preempt,
-                sigterm_after=chaos.sigterm_after)
+                sigterm_after=chaos.sigterm_after, export=export)
         else:
             traffic = list(SyntheticTraffic(size_hw, args.num_requests, seed=args.seed,
                                             interval_s=args.interval_ms / 1000.0,
@@ -259,7 +376,7 @@ def run(argv=None) -> tuple[int, dict, list, RAFT]:
                                             style=args.style))
             report, responses, interrupted = serve_traffic(
                 model, serve_config_from_args(args), traffic, size_hw, preempt=preempt,
-                sigterm_after=chaos.sigterm_after)
+                sigterm_after=chaos.sigterm_after, export=export)
     report.update(variant=model.cfg.variant, small=model.cfg.small)
     if model.device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(model.device)

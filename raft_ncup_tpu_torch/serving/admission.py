@@ -1,5 +1,5 @@
 """Bounded admission queue with load shedding (port of
-``raft_ncup_tpu/serving/admission.py``, without the telemetry gauge).
+``raft_ncup_tpu/serving/admission.py``).
 
 With open-loop arrivals an unbounded queue turns overload into unbounded
 latency; a bounded queue turns it into a fast ``shed`` with a retry hint
@@ -7,7 +7,9 @@ for the marginal request while the admitted ones keep their latency.
 ``offer`` never blocks; ``pop_batch`` blocks for the first request, then
 pops FIFO-adjacent requests sharing its shape key, never reordering
 across shapes; the stream engine's rule (``distinct_fn``) takes at most
-one frame of a stream into a batch.
+one frame of a stream into a batch. With ``telemetry`` bound, every
+``offer``, ``pop_batch`` and ``close`` publishes the depth as the gauge
+``{name}_queue_depth`` (value and peak).
 """
 
 from __future__ import annotations
@@ -21,12 +23,19 @@ class AdmissionQueue:
     """Thread-safe bounded FIFO of admitted requests (``FlowRequest`` or
     the stream engine's ``FrameRequest``)."""
 
-    def __init__(self, capacity: int):
+    def __init__(self, capacity: int, *, telemetry=None, name: str = "queue"):
         self.capacity = max(1, int(capacity))
         self._q: deque = deque()
         self._cond = threading.Condition()
         self._closed = False
         self._paused = False
+        self._tel = telemetry
+        self._depth_gauge = f"{name}_queue_depth"
+
+    def _publish_depth(self) -> None:
+        # Callers hold self._cond: len() is the depth at this instant.
+        if self._tel is not None:
+            self._tel.gauge_set(self._depth_gauge, len(self._q))
 
     def __len__(self) -> int:
         with self._cond:
@@ -44,6 +53,7 @@ class AdmissionQueue:
             if self._closed or len(self._q) >= self.capacity:
                 return False
             self._q.append(request)
+            self._publish_depth()
             self._cond.notify()
             return True
 
@@ -52,6 +62,7 @@ class AdmissionQueue:
         with self._cond:
             self._closed = True
             self._paused = False
+            self._publish_depth()
             self._cond.notify_all()
 
     def set_paused(self, paused: bool) -> None:
@@ -89,6 +100,7 @@ class AdmissionQueue:
                     and self._q[0].shape_key == head.shape_key
                 ):
                     batch.append(self._q.popleft())
+                self._publish_depth()
                 return batch
             seen = {distinct_fn(head)}
             i = 0
@@ -103,4 +115,5 @@ class AdmissionQueue:
                 del self._q[i]
                 batch.append(req)
                 seen.add(d)
+            self._publish_depth()
             return batch

@@ -1,13 +1,13 @@
 """Load-adaptive anytime iteration budget with hysteresis (port of
-``raft_ncup_tpu/serving/budget.py``, without the SLO input, which lands
-with telemetry: ROADMAP.md, queue 1 item 8).
+``raft_ncup_tpu/serving/budget.py``).
 
 RAFT refines flow iteratively, and stopping early gives a coarser but
 valid field, so the iteration count is a latency/quality knob the server
 turns under load. The level set is small and fixed (descending).
-Degrading is immediate (occupancy >= ``high_water`` moves one level
-down); recovering needs ``recover_patience`` consecutive decisions at or
-below ``low_water``, so a load sitting on a threshold does not flap.
+Degrading is immediate (occupancy >= ``high_water``, or a paging SLO,
+moves one level down); recovering needs ``recover_patience`` consecutive
+decisions at or below ``low_water`` with no page, so a load sitting on a
+threshold does not flap.
 
 Early exit feeds the controller each batch's mean executed iterations
 (:meth:`IterationBudgetController.note_executed`); their EWMA is its model
@@ -60,6 +60,7 @@ class IterationBudgetController:
         self._calm = 0  # consecutive at/below-low_water decisions
         self.drops = 0
         self.recoveries = 0
+        self.slo_drops = 0  # drops the SLO verdict caused (occupancy alone would not)
         self.decisions: List[int] = [0] * len(levels)
         # Executed-iterations EWMA (early exit); None until the first
         # observation, when the controller assumes the top level.
@@ -99,16 +100,23 @@ class IterationBudgetController:
         half the work its depth says."""
         return min(1.0, self.expected_iters / float(self.levels[0]))
 
-    def decide(self, queue_depth: int) -> int:
-        """Observe ``queue_depth``, maybe move one level, and return the
-        iteration budget for the batch being assembled. Occupancy is the
-        depth's share of the capacity scaled by :meth:`expected_scale`."""
+    def decide(self, queue_depth: int, slo_degraded: bool = False) -> int:
+        """Observe ``queue_depth`` and the SLO verdict, maybe move one level,
+        and return the iteration budget for the batch being assembled.
+        Occupancy is the depth's share of the capacity scaled by
+        :meth:`expected_scale`. ``slo_degraded`` (the telemetry hub's
+        ``slo_paging("serve")``) degrades as a high-water occupancy does,
+        one level a decision, and is not scaled: a burning objective
+        degrades however cheap a request is expected to be. Recovery needs
+        both: no page and calm occupancy for the patience window."""
         occ = min(1.0, (max(0, int(queue_depth)) / self.capacity) * self.expected_scale())
-        if occ >= self.high_water:
+        if occ >= self.high_water or slo_degraded:
             self._calm = 0
             if self._level < len(self.levels) - 1:
                 self._level += 1
                 self.drops += 1
+                if slo_degraded and occ < self.high_water:
+                    self.slo_drops += 1
         elif occ <= self.low_water:
             self._calm += 1
             if self._calm >= self.recover_patience and self._level > 0:

@@ -1,5 +1,5 @@
 """Serving request/response protocol and per-run accounting (port of
-``raft_ncup_tpu/serving/request.py``, without the telemetry mirror).
+``raft_ncup_tpu/serving/request.py``).
 
 Every request submitted to the server terminates in exactly ONE of five
 explicit statuses:
@@ -15,7 +15,10 @@ explicit statuses:
 - ``error``    -- the server failed while processing the batch.
 
 ``ServeStats`` is thread-safe and mutated only through its ``note_*``
-methods (submitters and the dispatcher write concurrently).
+methods (submitters and the dispatcher write concurrently). Each ``note_*``
+also mirrors into the telemetry registry under the canonical counter name
+(``observability.telemetry.LEGACY_KEY_ALIASES["serve"]``); the summary's
+keys never change.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ import math
 import threading
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence
+
+from raft_ncup_tpu_torch.observability.telemetry import LEGACY_KEY_ALIASES
+
+_SERVE_CANON = LEGACY_KEY_ALIASES["serve"]
 
 
 def nearest_rank_ms(latencies_s: Sequence[float], p: float) -> Optional[float]:
@@ -117,11 +124,20 @@ class ServeStats:
     batches: int = 0
     padded_rows: int = 0  # zero rows added to reach an allowed batch size
     quarantined: List[int] = field(default_factory=list)
+    # The telemetry hub to mirror into (None: no mirror). The fields stay
+    # the summary's source.
+    telemetry: Optional[Any] = field(default=None, repr=False, compare=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def _mirror(self, name: str, delta: int = 1) -> None:
+        # Outside the stats lock: the registry has its own.
+        if self.telemetry is not None and delta:
+            self.telemetry.inc(_SERVE_CANON[name], delta)
 
     def _inc(self, name: str) -> None:
         with self._lock:
             setattr(self, name, getattr(self, name) + 1)
+        self._mirror(name)
 
     def note_submitted(self) -> None:
         self._inc("submitted")
@@ -145,6 +161,8 @@ class ServeStats:
         with self._lock:
             self.batches += 1
             self.padded_rows += padded_rows
+        self._mirror("batches")
+        self._mirror("padded_rows", padded_rows)
 
     def note_rejected(self, request_id: int, *, quarantine: bool = False) -> None:
         """``quarantine=True`` marks a dispatch-time poison quarantine (the
@@ -154,6 +172,7 @@ class ServeStats:
             self.rejected += 1
             if quarantine and request_id not in self.quarantined:
                 self.quarantined.append(request_id)
+        self._mirror("rejected")
 
     def summary(self) -> str:
         q = ",".join(str(i) for i in self.quarantined) or "-"

@@ -22,8 +22,22 @@ Data path (one dispatcher thread; clients submit from their own threads):
 
 The dispatcher waits for the batch's result (the copy to the host) and
 completes its handles itself: the JAX package's dispatch throttle and
-asynchronous drain worker have no counterpart here. Telemetry and meshes
-land with later slices (ROADMAP.md, queue 1 items 8 and 9).
+asynchronous drain worker have no counterpart here. Meshes land with a
+later slice (ROADMAP.md, queue 1 item 9).
+
+**Telemetry** (``telemetry=``, the process's hub by default): the stats
+mirror into the registry under the JAX package's counter names; each
+batch's assembly, host staging (``serve_pad_stage``), launch
+(``serve_dispatch``, also a ``stage_annotation`` on a profiler's
+timeline) and dispatch-to-delivery (``serve_drain``) are host spans with
+request and batch ids, and each request's queue wait and end-to-end
+latency are observed. Every recorded value is a host number taken after
+the result's copy to the host: telemetry adds no synchronisation. A
+poison quarantine banks a ``poison_quarantine`` flight dump. ``health``
+is the hub's ``serve`` tracker: STARTING at construction, WARMING then
+READY through ``warmup`` (or READY at the first batch), READY <-> DEGRADED
+by the SLO verdicts, DRAINING in ``drain``. The budget reads the hub's
+``slo_paging("serve")`` as its second degrade input.
 
 **Early exit** (``RAFT_TORCH_EARLYEXIT=1``, tolerance
 ``RAFT_TORCH_EARLYEXIT_TOL``, read once at construction by
@@ -50,6 +64,7 @@ stop the dispatcher and return the final ``ServeStats``.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import traceback
@@ -59,7 +74,12 @@ import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.config import ServeConfig
-from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward, env_earlyexit_tol
+from raft_ncup_tpu_torch.inference.pipeline import (
+    MESH_FP,
+    ShapeCachedForward,
+    env_earlyexit_tol,
+)
+from raft_ncup_tpu_torch.observability import get_telemetry
 from raft_ncup_tpu_torch.ops.padding import InputPadder
 from raft_ncup_tpu_torch.serving.admission import AdmissionQueue
 from raft_ncup_tpu_torch.serving.budget import IterationBudgetController
@@ -74,6 +94,7 @@ from raft_ncup_tpu_torch.serving.request import (
     ServeHandle,
     ServeStats,
 )
+from raft_ncup_tpu_torch.utils.profiling import stage_annotation
 
 _POLL_S = 0.05  # dispatcher wake cadence while the queue is idle
 
@@ -89,19 +110,23 @@ class FlowServer:
         cfg: Optional[ServeConfig] = None,
         *,
         clock: Callable[[], float] = time.monotonic,
+        telemetry=None,
     ):
         self.cfg = cfg or ServeConfig()
         self.model = model
+        self._tel = telemetry if telemetry is not None else get_telemetry()
+        self.stats = ServeStats(telemetry=self._tel)
+        self.health = self._tel.health("serve", fresh=True)
         # One cached forward per (padded shape, batch size, iterations),
         # under the server's preset (the model's own when it inherits).
         self._fwd = ShapeCachedForward(model, cache_size=self.cfg.cache_size,
-                                       policy=self.cfg.precision)
+                                       policy=self.cfg.precision, telemetry=self._tel)
         self.policy = self._fwd.policy
         self.device = model.device
         self._earlyexit_tol = env_earlyexit_tol()
         self._clock = clock
-        self.stats = ServeStats()
-        self._queue = AdmissionQueue(self.cfg.queue_capacity)
+        self._queue = AdmissionQueue(self.cfg.queue_capacity, telemetry=self._tel,
+                                     name="serve")
         self.budget = IterationBudgetController(
             self.cfg.iter_levels,
             capacity=self.cfg.queue_capacity,
@@ -115,6 +140,10 @@ class FlowServer:
         self._ema_lock = threading.Lock()
         self._next_id = 0
         self._id_lock = threading.Lock()
+        self._batch_seq = 0  # batch correlation ids (the dispatcher's only)
+        # The warmed (padded H, padded W, batch, iters) set, see warmup():
+        # the identity the serve entry's healthz file advertises.
+        self.warmed: list = []
         self._draining = threading.Event()
         self._thread = threading.Thread(
             target=self._dispatch_loop, name="flow-serve-dispatch", daemon=True
@@ -230,47 +259,91 @@ class FlowServer:
                         self.stats.note_error()
 
     def _process(self, batch: list, depth: int) -> None:
+        token = self._batch_seq  # the batch's correlation id
+        self._batch_seq += 1
         now = self._clock()
         live = []
-        for req in batch:
-            if req.deadline is not None and now > req.deadline:
-                self.stats.note_timeout()
-                self._complete(req.request_id, FlowResponse(
-                    req.request_id, STATUS_TIMEOUT,
-                    latency_s=now - req.submit_time,
-                    detail="deadline expired in queue",
-                ))
-                continue
-            poison = self._poison_error(req)
-            if poison is not None:
-                self.stats.note_rejected(req.request_id, quarantine=True)
-                self._complete(req.request_id, FlowResponse(
-                    req.request_id, STATUS_REJECTED, detail=poison,
-                ))
-                continue
-            live.append(req)
+        with self._tel.span("serve_batch_assembly", batch_id=token, batch_size=len(batch)):
+            for req in batch:
+                if req.deadline is not None and now > req.deadline:
+                    self.stats.note_timeout()
+                    self._complete(req.request_id, FlowResponse(
+                        req.request_id, STATUS_TIMEOUT,
+                        latency_s=now - req.submit_time,
+                        detail="deadline expired in queue",
+                    ))
+                    continue
+                # Submit -> assembly, also for a request about to be
+                # quarantined: the flight dump must hold its journey.
+                self._tel.observe_ms("serve_queue_wait", (now - req.submit_time) * 1e3,
+                                     request_id=req.request_id, batch_id=token)
+                poison = self._poison_error(req)
+                if poison is not None:
+                    self.stats.note_rejected(req.request_id, quarantine=True)
+                    self._tel.flight_dump("poison_quarantine", request_id=req.request_id,
+                                          batch_id=token, detail=poison)
+                    self._complete(req.request_id, FlowResponse(
+                        req.request_id, STATUS_REJECTED, detail=poison,
+                    ))
+                    continue
+                live.append(req)
         if not live:
             return
-        iters = self.budget.decide(depth)
+        # A server that never warmed up is READY at its first batch (only
+        # from the states before READY: an SLO's DEGRADED stays).
+        if self.health.state in ("starting", "warming"):
+            self.health.ready("serving")
+        iters = self.budget.decide(depth, slo_degraded=self._tel.slo_paging("serve"))
+        self._tel.gauge_set("serve_iter_budget", iters)
         ph, pw = live[0].shape_key
-        n_rows = next(b for b in self.cfg.batch_sizes if b >= len(live))
-        pad_rows = n_rows - len(live)
-        rows1 = [self._stage(r.image1, r.pad_spec) for r in live]
-        rows2 = [self._stage(r.image2, r.pad_spec) for r in live]
-        zeros = np.zeros((ph, pw, 3), np.float32)
-        rows1 += [zeros] * pad_rows
-        rows2 += [zeros] * pad_rows
+        with self._tel.span("serve_pad_stage", batch_id=token, rows=len(live)) as stage_span:
+            n_rows = next(b for b in self.cfg.batch_sizes if b >= len(live))
+            pad_rows = n_rows - len(live)
+            rows1 = [self._stage(r.image1, r.pad_spec) for r in live]
+            rows2 = [self._stage(r.image2, r.pad_spec) for r in live]
+            zeros = np.zeros((ph, pw, 3), np.float32)
+            rows1 += [zeros] * pad_rows
+            rows2 += [zeros] * pad_rows
+            stage_span.set(pad_rows=pad_rows)
+            img1, img2 = np.stack(rows1), np.stack(rows2)
         self.stats.note_batch(pad_rows)
         t_dispatch = self._clock()
-        host_flow, host_exec = self._forward(np.stack(rows1), np.stack(rows2), iters)
+        ee_tol = self._earlyexit_tol
+
+        def dispatch_span():
+            # The launch: the copies in, the replay, the copies out of the
+            # graph's outputs (host time; the card's time is not a span).
+            stack = contextlib.ExitStack()
+            stack.enter_context(self._tel.span(
+                "serve_dispatch", batch_id=token, request_ids=[r.request_id for r in live],
+                iters=iters, mesh=MESH_FP, policy=self.policy.name,
+                **({"earlyexit_tol": ee_tol} if ee_tol is not None else {})))
+            stack.enter_context(stage_annotation("serve.dispatch"))
+            return stack
+
+        host_flow, host_exec = self._forward(img1, img2, iters, dispatch_span)
         done = self._clock()
+        # Dispatch -> delivered on the host: the card's compute and the copy.
+        self._tel.inc("serve_drain_pulls_total")
+        exec_attrs = {}
         if host_exec is not None:
-            self.budget.note_executed(float(host_exec[: len(live)].mean()))
+            live_exec = host_exec[: len(live)]  # pad rows converge at once
+            exec_attrs = {"iters_budgeted": iters,
+                          "iters_executed_mean": round(float(live_exec.mean()), 3)}
+        self._tel.observe_ms("serve_drain", (done - t_dispatch) * 1e3, batch_id=token,
+                             request_ids=[r.request_id for r in live], **exec_attrs)
+        if host_exec is not None:
+            for k in range(len(live)):
+                self._tel.hist_observe("serve_exec_iters", float(live_exec[k]))
+            self.budget.note_executed(float(live_exec.mean()))
         for k, req in enumerate(live):
             (t, b), (le, r) = req.pad_spec
             hh, ww = host_flow.shape[1], host_flow.shape[2]
             flow = host_flow[k, t: hh - b, le: ww - r, :]
             self.stats.note_completed()
+            # Submit -> delivered: the serve_p99_latency SLO's SLI
+            # (histogram only, no ring record).
+            self._tel.hist_observe("serve_e2e_ms", (done - req.submit_time) * 1e3)
             self._complete(req.request_id, FlowResponse(
                 req.request_id, STATUS_OK, flow=flow, iters=iters,
                 latency_s=done - req.submit_time,
@@ -279,18 +352,22 @@ class FlowServer:
         # hint (measuring from submit would count the queue wait twice).
         self._note_service((done - t_dispatch) / len(live))
 
-    def _forward(self, img1: np.ndarray, img2: np.ndarray, iters: int) -> tuple:
+    def _forward(self, img1: np.ndarray, img2: np.ndarray, iters: int,
+                 span=contextlib.nullcontext) -> tuple:
         """One test-mode forward through the cached forward, the early-exit
         one when detection is on; returns the (B, H, W, 2) full-resolution
         flow on the host and the (B,) executed iterations (None without
-        detection)."""
+        detection). ``span()`` makes the context that encloses the launch,
+        not the copy to the host (the batch's one wait for the card)."""
         i1, i2 = torch.from_numpy(img1), torch.from_numpy(img2)
-        if self._earlyexit_tol is None:
-            _, flow_up = self._fwd.forward(i1, i2, iters)
-            return flow_up.cpu().numpy(), None
-        _, flow_up, exec_iters = self._fwd.forward(i1, i2, iters,
-                                                   early_exit_tol=self._earlyexit_tol)
-        return flow_up.cpu().numpy(), exec_iters.cpu().numpy()
+        exec_iters = None
+        with span():
+            if self._earlyexit_tol is None:
+                flow_up = self._fwd.forward(i1, i2, iters)[1]
+            else:
+                _, flow_up, exec_iters = self._fwd.forward(
+                    i1, i2, iters, early_exit_tol=self._earlyexit_tol)
+        return flow_up.cpu().numpy(), None if exec_iters is None else exec_iters.cpu().numpy()
 
     def _poison_error(self, req: FlowRequest) -> Optional[str]:
         for name, img in (("image1", req.image1), ("image2", req.image2)):
@@ -322,6 +399,9 @@ class FlowServer:
             self._service_ema = (
                 per_pair_s if prev is None else 0.8 * prev + 0.2 * per_pair_s
             )
+            ema = self._service_ema
+        # The basis of the shed hint, observable as a gauge.
+        self._tel.gauge_set("serve_service_time_ema_ms", ema * 1e3)
 
     # ------------------------------------------------------------- lifecycle
 
@@ -330,17 +410,24 @@ class FlowServer:
         use, at the padded shape of ``size_hw``, so no request pays a
         first-use cost (kernel build, cuDNN's autotuning, which the cache
         runs at each capture, the capture itself); with early exit on,
-        the early-exit entries. Returns the number of entries captured."""
+        the early-exit entries. Returns the number of entries captured.
+        Health goes WARMING, then READY."""
+        self.health.warming()
         h, w = (int(v) for v in size_hw)
         padder = InputPadder((h, w, 3), mode="sintel", bucket=self.cfg.pad_bucket)
         (t, b), (le, r) = padder.pad_spec
         ph, pw = h + t + b, w + le + r
         before = self._fwd.stats["compiles"]
+        warmed = []
         for n in self.cfg.batch_sizes:
             zeros = np.zeros((n, ph, pw, 3), np.float32)
             for iters in self.cfg.iter_levels:
                 self._forward(zeros, zeros, iters)
-        return self._fwd.stats["compiles"] - before
+                warmed.append((ph, pw, n, iters))
+        self.warmed = warmed
+        captured = self._fwd.stats["compiles"] - before
+        self.health.ready(f"warmup captured {captured} graphs")
+        return captured
 
     def pause(self) -> None:
         """Stop assembling new batches; queued requests wait."""
@@ -355,7 +442,9 @@ class FlowServer:
 
     def drain(self, timeout: Optional[float] = None) -> ServeStats:
         """Stop admitting, flush everything admitted, stop the dispatcher
-        and return the final stats. Idempotent."""
+        and return the final stats. Idempotent. Health goes DRAINING at
+        once, before the flush: a healthz poller stops routing here."""
+        self.health.draining()
         self._draining.set()
         self._queue.close()  # also clears a pause: the drain must finish
         if self._thread.is_alive():
@@ -368,12 +457,16 @@ class FlowServer:
         return self.stats
 
     def report(self) -> dict:
-        """One JSON-able summary of the stats and the budget."""
+        """One JSON-able summary of the stats and the budget, the serve
+        stages' p50/p99 from the span tracer and the health snapshot."""
+        stages = {k: v for k, v in self._tel.tracer.stage_summary().items()
+                  if k.startswith("serve_")}
         return {
             "stats": self.stats.summary(),
             "budget": self.budget.summary(),
             "budget_drops": self.budget.drops,
             "budget_recoveries": self.budget.recoveries,
+            "budget_slo_drops": self.budget.slo_drops,
             "device": str(self.device),
             "precision": self.policy.name,
             "budget_expected_iters": round(self.budget.expected_iters, 3),
@@ -381,6 +474,9 @@ class FlowServer:
             "graph_pool_bytes": sum(self._fwd.pool_bytes.values()),
             "earlyexit_tol": self._earlyexit_tol,
             "earlyexit": dict(self._fwd.earlyexit),
+            "mesh": MESH_FP,
+            "stages": stages,
+            "health": self.health.snapshot(),
         }
 
     def __enter__(self) -> "FlowServer":

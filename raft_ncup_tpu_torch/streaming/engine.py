@@ -1,7 +1,7 @@
 """The multi-stream video engine: warm start on the card over a slot table
 of fixed capacity, with per-stream fault isolation (port of
-``raft_ncup_tpu/streaming/engine.py``, without telemetry, health and the
-mesh: ROADMAP.md, queue 1 items 8 and 9).
+``raft_ncup_tpu/streaming/engine.py``, without the mesh: ROADMAP.md, queue 1
+item 9).
 
 Data path (one dispatcher thread; clients submit from their own threads):
 
@@ -47,10 +47,23 @@ all-cold rows: a capture's eager run writes the slot table.
 Drain: ``drain()`` stops stream and frame admission, answers every
 admitted frame through compute, stops the dispatcher and returns the
 stats (the serve entry's ``--stream`` wires it to SIGTERM: exit 75).
+
+Telemetry (``telemetry=``, the process's hub by default), as the JAX
+engine's: ``StreamStats`` mirrors through ``LEGACY_KEY_ALIASES["stream"]``;
+slot admissions, sheds, evictions and releases are ring events; each
+frame's queue wait and end-to-end latency are observed, each batch's host
+staging (``stream_pad_stage``), launch (``stream_dispatch``, also a
+``stage_annotation``) and dispatch-to-delivery (``stream_drain``) are host
+spans; the slot occupancy is the gauge ``stream_slot_occupancy`` that
+``stream_slos`` reads; an anomaly reset is an event and a
+``stream_anomaly_reset`` flight dump. Every value is a host number taken
+after the batch's copy to the host. ``health`` is the hub's ``stream``
+tracker (WARMING then READY through ``warmup``, DRAINING in ``drain``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import traceback
@@ -61,7 +74,9 @@ import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.config import StreamConfig
-from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+from raft_ncup_tpu_torch.inference.pipeline import MESH_FP, ShapeCachedForward
+from raft_ncup_tpu_torch.observability import get_telemetry
+from raft_ncup_tpu_torch.observability.telemetry import LEGACY_KEY_ALIASES
 from raft_ncup_tpu_torch.ops.padding import InputPadder
 from raft_ncup_tpu_torch.ops.warmstart import forward_interpolate_batch
 from raft_ncup_tpu_torch.serving.admission import AdmissionQueue
@@ -74,6 +89,7 @@ from raft_ncup_tpu_torch.serving.request import (
     ServeHandle,
 )
 from raft_ncup_tpu_torch.streaming.slots import SlotRegistry, init_slot_table
+from raft_ncup_tpu_torch.utils.profiling import stage_annotation
 
 _POLL_S = 0.05  # dispatcher wake cadence while the queue is idle
 
@@ -97,7 +113,8 @@ class FrameRequest:
 @dataclass(eq=False)
 class StreamStats:
     """Counts of one run; clients, the dispatcher and ``drain`` write them
-    through :meth:`note`."""
+    through :meth:`note`, which also mirrors each into the telemetry
+    registry under its canonical name (``LEGACY_KEY_ALIASES["stream"]``)."""
 
     submitted: int = 0
     accepted: int = 0
@@ -113,11 +130,14 @@ class StreamStats:
     streams_closed: int = 0
     streams_evicted: int = 0
     cold_starts: int = 0  # frames admitted cold (first frame, gap)
+    telemetry: object = field(default=None, repr=False, compare=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def note(self, field_name: str, delta: int = 1) -> None:
         with self._lock:
             setattr(self, field_name, getattr(self, field_name) + delta)
+        if self.telemetry is not None and delta:
+            self.telemetry.inc(LEGACY_KEY_ALIASES["stream"][field_name], delta)
 
     def summary(self) -> str:
         return (
@@ -138,10 +158,12 @@ class StreamEngine:
     :meth:`drain`."""
 
     def __init__(self, model, cfg: Optional[StreamConfig] = None, *,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic, telemetry=None):
         self.cfg = cfg or StreamConfig()
         self._clock = clock
-        self.stats = StreamStats()
+        self._tel = telemetry if telemetry is not None else get_telemetry()
+        self.stats = StreamStats(telemetry=self._tel)
+        self.health = self._tel.health("stream", fresh=True)
         h, w = self.cfg.frame_hw
         (t, b), (le, r) = InputPadder((int(h), int(w), 3), mode="sintel",
                                       bucket=self.cfg.pad_bucket).pad_spec
@@ -149,7 +171,7 @@ class StreamEngine:
         self._hidden = model.cfg.hidden_dim if self.cfg.carry_net else 0
         # The step entries, one per batch size, under the engine's preset.
         self._fwd = ShapeCachedForward(model, cache_size=self.cfg.cache_size,
-                                       policy=self.cfg.precision)
+                                       policy=self.cfg.precision, telemetry=self._tel)
         self._policy = self._fwd.policy
         self.device = model.device
         # Before any capture and outside the graphs' pool: the step graphs
@@ -161,7 +183,8 @@ class StreamEngine:
         # captures (a capture fails if another thread uses the card).
         self._step_lock = threading.Lock()
         self._captured: set = set()  # batch sizes whose step entry is built
-        self._queue = AdmissionQueue(self.cfg.queue_capacity)
+        self._queue = AdmissionQueue(self.cfg.queue_capacity, telemetry=self._tel,
+                                     name="stream")
         self.registry = SlotRegistry(self.cfg.capacity)
         self._reg_lock = threading.Lock()
         self._handles: dict[int, ServeHandle] = {}
@@ -171,6 +194,7 @@ class StreamEngine:
         self._id_lock = threading.Lock()
         self.warmed: list = []  # (padded H, padded W, batch, iters), see warmup()
         self._occupancy_sum = 0  # sampled at each dispatched batch
+        self._batch_seq = 0  # batch correlation ids (the dispatcher's only)
         self._draining = threading.Event()
         self._thread = threading.Thread(target=self._dispatch_loop, name="stream-dispatch",
                                         daemon=True)
@@ -209,16 +233,18 @@ class StreamEngine:
             state = self.registry.get(stream_id)
             if state is None:
                 evicted = self.registry.evict_expired(now, self.cfg.idle_timeout_s)
-                self.stats.note("streams_evicted", len(evicted))
+                self._note_evicted(evicted)
                 state = self.registry.admit(stream_id, native_hw, now)
                 if state is None:
                     self.stats.note("shed_streams")
+                    self._tel.event("stream_slot_shed", stream_id=stream_id)
                     hint = self.registry.soonest_expiry_s(now, self.cfg.idle_timeout_s)
                     handle.complete(FlowResponse(rid, STATUS_SHED,
                                                  retry_after_s=round(hint, 4),
                                                  detail="stream table full"))
                     return handle
                 self.stats.note("streams_opened")
+                self._tel.event("stream_slot_admitted", stream_id=stream_id, slot=state.slot)
             if state.native_hw != native_hw:
                 self.stats.note("rejected")
                 handle.complete(FlowResponse(
@@ -272,9 +298,15 @@ class StreamEngine:
                 return False
             state.closing = True
             if state.pending == 0:
-                self.registry.release(stream_id)
+                slot = self.registry.release(stream_id)
                 self.stats.note("streams_closed")
+                self._tel.event("stream_slot_released", stream_id=stream_id, slot=slot)
         return True
+
+    def _note_evicted(self, evicted: list) -> None:
+        for s in evicted:
+            self.stats.note("streams_evicted")
+            self._tel.event("stream_slot_evicted", stream_id=s.stream_id, slot=s.slot)
 
     def _frame_error(self, image) -> Optional[str]:
         shape = getattr(image, "shape", None)
@@ -318,7 +350,7 @@ class StreamEngine:
                 with self._reg_lock:
                     evicted = self.registry.evict_expired(self._clock(),
                                                           self.cfg.idle_timeout_s)
-                self.stats.note("streams_evicted", len(evicted))
+                self._note_evicted(evicted)
                 continue
             try:
                 self._process(batch)
@@ -390,29 +422,64 @@ class StreamEngine:
         self._step(zeros, zeros, [self.cfg.capacity] * n, [1.0] * n)
         self._captured.add(n)
 
-    def _run_step(self, img1: np.ndarray, img2: np.ndarray, slot_idx, cold) -> tuple:
+    def _run_step(self, img1: np.ndarray, img2: np.ndarray, slot_idx, cold,
+                  span=contextlib.nullcontext) -> tuple:
         """One step of a live batch (its batch size's entry built first if
-        need be); returns ``(flow_up, bad)`` on the host."""
+        need be); returns ``(flow_up, bad)`` on the host. ``span()`` makes
+        the context that encloses the launch, not the build or the copy to
+        the host."""
         with self._step_lock:
             self._ensure_captured(img1.shape[0])
-            flow_up, bad = self._step(img1, img2, slot_idx, cold)
+            with span():
+                flow_up, bad = self._step(img1, img2, slot_idx, cold)
             return flow_up.cpu().numpy(), bad.cpu().numpy()
 
     def _process(self, batch: list) -> None:
+        token = self._batch_seq  # the batch's correlation id
+        self._batch_seq += 1
+        now = self._clock()
+        for req in batch:
+            self._tel.observe_ms("stream_queue_wait", (now - req.submit_time) * 1e3,
+                                 request_id=req.request_id, stream_id=req.stream_id,
+                                 batch_id=token)
+        # An engine that never warmed up is READY at its first batch (only
+        # from the states before READY: an SLO's DEGRADED stays).
+        if self.health.state in ("starting", "warming"):
+            self.health.ready("serving")
         n_rows = next(b for b in self.cfg.batch_sizes if b >= len(batch))
         pad_rows = n_rows - len(batch)
-        zeros = np.zeros((self._ph, self._pw, 3), np.float32)
-        rows1 = [self._stage(r.image1, r.pad_spec) for r in batch] + [zeros] * pad_rows
-        rows2 = [self._stage(r.image2, r.pad_spec) for r in batch] + [zeros] * pad_rows
-        slot_idx = [r.slot for r in batch] + [self.cfg.capacity] * pad_rows
-        cold = [1.0 if r.cold else 0.0 for r in batch] + [1.0] * pad_rows
+        with self._tel.span("stream_pad_stage", batch_id=token, rows=len(batch),
+                            pad_rows=pad_rows):
+            zeros = np.zeros((self._ph, self._pw, 3), np.float32)
+            rows1 = [self._stage(r.image1, r.pad_spec) for r in batch] + [zeros] * pad_rows
+            rows2 = [self._stage(r.image2, r.pad_spec) for r in batch] + [zeros] * pad_rows
+            slot_idx = [r.slot for r in batch] + [self.cfg.capacity] * pad_rows
+            cold = [1.0 if r.cold else 0.0 for r in batch] + [1.0] * pad_rows
+            img1, img2 = np.stack(rows1), np.stack(rows2)
         self.stats.note("batches")
         self.stats.note("padded_rows", pad_rows)
         with self._reg_lock:
             self._occupancy_sum += self.registry.occupancy
+            self._tel.gauge_set("stream_slot_occupancy", self.registry.occupancy)
         t_dispatch = self._clock()
-        host_flow, host_bad = self._run_step(np.stack(rows1), np.stack(rows2), slot_idx, cold)
+
+        def dispatch_span():
+            # The launch: the copies in, the replay, the copies out of the
+            # graph's outputs (host time; the card's time is not a span).
+            stack = contextlib.ExitStack()
+            stack.enter_context(self._tel.span(
+                "stream_dispatch", batch_id=token, request_ids=[r.request_id for r in batch],
+                stream_ids=[r.stream_id for r in batch], mesh=MESH_FP,
+                policy=self._policy.name))
+            stack.enter_context(stage_annotation("stream.dispatch"))
+            return stack
+
+        host_flow, host_bad = self._run_step(img1, img2, slot_idx, cold, dispatch_span)
         done = self._clock()
+        # One copy to the host a batch (the flow and the anomaly flags).
+        self._tel.inc("stream_drain_pulls_total")
+        self._tel.observe_ms("stream_drain", (done - t_dispatch) * 1e3, batch_id=token,
+                             request_ids=[r.request_id for r in batch])
         for k, req in enumerate(batch):
             bad = bool(host_bad[k])
             if bad:
@@ -429,6 +496,17 @@ class StreamEngine:
                 continue
             self._finish_frame(req, reset=bad)
             self.stats.note("resets" if bad else "completed")
+            if bad:
+                self._tel.event("stream_anomaly_reset", stream_id=req.stream_id,
+                                slot=req.slot, frame_index=req.frame_index, batch_id=token)
+                # The reset and the timeline that led to it (the frame's
+                # whole journey is still in the ring).
+                self._tel.flight_dump("stream_anomaly_reset", stream_id=req.stream_id,
+                                      slot=req.slot, frame_index=req.frame_index,
+                                      batch_id=token)
+            else:
+                # Submit -> delivered: the stream_p99_latency SLO's SLI.
+                self._tel.hist_observe("stream_e2e_ms", (done - req.submit_time) * 1e3)
         self._note_service((done - t_dispatch) / max(1, len(batch)))
 
     def _finish_frame(self, req: FrameRequest, reset: bool = False) -> None:
@@ -443,8 +521,9 @@ class StreamEngine:
             if reset:
                 state.resets += 1
             if state.closing and state.pending == 0:
-                self.registry.release(req.stream_id)
+                slot = self.registry.release(req.stream_id)
                 self.stats.note("streams_closed")
+                self._tel.event("stream_slot_released", stream_id=req.stream_id, slot=slot)
 
     def _stage(self, image, pad_spec) -> np.ndarray:
         (t, b), (le, r) = pad_spec
@@ -464,6 +543,8 @@ class StreamEngine:
         with self._ema_lock:
             prev = self._service_ema
             self._service_ema = per_frame_s if prev is None else 0.8 * prev + 0.2 * per_frame_s
+            ema = self._service_ema
+        self._tel.gauge_set("stream_service_time_ema_ms", ema * 1e3)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -471,7 +552,9 @@ class StreamEngine:
         """Capture the step of every batch size against the scratch slot
         (cold pad rows only, so no stream's state moves), with the
         dispatcher held: new batches wait (pause) and one already popped
-        finishes first (the step lock). Returns the captures made."""
+        finishes first (the step lock). Returns the captures made. Health
+        goes WARMING, then READY."""
+        self.health.warming()
         before = self._fwd.stats["compiles"]
         self._queue.set_paused(True)
         try:
@@ -481,7 +564,9 @@ class StreamEngine:
                 self.warmed.append((self._ph, self._pw, n, self.cfg.iters))
         finally:
             self._queue.set_paused(False)
-        return self._fwd.stats["compiles"] - before
+        captured = self._fwd.stats["compiles"] - before
+        self.health.ready(f"warmup captured {captured} graphs")
+        return captured
 
     def pause(self) -> None:
         """Stop assembling new batches; queued and new frames wait."""
@@ -496,7 +581,9 @@ class StreamEngine:
 
     def drain(self, timeout: Optional[float] = None) -> StreamStats:
         """Stop admitting, answer every admitted frame, stop the dispatcher
-        and return the stats. Idempotent."""
+        and return the stats. Idempotent. Health goes DRAINING at once,
+        before the flush."""
+        self.health.draining()
         self._draining.set()
         self._queue.close()  # also clears a pause: the drain must finish
         if self._thread.is_alive():
@@ -508,7 +595,10 @@ class StreamEngine:
 
     def report(self) -> dict:
         """One JSON-able summary: the stats, the slot table's occupancy and
-        bytes, and the step entries' captures."""
+        bytes, the step entries' captures, the stream stages' p50/p99 from
+        the span tracer and the health snapshot."""
+        stages = {k: v for k, v in self._tel.tracer.stage_summary().items()
+                  if k.startswith("stream_")}
         with self._reg_lock:
             occupancy = self.registry.occupancy
             peak = self.registry.peak_occupancy
@@ -526,6 +616,9 @@ class StreamEngine:
                                     for t in self._table.values()),
             "graph_pool_bytes": sum(self._fwd.pool_bytes.values()),
             "device": str(self.device),
+            "mesh": MESH_FP,
+            "stages": stages,
+            "health": self.health.snapshot(),
         }
 
     def __enter__(self) -> "StreamEngine":

@@ -44,11 +44,22 @@ row, with the state rolled back in place to the latest checkpoint. The
 last line of stdout is one JSON summary with the ``status``. It runs on
 the card unless ``--device cpu`` is given; with no CUDA and no
 ``--device`` it raises.
+
+Telemetry, as the root trainer wires it: the process hub's ``train``
+health (READY while training, DRAINING on preemption, HALTED on the
+sentinel's halt), the sentinel's counters as gauges at each read, and a
+flight recorder under ``<run_dir>/flight`` for this run (detached at
+teardown) that banks a ``sentinel_halt`` dump (exit 76) and a
+``preemption_drain`` dump (exit 75). ``--profile_steps N`` traces the N
+steps after the first (which pays cuDNN's autotuning) with
+``torch.profiler`` into ``<run_dir>/profile`` (``utils.profiling.trace``,
+a Chrome trace) and logs "profile trace written to ...".
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -66,6 +77,7 @@ from raft_ncup_tpu_torch.data.device_prefetch import DevicePrefetcher
 from raft_ncup_tpu_torch.data.loader import FlowLoader
 from raft_ncup_tpu_torch.evaluation import VALIDATORS
 from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+from raft_ncup_tpu_torch.observability import FlightRecorder, get_telemetry
 from raft_ncup_tpu_torch.resilience import (
     EXIT_DIVERGED,
     EXIT_PREEMPTED,
@@ -81,6 +93,7 @@ from raft_ncup_tpu_torch.training.logger import Logger
 from raft_ncup_tpu_torch.training.state import TrainState, create_train_state
 from raft_ncup_tpu_torch.training.step import make_train_step
 from raft_ncup_tpu_torch.utils.device import resolve_device
+from raft_ncup_tpu_torch.utils.profiling import trace
 
 
 def resumed_precision(args: argparse.Namespace, saved: ModelConfig) -> str:
@@ -171,6 +184,16 @@ def main(argv=None) -> int:
                                 log=logger.write_text)
     prefetcher = DevicePrefetcher(batches, depth=data_cfg.device_prefetch, device=device)
     preempt = PreemptionHandler()
+    # This run's flight recorder on the process hub, beside the
+    # checkpoints; detached at teardown (a later run in this process must
+    # not dump into this run's directory).
+    tel = get_telemetry()
+    prev_flight = tel.flight
+    tel.flight = FlightRecorder(os.path.join(run_dir, "flight"))
+    train_health = tel.health("train", fresh=True)
+    train_health.ready(f"training from step {step_i}")
+    profile_scope = contextlib.ExitStack()
+    profiling = False
     status = 0
     preempted = halted = False
     metrics: dict = {}
@@ -182,6 +205,13 @@ def main(argv=None) -> int:
                 if preempt.poll(step_i):
                     preempted = True
                     break
+                if args.profile_steps and step_i == first + 1:
+                    # The first step paid the autotuning; trace the next ones,
+                    # and only theirs (the first step's kernels finish first).
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    profile_scope.enter_context(trace(os.path.join(run_dir, "profile")))
+                    profiling = True
                 t_it = time.perf_counter()
                 batch = next(prefetcher)
                 lr = state.optimizer.lr()
@@ -192,14 +222,34 @@ def main(argv=None) -> int:
                 if chaos.sigterm_after == step_i:
                     # A real signal through the real handler, at a step boundary.
                     os.kill(os.getpid(), signal.SIGTERM)
+                if profiling and step_i >= first + 1 + args.profile_steps:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)  # the last step's kernels
+                    profile_scope.close()
+                    profiling = False
+                    logger.write_text(f"profile trace written to {run_dir}/profile")
                 if cfg.anomaly_sentinel and step_i % cfg.sum_freq == 0:
-                    # The sentinel's only read back to the host.
-                    skipped, consecutive = (int(v) for v in torch.stack(
-                        [state.sentinel["skipped"], state.sentinel["consecutive"]]).tolist())
+                    # The sentinel's only read back to the host; its host
+                    # numbers land as gauges, no further read.
+                    skipped, consecutive, ema = torch.stack(
+                        [state.sentinel["skipped"].float(),
+                         state.sentinel["consecutive"].float(),
+                         state.sentinel["ema_grad_norm"].float()]).tolist()
+                    skipped, consecutive = int(skipped), int(consecutive)
+                    tel.gauge_set("train_sentinel_skipped", skipped)
+                    tel.gauge_set("train_sentinel_consecutive", consecutive)
+                    tel.gauge_set("train_sentinel_ema_grad_norm", ema)
                     if skipped:
                         logger.write_text(f"sentinel @ {step_i}: skipped={skipped} "
                                           f"consecutive={consecutive}")
                     if consecutive >= cfg.sentinel_halt_after:
+                        tel.event("train_sentinel_halt", step=step_i, consecutive=consecutive)
+                        train_health.halted(f"sentinel: {consecutive} consecutive bad steps "
+                                            f"@ {step_i}")
+                        # The timeline that led here, banked before the
+                        # rollback.
+                        tel.flight_dump("sentinel_halt", step=step_i, consecutive=consecutive,
+                                        skipped=skipped)
                         halted = True
                         break
                 if step_i % cfg.val_freq == 0 or step_i == total:
@@ -209,6 +259,9 @@ def main(argv=None) -> int:
         if preempted:
             if ckpt.latest_step != step_i:
                 ckpt.save(state, cfg)
+            train_health.draining(f"preempted @ {step_i}")
+            # Banked after the checkpoint, so the dump names a saved step.
+            tel.flight_dump("preemption_drain", step=step_i, checkpoint_step=ckpt.latest_step)
             logger.write_text(f"preempted @ {step_i}: checkpoint saved, exiting "
                               f"{EXIT_PREEMPTED}")
             status = EXIT_PREEMPTED
@@ -228,11 +281,12 @@ def main(argv=None) -> int:
     finally:
         # Teardown only; each closer shielded, so that a failure here never
         # hides the error that ended the loop.
-        for closer in (prefetcher.close, logger.close):
+        for closer in (profile_scope.close, prefetcher.close, logger.close):
             try:
                 closer()
             except Exception as e:
                 print(f"teardown ({closer.__qualname__}): {e}", file=sys.stderr)
+        tel.flight = prev_flight
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     summary = {

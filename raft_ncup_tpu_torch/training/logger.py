@@ -3,7 +3,9 @@
 
 Metrics are summed on the device as they arrive and read back once per
 ``sum_freq`` steps, so the steps between two summaries read nothing back
-to the host."""
+to the host. The window means, the steps per second and the learning rate
+of that one read also land as telemetry gauges (``train_<metric>``,
+``train_steps_per_sec``, ``train_lr``): host floats, no further read."""
 
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import time
 from typing import Any, Mapping, Optional
 
 import torch
+
+from raft_ncup_tpu_torch.observability import get_telemetry
 
 
 class Logger:
@@ -51,9 +55,16 @@ class Logger:
         sps = (step + 1 - self._steps_last) / max(now - self._t_last, 1e-9)
         self._acc, self._n = {}, 0
         self._t_last, self._steps_last = now, step + 1
+        lr = None if lr is None else float(lr)
+        tel = get_telemetry()
+        for k, v in means.items():
+            tel.gauge_set(f"train_{k}", v)
+        tel.gauge_set("train_steps_per_sec", sps)
+        if lr is not None:
+            tel.gauge_set("train_lr", lr)
         parts = [f"[{step + 1:6d}"]
         if lr is not None:
-            parts.append(f"lr {float(lr):.2e}")
+            parts.append(f"lr {lr:.2e}")
         parts.append(f"{sps:5.2f} it/s]")
         parts += [f"{k} {v:.4f}" for k, v in means.items()]
         line = " ".join(parts)

@@ -1,0 +1,150 @@
+"""Analytic FLOPs of the RAFT/NCUP models and the card's peak rates (port
+of ``raft_ncup_tpu/utils/flops.py``).
+
+:func:`forward_flops` is the JAX package's analytic count from the
+architecture constants, copied arithmetic for arithmetic and held equal to
+it for every configuration (``tests/test_torch_telemetry.py``); it charges
+NCUP (and ``raft``'s mask head) once per GRU iteration, as JAX's does,
+where the test-mode forward runs NCUP once after the loop (ROADMAP.md,
+queue 3). The cost ledger (``inference/costs.py``) records the counted
+FLOPs of each captured forward beside it.
+
+Counting convention: one conv = 2*k*k*Cin*Cout*Hout*Wout FLOPs (MAC = 2).
+Elementwise and normalization work is ignored.
+
+:data:`GPU_PEAK_FLOPS` replaces JAX's ``TPU_PEAK_FLOPS``: dense peak
+FLOP/s per card by the card's name and the preset's compute dtype, from
+NVIDIA's H100 SXM5 data sheet (f32 outside the tensor cores: TF32 is off
+under ``f32``; bf16 on the tensor cores). Those rates assume the card's
+700 W power limit.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from raft_ncup_tpu_torch.config import ModelConfig
+
+# Card name fragment (as torch.cuda.get_device_name gives it) -> compute
+# dtype -> dense peak FLOP/s. "H100 80GB HBM3" is the SXM5 part.
+GPU_PEAK_FLOPS = {
+    "H100 80GB HBM3": {"f32": 67e12, "bf16": 989e12},
+    "H100 SXM": {"f32": 67e12, "bf16": 989e12},
+}
+
+
+def _conv(k: int, cin: int, cout: int, h: int, w: int) -> float:
+    return 2.0 * k * k * cin * cout * h * w
+
+
+def _basic_encoder_flops(h: int, w: int, out_dim: int) -> float:
+    """BasicEncoder on one (h, w) image (reference: core/extractor.py:118-192):
+    7x7/2 stem to 64, three 2-block residual stages 64(s1)/96(s2)/128(s2),
+    1x1 head to ``out_dim``."""
+    f = 0.0
+    h2, w2 = h // 2, w // 2
+    f += _conv(7, 3, 64, h2, w2)  # stem
+    # layer1: two blocks at 64ch, stride 1, (h/2, w/2)
+    f += 4 * _conv(3, 64, 64, h2, w2)
+    # layer2: 64->96 stride 2 at (h/4, w/4) incl. 1x1 downsample shortcut
+    h4, w4 = h // 4, w // 4
+    f += _conv(3, 64, 96, h4, w4) + _conv(3, 96, 96, h4, w4)
+    f += _conv(1, 64, 96, h4, w4)
+    f += 2 * _conv(3, 96, 96, h4, w4)
+    # layer3: 96->128 stride 2 at (h/8, w/8)
+    h8, w8 = h // 8, w // 8
+    f += _conv(3, 96, 128, h8, w8) + _conv(3, 128, 128, h8, w8)
+    f += _conv(1, 96, 128, h8, w8)
+    f += 2 * _conv(3, 128, 128, h8, w8)
+    f += _conv(1, 128, out_dim, h8, w8)  # head
+    return f
+
+
+def _update_block_flops(h8: int, w8: int, corr_planes: int) -> float:
+    """BasicMotionEncoder + SepConvGRU + FlowHead per iteration at 1/8 res
+    (reference: core/update.py:79-141)."""
+    f = 0.0
+    # motion encoder
+    f += _conv(1, corr_planes, 256, h8, w8)
+    f += _conv(3, 256, 192, h8, w8)
+    f += _conv(7, 2, 128, h8, w8)
+    f += _conv(3, 128, 64, h8, w8)
+    f += _conv(3, 192 + 64, 126, h8, w8)
+    # SepConvGRU: two sequential GRUs (1x5 then 5x1), three k=5 separable
+    # convs each, cin=256 cout=128 — 6 convs total per iteration.
+    f += 6 * (2.0 * 5 * 256 * 128 * h8 * w8)
+    # flow head
+    f += _conv(3, 128, 256, h8, w8) + _conv(3, 256, 2, h8, w8)
+    return f
+
+
+def _ncup_flops(cfg: ModelConfig, H: int, W: int, batch_mult: int) -> float:
+    """One NCUP x4 upsampling pass: Simple weights-net at the x4 LR grid
+    (H/4) + NConvUNet at full res with channels_to_batch (reference:
+    core/upsampler.py:143-177, core/interp_weights_est.py:10-47,
+    core/nconv_modules.py:25-136)."""
+    up = cfg.upsampler
+    f = 0.0
+    # weights estimation at the LR grid of the x4 stage = (H/4, W/4);
+    # input = data(2) + guidance(128) = 130 channels.
+    h4, w4 = H // 4, W // 4
+    chans = (130,) + tuple(up.weights_est_num_ch) + (2,)
+    for k, cin, cout in zip(up.weights_est_filter_sz, chans[:-1], chans[1:]):
+        f += _conv(k, cin, cout, h4, w4)
+    # NConvUNet on (B*2, 1ch) full-res maps; every NConv2d = two convs
+    # (conv(c*x) and conv(c)). Shared 5x5 encoder at full + half res,
+    # 3x3 decoder at full res, 1x1 head. mult = channels_multiplier.
+    m = up.channels_multiplier
+    ke, kd, ko = up.encoder_filter_sz, up.decoder_filter_sz, up.out_filter_sz
+    f_unet = 0.0
+    f_unet += 2 * _conv(ke, 1, m, H, W)  # encoder at full res
+    f_unet += 2 * _conv(ke, m, m, H // 2, W // 2)  # encoder at half res
+    f_unet += 2 * _conv(kd, 2 * m, m, H, W)  # decoder (skip concat)
+    f_unet += 2 * _conv(ko, m, 1, H, W)  # head
+    f += batch_mult * f_unet  # channels_to_batch: run per flow channel
+    return f
+
+
+def forward_flops(
+    cfg: ModelConfig, batch: int, height: int, width: int, iters: int
+) -> float:
+    """Analytic FLOPs for one test-mode forward of ``cfg`` at the given
+    input shape. Returns total FLOPs for the whole batch."""
+    H, W = height, width
+    h8, w8 = H // 8, W // 8
+    f = 0.0
+    f += 2 * _basic_encoder_flops(H, W, cfg.fnet_dim)  # fnet on both frames
+    f += _basic_encoder_flops(H, W, cfg.hidden_dim + cfg.context_dim)  # cnet
+    if cfg.corr_impl == "volume":
+        # all-pairs matmul (reference: core/corr.py:47-55)
+        f += 2.0 * (h8 * w8) ** 2 * cfg.fnet_dim
+    else:
+        # on-the-fly: per-iteration windowed dot products, L levels x K^2 taps
+        K2 = (2 * cfg.resolved_corr_radius + 1) ** 2
+        f += iters * cfg.corr_levels * K2 * 2.0 * h8 * w8 * cfg.fnet_dim
+    f += iters * _update_block_flops(h8, w8, cfg.corr_planes)
+    if cfg.variant == "raft_nc_dbl":
+        f += iters * _ncup_flops(cfg, H, W, batch_mult=2)
+    else:
+        # convex-mask head (reference: core/update.py:123-126) + unfold blend
+        f += iters * (_conv(3, 128, 256, h8, w8) + _conv(1, 256, 576, h8, w8))
+    return batch * f
+
+
+def train_step_flops(
+    cfg: ModelConfig, batch: int, height: int, width: int, iters: int
+) -> float:
+    """Forward + backward ~= 3x forward (standard paper accounting)."""
+    return 3.0 * forward_flops(cfg, batch, height, width, iters)
+
+
+def peak_flops(device_name: Optional[str], dtype: str = "f32") -> Optional[float]:
+    """Dense peak FLOP/s of one card by its name (``torch.cuda.
+    get_device_name``) and compute dtype (``"f32"`` or ``"bf16"``); None
+    for a card or dtype the table does not know, never 0."""
+    if not device_name:
+        return None
+    for fragment, rates in GPU_PEAK_FLOPS.items():
+        if fragment in device_name:
+            return rates.get(dtype)
+    return None

@@ -151,10 +151,17 @@ def test_stream_corruptframe_resets_one_stream(capsys):
 
 
 def test_later_slices_are_refused():
-    for flag in (["--report"], ["--healthz_file", "h.json"], ["--replica_socket", "s"],
-                 ["--mesh", "1", "2"]):
+    for flag in (["--replica_socket", "s"], ["--mesh", "1", "2"]):
         with pytest.raises(ValueError, match="ROADMAP"):
             serve_mod.main(SMALL + flag)
+    # The telemetry flags are the port's since its telemetry slice.
+    args = serve_mod.build_parser().parse_args(
+        SMALL + ["--report", "--healthz_file", "h.json", "--telemetry_jsonl", "t.jsonl",
+                 "--flight_dir", "f", "--telemetry_interval_s", "0.5",
+                 "--slo_window_scale", "0.01"])
+    assert (args.report, args.healthz_file, args.telemetry_jsonl, args.flight_dir,
+            args.telemetry_interval_s, args.slo_window_scale) == (
+        True, "h.json", "t.jsonl", "f", 0.5, 0.01)
 
 
 def test_restore_ckpt_serves_the_saved_weights(tmp_path, capsys):

@@ -127,7 +127,10 @@ def test_sigterm_exits_75_and_the_resumed_run_is_bitwise_uninterrupted(data, tmp
     rc = train.main(_args(data, tmp_path / "split", 4, *extra, "--chaos", "sigterm@2"))
     assert rc == 75 and _summary(capsys)["status"] == 75
     run = tmp_path / "split" / "run"
-    assert sorted(os.listdir(run)) == ["log.txt", "resume_meta.json", "step_2.pt"]
+    assert sorted(os.listdir(run)) == ["flight", "log.txt", "resume_meta.json", "step_2.pt"]
+    # The drain banked its flight dump beside the checkpoint.
+    (dump,) = os.listdir(run / "flight")
+    assert dump.startswith("flight_preemption_drain_")
     assert "preempted @ 2" in (run / "log.txt").read_text()
     assert train.main(_args(data, tmp_path / "split", 4, *extra,
                             "--restore_ckpt", str(run))) == 0
@@ -227,6 +230,8 @@ def test_model_flag_defaults_match_jax():
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         cli.model_config_from_args(ours.parse_args(["--final_upsampling=DjifOriginal"]),
                                    "sintel")
-    for bad in (["--data_parallel", "2"], ["--profile_steps", "3"], ["--strict_guards"]):
+    for bad in (["--data_parallel", "2"], ["--strict_guards"]):
         with pytest.raises(ValueError, match="ROADMAP"):
             cli.parse_train(["--stage", "things", *bad])
+    # --profile_steps is the port's since its telemetry slice.
+    assert cli.parse_train(["--stage", "things", "--profile_steps", "3"])[0].profile_steps == 3
