@@ -147,7 +147,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     each as often as the two traced steps launched it); phase 12's runs (b)
     and (c) each bank one flight dump (``preemption_drain``,
     ``sentinel_halt``);
-15. prints one JSON line describing the kernels, the card's name and
+15. serves the flagship pipelined (``ServeConfig.inflight`` default, 2 on
+    the card: the dispatcher stages and launches batch n+1 while the card
+    runs batch n, and a drain worker delivers batch n) and waiting
+    (``inflight=1``) in one process, f32 and ``bf16_infer``: a paused burst
+    of 16 pairs at 436x1024 (8 batches of 2, level 12) through each, the
+    answers bit for bit equal; one burst of each under the runtime guards
+    (``analysis/guards.py``) with the native layer on
+    (``torch.cuda.set_sync_debug_mode("error")``): 0 implicit reads, 0
+    captures after warm-up, 8 sanctioned reads; two timed bursts of each in
+    turns (pairs/s, p50, p99) and one traced (the card's busy share over the
+    window); A 12 and B 4 launches a batch; a ``.item()`` planted in the
+    launch, counted by the Python layer and stopped by the native one. The
+    same for the stream engine, 4 streams of 4 frames in one paused burst
+    (4 steps of 4, one capture each): bit-equal answers, frames/s, p50, p99,
+    busy share, 4 sanctioned reads under the guards. Then 3 synthetic steps
+    of the train entry at the shipped configuration under
+    ``--strict_guards`` (JAX's ``strict_guards:`` line with 0 implicit reads
+    and 0 steady recompiles, 3 sanctioned reads), and a per-step ``.item()``
+    planted in the step, which must fail the run;
+16. prints one JSON line describing the kernels, the card's name and
     power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
@@ -2585,11 +2604,11 @@ def check_stream_steps(torch, model, steps, precision, carry_net) -> dict:
         splat = forward_interpolate_batch(rec["prev"]["flow"].float(), rec["chunk"])
         finit = torch.where(warm[:, None, None, None], splat, torch.zeros_like(splat))
         kw = {"net_init": rec["prev"]["net"], "net_warm": warm} if carry_net else {}
-        i1, i2 = (torch.from_numpy(x).cuda() for x in (rec["img1"], rec["img2"]))
+        i1, i2 = (torch.as_tensor(x).cuda() for x in (rec["img1"], rec["img2"]))
         _, up = plain(i1, i2, iters=12, flow_init=finit, **kw)
         if plain_f32 is not None:
             _, up_f32 = plain_f32(i1, i2, iters=12, flow_init=finit, **kw)
-        served = torch.from_numpy(rec["flow_up"]).cuda()
+        served = rec["flow_up"]
         for k in real:
             if rec["bad"][k]:
                 continue
@@ -3176,6 +3195,302 @@ def check_profile_steps(torch, card, tmp: str, sintel: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- pipelined serving, guards
+
+PIPE_REQUESTS = 16  # a paused burst: 8 batches of 2 at SERVE_SIZE, level 12
+PIPE_STREAMS, PIPE_FRAMES = 4, 4  # a paused burst: 4 batches of 4 streams
+PIPE_MODES = (("pipelined", None), ("waiting", 1))  # (name, ServeConfig.inflight)
+
+
+def device_busy(torch, fn) -> dict:
+    """Wall ms of ``fn()`` (ending in a synchronise) under a trace of the
+    card's activity only (no host-op recording that would slow a host-bound
+    window), the device ms its kernels and copies took, and the busy share
+    ``device / wall``."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    device_ms = sum((getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3
+                    for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    check(device_ms > 0, "the pipelined window's trace holds no device time")
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms}
+
+
+def paused_burst(server, items, stream=False) -> tuple:
+    """Every item submitted while ``server`` is paused, then released: the
+    batches are the same for any dispatch timing. Returns ``(responses,
+    wall seconds from the release to the last answer)``."""
+    server.pause()
+    if stream:
+        handles = [server.submit(sid, a, b, frame_index=f) for sid, f, a, b in items]
+    else:
+        handles = [server.submit(a, b) for a, b in items]
+    t0 = time.perf_counter()
+    server.resume()
+    rs = [h.result(300) for h in handles]
+    return rs, time.perf_counter() - t0
+
+
+def _burst_row(rs, wall, unit) -> dict:
+    from raft_ncup_tpu_torch.serving.request import nearest_rank_ms
+
+    lat = [r.latency_s for r in rs]
+    return {f"{unit}_per_sec": len(rs) / wall, "p50_ms": nearest_rank_ms(lat, 0.5),
+            "p99_ms": nearest_rank_ms(lat, 0.99), "wall_s": wall}
+
+
+def _same_answers(rs, want, what) -> None:
+    for a, b in zip(rs, want):
+        check(a.status == b.status == "ok", f"{what}: {a.status} / {b.status}: {a.detail}")
+        check(a.flow.tobytes() == b.flow.tobytes(), f"{what}: an answer differs from the "
+              "waiting server's on the same paused burst")
+
+
+def guarded_burst(server, items, n_batches, what, stream=False) -> dict:
+    """A paused burst under the port's runtime guards with the native layer
+    on (``torch.cuda.set_sync_debug_mode("error")``): no implicit read, no
+    capture or kernel load, one sanctioned read a batch."""
+    from raft_ncup_tpu_torch.analysis.guards import forbid_host_transfers, max_recompiles
+
+    with forbid_host_transfers() as gs, max_recompiles(0) as wd:
+        rs, _ = paused_burst(server, items, stream)
+    check(all(r.ok for r in rs), f"{what} under the guards: {[r.detail for r in rs][:2]}")
+    check(gs.host_transfers == 0 and wd.count == 0 and gs.sanctioned_gets == n_batches,
+          f"{what} under the guards: {gs.host_transfers} implicit reads {gs.violations[:3]}, "
+          f"{wd.count} captures, {gs.sanctioned_gets} sanctioned reads for {n_batches} batches")
+    return {"host_transfers": gs.host_transfers, "captures_after_warmup": wd.count,
+            "sanctioned_gets": gs.sanctioned_gets, "batches": n_batches}
+
+
+def check_planted_read(torch, server, pairs) -> dict:
+    """A ``.item()`` planted in the served batch's launch, in a guarded
+    window that counts instead of raising: the Python layer counts it, the
+    native layer stops it (the batch answers ``error``), and the next batch
+    serves again. The guard cannot pass vacuously."""
+    from raft_ncup_tpu_torch.analysis.guards import forbid_host_transfers
+
+    real = server._forward
+
+    def planted(*args, **kw):
+        flow_up, exec_iters = real(*args, **kw)
+        flow_up[0, 0, 0, 0].item()  # the planted per-batch read
+        return flow_up, exec_iters
+
+    server._forward = planted
+    try:
+        with forbid_host_transfers(raise_on_violation=False) as gs:
+            rs, _ = paused_burst(server, pairs[:2])
+    finally:
+        server._forward = real
+    after, _ = paused_burst(server, pairs[:2])
+    check(gs.host_transfers == 1 and "torch.Tensor.item" in gs.violations[0],
+          f"the planted read was not counted: {gs.violations}")
+    check(all(r.status == "error" and "synchronizing" in r.detail for r in rs),
+          f"the native layer did not stop the planted read: {[r.detail for r in rs]}")
+    check(all(r.ok for r in after), "the server did not serve after the planted read")
+    return {"python_layer_counted": gs.host_transfers, "native_layer_stopped": len(rs)}
+
+
+def check_pipelined_serve(torch, card) -> dict:
+    """The flagship served pipelined (``inflight`` default, 2 on the card)
+    and waiting (``inflight=1``) in one process, f32 and ``bf16_infer``:
+    a paused burst of ``PIPE_REQUESTS`` pairs through each, bit-equal
+    answers; one burst of each under the guards; two timed bursts of each,
+    in turns (pairs/s, p50, p99); one traced (the card's busy share); the
+    launches of the first timed pipelined burst; a planted read (f32)."""
+    from raft_ncup_tpu_torch.config import ServeConfig
+    from raft_ncup_tpu_torch.serve import make_pairs
+    from raft_ncup_tpu_torch.serving import FlowServer
+
+    model = flagship(torch)
+    pairs = make_pairs(SERVE_SIZE, PIPE_REQUESTS, seed=1)
+    n_batches = PIPE_REQUESTS // 2
+    out, paths = {}, {}
+    for precision in ("f32", "bf16_infer"):
+        servers = {name: FlowServer(model, ServeConfig(
+            batch_sizes=(1, 2), iter_levels=(12,), queue_capacity=2 * PIPE_REQUESTS,
+            precision=precision, inflight=inflight)) for name, inflight in PIPE_MODES}
+        rows = {name: {"timed": []} for name in servers}
+        try:
+            for name, srv in servers.items():
+                srv.warmup(SERVE_SIZE)
+                rows[name]["inflight_bound"] = srv._throttle.inflight or 2
+            want, _ = paused_burst(servers["waiting"], pairs)
+            for name, srv in servers.items():
+                rs, _ = paused_burst(srv, pairs)
+                _same_answers(rs, want, f"serve {precision} {name}")
+                rows[name]["guards"] = guarded_burst(srv, pairs, n_batches,
+                                                     f"serve {precision} {name}")
+            for rnd in range(2):
+                for name, srv in servers.items():
+                    if rnd == 0 and name == "pipelined":
+                        reset_launches()
+                    rs, wall = paused_burst(srv, pairs)
+                    if rnd == 0 and name == "pipelined":
+                        torch.cuda.synchronize()
+                        paths[f"pipelined serve {precision}"] = launches = read_launches()
+                        check(launches["corr_lookup"] == 12 * n_batches
+                              and launches["nconv"] == 4 * n_batches
+                              and launches["corr_lookup_bwd"] == 0
+                              and launches["nconv_bwd"] == 0,
+                              f"pipelined serve {precision}: launches {launches}")
+                    _same_answers(rs, want, f"serve {precision} {name} timed")
+                    rows[name]["timed"].append(_burst_row(rs, wall, "pairs"))
+            for name, srv in servers.items():
+                rows[name]["trace"] = device_busy(torch, lambda: paused_burst(srv, pairs))
+            if precision == "f32":
+                out["planted_read"] = check_planted_read(torch, servers["pipelined"], pairs)
+        finally:
+            for srv in servers.values():
+                srv.drain()
+        del servers
+        torch.cuda.empty_cache()
+        out[precision] = rows
+        for name, row in rows.items():
+            print(f"pipelined serve {precision} {name}: {json.dumps(row)} on {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out, paths
+
+
+def check_pipelined_stream(torch, card) -> dict:
+    """The flagship's stream engine pipelined and waiting, f32 and
+    ``bf16_infer``: ``PIPE_STREAMS`` streams of ``PIPE_FRAMES`` frames in
+    one paused burst (so step n+1 is staged and launched while step n runs,
+    every batch a round of 4), bit-equal answers, one burst of each under
+    the guards, two timed bursts of each in turns (frames/s, p50, p99) and
+    one traced (busy share)."""
+    from raft_ncup_tpu_torch.config import StreamConfig
+    from raft_ncup_tpu_torch.serve import make_pairs
+    from raft_ncup_tpu_torch.streaming import StreamEngine
+
+    model = flagship(torch)
+    frames = make_pairs(SERVE_SIZE, PIPE_FRAMES + 1, seed=2)
+    out, paths = {}, {}
+    for precision in ("f32", "bf16_infer"):
+        engines = {name: StreamEngine(model, StreamConfig(
+            capacity=PIPE_STREAMS, frame_hw=SERVE_SIZE, iters=12, batch_sizes=(PIPE_STREAMS,),
+            queue_capacity=PIPE_STREAMS * PIPE_FRAMES, precision=precision, inflight=inflight))
+            for name, inflight in PIPE_MODES}
+        rows = {name: {"timed": []} for name in engines}
+
+        def burst(first):
+            # Every stream's frames first .. first + PIPE_FRAMES - 1: each
+            # burst continues the streams' indices, so its frames start warm.
+            return [(f"s{s}", first + f, frames[(s + f) % len(frames)][0],
+                     frames[(s + f + 1) % len(frames)][1])
+                    for f in range(PIPE_FRAMES) for s in range(PIPE_STREAMS)]
+
+        try:
+            for eng in engines.values():
+                eng.warmup()
+            results = {name: paused_burst(eng, burst(0), stream=True)[0]
+                       for name, eng in engines.items()}
+            _same_answers(results["pipelined"], results["waiting"], f"stream {precision}")
+            for name, eng in engines.items():
+                rows[name]["guards"] = guarded_burst(eng, burst(PIPE_FRAMES), PIPE_FRAMES,
+                                                     f"stream {precision} {name}", stream=True)
+            for rnd in range(2):
+                for name, eng in engines.items():
+                    if rnd == 0 and name == "pipelined":
+                        reset_launches()
+                    rs, wall = paused_burst(eng, burst((2 + rnd) * PIPE_FRAMES), stream=True)
+                    if rnd == 0 and name == "pipelined":
+                        torch.cuda.synchronize()
+                        paths[f"pipelined stream {precision}"] = launches = read_launches()
+                        check(launches["corr_lookup"] == 12 * PIPE_FRAMES
+                              and launches["nconv"] == 4 * PIPE_FRAMES,
+                              f"pipelined stream {precision}: launches {launches}")
+                    check(all(r.ok for r in rs), f"stream {precision} {name}: not all ok")
+                    rows[name]["timed"].append(_burst_row(rs, wall, "frames"))
+            for name, eng in engines.items():
+                rows[name]["trace"] = device_busy(
+                    torch, lambda: paused_burst(eng, burst(4 * PIPE_FRAMES), stream=True))
+            for name, eng in engines.items():
+                rows[name]["captures"] = eng.report()["executables"]["compiles"]
+                check(rows[name]["captures"] == 1, f"stream {precision} {name}: captures "
+                      f"{rows[name]['captures']}, want 1 (at warm-up)")
+        finally:
+            for eng in engines.values():
+                eng.drain()
+        del engines
+        torch.cuda.empty_cache()
+        out[precision] = rows
+        for name, row in rows.items():
+            print(f"pipelined stream {precision} {name}: {json.dumps(row)} on {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out, paths
+
+
+def check_strict_guards(torch, card, tmp: str) -> dict:
+    """The train entry under ``--strict_guards``: the flagship at
+    ``scripts/train_raft_nc_things.sh``'s configuration on synthetic pairs,
+    3 steps, ``--sum_freq 1`` (the logger's read inside every step's
+    scope), every kernel count set to 0 before and read after: JAX's
+    ``strict_guards:`` line with no implicit read and no steady recompile;
+    then one step with a per-step ``.item()`` planted in the step, which
+    must fail the run with ``GuardViolation``."""
+    import io
+
+    from raft_ncup_tpu_torch import train as train_mod
+    from raft_ncup_tpu_torch.analysis.guards import GuardViolation
+
+    base = [t for t in script_flags("train_raft_nc_things.sh") if t != "--compressed_ft"]
+    for flag, n in (("--load_pretrained", 1), ("--validation", 1)):
+        i = base.index(flag)
+        del base[i:i + 1 + n]
+    argv = base + ["--synthetic_ok", "--num_steps", "3", "--sum_freq", "1", "--strict_guards"]
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with counting_plain_versions() as plain, contextlib.redirect_stdout(buf):
+        status = train_mod.main(argv + ["--checkpoint_dir", os.path.join(tmp, "strict")])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(os.path.join(tmp, "strict", "exp", "log.txt")) as fh:
+        line = [ln for ln in fh.read().splitlines() if ln.startswith("strict_guards:")]
+    sg = summary["strict_guards"]
+    check(status == 0 and not plain and all(launches.values()),
+          f"strict_guards: exit {status}, plain {plain}, launches {launches}")
+    check(len(line) == 1 and sg["steady_recompiles"] == 0 and sg["host_transfers"] == 0
+          and sg["sanctioned_gets"] == 3, f"strict_guards: {line} {sg}")
+
+    real = train_mod.make_train_step
+
+    def planted(cfg, *a, **kw):
+        step = real(cfg, *a, **kw)
+
+        def read_each_step(state, batch):
+            metrics = step(state, batch)
+            metrics["loss"].item()  # the planted per-step read
+            return metrics
+
+        return read_each_step
+
+    train_mod.make_train_step = planted
+    caught = None
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_mod.main(argv + ["--checkpoint_dir", os.path.join(tmp, "planted"),
+                                   "--num_steps", "1"])
+    except GuardViolation as e:
+        caught = str(e)
+    finally:
+        train_mod.make_train_step = real
+    check(caught is not None and "torch.Tensor.item" in caught,
+          f"strict_guards: the planted per-step read did not fail the run ({caught})")
+    row = {"card": card, "seconds": seconds, "line": line[0], "launches": launches,
+           "planted_read_failed_the_run": True}
+    print(f"strict_guards train: {json.dumps(row)}", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3324,6 +3639,12 @@ def main() -> int:
                                        train[f"median_ms_steps_2_to_{TRAIN_STEPS}"]))
         paths["telemetry profile_steps"] = check_profile_steps(
             torch, card, tmp, os.path.join(tmp, "Sintel"))
+    # Pipelined serving and streaming against the waiting server and engine,
+    # each under the runtime guards, and the train entry's --strict_guards.
+    for phase in (check_pipelined_serve, check_pipelined_stream):
+        paths.update(phase(torch, card)[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["train strict_guards"] = check_strict_guards(torch, card, tmp)
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.

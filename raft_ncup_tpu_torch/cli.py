@@ -19,8 +19,7 @@ and the evaluate entry's (:func:`build_eval_parser`, :func:`parse_eval`)
 take the JAX CLI's flags, with ``--device`` in place of ``--platform``.
 Flags of slices the port does not have yet raise with the ROADMAP item
 that brings them: the mesh (``--data_parallel``, ``--spatial_parallel``
-and ``--mesh`` above one card: queue 1 item 9), ``--profile_steps``
-(item 8) and ``--strict_guards`` (item 10).
+and ``--mesh`` above one card: queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -361,8 +360,9 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
                         help="trace this many steps after the first with torch.profiler "
                         "into <checkpoint_dir>/<name>/profile (a Chrome trace)")
     parser.add_argument("--strict_guards", action="store_true",
-                        help="live sync and recompile guards (not in the port yet: "
-                        "ROADMAP queue 1 item 10)")
+                        help="run each step under the runtime guards (analysis/guards.py): "
+                        "an implicit host read raises, a recompile after warm-up fails "
+                        "the run")
     parser.add_argument("--anomaly_sentinel", type=str2bool, default=d.anomaly_sentinel,
                         help="skip-update steps with a non-finite loss or gradient, or a "
                         "gradient-norm spike; K consecutive bad steps halt the run")
@@ -417,9 +417,6 @@ def parse_train(argv: Optional[Sequence[str]] = None):
     the JAX CLI's ``parse_train`` returns them."""
     args = build_train_parser().parse_args(argv)
     _refuse_mesh((args.data_parallel, args.spatial_parallel))
-    if args.strict_guards:
-        raise ValueError("--strict_guards is not in the port yet: it lands with the "
-                         "analysis slice (ROADMAP.md, queue 1 item 10)")
     model_cfg = model_config_from_args(args, dataset=args.stage)
     return args, model_cfg, train_config_from_args(args), data_config_from_args(args)
 

@@ -13,10 +13,7 @@ packages, with these differences:
   that the JAX package reads from its ``RAFT_NCUP_NCONV_IMPL`` knob:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
   (the fused kernel, CUDA in the port). Its default is the JAX default.
-- ``ServeConfig`` and ``StreamConfig`` have no ``mesh`` (one card), nor
-  ``inflight`` and ``drain_depth``: the server and the stream engine wait
-  for each batch's result on their dispatcher thread, so they have no
-  dispatch throttle and no asynchronous drain to bound.
+- ``ServeConfig`` and ``StreamConfig`` have no ``mesh`` (one card).
 - ``TrainConfig`` has no ``data_parallel``/``spatial_parallel`` (the
   mesh: one card).
 
@@ -161,9 +158,7 @@ class ServeConfig:
     """Online flow-serving knobs (see ``serving/server.py``).
 
     Same fields and defaults as the JAX package's ``ServeConfig`` except
-    ``mesh``, which the port does not have, and ``inflight`` and
-    ``drain_depth``, which belong to the JAX dispatch throttle and async
-    drain the server does not use (it waits for each batch's result).
+    ``mesh``, which the port does not have.
     """
 
     # Admission-queue capacity: a full queue sheds with retry_after_s.
@@ -187,6 +182,11 @@ class ServeConfig:
     # Bound on the cached CUDA graphs (LRU), one per (padded shape, batch
     # size, iteration level): at least their product for one shape.
     cache_size: int = 16
+    # DispatchThrottle in-flight bound (None = the device's default: 1 on
+    # the CPU, 2 on the card); 1 waits for every batch before the next.
+    inflight: int | None = None
+    # AsyncDrain queue depth (bounds the pinned result buffers in flight).
+    drain_depth: int = 2
 
     def __post_init__(self) -> None:
         if self.precision is not None:
@@ -258,6 +258,8 @@ class StreamConfig:
     # ShapeCachedForward LRU bound: at least len(batch_sizes), so no
     # step entry is evicted and captured again after warm-up.
     cache_size: int = 8
+    inflight: int | None = None  # DispatchThrottle bound (None = default)
+    drain_depth: int = 2  # AsyncDrain queue depth
     # Query chunk of the warm-start splat: bounds its transient distance
     # matrix at chunk * (h/8 * w/8) floats a stream row.
     splat_chunk: int = 1024

@@ -45,6 +45,8 @@ from typing import Any, Iterable, Iterator, Mapping
 import numpy as np
 import torch
 
+from raft_ncup_tpu_torch.analysis.guards import mark_host_thread
+
 # Queue sentinel: the wrapped iterator is exhausted.
 _END = object()
 
@@ -109,6 +111,7 @@ class DevicePrefetcher:
         return False
 
     def _worker(self) -> None:
+        mark_host_thread()  # host data only: the guards do not count its reads
         try:
             while not self._stop.is_set():
                 try:

@@ -26,6 +26,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from raft_ncup_tpu_torch.analysis.guards import mark_host_thread
 from raft_ncup_tpu_torch.resilience.retry import RetryStats, retry_io
 
 
@@ -237,8 +238,9 @@ class FlowLoader:
             return False
 
         def producer():
+            mark_host_thread()  # host data only: the guards do not count its reads
             try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
+                with ThreadPoolExecutor(self.num_workers, initializer=mark_host_thread) as pool:
                     epoch = start_epoch
                     skip = start_batch * self.batch_size
                     while not stop.is_set():

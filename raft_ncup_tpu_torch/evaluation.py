@@ -12,9 +12,11 @@ Built on ``inference/``: validators stream batches through
 :class:`EvalPipeline` (decode, pad on the host, copy to the card, all
 off the dispatch thread) and fold the metric on the card inside the
 cached CUDA graph of the forward (:class:`ShapeCachedForward`); a pass
-pulls its handful of sums once, at its end. Submissions copy each flow
-field to the host through :class:`AsyncDrain`, behind the next frame's
-dispatch.
+pulls its handful of sums once, at its end, through the sanctioned
+``analysis.guards.host_read``, so a pass reads nothing else on the host
+and, warm, captures nothing (``tests/test_torch_guards.py``). Submissions
+copy each flow field to the host through :class:`AsyncDrain`, behind the
+next frame's dispatch.
 
 One card, one process: the JAX package's ``_HostShard`` and
 ``_shard_for_validation`` split a dataset across hosts and agree on its
@@ -34,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from raft_ncup_tpu_torch.analysis.guards import host_read
 from raft_ncup_tpu_torch.config import DataConfig
 from raft_ncup_tpu_torch.data import datasets as ds_mod
 from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset, flow_boundary_mask
@@ -66,8 +69,10 @@ def _forward_for(model, cfg: DataConfig, precision, fwd) -> ShapeCachedForward:
 
 
 def _pull(acc: torch.Tensor) -> np.ndarray:
-    """The pass's one copy to the host: a few float32 sums."""
-    return acc.cpu().numpy().astype(np.float64)
+    """The pass's one read on the host, a few float32 sums, through the
+    sanctioned ``guards.host_read``: a validation window is clean under the
+    runtime guards."""
+    return host_read(acc).astype(np.float64)
 
 
 def _run_metric_pass(

@@ -22,10 +22,17 @@ drain off the dispatch thread.
   the JAX package's per-shape compiled executable: the host queues one
   graph launch where the eager forward queues every kernel.
 - **bounded dispatch** (:class:`DispatchThrottle`): a ring of CUDA
-  events caps the forwards in flight (2 on the card, 1 on the CPU).
-- **drain** (:class:`AsyncDrain`): submissions need whole flow fields;
-  each is copied to pinned host memory behind the dispatch, and a worker
-  thread hands it to a callback once its event has completed.
+  events caps the forwards in flight (``inflight``; by default 2 on the
+  card, 1 on the CPU). The server and the stream engine use it as
+  evaluation does.
+- **drain** (:class:`AsyncDrain`): each result is copied to pinned host
+  memory behind the dispatch, and a worker thread reads it with the
+  runtime guards' sanctioned ``host_read`` once its event has completed
+  and hands it to a callback.
+- **staging** (:func:`stage_frames`, :func:`stage_pinned`): a batch's
+  frames are written straight into pinned host memory, so every copy to
+  the card is non-blocking (a blocking copy from pageable memory waits
+  for the card).
 
 **Early exit** (``forward(..., early_exit_tol=...)``): JAX's batch exit is
 a ``lax.while_loop`` whose condition stays on the device, and a captured
@@ -69,6 +76,13 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from raft_ncup_tpu_torch.analysis.guards import (
+    flag_read,
+    host_read,
+    mark_host_thread,
+    note_compile,
+    stage_out,
+)
 from raft_ncup_tpu_torch.inference import metrics as metrics_mod
 from raft_ncup_tpu_torch.inference.costs import counting_flops, get_cost_ledger
 from raft_ncup_tpu_torch.observability import get_telemetry
@@ -115,7 +129,8 @@ class SamplePrefetcher:
     def __init__(self, dataset, num_workers: int = 4, lookahead: int = 8):
         self._ds = dataset
         self._n = len(dataset)
-        self._pool = ThreadPoolExecutor(max(1, num_workers), thread_name_prefix="eval-decode")
+        self._pool = ThreadPoolExecutor(max(1, num_workers), thread_name_prefix="eval-decode",
+                                        initializer=mark_host_thread)
         self._futures: deque = deque()
         self._submitted = 0
         self._closed = False
@@ -212,6 +227,7 @@ class EvalPipeline:
         self._thread.start()
 
     def _worker(self) -> None:
+        mark_host_thread()  # host data only: the guards do not count its reads
         try:
             side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
             for group in uniform_batches(self._sp, self._batch_size):
@@ -291,12 +307,18 @@ def default_inflight(device) -> int:
 
 
 class DispatchThrottle:
-    """Bound the device work in flight in a dispatch loop: ``push(x)``
-    records an event after the work that produced ``x`` and, once
-    :func:`default_inflight` events are pending, waits for the oldest. On
-    the CPU it waits for nothing."""
+    """Bound the device work in flight in a dispatch loop (the JAX
+    package's bound): ``push(x)`` records an event after the work that
+    produced ``x`` and, once ``inflight`` events are pending, waits for the
+    oldest, so at most ``inflight`` batches are ever in flight and
+    ``inflight - 1`` stay queued between pushes (``inflight=1``: every push
+    waits for its own work). ``None`` means :func:`default_inflight` of the
+    pushed tensor's device. The wait is an event's, which the guards'
+    native layer allows: no value reaches the host. On the CPU it waits for
+    nothing."""
 
-    def __init__(self):
+    def __init__(self, inflight: Optional[int] = None):
+        self.inflight = inflight
         self._pending: deque = deque()
 
     def push(self, x: torch.Tensor) -> None:
@@ -305,7 +327,8 @@ class DispatchThrottle:
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(x.device))
         self._pending.append(event)
-        while len(self._pending) >= default_inflight(x.device):
+        bound = self.inflight if self.inflight is not None else default_inflight(x.device)
+        while len(self._pending) >= max(1, bound):
             self._pending.popleft().synchronize()
 
     def drain(self) -> None:
@@ -317,12 +340,19 @@ class AsyncDrain:
     """Device-to-host copies behind the dispatch, callbacks on a worker.
 
     ``submit(tensors, callback)`` queues a copy of one tensor (or a tuple)
-    into pinned host memory on the current stream and records an event; a
-    worker thread waits for the event and calls ``callback`` with the
-    numpy array(s), in submission order. The queue bound (``depth``)
-    bounds the pinned buffers in flight. A callback error re-raises from
-    the next ``submit()`` or from ``close()``, which flushes the queue and
-    joins the worker."""
+    into pinned host memory on the current stream and records an event
+    (``guards.stage_out``); a worker thread reads them with the sanctioned
+    ``guards.host_read`` (one per submission, waiting on the event) and
+    calls ``callback`` with the numpy array(s), in submission order. The
+    queue bound (``depth``) bounds the pinned buffers in flight.
+
+    A failed submission (its read or its callback) goes to its own
+    ``on_error(exc)`` on the worker when one was given, and the worker
+    goes on with the next: the server and the stream engine answer that
+    batch with ``error`` at once. Without ``on_error`` (the JAX package's
+    contract) the error re-raises from the next ``submit()`` or from
+    ``close()``, and later submissions are skipped. ``close()`` flushes
+    the queue and joins the worker."""
 
     def __init__(self, depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
@@ -335,36 +365,30 @@ class AsyncDrain:
             item = self._q.get()
             if item is None:
                 return
-            if self._exc is not None:
+            host, event, callback, on_error = item
+            if self._exc is not None and on_error is None:
                 continue  # keep consuming so the producer never blocks
-            host, event, single, callback = item
             try:
-                if event is not None:
-                    event.synchronize()
-                arrays = tuple(t.numpy() for t in host)
-                callback(arrays[0] if single else arrays)
-            except BaseException as e:  # noqa: BLE001 - surfaced to the producer
-                self._exc = e
+                callback(host_read(host, ready=event))
+            except BaseException as e:  # noqa: BLE001 - handed on or surfaced
+                if on_error is None:
+                    self._exc = e
+                    continue
+                try:
+                    on_error(e)
+                except BaseException as e2:  # noqa: BLE001 - surfaced to the producer
+                    self._exc = e2
 
     def _raise_pending(self) -> None:
         if self._exc is not None:
             exc, self._exc = self._exc, None
             raise exc
 
-    def submit(self, tensors, callback: Callable) -> None:
+    def submit(self, tensors, callback: Callable,
+               on_error: Optional[Callable] = None) -> None:
         self._raise_pending()
-        single = isinstance(tensors, torch.Tensor)
-        seq = (tensors,) if single else tuple(tensors)
-        event = None
-        if seq[0].device.type == "cuda":
-            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in seq)
-            for h, t in zip(host, seq):
-                h.copy_(t, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(seq[0].device))
-        else:
-            host = tuple(t.detach().clone() for t in seq)
-        self._q.put((host, event, single, callback))
+        tree = tensors if isinstance(tensors, torch.Tensor) else tuple(tensors)
+        self._q.put((*stage_out(tree), callback, on_error))
 
     def close(self) -> None:
         """Flush the queued work, stop the worker, re-raise its error."""
@@ -384,6 +408,46 @@ class AsyncDrain:
                 print(f"AsyncDrain close after error: {e}", file=sys.stderr)
             return
         self.close()
+
+
+def stage_pinned(x, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """``x`` (numpy or a host tensor) as a new host tensor of ``dtype``, in
+    pinned memory when ``device`` is a card, ready for a non-blocking copy
+    to it. The caching host allocator keeps a pinned buffer until every
+    copy queued from it has run, so a fresh buffer a batch needs no event
+    of its own."""
+    src = torch.as_tensor(x)
+    out = torch.empty(src.shape, dtype=dtype,
+                      pin_memory=torch.device(device).type == "cuda")
+    out.copy_(src)
+    return out
+
+
+def stage_frames(images: list, pad_specs: list, n_rows: int, shape_hw: tuple,
+                 device) -> torch.Tensor:
+    """One dispatch batch on the host: each (H, W, 3) frame of ``images``
+    edge-padded by its ``InputPadder.pad_spec`` to ``shape_hw`` (as
+    ``np.pad(mode="edge")``: rows first, then columns, corners from the
+    corner pixel) and written at float32 straight into one (n_rows, H, W,
+    3) tensor, zero rows after the frames. For a card ``device`` the tensor
+    lies in pinned memory (a fresh buffer: :func:`stage_pinned`), so the
+    entry's copy to the card queues without a wait."""
+    ph, pw = shape_hw
+    out = torch.empty((n_rows, ph, pw, 3), dtype=torch.float32,
+                      pin_memory=torch.device(device).type == "cuda")
+    for row, img, ((t, b), (le, r)) in zip(out, images, pad_specs):
+        h, w = ph - t - b, pw - le - r
+        row[t: t + h, le: le + w].copy_(torch.from_numpy(np.ascontiguousarray(img)))
+        if t:
+            row[:t, le: le + w].copy_(row[t: t + 1, le: le + w].expand(t, w, 3))
+        if b:
+            row[t + h:, le: le + w].copy_(row[t + h - 1: t + h, le: le + w].expand(b, w, 3))
+        if le:
+            row[:, :le].copy_(row[:, le: le + 1].expand(ph, le, 3))
+        if r:
+            row[:, le + w:].copy_(row[:, le + w - 1: le + w].expand(ph, r, 3))
+    out[len(images):].zero_()
+    return out
 
 
 # ---------------------------------------------------------------- the cache
@@ -436,6 +500,18 @@ class _EagerEntry:
             out = self._fn(*args)
         record(flops, 1e3 * (time.perf_counter() - t0), 0)
         return out
+
+
+def _static_inputs(args: tuple, device) -> tuple:
+    """Contiguous copies on ``device`` of a first call's arguments (on the
+    card, or staged in pinned host memory): an entry's static inputs, which
+    every later call copies its arguments into. Contiguous whatever the
+    first call's strides: cuDNN picks its algorithms by the layout too, so
+    every key computes one way."""
+    out = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in args)
+    for dst, src in zip(out, args):
+        dst.copy_(src, non_blocking=True)
+    return out
 
 
 def _capture(key, fn: Callable, args: tuple, pool, device, record: Callable):
@@ -492,13 +568,17 @@ class _GraphEntry:
     outputs, so a result outlives the next replay. A failed capture raises;
     nothing falls back to the eager forward. Tensors ``fn`` reaches other
     than through its arguments (the stream engine's slot table) are
-    captured by address and updated in place."""
+    captured by address and updated in place.
 
-    def __init__(self, key, fn: Callable, args: tuple, pool, record: Callable):
-        device = args[0].device
-        # Contiguous whatever the first call's strides: cuDNN picks its
-        # algorithms by the layout too, so every key computes one way.
-        self.static_in = tuple(a.clone(memory_format=torch.contiguous_format) for a in args)
+    Arguments may lie on the card or in pinned host memory: a call's copies
+    into the static inputs are non-blocking either way, so from pinned
+    memory the host queues them and returns at once. The copies in, the
+    replay and the clones out run in the order of the caller's stream, so
+    replay n+1 cannot overwrite what replay n reads, nor its outputs before
+    they are cloned."""
+
+    def __init__(self, key, fn: Callable, args: tuple, pool, record: Callable, device):
+        self.static_in = _static_inputs(args, device)
         self.graph, out, self.launches, self.pool_bytes = _capture(
             key, fn, self.static_in, pool, device, record)
         self.static_out = out if isinstance(out, tuple) else (out,)
@@ -539,8 +619,8 @@ class _EarlyExitEntry:
         self.n_seg = int(iters) // self.seg
         self.counters = counters
         self.last: dict = {}
-        device = args[0].device
-        self.static_in = tuple(a.clone(memory_format=torch.contiguous_format) for a in args)
+        device = model.device
+        self.static_in = _static_inputs(args, device)
         bufs: dict = {}
         self._bufs = bufs
 
@@ -606,7 +686,7 @@ class _EarlyExitEntry:
             if s + 1 == self.n_seg:
                 break
             syncs += 1
-            if bool(self._bufs["done"].item()):  # one byte to the host: a synchronisation
+            if flag_read(self._bufs["done"]):  # one byte to the host: a synchronisation
                 break
         out = self._finalize()
         if out is None:
@@ -637,7 +717,9 @@ class ShapeCachedForward:
     because replays run one at a time in the order of one stream, a
     graph's static inputs live outside the pool, and a replay's outputs are
     copied out right after it, before another graph may reuse their memory
-    for its intermediates.
+    for its intermediates. On the card, host inputs (numpy or host tensors)
+    are staged in pinned memory and copied non-blocking (:meth:`_tensor`):
+    a blocking copy from pageable memory would wait for the card.
 
     A graph holds the addresses of the model's parameters: a weight load
     after capture must copy in place (``load_state_dict`` without
@@ -688,7 +770,17 @@ class ShapeCachedForward:
         self._pool = None
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device, dtype)
+        """``x`` as an entry argument: a tensor on the model's device; on
+        the card a host input instead stays on the host, in pinned memory
+        (already pinned at ``dtype``, as the server stages its batches, it
+        is taken as it is), and the entry copies it in without a wait."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(x).to(self.device, dtype)
+        if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+            return x.to(self.device, dtype)
+        if isinstance(x, torch.Tensor) and x.is_pinned() and x.dtype == dtype:
+            return x
+        return stage_pinned(x, dtype)
 
     def _pool_for_capture(self):
         """The graphs' shared pool on the card (made at the first capture),
@@ -710,6 +802,7 @@ class ShapeCachedForward:
             self.stats["hits"] += 1
             self._tel.inc(_EXEC_CANON["hits"])
             return entry
+        note_compile("capture", str(key))
         entry = build()
         self._entries[key] = entry
         self.stats["compiles"] += 1
@@ -741,14 +834,15 @@ class ShapeCachedForward:
         pool = self._pool_for_capture()
         record = self._recorder(key)
         return (_EagerEntry(fn, record) if pool is None
-                else _GraphEntry(key, fn, args, pool, record))
+                else _GraphEntry(key, fn, args, pool, record, self.device))
 
     def _run(self, key: tuple, fn: Callable, args: tuple):
         return self._get(key, lambda: self._graph_or_eager(key, fn, args))(*args)
 
     def custom(self, key: tuple, build: Callable, args: tuple):
         """Run a caller's function through this cache: ``build()`` returns
-        the function, called on ``args`` (tensors on the model's device),
+        the function, called on ``args`` (tensors on the model's device or,
+        on the card, staged in pinned host memory: :func:`stage_pinned`),
         captured as a CUDA graph on the card at the key's first use and
         replayed after, run eagerly on the CPU. The key is namespaced as
         ``("custom", *key)``; the stream engine's step per batch size is

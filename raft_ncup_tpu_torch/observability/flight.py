@@ -26,6 +26,7 @@ Triggers (the producers call ``Telemetry.flight_dump``):
 | ``sentinel_halt``       | the train entry's divergence halt (exit 76) |
 | ``preemption_drain``    | the serve and train entries' SIGTERM drain (exit 75) |
 | ``slo_page``            | ``SloEngine``: a page edge |
+| ``guard_violation``     | ``analysis/guards.py``: an implicit host read intercepted in a guarded window |
 
 Bounded by construction: per-trigger rate limiting (``min_interval_s``: a
 poison storm leaves the first dump and a suppression count) and a cap on

@@ -58,6 +58,7 @@ import ctypes
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.ops import cuda_build
@@ -189,11 +190,20 @@ def prepare_levels(
     dtype = dtype or torch.float32
     scale = 1.0 / math.sqrt(fmap1.shape[-1])
     if fmap1.dtype == torch.bfloat16:
-        f1s = fmap1 * float(torch.tensor(scale, dtype=torch.bfloat16))
+        f1s = fmap1 * _bf16_round(scale)
     else:
         f1s = fmap1.float() * scale
     levels = _pool_fmap_pyramid(fmap2, num_levels, dtype)
     return f1s.to(dtype).contiguous(), [lv.contiguous() for lv in levels]
+
+
+def _bf16_round(x: float) -> float:
+    """``x`` rounded to bfloat16 (through float32, to nearest even), as
+    ``torch.tensor(x, dtype=torch.bfloat16)`` rounds it, on the host:
+    the guards count a read of a tensor, even of one made on the host."""
+    bits = int(np.float32(x).view(np.uint32))
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return float(np.uint32(bits).view(np.float32))
 
 
 def _tile_windows(coords, level_hw, radius):

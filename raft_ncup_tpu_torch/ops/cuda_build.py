@@ -6,6 +6,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 reaches a kernel) into ``_build/`` inside the package, a directory git
 ignores; the library name carries a hash of the source and the flags,
 so an edited source is rebuilt and a stale library is never loaded.
+Each library's load (its build included) is a compile event for the
+runtime guards' watchdog (``analysis.guards.note_compile``).
 Importing this module needs no ``nvcc``. A failed build raises with
 ``nvcc``'s output; nothing falls back.
 """
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from raft_ncup_tpu_torch.analysis.guards import note_compile
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -112,6 +116,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            note_compile("kernel_load", name)
             build((name,))
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib

@@ -12,18 +12,29 @@ Data path (one dispatcher thread; clients submit from their own threads):
    past their deadline with ``timeout``, and quarantine a request with
    non-finite pixels alone (``rejected``) while its batch-mates proceed.
 3. **budget**: one ``IterationBudgetController.decide`` per batch.
-4. **dispatch**: host-side edge pad, zero rows up to the nearest allowed
-   batch size, and one test-mode forward through the server's
+4. **stage and dispatch**: each frame edge-padded on the host and written
+   straight into one batch tensor, zero rows up to the nearest allowed
+   batch size (``inference.pipeline.stage_frames``: in pinned memory on
+   the card), and one test-mode forward through the server's
    ``ShapeCachedForward``: a captured CUDA graph per (padded shape, batch
-   size, iteration level) on the card, the eager forward on the CPU.
-5. **complete**: copy the flow to the host (out of the graph's outputs,
-   before the next replay), crop each row back to its native shape and
-   complete its handle.
+   size, iteration level) on the card, whose input copies from pinned
+   memory queue without a wait; the eager forward on the CPU. The
+   ``DispatchThrottle`` (``cfg.inflight``, 2 on the card) then waits only
+   for the batch before the previous one, so the dispatcher stages and
+   launches batch n+1 while the card still runs batch n.
+5. **complete** (drain worker): the flow (and, with early exit, the
+   executed iterations) is copied into pinned host memory behind the
+   replay, and ``AsyncDrain``'s worker reads it with the sanctioned
+   ``analysis.guards.host_read`` (one per batch), crops each row back to
+   its native shape and completes its handle. A batch handed to the worker
+   stays in the in-flight registry until it is delivered: a failed read
+   or delivery answers that batch's requests with ``error`` at once.
 
-The dispatcher waits for the batch's result (the copy to the host) and
-completes its handles itself: the JAX package's dispatch throttle and
-asynchronous drain worker have no counterpart here. Meshes land with a
-later slice (ROADMAP.md, queue 1 item 9).
+Steady-state serving reads nothing else on the host and captures nothing
+(``tests/test_torch_guards.py`` holds a window to that under the
+runtime guards). ``inflight=1`` is the waiting server: each push waits
+for its own batch, with the same answers. Meshes land with a later slice
+(ROADMAP.md, queue 1 item 9).
 
 **Telemetry** (``telemetry=``, the process's hub by default): the stats
 mirror into the registry under the JAX package's counter names; each
@@ -31,8 +42,9 @@ batch's assembly, host staging (``serve_pad_stage``), launch
 (``serve_dispatch``, also a ``stage_annotation`` on a profiler's
 timeline) and dispatch-to-delivery (``serve_drain``) are host spans with
 request and batch ids, and each request's queue wait and end-to-end
-latency are observed. Every recorded value is a host number taken after
-the result's copy to the host: telemetry adds no synchronisation. A
+latency are observed. Every recorded value is a host number (the drain's
+are taken on its worker after the batch's one read): telemetry adds no
+synchronisation. A
 poison quarantine banks a ``poison_quarantine`` flight dump. ``health``
 is the hub's ``serve`` tracker: STARTING at construction, WARMING then
 READY through ``warmup`` (or READY at the first batch), READY <-> DEGRADED
@@ -59,25 +71,28 @@ hits, evictions) and the device memory its graphs reserved.
 **Drain contract** (``drain()``, also on leaving a ``with FlowServer(...)``
 block): stop admitting (new submits shed with
 ``detail="draining"``), flush every admitted request through compute,
-stop the dispatcher and return the final ``ServeStats``.
+stop the dispatcher, wait for the throttle's batches, close the drain
+worker (delivering what it holds) and return the final ``ServeStats``.
 """
 
 from __future__ import annotations
 
-import contextlib
+import sys
 import threading
 import time
 import traceback
 from typing import Callable, Optional
 
 import numpy as np
-import torch
 
 from raft_ncup_tpu_torch.config import ServeConfig
 from raft_ncup_tpu_torch.inference.pipeline import (
     MESH_FP,
+    AsyncDrain,
+    DispatchThrottle,
     ShapeCachedForward,
     env_earlyexit_tol,
+    stage_frames,
 )
 from raft_ncup_tpu_torch.observability import get_telemetry
 from raft_ncup_tpu_torch.ops.padding import InputPadder
@@ -134,8 +149,14 @@ class FlowServer:
             low_water=self.cfg.low_water,
             recover_patience=self.cfg.recover_patience,
         )
+        self._throttle = DispatchThrottle(self.cfg.inflight)
+        self._drainer = AsyncDrain(depth=self.cfg.drain_depth)
         self._handles: dict[int, ServeHandle] = {}
         self._handles_lock = threading.Lock()
+        # Batches handed to the drain worker and not yet delivered, by
+        # batch id: what a failed read or delivery answers with `error`.
+        self._inflight: dict[int, list] = {}
+        self._inflight_lock = threading.Lock()
         self._service_ema: Optional[float] = None  # seconds per pair
         self._ema_lock = threading.Lock()
         self._next_id = 0
@@ -145,6 +166,7 @@ class FlowServer:
         # the identity the serve entry's healthz file advertises.
         self.warmed: list = []
         self._draining = threading.Event()
+        self._drained = False
         self._thread = threading.Thread(
             target=self._dispatch_loop, name="flow-serve-dispatch", daemon=True
         )
@@ -299,75 +321,104 @@ class FlowServer:
         with self._tel.span("serve_pad_stage", batch_id=token, rows=len(live)) as stage_span:
             n_rows = next(b for b in self.cfg.batch_sizes if b >= len(live))
             pad_rows = n_rows - len(live)
-            rows1 = [self._stage(r.image1, r.pad_spec) for r in live]
-            rows2 = [self._stage(r.image2, r.pad_spec) for r in live]
-            zeros = np.zeros((ph, pw, 3), np.float32)
-            rows1 += [zeros] * pad_rows
-            rows2 += [zeros] * pad_rows
+            specs = [r.pad_spec for r in live]
+            img1 = stage_frames([r.image1 for r in live], specs, n_rows, (ph, pw), self.device)
+            img2 = stage_frames([r.image2 for r in live], specs, n_rows, (ph, pw), self.device)
             stage_span.set(pad_rows=pad_rows)
-            img1, img2 = np.stack(rows1), np.stack(rows2)
         self.stats.note_batch(pad_rows)
         t_dispatch = self._clock()
         ee_tol = self._earlyexit_tol
-
-        def dispatch_span():
-            # The launch: the copies in, the replay, the copies out of the
-            # graph's outputs (host time; the card's time is not a span).
-            stack = contextlib.ExitStack()
-            stack.enter_context(self._tel.span(
+        # The launch and the throttle's bounded wait (host time; the card's
+        # time is not a span; the drain span covers dispatch -> delivery).
+        with self._tel.span(
                 "serve_dispatch", batch_id=token, request_ids=[r.request_id for r in live],
                 iters=iters, mesh=MESH_FP, policy=self.policy.name,
-                **({"earlyexit_tol": ee_tol} if ee_tol is not None else {})))
-            stack.enter_context(stage_annotation("serve.dispatch"))
-            return stack
+                **({"earlyexit_tol": ee_tol} if ee_tol is not None else {})), \
+                stage_annotation("serve.dispatch"):
+            flow_up, exec_iters = self._forward(img1, img2, iters)
+            self._throttle.push(flow_up)
 
-        host_flow, host_exec = self._forward(img1, img2, iters, dispatch_span)
-        done = self._clock()
-        # Dispatch -> delivered on the host: the card's compute and the copy.
-        self._tel.inc("serve_drain_pulls_total")
-        exec_attrs = {}
-        if host_exec is not None:
-            live_exec = host_exec[: len(live)]  # pad rows converge at once
-            exec_attrs = {"iters_budgeted": iters,
-                          "iters_executed_mean": round(float(live_exec.mean()), 3)}
-        self._tel.observe_ms("serve_drain", (done - t_dispatch) * 1e3, batch_id=token,
-                             request_ids=[r.request_id for r in live], **exec_attrs)
-        if host_exec is not None:
-            for k in range(len(live)):
-                self._tel.hist_observe("serve_exec_iters", float(live_exec[k]))
-            self.budget.note_executed(float(live_exec.mean()))
-        for k, req in enumerate(live):
-            (t, b), (le, r) = req.pad_spec
-            hh, ww = host_flow.shape[1], host_flow.shape[2]
-            flow = host_flow[k, t: hh - b, le: ww - r, :]
-            self.stats.note_completed()
-            # Submit -> delivered: the serve_p99_latency SLO's SLI
-            # (histogram only, no ring record).
-            self._tel.hist_observe("serve_e2e_ms", (done - req.submit_time) * 1e3)
-            self._complete(req.request_id, FlowResponse(
-                req.request_id, STATUS_OK, flow=flow, iters=iters,
-                latency_s=done - req.submit_time,
-            ))
-        # Dispatch -> delivery per pair: the service time behind the shed
-        # hint (measuring from submit would count the queue wait twice).
-        self._note_service((done - t_dispatch) / len(live))
+        def deliver(host_out, live=live, iters=iters, token=token):
+            done = self._clock()
+            host_flow, host_exec = host_out if exec_iters is not None else (host_out, None)
+            # Dispatch -> delivered on the host: the card's compute and the
+            # batch's one sanctioned read on this worker.
+            self._tel.inc("serve_drain_pulls_total")
+            exec_attrs = {}
+            if host_exec is not None:
+                live_exec = host_exec[: len(live)]  # pad rows converge at once
+                exec_attrs = {"iters_budgeted": iters,
+                              "iters_executed_mean": round(float(live_exec.mean()), 3)}
+            self._tel.observe_ms("serve_drain", (done - t_dispatch) * 1e3, batch_id=token,
+                                 request_ids=[r.request_id for r in live], **exec_attrs)
+            if host_exec is not None:
+                for k in range(len(live)):
+                    self._tel.hist_observe("serve_exec_iters", float(live_exec[k]))
+                self.budget.note_executed(float(live_exec.mean()))
+            for k, req in enumerate(live):
+                (t, b), (le, r) = req.pad_spec
+                hh, ww = host_flow.shape[1], host_flow.shape[2]
+                flow = host_flow[k, t: hh - b, le: ww - r, :]
+                self.stats.note_completed()
+                # Submit -> delivered: the serve_p99_latency SLO's SLI
+                # (histogram only, no ring record).
+                self._tel.hist_observe("serve_e2e_ms", (done - req.submit_time) * 1e3)
+                self._complete(req.request_id, FlowResponse(
+                    req.request_id, STATUS_OK, flow=flow, iters=iters,
+                    latency_s=done - req.submit_time,
+                ))
+            # Dispatch -> delivery per pair: the service time behind the
+            # shed hint (measuring from submit would count the queue wait
+            # twice).
+            self._note_service((done - t_dispatch) / len(live))
+            with self._inflight_lock:  # delivered: nothing left to strand
+                self._inflight.pop(token, None)
 
-    def _forward(self, img1: np.ndarray, img2: np.ndarray, iters: int,
-                 span=contextlib.nullcontext) -> tuple:
-        """One test-mode forward through the cached forward, the early-exit
-        one when detection is on; returns the (B, H, W, 2) full-resolution
-        flow on the host and the (B,) executed iterations (None without
-        detection). ``span()`` makes the context that encloses the launch,
-        not the copy to the host (the batch's one wait for the card)."""
-        i1, i2 = torch.from_numpy(img1), torch.from_numpy(img2)
-        exec_iters = None
-        with span():
-            if self._earlyexit_tol is None:
-                flow_up = self._fwd.forward(i1, i2, iters)[1]
-            else:
-                _, flow_up, exec_iters = self._fwd.forward(
-                    i1, i2, iters, early_exit_tol=self._earlyexit_tol)
-        return flow_up.cpu().numpy(), None if exec_iters is None else exec_iters.cpu().numpy()
+        with self._inflight_lock:
+            self._inflight[token] = live
+        try:
+            self._drainer.submit(flow_up if exec_iters is None else (flow_up, exec_iters),
+                                 deliver, on_error=lambda e: self._fail_batch(token, e))
+        except BaseException:
+            with self._inflight_lock:
+                self._inflight.pop(token, None)
+            raise
+
+    def _forward(self, img1, img2, iters: int) -> tuple:
+        """Launch one test-mode forward through the cached forward, the
+        early-exit one when detection is on: ``(flow_up, exec_iters)`` on
+        the model's device, the (B, H, W, 2) full-resolution flow and the
+        (B,) executed iterations (None without detection). Nothing is read
+        on the host (early exit's flag reads aside)."""
+        if self._earlyexit_tol is None:
+            return self._fwd.forward(img1, img2, iters)[1], None
+        _, flow_up, exec_iters = self._fwd.forward(img1, img2, iters,
+                                                   early_exit_tol=self._earlyexit_tol)
+        return flow_up, exec_iters
+
+    def _fail_batch(self, token: int, exc: BaseException) -> None:
+        """Answer ``error`` to every still-pending request of the in-flight
+        batch ``token`` (its read or its delivery failed on the drain
+        worker; requests it already answered keep their answer)."""
+        with self._inflight_lock:
+            live = self._inflight.pop(token, [])
+        self._fail_requests(live, exc)
+
+    def _fail_inflight(self, exc: BaseException) -> None:
+        """Complete every batch still in flight with an explicit ``error``:
+        the no-silent-loss half of the drain contract when the drain worker
+        itself broke."""
+        with self._inflight_lock:
+            stranded = list(self._inflight.values())
+            self._inflight.clear()
+        for live in stranded:
+            self._fail_requests(live, exc)
+
+    def _fail_requests(self, live: list, exc: BaseException) -> None:
+        for req in live:
+            if self._complete(req.request_id, FlowResponse(
+                    req.request_id, STATUS_ERROR, detail=f"result drain failed: {exc!r}")):
+                self.stats.note_error()
 
     def _poison_error(self, req: FlowRequest) -> Optional[str]:
         for name, img in (("image1", req.image1), ("image2", req.image2)):
@@ -375,13 +426,6 @@ class FlowServer:
             if arr.dtype.kind == "f" and not np.isfinite(arr).all():
                 return f"non-finite pixels in {name}"
         return None
-
-    def _stage(self, image, pad_spec) -> np.ndarray:
-        (t, b), (le, r) = pad_spec
-        arr = np.asarray(image, np.float32)
-        if t or b or le or r:
-            arr = np.pad(arr, ((t, b), (le, r), (0, 0)), mode="edge")
-        return arr
 
     def _complete(self, rid: int, response: FlowResponse) -> bool:
         """Deliver ``response`` if ``rid`` is still pending; True when a
@@ -420,7 +464,7 @@ class FlowServer:
         before = self._fwd.stats["compiles"]
         warmed = []
         for n in self.cfg.batch_sizes:
-            zeros = np.zeros((n, ph, pw, 3), np.float32)
+            zeros = stage_frames([], [], n, (ph, pw), self.device)
             for iters in self.cfg.iter_levels:
                 self._forward(zeros, zeros, iters)
                 warmed.append((ph, pw, n, iters))
@@ -454,6 +498,16 @@ class FlowServer:
                     f"dispatcher did not drain within {timeout}s "
                     f"({len(self._queue)} requests still queued)"
                 )
+        if not self._drained:
+            self._drained = True
+            self._throttle.drain()
+            try:
+                self._drainer.close()
+            except Exception as e:
+                # The drain worker died with batches in flight: their
+                # requests answer `error` (nothing admitted is lost silently).
+                print(f"serve drain worker failed: {e!r}", file=sys.stderr)
+                self._fail_inflight(e)
         return self.stats
 
     def report(self) -> dict:

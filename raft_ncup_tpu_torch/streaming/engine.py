@@ -29,9 +29,18 @@ Data path (one dispatcher thread; clients submit from their own threads):
    (``index_copy_``), a flagged row reset to cold. The slot table is
    allocated at construction, before any capture and outside the graphs'
    pool, and the graphs read and write it by address.
-5. **deliver** (the dispatcher waits for the batch's copy to the host): a
-   flagged row answers ``rejected`` (its stream just went cold), the
-   others ``ok`` with the flow cropped to their native shape.
+   The frames are staged as the server's are (``stage_frames``: pinned
+   memory on the card, non-blocking copies in), and the
+   ``DispatchThrottle`` (``cfg.inflight``) lets the dispatcher stage and
+   launch batch n+1 while the card runs batch n: the slot table stays on
+   the card, and stream order keeps step n+1 reading what step n wrote.
+5. **deliver** (drain worker): the batch's flow and ``bad`` flags ride one
+   ``AsyncDrain`` read (the sanctioned ``analysis.guards.host_read``); a
+   flagged row answers ``rejected`` and its reset is accounted there (its
+   stream's next frame is cold on the card through the table's ``warm``
+   flag, whatever the host knew when it dispatched), the others answer
+   ``ok`` with the flow cropped to their native shape. A failed read or
+   delivery answers that batch's frames with ``error`` at once.
 
 Isolation: a corrupt frame affects one batch row and one slot. Its
 batch-mates' flows are bit for bit those of a run without it (test-mode
@@ -45,8 +54,9 @@ without it, at a batch size's first use), and always on scratch-slot,
 all-cold rows: a capture's eager run writes the slot table.
 
 Drain: ``drain()`` stops stream and frame admission, answers every
-admitted frame through compute, stops the dispatcher and returns the
-stats (the serve entry's ``--stream`` wires it to SIGTERM: exit 75).
+admitted frame through compute, stops the dispatcher, waits for the
+throttle's steps, closes the drain worker and returns the stats (the serve
+entry's ``--stream`` wires it to SIGTERM: exit 75).
 
 Telemetry (``telemetry=``, the process's hub by default), as the JAX
 engine's: ``StreamStats`` mirrors through ``LEGACY_KEY_ALIASES["stream"]``;
@@ -56,14 +66,15 @@ staging (``stream_pad_stage``), launch (``stream_dispatch``, also a
 ``stage_annotation``) and dispatch-to-delivery (``stream_drain``) are host
 spans; the slot occupancy is the gauge ``stream_slot_occupancy`` that
 ``stream_slos`` reads; an anomaly reset is an event and a
-``stream_anomaly_reset`` flight dump. Every value is a host number taken
-after the batch's copy to the host. ``health`` is the hub's ``stream``
+``stream_anomaly_reset`` flight dump. Every value is a host number (the
+delivery's are taken on the drain worker after the batch's one read). ``health`` is the hub's ``stream``
 tracker (WARMING then READY through ``warmup``, DRAINING in ``drain``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 import traceback
@@ -74,7 +85,14 @@ import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.config import StreamConfig
-from raft_ncup_tpu_torch.inference.pipeline import MESH_FP, ShapeCachedForward
+from raft_ncup_tpu_torch.inference.pipeline import (
+    MESH_FP,
+    AsyncDrain,
+    DispatchThrottle,
+    ShapeCachedForward,
+    stage_frames,
+    stage_pinned,
+)
 from raft_ncup_tpu_torch.observability import get_telemetry
 from raft_ncup_tpu_torch.observability.telemetry import LEGACY_KEY_ALIASES
 from raft_ncup_tpu_torch.ops.padding import InputPadder
@@ -185,9 +203,15 @@ class StreamEngine:
         self._captured: set = set()  # batch sizes whose step entry is built
         self._queue = AdmissionQueue(self.cfg.queue_capacity, telemetry=self._tel,
                                      name="stream")
+        self._throttle = DispatchThrottle(self.cfg.inflight)
+        self._drainer = AsyncDrain(depth=self.cfg.drain_depth)
         self.registry = SlotRegistry(self.cfg.capacity)
         self._reg_lock = threading.Lock()
         self._handles: dict[int, ServeHandle] = {}
+        # Batches handed to the drain worker and not yet delivered, by
+        # batch id: what a failed read or delivery answers with `error`.
+        self._inflight: dict[int, list] = {}
+        self._inflight_lock = threading.Lock()
         self._service_ema: Optional[float] = None
         self._ema_lock = threading.Lock()
         self._next_id = 0
@@ -196,6 +220,7 @@ class StreamEngine:
         self._occupancy_sum = 0  # sampled at each dispatched batch
         self._batch_seq = 0  # batch correlation ids (the dispatcher's only)
         self._draining = threading.Event()
+        self._drained = False
         self._thread = threading.Thread(target=self._dispatch_loop, name="stream-dispatch",
                                         daemon=True)
         self._thread.start()
@@ -400,14 +425,16 @@ class StreamEngine:
 
         return step
 
-    def _step(self, img1: np.ndarray, img2: np.ndarray, slot_idx, cold) -> tuple:
+    def _step(self, img1: torch.Tensor, img2: torch.Tensor, slot_idx, cold) -> tuple:
         """One step through the cache; returns ``(flow_up, bad)`` on the
-        card. The caller holds the step lock."""
-        args = (torch.from_numpy(img1).to(self.device), torch.from_numpy(img2).to(self.device),
-                torch.as_tensor(slot_idx, dtype=torch.int64).to(self.device),
-                torch.as_tensor(cold, dtype=torch.float32).to(self.device))
+        card. ``img1``/``img2`` are staged batches (``stage_frames``); the
+        slot indices and cold flags are staged beside them, so on the card
+        every input reaches it by a non-blocking copy. The caller holds the
+        step lock."""
+        idx = stage_pinned(np.asarray(slot_idx, np.int64), torch.int64, self.device)
+        cold_t = stage_pinned(np.asarray(cold, np.float32), torch.float32, self.device)
         return self._fwd.custom(("stream", img1.shape[0], self._policy.name), self._step_fn,
-                                args)
+                                (img1, img2, idx, cold_t))
 
     def _ensure_captured(self, n: int) -> None:
         """Build the step entry of batch size ``n`` on scratch-slot,
@@ -418,21 +445,22 @@ class StreamEngine:
         built. The caller holds the step lock."""
         if n in self._captured:
             return
-        zeros = np.zeros((n, self._ph, self._pw, 3), np.float32)
+        zeros = stage_frames([], [], n, (self._ph, self._pw), self.device)
         self._step(zeros, zeros, [self.cfg.capacity] * n, [1.0] * n)
         self._captured.add(n)
 
-    def _run_step(self, img1: np.ndarray, img2: np.ndarray, slot_idx, cold,
+    def _run_step(self, img1: torch.Tensor, img2: torch.Tensor, slot_idx, cold,
                   span=contextlib.nullcontext) -> tuple:
         """One step of a live batch (its batch size's entry built first if
-        need be); returns ``(flow_up, bad)`` on the host. ``span()`` makes
-        the context that encloses the launch, not the build or the copy to
-        the host."""
+        need be), pushed to the dispatch throttle; returns ``(flow_up,
+        bad)`` on the card. ``span()`` makes the context that encloses the
+        launch and the throttle's wait, not the build."""
         with self._step_lock:
             self._ensure_captured(img1.shape[0])
             with span():
                 flow_up, bad = self._step(img1, img2, slot_idx, cold)
-            return flow_up.cpu().numpy(), bad.cpu().numpy()
+                self._throttle.push(flow_up)
+            return flow_up, bad
 
     def _process(self, batch: list) -> None:
         token = self._batch_seq  # the batch's correlation id
@@ -450,12 +478,12 @@ class StreamEngine:
         pad_rows = n_rows - len(batch)
         with self._tel.span("stream_pad_stage", batch_id=token, rows=len(batch),
                             pad_rows=pad_rows):
-            zeros = np.zeros((self._ph, self._pw, 3), np.float32)
-            rows1 = [self._stage(r.image1, r.pad_spec) for r in batch] + [zeros] * pad_rows
-            rows2 = [self._stage(r.image2, r.pad_spec) for r in batch] + [zeros] * pad_rows
+            specs = [r.pad_spec for r in batch]
+            shape = (self._ph, self._pw)
+            img1 = stage_frames([r.image1 for r in batch], specs, n_rows, shape, self.device)
+            img2 = stage_frames([r.image2 for r in batch], specs, n_rows, shape, self.device)
             slot_idx = [r.slot for r in batch] + [self.cfg.capacity] * pad_rows
             cold = [1.0 if r.cold else 0.0 for r in batch] + [1.0] * pad_rows
-            img1, img2 = np.stack(rows1), np.stack(rows2)
         self.stats.note("batches")
         self.stats.note("padded_rows", pad_rows)
         with self._reg_lock:
@@ -464,8 +492,8 @@ class StreamEngine:
         t_dispatch = self._clock()
 
         def dispatch_span():
-            # The launch: the copies in, the replay, the copies out of the
-            # graph's outputs (host time; the card's time is not a span).
+            # The launch: the copies in, the replay, the clones out of the
+            # graph's outputs and the throttle's wait (host time).
             stack = contextlib.ExitStack()
             stack.enter_context(self._tel.span(
                 "stream_dispatch", batch_id=token, request_ids=[r.request_id for r in batch],
@@ -474,40 +502,82 @@ class StreamEngine:
             stack.enter_context(stage_annotation("stream.dispatch"))
             return stack
 
-        host_flow, host_bad = self._run_step(img1, img2, slot_idx, cold, dispatch_span)
-        done = self._clock()
-        # One copy to the host a batch (the flow and the anomaly flags).
-        self._tel.inc("stream_drain_pulls_total")
-        self._tel.observe_ms("stream_drain", (done - t_dispatch) * 1e3, batch_id=token,
-                             request_ids=[r.request_id for r in batch])
-        for k, req in enumerate(batch):
-            bad = bool(host_bad[k])
-            if bad:
-                resp = FlowResponse(req.request_id, STATUS_REJECTED,
-                                    latency_s=done - req.submit_time,
-                                    detail="anomaly in the step: stream reset to a cold start")
-            else:
-                (t, b), (le, r) = req.pad_spec
-                hh, ww = host_flow.shape[1], host_flow.shape[2]
-                resp = FlowResponse(req.request_id, STATUS_OK,
-                                    flow=host_flow[k, t: hh - b, le: ww - r, :],
-                                    iters=self.cfg.iters, latency_s=done - req.submit_time)
-            if not self._complete(req.request_id, resp):
-                continue
-            self._finish_frame(req, reset=bad)
-            self.stats.note("resets" if bad else "completed")
-            if bad:
-                self._tel.event("stream_anomaly_reset", stream_id=req.stream_id,
-                                slot=req.slot, frame_index=req.frame_index, batch_id=token)
-                # The reset and the timeline that led to it (the frame's
-                # whole journey is still in the ring).
-                self._tel.flight_dump("stream_anomaly_reset", stream_id=req.stream_id,
-                                      slot=req.slot, frame_index=req.frame_index,
-                                      batch_id=token)
-            else:
-                # Submit -> delivered: the stream_p99_latency SLO's SLI.
-                self._tel.hist_observe("stream_e2e_ms", (done - req.submit_time) * 1e3)
-        self._note_service((done - t_dispatch) / max(1, len(batch)))
+        flow_up, bad = self._run_step(img1, img2, slot_idx, cold, dispatch_span)
+
+        def deliver(host, batch=batch, token=token):
+            host_flow, host_bad = host
+            done = self._clock()
+            # One read on the host a batch (the flow and the anomaly flags).
+            self._tel.inc("stream_drain_pulls_total")
+            self._tel.observe_ms("stream_drain", (done - t_dispatch) * 1e3, batch_id=token,
+                                 request_ids=[r.request_id for r in batch])
+            for k, req in enumerate(batch):
+                reset = bool(host_bad[k])
+                if reset:
+                    resp = FlowResponse(req.request_id, STATUS_REJECTED,
+                                        latency_s=done - req.submit_time,
+                                        detail="anomaly in the step: stream reset to a cold "
+                                               "start")
+                else:
+                    (t, b), (le, r) = req.pad_spec
+                    hh, ww = host_flow.shape[1], host_flow.shape[2]
+                    resp = FlowResponse(req.request_id, STATUS_OK,
+                                        flow=host_flow[k, t: hh - b, le: ww - r, :],
+                                        iters=self.cfg.iters, latency_s=done - req.submit_time)
+                # Only a completion that happens is accounted: a frame a
+                # failure already answered must not finish twice.
+                if not self._complete(req.request_id, resp):
+                    continue
+                self._finish_frame(req, reset=reset)
+                self.stats.note("resets" if reset else "completed")
+                if reset:
+                    self._tel.event("stream_anomaly_reset", stream_id=req.stream_id,
+                                    slot=req.slot, frame_index=req.frame_index, batch_id=token)
+                    # The reset and the timeline that led to it (the frame's
+                    # whole journey is still in the ring).
+                    self._tel.flight_dump("stream_anomaly_reset", stream_id=req.stream_id,
+                                          slot=req.slot, frame_index=req.frame_index,
+                                          batch_id=token)
+                else:
+                    # Submit -> delivered: the stream_p99_latency SLO's SLI.
+                    self._tel.hist_observe("stream_e2e_ms", (done - req.submit_time) * 1e3)
+            self._note_service((done - t_dispatch) / max(1, len(batch)))
+            with self._inflight_lock:  # delivered: nothing left to strand
+                self._inflight.pop(token, None)
+
+        with self._inflight_lock:
+            self._inflight[token] = batch
+        try:
+            self._drainer.submit((flow_up, bad), deliver,
+                                 on_error=lambda e: self._fail_batch(token, e))
+        except BaseException:
+            with self._inflight_lock:
+                self._inflight.pop(token, None)
+            raise
+
+    def _fail_batch(self, token: int, exc: BaseException) -> None:
+        """Answer ``error`` to every still-pending frame of the in-flight
+        batch ``token`` (its read or its delivery failed on the drain
+        worker)."""
+        with self._inflight_lock:
+            batch = self._inflight.pop(token, [])
+        self._fail_frames(batch, exc)
+
+    def _fail_inflight(self, exc: BaseException) -> None:
+        """Complete every batch still in flight with an explicit ``error``
+        (the drain worker itself broke)."""
+        with self._inflight_lock:
+            stranded = list(self._inflight.values())
+            self._inflight.clear()
+        for batch in stranded:
+            self._fail_frames(batch, exc)
+
+    def _fail_frames(self, batch: list, exc: BaseException) -> None:
+        for req in batch:
+            if self._complete(req.request_id, FlowResponse(
+                    req.request_id, STATUS_ERROR, detail=f"result drain failed: {exc!r}")):
+                self._finish_frame(req)
+                self.stats.note("errors")
 
     def _finish_frame(self, req: FrameRequest, reset: bool = False) -> None:
         """A frame's terminal bookkeeping: its stream's pending count, a
@@ -524,13 +594,6 @@ class StreamEngine:
                 slot = self.registry.release(req.stream_id)
                 self.stats.note("streams_closed")
                 self._tel.event("stream_slot_released", stream_id=req.stream_id, slot=slot)
-
-    def _stage(self, image, pad_spec) -> np.ndarray:
-        (t, b), (le, r) = pad_spec
-        arr = np.asarray(image, np.float32)
-        if t or b or le or r:
-            arr = np.pad(arr, ((t, b), (le, r), (0, 0)), mode="edge")
-        return arr
 
     def _complete(self, rid: int, response: FlowResponse) -> bool:
         handle = self._handles.pop(rid, None)
@@ -591,6 +654,14 @@ class StreamEngine:
             if self._thread.is_alive():
                 raise TimeoutError(f"stream dispatcher did not drain within {timeout}s "
                                    f"({len(self._queue)} frames still queued)")
+        if not self._drained:
+            self._drained = True
+            self._throttle.drain()
+            try:
+                self._drainer.close()
+            except Exception as e:
+                print(f"stream drain worker failed: {e!r}", file=sys.stderr)
+                self._fail_inflight(e)
         return self.stats
 
     def report(self) -> dict:

@@ -32,7 +32,8 @@ In order, the trainer:
 4. applies ``--chaos`` (``nan@S``, ``ioerror@N``, ``sigterm@S``);
 5. runs the step; reads the preemption flag at each step boundary, and
    the sentinel's counters every ``--sum_freq`` steps (its only read back
-   to the host);
+   to the host, through the sanctioned ``analysis.guards.host_read``, as
+   the logger's window read is);
 6. saves ``<checkpoint_dir>/<name>/step_<N>.pt`` (the latest five kept)
    and runs each ``--validation`` validator every ``--val_freq`` steps and
    at the last step, logging the results to ``log.txt``.
@@ -54,6 +55,16 @@ teardown) that banks a ``sentinel_halt`` dump (exit 76) and a
 steps after the first (which pays cuDNN's autotuning) with
 ``torch.profiler`` into ``<run_dir>/profile`` (``utils.profiling.trace``,
 a Chrome trace) and logs "profile trace written to ...".
+
+``--strict_guards`` runs each step (its batch, the step, the logger's
+push) inside ``analysis.guards.StepGuard.scope()``, with validation and
+checkpoints outside it: an implicit read of a tensor on the host raises
+``GuardViolation`` at once (on the card, so does any operation that waits
+for it), and a capture or kernel load after the warm-up scopes counts as a
+recompile. A completed run logs JAX's line ``strict_guards:
+warmup_compiles=... steady_recompiles=... host_transfers=...
+sanctioned_gets=...`` (also under ``strict_guards`` in the JSON summary),
+then fails if the step recompiled.
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ import time
 import torch
 
 from raft_ncup_tpu_torch import cli
+from raft_ncup_tpu_torch.analysis.guards import StepGuard, host_read
 from raft_ncup_tpu_torch.config import ModelConfig, TrainConfig
 from raft_ncup_tpu_torch.data.datasets import fetch_training_set
 from raft_ncup_tpu_torch.data.device_prefetch import DevicePrefetcher
@@ -184,6 +196,12 @@ def main(argv=None) -> int:
                                 log=logger.write_text)
     prefetcher = DevicePrefetcher(batches, depth=data_cfg.device_prefetch, device=device)
     preempt = PreemptionHandler()
+    # --strict_guards: registered for the loop, armed per step.
+    step_guard = StepGuard() if args.strict_guards else None
+    guard_scope = step_guard.scope if step_guard is not None else contextlib.nullcontext
+    loop_scope = contextlib.ExitStack()
+    if step_guard is not None:
+        loop_scope.enter_context(step_guard)
     # This run's flight recorder on the process hub, beside the
     # checkpoints; detached at teardown (a later run in this process must
     # not dump into this run's directory).
@@ -213,11 +231,12 @@ def main(argv=None) -> int:
                     profile_scope.enter_context(trace(os.path.join(run_dir, "profile")))
                     profiling = True
                 t_it = time.perf_counter()
-                batch = next(prefetcher)
-                lr = state.optimizer.lr()
-                metrics = step_fn(state, batch)
-                step_i += 1
-                logger.push(step_i - 1, metrics, lr)
+                with guard_scope():
+                    batch = next(prefetcher)
+                    lr = state.optimizer.lr()
+                    metrics = step_fn(state, batch)
+                    step_i += 1
+                    logger.push(step_i - 1, metrics, lr)
                 iteration_ms.append(1e3 * (time.perf_counter() - t_it))
                 if chaos.sigterm_after == step_i:
                     # A real signal through the real handler, at a step boundary.
@@ -231,10 +250,10 @@ def main(argv=None) -> int:
                 if cfg.anomaly_sentinel and step_i % cfg.sum_freq == 0:
                     # The sentinel's only read back to the host; its host
                     # numbers land as gauges, no further read.
-                    skipped, consecutive, ema = torch.stack(
+                    skipped, consecutive, ema = (float(v) for v in host_read(torch.stack(
                         [state.sentinel["skipped"].float(),
                          state.sentinel["consecutive"].float(),
-                         state.sentinel["ema_grad_norm"].float()]).tolist()
+                         state.sentinel["ema_grad_norm"].float()])))
                     skipped, consecutive = int(skipped), int(consecutive)
                     tel.gauge_set("train_sentinel_skipped", skipped)
                     tel.gauge_set("train_sentinel_consecutive", consecutive)
@@ -274,6 +293,13 @@ def main(argv=None) -> int:
             else:
                 logger.write_text("no checkpoint to roll back to")
             status = EXIT_DIVERGED
+        if step_guard is not None and status == 0:
+            s = step_guard.stats
+            logger.write_text(f"strict_guards: warmup_compiles={s.warmup_compiles} "
+                              f"steady_recompiles={s.recompiles} "
+                              f"host_transfers={s.host_transfers} "
+                              f"sanctioned_gets={s.sanctioned_gets}")
+            step_guard.check()  # raises on steady-state recompilation
         if not loader.retry_stats.clean:
             logger.write_text("io-retry: " + loader.retry_stats.summary())
         if not ckpt.retry_stats.clean:
@@ -281,7 +307,7 @@ def main(argv=None) -> int:
     finally:
         # Teardown only; each closer shielded, so that a failure here never
         # hides the error that ended the loop.
-        for closer in (profile_scope.close, prefetcher.close, logger.close):
+        for closer in (loop_scope.close, profile_scope.close, prefetcher.close, logger.close):
             try:
                 closer()
             except Exception as e:
@@ -303,6 +329,11 @@ def main(argv=None) -> int:
                    "host_ms_per_sample": 1e3 * loader.read_seconds / max(loader.samples_read, 1),
                    "retry": loader.retry_stats.summary()},
         "prefetch": {"waits": prefetcher.waits, "wait_ms": prefetcher.wait_ms},
+        "strict_guards": None if step_guard is None else {
+            "warmup_compiles": step_guard.stats.warmup_compiles,
+            "steady_recompiles": step_guard.stats.recompiles,
+            "host_transfers": step_guard.stats.host_transfers,
+            "sanctioned_gets": step_guard.stats.sanctioned_gets},
         **{k: float(v) for k, v in metrics.items()},
     }
     print(json.dumps(summary), flush=True)

@@ -2,8 +2,9 @@
 ``raft_ncup_tpu/training/logger.py``, without TensorBoard).
 
 Metrics are summed on the device as they arrive and read back once per
-``sum_freq`` steps, so the steps between two summaries read nothing back
-to the host. The window means, the steps per second and the learning rate
+``sum_freq`` steps, with the learning rate, through the sanctioned
+``analysis.guards.host_read``, so the steps between two summaries read
+nothing back to the host (``--strict_guards`` holds the loop to that). The window means, the steps per second and the learning rate
 of that one read also land as telemetry gauges (``train_<metric>``,
 ``train_steps_per_sec``, ``train_lr``): host floats, no further read."""
 
@@ -16,6 +17,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from raft_ncup_tpu_torch.analysis.guards import host_read
 from raft_ncup_tpu_torch.observability import get_telemetry
 
 
@@ -49,13 +51,17 @@ class Logger:
         if (step + 1) % self.sum_freq:
             return
         keys = sorted(self._acc)
-        vals = torch.stack([self._acc[k] for k in keys]).tolist()  # one read
+        window = [self._acc[k] for k in keys]
+        lr_on_device = isinstance(lr, torch.Tensor)
+        if lr_on_device:
+            window.append(lr.detach().to(torch.float32).reshape(()))
+        vals = [float(v) for v in host_read(torch.stack(window))]  # the window's one read
+        lr = vals.pop() if lr_on_device else (None if lr is None else float(lr))
         means = {k: v / self._n for k, v in zip(keys, vals)}
         now = time.perf_counter()
         sps = (step + 1 - self._steps_last) / max(now - self._t_last, 1e-9)
         self._acc, self._n = {}, 0
         self._t_last, self._steps_last = now, step + 1
-        lr = None if lr is None else float(lr)
         tel = get_telemetry()
         for k, v in means.items():
             tel.gauge_set(f"train_{k}", v)

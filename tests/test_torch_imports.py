@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of JAX, flax, the JAX
 package, OpenCV or Pillow (the card machine has none of them), at run
 time (a fresh interpreter) or in its source (an AST scan of every module
-and of ``chip_smoke.py`` and ``chip_compare.py``)."""
+and of ``chip_smoke.py``, ``chip_compare.py`` and ``chip_spans.py``)."""
 
 import ast
 import os
@@ -18,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "raft_ncup_tpu", "cv2", "PIL")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_compare.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_compare.py", "chip_spans.py")]
     for root, _dirs, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -43,6 +43,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     scanned = {os.path.relpath(f, PKG) for f in files}
     assert {os.path.join("streaming", n) for n in
             ("__init__.py", "engine.py", "slots.py", "traffic.py")} <= scanned
+    assert {os.path.join("analysis", n) for n in ("__init__.py", "guards.py")} <= scanned
     bad = {
         os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
         for f in files
@@ -54,7 +55,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     "module",
     ["raft_ncup_tpu_torch", "raft_ncup_tpu_torch.serve", "raft_ncup_tpu_torch.train",
      "raft_ncup_tpu_torch.evaluate", "raft_ncup_tpu_torch.demo",
-     "raft_ncup_tpu_torch.streaming", "raft_ncup_tpu_torch.observability"],
+     "raft_ncup_tpu_torch.streaming", "raft_ncup_tpu_torch.observability",
+     "raft_ncup_tpu_torch.analysis"],
 )
 def test_fresh_import_loads_no_jax(module):
     code = (
