@@ -166,11 +166,37 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     ``--strict_guards`` (JAX's ``strict_guards:`` line with 0 implicit reads
     and 0 steady recompiles, 3 sanctioned reads), and a per-step ``.item()``
     planted in the step, which must fail the run;
-16. prints one JSON line describing the kernels, the card's name and
+16. runs fleet replicas (``fleet/``): two flagship replica processes of
+    the serve entry (``--replica_socket``, f32, 436x1024, batch sizes 1
+    and 2 at level 12, streams on) on the one card behind the port's
+    supervisor and router, held against an in-process server and stream
+    engine built from replica 0's argv (seed 0): both READY with their
+    identity in healthz; a burst of 16 pairs and 2 streams of 4 frames,
+    every answer ok and within ``FLEET_TOL`` of the in-process one (how
+    many are bit for bit equal is printed: cuDNN's autotuning may pick
+    other algorithms in another process); two timed fleet bursts against
+    two in-process pipelined bursts, in turns (pairs/s); the router's hop
+    medians; ``fleet_telemetry_overhead_pct`` from ``set_telemetry`` off
+    and on windows on the same warm fleet, in turns; ``killreplica@3`` in a burst of
+    8 (the stranded requests fail over within their deadline and answer
+    ok, a ``replica_failover`` dump, the dead replica's streams re-home
+    cold, held against a cold start in-process) and its restart;
+    ``drainreplica`` on the survivor with work in flight (DRAINING in
+    healthz, every admitted request answered, exit 75); each replica's
+    report with 0 recompiles, 0 host transfers and A 12 and B 4 launches a
+    batch it served, and its graph pools' bytes. Before the main paths,
+    kernels A and A' run on the small raft's pyramid at 32x48, whose
+    fourth level is 0x0, against their plain versions;
+17. prints one JSON line describing the kernels, the card's name and
     power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
 device it exits non-zero at once; it never falls back to the CPU.
+
+Every process it starts ends before it does: it adopts its orphaned
+descendants (Linux's child subreaper), and on the way out stops and reaps
+any that is still there, naming each on standard error; the fleet phase
+also checks that no replica process outlives its supervisor's ``stop``.
 """
 
 from __future__ import annotations
@@ -224,6 +250,77 @@ class CheckFailed(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise CheckFailed(what)
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its orphaned descendants (Linux's
+    ``PR_SET_CHILD_SUBREAPER``), so a process that a phase starts stays in
+    this process's tree, for ``stop_leftovers``, when its parent ends
+    first."""
+    try:
+        import ctypes
+
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _proc_stat(pid: int) -> tuple:
+    """(parent pid, state letter) of a process from ``/proc``, or None."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            stat = fh.read()
+        fields = stat[stat.rindex(")") + 2:].split()
+        return int(fields[1]), fields[0]
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return fh.read().replace(b"\0", b" ").decode(errors="replace").strip()[:200]
+    except OSError:
+        return "?"
+
+
+def descendants() -> dict:
+    """Every process below this one: pid -> (state letter, command line)."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            st = _proc_stat(int(name))
+            if st is not None:
+                children.setdefault(st[0], []).append((int(name), st[1]))
+    found, todo = {}, [os.getpid()]
+    while todo:
+        for pid, state in children.get(todo.pop(), []):
+            found[pid] = (state, _cmdline(pid))
+            todo.append(pid)
+    return found
+
+
+def stop_leftovers(timeout_s: float = 10.0) -> dict:
+    """Stop every process below this one that is still there (SIGKILL),
+    then reap this process's ended children, adopted ones included, for up
+    to ``timeout_s``. Returns what was running: pid -> command line."""
+    import signal
+
+    running = {pid: cmd for pid, (state, cmd) in descendants().items() if state != "Z"}
+    for pid in running:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            break
+        if pid == 0:
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    return running
 
 
 def card_line() -> str:
@@ -3491,6 +3588,336 @@ def check_strict_guards(torch, card, tmp: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ empty level
+
+def check_empty_level(torch, gen) -> dict:
+    """Kernels A and A' on a pyramid with an empty level, the small raft's at
+    32x48 (features 4x6: levels 4x6, 2x3, 1x1 and 0x0), against their plain
+    versions: A within ``CORR_TOL`` and the empty level's taps zero; A',
+    without and with d coords, and the lookup's autograd through its
+    ``autograd.Function`` (both kernels), within ``GRAD_TOL`` of the float64
+    plain autograd, the empty level's gradient zeros of its own shape."""
+    from raft_ncup_tpu_torch.ops import corr_cuda
+
+    B, H, W, C, r = 2, 4, 6, 128, 3
+    K = 2 * r + 1
+    f1 = torch.randn(B, H, W, C, generator=gen)
+    f2 = torch.randn(B, H, W, C, generator=gen)
+    f1s, lv = corr_cuda.prepare_levels(f1.cuda(), f2.cuda(), 4)
+    shapes = [tuple(t.shape[1:3]) for t in lv]
+    check(shapes == [(4, 6), (2, 3), (1, 1), (0, 0)], f"empty-level pyramid: {shapes}")
+    y, x = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    grid = torch.stack([x, y], -1).float()[None].expand(B, H, W, 2)
+    coords = (grid + (torch.rand(B, H, W, 2, generator=gen) * 2 - 1) * 3).contiguous().cuda()
+    out = corr_cuda.lookup_levels(f1s, lv, coords, r)
+    fwd_err, ok = max_err(torch, out, corr_cuda.lookup_pyramid(f1s, lv, coords, r), **CORR_TOL)
+    check(ok and not bool(out[..., 3 * K * K:].any()),
+          f"kernel A on an empty level: max |kernel-plain| {fwd_err:.3e}")
+    g = torch.randn(B, H, W, 4 * K * K, generator=gen).cuda()
+    ref = corr_bwd_ref(torch, f1s, lv, coords, r, g)
+    worst = 0.0
+    for needs in ((True, True, False), (True, True, True)):
+        got = corr_cuda.lookup_levels_backward(f1s, lv, coords, r, g, needs)
+        pairs = [(got[0], ref[0])] + list(zip(got[1], ref[1]))
+        if needs[2]:
+            pairs.append((got[2], ref[2]))
+        check(tuple(got[1][3].shape) == tuple(lv[3].shape), "A' on an empty level: d level "
+              f"{tuple(got[1][3].shape)}")
+        for a, b in pairs:
+            if b.numel():
+                e, same, _ = grad_err(torch, a, b)
+                check(same and e <= GRAD_TOL, f"kernel A' on an empty level (needs {needs}): "
+                                              f"{e:.3e}")
+                worst = max(worst, e)
+    leaves = [f1s.clone().requires_grad_(), coords.clone().requires_grad_()] + [
+        t.clone().requires_grad_() for t in lv]
+    with torch.enable_grad():
+        grads = torch.autograd.grad(corr_cuda.lookup_levels(leaves[0], leaves[2:], leaves[1], r),
+                                    leaves, g)
+    for a, b in zip([grads[0], *grads[2:], grads[1]], [ref[0], *ref[1], ref[2]]):
+        check(tuple(a.shape) == tuple(b.shape), f"autograd on an empty level: {a.shape}")
+        if b.numel():
+            e, same, _ = grad_err(torch, a, b)
+            check(same and e <= GRAD_TOL, f"the lookup's autograd on an empty level: {e:.3e}")
+            worst = max(worst, e)
+    row = {"levels": shapes, "fwd_max_abs_err": fwd_err, "bwd_max_rel_err": worst}
+    print(f"kernels A and A' on an empty pyramid level (small raft at 32x48): {json.dumps(row)}",
+          flush=True)
+    return row
+
+
+# ----------------------------------------------------------------- fleet
+
+FLEET_PAIRS = 16  # the paused burst through the router
+FLEET_STREAMS, FLEET_FRAMES = 2, 4
+FLEET_KILL_AT = 3  # killreplica@3 in an 8-pair burst
+# A replica's flow against the in-process server's for the same pair: the
+# same weights and configuration in another process, whose cuDNN autotuning
+# may pick other convolution algorithms, so the tolerance of a kernel
+# forward against the plain-version forward.
+FLEET_TOL = FLOW_UP_TOL
+
+
+def fleet_config(tmp: str):
+    """Two flagship replicas at the served shape on the one card, f32,
+    batch sizes 1 and 2 at level 12, streams on (12 iterations, batch sizes
+    1 and 2), UDS, weights from seed 0; one restart each."""
+    from raft_ncup_tpu_torch.config import ServeConfig, StreamConfig
+    from raft_ncup_tpu_torch.fleet import FleetConfig
+
+    return FleetConfig(
+        base_dir=os.path.join(tmp, "fleet"), n_replicas=2, size_hw=SERVE_SIZE,
+        serve=ServeConfig(batch_sizes=(1, 2), iter_levels=(12,), queue_capacity=4 * FLEET_PAIRS),
+        stream=StreamConfig(capacity=4, frame_hw=SERVE_SIZE, iters=12, batch_sizes=(1, 2),
+                            queue_capacity=16, max_frame_gap=10, idle_timeout_s=600.0,
+                            cache_size=2),
+        extra_args=("--model", "raft_nc_dbl", "--seed", "0"),
+        snapshot_interval_s=0.5, stale_after_factor=8.0, poll_interval_s=0.1,
+        spawn_timeout_s=300.0, drain_timeout_s=120.0, max_restarts=1, restart_backoff_s=0.5,
+        max_inflight_per_replica=2 * FLEET_PAIRS)
+
+
+def _fleet_burst(router, pairs, **kw) -> tuple:
+    """Every pair submitted to the router at once: (responses, wall seconds
+    from the first submit to the last answer)."""
+    t0 = time.perf_counter()
+    handles = [router.submit(a, b, deadline_s=120.0, **kw) for a, b in pairs]
+    rs = [h.result(300) for h in handles]
+    return rs, time.perf_counter() - t0
+
+
+def _against(torch, rs, want, what) -> dict:
+    """Every answer ok and within ``FLEET_TOL`` of the in-process answer:
+    the largest |diff| and how many are bit for bit equal."""
+    worst, same = 0.0, 0
+    for k, (a, b) in enumerate(zip(rs, want)):
+        check(a.status == "ok" and b.status == "ok", f"{what} {k}: {a.status} {a.detail} / "
+                                                   f"{b.status}")
+        err, ok = max_err(torch, torch.tensor(a.flow), torch.tensor(b.flow), **FLEET_TOL)
+        check(ok, f"{what} {k}: a replica's flow is {err:.3e} from the in-process server's")
+        worst, same = max(worst, err), same + (a.flow.tobytes() == b.flow.tobytes())
+    return {"n": len(rs), "max_abs_diff": worst, "bit_equal": same}
+
+
+def _replica_launches(rep: dict, what: str) -> dict:
+    """A replica's report: no recompile, no host transfer, and its kernel
+    launches after warm-up those of the batches it served (A 12 and B 4 a
+    batch of either tier)."""
+    batches = rep["serve_batches"] + rep.get("stream_batches", 0)
+    launches = {"corr_lookup": rep["corr_kernel_launches"], "nconv": rep["nconv_kernel_launches"],
+                "corr_lookup_bwd": 0, "nconv_bwd": 0}
+    check(rep["recompiles"] == 0 and rep["host_transfers"] == 0,
+          f"{what}: {rep['recompiles']} recompiles, {rep['host_transfers']} host transfers")
+    check(batches > 0 and launches["corr_lookup"] == 12 * batches
+          and launches["nconv"] == 4 * batches,
+          f"{what}: launches {launches} for {batches} batches")
+    return launches
+
+
+def check_fleet(torch, card, tmp: str) -> tuple:
+    """Two flagship replicas of the serve entry (``--replica_socket``) on the
+    one card behind the port's supervisor and router, against an in-process
+    server and stream engine built from replica 0's argv (the same seed):
+    both READY with their identity in healthz; a burst of ``FLEET_PAIRS``
+    pairs and ``FLEET_STREAMS`` streams of ``FLEET_FRAMES`` frames, each
+    answer ok and within ``FLEET_TOL`` of the in-process one (bit-equal
+    answers counted); two timed fleet bursts against two of the in-process
+    pipelined server in turns; the router's hop medians; the telemetry
+    overhead from ``set_telemetry`` off and on windows; ``killreplica@3``
+    mid-burst (failover within the deadline, a ``replica_failover`` dump,
+    the dead replica's streams re-homed cold, checked against a cold start
+    in-process), the replica's restart; ``drainreplica`` on the survivor with
+    work in flight (DRAINING in healthz, every admitted request answered,
+    exit 75); and each replica's report: 0 recompiles, 0 host transfers, A
+    12 and B 4 launches a batch. Returns ``(row, paths)``."""
+    from raft_ncup_tpu_torch import serve as serve_mod
+    from raft_ncup_tpu_torch.cli import (
+        model_config_from_args,
+        serve_config_from_args,
+        stream_config_from_args,
+    )
+    from raft_ncup_tpu_torch.fleet import ReplicaSupervisor, FleetRouter, read_healthz, \
+        replay_fleet
+    from raft_ncup_tpu_torch.fleet.replica import UP
+    from raft_ncup_tpu_torch.fleet.router import rendezvous_choice
+    from raft_ncup_tpu_torch.observability import Telemetry
+    from raft_ncup_tpu_torch.resilience.chaos import ChaosSpec
+    from raft_ncup_tpu_torch.serve import make_pairs
+    from raft_ncup_tpu_torch.serving import FlowServer, nearest_rank_ms
+    from raft_ncup_tpu_torch.streaming import StreamEngine
+
+    cfg = fleet_config(tmp)
+    tel = Telemetry(flight_dir=os.path.join(cfg.base_dir, "router_flight"))
+    sup = ReplicaSupervisor(cfg, telemetry=tel)
+    row, paths = {"card": card}, {}
+    t0 = time.perf_counter()
+    sup.start(wait_ready=False)  # the replicas warm up while this process builds its own
+    model = server = engine = router = None
+    try:
+        args = serve_mod.build_parser().parse_args(cfg.replica_argv(0))
+        model = serve_mod.load_model(model_config_from_args(args, dataset="sintel"), None,
+                                     None, args.seed)
+        server = FlowServer(model, serve_config_from_args(args))
+        engine = StreamEngine(model, stream_config_from_args(args, SERVE_SIZE))
+        server.warmup(SERVE_SIZE)
+        engine.warmup()
+        pairs = make_pairs(SERVE_SIZE, FLEET_PAIRS, seed=3)
+        # One stream homed on each replica (the router's rendezvous hash over
+        # both), so whichever replica the kill hits, a stream re-homes.
+        sids = [next(f"s{k}" for k in range(100) if rendezvous_choice(f"s{k}", [0, 1]) == i)
+                for i in range(FLEET_STREAMS)]
+        seqs = {sid: [p[0] for p in make_pairs(SERVE_SIZE, FLEET_FRAMES + 2, seed=10 + k)]
+                for k, sid in enumerate(sids)}
+        want, _ = paused_burst(server, pairs)
+        want_frames = {}
+        for f in range(FLEET_FRAMES + 1):
+            items = [(sid, f, seq[f], seq[f + 1]) for sid, seq in seqs.items()]
+            for (sid, *_), r in zip(items, paused_burst(engine, items, stream=True)[0]):
+                want_frames[(sid, f)] = r
+
+        sup.wait_ready()
+        row["ready_s"] = time.perf_counter() - t0
+        for i in range(2):
+            hz = read_healthz(cfg.replica(i).healthz_path) or {}
+            check(hz.get("overall") == "ready" and hz.get("replica") == i and hz.get("warmed")
+                  and hz.get("stream_warmed") and hz.get("pid") == sup.replicas[i].child.pid,
+                  f"fleet replica {i}: healthz {json.dumps(hz)[:400]}")
+        router = FleetRouter(cfg, sup, telemetry=tel)
+        rs, _ = _fleet_burst(router, pairs)
+        row["burst"] = _against(torch, rs, want, "fleet burst")
+        got = {}
+        for f in range(FLEET_FRAMES):
+            for sid, seq in seqs.items():
+                got[(sid, f)] = router.submit(seq[f], seq[f + 1], stream_id=sid, frame_index=f)
+        keys = sorted(got)
+        row["streams"] = _against(torch, [got[k].result(300) for k in keys],
+                                  [want_frames[k] for k in keys], "fleet stream frame")
+        dispatched = router.report()["per_replica_dispatched"]
+        check(all(dispatched.get(i, 0) > 0 for i in (0, 1)),
+              f"the burst did not reach both replicas: {dispatched}")
+        timed = {"fleet": [], "in_process": []}
+        for _ in range(2):
+            rs, wall = _fleet_burst(router, pairs)
+            _against(torch, rs, want, "timed fleet burst")
+            timed["fleet"].append(_burst_row(rs, wall, "pairs"))
+            rs, wall = paused_burst(server, pairs)
+            timed["in_process"].append(_burst_row(rs, wall, "pairs"))
+        row["timed"] = timed
+        row["fleet_hops"] = {k: v for k, v in tel.tracer.stage_summary().items()
+                             if k.startswith("fleet_hop_") or k == "fleet_request"}
+        # The telemetry overhead: the same warm fleet with every hub off and
+        # on (the replicas' over the wire, the router's here), in the turns
+        # off, on, on, off; JAX's metric on the mean p50 of each side.
+        p50 = {False: [], True: []}
+        for on in (False, True, True, False):
+            check(router.set_fleet_telemetry(on, timeout=15.0) == 2, "set_telemetry unacked")
+            tel.enabled = on
+            rs, _ = _fleet_burst(router, pairs)
+            p50[on].append(nearest_rank_ms([r.latency_s for r in rs], 0.5))
+        p50_on, p50_off = statistics.mean(p50[True]), statistics.mean(p50[False])
+        row["telemetry"] = {"p50_ms_on": p50[True], "p50_ms_off": p50[False],
+                            "fleet_telemetry_overhead_pct": 100.0 * (p50_on - p50_off) / p50_off}
+        check(router.set_fleet_telemetry(True, timeout=15.0) == 2, "set_telemetry unacked")
+        tel.enabled = True
+
+        # killreplica mid-burst: the replica that carried submission 3 dies.
+        homes = dict(router.report()["affinity"])
+        items = [{"image1": a, "image2": b, "deadline_s": 120.0} for a, b in pairs[:8]]
+        handles = replay_fleet(router, items, supervisor=sup,
+                               chaos=ChaosSpec.parse(f"killreplica@{FLEET_KILL_AT}"))
+        rs = [h.result(300) for h in handles]
+        victim = next(h.index for h in sup.replicas if h.deaths)
+        survivor = 1 - victim
+        row["kill"] = {"victim": victim, **_against(torch, rs, want[:8], "failed-over burst"),
+                       "failovers": router.stats["failovers"]}
+        check(router.stats["failovers"] >= 1, f"no failover after the kill: {router.stats}")
+        dumps = os.listdir(os.path.join(cfg.base_dir, "router_flight"))
+        check(any(d.startswith("flight_replica_failover_") for d in dumps),
+              f"no replica_failover dump: {dumps}")
+        f = FLEET_FRAMES
+        rs, want_rehome = [], []
+        for sid, seq in seqs.items():
+            rs.append(router.submit(seq[f], seq[f + 1], stream_id=sid,
+                                    frame_index=f).result(300))
+            if homes[sid] == victim:  # re-homed: a cold start on the survivor
+                want_rehome.append(engine.submit(f"{sid}-cold", seq[f], seq[f + 1],
+                                                 frame_index=f).result(300))
+            else:
+                want_rehome.append(want_frames[(sid, f)])
+        row["rehomed_streams"] = {
+            "moved": sorted(s for s in seqs if homes[s] == victim),
+            **_against(torch, rs, want_rehome, "re-homed stream frame")}
+        check(row["rehomed_streams"]["moved"] and set(
+            router.report()["affinity"].values()) == {survivor},
+              f"no stream re-homed on the survivor: {homes} -> {router.report()['affinity']}")
+        t1 = time.perf_counter()
+        while sup.replicas[victim].state != UP and time.perf_counter() - t1 < 300:
+            time.sleep(0.1)
+        check(sup.replicas[victim].state == UP and sup.replicas[victim].restarts == 1,
+              f"the killed replica did not come back: {sup.report()}")
+        row["restart_ready_s"] = time.perf_counter() - t1
+        rs, _ = _fleet_burst(router, pairs[:4])
+        row["after_restart"] = _against(torch, rs, want[:4], "burst after the restart")
+
+        # drainreplica on the survivor with work in flight.
+        handles = [router.submit(a, b, deadline_s=120.0) for a, b in pairs[:8]]
+        time.sleep(0.2)
+        out = sup.drain(survivor)
+        rs = [h.result(300) for h in handles]
+        check(out["observed_draining"] and out["returncode"] == 75,
+              f"drainreplica: {out['observed_draining']} rc {out['returncode']}")
+        row["drain"] = {"replica": survivor, "returncode": out["returncode"],
+                        **_against(torch, rs, want[:8], "burst across the drain")}
+        router.drain()
+        router = None
+        reports = sup.stop()
+        left = [f"{pid} {state} {cmd}" for pid, (state, cmd) in descendants().items()
+                if "--replica_socket" in cmd]
+        check(not left, f"replica processes outlive the supervisor's stop: {left}")
+        reps = {survivor: out["report"], victim: reports[victim]["report"]}
+        check(all(reps.values()), f"a replica printed no report: {reps}")
+        sup_report = sup.report()
+        check(sup_report["contract_violations"] == [],
+              f"fleet contract violations: {sup_report['contract_violations']}")
+        row["replicas"] = {}
+        for i in (0, 1):
+            rep = reps[i]
+            paths[f"fleet replica {i}"] = launches = _replica_launches(rep, f"fleet replica {i}")
+            row["replicas"][i] = {
+                "incarnation": "restarted" if i == victim else "first",
+                "completed": rep["completed"], "stream_completed": rep.get("stream_completed"),
+                "serve_batches": rep["serve_batches"], "stream_batches": rep.get("stream_batches"),
+                "launches": launches, "recompiles": rep["recompiles"],
+                "host_transfers": rep["host_transfers"],
+                "graph_pool_bytes": rep["graph_pool_bytes"],
+                "stream_graph_pool_bytes": rep["stream_report"]["graph_pool_bytes"],
+                "warmup_s": rep["warmup_s"]}
+    finally:
+        if router is not None:
+            router.drain(timeout=5.0)
+        sup.stop(drain=False)
+        for srv in (server, engine):
+            if srv is not None:
+                srv.drain()
+    del model, server, engine
+    torch.cuda.empty_cache()
+    fleet = [r["pairs_per_sec"] for r in row["timed"]["fleet"]]
+    local = [r["pairs_per_sec"] for r in row["timed"]["in_process"]]
+    print(f"fleet: 2 replicas of raft_nc_dbl f32 at {SERVE_SIZE[0]}x{SERVE_SIZE[1]} on one card, "
+          f"ready in {row['ready_s']:.1f} s; burst {json.dumps(row['burst'])}, streams "
+          f"{json.dumps(row['streams'])} (tolerance {FLEET_TOL}) on {card}", flush=True)
+    print(f"fleet pairs/s: fleet {fleet} vs in-process pipelined {local} (bursts of "
+          f"{FLEET_PAIRS}) on {card}", flush=True)
+    print(f"fleet hops: {json.dumps(row['fleet_hops'])} on {card}", flush=True)
+    print(f"fleet telemetry: {json.dumps(row['telemetry'])} on {card}", flush=True)
+    print(f"fleet chaos: kill {json.dumps(row['kill'])}, re-homed {json.dumps(row['rehomed_streams'])}"
+          f", restart ready in {row['restart_ready_s']:.1f} s, drain {json.dumps(row['drain'])} "
+          f"on {card}", flush=True)
+    for i, rep in row["replicas"].items():
+        print(f"fleet replica {i}: {json.dumps(rep)} on {card}", flush=True)
+    return row, paths
+
+
 def main() -> int:
     try:
         import torch
@@ -3560,6 +3987,8 @@ def main() -> int:
     for mix in ("random", "smooth"):
         check_corr_bwd_bf16(torch, bf16_bwd_gen, mix)
     check_wrappers_refuse(torch)
+    # Kernels A and A' on a pyramid with an empty (0x0) level.
+    check_empty_level(torch, torch.Generator().manual_seed(0))
 
     # The main paths, each with the kernel counts set to 0 just before it
     # and read just after: serving the flagship, raft and small raft, then
@@ -3645,6 +4074,11 @@ def main() -> int:
         paths.update(phase(torch, card)[1])
     with tempfile.TemporaryDirectory() as tmp:
         paths["train strict_guards"] = check_strict_guards(torch, card, tmp)
+    # Fleet replicas: two flagship replica processes of the serve entry on
+    # the card behind the router, under chaos; each replica's launches come
+    # from its own report.
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(check_fleet(torch, card, tmp)[1])
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.
@@ -3766,8 +4200,13 @@ def _kernel_numbers(row: dict) -> dict:
 
 
 if __name__ == "__main__":
+    adopt_orphans()
     try:
-        sys.exit(main())
+        code = main()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        sys.exit(1)
+        code = 1
+    finally:
+        for pid, cmd in stop_leftovers().items():
+            print(f"chip_smoke: stopped a leftover process {pid}: {cmd}", file=sys.stderr)
+    sys.exit(code)

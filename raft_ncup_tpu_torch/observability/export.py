@@ -227,15 +227,16 @@ def write_healthz(
     exit-75 path; HALTED the sentinel → exit-76 one), and the identity
     a router routes on — ``pid``, process start time, plus whatever the
     producers deposited in ``Telemetry.identity`` (the serve entry puts
-    the warmed ``(shape, batch, iters)`` set there after warm-up; the
-    fleet's replica fields wait for the port's fleet slice).
+    the warmed ``(shape, batch, iters)`` set there after warm-up; in
+    ``--replica_socket`` mode also the replica's index, its mesh and the
+    stream engine's ``stream_warmed`` set, which the fleet router reads).
 
     **Staleness contract**: ``interval_s`` is the rewrite cadence the
     writer promises; consumers MUST treat a payload whose
     ``time_unix_s`` is older than ``stale_after_s`` (2x the cadence) as
     a dead replica even if the process lingers — a wedged or SIGSTOPped
-    replica keeps its pid but stops heartbeating (the JAX package's
-    ``fleet/replica.healthz_fresh`` is the reference consumer).
+    replica keeps its pid but stops heartbeating
+    (``fleet/replica.healthz_fresh`` is the consumer).
 
     tmp + ``os.replace`` — a poller never reads a torn file."""
     tel = tel or get_telemetry()

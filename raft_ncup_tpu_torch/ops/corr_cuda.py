@@ -165,15 +165,24 @@ def lookup_pyramid_backward(
             break
         with torch.enable_grad():
             out = lookup_pyramid(f1c, levels, cc, radius)
-            grads = list(torch.autograd.grad(out, wrt, grad[:, rows].to(dt)))
+            # An empty level (0x0: a pyramid deeper than the image) takes
+            # no part in the graph; its gradient stays the zeros above.
+            grads = list(torch.autograd.grad(out, wrt, grad[:, rows].to(dt),
+                                             allow_unused=True))
         if needs[0]:
-            df1[:, rows] = grads.pop(0)
+            df1[:, rows] = _or_zero(grads.pop(0), f1c)
         if needs[2]:
-            dco[:, rows] = grads.pop(0)
+            dco[:, rows] = _or_zero(grads.pop(0), cc)
         if needs[1]:
             for acc, d in zip(dlv, grads):
-                acc += d
+                if d is not None:
+                    acc += d
     return df1, dlv, dco
+
+
+def _or_zero(g: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """``g``, or zeros of ``like``'s shape where autograd found no path."""
+    return torch.zeros_like(like) if g is None else g
 
 
 def prepare_levels(

@@ -18,10 +18,12 @@ training kinds:
 The serve entry acts on the serving kinds (``burst``, ``poison``,
 ``sigterm``: ``serving/traffic.py``) and the streaming kinds
 (``corruptframe``, ``abandon``, ``burst``, ``sigterm``:
-``streaming/traffic.py``). The fleet kinds (``killreplica``,
-``stallreplica``, ``drainreplica``, ``partitionhost``,
-``killsupervisor``) are parsed and not acted on until the port has fleet
-replicas (ROADMAP.md, queue 1 item 7).
+``streaming/traffic.py``). The fleet kinds act through
+``fleet/router.replay_fleet`` at submission indices: ``killreplica@N``
+SIGKILLs, ``stallreplica@N`` SIGSTOPs and ``drainreplica@N`` SIGTERM-drains
+the replica that carried submission ``N``; ``partitionhost@N`` and
+``killsupervisor@N`` cut off or kill that replica's host agent
+(``fleet/host_supervisor.FleetManager``).
 """
 
 from __future__ import annotations

@@ -48,8 +48,18 @@ FLOPs, capture ms and pool bytes). The files keep the JAX package's
 formats, so its ``scripts/trace_report.py`` and ``scripts/postmortem.py``
 read them.
 
-Left out, each refused with its ROADMAP.md item (queue 1): fleet replicas
-(``--replica_socket``: item 7) and the mesh (``--mesh``: item 9).
+``--replica_socket ADDR`` runs one fleet replica (the root entry's
+replica mode; ``fleet/``): the server and, unless ``--replica_streams
+false``, a stream engine warm up, the healthz file advertises the replica's
+identity (``replica``, ``mesh``, ``warmed``, ``stream_warmed``, pid), and
+the process answers the wire's ``ping``, ``set_telemetry``, ``request`` and
+``frame`` messages on ``ADDR`` (a Unix-domain-socket path or
+``host:port``) under the runtime guards, until SIGTERM: then healthz reads
+DRAINING before the flush, both tiers drain, and it exits 75 after
+printing one JSON report. ``fleet.ReplicaSupervisor`` spawns exactly this.
+
+Left out, refused with its ROADMAP.md item (queue 1): the mesh
+(``--mesh``: item 9).
 
 It runs on the card unless ``--device cpu`` is given; with no CUDA and
 no ``--device`` it raises.
@@ -60,6 +70,8 @@ Examples::
         --iter_levels 2,1 --serve_batch_sizes 1,2 --small
     python -m raft_ncup_tpu_torch.serve --model raft_nc_dbl --size 436 1024 --stream \\
         --n_streams 4 --frames_per_stream 8 --stream_iters 12 --chaos corruptframe@4
+    python -m raft_ncup_tpu_torch.serve --device cpu --small --size 48 64 \\
+        --replica_socket /tmp/r0.sock --healthz_file /tmp/r0.healthz.json
 """
 
 from __future__ import annotations
@@ -67,21 +79,32 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import socket
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from raft_ncup_tpu_torch.analysis.guards import (
+    GuardStats,
+    RecompileWatchdog,
+    forbid_host_transfers,
+)
 from raft_ncup_tpu_torch.cli import (
     add_model_args,
     add_serve_args,
     add_stream_args,
     model_config_from_args,
     serve_config_from_args,
+    str2bool,
     stream_config_from_args,
 )
 from raft_ncup_tpu_torch.evaluate import load_model
+from raft_ncup_tpu_torch.fleet.wire import Transport, recv_msg, send_msg
 from raft_ncup_tpu_torch.inference.costs import CostLedger, set_cost_ledger
 from raft_ncup_tpu_torch.inference.pipeline import MESH_FP
 from raft_ncup_tpu_torch.models.raft import RAFT
@@ -91,11 +114,13 @@ from raft_ncup_tpu_torch.observability import (
     PeriodicSnapshot,
     SloEngine,
     Telemetry,
+    TraceContext,
     get_telemetry,
     serve_slos,
     set_telemetry,
     stream_slos,
     telemetry_report,
+    write_healthz,
 )
 from raft_ncup_tpu_torch.observability.export import TELEMETRY_ENV
 from raft_ncup_tpu_torch.observability.flight import FLIGHT_ENV
@@ -108,7 +133,7 @@ from raft_ncup_tpu_torch.utils.knobs import knob_enabled, knob_raw
 
 # The root entry's flags of slices the port does not have yet, and the
 # ROADMAP.md (queue 1) item that brings each.
-_LATER = {"replica_socket": 7, "mesh": 9}
+_LATER = {"mesh": 9}
 
 
 @contextlib.contextmanager
@@ -181,6 +206,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slo_window_scale", type=float, default=1.0,
                    help="scale the declared SLOs' 5 min / 1 h burn-rate windows (e.g. 0.01 "
                    "for a run of seconds)")
+    p.add_argument("--replica_socket", default=None, metavar="ADDR",
+                   help="fleet replica mode: answer the wire's request and frame messages "
+                   "on this address (a Unix-domain-socket path or host:port) through the "
+                   "server and the stream engine until SIGTERM, then drain and exit 75")
+    p.add_argument("--replica_index", type=int, default=0,
+                   help="[--replica_socket] this replica's index in the fleet topology")
+    p.add_argument("--replica_streams", type=str2bool, nargs="?", const=True, default=True,
+                   help="[--replica_socket] also run a stream engine for frame messages "
+                   "(false: a request-only replica)")
     for flag, item in _LATER.items():
         p.add_argument(f"--{flag}", nargs="*", default=None,
                        help=f"not in the port yet (ROADMAP.md, queue 1 item {item})")
@@ -350,6 +384,8 @@ def _run(args, tel: Telemetry) -> tuple[int, dict, list, RAFT]:
     model = load_model(model_config_from_args(args, dataset="sintel"), args.restore_ckpt,
                        args.device, args.seed)
     _attach_observability(args, tel, stream=args.stream)
+    if args.replica_socket:
+        return run_replica(args, tel, model)
 
     def export():
         return _telemetry_export(args, tel)
@@ -385,6 +421,212 @@ def _run(args, tel: Telemetry) -> tuple[int, dict, list, RAFT]:
               f"exiting {EXIT_PREEMPTED}", file=sys.stderr)
         return EXIT_PREEMPTED, report, responses, model
     return (0 if report["errors"] == 0 else 1), report, responses, model
+
+
+class _Responder:
+    """One replica connection's writer: each response goes out whole under
+    the connection's lock, from the thread that holds the handle."""
+
+    def __init__(self, conn, tel: Telemetry):
+        self.conn, self.tel, self.lock = conn, tel, threading.Lock()
+
+    def send(self, header: dict, arrays=()) -> None:
+        try:
+            with self.lock:
+                send_msg(self.conn, header, arrays)
+        except OSError:
+            # The router hung up (it failed the request over on its side):
+            # nothing to deliver to.
+            self.tel.inc("replica_response_undeliverable_total")
+
+    def respond(self, rid: int, handle, t_recv: float, trace_id) -> None:
+        """Wait for one request's terminal response and send it back with
+        its receive and done instants on this process's monotonic clock
+        and the flow as one numpy payload (the array the drain worker
+        read; nothing here reads a tensor)."""
+        try:
+            r = handle.result(timeout=600.0)
+        except TimeoutError:
+            r = None
+        header = {
+            "kind": "response", "id": rid,
+            "status": "error" if r is None else r.status,
+            "iters": None if r is None else r.iters,
+            "latency_s": None if r is None else r.latency_s,
+            "retry_after_s": None if r is None else r.retry_after_s,
+            "detail": "replica response timeout" if r is None else r.detail,
+            "t_recv_s": t_recv, "t_done_s": time.monotonic(),
+        }
+        if trace_id is not None:
+            header["trace"] = {"trace_id": trace_id}
+        self.send(header, () if r is None or r.flow is None else (r.flow,))
+
+
+def _serve_conn(conn, args, tel: Telemetry, server: FlowServer, engine, pool) -> None:
+    """Answer one router connection's messages until it closes: ``ping``
+    (the clock handshake), ``set_telemetry``, ``request`` and ``frame``;
+    anything else, or a frame on a request-only replica, is ``rejected``."""
+    out = _Responder(conn, tel)
+    try:
+        while True:
+            msg = recv_msg(conn)
+            if msg is None:
+                break
+            t_recv = time.monotonic()
+            header, arrays = msg
+            kind = header.get("kind")
+            if kind == "ping":
+                out.send({"kind": "pong", "pid": os.getpid(), "t0": header.get("t0"),
+                          "t_mono": time.monotonic()})
+                continue
+            if kind == "set_telemetry":
+                # The hub flips in place on the warm replica; the guards and
+                # the servers' own counts go on either way.
+                tel.enabled = bool(header.get("enabled", True))
+                out.send({"kind": "telemetry_ack", "enabled": tel.enabled,
+                          "replica": args.replica_index})
+                continue
+            rid = int(header.get("id", -1))
+            # The router's trace (an optional header field): the replica's
+            # spans carry its id, and the wire hop lands as a span under it.
+            ctx = TraceContext.from_wire(header.get("trace"))
+            tid = None if ctx is None else ctx.trace_id
+            if ctx is not None and ctx.sent_s is not None:
+                tel.observe_ms(
+                    "fleet_wire_hop",
+                    max(0.0, (t_recv - (ctx.sent_s + ctx.clock_offset_s)) * 1e3),
+                    trace_id=tid, request_id=rid, parent_span_id=ctx.span_id,
+                    replica=args.replica_index)
+            if kind == "request" and len(arrays) == 2:
+                handle = server.submit(arrays[0], arrays[1],
+                                       deadline_s=header.get("deadline_s"),
+                                       request_id=rid, trace_id=tid)
+            elif kind == "frame" and len(arrays) == 2 and engine is not None:
+                handle = engine.submit(str(header.get("stream_id")), arrays[0], arrays[1],
+                                       frame_index=header.get("frame_index"),
+                                       request_id=rid, trace_id=tid)
+            else:
+                detail = ("request-only replica (replica_streams=false)"
+                          if kind == "frame" and engine is None
+                          else f"bad message kind {kind!r}")
+                out.send({"kind": "response", "id": rid, "status": "rejected",
+                          "detail": detail})
+                continue
+            pool.submit(out.respond, rid, handle, t_recv, tid)
+    except (ConnectionError, OSError, ValueError) as e:
+        print(f"replica connection dropped: {e!r}", file=sys.stderr)
+    finally:
+        try:
+            conn.close()
+        except OSError:
+            pass
+
+
+def run_replica(args, tel: Telemetry, model: RAFT) -> tuple[int, dict, list, RAFT]:
+    """``--replica_socket`` mode: one fleet replica (the root entry's
+    ``run_replica`` step for step). Warm up the server (and the stream
+    engine), advertise the identity in healthz, then answer the router's
+    messages under the runtime guards (armed after the warm-up: a capture
+    or a kernel load from here on is a recompile, an implicit read of a
+    tensor a host transfer) until a signal; then DRAINING goes to healthz
+    before the flush, both tiers drain, every connection closes, and the
+    exit code is 75. Returns ``(rc, report, [], model)``."""
+    size_hw = (args.size[0], args.size[1])
+    server = FlowServer(model, serve_config_from_args(args))
+    engine = None
+    if args.replica_streams:
+        # A replica serving both tiers declares both SLO sets: one that
+        # sheds every stream frame must page and read degraded in healthz.
+        tel.slo = SloEngine(
+            serve_slos(window_scale=args.slo_window_scale)
+            + stream_slos(args.stream_capacity, window_scale=args.slo_window_scale), tel)
+        engine = StreamEngine(model, stream_config_from_args(args, size_hw))
+    t0 = time.monotonic()
+    warmed = server.warmup(size_hw) + (engine.warmup() if engine is not None else 0)
+    warmup_s = time.monotonic() - t0
+    # The identity healthz advertises (write_healthz adds pid, start time
+    # and stale_after_s): the warmed sets are what the router routes on.
+    tel.identity.update({"replica": args.replica_index, "mesh": MESH_FP,
+                         "precision": server.policy.name,
+                         "warmed": [list(x) for x in server.warmed]})
+    if engine is not None:
+        tel.identity["stream_warmed"] = [list(x) for x in engine.warmed]
+    print(f"replica {args.replica_index}: {warmed} graphs captured in {warmup_s:.1f} s; "
+          f"serving on {args.replica_socket}", file=sys.stderr, flush=True)
+
+    # The address decides the socket family (a UDS path or host:port).
+    transport = Transport.parse(args.replica_socket)
+    lsock = transport.listen(16)
+    lsock.settimeout(0.1)
+    pool = ThreadPoolExecutor(max_workers=32, thread_name_prefix="replica-respond")
+    conns: list = []
+    stats = GuardStats()
+    launches0 = _launches()
+    with _telemetry_export(args, tel), PreemptionHandler() as preempt, \
+            RecompileWatchdog() as wd, forbid_host_transfers(stats, raise_on_violation=False):
+        while not preempt.requested:
+            try:
+                conn, _ = lsock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            conns.append(conn)
+            threading.Thread(target=_serve_conn, args=(conn, args, tel, server, engine, pool),
+                             name="replica-conn", daemon=True).start()
+        interrupted = preempt.requested
+        # The drain contract: DRAINING is in healthz before the flush, so
+        # the router stops routing here while admitted work completes.
+        server.health.draining("sigterm")
+        if engine is not None:
+            engine.health.draining("sigterm")
+        if args.healthz_file:
+            write_healthz(args.healthz_file, tel, interval_s=args.telemetry_interval_s)
+        sstats = server.drain()
+        estats = engine.drain() if engine is not None else None
+        if interrupted:
+            tel.flight_dump("preemption_drain", replica=args.replica_index,
+                            completed=sstats.completed, shed=sstats.shed)
+        pool.shutdown(wait=True)  # every handle is terminal: flush the responders
+        for conn in conns:  # peers get EOF from the drain, not from the exit
+            try:
+                conn.close()
+            except OSError:
+                pass
+    lsock.close()
+    transport.cleanup()
+    report = {
+        "replica": args.replica_index,
+        "interrupted": interrupted,
+        "recompiles": wd.count,
+        "host_transfers": stats.host_transfers,
+        "warmup_configs": warmed,
+        "warmup_s": warmup_s,
+        "accepted": sstats.accepted,
+        "completed": sstats.completed,
+        "serve_batches": sstats.batches,
+        "shed": sstats.shed,
+        "timeouts": sstats.timeouts,
+        "rejected": sstats.rejected,
+        "errors": sstats.errors,
+        # Both tiers' launches after the warm-up (replays count what their
+        # capture launched).
+        "corr_kernel_launches": lookup_levels.launches - launches0[0],
+        "nconv_kernel_launches": nconv2d_fused.launches - launches0[1],
+        **server.report(),
+        "slo": tel.slo.snapshot() if tel.slo is not None else None,
+    }
+    if estats is not None:
+        report.update(stream_completed=estats.completed, stream_resets=estats.resets,
+                      stream_shed_frames=estats.shed_frames, stream_errors=estats.errors,
+                      stream_batches=estats.batches, stream_report=engine.report())
+    if model.device.type == "cuda":
+        report["device_name"] = torch.cuda.get_device_name(model.device)
+    if interrupted:
+        print(f"replica {args.replica_index}: drained after a signal; everything admitted "
+              f"was answered; exiting {EXIT_PREEMPTED}", file=sys.stderr)
+        return EXIT_PREEMPTED, report, [], model
+    return 0, report, [], model
 
 
 def main(argv=None) -> int:

@@ -64,6 +64,10 @@ class FlowRequest:
     submit_time: float = 0.0
     shape_key: Optional[tuple] = None
     pad_spec: Optional[tuple] = None
+    # A fleet router's trace id, adopted from the wire: every span this
+    # request touches carries it, so one trace_id reassembles the journey
+    # across the process boundary.
+    trace_id: Optional[str] = None
 
 
 @dataclass
@@ -81,6 +85,19 @@ class FlowResponse:
     @property
     def ok(self) -> bool:
         return self.status == STATUS_OK
+
+
+def trace_attr(req) -> dict:
+    """``{"trace_id": ...}`` for a request that carries one, else ``{}``:
+    the span attribute of one request's adopted trace."""
+    return {} if req.trace_id is None else {"trace_id": req.trace_id}
+
+
+def trace_ids_attr(reqs) -> dict:
+    """``{"trace_ids": [...]}`` over a batch's requests that carry a trace
+    id, else ``{}``: the batch spans' attribute."""
+    ids = [r.trace_id for r in reqs if r.trace_id is not None]
+    return {"trace_ids": ids} if ids else {}
 
 
 class ServeHandle:

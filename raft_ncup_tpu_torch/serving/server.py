@@ -108,6 +108,8 @@ from raft_ncup_tpu_torch.serving.request import (
     FlowResponse,
     ServeHandle,
     ServeStats,
+    trace_attr,
+    trace_ids_attr,
 )
 from raft_ncup_tpu_torch.utils.profiling import stage_annotation
 
@@ -180,15 +182,25 @@ class FlowServer:
         image2,
         *,
         deadline_s: Optional[float] = None,
+        request_id: Optional[int] = None,
+        trace_id: Optional[str] = None,
     ) -> ServeHandle:
         """Submit one (H, W, 3) frame pair; returns a handle at once. The
         handle completes with exactly one terminal status. ``deadline_s``
-        is seconds from now (default ``cfg.default_deadline_s``)."""
+        is seconds from now (default ``cfg.default_deadline_s``).
+        ``request_id`` lets a fleet router supply its correlation id as
+        the request's identity (the response and the replica-side spans
+        carry it; the caller owns uniqueness). ``trace_id`` adopts an
+        inbound trace: the admission, batch and device spans of this
+        request carry it."""
         self.stats.note_submitted()
         handle = ServeHandle()
-        with self._id_lock:
-            rid = self._next_id
-            self._next_id += 1
+        if request_id is not None:
+            rid = int(request_id)
+        else:
+            with self._id_lock:
+                rid = self._next_id
+                self._next_id += 1
         if self._draining.is_set():
             self.stats.note_shed()
             handle.complete(FlowResponse(
@@ -217,6 +229,7 @@ class FlowServer:
             submit_time=now,
             shape_key=(h + t + b, w + le + r),
             pad_spec=padder.pad_spec,
+            trace_id=None if trace_id is None else str(trace_id),
         )
         with self._handles_lock:
             self._handles[rid] = handle
@@ -298,7 +311,8 @@ class FlowServer:
                 # Submit -> assembly, also for a request about to be
                 # quarantined: the flight dump must hold its journey.
                 self._tel.observe_ms("serve_queue_wait", (now - req.submit_time) * 1e3,
-                                     request_id=req.request_id, batch_id=token)
+                                     request_id=req.request_id, batch_id=token,
+                                     **trace_attr(req))
                 poison = self._poison_error(req)
                 if poison is not None:
                     self.stats.note_rejected(req.request_id, quarantine=True)
@@ -330,9 +344,10 @@ class FlowServer:
         ee_tol = self._earlyexit_tol
         # The launch and the throttle's bounded wait (host time; the card's
         # time is not a span; the drain span covers dispatch -> delivery).
+        trace_attrs = trace_ids_attr(live)
         with self._tel.span(
                 "serve_dispatch", batch_id=token, request_ids=[r.request_id for r in live],
-                iters=iters, mesh=MESH_FP, policy=self.policy.name,
+                iters=iters, mesh=MESH_FP, policy=self.policy.name, **trace_attrs,
                 **({"earlyexit_tol": ee_tol} if ee_tol is not None else {})), \
                 stage_annotation("serve.dispatch"):
             flow_up, exec_iters = self._forward(img1, img2, iters)
@@ -350,7 +365,8 @@ class FlowServer:
                 exec_attrs = {"iters_budgeted": iters,
                               "iters_executed_mean": round(float(live_exec.mean()), 3)}
             self._tel.observe_ms("serve_drain", (done - t_dispatch) * 1e3, batch_id=token,
-                                 request_ids=[r.request_id for r in live], **exec_attrs)
+                                 request_ids=[r.request_id for r in live], **trace_attrs,
+                                 **exec_attrs)
             if host_exec is not None:
                 for k in range(len(live)):
                     self._tel.hist_observe("serve_exec_iters", float(live_exec[k]))

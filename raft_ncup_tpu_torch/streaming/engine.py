@@ -105,6 +105,8 @@ from raft_ncup_tpu_torch.serving.request import (
     STATUS_SHED,
     FlowResponse,
     ServeHandle,
+    trace_attr,
+    trace_ids_attr,
 )
 from raft_ncup_tpu_torch.streaming.slots import SlotRegistry, init_slot_table
 from raft_ncup_tpu_torch.utils.profiling import stage_annotation
@@ -126,6 +128,7 @@ class FrameRequest:
     submit_time: float
     pad_spec: tuple
     shape_key: Tuple[int, int]  # padded (H, W): the queue's batching key
+    trace_id: Optional[str] = None  # a fleet router's trace, adopted from the wire
 
 
 @dataclass(eq=False)
@@ -228,17 +231,24 @@ class StreamEngine:
     # ------------------------------------------------------------ admission
 
     def submit(self, stream_id: str, image1, image2, *,
-               frame_index: Optional[int] = None) -> ServeHandle:
+               frame_index: Optional[int] = None, request_id: Optional[int] = None,
+               trace_id: Optional[str] = None) -> ServeHandle:
         """Submit the next frame pair of ``stream_id``; returns a handle at
         once, which completes with one terminal status. An unknown stream
         is admitted on first use (a slot, or a shed). ``frame_index``
         defaults to the last admitted + 1; indices must increase, and a
-        gap above ``max_frame_gap`` starts the frame cold."""
+        gap above ``max_frame_gap`` starts the frame cold. ``request_id``
+        and ``trace_id`` mean what they mean for ``FlowServer.submit``: a
+        fleet router's id as the frame's identity, and its trace carried
+        on the frame's queue, batch and device spans."""
         self.stats.note("submitted")
         handle = ServeHandle()
-        with self._id_lock:
-            rid = self._next_id
-            self._next_id += 1
+        if request_id is not None:
+            rid = int(request_id)
+        else:
+            with self._id_lock:
+                rid = self._next_id
+                self._next_id += 1
         if self._draining.is_set():
             self.stats.note("shed_frames")
             handle.complete(FlowResponse(rid, STATUS_SHED, retry_after_s=self._retry_after(),
@@ -294,6 +304,7 @@ class StreamEngine:
                 request_id=rid, stream_id=stream_id, slot=state.slot, frame_index=idx,
                 image1=image1, image2=image2, cold=cold, submit_time=now,
                 pad_spec=self._pad_spec_for(native_hw), shape_key=(self._ph, self._pw),
+                trace_id=None if trace_id is None else str(trace_id),
             )
             self._handles[rid] = handle
             if not self._queue.offer(req):
@@ -469,7 +480,7 @@ class StreamEngine:
         for req in batch:
             self._tel.observe_ms("stream_queue_wait", (now - req.submit_time) * 1e3,
                                  request_id=req.request_id, stream_id=req.stream_id,
-                                 batch_id=token)
+                                 batch_id=token, **trace_attr(req))
         # An engine that never warmed up is READY at its first batch (only
         # from the states before READY: an SLO's DEGRADED stays).
         if self.health.state in ("starting", "warming"):
@@ -490,6 +501,7 @@ class StreamEngine:
             self._occupancy_sum += self.registry.occupancy
             self._tel.gauge_set("stream_slot_occupancy", self.registry.occupancy)
         t_dispatch = self._clock()
+        trace_attrs = trace_ids_attr(batch)
 
         def dispatch_span():
             # The launch: the copies in, the replay, the clones out of the
@@ -498,7 +510,7 @@ class StreamEngine:
             stack.enter_context(self._tel.span(
                 "stream_dispatch", batch_id=token, request_ids=[r.request_id for r in batch],
                 stream_ids=[r.stream_id for r in batch], mesh=MESH_FP,
-                policy=self._policy.name))
+                policy=self._policy.name, **trace_attrs))
             stack.enter_context(stage_annotation("stream.dispatch"))
             return stack
 
@@ -510,7 +522,7 @@ class StreamEngine:
             # One read on the host a batch (the flow and the anomaly flags).
             self._tel.inc("stream_drain_pulls_total")
             self._tel.observe_ms("stream_drain", (done - t_dispatch) * 1e3, batch_id=token,
-                                 request_ids=[r.request_id for r in batch])
+                                 request_ids=[r.request_id for r in batch], **trace_attrs)
             for k, req in enumerate(batch):
                 reset = bool(host_bad[k])
                 if reset:

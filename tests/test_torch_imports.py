@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of JAX, flax, the JAX
 package, OpenCV or Pillow (the card machine has none of them), at run
 time (a fresh interpreter) or in its source (an AST scan of every module
-and of ``chip_smoke.py``, ``chip_compare.py`` and ``chip_spans.py``)."""
+and of ``chip_smoke.py``, ``chip_compare.py``, ``chip_spans.py`` and
+``chip_procs.py``)."""
 
 import ast
 import os
@@ -18,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "raft_ncup_tpu", "cv2", "PIL")
 
 
 def _port_sources():
-    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_compare.py", "chip_spans.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_compare.py", "chip_spans.py",
+                                             "chip_procs.py")]
     for root, _dirs, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

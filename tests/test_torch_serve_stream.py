@@ -151,9 +151,13 @@ def test_stream_corruptframe_resets_one_stream(capsys):
 
 
 def test_later_slices_are_refused():
-    for flag in (["--replica_socket", "s"], ["--mesh", "1", "2"]):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            serve_mod.main(SMALL + flag)
+    with pytest.raises(ValueError, match="ROADMAP.md, queue 1 item 9"):
+        serve_mod.main(SMALL + ["--mesh", "1", "2"])
+    # Fleet replicas are the port's since its fleet slice: the flags parse
+    # into replica mode (tests/test_torch_replica.py drives it).
+    args = serve_mod.build_parser().parse_args(
+        SMALL + ["--replica_socket", "s", "--replica_index", "3", "--replica_streams", "false"])
+    assert (args.replica_socket, args.replica_index, args.replica_streams) == ("s", 3, False)
     # The telemetry flags are the port's since its telemetry slice.
     args = serve_mod.build_parser().parse_args(
         SMALL + ["--report", "--healthz_file", "h.json", "--telemetry_jsonl", "t.jsonl",
