@@ -187,7 +187,23 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     batch it served, and its graph pools' bytes. Before the main paths,
     kernels A and A' run on the small raft's pyramid at 32x48, whose
     fourth level is 0x0, against their plain versions;
-17. prints one JSON line describing the kernels, the card's name and
+17. trains and validates the flagship data-parallel (``parallel/``) at
+    ``scripts/train_raft_nc_things.sh``'s configuration on a
+    FlyingThings3D-layout tree (global batch 6 at 400x720, 12 iterations,
+    f32): (a) one process, 3 steps; (b) two ranks on the one card under
+    gloo started by ``torch.distributed.run``, batch 3 each: losses,
+    step-1 reduced gradients, the ranks' batches (together the one-process
+    batch of each step, by hash) and each rank's launches (A 24, A' 12,
+    B 96, B' 48 a step) against (a), with per-rank step ms and the
+    all-reduce's ms and bytes a step (two ranks time-slice one card: not
+    scaling); (c) ``sigterm@3`` to rank 1 only: both ranks exit 75 at step
+    3, rank 0 wrote the one checkpoint, and a two-rank resume reads the
+    uninterrupted batches; (d) a one-rank NCCL world under
+    ``--strict_guards``, and two NCCL ranks on the one card, which raise
+    before step 1 ((c) and (d) at a 200x360 crop); (e) ``validate_sintel``
+    through the evaluate entry with two ranks against one process;
+18. prints one JSON line describing the kernels (with each kernel's
+    launches per rank on the data-parallel path), the card's name and
     power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
@@ -2093,11 +2109,14 @@ class _Instruments:
     """What a train-from-files run records, hooked into the train entry:
     each consumed batch's digest on the host (as the loader made it) and
     on the card (after the prefetcher's stream wait), each step's wall,
-    loss, peak memory, kernel launches and lookup tile paths, and the train
-    state the entry builds."""
+    loss, peak memory, kernel launches and (with ``paths``) the lookup's
+    tile paths, and the train state the entry builds. The tile counters
+    are read from the card by plain reads, so a run under
+    ``--strict_guards`` leaves them out."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, paths: bool = True):
         self.torch = torch
+        self.paths = paths
         self.host, self.card, self.steps, self.states = [], [], [], []
         self.restored = None
         self._t_iter = None
@@ -2106,6 +2125,7 @@ class _Instruments:
         import collections
 
         from raft_ncup_tpu_torch import train as train_mod
+        from raft_ncup_tpu_torch.analysis.guards import host_read
         from raft_ncup_tpu_torch.data.device_prefetch import DevicePrefetcher
         from raft_ncup_tpu_torch.ops import corr_cuda
 
@@ -2128,7 +2148,8 @@ class _Instruments:
                 inst._t_iter = time.perf_counter()
                 batch = super().__next__()
                 inst.host.append(self._digests.popleft())
-                inst.card.append(_digest({k: v.cpu().numpy() for k, v in batch.items()}))
+                # The sanctioned read, so the digest holds under --strict_guards.
+                inst.card.append(_digest(host_read(dict(batch))))
                 return batch
 
         make_step, create, restore = (train_mod.make_train_step, train_mod.create_train_state,
@@ -2137,25 +2158,31 @@ class _Instruments:
         def timed_step_factory(cfg, *a, **kw):
             step = make_step(cfg, *a, **kw)
 
+            # On the card; a CPU rehearsal of a phase skips the card's calls.
+            cuda = torch.cuda.is_available()
+
             def timed(state, batch):
                 before = read_launches()
                 corr_cuda.reset_path_tiles()
                 corr_cuda.reset_backward_counts()
-                torch.cuda.reset_peak_memory_stats()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 metrics = step(state, batch)
-                torch.cuda.synchronize()
+                if cuda:
+                    torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 after = read_launches()
+                loss, bad = (float(v) for v in host_read([metrics["loss"], metrics["bad_step"]]))
                 inst.steps.append(dict(
                     step=state.step, ms=1e3 * (t1 - t0),
                     # From the call for its batch to the end of the step.
                     iteration_ms=1e3 * (t1 - inst._t_iter),
-                    loss=float(metrics["loss"]), bad=float(metrics["bad_step"]),
-                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    loss=loss, bad=bad,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
                     launches={k: after[k] - before[k] for k in after},
-                    path_tiles=corr_cuda.path_tiles(),
-                    bwd_counts=corr_cuda.backward_counts()))
+                    path_tiles=corr_cuda.path_tiles() if inst.paths else None,
+                    bwd_counts=corr_cuda.backward_counts() if inst.paths else None))
                 return metrics
 
             return timed
@@ -3918,6 +3945,466 @@ def check_fleet(torch, card, tmp: str) -> tuple:
     return row, paths
 
 
+# ---------------------------------------------------------- data parallel
+
+# The data-parallel phase: the flagship at train_raft_nc_things.sh's
+# configuration (stage things, a global batch of 6 at 400x720, 12
+# iterations, f32) on the FlyingThings3D-layout tree, one process against
+# ranks that share the one card. NCCL refuses two ranks on one card, so the
+# two-rank worlds run under gloo (RAFT_TORCH_DIST_BACKEND) and a one-rank
+# world checks NCCL. Two ranks on one card time-slice it: their step times
+# measure the collectives' cost and the sharing, not scaling.
+DP_WORKER = "--dp_worker"
+DP_DEVICE = "cuda:0"  # every rank's card: the one card
+DP_EXTRA: list = []  # flags after the script's (none on the card)
+DP_STEPS = 3
+DP_RESUME_STEPS = 5  # (c): preempted after 3 steps, resumed to 5
+DP_SIGTERM_STEP = 3
+# (c) and (d) run at a smaller crop of the same tree, so that each rank's
+# first step (cuDNN's autotuning) costs less; the model keeps its width.
+DP_SMALL = ["--image_size", "200", "360"]
+DP_TIMEOUT_S = 600
+# Two ranks against one process: the first step's loss within
+# DP_FIRST_LOSS_RTOL (the same batch in halves of 3: cuDNN may take other
+# algorithms at batch 3, in another process), later steps within
+# DP_LOSS_RTOL (AdamW's first steps move each parameter by about the
+# learning rate in its gradient's sign, and a gradient near zero may take
+# either sign); step-1 gradients within STEP_GRAD_TOL of each tensor's
+# largest value, ROADMAP.md queue 3 entries 1-2 within
+# tests/test_torch_train.py's bounds (DP_FLIPPED, DP_NCUP).
+DP_FIRST_LOSS_RTOL = 1e-4
+DP_LOSS_RTOL = 1e-3
+DP_FLIPPED = ("fnet.conv1.weight", "fnet.layer1.0.conv1.weight")
+DP_FLIP_TOL = 1e-1
+DP_NCUP = "upsampler.interpolation_net."
+DP_NCUP_TOL = 5e-2
+DP_VAL_RTOL = 1e-6
+DP_WANT = {"corr_lookup": 24, "corr_lookup_bwd": 12, "nconv": 96, "nconv_bwd": 48}
+
+
+def _dp_capture(torch, stack, outdir: str, rank: int) -> dict:
+    """Hooks of a data-parallel run: the first step's (reduced) gradients
+    saved under ``outdir``, every collective's ms (synchronised around it)
+    and bytes by step, and this process's checkpoint writes."""
+    from raft_ncup_tpu_torch.analysis.guards import host_read
+    from raft_ncup_tpu_torch.parallel import multihost
+    from raft_ncup_tpu_torch.training import checkpoint as ckpt_mod
+    from raft_ncup_tpu_torch.training import step as step_mod
+
+    rec = {"collectives": [], "checkpoint_writes": 0, "grads": None}
+    real_ar, real_apply, real_save = multihost.all_reduce_, step_mod.apply_update, ckpt_mod.save
+
+    def timed_ar(t, op="sum"):
+        if t.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_ar(t, op)
+        if t.is_cuda:
+            torch.cuda.synchronize()
+        rec["collectives"].append(dict(ms=1e3 * (time.perf_counter() - t0),
+                                       bytes=t.numel() * t.element_size(),
+                                       step=rec.get("step", 0)))
+        return out
+
+    def apply(state, loss, grads, bn_old, cfg):
+        if rec["grads"] is None:
+            rec["grads"] = os.path.join(outdir, f"grads_rank{rank}.pt")
+            names = [n for n, _ in state.named_params]
+            # The sanctioned read, so the capture holds under --strict_guards.
+            host = host_read(dict(zip(names, grads)))
+            torch.save({n: torch.from_numpy(v) for n, v in host.items()}, rec["grads"])
+        rec["step"] = rec.get("step", 0) + 1
+        return real_apply(state, loss, grads, bn_old, cfg)
+
+    def save(*a, **kw):
+        rec["checkpoint_writes"] += 1
+        return real_save(*a, **kw)
+
+    for mod, name, fn in ((multihost, "all_reduce_", timed_ar), (step_mod, "apply_update", apply),
+                          (ckpt_mod, "save", save)):
+        stack.callback(setattr, mod, name, getattr(mod, name))
+        setattr(mod, name, fn)
+    return rec
+
+
+def _dp_run(torch, outdir: str, argv: list) -> tuple:
+    """The train entry with ``argv`` in this process, instrumented: (exit
+    code or None, error, summary, the instruments' record)."""
+    import io
+
+    from raft_ncup_tpu_torch import train as train_mod
+
+    rank = int(os.environ.get("RANK", "0"))
+    inst = _Instruments(torch, paths=False)
+    out = io.StringIO()
+    status = error = summary = None
+    reset_launches()
+    with contextlib.ExitStack() as stack:
+        inst.install(stack)
+        rec = _dp_capture(torch, stack, outdir, rank)
+        try:
+            with contextlib.redirect_stdout(out):
+                status = train_mod.main(argv)
+            summary = json.loads(out.getvalue().strip().splitlines()[-1])
+        except Exception as e:  # recorded for the phase to judge
+            error = f"{type(e).__name__}: {e}"
+    record = dict(rank=rank, status=status, error=error, summary=summary, host=inst.host,
+                  card_equal=inst.host == inst.card, restored=inst.restored,
+                  steps=[{k: s[k] for k in ("step", "ms", "loss", "launches", "peak_gib")}
+                         for s in inst.steps], **rec)
+    return status, error, summary, record
+
+
+def dp_worker(outdir: str, argv: list) -> int:
+    """One rank of a data-parallel run (``chip_smoke.py --dp_worker OUTDIR
+    <train flags>``, started by the phase): its record as
+    ``OUTDIR/rank<RANK>.json``; exits with the train entry's code, 1 when
+    it raised."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    status, error, _, record = _dp_run(torch, outdir, argv)
+    with open(os.path.join(outdir, f"rank{record['rank']}.json"), "w") as fh:
+        json.dump(record, fh)
+    if error:
+        print(f"dp_worker rank {record['rank']}: {error}", file=sys.stderr)
+    return 1 if status is None else status
+
+
+def _dp_env(backend: str, world: int, rank=None, port=None, **extra) -> dict:
+    env = dict(os.environ, PYTHONPATH=HERE, RAFT_TORCH_DIST_TIMEOUT_S="300", **extra)
+    if backend:
+        env["RAFT_TORCH_DIST_BACKEND"] = backend
+    else:
+        env.pop("RAFT_TORCH_DIST_BACKEND", None)
+    if rank is not None:
+        env.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    return env
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_ranks(outdir: str, argv: list, world: int, backend: str, torchrun: bool,
+              module=None, **extra) -> tuple:
+    """``world`` ranks started at once, by ``torchrun`` or each by hand
+    with the launcher's environment (so each rank's exit code shows):
+    (exit codes, stdout and stderr of each process, wall seconds). Without
+    ``module``, each rank is this script's ``--dp_worker``."""
+    os.makedirs(outdir, exist_ok=True)
+    port = _free_port()
+    target = ["-m", module] if module else [os.path.join(HERE, "chip_smoke.py"), DP_WORKER,
+                                            outdir]
+    t0 = time.perf_counter()
+    if torchrun:
+        cmds = [([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+                  "--master_addr", "127.0.0.1", "--master_port", str(port), *target, *argv],
+                 _dp_env(backend, world, **extra))]
+    else:
+        cmds = [([sys.executable, *target, *argv], _dp_env(backend, world, r, port, **extra))
+                for r in range(world)]
+    procs = [subprocess.Popen(c, cwd=HERE, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c, e in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs, time.perf_counter() - t0
+
+
+def _dp_records(outdir: str, world: int) -> list:
+    recs = []
+    for r in range(world):
+        path = os.path.join(outdir, f"rank{r}.json")
+        check(os.path.exists(path), f"data parallel: rank {r} wrote no record in {outdir}")
+        with open(path) as fh:
+            recs.append(json.load(fh))
+    return recs
+
+
+def _dp_grad_errs(torch, got: dict, want: dict) -> tuple:
+    """(worst relative error by kind, failures) of step-1 gradients against
+    the one-process run's."""
+    gmax = max(float(g.abs().max()) for g in want.values())
+    worst = {"default": (0.0, ""), "flipped": (0.0, ""), "ncup": (0.0, "")}
+    failures = []
+    for name, r in want.items():
+        g = got[name]
+        scale = float(r.abs().max())
+        if scale < NEGLIGIBLE * gmax:
+            if float(g.abs().max()) >= NEGLIGIBLE * gmax:
+                failures.append(f"{name} is not negligible")
+            continue
+        kind = ("flipped" if name in DP_FLIPPED else "ncup" if name.startswith(DP_NCUP)
+                else "default")
+        tol = {"flipped": DP_FLIP_TOL, "ncup": DP_NCUP_TOL, "default": STEP_GRAD_TOL}[kind]
+        err = float((g - r).abs().max()) / scale
+        worst[kind] = max(worst[kind], (err, name))
+        if err > tol:
+            failures.append(f"{name}: {err:.3e} of its largest value (tolerance {tol})")
+    return worst, failures
+
+
+def _dp_stream(argv: list, steps: int) -> list:
+    """The one-process batch stream of ``argv``'s configuration, read by the
+    loader as the train entry reads it: each step's global batch (numpy)."""
+    from raft_ncup_tpu_torch.cli import parse_train
+    from raft_ncup_tpu_torch.data.datasets import fetch_training_set
+    from raft_ncup_tpu_torch.data.loader import FlowLoader
+
+    _, _, cfg, data_cfg = parse_train(argv)
+    loader = FlowLoader(fetch_training_set(cfg.stage, cfg.image_size, data_cfg),
+                        cfg.batch_size, seed=cfg.seed, num_workers=data_cfg.num_workers)
+    it = loader.batches()
+    try:
+        return [{k: v for k, v in next(it).items() if k != "extra_info"} for _ in range(steps)]
+    finally:
+        it.close()
+
+
+def _rows_digest(batch: dict, rank: int, world: int) -> str:
+    return _digest({k: v[rank::world] for k, v in batch.items()})
+
+
+def _median(xs: list):
+    return statistics.median(xs) if xs else None
+
+
+def _dp_print(part: str, row: dict) -> None:
+    print(f"data parallel ({part}): {json.dumps(row)}", flush=True)
+
+
+def _dp_launches(rec: dict) -> dict:
+    return {k: sum(s["launches"][k] for s in rec["steps"]) for k in DP_WANT}
+
+
+def _dp_one_process(torch, tmp: str, argv: list, stream: list) -> dict:
+    """(a) One process, in this one: its record, step-1 gradients and
+    seconds."""
+    t0 = time.perf_counter()
+    status, error, _, a = _dp_run(torch, os.path.join(tmp, "a"),
+                                  argv + ["--checkpoint_dir", os.path.join(tmp, "a"),
+                                          "--device", DP_DEVICE])
+    a["seconds"] = time.perf_counter() - t0
+    check(status == 0 and error is None, f"data parallel (a): exit {status}, {error}")
+    check(a["host"] == [_digest(b) for b in stream[:DP_STEPS]] and a["card_equal"],
+          "data parallel (a): the batches are not the one-process stream")
+    check(all(s["launches"] == DP_WANT for s in a["steps"]),
+          f"data parallel (a): launches {[s['launches'] for s in a['steps']]}")
+    a["grad_tensors"] = torch.load(a["grads"], weights_only=True)
+    return a
+
+
+def _dp_two_ranks(torch, card: str, tmp: str, argv: list, a: dict, want_rows: list,
+                  platform: str) -> dict:
+    """(b) Two ranks on the one card under gloo, started by torchrun,
+    against (a). Returns each rank's launches."""
+    outdir = os.path.join(tmp, "b")
+    codes, outs, seconds = _dp_ranks(
+        outdir, argv + ["--checkpoint_dir", outdir, "--device", DP_DEVICE], 2, "gloo",
+        torchrun=True)
+    check(codes == [0], f"data parallel (b): torchrun exited {codes}:\n"
+                        f"{outs[0][0][-2000:]}\n{outs[0][1][-4000:]}")
+    b = _dp_records(outdir, 2)
+    grads = [torch.load(r["grads"], weights_only=True) for r in b]
+    worst, failures = _dp_grad_errs(torch, grads[0], a["grad_tensors"])
+    a_losses = [s["loss"] for s in a["steps"]]
+    losses = [s["loss"] for s in b[0]["steps"]]
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(losses, a_losses)]
+
+    def per_step(rec, key):
+        return [sum(c[key] for c in rec["collectives"] if c["step"] == s)
+                for s in range(len(rec["steps"]))]
+
+    _dp_print("b", {
+        "card": card, "seconds": seconds, "one_process_seconds": a["seconds"],
+        "losses": losses, "one_process_losses": a_losses, "loss_rel_diff": loss_rel,
+        "grad_rel_diff_step1": worst, "launches_per_step": [[s["launches"] for s in r["steps"]]
+                                                            for r in b],
+        "per_rank": [{"rank": r["rank"], "step_ms": [s["ms"] for s in r["steps"]],
+                      "allreduce_ms_per_step": per_step(r, "ms"),
+                      "allreduce_bytes_per_step": per_step(r, "bytes"),
+                      "collectives": r["summary"]["collectives"]["by_op"]["all-reduce"],
+                      "peak_gib": max(s["peak_gib"] or 0.0 for s in r["steps"])} for r in b],
+        "one_process_vs_two_ranks_time_slicing_one_card": {
+            "one_process_step_ms": [s["ms"] for s in a["steps"]],
+            "one_process_median_step_ms": _median([s["ms"] for s in a["steps"][1:]]),
+            "two_ranks_median_step_ms": [_median([s["ms"] for s in r["steps"][1:]]) for r in b],
+            "note": "two ranks time-slice one card: not scaling"}})
+    check(all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0]),
+          "data parallel (b): the ranks' reduced gradients differ")
+    check(not failures, f"data parallel (b): step-1 gradients against (a): {failures}")
+    check(len(losses) == DP_STEPS and [s["loss"] for s in b[1]["steps"]] == losses
+          and loss_rel[0] <= DP_FIRST_LOSS_RTOL and max(loss_rel) <= DP_LOSS_RTOL,
+          f"data parallel (b): losses {losses} against (a)'s {a_losses}")
+    for r, rec in enumerate(b):
+        check(rec["host"] == [w[r] for w in want_rows[:DP_STEPS]] and rec["card_equal"],
+              f"data parallel (b): rank {r}'s batches are not its rows of the one-process "
+              "batches")
+        check(all(s["launches"] == DP_WANT for s in rec["steps"]),
+              f"data parallel (b): rank {r} launched {[s['launches'] for s in rec['steps']]}")
+        check(rec["summary"]["mesh"] == f"mesh(data=2,spatial=1:{platform})",
+              f"data parallel (b): rank {r}'s mesh {rec['summary']['mesh']}")
+    return {f"data parallel (b) rank {r}": _dp_launches(rec) for r, rec in enumerate(b)}
+
+
+def _dp_preemption(tmp: str, base: list) -> None:
+    """(c) SIGTERM to rank 1 only: both stop at step 3 with exit 75 and one
+    checkpoint (rank 0's), and a two-rank resume reads the uninterrupted
+    batches (``DP_SMALL``)."""
+    outdir = os.path.join(tmp, "c")
+    base = base + DP_SMALL + ["--num_steps", str(DP_RESUME_STEPS)]
+    want_rows = [[_rows_digest(b, r, 2) for r in range(2)]
+                 for b in _dp_stream(base, DP_RESUME_STEPS)]
+    cargv = base + ["--checkpoint_dir", outdir, "--device", DP_DEVICE]
+    codes, outs, seconds = _dp_ranks(
+        outdir, cargv + ["--chaos", f"sigterm@{DP_SIGTERM_STEP}", "--chaos_rank", "1"], 2,
+        "gloo", torchrun=False, RAFT_TORCH_PREEMPT_CHECK_EVERY="1")
+    c1 = _dp_records(outdir, 2)
+    run_dir = os.path.join(outdir, "exp")
+    files = sorted(n for n in os.listdir(run_dir) if n.startswith("step_"))
+    for r in range(2):
+        os.replace(os.path.join(outdir, f"rank{r}.json"),
+                   os.path.join(outdir, f"rank{r}.preempted.json"))
+    codes2, outs2, seconds2 = _dp_ranks(
+        outdir, cargv + ["--restore_ckpt", run_dir], 2, "gloo", torchrun=False)
+    c2 = _dp_records(outdir, 2)
+    same = [c1[r]["host"] + c2[r]["host"] == [w[r] for w in want_rows] for r in range(2)]
+    _dp_print("c", {
+        "exits": codes, "stopped_at_step": [(r["summary"] or {}).get("step") for r in c1],
+        "checkpoint_writes_by_rank": [r["checkpoint_writes"] for r in c1],
+        "checkpoints": files, "resumed_exits": codes2,
+        "resumed_restored": [r["restored"] for r in c2],
+        "batches_equal_by_hash_across_the_resume": same, "seconds": [seconds, seconds2]})
+    check(codes == [75, 75] and [r["summary"]["step"] for r in c1] == [DP_SIGTERM_STEP] * 2,
+          f"data parallel (c): exits {codes}:\n{outs[1][1][-3000:]}")
+    check([r["checkpoint_writes"] for r in c1] == [1, 0]
+          and files == [f"step_{DP_SIGTERM_STEP}.pt"],
+          f"data parallel (c): checkpoint writes {[r['checkpoint_writes'] for r in c1]}, "
+          f"files {files}")
+    check(codes2 == [0, 0] and all(r["restored"] for r in c2),
+          f"data parallel (c) resumed: exits {codes2}:\n{outs2[0][1][-3000:]}")
+    check(all(same), "data parallel (c): a rank's batches across the resume are not its rows "
+                     "of the uninterrupted one-process batches")
+
+
+def _dp_nccl(tmp: str, argv: list, platform: str) -> dict:
+    """(d) A one-rank NCCL world through the entry under --strict_guards
+    (``DP_SMALL``), then two NCCL ranks on the one card, which must raise
+    before step 1."""
+    outdir = os.path.join(tmp, "d")
+    codes, outs, seconds = _dp_ranks(
+        outdir, argv + DP_SMALL + ["--checkpoint_dir", outdir, "--strict_guards"], 1, "",
+        torchrun=True)
+    check(codes == [0], f"data parallel (d): exit {codes}:\n{outs[0][1][-4000:]}")
+    (d,) = _dp_records(outdir, 1)
+    sg, dsum = d["summary"]["strict_guards"], d["summary"]
+    losses = [s["loss"] for s in d["steps"]]
+    outdir = os.path.join(tmp, "d2")
+    codes2, _, seconds2 = _dp_ranks(
+        outdir, argv + ["--checkpoint_dir", outdir, "--device", DP_DEVICE], 2, "",
+        torchrun=False)
+    d2 = _dp_records(outdir, 2)
+    _dp_print("d", {
+        "strict_guards": sg, "backend": dsum["backend"], "mesh": dsum["mesh"],
+        "allreduce": dsum["collectives"]["by_op"]["all-reduce"],
+        "allreduce_ms_per_step": [sum(c["ms"] for c in d["collectives"] if c["step"] == s)
+                                  for s in range(len(d["steps"]))],
+        "losses": losses, "step_ms": [s["ms"] for s in d["steps"]],
+        "seconds": seconds,
+        "two_nccl_ranks_one_card": {"exits": codes2, "errors": [r["error"] for r in d2],
+                                    "steps": [len(r["steps"]) for r in d2],
+                                    "seconds": seconds2}})
+    check(sg["host_transfers"] == 0 and sg["steady_recompiles"] == 0
+          and dsum["mesh"] == f"mesh(data=1,spatial=1:{platform})"
+          and dsum["backend"] == ("nccl" if platform == "gpu" else "gloo")
+          and dsum["collectives"]["by_op"]["all-reduce"]["count"] >= DP_STEPS
+          and len(losses) == DP_STEPS and all(math.isfinite(x) for x in losses)
+          and all(s["launches"] == DP_WANT for s in d["steps"]),
+          f"data parallel (d): {sg}, {dsum['mesh']}, {dsum['collectives']}, losses {losses}")
+    check(codes2 == [1, 1] and all("two NCCL ranks on one card" in (r["error"] or "")
+                                   and not r["steps"] for r in d2),
+          f"data parallel (d): two NCCL ranks on one card: exits {codes2}, "
+          f"{[r['error'] for r in d2]}")
+    return {"data parallel (d) nccl": _dp_launches(d)}
+
+
+def _dp_sharded_validation(tmp: str, sintel: str) -> None:
+    """(e) ``validate_sintel`` through the evaluate entry: two ranks
+    against one process (this one), the same seeded weights, each frame at
+    batch 1."""
+    import io
+
+    from raft_ncup_tpu_torch import evaluate as eval_mod
+
+    eargv = ["--model", "raft_nc_dbl", "--dataset", "sintel", "--root_sintel", sintel,
+             "--iters", "12", "--batch_size", "1", "--seed", "0", "--device", DP_DEVICE]
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code1 = eval_mod.main(eargv)
+    seconds1 = time.perf_counter() - t0
+    codes, outs, seconds = _dp_ranks(os.path.join(tmp, "e"), eargv, 2, "gloo", torchrun=False,
+                                     module="raft_ncup_tpu_torch.evaluate")
+    check(code1 == 0 and codes == [0, 0],
+          f"data parallel (e): exits {code1} {codes}:\n{outs[0][1][-3000:]}")
+    one = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ranks = [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
+    rel = max(abs(r["results"][k] - v) / max(abs(v), 1e-12)
+              for r in ranks for k, v in one["results"].items())
+    _dp_print("e", {"one_process": one["results"], "max_rel_diff": rel,
+                    "caches": [r["cache"] for r in ranks], "seconds": [seconds1, seconds]})
+    check(all(set(r["results"]) == set(one["results"]) and r["world"] == 2 for r in ranks)
+          and one["results"] and rel <= DP_VAL_RTOL,
+          f"data parallel (e): {[r['results'] for r in ranks]} against {one['results']}")
+
+
+def check_data_parallel(torch, card: str, tmp: str) -> dict:
+    """Train and validate the flagship data-parallel: (a) one process in
+    this one, ``DP_STEPS`` steps; (b) two ranks on the one card under gloo,
+    started by ``torch.distributed.run``, each with ``--device cuda:0`` and
+    a batch of 3: their losses, step-1 gradients (reduced, equal on both),
+    batches (together, each step's one-process batch, by hash) and launches
+    against (a); (c) ``sigterm@3`` to rank 1 only: both exit 75 at step 3,
+    rank 0 wrote the one checkpoint, and a two-rank resume to step 5 reads
+    the one-process batches; (d) a one-rank NCCL world through the entry
+    under ``--strict_guards`` (no implicit read, no steady recompile), then
+    two NCCL ranks on the one card, which must raise before step 1 ((c) and
+    (d) at the ``DP_SMALL`` crop); (e) ``validate_sintel`` through the evaluate entry
+    with two ranks against one process. Returns each rank's launches."""
+    t0 = time.perf_counter()
+    things, sintel = os.path.join(tmp, "FlyingThings3D"), os.path.join(tmp, "Sintel")
+    write_things_tree(things)
+    write_sintel_sequences(sintel)
+    base = [t for t in script_flags("train_raft_nc_things.sh") if t != "--compressed_ft"]
+    for flag in ("--load_pretrained", "--validation"):
+        i = base.index(flag)
+        del base[i:i + 2]
+    base += ["--root_things", things, "--sum_freq", "1", *DP_EXTRA]
+    argv = base + ["--num_steps", str(DP_STEPS)]
+    stream = _dp_stream(base + ["--num_steps", str(DP_RESUME_STEPS)], DP_RESUME_STEPS)
+    want_rows = [[_rows_digest(b, r, 2) for r in range(2)] for b in stream]
+    platform = "gpu" if DP_DEVICE.startswith("cuda") else "cpu"
+    a = _dp_one_process(torch, tmp, argv, stream)
+    paths = _dp_two_ranks(torch, card, tmp, argv, a, want_rows, platform)
+    _dp_preemption(tmp, base)
+    paths.update(_dp_nccl(tmp, argv, platform))
+    _dp_sharded_validation(tmp, sintel)
+    print(f"data parallel: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -4079,6 +4566,11 @@ def main() -> int:
     # from its own report.
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_fleet(torch, card, tmp)[1])
+    # Data parallelism: one process against two ranks on the one card
+    # (gloo), agreed preemption, NCCL and sharded validation; each rank's
+    # launches come from its own record.
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(check_data_parallel(torch, card, tmp))
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.
@@ -4176,6 +4668,13 @@ def main() -> int:
         max_rel_err=max(r["max_rel_err"] for r in nconv_bwd_rows),
         layer_ms={r["layer"]: r["ms"] for r in nconv_bwd_rows},
         **_summed_numbers(nconv_bwd_rows), **by_path("nconv_bwd")))
+    sources = {"corr_lookup.cu": "corr_lookup", "corr_lookup_bwd.cu": "corr_lookup_bwd",
+               "nconv.cu": "nconv", "nconv_bwd.cu": "nconv_bwd"}
+    for k in kernels:
+        name = sources[os.path.basename(k["source"])]
+        k["data_parallel_launches_per_rank"] = [
+            paths[f"data parallel (b) rank {r}"][name] for r in range(2)]
+        k["data_parallel_steps"] = DP_STEPS
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4200,6 +4699,8 @@ def _kernel_numbers(row: dict) -> dict:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == DP_WORKER:
+        sys.exit(dp_worker(sys.argv[2], sys.argv[3:]))
     adopt_orphans()
     try:
         code = main()

@@ -7,6 +7,7 @@ from raft_ncup_tpu_torch.analysis.guards import (
     GuardViolation,
     RecompileWatchdog,
     StepGuard,
+    collective_read,
     flag_read,
     forbid_host_transfers,
     host_read,
@@ -21,6 +22,7 @@ __all__ = [
     "GuardViolation",
     "RecompileWatchdog",
     "StepGuard",
+    "collective_read",
     "flag_read",
     "forbid_host_transfers",
     "host_read",

@@ -24,7 +24,9 @@ per batch. Three primitives check this on the running loop:
   read is :func:`host_read`, the counterpart of ``jax.device_get``: each
   call counts in ``sanctioned_gets``. :func:`flag_read` is the early-exit
   entry's named read of one flag byte, counted apart
-  (``guard_flag_reads_total``), never as an implicit transfer. The second,
+  (``guard_flag_reads_total``), never as an implicit transfer;
+  :func:`collective_read` is a gloo collective's copy of a card tensor to
+  the host, counted as ``guard_collective_reads_total``. The second,
   native layer is ``torch.cuda.set_sync_debug_mode("error")`` while a scope
   is armed (``native_guard``), JAX's ``transfer_guard_device_to_host``:
   PyTorch then raises on an operation that waits for the card (``item``,
@@ -404,6 +406,24 @@ def flag_read(flag: torch.Tensor) -> bool:
         host, ready = stage_out(flag.reshape(1))
         _wait(ready)
         return bool(host.numpy()[0])
+    finally:
+        _tl.sanctioned = prev
+
+
+def collective_read(t: torch.Tensor) -> torch.Tensor:
+    """A collective's copy of a card tensor to the host, for a backend that
+    reduces on the host (gloo): a non-blocking copy into pinned memory and
+    an event wait on the card. It is a synchronisation by design, counted
+    as ``guard_collective_reads_total`` and never as an implicit transfer.
+    Returns the host tensor (pinned for a card tensor, a clone for a host
+    one), whose values the caller may reduce and copy back."""
+    _telemetry().inc("guard_collective_reads_total")
+    prev = getattr(_tl, "sanctioned", False)
+    _tl.sanctioned = True
+    try:
+        host, ready = stage_out(t)
+        _wait(ready)
+        return host
     finally:
         _tl.sanctioned = prev
 

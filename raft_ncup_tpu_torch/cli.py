@@ -17,9 +17,12 @@ The serve entry's serving and streaming knobs (:func:`add_serve_args`,
 The train entry's parser (:func:`build_train_parser`, :func:`parse_train`)
 and the evaluate entry's (:func:`build_eval_parser`, :func:`parse_eval`)
 take the JAX CLI's flags, with ``--device`` in place of ``--platform``.
-Flags of slices the port does not have yet raise with the ROADMAP item
-that brings them: the mesh (``--data_parallel``, ``--spatial_parallel``
-and ``--mesh`` above one card: queue 1 item 9).
+The mesh flags name the data axis across processes, one per card
+(``parallel/``): ``--data_parallel D`` and ``--mesh D,1`` are accepted when
+D is the world size the launcher started (``torchrun --nproc_per_node D``;
+1 without one), and ``--data_parallel`` defaults to it. Any other D, and a
+spatial or pipe size above 1 (``--spatial_parallel``, ``--mesh D,S[,P]``:
+ROADMAP.md queue 1 item 9b), raise.
 """
 
 from __future__ import annotations
@@ -220,11 +223,32 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
                         help="torch device (default: the current CUDA device)")
 
 
-def _refuse_mesh(sizes: Sequence[Optional[int]]) -> None:
-    if any(n is not None and n > 1 for n in sizes):
+def check_mesh(data: Optional[int], spatial: int = 1, pipe: int = 1) -> int:
+    """The data-parallel size the mesh flags ask for, checked against the
+    world this process runs in (``parallel.multihost.world_size_hint``):
+    ``data`` (None: the world size) must equal it; a spatial or pipe size
+    above 1 raises, naming ROADMAP.md queue 1 item 9b."""
+    from raft_ncup_tpu_torch.parallel.mesh import refuse_later_axes
+    from raft_ncup_tpu_torch.parallel.multihost import world_size_hint
+
+    refuse_later_axes(spatial, pipe)
+    world = world_size_hint()
+    if data is not None and int(data) != world:
         raise ValueError(
-            "--data_parallel, --spatial_parallel and --mesh above one card are not in the "
-            "port yet: they land with its multi-GPU slice (ROADMAP.md, queue 1 item 9)")
+            f"--data_parallel / --mesh data size {data} must equal the world size {world}: "
+            "the port's data axis is one process per card (ROADMAP.md, queue 1 item 9a), "
+            f"started by the launcher (torchrun --nproc_per_node {data} -m "
+            "raft_ncup_tpu_torch.train ...)")
+    return world
+
+
+def str2mesh(v: str) -> tuple[int, ...]:
+    """The ``--mesh DATA,SPATIAL[,PIPE]`` spec (the JAX CLI's)."""
+    out = str2ints(v)
+    if len(out) not in (2, 3) or any(x < 1 for x in out):
+        raise argparse.ArgumentTypeError(
+            f"mesh spec must be DATA,SPATIAL[,PIPE] positive sizes: {v!r}")
+    return out
 
 
 # ------------------------------------------------------------------ serve
@@ -353,9 +377,12 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--seed", type=int, default=d.seed)
     parser.add_argument("--checkpoint_dir", default=d.checkpoint_dir)
     parser.add_argument("--data_parallel", type=int, default=None,
-                        help="data-parallel cards (above 1: not in the port yet)")
+                        help="data-parallel processes, one per card (default and only "
+                        "value: the launcher's world size); --batch_size is the global "
+                        "batch, split across them")
     parser.add_argument("--spatial_parallel", type=int, default=1,
-                        help="spatial cards (above 1: not in the port yet)")
+                        help="spatial cards (above 1: not in the port yet, ROADMAP.md "
+                        "queue 1 item 9b)")
     parser.add_argument("--profile_steps", type=int, default=0,
                         help="trace this many steps after the first with torch.profiler "
                         "into <checkpoint_dir>/<name>/profile (a Chrome trace)")
@@ -378,6 +405,9 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--chaos", default=None,
                         help="fault injection: comma-joined nan@STEP, ioerror@READ, "
                         "sigterm@STEP (resilience/chaos.py)")
+    parser.add_argument("--chaos_rank", type=int, default=None,
+                        help="the data-parallel rank whose process --chaos acts on "
+                        "(default: every rank)")
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -409,6 +439,8 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
         sentinel_warmup=args.sentinel_warmup,
         sentinel_halt_after=args.sentinel_halt_after,
         precision=model_config_from_args(args, args.stage).precision_policy.name,
+        data_parallel=check_mesh(args.data_parallel, args.spatial_parallel),
+        spatial_parallel=args.spatial_parallel,
     )
 
 
@@ -416,7 +448,6 @@ def parse_train(argv: Optional[Sequence[str]] = None):
     """``(args, model_cfg, train_cfg, data_cfg)`` of the train entry, as
     the JAX CLI's ``parse_train`` returns them."""
     args = build_train_parser().parse_args(argv)
-    _refuse_mesh((args.data_parallel, args.spatial_parallel))
     model_cfg = model_config_from_args(args, dataset=args.stage)
     return args, model_cfg, train_config_from_args(args), data_config_from_args(args)
 
@@ -443,9 +474,12 @@ def build_eval_parser() -> argparse.ArgumentParser:
     parser.add_argument("--export_pth", default=None, metavar="PATH",
                         help="write the loaded weights as a reference-keyed .pth and exit")
     parser.add_argument("--spatial_parallel", type=int, default=1,
-                        help="shard the height over this many cards (not in the port yet)")
-    parser.add_argument("--mesh", default=None, metavar="DATA,SPATIAL",
-                        help="a (data, spatial) mesh of cards (not in the port yet)")
+                        help="shard the height over this many cards (above 1: not in the "
+                        "port yet, ROADMAP.md queue 1 item 9b)")
+    parser.add_argument("--mesh", type=str2mesh, default=None, metavar="DATA,SPATIAL[,PIPE]",
+                        help="the mesh: DATA processes, one per card, each validating its "
+                        "share of the frames (DATA must be the launcher's world size; "
+                        "SPATIAL and PIPE above 1 are not in the port yet)")
     parser.add_argument("--iters", type=int, default=None,
                         help="GRU iterations; default each validator's own (sintel 32, "
                         "chairs and kitti 24, synthetic 12)")
@@ -463,7 +497,7 @@ def parse_eval(argv: Optional[Sequence[str]] = None):
     """``(args, model_cfg, data_cfg)`` of the evaluate entry. The dataset
     decides BatchNorm in NCUP's weights net, as in the JAX CLI."""
     args = build_eval_parser().parse_args(argv)
-    mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else (1, 1)
-    _refuse_mesh((args.spatial_parallel, *mesh))
+    mesh = args.mesh or (None, 1)
+    check_mesh(mesh[0], max(mesh[1], args.spatial_parallel), mesh[2] if len(mesh) > 2 else 1)
     dataset = "sintel" if args.dataset.startswith("sintel") else args.dataset
     return args, model_config_from_args(args, dataset=dataset), data_config_from_args(args)

@@ -13,9 +13,12 @@ packages, with these differences:
   that the JAX package reads from its ``RAFT_NCUP_NCONV_IMPL`` knob:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
   (the fused kernel, CUDA in the port). Its default is the JAX default.
-- ``ServeConfig`` and ``StreamConfig`` have no ``mesh`` (one card).
-- ``TrainConfig`` has no ``data_parallel``/``spatial_parallel`` (the
-  mesh: one card).
+- ``ServeConfig`` and ``StreamConfig`` have no ``mesh``: the server and
+  the stream engine run in one process on one card (a mesh of several
+  cards in one process is ROADMAP.md queue 1 item 9b).
+- ``TrainConfig.data_parallel`` is the data axis across processes, one
+  per card (``parallel/``), and must divide the global ``batch_size``;
+  ``spatial_parallel`` above 1 raises (item 9b).
 
 Precision (``precision/policy.py``): ``ModelConfig.precision`` names a
 preset (``f32``, ``bf16_infer``, ``bf16_train``); the legacy
@@ -331,6 +334,10 @@ class TrainConfig:
     # A reference .pth or a port run directory whose trunk warm-starts the model.
     load_pretrained: str | None = None
     checkpoint_dir: str = "checkpoints"
+    # Parallelism: the data-parallel processes (None: the world size; the
+    # train entry sets the world's) and the spatial axis (1: not in the port).
+    data_parallel: int | None = None
+    spatial_parallel: int = 1
     # The divergence sentinel (``training/sentinel.py``): a step with a
     # non-finite loss or gradient norm, or a norm above
     # ``sentinel_spike_factor`` times its average (armed after
@@ -357,6 +364,16 @@ class TrainConfig:
             raise NotImplementedError(f"{self.scheduler} scheduler is not implemented!")
         if self.val_freq < 1 or self.sum_freq < 1:
             raise ValueError("val_freq and sum_freq must be positive")
+        if self.spatial_parallel != 1:
+            raise ValueError(
+                f"spatial_parallel={self.spatial_parallel}: the spatial axis is not in the "
+                "port yet (ROADMAP.md, queue 1 item 9b); only the data axis is")
+        if self.data_parallel is not None:
+            if self.data_parallel < 1:
+                raise ValueError(f"data_parallel must be >= 1, got {self.data_parallel}")
+            if self.batch_size % self.data_parallel:
+                raise ValueError(f"--batch_size {self.batch_size} not divisible by "
+                                 f"--data_parallel {self.data_parallel}")
 
     @property
     def freeze_bn(self) -> bool:

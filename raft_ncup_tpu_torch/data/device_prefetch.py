@@ -24,7 +24,11 @@ Contracts, as in the JAX package:
   even while it waits on a full queue, joins it and closes the wrapped
   iterator; it may be called more than once.
 
-On a CPU device the batches are handed through as they are: each array
+Each data-parallel rank feeds its own card: ``device`` when given, else
+``cuda:LOCAL_RANK`` under a launcher, else the current card
+(``parallel.multihost.local_device``); with no CUDA and no
+``device="cpu"`` it raises. On a CPU device the batches are handed through
+as they are: each array
 becomes a tensor that shares its memory (``torch.from_numpy``), with no
 copy. ``waits`` and ``wait_ms`` count how often, and how long, ``next()``
 found no batch ready. Inside ``with prefetcher.paused():`` the worker makes
@@ -46,6 +50,7 @@ import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.analysis.guards import mark_host_thread
+from raft_ncup_tpu_torch.parallel.multihost import local_device
 
 # Queue sentinel: the wrapped iterator is exhausted.
 _END = object()
@@ -69,7 +74,7 @@ class DevicePrefetcher:
     ):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = local_device(device)
         self._it = iter(batches)
         self._drop_keys = frozenset(drop_keys or ())
         self._cuda = self.device.type == "cuda"

@@ -6,7 +6,13 @@ iterator instead: it yields dicts of stacked numpy arrays (one batch,
 images uint8), decodes and augments in a thread pool (numpy and zlib
 release the GIL on large arrays) and keeps a bounded queue of ready
 batches. The sample indices are sharded over the processes of
-``torch.distributed`` when it is initialized.
+``torch.distributed`` when it is initialized: each rank reads every
+``world``-th index of an epoch's order, from its rank on, in batches of the
+global batch over ``world`` (the train entry's ``--batch_size // world``),
+and with ``drop_last`` every rank makes the same number of batches an epoch,
+the one-process count of the global batch. So the ranks' batches at a step
+are, together, the one-process batch of that step: rank ``r``'s row ``j`` is
+its row ``j * world + r``.
 
 Determinism: each sample's augmentation generator is
 ``np.random.default_rng(SeedSequence([seed, epoch, index]))``,
@@ -119,10 +125,15 @@ class FlowLoader:
         )
 
     def __len__(self) -> int:
-        n = self._shard_size()
         if self.drop_last:
-            return n // self.batch_size
+            # The global batch's count, the same on every shard.
+            return len(self.dataset) // (self.batch_size * self.num_shards)
+        n = self._shard_size()
         return (n + self.batch_size - 1) // self.batch_size
+
+    def _limit(self, idx: np.ndarray) -> int:
+        """How many of an epoch shard's indices make batches."""
+        return len(self) * self.batch_size if self.drop_last else len(idx)
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
@@ -245,11 +256,7 @@ class FlowLoader:
                     skip = start_batch * self.batch_size
                     while not stop.is_set():
                         idx = self._epoch_indices(epoch)
-                        limit = (
-                            len(idx) - len(idx) % self.batch_size
-                            if self.drop_last
-                            else len(idx)
-                        )
+                        limit = self._limit(idx)
                         first = min(skip, limit)
                         skip = 0
                         for s in range(first, limit, self.batch_size):
@@ -279,9 +286,7 @@ class FlowLoader:
     def one_epoch(self, epoch: int = 0) -> Iterator[dict]:
         """A single pass over this process's shard."""
         idx = self._epoch_indices(epoch)
-        limit = (
-            len(idx) - len(idx) % self.batch_size if self.drop_last else len(idx)
-        )
+        limit = self._limit(idx)
         with ThreadPoolExecutor(self.num_workers) as pool:
             for s in range(0, limit, self.batch_size):
                 chunk = idx[s : s + self.batch_size]

@@ -16,6 +16,15 @@ It runs on the card unless ``--device cpu`` is given; with no CUDA and
 no ``--device`` it raises. The last line of stdout is one JSON object:
 the results, the cache's captures, hits and evictions, and the device.
 
+Data-parallel across cards: ``torchrun --nproc_per_node N -m
+raft_ncup_tpu_torch.evaluate ...`` joins the launcher's world, each rank
+on ``--device`` or ``cuda:LOCAL_RANK``; each validates its share of the
+frames through its own graphs and every rank reports the global metrics
+(``evaluation._shard_for_validation``). ``--mesh N,1`` is accepted when N
+is the world size; a spatial or pipe size above 1 raises (ROADMAP.md
+queue 1 item 9b). Only the main process writes submissions and
+``--export_pth``.
+
 Examples::
 
     python -m raft_ncup_tpu_torch.evaluate --model raft_nc_dbl --dataset sintel \\
@@ -39,6 +48,7 @@ from raft_ncup_tpu_torch.evaluation import (
 )
 from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
 from raft_ncup_tpu_torch.models.raft import RAFT
+from raft_ncup_tpu_torch.parallel import multihost
 from raft_ncup_tpu_torch.training import checkpoint
 
 
@@ -57,10 +67,24 @@ def load_model(model_cfg, restore_ckpt, device=None, seed: int = 0) -> RAFT:
 
 def main(argv=None) -> int:
     args, model_cfg, data_cfg = parse_eval(argv)
-    model = load_model(model_cfg, args.restore_ckpt, args.device, args.seed)
+    device = multihost.local_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    already = multihost.initialized()
+    joined = multihost.initialize_distributed(device=device) and not already
+    try:
+        return _evaluate(args, model_cfg, data_cfg, device)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _evaluate(args, model_cfg, data_cfg, device) -> int:
+    model = load_model(model_cfg, args.restore_ckpt, device, args.seed)
     if args.export_pth:
-        checkpoint.save_reference_pth(model, args.export_pth)
-        print(f"exported reference-keyed checkpoint to {args.export_pth}")
+        if multihost.is_main_process():
+            checkpoint.save_reference_pth(model, args.export_pth)
+            print(f"exported reference-keyed checkpoint to {args.export_pth}")
         return 0
 
     fwd = ShapeCachedForward(model, cache_size=data_cfg.eval_cache_size)
@@ -82,7 +106,8 @@ def main(argv=None) -> int:
         if args.batch_size:
             kw["batch_size"] = args.batch_size
         results = VALIDATORS[args.dataset](model, data_cfg, **kw)
-    report = {"results": results, "cache": dict(fwd.stats), "device": str(model.device)}
+    report = {"results": results, "cache": dict(fwd.stats), "device": str(model.device),
+              "world": multihost.process_count(), "rank": multihost.process_index()}
     if model.device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(model.device)
         report["graph_pool_bytes"] = sum(fwd.pool_bytes.values())

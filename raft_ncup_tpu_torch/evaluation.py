@@ -18,10 +18,17 @@ and, warm, captures nothing (``tests/test_torch_guards.py``). Submissions
 copy each flow field to the host through :class:`AsyncDrain`, behind the
 next frame's dispatch.
 
-One card, one process: the JAX package's ``_HostShard`` and
-``_shard_for_validation`` split a dataset across hosts and agree on its
-length; with no mesh and one process they reduce to the whole dataset,
-so every validator here reads the whole dataset and needs no reduction.
+Data-parallel processes, one per card (``parallel/``), split a
+validation as the JAX package's host-local plan does
+(:func:`_shard_for_validation`): the ranks agree on the dataset's length
+(the smallest any of them sees, so a rank missing frames makes every rank
+skip alike), each validates the frames ``rank::world`` (:class:`_HostShard`)
+through its own cached forward and graphs, with no collective inside a
+captured graph, and the fixed-size sums and counts of the metric are
+summed over the ranks (``allreduce_sum_across_hosts``), so every rank
+returns the global metrics. Only the main process prints them and writes
+submissions; warm-start validation, a serial chain through each
+sequence, stays on one process. One process reads the whole dataset.
 
 Each validator and writer takes ``fwd``, the :class:`ShapeCachedForward`
 to run through (by default a new one over ``model``), so a caller can
@@ -51,7 +58,50 @@ from raft_ncup_tpu_torch.inference.pipeline import (
 from raft_ncup_tpu_torch.io import write_flo, write_flow_kitti, write_png
 from raft_ncup_tpu_torch.ops.padding import InputPadder
 from raft_ncup_tpu_torch.ops.warmstart import forward_interpolate_batch
+from raft_ncup_tpu_torch.parallel.multihost import (
+    agreed_min,
+    allreduce_sum_across_hosts,
+    is_main_process,
+    is_multihost,
+    process_count,
+    process_index,
+)
 from raft_ncup_tpu_torch.viz import flow_to_image
+
+
+class _HostShard:
+    """This rank's frames of a dataset, indices ``rank::world`` of the
+    first ``n_global`` (the length the ranks agreed on)."""
+
+    def __init__(self, dataset, n_global: int):
+        self._ds = dataset
+        self._n = n_global
+        self._pi = process_index()
+        self._pc = process_count()
+
+    def __len__(self) -> int:
+        return (self._n - self._pi + self._pc - 1) // self._pc
+
+    def sample(self, index: int, *a, **kw):
+        return self._ds.sample(self._pi + index * self._pc, *a, **kw)
+
+
+def _shard_for_validation(dataset):
+    """``(this rank's view, the agreed length, whether to reduce)``: the
+    whole dataset with no reduction on one process; with several, the
+    smallest length any rank sees, this rank's frames of it, and a
+    reduction of the sums."""
+    n = len(dataset)
+    if not is_multihost():
+        return dataset, n, False
+    n = agreed_min(n)
+    return _HostShard(dataset, n), n, True
+
+
+def _print_main(msg: str) -> None:
+    """A validator's console line, from the main process only."""
+    if is_main_process():
+        print(msg)
 
 
 def _pad_host(pad_spec, *arrays: np.ndarray) -> list[np.ndarray]:
@@ -177,14 +227,17 @@ def validate_chairs(model, data_cfg: Optional[DataConfig] = None, iters: int = 2
     cfg = data_cfg or DataConfig()
     dataset = ds_mod.FlyingChairs(split="validation", root=cfg.root_chairs,
                                   split_file=cfg.chairs_split_file)
-    if len(dataset) == 0:
-        print(f"validate_chairs: no data under {cfg.root_chairs}, skipping")
+    dataset, n, reduce = _shard_for_validation(dataset)
+    if n == 0:
+        _print_main(f"validate_chairs: no data under {cfg.root_chairs}, skipping")
         return {}
     acc = _run_metric_pass(
         _forward_for(model, cfg, precision, fwd), dataset, kind="epe", iters=iters,
         batch_size=batch_size, num_workers=cfg.num_workers, depth=cfg.device_prefetch)
+    if reduce:
+        acc = allreduce_sum_across_hosts(acc)
     epe = metrics_mod.finalize("epe", acc)["epe"]
-    print(f"Validation Chairs EPE: {epe:f}")
+    _print_main(f"Validation Chairs EPE: {epe:f}")
     return {"chairs": epe}
 
 
@@ -197,13 +250,17 @@ def validate_sintel(model, data_cfg: Optional[DataConfig] = None, iters: int = 3
     frame's low-res flow, cold at a new sequence; its keys take a
     ``warm_`` prefix."""
     cfg = data_cfg or DataConfig()
+    if warm_start and is_multihost():
+        raise ValueError("warm-start validation is a serial chain through each sequence: "
+                         "one process, not sharded across ranks")
     fwd = _forward_for(model, cfg, precision, fwd)
     results = {}
     prefix = "warm_" if warm_start else ""
     for dstype in ("clean", "final"):
         dataset = ds_mod.MpiSintel(split="training", root=cfg.root_sintel, dstype=dstype)
-        if len(dataset) == 0:
-            print(f"validate_sintel: no {dstype} data under {cfg.root_sintel}, skipping")
+        dataset, n, reduce = _shard_for_validation(dataset)
+        if n == 0:
+            _print_main(f"validate_sintel: no {dstype} data under {cfg.root_sintel}, skipping")
             continue
         if warm_start:
             acc = _run_warmstart_metric_pass(fwd, dataset, kind="px", iters=iters,
@@ -212,8 +269,10 @@ def validate_sintel(model, data_cfg: Optional[DataConfig] = None, iters: int = 3
             acc = _run_metric_pass(
                 fwd, dataset, kind="px", iters=iters, batch_size=batch_size,
                 pad_mode="sintel", num_workers=cfg.num_workers, depth=cfg.device_prefetch)
+        if reduce:
+            acc = allreduce_sum_across_hosts(acc)
         m = metrics_mod.finalize("px", acc)
-        print(f"Validation ({prefix}{dstype}) EPE: {m['epe']:f}, 1px: {m['1px']:f}, "
+        _print_main(f"Validation ({prefix}{dstype}) EPE: {m['epe']:f}, 1px: {m['1px']:f}, "
               f"3px: {m['3px']:f}, 5px: {m['5px']:f}")
         results[f"{prefix}{dstype}"] = m["epe"]
         results.update({f"{prefix}{dstype}_{k}": m[k] for k in ("1px", "3px", "5px")})
@@ -232,15 +291,18 @@ def validate_kitti(model, data_cfg: Optional[DataConfig] = None, iters: int = 24
     EPE / |flow| > 0.05, pooled. Frames batch per native shape."""
     cfg = data_cfg or DataConfig()
     dataset = ds_mod.KITTI(split="training", root=cfg.root_kitti)
-    if len(dataset) == 0:
-        print(f"validate_kitti: no data under {cfg.root_kitti}, skipping")
+    dataset, n, reduce = _shard_for_validation(dataset)
+    if n == 0:
+        _print_main(f"validate_kitti: no data under {cfg.root_kitti}, skipping")
         return {}
     acc = _run_metric_pass(
         _forward_for(model, cfg, precision, fwd), dataset, kind="kitti", iters=iters,
         batch_size=batch_size, pad_mode="kitti", bucket=cfg.eval_pad_bucket,
         with_valid=True, num_workers=cfg.num_workers, depth=cfg.device_prefetch)
+    if reduce:
+        acc = allreduce_sum_across_hosts(acc)
     m = metrics_mod.finalize("kitti", acc)
-    print(f"Validation KITTI: {m['epe']:f}, {m['f1']:f}")
+    _print_main(f"Validation KITTI: {m['epe']:f}, {m['f1']:f}")
     return {"kitti-epe": m["epe"], "kitti-f1": m["f1"]}
 
 
@@ -252,7 +314,11 @@ def create_sintel_submission(model, data_cfg: Optional[DataConfig] = None, iters
     and with ``write_png`` their colour images under ``<output_path>_png``.
     With ``warm_start`` each frame starts from the splat of the previous
     frame's low-res flow, on the card. Each field reaches the host through
-    an :class:`AsyncDrain`, behind the next frame's dispatch."""
+    an :class:`AsyncDrain`, behind the next frame's dispatch. Only the
+    main process runs it: its forwards issue no collective, and one writer
+    keeps ranks from interleaving the same files."""
+    if not is_main_process():
+        return
     cfg = data_cfg or DataConfig()
     fwd = _forward_for(model, cfg, precision, fwd)
     for dstype in ("clean", "final"):
@@ -299,7 +365,10 @@ def create_kitti_submission(model, data_cfg: Optional[DataConfig] = None, iters:
     """Write KITTI test-split 16-bit flow PNGs (reference:
     evaluate.py:60-87), and with ``write_png`` colour images under
     ``<output_path>_png``; fields reach the host through an
-    :class:`AsyncDrain`."""
+    :class:`AsyncDrain`; the main process only, as
+    :func:`create_sintel_submission`."""
+    if not is_main_process():
+        return
     cfg = data_cfg or DataConfig()
     dataset = ds_mod.KITTI(split="testing", root=cfg.root_kitti)
     fwd = _forward_for(model, cfg, precision, fwd)
@@ -347,8 +416,9 @@ def validate_synthetic(model, data_cfg: Optional[DataConfig] = None, iters: int 
         style = data_cfg.synthetic_style if data_cfg else "smooth"
     prefix = "synthetic" if style == "smooth" else f"synthetic_{style}"
     dataset = SyntheticFlowDataset(size_hw, length=length, seed=seed, style=style)
-    if len(dataset) == 0:
-        print("validate_synthetic: no frames, skipping")
+    dataset, n, reduce = _shard_for_validation(dataset)
+    if n == 0:
+        _print_main("validate_synthetic: no frames, skipping")
         return {}
     cfg = data_cfg or DataConfig()
     kind = "epe_band" if style == "rigid" else "epe"
@@ -357,15 +427,17 @@ def validate_synthetic(model, data_cfg: Optional[DataConfig] = None, iters: int 
         batch_size=batch_size, pad_mode="sintel",
         band_fn=flow_boundary_mask if style == "rigid" else None,
         num_workers=cfg.num_workers, depth=cfg.device_prefetch)
+    if reduce:
+        acc = allreduce_sum_across_hosts(acc)
     m = metrics_mod.finalize(kind, acc)
     out = {prefix: m["epe"]}
     if style == "rigid":
         out[f"{prefix}_bnd"] = m["bnd"]
         out[f"{prefix}_interior"] = m["interior"]
-        print(f"Validation Synthetic[{style}] EPE: {m['epe']:f}, boundary: {m['bnd']:f}, "
+        _print_main(f"Validation Synthetic[{style}] EPE: {m['epe']:f}, boundary: {m['bnd']:f}, "
               f"interior: {m['interior']:f}")
     else:
-        print(f"Validation Synthetic EPE: {m['epe']:f}")
+        _print_main(f"Validation Synthetic EPE: {m['epe']:f}")
     return out
 
 

@@ -4,7 +4,7 @@
 
 The iteration budget's ``segments`` argument needs these two rules. The
 pipelined forward itself and its pipe axis are not ported (ROADMAP.md,
-queue 1 item 9).
+queue 1 item 9b: ``parallel/`` has the data axis across processes only).
 """
 
 from __future__ import annotations

@@ -58,7 +58,10 @@ ring event carrying the key. Every new key's counted run
 the CPU) records its cost in the ledger (``inference/costs.py``) under the
 cache's key; an early-exit entry records its three graphs.
 
-The JAX package's mesh argument is not ported.
+The JAX package's mesh argument is not ported: a forward here is one
+process's on one card (data parallelism shards the frames across
+processes, ``evaluation._HostShard``; a mesh of several cards under one
+forward is ROADMAP.md queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -89,11 +92,15 @@ from raft_ncup_tpu_torch.observability import get_telemetry
 from raft_ncup_tpu_torch.observability.telemetry import LEGACY_KEY_ALIASES
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
+from raft_ncup_tpu_torch.parallel.mesh import mesh_fingerprint
 from raft_ncup_tpu_torch.precision import resolve_policy
 from raft_ncup_tpu_torch.utils.device import cudnn_autotune, f32_precision
 
 _EXEC_CANON = LEGACY_KEY_ALIASES["inference"]
-MESH_FP = "nomesh"  # the JAX package's fingerprint of a key without a mesh (the port has none)
+# A cached forward runs in one process on one card, so its keys, spans and
+# dumps carry JAX's fingerprint of an unsharded program; a data-parallel
+# validation runs one such forward per rank on its share of the frames.
+MESH_FP = mesh_fingerprint(None)
 
 # Iterations per replayed segment of the early-exit forward: it divides
 # every default level (the server's 24, 16 and 8, the stream's 12). A level

@@ -57,7 +57,9 @@ parameters under another preset.
 
 Encoder dropout (``cfg.dropout``) acts in training mode only and draws
 its masks from ``dropout_generator`` (the train step seeds one per step;
-``None`` uses PyTorch's default generator).
+``None`` uses PyTorch's default generator); with ``dropout_rows = (rank,
+world)`` (a data-parallel step) at the global batch's shape, keeping the
+rank's rows.
 
 The model lives on the card unless the caller passes ``device="cpu"``;
 with no device and no CUDA, construction raises.
@@ -135,6 +137,9 @@ class RAFT(nn.Module):
             )
         init_weights(self, torch.Generator().manual_seed(int(seed)))
         self.dropout_generator: Optional[torch.Generator] = None
+        # (rank, world) of a data-parallel train step: the masks are drawn at
+        # the global batch's shape and the rank's rows taken.
+        self.dropout_rows: Optional[tuple[int, int]] = None
         self.eval()
         self.to(dev)
         self.device = dev
@@ -180,11 +185,12 @@ class RAFT(nn.Module):
         img2 = 2.0 * (image2.float() / 255.0) - 1.0
         img1 = img1.permute(0, 3, 1, 2)
         img2 = img2.permute(0, 3, 1, 2)
-        gen = self.dropout_generator
-        fmaps = self.fnet(torch.cat([img1, img2], dim=0), gen)
+        gen, rows = self.dropout_generator, self.dropout_rows
+        fmaps = self.fnet(torch.cat([img1, img2], dim=0), gen,
+                          None if rows is None else (*rows, 2))
         # The correlation features at the policy's corr dtype.
         fmap1, fmap2 = fmaps.permute(0, 2, 3, 1).to(self.policy.corr).split(B, dim=0)
-        cnet = self.cnet(img1, gen)
+        cnet = self.cnet(img1, gen, None if rows is None else (*rows, 1))
         hdim = self.cfg.hidden_dim
         net = torch.tanh(cnet[:, :hdim])
         inp = torch.relu(cnet[:, hdim:])

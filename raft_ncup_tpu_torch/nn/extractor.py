@@ -106,19 +106,34 @@ class Encoder(nn.Module):
         self.layer1, self.layer2, self.layer3 = layers
         self.conv2 = Conv2d(in_planes, output_dim, 1, init_mode="kaiming_out", dtype=dtype)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                rows: tuple[int, int, int] | None = None) -> torch.Tensor:
         x = torch.relu(self.norm1(self.conv1(x)))
         x = self.layer3(self.layer2(self.layer1(x)))
         x = self.conv2(x)
         if self.dropout > 0 and self.training:
-            x = channel_dropout(x, self.dropout, generator)
+            x = channel_dropout(x, self.dropout, generator, rows)
         return x
 
 
-def channel_dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+def channel_dropout(x: torch.Tensor, rate: float, generator=None,
+                    rows: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Zero whole channels of NCHW ``x`` per sample with probability
-    ``rate``, dividing the kept ones by ``1 - rate``."""
+    ``rate``, dividing the kept ones by ``1 - rate``. ``rows = (rank,
+    world, groups)``: ``x`` is a data-parallel rank's share of a global
+    batch of ``groups`` stacked blocks, whose row ``j`` of a block is the
+    block's global row ``j * world + rank``; the mask is drawn at the
+    global shape and those rows taken, so each sample gets the mask it
+    gets in one process."""
     keep = 1.0 - rate
-    mask = torch.empty(x.shape[:2] + (1, 1), device=x.device).bernoulli_(keep,
-                                                                       generator=generator)
+    if rows is None:
+        mask = torch.empty(x.shape[:2] + (1, 1), device=x.device).bernoulli_(
+            keep, generator=generator)
+    else:
+        rank, world, groups = rows
+        b = x.shape[0] // groups
+        mask = torch.empty((x.shape[0] * world, x.shape[1], 1, 1), device=x.device).bernoulli_(
+            keep, generator=generator)
+        mask = mask.view(groups, b, world, *mask.shape[1:])[:, :, rank].reshape(
+            x.shape[:2] + (1, 1))
     return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

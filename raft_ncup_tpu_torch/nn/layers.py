@@ -10,7 +10,9 @@ same weights on every device.
 
 ``BatchNorm2d`` trains as flax's ``BatchNorm`` does (biased batch
 variance in the running average); :func:`frozen_batch_stats` keeps its
-running statistics still while a checkpointed forward is recomputed.
+running statistics still while a checkpointed forward is recomputed, and
+:func:`synced_batch_stats` makes it take its statistics over the ranks'
+global batch (sync-BN).
 
 Mixed precision, as in the JAX package: parameters live in f32. A
 ``Conv2d`` built with a compute ``dtype`` (bf16 under the bf16 presets)
@@ -148,13 +150,26 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
+        # Under a process group while training (sync-BN): the differentiable
+        # sum over the ranks that :func:`synced_batch_stats` sets, else None.
+        self.sync = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(_norm_input(x)).to(x.dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        if self.sync is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            meansq = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            # The global batch's E[x] and E[x^2]: per-channel sums and the
+            # count, summed over the ranks in one collective.
+            c = xf.shape[1]
+            count = xf.new_full((1,), xf.numel() // c)
+            total = self.sync(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                         count]))
+            mean, meansq = total[:c] / total[-1], total[c:2 * c] / total[-1]
+        var = (meansq - mean * mean).clamp(min=0.0)
         if not getattr(_frozen, "on", False):
             with torch.no_grad():
                 m = self.momentum
@@ -164,6 +179,25 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = (torch.rsqrt(var + self.eps) * self.weight).view(1, -1, 1, 1)
         y = (xf - mean.view(1, -1, 1, 1)) * mul + self.bias.view(1, -1, 1, 1)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def synced_batch_stats(model: nn.Module, reduce_sum):
+    """Within this context every :class:`BatchNorm2d` of ``model`` that
+    trains takes its statistics over the global batch: ``reduce_sum`` (a
+    differentiable sum over the ranks, ``parallel.multihost.all_reduce_grad``)
+    sums each one's per-channel sums and count. The setting is on the
+    modules, not the thread, so the recompute of a checkpointed forward,
+    which autograd may run on its own thread, reduces as the forward did."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    prev = [m.sync for m in norms]
+    for m in norms:
+        m.sync = reduce_sum
+    try:
+        yield
+    finally:
+        for m, p in zip(norms, prev):
+            m.sync = p
 
 
 class InstanceNorm2d(nn.InstanceNorm2d):

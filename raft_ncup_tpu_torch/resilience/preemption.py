@@ -1,12 +1,16 @@
 """Preemption-safe shutdown and the identity of a resumed run (port of
-``raft_ncup_tpu/resilience/preemption.py`` for one process).
+``raft_ncup_tpu/resilience/preemption.py``).
 
 :class:`PreemptionHandler` turns SIGTERM and SIGINT into a flag, which the
 train loop reads at each step boundary (:meth:`PreemptionHandler.poll`);
 on a raised flag it saves one checkpoint and exits :data:`EXIT_PREEMPTED`.
 A second signal restores the previous handlers, so a third is fatal.
-Processes do not agree on the step yet: that arrives with the multi-GPU
-slice (ROADMAP.md, queue 1 item 9).
+Data-parallel ranks agree on the flag before any of them acts: ``poll``
+sums it over the ranks every ``check_every`` steps (the
+``RAFT_TORCH_PREEMPT_CHECK_EVERY`` knob, 16 as in the JAX package), so a
+signal to any one rank stops every rank at the same step, where they save
+one checkpoint (rank 0 writes it) and all exit 75. One process reads its
+flag at every boundary.
 
 :func:`resume_metadata` pins the run's identity (variant, a fingerprint of
 the model configuration, seed) next to its checkpoints; the checkpoint
@@ -25,7 +29,7 @@ import hashlib
 import json
 import signal
 import sys
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 EXIT_PREEMPTED = 75  # EX_TEMPFAIL: re-runnable, state saved
 EXIT_DIVERGED = 76  # EX_PROTOCOL: training diverged, rolled back
@@ -49,8 +53,14 @@ def resume_metadata(model_cfg: Any, train_cfg: Any) -> dict:
 class PreemptionHandler:
     """Context manager: SIGTERM/SIGINT set a flag that ``poll`` reads."""
 
-    def __init__(self, signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT)):
+    def __init__(self, signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT),
+                 check_every: Optional[int] = None):
+        from raft_ncup_tpu_torch.utils.knobs import knob_raw
+
         self.signals = tuple(signals)
+        if check_every is None:
+            check_every = int(knob_raw("RAFT_TORCH_PREEMPT_CHECK_EVERY"))
+        self.check_every = max(1, int(check_every))
         self._requested = False
         self._previous: dict = {}
 
@@ -89,5 +99,14 @@ class PreemptionHandler:
         self._previous = {}
 
     def poll(self, step: int) -> bool:
-        """Whether to stop at the boundary before step ``step``."""
-        return self._requested
+        """Whether to stop at the boundary before step ``step``: this
+        process's flag, or with several ranks their agreement, summed over
+        the ranks at every ``check_every``-th step (all ranks call it at the
+        same steps)."""
+        from raft_ncup_tpu_torch.parallel.multihost import agreed_any, is_multihost
+
+        if not is_multihost():
+            return self._requested
+        if step % self.check_every:
+            return False
+        return agreed_any(self._requested)

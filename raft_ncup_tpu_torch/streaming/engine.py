@@ -1,7 +1,7 @@
 """The multi-stream video engine: warm start on the card over a slot table
 of fixed capacity, with per-stream fault isolation (port of
 ``raft_ncup_tpu/streaming/engine.py``, without the mesh: ROADMAP.md, queue 1
-item 9).
+item 9b).
 
 Data path (one dispatcher thread; clients submit from their own threads):
 

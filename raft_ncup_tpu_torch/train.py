@@ -1,6 +1,6 @@
 """Train a RAFT model: ``python -m raft_ncup_tpu_torch.train``.
 
-Port of the root ``train.py`` (the JAX trainer's loop on one card) with
+Port of the root ``train.py`` (the JAX trainer's loop) with
 the JAX CLI's whole train surface (``cli.parse_train``): the shipped
 scripts' flag lines parse as written, with ``--device`` in place of
 ``--platform``. The model the flags select (``--model raft_nc_dbl`` is
@@ -13,6 +13,28 @@ FlyingThings3D script's configuration:
         --load_pretrained models/raft-things.pth --stage things --validation sintel \\
         --num_steps 100000 --batch_size 6 --lr 0.000125 --image_size 400 720 \\
         --root_things datasets/FlyingThings3D --root_sintel datasets/Sintel
+
+Data-parallel across cards, one process per card, as the JAX trainer
+runs data-parallel over every chip: ``torchrun --nproc_per_node N -m
+raft_ncup_tpu_torch.train <the same flags>``. The trainer joins the
+launcher's world (``parallel.multihost.initialize_distributed``; NCCL on
+cards, gloo on the CPU, or ``RAFT_TORCH_DIST_BACKEND``), each rank feeds
+``--device`` or ``cuda:LOCAL_RANK``, ``--batch_size`` is the global batch
+(each rank loads ``batch_size // N`` of it, and a batch N does not divide
+raises), ``--data_parallel`` defaults to N and any other value raises,
+and ``--spatial_parallel`` above 1 raises (ROADMAP.md queue 1 item 9b;
+``--gpus`` is accepted and ignored, as in JAX). Each step reduces the
+gradients, the loss and the metrics across the ranks
+(``training.step.make_train_step(mesh=...)``), so every rank logs,
+checkpoints and halts on the same global numbers; only the main process
+writes the log, the flight dumps, the profile and the checkpoints (rank 0
+writes, every rank waits at a barrier). Validation runs sharded: each
+rank validates its share of the frames and the sums are reduced
+(``evaluation._shard_for_validation``). A SIGTERM to any rank stops every
+rank at the same step (the ranks agree on it every
+``RAFT_TORCH_PREEMPT_CHECK_EVERY`` steps), and all exit 75; a sentinel
+halt happens on every rank at once (exit 76). ``--chaos_rank R`` limits
+``--chaos`` to rank R's process.
 
 In order, the trainer:
 
@@ -90,6 +112,8 @@ from raft_ncup_tpu_torch.data.loader import FlowLoader
 from raft_ncup_tpu_torch.evaluation import VALIDATORS
 from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
 from raft_ncup_tpu_torch.observability import FlightRecorder, get_telemetry
+from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
+from raft_ncup_tpu_torch.parallel import multihost
 from raft_ncup_tpu_torch.resilience import (
     EXIT_DIVERGED,
     EXIT_PREEMPTED,
@@ -104,7 +128,6 @@ from raft_ncup_tpu_torch.training.checkpoint import CheckpointManager, load_pret
 from raft_ncup_tpu_torch.training.logger import Logger
 from raft_ncup_tpu_torch.training.state import TrainState, create_train_state
 from raft_ncup_tpu_torch.training.step import make_train_step
-from raft_ncup_tpu_torch.utils.device import resolve_device
 from raft_ncup_tpu_torch.utils.profiling import trace
 
 
@@ -155,14 +178,38 @@ def main(argv=None) -> int:
     unknown = sorted(set(cfg.validation) - set(VALIDATORS))
     if unknown:
         raise ValueError(f"unknown --validation {unknown}; choose from {sorted(VALIDATORS)}")
-    device = resolve_device(args.device)
-    chaos = ChaosSpec.parse(args.chaos)
+    device = multihost.local_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    # Join the launcher's world (a no-op for one process without one); a
+    # world joined here is left at the end.
+    already = multihost.initialized()
+    joined = multihost.initialize_distributed(device=device) and not already
+    try:
+        return _train(args, model_cfg, cfg, data_cfg, device)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _train(args, model_cfg, cfg, data_cfg, device) -> int:
+    world, rank = multihost.process_count(), multihost.process_index()
+    main_process = multihost.is_main_process()
+    # cfg.data_parallel is the world's size (cli.check_mesh), which divides
+    # the global batch (TrainConfig checks it).
+    mesh = (mesh_mod.make_mesh(cfg.data_parallel, device=device)
+            if multihost.initialized() else None)
+    mesh_mod.reset_collective_stats()  # the summary counts this run's
+    chaos = ChaosSpec.parse(
+        args.chaos if args.chaos_rank is None or args.chaos_rank == rank else None)
     if cfg.restore_ckpt:
         model_cfg = checkpoint.saved_model_config(cfg.restore_ckpt)
         cfg = dataclasses.replace(cfg, precision=resumed_precision(args, model_cfg))
     state = create_train_state(model_cfg, cfg, device)
     run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
-    logger = Logger(run_dir, dataclasses.asdict(cfg), cfg.sum_freq)
+    logger = Logger(run_dir, dataclasses.asdict(cfg), cfg.sum_freq, active=main_process)
+    logger.write_text(f"world={world} mesh={mesh_mod.mesh_fingerprint(mesh)} "
+                      f"backend={multihost.backend()}")
     if chaos.active:
         logger.write_text(f"chaos: {chaos.render()}")
     if cfg.load_pretrained:
@@ -177,12 +224,14 @@ def main(argv=None) -> int:
     dataset = fetch_training_set(cfg.stage, cfg.image_size, data_cfg)
     if chaos.ioerror_reads:
         dataset = ChaosDataset(dataset, chaos.ioerror_reads)
-    loader = FlowLoader(dataset, cfg.batch_size, seed=cfg.seed,
+    # --batch_size is the global batch; each rank loads its share
+    # (FlowLoader shards the indices over the world).
+    loader = FlowLoader(dataset, cfg.batch_size // world, seed=cfg.seed,
                         num_workers=data_cfg.num_workers, prefetch=data_cfg.prefetch,
                         io_retries=data_cfg.io_retries,
                         io_retry_backoff_s=data_cfg.io_retry_backoff_s)
     logger.write_text(f"training with {len(dataset)} pairs ({len(loader)} batches/epoch)")
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, mesh=mesh)
 
     # The data stream resumes where the restored run stood: the loader is
     # deterministic per (seed, epoch, index), so the batches of the epoch
@@ -207,7 +256,7 @@ def main(argv=None) -> int:
     # not dump into this run's directory).
     tel = get_telemetry()
     prev_flight = tel.flight
-    tel.flight = FlightRecorder(os.path.join(run_dir, "flight"))
+    tel.flight = FlightRecorder(os.path.join(run_dir, "flight")) if main_process else None
     train_health = tel.health("train", fresh=True)
     train_health.ready(f"training from step {step_i}")
     profile_scope = contextlib.ExitStack()
@@ -223,7 +272,7 @@ def main(argv=None) -> int:
                 if preempt.poll(step_i):
                     preempted = True
                     break
-                if args.profile_steps and step_i == first + 1:
+                if args.profile_steps and step_i == first + 1 and main_process:
                     # The first step paid the autotuning; trace the next ones,
                     # and only theirs (the first step's kernels finish first).
                     if device.type == "cuda":
@@ -238,6 +287,10 @@ def main(argv=None) -> int:
                     step_i += 1
                     logger.push(step_i - 1, metrics, lr)
                 iteration_ms.append(1e3 * (time.perf_counter() - t_it))
+                if step_i == first + 1:
+                    # The ranks' first steps (cuDNN's autotuning) drift
+                    # apart; the barrier realigns them once.
+                    multihost.barrier("train_warmup")
                 if chaos.sigterm_after == step_i:
                     # A real signal through the real handler, at a step boundary.
                     os.kill(os.getpid(), signal.SIGTERM)
@@ -268,7 +321,7 @@ def main(argv=None) -> int:
                         # The timeline that led here, banked before the
                         # rollback.
                         tel.flight_dump("sentinel_halt", step=step_i, consecutive=consecutive,
-                                        skipped=skipped)
+                                        skipped=skipped, mesh=mesh_mod.mesh_fingerprint(mesh))
                         halted = True
                         break
                 if step_i % cfg.val_freq == 0 or step_i == total:
@@ -280,7 +333,8 @@ def main(argv=None) -> int:
                 ckpt.save(state, cfg)
             train_health.draining(f"preempted @ {step_i}")
             # Banked after the checkpoint, so the dump names a saved step.
-            tel.flight_dump("preemption_drain", step=step_i, checkpoint_step=ckpt.latest_step)
+            tel.flight_dump("preemption_drain", step=step_i, checkpoint_step=ckpt.latest_step,
+                            mesh=mesh_mod.mesh_fingerprint(mesh))
             logger.write_text(f"preempted @ {step_i}: checkpoint saved, exiting "
                               f"{EXIT_PREEMPTED}")
             status = EXIT_PREEMPTED
@@ -315,12 +369,18 @@ def main(argv=None) -> int:
         tel.flight = prev_flight
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    # Every rank leaves together: a launcher tears the world down when one
+    # rank exits.
+    multihost.barrier("train_exit")
     summary = {
         "status": status, "steps": step_i - first, "step": state.step,
         "checkpoint": ckpt.path(ckpt.latest_step) if ckpt.latest_step is not None else None,
         "variant": state.model.cfg.variant, "small": state.model.cfg.small,
         "precision": state.model.policy.name, "seconds": time.perf_counter() - t0,
         "device": str(device), "skipped": int(state.sentinel["skipped"]),
+        "world": world, "rank": rank, "mesh": mesh_mod.mesh_fingerprint(mesh),
+        "backend": multihost.backend(),
+        "collectives": mesh_mod.collective_stats(),
         # Host wall of each iteration (its batch, the step's dispatch, the
         # logging), the first left out.
         "median_iteration_ms": statistics.median(iteration_ms[1:]) if len(iteration_ms) > 1

@@ -26,7 +26,10 @@ set and :func:`save_reference_pth` writes it.
 :class:`CheckpointManager` keeps a run directory's ``step_<N>.pt`` files
 (the latest five), each written to a temporary file and renamed into
 place, with retried writes and a ``resume_meta.json`` that every restore
-checks first. Its :meth:`CheckpointManager.restore` writes into the live
+checks first. Under data parallelism every rank calls ``save`` at the same
+steps (the ranks' states are equal): rank 0 writes the file and the
+metadata and prunes, then a barrier holds every rank until it is in
+place; every rank restores the same file. Its :meth:`CheckpointManager.restore` writes into the live
 state in place (``copy_``), so the tensors that CUDA graphs and the
 optimizer hold stay the same objects. :func:`load_pretrained_trunk`
 warm-starts the RAFT trunk from a reference ``.pth`` or a port run
@@ -160,7 +163,11 @@ class CheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: int = 5,
                  metadata: Optional[dict] = None, save_retries: int = 2):
+        from raft_ncup_tpu_torch.parallel.multihost import is_main_process
+
         self.directory = os.path.abspath(directory)
+        # Only rank 0 writes; the others wait for it in save().
+        self.writer = is_main_process()
         self.max_to_keep = max_to_keep
         self._metadata = dict(metadata) if metadata else None
         self._save_retries = save_retries
@@ -179,12 +186,18 @@ class CheckpointManager:
 
     def save(self, state: TrainState, cfg: TrainConfig) -> str:
         """Write ``state`` as ``step_<state.step>.pt``, the metadata beside
-        it, and drop the files beyond the latest ``max_to_keep``."""
+        it, and drop the files beyond the latest ``max_to_keep`` (rank 0),
+        then wait at a barrier for every rank. A collective: every rank
+        calls it at the same step."""
+        from raft_ncup_tpu_torch.parallel.multihost import barrier
+
         path = self.path(state.step)
-        self._retry(lambda: save(state, cfg, path), f"checkpoint save @{state.step}")
-        self._write_metadata()
-        for _, old in _steps(self.directory)[:-self.max_to_keep]:
-            os.remove(old)
+        if self.writer:
+            self._retry(lambda: save(state, cfg, path), f"checkpoint save @{state.step}")
+            self._write_metadata()
+            for _, old in _steps(self.directory)[:-self.max_to_keep]:
+                os.remove(old)
+        barrier(f"checkpoint_{state.step}")
         return path
 
     def _write_metadata(self) -> None:

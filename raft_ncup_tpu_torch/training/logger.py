@@ -6,7 +6,11 @@ Metrics are summed on the device as they arrive and read back once per
 ``analysis.guards.host_read``, so the steps between two summaries read
 nothing back to the host (``--strict_guards`` holds the loop to that). The window means, the steps per second and the learning rate
 of that one read also land as telemetry gauges (``train_<metric>``,
-``train_steps_per_sec``, ``train_lr``): host floats, no further read."""
+``train_steps_per_sec``, ``train_lr``): host floats, no further read.
+
+Under data parallelism only the main process logs (``active``, JAX's
+``Logger(active=is_main_process())``): every rank holds the same global
+metrics, and an inactive logger reads, prints and writes nothing."""
 
 from __future__ import annotations
 
@@ -22,9 +26,13 @@ from raft_ncup_tpu_torch.observability import get_telemetry
 
 
 class Logger:
-    def __init__(self, run_dir: str, config: Any = None, sum_freq: int = 100):
+    def __init__(self, run_dir: str, config: Any = None, sum_freq: int = 100,
+                 active: bool = True):
         self.run_dir = run_dir
         self.sum_freq = sum_freq
+        self.active = active
+        if not active:
+            return
         os.makedirs(run_dir, exist_ok=True)
         self._txt = open(os.path.join(run_dir, "log.txt"), "a")
         self._acc: dict[str, torch.Tensor] = {}
@@ -35,6 +43,8 @@ class Logger:
             self.write_text(json.dumps(config, sort_keys=True, default=str))
 
     def write_text(self, text: str) -> None:
+        if not self.active:
+            return
         self._txt.write(text + "\n")
         self._txt.flush()
 
@@ -42,6 +52,8 @@ class Logger:
              lr: Optional[torch.Tensor] = None) -> None:
         """Add one step's metrics (``step`` counted from 0); every
         ``sum_freq`` steps print and log their means."""
+        if not self.active:
+            return
         for k, v in metrics.items():
             v = v.detach().to(torch.float32)
             self._acc[k] = v if k not in self._acc else self._acc[k] + v
@@ -80,10 +92,13 @@ class Logger:
     def write_dict(self, step: int, results: Mapping[str, float]) -> None:
         """Print and log one validation's results (reference:
         train.py:151-161)."""
+        if not self.active:
+            return
         line = f"[val @ {step}] " + json.dumps(
             {k: round(float(v), 5) for k, v in results.items()})
         print(line, flush=True)
         self.write_text(line)
 
     def close(self) -> None:
-        self._txt.close()
+        if self.active:
+            self._txt.close()

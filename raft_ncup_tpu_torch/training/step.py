@@ -1,5 +1,6 @@
-"""One training step on one card (port of ``make_train_step`` in
-``raft_ncup_tpu/parallel/step.py``, without the mesh).
+"""One training step (port of ``make_train_step`` and ``make_eval_step`` in
+``raft_ncup_tpu/parallel/step.py``), on one card or data-parallel across
+processes, one per card (``mesh=``, ``parallel.mesh.make_mesh``).
 
 The step runs three phases, each under a ``torch.profiler`` label as the
 JAX step's ``jax.named_scope`` labels it:
@@ -24,12 +25,32 @@ metric and the sentinel read the norm of all of them, as the JAX step's
 ``optax.global_norm(grads)`` does, while the clip reads the trainable
 (upsampler) gradients' norm only.
 
+With a mesh, each rank runs its rows of the global batch (the rows
+``rank::data``, ``parallel.mesh.batch_sharding``) through the forward and
+the backward, then ``train.allreduce`` (:func:`reduce_across_ranks`) sums
+in one collective a flat buffer of the gradients, the loss and the
+metrics' sums and valid-pixel count: the gradients and the loss are
+averaged over the ranks (each rank's loss is a mean over the same number
+of elements), the metrics divided by the global count, so every rank
+holds the values JAX's step computes on the global batch, and the
+gradient norm, the clip, AdamW and the sentinel read those on every rank
+alike: the ranks' parameters stay equal, and a bad step is bad on all of
+them. The noise and the dropout masks are drawn at the global batch's
+shape and the rank's rows taken, as JAX's sharded
+``jax.random.normal(k1, img1.shape)`` does, and BatchNorm, while it
+trains (stage chairs), takes its statistics over the global batch
+(``nn.layers.synced_batch_stats``), with a differentiable sum over the
+ranks; the recompute of a checkpointed iteration issues the same
+collectives on every rank, in the same order.
+
 The forward and the backward (with the recompute that remat runs
 inside it) keep TF32 off (``utils.device.f32_precision``), as the
 model's forward does: cuDNN's convolutions would otherwise take TF32 in
 the backward. Both run with cuDNN's autotuner on
 (``utils.device.cudnn_autotune``). The metrics come back as 0-d tensors
-on the device: the step reads nothing back to the host.
+on the device: the step reads nothing back to the host (under gloo with
+card tensors, the reduction's round trip through the host is the one
+named read, ``analysis.guards.collective_read``).
 
 Under ``bf16_train`` (``TrainConfig.precision``, which the train entry sets
 from the same ``--precision`` flag as the model's configuration) the model computes in bf16 with f32
@@ -41,6 +62,7 @@ the sentinel's arithmetic all stay f32 with no cast here.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import numpy as np
@@ -48,13 +70,17 @@ import torch
 from torch.profiler import record_function
 
 from raft_ncup_tpu_torch.config import TrainConfig
+from raft_ncup_tpu_torch.nn.layers import synced_batch_stats
+from raft_ncup_tpu_torch.parallel import multihost
+from raft_ncup_tpu_torch.parallel.mesh import Mesh
 from raft_ncup_tpu_torch.training import sentinel as sentinel_mod
-from raft_ncup_tpu_torch.training.loss import sequence_loss
+from raft_ncup_tpu_torch.training.loss import finalize_metrics, sequence_loss_sums
 from raft_ncup_tpu_torch.training.optim import global_norm, select_into
 from raft_ncup_tpu_torch.training.state import TrainState
 from raft_ncup_tpu_torch.utils.device import cudnn_autotune, f32_precision
 
 PHASES = ("train.forward", "train.backward", "train.optimizer")
+ALLREDUCE_PHASE = "train.allreduce"
 
 
 def bn_buffers(model: torch.nn.Module) -> list[torch.Tensor]:
@@ -80,25 +106,38 @@ def noisy(img: torch.Tensor, stdv: torch.Tensor, noise: torch.Tensor) -> torch.T
     return torch.clamp(img + stdv * noise, 0.0, 255.0)
 
 
-def add_noise(img1: torch.Tensor, img2: torch.Tensor, gen: torch.Generator):
+def global_rows(shape, gen: torch.Generator, device, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Standard normal draws of ``shape``; with a mesh, drawn at the global
+    batch's shape (``shape[0] * data`` rows) and the rank's rows
+    ``rank::data`` taken."""
+    if mesh is None:
+        return torch.randn(shape, generator=gen, device=device)
+    full = torch.randn((shape[0] * mesh.data,) + tuple(shape[1:]), generator=gen, device=device)
+    return full.view(shape[0], mesh.data, *shape[1:])[:, mesh.rank]
+
+
+def add_noise(img1: torch.Tensor, img2: torch.Tensor, gen: torch.Generator,
+              mesh: Optional[Mesh] = None):
     """Both frames with Gaussian noise of one stddev drawn from U(0, 5)
-    (reference: train.py:210-213), drawn from ``gen``."""
+    (reference: train.py:210-213), drawn from ``gen`` (with a mesh, the
+    rank's rows of the global batch's draws)."""
     stdv = 5.0 * torch.rand((), generator=gen, device=img1.device)
-    n1 = torch.randn(img1.shape, generator=gen, device=img1.device)
-    n2 = torch.randn(img2.shape, generator=gen, device=img2.device)
+    n1 = global_rows(img1.shape, gen, img1.device, mesh)
+    n2 = global_rows(img2.shape, gen, img2.device, mesh)
     return noisy(img1, stdv, n1), noisy(img2, stdv, n2)
 
 
 @f32_precision()
 @cudnn_autotune()
-def forward_loss(
+def forward_loss_sums(
     state: TrainState, batch: dict, cfg: TrainConfig, remat: bool = True,
-    step: Optional[int] = None,
+    step: Optional[int] = None, mesh: Optional[Mesh] = None,
 ) -> tuple[torch.Tensor, dict]:
-    """The training-mode forward and the sequence loss (and its metrics).
-    Updates the BatchNorm statistics when they train. The noise and the
-    dropout masks draw from :func:`step_generators` of ``step`` (default:
-    ``state.step``)."""
+    """The training-mode forward, the sequence loss and the metrics' sums
+    and valid count (``training.loss.sequence_loss_sums``). Updates the
+    BatchNorm statistics when they train. The noise and the dropout masks
+    draw from :func:`step_generators` of ``step`` (default:
+    ``state.step``), with a mesh at the global batch's shape."""
     model = state.model
     model.train()
     if cfg.freeze_bn:
@@ -108,13 +147,25 @@ def forward_loss(
     noise_gen, drop_gen = step_generators(cfg.seed, state.step if step is None else step,
                                           img1.device)
     if cfg.add_noise:
-        img1, img2 = add_noise(img1, img2, noise_gen)
+        img1, img2 = add_noise(img1, img2, noise_gen, mesh)
     model.dropout_generator = drop_gen
+    model.dropout_rows = None if mesh is None else (mesh.rank, mesh.data)
     try:
         preds = model(img1, img2, iters=cfg.iters, remat=remat)
     finally:
         model.dropout_generator = None
-    return sequence_loss(preds, batch["flow"], batch["valid"], cfg.gamma, cfg.max_flow)
+        model.dropout_rows = None
+    return sequence_loss_sums(preds, batch["flow"], batch["valid"], cfg.gamma, cfg.max_flow)
+
+
+def forward_loss(
+    state: TrainState, batch: dict, cfg: TrainConfig, remat: bool = True,
+    step: Optional[int] = None,
+) -> tuple[torch.Tensor, dict]:
+    """The training-mode forward and the sequence loss (and its metrics):
+    :func:`forward_loss_sums` on one card, its sums divided."""
+    loss, sums = forward_loss_sums(state, batch, cfg, remat, step)
+    return loss, finalize_metrics(sums)
 
 
 @f32_precision()
@@ -152,6 +203,28 @@ def apply_update(
     return {"loss": loss, "grad_norm": gnorm, "bad_step": bad.to(torch.float32)}
 
 
+@torch.no_grad()
+def reduce_across_ranks(
+    loss: torch.Tensor, sums: dict, grads: list[torch.Tensor], mesh: Mesh,
+) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
+    """One all-reduce of a flat buffer of the gradients, the loss and the
+    metrics' sums and count: (the loss and gradients averaged over the
+    ranks, the global metrics, the gradients in their shapes)."""
+    keys = sorted(sums)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [loss.reshape(1).to(torch.float32)]
+                     + [sums[k].reshape(1).to(torch.float32) for k in keys])
+    multihost.all_reduce_(flat)
+    n = sum(g.numel() for g in grads)
+    flat[:n + 1].div_(mesh.data)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    total = dict(zip(keys, flat[n + 1:]))
+    return flat[n], finalize_metrics(total), out
+
+
 def loss_and_grads(
     state: TrainState, batch: dict, cfg: TrainConfig, remat: bool = True
 ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
@@ -161,21 +234,56 @@ def loss_and_grads(
 
 
 def make_train_step(
-    cfg: TrainConfig, remat: bool = True
+    cfg: TrainConfig, remat: bool = True, mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, dict], dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics``. ``batch``: image1 / image2
     (B, H, W, 3) uint8 or float32 in [0, 255], flow (B, H, W, 2), valid
-    (B, H, W), on the model's device. Updates ``state`` in place."""
+    (B, H, W), on the model's device: with ``mesh``, the rank's rows of the
+    global batch. Updates ``state`` in place; with a mesh every rank
+    returns the global metrics."""
 
     def step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         bn_old = [b.clone() for b in bn_buffers(state.model)]
-        with record_function(PHASES[0]):
-            loss, metrics = forward_loss(state, batch, cfg, remat)
-        with record_function(PHASES[1]):
-            grads = gradients(state, loss)
+        synced = (synced_batch_stats(state.model, multihost.all_reduce_grad)
+                  if mesh is not None else contextlib.nullcontext())
+        with synced:
+            with record_function(PHASES[0]):
+                loss, sums = forward_loss_sums(state, batch, cfg, remat, mesh=mesh)
+            with record_function(PHASES[1]):
+                grads = gradients(state, loss)
+        loss = loss.detach()
+        if mesh is None:
+            metrics = finalize_metrics(sums)
+        else:
+            with record_function(ALLREDUCE_PHASE):
+                loss, metrics, grads = reduce_across_ranks(loss, sums, grads, mesh)
         with record_function(PHASES[2]):
-            metrics.update(apply_update(state, loss.detach(), grads, bn_old, cfg))
+            metrics.update(apply_update(state, loss, grads, bn_old, cfg))
         state.step += 1
         return metrics
 
     return step
+
+
+def make_eval_step(model, iters: int, mesh: Optional[Mesh] = None):
+    """``eval_step(image1, image2) -> (flow_lr, flow_up)``: the test-mode
+    forward of ``model`` (JAX ``make_eval_step``). With ``mesh`` each rank
+    passes its rows of the global batch and gets the global batch's
+    outputs back, in its row order, on every rank (JAX's replicated
+    outputs), gathered by one sum over the ranks of zero-filled buffers."""
+
+    @torch.no_grad()
+    def eval_step(image1: torch.Tensor, image2: torch.Tensor):
+        model.eval()
+        flow_lr, flow_up = model(image1, image2, iters=iters)
+        if mesh is None:
+            return flow_lr, flow_up
+        return tuple(_gather_rows(t, mesh) for t in (flow_lr, flow_up))
+
+    return eval_step
+
+
+def _gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    full = t.new_zeros((t.shape[0] * mesh.data,) + tuple(t.shape[1:]))
+    full.view(t.shape[0], mesh.data, *t.shape[1:])[:, mesh.rank] = t
+    return multihost.all_reduce_(full)

@@ -22,6 +22,13 @@ KNOBS: Dict[str, Tuple[Optional[str], str]] = {
         None, "arms the default hub's flight recorder in this directory"),
     "RAFT_TORCH_CPU_PEAK_FLOPS": (
         None, "peak FLOP/s of the whole CPU for MFU (default: cores x 4.8e10)"),
+    "RAFT_TORCH_DIST_BACKEND": (
+        None, "the process group's backend, nccl or gloo (default: nccl for a rank on a "
+        "card, gloo for a rank on the CPU)"),
+    "RAFT_TORCH_DIST_TIMEOUT_S": (
+        "1800", "seconds a collective or a barrier waits for the other ranks before raising"),
+    "RAFT_TORCH_PREEMPT_CHECK_EVERY": (
+        "16", "steps between the ranks' agreements on a preemption signal"),
 }
 
 
