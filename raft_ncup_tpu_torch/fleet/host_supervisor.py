@@ -467,6 +467,7 @@ class FleetManager:
         staleness/restart/breaker contracts); the manager adds only the
         fleet-level view."""
         snaps = republish.get("replicas") or {}
+        died = []
         with self._lock:
             for h in self.replicas:
                 if self.cfg.host_of(h.index) != host:
@@ -490,8 +491,12 @@ class FleetManager:
                     # The agent detected the death; the router still
                     # needs its failover hook fired HERE, where the
                     # pending set lives.
-                    if self._on_death is not None:
-                        self._on_death(h.index, "republished death")
+                    died.append(h.index)
+        # Outside the lock, as ReplicaSupervisor delivers deaths: the
+        # router's hook takes its own lock and calls back into this one.
+        if self._on_death is not None:
+            for index in died:
+                self._on_death(index, "republished death")
 
     def _poll_loop(self) -> None:
         while not self._poll_stop.wait(self.cfg.poll_interval_s):

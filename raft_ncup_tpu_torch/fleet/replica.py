@@ -331,6 +331,9 @@ class ReplicaSupervisor:
         # not launder a replica's history by retiring it.
         self.retired: List[ReplicaHandle] = []
         self._lock = threading.RLock()
+        # Deaths noted under the lock, delivered to ``on_death`` after it
+        # is released (:meth:`_flush_deaths`).
+        self._deaths: List[tuple] = []
         self._poll_stop = threading.Event()
         self._poll_thread: Optional[threading.Thread] = None
         # Set by stop(): from then on no replica is (re)spawned, so a
@@ -444,6 +447,20 @@ class ReplicaSupervisor:
         with self._lock:
             for handle in self.replicas:
                 self._poll_one(handle, now)
+        self._flush_deaths()
+
+    def _flush_deaths(self) -> None:
+        """Deliver the deaths noted since the last flush to ``on_death``,
+        outside the lock: the router's handler takes the router's lock,
+        and the router calls back into this supervisor (``handle``,
+        ``admittable``) while it holds that lock, so a callback under this
+        lock deadlocks against a link reader failing the same replica
+        over."""
+        with self._lock:
+            deaths, self._deaths = self._deaths, []
+        if self._on_death is not None:
+            for index, reason in deaths:
+                self._on_death(index, reason)
 
     def _poll_one(self, handle: ReplicaHandle, now: float) -> None:
         if handle.state in (EXITED, BROKEN):
@@ -540,8 +557,7 @@ class ReplicaSupervisor:
             )
             handle.state = DEAD
             handle.restart_at = time.monotonic() + backoff
-        if self._on_death is not None:
-            self._on_death(handle.index, reason)
+        self._deaths.append((handle.index, reason))
 
     # -------------------------------------------------- elastic membership
 
@@ -572,7 +588,9 @@ class ReplicaSupervisor:
                 self.cfg.spawn_timeout_s if timeout is None else timeout
             )
             while handle.state == SPAWNING:
-                self._poll_one(handle, time.monotonic())
+                with self._lock:
+                    self._poll_one(handle, time.monotonic())
+                self._flush_deaths()
                 if handle.state != SPAWNING:
                     break
                 if time.monotonic() > deadline:

@@ -397,6 +397,50 @@ def test_supervisor_spawns_nothing_once_stop_has_begun(tmp_path):
     assert late is first and handle.restarts == 0 and handle.state == preplica.DEAD
 
 
+def test_supervisor_delivers_a_death_outside_its_lock(tmp_path):
+    """The router's death hook takes the router's lock, and the router
+    calls back into the supervisor (``handle``) while it holds that lock:
+    a hook run under the supervisor's lock deadlocks against a link reader
+    failing the same replica over (the card's fleet phase hung so after a
+    ``killreplica``). ``poll`` runs the hook after releasing its lock."""
+    cfg = pfleet.FleetConfig(base_dir=str(tmp_path), n_replicas=1, poll_interval_s=0.02,
+                             max_restarts=0)
+    router_lock = threading.Lock()
+    seen, got = [], []
+
+    def on_death(i, why):
+        with router_lock:
+            seen.append(i)
+
+    sup = pfleet.ReplicaSupervisor(
+        cfg, argv_prefix=[sys.executable, "-c", "import sys; sys.exit(1)"],
+        on_death=on_death, telemetry=pobs.Telemetry())
+    sup.start(wait_ready=False)
+    sup._poll_stop.set()  # drive poll() by hand
+    deadline = time.monotonic() + WAIT_S
+    while sup.replicas[0].child.running and time.monotonic() < deadline:
+        time.sleep(0.01)
+    router_lock.acquire()  # a link reader holds the router's lock ...
+
+    def reader():  # ... and asks the supervisor for the replica
+        try:
+            got.append(sup.handle(0))
+        finally:
+            router_lock.release()
+
+    poller = threading.Thread(target=sup.poll, daemon=True)
+    poller.start()
+    time.sleep(0.2)  # the poll has noted the death and calls the hook
+    link = threading.Thread(target=reader, daemon=True)
+    link.start()
+    link.join(WAIT_S)
+    poller.join(WAIT_S)
+    # A deadlocked supervisor keeps its lock, so stop() would wait forever.
+    assert not link.is_alive() and not poller.is_alive(), "deadlock"
+    sup.stop(drain=False)
+    assert got and seen == [0] and sup.replicas[0].deaths == 1
+
+
 def test_child_process_lifecycle(tmp_path):
     child = pfleet.ChildProcess(
         [sys.executable, "-c", "import sys, time; print('{\"a\": 1}'); sys.stdout.flush(); "
