@@ -200,7 +200,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     3, rank 0 wrote the one checkpoint, and a two-rank resume reads the
     uninterrupted batches; (d) a one-rank NCCL world under
     ``--strict_guards``, and two NCCL ranks on the one card, which raise
-    before step 1 ((c) and (d) at a 200x360 crop); (e) ``validate_sintel``
+    before step 1 ((c) at a 200x360 crop); (e) ``validate_sintel``
     through the evaluate entry with two ranks against one process;
 18. prints one JSON line describing the kernels (with each kernel's
     launches per rank on the data-parallel path), the card's name and
@@ -2158,19 +2158,14 @@ class _Instruments:
         def timed_step_factory(cfg, *a, **kw):
             step = make_step(cfg, *a, **kw)
 
-            # On the card; a CPU rehearsal of a phase skips the card's calls.
-            cuda = torch.cuda.is_available()
-
             def timed(state, batch):
                 before = read_launches()
                 corr_cuda.reset_path_tiles()
                 corr_cuda.reset_backward_counts()
-                if cuda:
-                    torch.cuda.reset_peak_memory_stats()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 metrics = step(state, batch)
-                if cuda:
-                    torch.cuda.synchronize()
+                torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 after = read_launches()
                 loss, bad = (float(v) for v in host_read([metrics["loss"], metrics["bad_step"]]))
@@ -2179,7 +2174,7 @@ class _Instruments:
                     # From the call for its batch to the end of the step.
                     iteration_ms=1e3 * (t1 - inst._t_iter),
                     loss=loss, bad=bad,
-                    peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                     launches={k: after[k] - before[k] for k in after},
                     path_tiles=corr_cuda.path_tiles() if inst.paths else None,
                     bwd_counts=corr_cuda.backward_counts() if inst.paths else None))
@@ -3955,14 +3950,19 @@ def check_fleet(torch, card, tmp: str) -> tuple:
 # world checks NCCL. Two ranks on one card time-slice it: their step times
 # measure the collectives' cost and the sharing, not scaling.
 DP_WORKER = "--dp_worker"
-DP_DEVICE = "cuda:0"  # every rank's card: the one card
-DP_EXTRA: list = []  # flags after the script's (none on the card)
+DP_CARD = ["--device", "cuda:0"]  # every rank's card: the one card
 DP_STEPS = 3
 DP_RESUME_STEPS = 5  # (c): preempted after 3 steps, resumed to 5
 DP_SIGTERM_STEP = 3
-# (c) and (d) run at a smaller crop of the same tree, so that each rank's
-# first step (cuDNN's autotuning) costs less; the model keeps its width.
+# (c) runs at a smaller crop of the same tree, so that each of its four
+# rank processes' first step (cuDNN's autotuning) costs less; the model
+# keeps its width.
 DP_SMALL = ["--image_size", "200", "360"]
+# A rank worker's flag before the train flags: the steps between the
+# ranks' agreements on a SIGTERM (16 in the program), 1 in (c) for an
+# exact stop step.
+DP_CHECK_EVERY = "--preempt_check_every"
+DP_COLLECTIVE_TIMEOUT_S = 300.0  # a rank's collectives, inside DP_TIMEOUT_S
 DP_TIMEOUT_S = 600
 # Two ranks against one process: the first step's loss within
 # DP_FIRST_LOSS_RTOL (the same batch in halves of 3: cuDNN may take other
@@ -4057,12 +4057,19 @@ def _dp_run(torch, outdir: str, argv: list) -> tuple:
 
 def dp_worker(outdir: str, argv: list) -> int:
     """One rank of a data-parallel run (``chip_smoke.py --dp_worker OUTDIR
-    <train flags>``, started by the phase): its record as
+    [--preempt_check_every N] <train flags>``, started by the phase): its
+    record as
     ``OUTDIR/rank<RANK>.json``; exits with the train entry's code, 1 when
     it raised."""
     import torch
 
     sys.path.insert(0, HERE)
+    from raft_ncup_tpu_torch.parallel import multihost
+    from raft_ncup_tpu_torch.resilience import preemption
+
+    multihost.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    if argv[:1] == [DP_CHECK_EVERY]:
+        preemption.CHECK_EVERY, argv = int(argv[1]), argv[2:]
     status, error, _, record = _dp_run(torch, outdir, argv)
     with open(os.path.join(outdir, f"rank{record['rank']}.json"), "w") as fh:
         json.dump(record, fh)
@@ -4072,7 +4079,7 @@ def dp_worker(outdir: str, argv: list) -> int:
 
 
 def _dp_env(backend: str, world: int, rank=None, port=None, **extra) -> dict:
-    env = dict(os.environ, PYTHONPATH=HERE, RAFT_TORCH_DIST_TIMEOUT_S="300", **extra)
+    env = dict(os.environ, PYTHONPATH=HERE, **extra)
     if backend:
         env["RAFT_TORCH_DIST_BACKEND"] = backend
     else:
@@ -4195,7 +4202,7 @@ def _dp_one_process(torch, tmp: str, argv: list, stream: list) -> dict:
     t0 = time.perf_counter()
     status, error, _, a = _dp_run(torch, os.path.join(tmp, "a"),
                                   argv + ["--checkpoint_dir", os.path.join(tmp, "a"),
-                                          "--device", DP_DEVICE])
+                                          *DP_CARD])
     a["seconds"] = time.perf_counter() - t0
     check(status == 0 and error is None, f"data parallel (a): exit {status}, {error}")
     check(a["host"] == [_digest(b) for b in stream[:DP_STEPS]] and a["card_equal"],
@@ -4206,13 +4213,12 @@ def _dp_one_process(torch, tmp: str, argv: list, stream: list) -> dict:
     return a
 
 
-def _dp_two_ranks(torch, card: str, tmp: str, argv: list, a: dict, want_rows: list,
-                  platform: str) -> dict:
+def _dp_two_ranks(torch, card: str, tmp: str, argv: list, a: dict, want_rows: list) -> dict:
     """(b) Two ranks on the one card under gloo, started by torchrun,
     against (a). Returns each rank's launches."""
     outdir = os.path.join(tmp, "b")
     codes, outs, seconds = _dp_ranks(
-        outdir, argv + ["--checkpoint_dir", outdir, "--device", DP_DEVICE], 2, "gloo",
+        outdir, argv + ["--checkpoint_dir", outdir, *DP_CARD], 2, "gloo",
         torchrun=True)
     check(codes == [0], f"data parallel (b): torchrun exited {codes}:\n"
                         f"{outs[0][0][-2000:]}\n{outs[0][1][-4000:]}")
@@ -4254,7 +4260,7 @@ def _dp_two_ranks(torch, card: str, tmp: str, argv: list, a: dict, want_rows: li
               "batches")
         check(all(s["launches"] == DP_WANT for s in rec["steps"]),
               f"data parallel (b): rank {r} launched {[s['launches'] for s in rec['steps']]}")
-        check(rec["summary"]["mesh"] == f"mesh(data=2,spatial=1:{platform})",
+        check(rec["summary"]["mesh"] == "mesh(data=2,spatial=1:gpu)",
               f"data parallel (b): rank {r}'s mesh {rec['summary']['mesh']}")
     return {f"data parallel (b) rank {r}": _dp_launches(rec) for r, rec in enumerate(b)}
 
@@ -4267,10 +4273,10 @@ def _dp_preemption(tmp: str, base: list) -> None:
     base = base + DP_SMALL + ["--num_steps", str(DP_RESUME_STEPS)]
     want_rows = [[_rows_digest(b, r, 2) for r in range(2)]
                  for b in _dp_stream(base, DP_RESUME_STEPS)]
-    cargv = base + ["--checkpoint_dir", outdir, "--device", DP_DEVICE]
+    cargv = [DP_CHECK_EVERY, "1", *base, "--checkpoint_dir", outdir, *DP_CARD]
     codes, outs, seconds = _dp_ranks(
         outdir, cargv + ["--chaos", f"sigterm@{DP_SIGTERM_STEP}", "--chaos_rank", "1"], 2,
-        "gloo", torchrun=False, RAFT_TORCH_PREEMPT_CHECK_EVERY="1")
+        "gloo", torchrun=False)
     c1 = _dp_records(outdir, 2)
     run_dir = os.path.join(outdir, "exp")
     files = sorted(n for n in os.listdir(run_dir) if n.startswith("step_"))
@@ -4299,13 +4305,12 @@ def _dp_preemption(tmp: str, base: list) -> None:
                      "of the uninterrupted one-process batches")
 
 
-def _dp_nccl(tmp: str, argv: list, platform: str) -> dict:
-    """(d) A one-rank NCCL world through the entry under --strict_guards
-    (``DP_SMALL``), then two NCCL ranks on the one card, which must raise
-    before step 1."""
+def _dp_nccl(tmp: str, argv: list) -> dict:
+    """(d) A one-rank NCCL world through the entry under --strict_guards,
+    then two NCCL ranks on the one card, which must raise before step 1."""
     outdir = os.path.join(tmp, "d")
     codes, outs, seconds = _dp_ranks(
-        outdir, argv + DP_SMALL + ["--checkpoint_dir", outdir, "--strict_guards"], 1, "",
+        outdir, argv + ["--checkpoint_dir", outdir, "--strict_guards"], 1, "",
         torchrun=True)
     check(codes == [0], f"data parallel (d): exit {codes}:\n{outs[0][1][-4000:]}")
     (d,) = _dp_records(outdir, 1)
@@ -4313,7 +4318,7 @@ def _dp_nccl(tmp: str, argv: list, platform: str) -> dict:
     losses = [s["loss"] for s in d["steps"]]
     outdir = os.path.join(tmp, "d2")
     codes2, _, seconds2 = _dp_ranks(
-        outdir, argv + ["--checkpoint_dir", outdir, "--device", DP_DEVICE], 2, "",
+        outdir, argv + ["--checkpoint_dir", outdir, *DP_CARD], 2, "",
         torchrun=False)
     d2 = _dp_records(outdir, 2)
     _dp_print("d", {
@@ -4327,8 +4332,7 @@ def _dp_nccl(tmp: str, argv: list, platform: str) -> dict:
                                     "steps": [len(r["steps"]) for r in d2],
                                     "seconds": seconds2}})
     check(sg["host_transfers"] == 0 and sg["steady_recompiles"] == 0
-          and dsum["mesh"] == f"mesh(data=1,spatial=1:{platform})"
-          and dsum["backend"] == ("nccl" if platform == "gpu" else "gloo")
+          and dsum["mesh"] == "mesh(data=1,spatial=1:gpu)" and dsum["backend"] == "nccl"
           and dsum["collectives"]["by_op"]["all-reduce"]["count"] >= DP_STEPS
           and len(losses) == DP_STEPS and all(math.isfinite(x) for x in losses)
           and all(s["launches"] == DP_WANT for s in d["steps"]),
@@ -4349,7 +4353,7 @@ def _dp_sharded_validation(tmp: str, sintel: str) -> None:
     from raft_ncup_tpu_torch import evaluate as eval_mod
 
     eargv = ["--model", "raft_nc_dbl", "--dataset", "sintel", "--root_sintel", sintel,
-             "--iters", "12", "--batch_size", "1", "--seed", "0", "--device", DP_DEVICE]
+             "--iters", "12", "--batch_size", "1", "--seed", "0", *DP_CARD]
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -4380,8 +4384,8 @@ def check_data_parallel(torch, card: str, tmp: str) -> dict:
     rank 0 wrote the one checkpoint, and a two-rank resume to step 5 reads
     the one-process batches; (d) a one-rank NCCL world through the entry
     under ``--strict_guards`` (no implicit read, no steady recompile), then
-    two NCCL ranks on the one card, which must raise before step 1 ((c) and
-    (d) at the ``DP_SMALL`` crop); (e) ``validate_sintel`` through the evaluate entry
+    two NCCL ranks on the one card, which must raise before step 1 ((c) at
+    the ``DP_SMALL`` crop); (e) ``validate_sintel`` through the evaluate entry
     with two ranks against one process. Returns each rank's launches."""
     t0 = time.perf_counter()
     things, sintel = os.path.join(tmp, "FlyingThings3D"), os.path.join(tmp, "Sintel")
@@ -4391,15 +4395,14 @@ def check_data_parallel(torch, card: str, tmp: str) -> dict:
     for flag in ("--load_pretrained", "--validation"):
         i = base.index(flag)
         del base[i:i + 2]
-    base += ["--root_things", things, "--sum_freq", "1", *DP_EXTRA]
+    base += ["--root_things", things, "--sum_freq", "1"]
     argv = base + ["--num_steps", str(DP_STEPS)]
     stream = _dp_stream(base + ["--num_steps", str(DP_RESUME_STEPS)], DP_RESUME_STEPS)
     want_rows = [[_rows_digest(b, r, 2) for r in range(2)] for b in stream]
-    platform = "gpu" if DP_DEVICE.startswith("cuda") else "cpu"
     a = _dp_one_process(torch, tmp, argv, stream)
-    paths = _dp_two_ranks(torch, card, tmp, argv, a, want_rows, platform)
+    paths = _dp_two_ranks(torch, card, tmp, argv, a, want_rows)
     _dp_preemption(tmp, base)
-    paths.update(_dp_nccl(tmp, argv, platform))
+    paths.update(_dp_nccl(tmp, argv))
     _dp_sharded_validation(tmp, sintel)
     print(f"data parallel: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return paths

@@ -224,22 +224,13 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
 
 
 def check_mesh(data: Optional[int], spatial: int = 1, pipe: int = 1) -> int:
-    """The data-parallel size the mesh flags ask for, checked against the
-    world this process runs in (``parallel.multihost.world_size_hint``):
-    ``data`` (None: the world size) must equal it; a spatial or pipe size
-    above 1 raises, naming ROADMAP.md queue 1 item 9b."""
-    from raft_ncup_tpu_torch.parallel.mesh import refuse_later_axes
+    """The data-parallel size the mesh flags ask for: ``parallel.mesh``'s
+    rule (:func:`~raft_ncup_tpu_torch.parallel.mesh.check_axes`) against
+    the world this process runs in or is about to join."""
+    from raft_ncup_tpu_torch.parallel.mesh import check_axes
     from raft_ncup_tpu_torch.parallel.multihost import world_size_hint
 
-    refuse_later_axes(spatial, pipe)
-    world = world_size_hint()
-    if data is not None and int(data) != world:
-        raise ValueError(
-            f"--data_parallel / --mesh data size {data} must equal the world size {world}: "
-            "the port's data axis is one process per card (ROADMAP.md, queue 1 item 9a), "
-            f"started by the launcher (torchrun --nproc_per_node {data} -m "
-            "raft_ncup_tpu_torch.train ...)")
-    return world
+    return check_axes(data, spatial, pipe, world_size_hint())
 
 
 def str2mesh(v: str) -> tuple[int, ...]:

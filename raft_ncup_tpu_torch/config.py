@@ -364,16 +364,12 @@ class TrainConfig:
             raise NotImplementedError(f"{self.scheduler} scheduler is not implemented!")
         if self.val_freq < 1 or self.sum_freq < 1:
             raise ValueError("val_freq and sum_freq must be positive")
-        if self.spatial_parallel != 1:
-            raise ValueError(
-                f"spatial_parallel={self.spatial_parallel}: the spatial axis is not in the "
-                "port yet (ROADMAP.md, queue 1 item 9b); only the data axis is")
-        if self.data_parallel is not None:
-            if self.data_parallel < 1:
-                raise ValueError(f"data_parallel must be >= 1, got {self.data_parallel}")
-            if self.batch_size % self.data_parallel:
-                raise ValueError(f"--batch_size {self.batch_size} not divisible by "
-                                 f"--data_parallel {self.data_parallel}")
+        from raft_ncup_tpu_torch.parallel.mesh import check_axes
+
+        check_axes(self.data_parallel, self.spatial_parallel)
+        if self.data_parallel is not None and self.batch_size % self.data_parallel:
+            raise ValueError(f"--batch_size {self.batch_size} not divisible by "
+                             f"--data_parallel {self.data_parallel}")
 
     @property
     def freeze_bn(self) -> bool:

@@ -59,30 +59,38 @@ class Mesh:
         return {"data": self.data, "spatial": self.spatial}
 
 
-def refuse_later_axes(spatial: int = 1, pipe: int = 1) -> None:
-    """Raise on a spatial or pipe axis above 1: not in the port yet."""
+def check_axes(data: Optional[int] = None, spatial: int = 1, pipe: int = 1,
+               world: Optional[int] = None) -> Optional[int]:
+    """The port's mesh rule, which the mesh, the CLI and the train
+    configuration all apply: every size is at least 1; a spatial or pipe
+    axis above 1 raises (not in the port yet); with ``world`` given,
+    ``data`` (None: the world size) must equal it. Returns the data size."""
+    if min(int(spatial), int(pipe), 1 if data is None else int(data)) < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data={data} spatial={spatial} "
+                         f"pipe={pipe}")
     if int(spatial) > 1 or int(pipe) > 1:
         raise ValueError(
             f"the multi-GPU spatial axis ({spatial}) and pipe axis ({pipe}) are not in the "
             f"port yet, only the data axis across processes is: {ITEM_9B} brings them")
+    if world is None:
+        return data
+    data = world if data is None else int(data)
+    if data != world:
+        raise ValueError(
+            f"mesh data size (--data_parallel / --mesh) {data} must equal the world size "
+            f"{world}: the port's data axis is one process per card (ROADMAP.md, queue 1 "
+            f"item 9a), started by the launcher (torchrun --nproc_per_node {data} -m "
+            "raft_ncup_tpu_torch.train ...)")
+    return data
 
 
 def make_mesh(
     data: Optional[int] = None, spatial: int = 1, pipe: int = 1, device=None,
 ) -> Mesh:
-    """The mesh of this process world. ``data`` (default: the world size)
-    must equal the world size; ``spatial`` and ``pipe`` above 1 raise.
-    ``device`` (default: a card when CUDA is present) names the
+    """The mesh of this process world (:func:`check_axes` against its
+    size). ``device`` (default: a card when CUDA is present) names the
     platform."""
-    if int(pipe) < 1 or int(spatial) < 1:
-        raise ValueError(f"mesh axes must be >= 1, got spatial={spatial} pipe={pipe}")
-    refuse_later_axes(spatial, pipe)
-    world = multihost.process_count()
-    data = world if data is None else int(data)
-    if data != world:
-        raise ValueError(
-            f"mesh data={data} must equal the world size {world}: the port's data axis is one "
-            f"process per card (launch {data} with torchrun --nproc_per_node {data})")
+    data = check_axes(data, spatial, pipe, multihost.process_count())
     if device is None:
         platform = "gpu" if torch.cuda.is_available() else "cpu"
     else:

@@ -16,9 +16,9 @@ changes it. NCCL refuses two ranks on one card, so an NCCL world checks
 its ranks' cards at once and raises when two share one, before any step.
 gloo reduces on the host: a card tensor goes there and back through
 :func:`analysis.guards.collective_read`, a named and counted
-synchronisation. Every collective waits ``RAFT_TORCH_DIST_TIMEOUT_S``
-(1800 s) for the other ranks, long enough for cuDNN's autotuning of a
-first step on each of them.
+synchronisation. Every collective waits :data:`COLLECTIVE_TIMEOUT_S`
+(1800 s) for the other ranks, long enough for cuDNN's autotuning
+of a first step on each of them.
 
 :func:`all_reduce_` is the port's one tensor collective; it counts each
 call and its bytes (``mesh.collective_stats`` reads them), and
@@ -43,6 +43,8 @@ from raft_ncup_tpu_torch.utils.knobs import knob_raw
 
 _LAUNCHER_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 BACKENDS = ("nccl", "gloo")
+# Seconds a collective or a barrier waits for the other ranks.
+COLLECTIVE_TIMEOUT_S = 1800.0
 
 # Calls and bytes of the collectives this process issued, by JAX's op
 # names (``mesh.collective_stats``).
@@ -138,11 +140,6 @@ def resolve_backend(backend_name: Optional[str], device) -> str:
     return name
 
 
-def collective_timeout_s() -> float:
-    """Seconds a collective or a barrier waits for the other ranks."""
-    return float(knob_raw("RAFT_TORCH_DIST_TIMEOUT_S"))
-
-
 def initialize_distributed(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
@@ -184,7 +181,7 @@ def initialize_distributed(
         dist.init_process_group(
             name, init_method=f"tcp://{coordinator_address}", world_size=int(num_processes),
             rank=int(process_id),
-            timeout=datetime.timedelta(seconds=collective_timeout_s()))
+            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     except Exception as e:
         raise RuntimeError(
             f"joining the process world failed: rank {process_id} of {num_processes} at "
@@ -303,7 +300,8 @@ def barrier(name: str, timeout_s: Optional[float] = None) -> bool:
     """Block until every rank reaches the barrier ``name`` (its n-th call
     on each rank meets the others' n-th), through the process group's
     store, with no collective on a card. Returns True; raises
-    ``TimeoutError`` after ``timeout_s`` (default: the knob's). One
+    ``TimeoutError`` after ``timeout_s`` (default:
+    :data:`COLLECTIVE_TIMEOUT_S`). One
     process: True at once."""
     if not is_multihost():
         return True
@@ -313,7 +311,7 @@ def barrier(name: str, timeout_s: Optional[float] = None) -> bool:
     key = f"raft_torch_barrier/{name}/{n}"
     store.add(key, 1)
     world = process_count()
-    limit = time.monotonic() + (collective_timeout_s() if timeout_s is None else timeout_s)
+    limit = time.monotonic() + (COLLECTIVE_TIMEOUT_S if timeout_s is None else timeout_s)
     while store.add(key, 0) < world:
         if time.monotonic() > limit:
             raise TimeoutError(f"barrier {name!r}: {store.add(key, 0)} of {world} ranks "

@@ -6,8 +6,8 @@ train loop reads at each step boundary (:meth:`PreemptionHandler.poll`);
 on a raised flag it saves one checkpoint and exits :data:`EXIT_PREEMPTED`.
 A second signal restores the previous handlers, so a third is fatal.
 Data-parallel ranks agree on the flag before any of them acts: ``poll``
-sums it over the ranks every ``check_every`` steps (the
-``RAFT_TORCH_PREEMPT_CHECK_EVERY`` knob, 16 as in the JAX package), so a
+sums it over the ranks every ``check_every`` steps (default
+:data:`CHECK_EVERY`, 16 as in the JAX package), so a
 signal to any one rank stops every rank at the same step, where they save
 one checkpoint (rank 0 writes it) and all exit 75. One process reads its
 flag at every boundary.
@@ -33,6 +33,7 @@ from typing import Any, Optional, Sequence
 
 EXIT_PREEMPTED = 75  # EX_TEMPFAIL: re-runnable, state saved
 EXIT_DIVERGED = 76  # EX_PROTOCOL: training diverged, rolled back
+CHECK_EVERY = 16  # steps between the ranks' agreements on the flag
 
 
 def config_fingerprint(model_cfg: Any) -> str:
@@ -55,12 +56,8 @@ class PreemptionHandler:
 
     def __init__(self, signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT),
                  check_every: Optional[int] = None):
-        from raft_ncup_tpu_torch.utils.knobs import knob_raw
-
         self.signals = tuple(signals)
-        if check_every is None:
-            check_every = int(knob_raw("RAFT_TORCH_PREEMPT_CHECK_EVERY"))
-        self.check_every = max(1, int(check_every))
+        self.check_every = max(1, int(CHECK_EVERY if check_every is None else check_every))
         self._requested = False
         self._previous: dict = {}
 

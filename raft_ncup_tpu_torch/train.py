@@ -31,8 +31,8 @@ writes the log, the flight dumps, the profile and the checkpoints (rank 0
 writes, every rank waits at a barrier). Validation runs sharded: each
 rank validates its share of the frames and the sums are reduced
 (``evaluation._shard_for_validation``). A SIGTERM to any rank stops every
-rank at the same step (the ranks agree on it every
-``RAFT_TORCH_PREEMPT_CHECK_EVERY`` steps), and all exit 75; a sentinel
+rank at the same step (the ranks agree on it every 16 steps,
+``resilience.preemption.CHECK_EVERY``), and all exit 75; a sentinel
 halt happens on every rank at once (exit 76). ``--chaos_rank R`` limits
 ``--chaos`` to rank R's process.
 
@@ -329,7 +329,7 @@ def _train(args, model_cfg, cfg, data_cfg, device) -> int:
                     if cfg.validation:
                         _validate(state, cfg, data_cfg, logger, step_i, prefetcher)
         if preempted:
-            if ckpt.latest_step != step_i:
+            if ckpt.last_saved != step_i:
                 ckpt.save(state, cfg)
             train_health.draining(f"preempted @ {step_i}")
             # Banked after the checkpoint, so the dump names a saved step.

@@ -172,6 +172,10 @@ class CheckpointManager:
         self._metadata = dict(metadata) if metadata else None
         self._save_retries = save_retries
         self.retry_stats = RetryStats()
+        # The step this manager last saved or restored, held by every rank
+        # alike: a rank decides on a collective save from it, never from
+        # the directory, which rank 0 may have written already.
+        self.last_saved: Optional[int] = None
 
     def _retry(self, fn, desc: str):
         return retry_io(fn, attempts=self._save_retries, base_delay_s=0.2,
@@ -198,6 +202,7 @@ class CheckpointManager:
             for _, old in _steps(self.directory)[:-self.max_to_keep]:
                 os.remove(old)
         barrier(f"checkpoint_{state.step}")
+        self.last_saved = state.step
         return path
 
     def _write_metadata(self) -> None:
@@ -248,7 +253,9 @@ class CheckpointManager:
         step = self.latest_step if step is None else step
         if step is None:
             raise FileNotFoundError(f"no step_<N>.pt checkpoint under {self.directory!r}")
-        return restore_into(state, self.path(step))
+        restore_into(state, self.path(step))
+        self.last_saved = step
+        return state
 
 
 def _allowed_source_keys(model: RAFT) -> list[str]:

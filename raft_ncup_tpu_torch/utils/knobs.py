@@ -25,10 +25,6 @@ KNOBS: Dict[str, Tuple[Optional[str], str]] = {
     "RAFT_TORCH_DIST_BACKEND": (
         None, "the process group's backend, nccl or gloo (default: nccl for a rank on a "
         "card, gloo for a rank on the CPU)"),
-    "RAFT_TORCH_DIST_TIMEOUT_S": (
-        "1800", "seconds a collective or a barrier waits for the other ranks before raising"),
-    "RAFT_TORCH_PREEMPT_CHECK_EVERY": (
-        "16", "steps between the ranks' agreements on a preemption signal"),
 }
 
 

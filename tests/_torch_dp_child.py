@@ -9,6 +9,7 @@ produced to ``WORKDIR/rank<RANK>.pt``. Imports torch and the port only.
 import os
 import signal
 import sys
+import time
 
 import numpy as np
 import torch
@@ -21,6 +22,7 @@ from raft_ncup_tpu_torch.nn.extractor import channel_dropout
 from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
 from raft_ncup_tpu_torch.parallel import multihost
 from raft_ncup_tpu_torch.resilience import PreemptionHandler
+from raft_ncup_tpu_torch.resilience import preemption
 from raft_ncup_tpu_torch.training import checkpoint
 from raft_ncup_tpu_torch.training import step as step_mod
 from raft_ncup_tpu_torch.training.state import state_for
@@ -31,6 +33,7 @@ ITERS = 1
 VAL = dict(size_hw=(32, 48), length=5, iters=2, batch_size=2)
 PREEMPT_SIGNAL_STEP = 3  # rank 1 signals itself after this step of the poll loop
 PREEMPT_CHECK_EVERY = 2
+COLLECTIVE_TIMEOUT_S = 120.0  # a hung collective fails well inside the test's own limit
 
 
 def model_cfg():
@@ -88,9 +91,31 @@ def preemption_poll(rank):
     return None
 
 
-def train_entry_run(workdir, extra):
+def late_after_the_stop(directory, seen):
+    """``PreemptionHandler.poll`` that, once the ranks agree to stop,
+    returns only after rank 0 has written that step's checkpoint: the
+    order in which a rank that read the directory to decide on its save
+    would skip the save that rank 0 waits for. ``seen`` records the steps
+    it waited for."""
+    poll = PreemptionHandler.poll
+
+    def late(self, step):
+        stop = poll(self, step)
+        if stop:
+            path = os.path.join(directory, f"step_{step}.pt")
+            limit = time.monotonic() + 60
+            while not os.path.exists(path) and time.monotonic() < limit:
+                time.sleep(0.01)
+            seen.append((step, os.path.exists(path)))
+        return stop
+
+    return poll, late
+
+
+def train_entry_run(workdir, extra, late_seen=None):
     """The train entry in this world: its exit code and how many
-    checkpoints this process wrote."""
+    checkpoints this process wrote. With ``late_seen`` (a list), this rank
+    reaches the save after a stop only once rank 0 has written it."""
     calls = []
     save = checkpoint.save
 
@@ -99,6 +124,9 @@ def train_entry_run(workdir, extra):
         return save(*a, **kw)
 
     checkpoint.save = counting
+    if late_seen is not None:
+        poll, PreemptionHandler.poll = late_after_the_stop(
+            os.path.join(workdir, "ck", "run"), late_seen)
     try:
         status = train_entry.main([
             "--device", "cpu", "--name", "run", "--stage", "chairs", "--model", "raft",
@@ -107,6 +135,8 @@ def train_entry_run(workdir, extra):
             "--checkpoint_dir", os.path.join(workdir, "ck"), *extra])
     finally:
         checkpoint.save = save
+        if late_seen is not None:
+            PreemptionHandler.poll = poll
     return status, len(calls)
 
 
@@ -114,6 +144,7 @@ def main():
     port, rank, world, workdir = sys.argv[1:5]
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
+    multihost.COLLECTIVE_TIMEOUT_S = COLLECTIVE_TIMEOUT_S
     assert multihost.initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
     mesh = mesh_mod.make_mesh(device="cpu")
     inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
@@ -132,9 +163,11 @@ def main():
     out["eval_step"] = eval_step(batch["image1"], batch["image2"])
 
     out["poll_stop"] = preemption_poll(rank)
-    os.environ["RAFT_TORCH_PREEMPT_CHECK_EVERY"] = "1"
+    preemption.CHECK_EVERY = 1  # the entry's ranks agree at every step
+    out["late_seen"] = [] if rank == 1 else None
     out["entry_preempted"] = train_entry_run(
-        workdir, ["--num_steps", "4", "--chaos", "sigterm@2", "--chaos_rank", "1"])
+        workdir, ["--num_steps", "4", "--chaos", "sigterm@2", "--chaos_rank", "1"],
+        out["late_seen"])
     out["entry_resumed"] = train_entry_run(
         workdir, ["--num_steps", "4", "--restore_ckpt", os.path.join(workdir, "ck", "run")])
     out["barrier"] = multihost.barrier("child_end", timeout_s=60)

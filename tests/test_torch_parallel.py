@@ -21,12 +21,13 @@ from raft_ncup_tpu.parallel import make_mesh as jax_make_mesh
 from raft_ncup_tpu.parallel import mesh_fingerprint as jax_mesh_fingerprint
 from raft_ncup_tpu.parallel.mesh import collective_stats as jax_collective_stats
 from raft_ncup_tpu.parallel.mesh import resolve_config_mesh as jax_resolve_config_mesh
+from raft_ncup_tpu.resilience.preemption import PreemptionHandler as JaxPreemptionHandler
 from raft_ncup_tpu_torch import cli
 from raft_ncup_tpu_torch.config import TrainConfig
 from raft_ncup_tpu_torch.data.loader import FlowLoader
 from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
 from raft_ncup_tpu_torch.parallel import multihost
-from raft_ncup_tpu_torch.resilience import PreemptionHandler
+from raft_ncup_tpu_torch.resilience import PreemptionHandler, preemption
 from raft_ncup_tpu_torch.training.checkpoint import CheckpointManager
 from raft_ncup_tpu_torch.training.logger import Logger
 
@@ -191,15 +192,17 @@ def test_one_process_is_a_no_op(monkeypatch):
 
 
 def test_a_failed_join_raises_and_never_carries_on(monkeypatch):
-    monkeypatch.setenv("RAFT_TORCH_DIST_TIMEOUT_S", "2")
+    monkeypatch.setattr(multihost, "COLLECTIVE_TIMEOUT_S", 2.0)
     with pytest.raises(RuntimeError, match="joining the process world failed"):
         multihost.initialize_distributed("127.0.0.1:9", 2, 1, device="cpu")
     assert not multihost.initialized()
 
 
 def test_check_every_knob(monkeypatch):
-    assert PreemptionHandler().check_every == 16  # the JAX package's default
-    monkeypatch.setenv("RAFT_TORCH_PREEMPT_CHECK_EVERY", "3")
+    # A constant, the JAX package's constructor default.
+    assert PreemptionHandler().check_every == JaxPreemptionHandler().check_every == 16
+    assert PreemptionHandler(check_every=0).check_every == 1
+    monkeypatch.setattr(preemption, "CHECK_EVERY", 3)
     assert PreemptionHandler().check_every == 3
 
 

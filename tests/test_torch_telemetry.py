@@ -467,8 +467,7 @@ def test_cpu_peak_and_telemetry_knobs(monkeypatch):
     with pytest.raises(KeyError):
         knobs.knob_raw("RAFT_NCUP_TELEMETRY")
     assert set(knobs.KNOBS) == {"RAFT_TORCH_TELEMETRY", "RAFT_TORCH_FLIGHT_DIR",
-                                "RAFT_TORCH_CPU_PEAK_FLOPS", "RAFT_TORCH_DIST_BACKEND",
-                                "RAFT_TORCH_DIST_TIMEOUT_S", "RAFT_TORCH_PREEMPT_CHECK_EVERY"}
+                                "RAFT_TORCH_CPU_PEAK_FLOPS", "RAFT_TORCH_DIST_BACKEND"}
 
 
 def test_legacy_alias_table_is_jaxs():
