@@ -7,7 +7,12 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    forward, the train step and the plain versions keep TF32 off
    themselves);
 2. builds the four hand-written kernels from ``raft_ncup_tpu_torch/csrc``,
-   all ``nvcc`` processes at once;
+   all ``nvcc`` processes at once, and beside them the host WebP and JPEG
+   decoders (``csrc/*.cpp``, the system C++ compiler); decodes every
+   committed fixture of ``tests/data/codecs`` and holds its RGB bytes'
+   sha256 against the manifest's digest of Pillow's decode, and times the
+   decode of the committed 540x960 lossy WebP frames with 1 and 4 host
+   threads (its ``codecs:`` line);
 3. holds the correlation-lookup kernel (A) against its plain PyTorch
    version at the served shape (batch 2, 55x128 level 0, C=256, 4 levels,
    r=4) with random and with smooth flow, at 1088x1920 (136x240 level 0)
@@ -87,8 +92,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     frames, each in its own process;
 12. trains the flagship from files in-process through the train entry
     (``train.main``) with ``scripts/train_raft_nc_things.sh``'s flag lines
-    minus ``--compressed_ft``: a FlyingThings3D-layout tree at 540x960
-    (PNG frames warped by their PFM flows, both directions, clean and
+    (minus ``--compressed_ft`` in (a)-(e)): a FlyingThings3D-layout tree at
+    540x960 (PNG frames warped by their PFM flows, both directions, clean and
     final), read and augmented by the loader's threads and copied ahead by
     the device prefetcher, validated on a Sintel-layout tree, warm-started
     from a ``raft`` .pth written by ``save_reference_pth``: (a) f32, 8 steps
@@ -98,7 +103,12 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     ``nan@5,nan@6,nan@7`` with ``--sentinel_halt_after 3`` (exit 76, the
     live parameters equal to ``step_4.pt``); (d) ``bf16_train``, 5 steps;
     (e) ``--freeze_raft --add_noise --dropout 0.1``, 2 steps (the trunk
-    unchanged). Every step launches A 24, A' 12, B 96 and B' 48 times, every
+    unchanged); (f) the flag lines whole, ``--compressed_ft`` included, 3
+    steps on WebP frames (the committed 540x960 frames, decoded by the
+    port's C++ decoder) and npz flows, against a twin run without the flag
+    on the same pixels as PNG and flows as PFM (batches equal by hash,
+    losses within 1e-6 relative, the loader's host ms per sample of
+    each). Every step launches A 24, A' 12, B 96 and B' 48 times, every
     prefetched batch equals its host batch, and no plain version runs; per
     run it prints step and iteration walls beside the synthetic step, the
     host ms per sample, the prefetcher's waits, tile paths (and a synthetic
@@ -241,6 +251,8 @@ NCUP_LAYERS = [  # (name, k, Cin, Cout)
     ("decoder_0", 3, 4, 2), ("nconv_out", 1, 2, 1),
 ]
 SERVE_SIZE = (436, 1024)
+CODEC_FIXTURES = os.path.join(HERE, "tests", "data", "codecs")
+CODEC_ROUNDS = 5  # timed decodes of each committed 540x960 frame
 SERVE_REQUESTS = 8
 # A bf16 served pair against the same preset's plain-version forward: the
 # kernel and the plain version sum the same bf16 products in another f32
@@ -437,6 +449,54 @@ def corr_paths(torch, f1s, lv, coords, radius):
           f"corr lookup path tiles {paths} differ from the predicted "
           f"{tiled} tiled / {per_query} per-query")
     return out, paths
+
+
+def check_codecs(card) -> dict:
+    """The host image decoders (``csrc/webp_decode.cpp``,
+    ``csrc/jpeg_decode.cpp``): every committed fixture of
+    ``tests/data/codecs`` decoded through ``read_image``, its RGB bytes'
+    sha256 against the manifest's digest of Pillow's decode; then the
+    decode ms per 540x960 lossy frame with 1 thread (each call timed) and
+    with 4 threads (wall over frames: throughput), on the host."""
+    import concurrent.futures
+    import hashlib
+
+    import numpy as np
+    from raft_ncup_tpu_torch.io import flow_io
+    from raft_ncup_tpu_torch.io.codecs import decode_webp
+
+    manifest = json.load(open(os.path.join(CODEC_FIXTURES, "manifest.json")))
+    bad = []
+    for name, entry in sorted(manifest["files"].items()):
+        img = flow_io.read_image(os.path.join(CODEC_FIXTURES, name))
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        if digest != entry["sha256_rgb"] or list(img.shape) != entry["shape"]:
+            bad.append(name)
+    check(not bad, f"codecs: decodes differ from Pillow's (manifest digests): {bad}")
+    frames = [open(os.path.join(CODEC_FIXTURES, f"frame_540x960_{i}.webp"), "rb").read()
+              for i in range(4)]
+    for data in frames:
+        decode_webp(data)  # warm
+    one = []
+    for _ in range(CODEC_ROUNDS):
+        for data in frames:
+            t0 = time.perf_counter()
+            decode_webp(data)
+            one.append(1e3 * (time.perf_counter() - t0))
+    work = frames * CODEC_ROUNDS
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(decode_webp, work))
+        wall4 = time.perf_counter() - t0
+    row = {"card": card, "fixtures": len(manifest["files"]), "digests_equal": True,
+           "pillow_versions": manifest["versions"],
+           "frame_bytes": [len(d) for d in frames],
+           "webp_540x960_ms_1_thread_median": statistics.median(one),
+           "webp_540x960_ms_1_thread_min": min(one),
+           "webp_540x960_ms_per_frame_4_threads": 1e3 * wall4 / len(work),
+           "decodes_timed": len(one), "cpu_count": os.cpu_count()}
+    print(f"codecs: {json.dumps(row)}", flush=True)
+    return row
 
 
 def check_corr(torch, gen, flush, name, B, H, W, C=256, levels=4, radius=4,
@@ -2089,6 +2149,55 @@ def script_flags(script: str) -> list:
     raise CheckFailed(f"no python train.py line in scripts/{script}")
 
 
+COMPRESSED_FRAMES = 4  # frames a sequence in run (f)'s trees
+COMPRESSED_STEPS = 3
+COMPRESSED_LOSS_RTOL = 1e-6
+
+
+def write_compressed_things_tree(root: str, seed: int = 1) -> None:
+    """FlyingThings3D's compressed layout (``--compressed_ft``) beside its
+    PNG/PFM twin, in one tree: ``frames_{clean,final}pass_webp`` hold the
+    committed 540x960 WebP frames (``tests/data/codecs/frame_540x960_*``,
+    reused across sequences and passes), ``frames_{clean,final}pass`` the
+    same pixels as PNG (decoded by the port's WebP decoder), and
+    ``optical_flow`` each flow twice, as ``.npz`` (key ``optical_flow``,
+    (2, H, W) float32, written with numpy) and as ``.pfm``. The frames do
+    not follow the flows."""
+    import shutil
+
+    import numpy as np
+    from raft_ncup_tpu_torch.io import write_pfm, write_png
+    from raft_ncup_tpu_torch.io.codecs import decode_webp
+
+    g = np.random.default_rng(seed)
+    h, w = THINGS_SIZE
+    webps = [os.path.join(CODEC_FIXTURES, f"frame_540x960_{i}.webp") for i in range(4)]
+    pngs = []
+    for i, path in enumerate(webps):
+        pngs.append(os.path.join(root, f"decoded_{i}.png"))
+        os.makedirs(root, exist_ok=True)
+        write_png(pngs[-1], decode_webp(open(path, "rb").read(), path))
+    for s in range(THINGS_SEQUENCES):
+        seq = os.path.join("TRAIN", "A", f"{s:04d}")
+        for dstype in ("frames_cleanpass", "frames_finalpass"):
+            for form, files, ext in (("_webp", webps, "webp"), ("", pngs, "png")):
+                d = os.path.join(root, dstype + form, seq, "left")
+                os.makedirs(d, exist_ok=True)
+                for i in range(COMPRESSED_FRAMES):
+                    k = (i + s + (dstype == "frames_finalpass")) % len(files)
+                    shutil.copyfile(files[k], os.path.join(d, f"{6 + i:04d}.{ext}"))
+        for direction in ("into_future", "into_past"):
+            d = os.path.join(root, "optical_flow", seq, direction, "left")
+            os.makedirs(d, exist_ok=True)
+            for i in range(COMPRESSED_FRAMES):
+                flow = g.normal(0, 6, (2, h, w)).astype(np.float32)
+                name = f"OpticalFlowInto_{6 + i:04d}_L"
+                np.savez(os.path.join(d, name + ".npz"), optical_flow=flow)
+                f3 = np.zeros((h, w, 3), np.float32)
+                f3[..., :2] = flow.transpose(1, 2, 0)
+                write_pfm(os.path.join(d, name + ".pfm"), f3)
+
+
 def _same_bytes(a, b) -> bool:
     """Bit for bit: the same dtype, shape and bytes (tensors on the host)."""
     return (a.dtype == b.dtype and a.shape == b.shape
@@ -2243,7 +2352,8 @@ def flight_triggers(directory: str) -> list:
 
 def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
     """Train the flagship from files in-process through ``train.main`` with
-    ``scripts/train_raft_nc_things.sh``'s flag lines minus ``--compressed_ft``:
+    ``scripts/train_raft_nc_things.sh``'s flag lines (minus ``--compressed_ft``
+    in (a)-(e)):
     a FlyingThings3D-layout tree at 540x960 read and augmented on the host
     by the loader's threads and copied ahead by the device prefetcher,
     validated on a Sintel-layout tree, warm-started from a ``raft`` .pth.
@@ -2256,8 +2366,13 @@ def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
     one flight dump under ``<run_dir>/flight`` (``preemption_drain``,
     ``sentinel_halt``); (d) ``bf16_train``, 5 steps; (e)
     ``--freeze_raft --add_noise --dropout 0.1``, 2 steps: the trunk
-    unchanged bit for bit, A' launched. Every step launches A 24, A' 12,
-    B 96 and B' 48 times; every prefetched batch equals its host batch."""
+    unchanged bit for bit, A' launched; (f) the flag lines whole,
+    ``--compressed_ft`` included, 3 steps on WebP frames and npz flows
+    (``write_compressed_things_tree``) against a twin run without the flag
+    on the same pixels as PNG and flows as PFM: batches equal by hash,
+    losses within ``COMPRESSED_LOSS_RTOL``, the loader's host ms per sample
+    of each. Every step launches A 24, A' 12, B 96 and B' 48 times; every
+    prefetched batch equals its host batch."""
     from raft_ncup_tpu_torch.cli import parse_train
     from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
     from raft_ncup_tpu_torch.models.raft import RAFT
@@ -2281,9 +2396,9 @@ def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
     base += ["--root_things", things, "--root_sintel", sintel]
     want = {"corr_lookup": 24, "corr_lookup_bwd": 12, "nconv": 96, "nconv_bwd": 48}
 
-    def run(label, ckdir, steps, *extra, status=0):
-        argv = base + ["--checkpoint_dir", os.path.join(tmp, ckdir), "--num_steps", str(steps),
-                       *extra]
+    def run(label, ckdir, steps, *extra, status=0, flags=None):
+        argv = (base if flags is None else flags) + [
+            "--checkpoint_dir", os.path.join(tmp, ckdir), "--num_steps", str(steps), *extra]
         t0 = time.perf_counter()
         summary, launches, inst, vals = _train_files_run(torch, label, argv, status)
         seconds = time.perf_counter() - t0
@@ -2380,6 +2495,36 @@ def check_train_files(torch, card, tmp: str, synthetic_ms: float) -> dict:
     inst_e.states.clear()
     report["e"] = e
     torch.cuda.empty_cache()
+    # (f) the script's flag lines whole, --compressed_ft included: WebP
+    # frames and npz flows, against a twin run on the same pixels and flows
+    # as PNG and PFM.
+    t_tree = time.perf_counter()
+    compressed = os.path.join(tmp, "FlyingThings3D_compressed")
+    write_compressed_things_tree(compressed)
+    t_tree = time.perf_counter() - t_tree
+    whole = script_flags("train_raft_nc_things.sh")
+    check("--compressed_ft" in whole, "the things script no longer passes --compressed_ft")
+    whole[whole.index("--load_pretrained") + 1] = pth
+    whole += ["--root_things", compressed, "--root_sintel", sintel]
+    twin_flags = [t for t in whole if t != "--compressed_ft"]
+    f, inst_f, paths["f"] = run("(f) --compressed_ft", "f", COMPRESSED_STEPS, flags=whole)
+    twin, inst_twin, _ = run("(f) PNG twin", "f_twin", COMPRESSED_STEPS, flags=twin_flags)
+    check(len(inst_f.host) == COMPRESSED_STEPS and inst_f.host == inst_twin.host,
+          "(f): the WebP run's batches differ from the PNG twin's")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(f["losses"], twin["losses"]))
+    check(all(math.isfinite(x) for x in f["losses"]) and rel <= COMPRESSED_LOSS_RTOL,
+          f"(f): losses {f['losses']} against the twin's {twin['losses']}")
+    inst_f.states.clear()
+    inst_twin.states.clear()
+    report["f"] = {
+        "webp": f, "png_twin": twin, "batch_hashes_equal": True,
+        "loss_max_rel_diff_vs_twin": rel, "tree_seconds": t_tree,
+        "loader_host_ms_per_sample_webp": f["loader_host_ms_per_sample"],
+        "loader_host_ms_per_sample_png": twin["loader_host_ms_per_sample"]}
+    torch.cuda.empty_cache()
+    for part in ("webp", "png_twin"):
+        print(f"train from files (f) {part}: {json.dumps(report['f'].pop(part))}", flush=True)
+    print(f"train from files (f): {json.dumps(report['f'])}", flush=True)
     for key in ("a", "c", "d", "e"):
         print(f"train from files ({key}): {json.dumps(report[key])}", flush=True)
     for part in ("interrupted", "resumed"):
@@ -4430,13 +4575,33 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
 
+    import threading
+
+    from raft_ncup_tpu_torch.io import codec_build
+
     t0 = time.perf_counter()
+    codec_result = {}
+
+    def build_codecs():
+        try:
+            codec_result["seconds"] = codec_build.build()
+        except Exception as e:  # reported on the main thread
+            codec_result["error"] = e
+
+    codec_thread = threading.Thread(target=build_codecs)
+    codec_thread.start()
     seconds = cuda_build.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s wall, per kernel {seconds}", flush=True)
+    codec_thread.join()
+    if "error" in codec_result:
+        raise codec_result["error"]
+    print(f"build: {time.perf_counter() - t0:.2f} s wall, per kernel {seconds}, "
+          f"host decoders {codec_result['seconds']}", flush=True)
     for name in cuda_build.KERNELS:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+
+    check_codecs(card)
 
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 * 2**20 // 4, device="cuda")

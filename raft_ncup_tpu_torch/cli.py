@@ -187,8 +187,8 @@ def add_data_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--root_hd1k", default=d.root_hd1k)
     parser.add_argument("--chairs_split_file", default=d.chairs_split_file)
     parser.add_argument("--compressed_ft", action="store_true",
-                        help="FlyingThings3D's webp frames and npz flows (the port has "
-                        "no webp decoder yet: reading a frame raises)")
+                        help="FlyingThings3D's WebP frames (frames_*_webp) and npz flows, "
+                        "decoded on the host by the port's C++ WebP decoder")
     parser.add_argument("--num_workers", type=int, default=4,
                         help="threads decoding and augmenting samples ahead")
     parser.add_argument("--device_prefetch", type=int, default=d.device_prefetch,

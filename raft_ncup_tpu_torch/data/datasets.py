@@ -14,8 +14,10 @@ caller passes (the loader's per-(seed, epoch, index) one).
 :class:`MixedDataset` concatenates datasets with replication factors by
 an index table, and :func:`fetch_training_set` builds each stage's
 mixture with the JAX package's augmentation ranges. FlyingThings3D's
-compressed form (``load_compressed``) globs webp frames, which the port
-cannot decode yet: reading one raises, naming the codec.
+compressed form (``load_compressed``, the shipped things script's
+``--compressed_ft``) globs WebP frames and npz flows; the frames go
+through the port's C++ WebP decoder (``io/codecs.py``), built and loaded
+when such a dataset is built.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 
 from raft_ncup_tpu_torch.config import DataConfig
 from raft_ncup_tpu_torch.data.augment import FlowAugmentor, SparseFlowAugmentor
-from raft_ncup_tpu_torch.io import read_flow_kitti, read_gen
+from raft_ncup_tpu_torch.io import codec_build, read_flow_kitti, read_gen
 
 PACKAGED_CHAIRS_SPLIT = osp.join(osp.dirname(osp.abspath(__file__)), "chairs_split.txt")
 
@@ -163,7 +165,8 @@ class KITTI(FlowDataset):
 class FlyingThings3D(FlowDataset):
     """FlyingThings3D: the left camera, both temporal directions
     (reference: core/datasets.py:138-166); ``load_compressed`` globs the
-    webp frames and npz flows instead."""
+    ``frames_*_webp`` WebP frames and npz flows instead, and builds and
+    loads the host decoders before the first read."""
 
     def __init__(
         self,
@@ -192,6 +195,8 @@ class FlyingThings3D(FlowDataset):
                     else:
                         self.image_list.append([images[i + 1], images[i]])
                         self.flow_list.append(flows[i + 1])
+        if load_compressed and self.image_list:
+            codec_build.load_all()
 
 
 class HD1K(FlowDataset):

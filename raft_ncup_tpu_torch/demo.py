@@ -1,9 +1,9 @@
 """Flow on a folder of frames: ``python -m raft_ncup_tpu_torch.demo``.
 
 Port of the root ``demo.py``: for each pair of consecutive frames
-(PNG, or PPM/PGM) in ``--path``, one test-mode forward and a PNG under
-``--output`` of the first frame above the colour-coded flow, written
-with the port's own codec. The model comes from the model flags and
+(PNG, JPEG or PPM; the JAX demo globs PNG and JPEG) in ``--path``, one
+test-mode forward and a PNG under ``--output`` of the first frame above
+the colour-coded flow, written with the port's own codec. The model comes from the model flags and
 ``--restore_ckpt`` (or ``--model`` naming a checkpoint file or directory,
 as in the reference's demo, which then runs ``raft``), loaded as the
 evaluate entry loads it. ``--show`` raises: the card has no display.
@@ -57,6 +57,7 @@ def main(argv=None) -> int:
     model = load_model(model_config_from_args(args, dataset="sintel"), ckpt, args.device,
                        args.seed)
     files = sorted(glob.glob(os.path.join(args.path, "*.png"))
+                   + glob.glob(os.path.join(args.path, "*.jpg"))
                    + glob.glob(os.path.join(args.path, "*.ppm")))
     if len(files) < 2:
         raise SystemExit(f"need >= 2 frames in {args.path}")

@@ -5,10 +5,11 @@ images, and the ``read_gen`` dispatcher by extension. Host-side numpy
 throughout; flows are channel-last (H, W, 2) float32, images (H, W, 3)
 uint8 RGB.
 
-The JAX package reads and writes PNGs with OpenCV and Pillow. Here PNGs
-go through the port's own codec (:mod:`raft_ncup_tpu_torch.io.png`), and
-binary PPM/PGM (FlyingChairs' frames) are parsed with numpy. JPEG and
-webp raise: the port has no codec for them.
+The JAX package reads and writes images with OpenCV and Pillow. Here PNGs
+go through the port's own codec (:mod:`raft_ncup_tpu_torch.io.png`),
+binary PPM/PGM (FlyingChairs' frames) are parsed with numpy, and WebP
+(compressed FlyingThings3D) and JPEG through the port's C++ decoders
+(:mod:`raft_ncup_tpu_torch.io.codecs`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import Union
 
 import numpy as np
 
-from raft_ncup_tpu_torch.io.png import read_png, write_png
+from raft_ncup_tpu_torch.io.codecs import decode_jpeg, decode_webp, sniff
+from raft_ncup_tpu_torch.io.png import decode_png, read_png, write_png
 
 _FLO_MAGIC = 202021.25
 _PNM_TOKEN = re.compile(rb"\s*(#[^\n]*\n\s*)*(\S+)")  # a header token after comments
@@ -142,10 +144,8 @@ def write_flow_kitti(path: Union[str, os.PathLike], flow: np.ndarray) -> None:
 # ------------------------------------------------------------------ images
 
 
-def _read_pnm(path) -> np.ndarray:
+def _read_pnm(path, data: bytes) -> np.ndarray:
     """Binary PPM (P6) or PGM (P5), 8 or 16 bits -> (H, W[, 3]) samples."""
-    with open(path, "rb") as f:
-        data = f.read()
     tokens, pos = [], 0
     while len(tokens) < 4:
         m = _PNM_TOKEN.match(data, pos)
@@ -165,22 +165,30 @@ def _read_pnm(path) -> np.ndarray:
     return px.reshape((h, w, 3) if channels == 3 else (h, w))
 
 
+_IMAGE_EXTS = (".png", ".jpeg", ".jpg", ".ppm", ".pgm", ".webp")
+
+
 def read_image(path: Union[str, os.PathLike]) -> np.ndarray:
     """Read an image file -> (H, W, 3) uint8 RGB (gray broadcast, alpha
-    dropped). PNG and binary PPM/PGM; JPEG and webp raise."""
+    dropped). Among the image extensions the decoder is picked by the
+    file's magic bytes, as Pillow picks it: PNG, binary PPM/PGM, JPEG and
+    WebP (an animated WebP raises)."""
     ext = os.path.splitext(str(path))[-1].lower()
-    if ext == ".png":
-        img = read_png(path)
-    elif ext in (".ppm", ".pgm"):
-        img = _read_pnm(path)
-    elif ext in (".jpg", ".jpeg", ".webp"):
-        codec = "JPEG" if ext != ".webp" else "WebP"
-        raise ValueError(
-            f"{path}: the port has no {codec} decoder (it reads PNG and PPM/PGM); "
-            "convert the frames to PNG"
-        )
-    else:
+    if ext not in _IMAGE_EXTS:
         raise ValueError(f"{path}: unsupported image extension {ext!r}")
+    with open(path, "rb") as f:
+        data = f.read()
+    kind = sniff(data)
+    if kind == "png":
+        img = decode_png(data)
+    elif kind == "pnm":
+        img = _read_pnm(path, data)
+    elif kind == "jpeg":
+        img = decode_jpeg(data, str(path))
+    elif kind == "webp":
+        img = decode_webp(data, str(path))
+    else:
+        raise ValueError(f"{path}: not a PNG, PPM/PGM, JPEG or WebP file")
     if img.dtype != np.uint8:
         raise ValueError(f"{path}: {img.dtype} samples; images must be 8-bit")
     if img.ndim == 2:

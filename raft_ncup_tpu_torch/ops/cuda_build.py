@@ -57,12 +57,55 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
-def library_path(name: str) -> str:
+def hashed_library_path(name: str, source: str, flags, build_dir: str) -> str:
+    """``<build_dir>/lib<name>-<hash>.so``, the hash over the source's
+    bytes and the compiler flags."""
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as fh:
+    with open(source, "rb") as fh:
         h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    h.update(" ".join(flags).encode())
+    return os.path.join(build_dir, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def library_path(name: str) -> str:
+    return hashed_library_path(name, source_path(name), NVCC_FLAGS, BUILD_DIR)
+
+
+def compile_libraries(jobs, logs: dict, tool: str) -> dict[str, float]:
+    """Run ``[*prefix, "-o", tmp, source]`` for every ``(name, out,
+    prefix, source)`` of ``jobs`` whose ``out`` does not exist yet, all
+    processes started together, each output moved into place with an
+    atomic ``os.replace`` (a concurrent build sees all or none). Returns
+    seconds per name (0.0 for one already built); raises with the
+    compiler's output on a failed build."""
+    procs = []
+    t0 = time.perf_counter()
+    for name, out, prefix, source in jobs:
+        if os.path.exists(out):
+            continue
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
+        cmd = [*prefix, "-o", tmp, source]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        procs.append((name, out, tmp, cmd, proc))
+    seconds = {job[0]: 0.0 for job in jobs}
+    failures = []
+    for name, out, tmp, cmd, proc in procs:
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        logs[name] = log
+        if proc.returncode != 0:
+            failures.append(
+                f"{tool} failed ({proc.returncode}) for {name}:\n"
+                f"{' '.join(cmd)}\n{log}"
+            )
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
 
 
 def build(names=KERNELS) -> dict[str, float]:
@@ -70,37 +113,11 @@ def build(names=KERNELS) -> dict[str, float]:
     ``nvcc`` processes started together; returns seconds per name
     (0.0 for one already built). Raises with ``nvcc``'s output on a
     failed build."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = None
-    procs = []
-    t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
-        if os.path.exists(out):
-            continue
-        nvcc = nvcc or nvcc_path()
-        tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source_path(name)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        procs.append((name, out, tmp, cmd, proc))
-    seconds = {name: 0.0 for name in names}
-    failures = []
-    for name, out, tmp, cmd, proc in procs:
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        _logs[name] = log
-        if proc.returncode != 0:
-            failures.append(
-                f"nvcc failed ({proc.returncode}) for {name}:\n"
-                f"{' '.join(cmd)}\n{log}"
-            )
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or none
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return seconds
+    todo = [name for name in names if not os.path.exists(library_path(name))]
+    prefix = [nvcc_path(), *NVCC_FLAGS] if todo else []
+    return compile_libraries(
+        [(name, library_path(name), prefix, source_path(name)) for name in names],
+        _logs, "nvcc")
 
 
 def build_log(name: str) -> str:

@@ -3,7 +3,9 @@
 Trees in the layouts of FlyingThings3D, FlyingChairs, MPI Sintel, KITTI
 and HD1K are written once per module with the JAX package's writers
 (``write_pfm``, ``write_flo``, ``write_flow_kitti``; PNG frames through
-OpenCV), 80x112 frames cropped to 64x96.
+OpenCV), 80x112 frames cropped to 64x96; FlyingThings3D also in its
+compressed form (``--compressed_ft``: WebP frames written by Pillow, npz
+flows), which the port decodes with its C++ WebP decoder.
 
 - Each training reader and ``fetch_training_set`` of every stage: the
   same pair lists, the same mixtures' index tables and the same
@@ -30,6 +32,7 @@ import jax  # noqa: F401  (keeps the JAX side on the CPU, as conftest sets it)
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from raft_ncup_tpu.config import DataConfig as JaxDataConfig
 from raft_ncup_tpu.data import datasets as jds
@@ -79,12 +82,19 @@ def _write_tree(root):
             for i, f in enumerate(frames):
                 _png(os.path.join(root, "things", dstype, "TRAIN", seq, "left",
                                   f"{6 + i:04d}.png"), f)
+                # the compressed form (--compressed_ft): lossy WebP by Pillow
+                webp = os.path.join(root, "things", dstype + "_webp", "TRAIN", seq, "left",
+                                    f"{6 + i:04d}.webp")
+                os.makedirs(os.path.dirname(webp), exist_ok=True)
+                Image.fromarray(f).save(webp, quality=60 + 10 * i)
         for direction in ("into_future", "into_past"):
             d = os.path.join(root, "things", "optical_flow", "TRAIN", seq, direction, "left")
             os.makedirs(d, exist_ok=True)
             for i in range(FRAMES):
                 f3 = np.concatenate([flow(), np.zeros((*HW, 1), np.float32)], -1)
                 write_pfm(os.path.join(d, f"OpticalFlow_{6 + i:04d}_L.pfm"), f3)
+                np.savez(os.path.join(d, f"OpticalFlow_{6 + i:04d}_L.npz"),  # the same flow
+                         optical_flow=f3[..., :2].transpose(2, 0, 1))
     for scene in ("alley", "bamboo"):
         frames = _frames(g, 3)
         for dstype in ("clean", "final"):
@@ -143,8 +153,11 @@ def test_training_readers_list_the_same_pairs(roots):
     for ours, ref in ((pds.MpiSintel(root=cfg.root_sintel), jds.MpiSintel(root=cfg.root_sintel)),
                       (pds.KITTI(root=cfg.root_kitti), jds.KITTI(root=cfg.root_kitti))):
         assert len(ours) > 0 and _lists(ours) == _lists(ref)
-    # The compressed form globs webp frames: none here.
-    assert len(pds.FlyingThings3D(root=cfg.root_things, load_compressed=True)) == 0
+    for dstype in ("frames_cleanpass", "frames_finalpass"):  # webp frames, npz flows
+        ours = pds.FlyingThings3D(root=cfg.root_things, dstype=dstype, load_compressed=True)
+        ref = jds.FlyingThings3D(root=cfg.root_things, dstype=dstype, load_compressed=True)
+        assert len(ours) == 2 * 2 * (FRAMES - 1) and _lists(ours) == _lists(ref)
+        assert ours.image_list[0][0].endswith(".webp") and ours.flow_list[0].endswith(".npz")
 
 
 def _augmentor_fields(ds):
@@ -195,9 +208,13 @@ def _take(it, n):
     return out
 
 
-@pytest.mark.parametrize("stage,n", [("things", 3), ("sintel", 2)])
+@pytest.mark.parametrize("stage,n", [("things", 3), ("sintel", 2), ("things_compressed", 3)])
 def test_loader_stream_matches_jax(roots, stage, n):
     cfg, jcfg = roots
+    if stage == "things_compressed":  # WebP frames through the port's C++ decoder
+        stage = "things"
+        cfg = dataclasses.replace(cfg, compressed_ft=True)
+        jcfg = dataclasses.replace(jcfg, compressed_ft=True)
     kw = dict(seed=3, num_workers=2, shard_index=0, num_shards=1)
     ours = FlowLoader(pds.fetch_training_set(stage, CROP, cfg), 2, **kw)
     ref = JaxFlowLoader(jds.fetch_training_set(stage, CROP, jcfg), 2, **kw)

@@ -48,6 +48,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert {os.path.join("analysis", n) for n in ("__init__.py", "guards.py")} <= scanned
     assert {os.path.join("parallel", n) for n in ("__init__.py", "mesh.py", "multihost.py")
             } <= scanned
+    assert {os.path.join("io", n) for n in ("codecs.py", "codec_build.py")} <= scanned
     bad = {
         os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
         for f in files
@@ -60,7 +61,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     ["raft_ncup_tpu_torch", "raft_ncup_tpu_torch.serve", "raft_ncup_tpu_torch.train",
      "raft_ncup_tpu_torch.evaluate", "raft_ncup_tpu_torch.demo",
      "raft_ncup_tpu_torch.streaming", "raft_ncup_tpu_torch.observability",
-     "raft_ncup_tpu_torch.analysis", "raft_ncup_tpu_torch.parallel"],
+     "raft_ncup_tpu_torch.analysis", "raft_ncup_tpu_torch.parallel",
+     "raft_ncup_tpu_torch.io.codecs"],
 )
 def test_fresh_import_loads_no_jax(module):
     code = (
