@@ -200,21 +200,33 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
 17. trains and validates the flagship data-parallel (``parallel/``) at
     ``scripts/train_raft_nc_things.sh``'s configuration on a
     FlyingThings3D-layout tree (global batch 6 at 400x720, 12 iterations,
-    f32): (a) one process, 3 steps; (b) two ranks on the one card under
+    f32): (a) one process, 2 steps; (b) two ranks on the one card under
     gloo started by ``torch.distributed.run``, batch 3 each: losses,
     step-1 reduced gradients, the ranks' batches (together the one-process
     batch of each step, by hash) and each rank's launches (A 24, A' 12,
     B 96, B' 48 a step) against (a), with per-rank step ms and the
     all-reduce's ms and bytes a step (two ranks time-slice one card: not
-    scaling); (c) ``sigterm@3`` to rank 1 only: both ranks exit 75 at step
-    3, rank 0 wrote the one checkpoint, and a two-rank resume reads the
+    scaling); (c) ``sigterm@2`` to rank 1 only: both ranks exit 75 at step
+    2, rank 0 wrote the one checkpoint, and a two-rank resume reads the
     uninterrupted batches; (d) a one-rank NCCL world under
     ``--strict_guards``, and two NCCL ranks on the one card, which raise
-    before step 1 ((c) at a 200x360 crop); (e) ``validate_sintel``
+    before step 1 ((c) and (d) at a 200x360 crop); (e) ``validate_sintel``
     through the evaluate entry with two ranks against one process;
-18. prints one JSON line describing the kernels (with each kernel's
-    launches per rank on the data-parallel path), the card's name and
-    power limit, and, last, the JSON result line.
+18. runs the spatial axis (``parallel/halo.py``): (a) the flagship's whole
+    f32 forward, batch 1, 32 iterations, at 1088x1920 and at 2176x3840 in
+    this process, captured and replayed 3 times (wall and device ms, the
+    graph pool's and the peak bytes, A 32 and B 4 a forward), the
+    1088x1920 one held against the plain versions at 4 iterations; (b) the
+    1088x1920 forward split by image rows over two ranks sharing the card
+    under gloo (``python -m raft_ncup_tpu_torch.highres_forward --spatial
+    2``): each rank's flows against (a)'s at the flagship's tolerances,
+    its launches (A 32, B 4), halo exchanges, gathers and their bytes, its
+    peak bytes (time-sliced: not scaling); (c) ``validate_sintel`` through
+    the evaluate entry with ``--mesh 1,2`` against one process, on a
+    Sintel-layout tree at 432x1024 (no padding under either divisor);
+19. prints one JSON line describing the kernels (with each kernel's
+    launches per rank on the data-parallel and spatial paths), the card's
+    name and power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
 device it exits non-zero at once; it never falls back to the CPU.
@@ -1919,16 +1931,17 @@ def check_plain_forward(torch, model, i1, i2, lr, up, label) -> dict:
     return {"flow_lr_vs_plain": e_lr, "flow_up_vs_plain": e_up}
 
 
-def write_sintel_sequences(root: str, seed: int = 0) -> None:
+def write_sintel_sequences(root: str, seed: int = 0, size=SERVE_SIZE) -> None:
     """A Sintel-layout training split (clean and final) of
-    ``EVAL_SEQUENCES`` scenes of ``EVAL_FRAMES`` frames at the Sintel size,
-    written with the port's codecs: each scene a smooth random image
-    shifted by a whole number of pixels per frame, its flow that shift."""
+    ``EVAL_SEQUENCES`` scenes of ``EVAL_FRAMES`` frames at ``size`` (the
+    Sintel size by default), written with the port's codecs: each scene a
+    smooth random image shifted by a whole number of pixels per frame, its
+    flow that shift."""
     import numpy as np
     from raft_ncup_tpu_torch.io import write_flo, write_png
 
     rng = np.random.default_rng(seed)
-    h, w = SERVE_SIZE
+    h, w = size
     for s in range(EVAL_SEQUENCES):
         coarse = rng.uniform(0, 255, (h // 16 + 1, w // 16 + 1, 3))
         base = np.kron(coarse, np.ones((16, 16, 1)))[:h, :w]
@@ -4096,12 +4109,14 @@ def check_fleet(torch, card, tmp: str) -> tuple:
 # measure the collectives' cost and the sharing, not scaling.
 DP_WORKER = "--dp_worker"
 DP_CARD = ["--device", "cuda:0"]  # every rank's card: the one card
-DP_STEPS = 3
-DP_RESUME_STEPS = 5  # (c): preempted after 3 steps, resumed to 5
-DP_SIGTERM_STEP = 3
-# (c) runs at a smaller crop of the same tree, so that each of its four
-# rank processes' first step (cuDNN's autotuning) costs less; the model
-# keeps its width.
+# Cut from 3, 5 and 3 to keep the whole script inside its time with the
+# spatial phase: fewer steps, the same checks.
+DP_STEPS = 2
+DP_RESUME_STEPS = 3  # (c): preempted after 2 steps, resumed to 3
+DP_SIGTERM_STEP = 2
+# (c) and (d) train at a smaller crop of the same tree, so that each of
+# their rank processes' first step (cuDNN's autotuning) costs less; the
+# model keeps its width. (d) ran at 400x720 before the spatial phase came.
 DP_SMALL = ["--image_size", "200", "360"]
 # A rank worker's flag before the train flags: the steps between the
 # ranks' agreements on a SIGTERM (16 in the program), 1 in (c) for an
@@ -4139,11 +4154,11 @@ def _dp_capture(torch, stack, outdir: str, rank: int) -> dict:
     rec = {"collectives": [], "checkpoint_writes": 0, "grads": None}
     real_ar, real_apply, real_save = multihost.all_reduce_, step_mod.apply_update, ckpt_mod.save
 
-    def timed_ar(t, op="sum"):
+    def timed_ar(t, op="sum", group=None):
         if t.is_cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = real_ar(t, op)
+        out = real_ar(t, op, group=group)
         if t.is_cuda:
             torch.cuda.synchronize()
         rec["collectives"].append(dict(ms=1e3 * (time.perf_counter() - t0),
@@ -4411,7 +4426,7 @@ def _dp_two_ranks(torch, card: str, tmp: str, argv: list, a: dict, want_rows: li
 
 
 def _dp_preemption(tmp: str, base: list) -> None:
-    """(c) SIGTERM to rank 1 only: both stop at step 3 with exit 75 and one
+    """(c) SIGTERM to rank 1 only: both stop at step 2 with exit 75 and one
     checkpoint (rank 0's), and a two-rank resume reads the uninterrupted
     batches (``DP_SMALL``)."""
     outdir = os.path.join(tmp, "c")
@@ -4525,12 +4540,12 @@ def check_data_parallel(torch, card: str, tmp: str) -> dict:
     started by ``torch.distributed.run``, each with ``--device cuda:0`` and
     a batch of 3: their losses, step-1 gradients (reduced, equal on both),
     batches (together, each step's one-process batch, by hash) and launches
-    against (a); (c) ``sigterm@3`` to rank 1 only: both exit 75 at step 3,
-    rank 0 wrote the one checkpoint, and a two-rank resume to step 5 reads
+    against (a); (c) ``sigterm@2`` to rank 1 only: both exit 75 at step 2,
+    rank 0 wrote the one checkpoint, and a two-rank resume to step 3 reads
     the one-process batches; (d) a one-rank NCCL world through the entry
     under ``--strict_guards`` (no implicit read, no steady recompile), then
-    two NCCL ranks on the one card, which must raise before step 1 ((c) at
-    the ``DP_SMALL`` crop); (e) ``validate_sintel`` through the evaluate entry
+    two NCCL ranks on the one card, which must raise before step 1 ((c) and
+    (d) at the ``DP_SMALL`` crop); (e) ``validate_sintel`` through the evaluate entry
     with two ranks against one process. Returns each rank's launches."""
     t0 = time.perf_counter()
     things, sintel = os.path.join(tmp, "FlyingThings3D"), os.path.join(tmp, "Sintel")
@@ -4547,9 +4562,227 @@ def check_data_parallel(torch, card: str, tmp: str) -> dict:
     a = _dp_one_process(torch, tmp, argv, stream)
     paths = _dp_two_ranks(torch, card, tmp, argv, a, want_rows)
     _dp_preemption(tmp, base)
-    paths.update(_dp_nccl(tmp, argv))
+    paths.update(_dp_nccl(tmp, argv + DP_SMALL))
     _dp_sharded_validation(tmp, sintel)
     print(f"data parallel: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+# ------------------------------------------------------------ spatial axis
+
+# The spatial phase: the flagship's whole f32 forward, batch 1, at 1088x1920
+# and 2176x3840 in this process (captured, then replayed), the 1088x1920
+# one split by image rows over two ranks sharing the card under gloo
+# (``highres_forward --spatial 2``), and the evaluate entry with ``--mesh
+# 1,2`` against one process.
+SPATIAL_SIZES = ((1088, 1920), (2176, 3840))
+SPATIAL_ITERS = 32
+SPATIAL_REPS = 3  # timed replays at each size
+SPATIAL_PLAIN_ITERS = 4  # the plain-version forward at 1088x1920, against the kernels'
+SPATIAL_WANT = {"corr_lookup": SPATIAL_ITERS, "corr_lookup_bwd": 0, "nconv": 4, "nconv_bwd": 0}
+# A Sintel-layout tree at a height both pad divisors (8 and 16) leave
+# unpadded, so one process and two spatial ranks validate the same pixels.
+SPATIAL_EVAL_SIZE = (432, 1024)
+# Two ranks against one process: the bands' convolutions and the instance
+# norm's sums round in another order than the whole image's; EPE within
+# 1e-4 of itself, the 1/3/5 px fractions within 1e-4.
+SPATIAL_EPE_RTOL = 1e-4
+SPATIAL_FRACTION_ATOL = 1e-4
+
+
+def _spatial_print(part: str, row: dict) -> None:
+    print(f"spatial ({part}): {json.dumps(row)}", flush=True)
+
+
+def _spatial_one_process(torch, card, size) -> tuple:
+    """(a) The flagship's whole forward at ``size`` in this process through
+    ``ShapeCachedForward``: one capture, one eager forward (its peak bytes),
+    then ``SPATIAL_REPS`` timed replays, every kernel count set to 0 before
+    them. Returns the model, the cache, the frames, the last replay's flows
+    and its row."""
+    from raft_ncup_tpu_torch import highres_forward as hr
+    from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+    from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.utils.device import cudnn_autotune
+
+    h, w = size
+    model = RAFT(hr.model_config(False, "f32"), device="cuda", seed=0)
+    i1, i2 = (t.cuda() for t in hr.frames(h, w, 0))
+    fwd = ShapeCachedForward(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fwd.forward(i1, i2, SPATIAL_ITERS)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_peak = torch.cuda.max_memory_allocated()
+    # One eager forward's working set (the algorithms already autotuned):
+    # what a spatial rank's peak is set beside.
+    torch.cuda.reset_peak_memory_stats()
+    with cudnn_autotune():
+        model(i1, i2, iters=SPATIAL_ITERS)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls, devs = [], []
+    for _ in range(SPATIAL_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        lr, up = fwd.forward(i1, i2, SPATIAL_ITERS)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        devs.append(start.elapsed_time(end))
+    replay_peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    label = f"spatial (a) {h}x{w}"
+    check_launches(launches, "raft_nc_dbl", False, label)
+    check(launches == {k: n * SPATIAL_REPS for k, n in SPATIAL_WANT.items()},
+          f"{label}: launches {launches}, want {SPATIAL_WANT} a forward")
+    finite = bool(torch.isfinite(up).all()) and bool(torch.isfinite(lr).all())
+    check(finite and tuple(up.shape) == (1, h, w, 2), f"{label}: flow {tuple(up.shape)}, "
+                                                     f"finite {finite}")
+    row = {"card": card, "shape": f"batch 1 at {h}x{w}, {SPATIAL_ITERS} iterations, f32",
+           "capture_s": capture_s, "replay_wall_ms": walls, "replay_device_ms": devs,
+           "median_wall_ms": _median(walls), "median_device_ms": _median(devs),
+           "pool_bytes": sum(fwd.pool_bytes.values()),
+           "peak_bytes": {"capture": capture_peak, "eager": eager_peak, "replay": replay_peak},
+           "launches": launches, "finite": finite}
+    return model, fwd, (i1, i2), (lr, up), row
+
+
+def _spatial_vs_plain(torch, model, fwd, frames, row) -> None:
+    """(a) The kernels' forward at ``SPATIAL_PLAIN_ITERS`` iterations (its
+    own graph) against the same weights through the plain versions,
+    eagerly, at the flagship's tolerances."""
+    from raft_ncup_tpu_torch.utils.device import cudnn_autotune
+
+    lr, up = fwd.forward(*frames, SPATIAL_PLAIN_ITERS)
+    plain = plain_flagship(torch, model)
+    with cudnn_autotune():
+        lr_p, up_p = plain(*frames, iters=SPATIAL_PLAIN_ITERS)
+    e_lr, ok_lr = max_err(torch, lr, lr_p, **FLOW_LR_TOL)
+    e_up, ok_up = max_err(torch, up, up_p, **FLOW_UP_TOL)
+    row.update(plain_iters=SPATIAL_PLAIN_ITERS, flow_lr_vs_plain=e_lr, flow_up_vs_plain=e_up)
+    check(ok_lr and ok_up, f"spatial (a): the kernels' forward against the plain versions at "
+                           f"{SPATIAL_PLAIN_ITERS} iterations: flow_lr {e_lr}, flow_up {e_up}")
+
+
+def _spatial_two_ranks(torch, card, tmp, want) -> dict:
+    """(b) ``highres_forward --spatial 2`` at 1088x1920: two ranks on the
+    one card under gloo, each rank's flows against (a)'s at the flagship's
+    tolerances; each rank's launches, collectives and peak bytes."""
+    h, w = SPATIAL_SIZES[0]
+    outdir = os.path.join(tmp, "spatial_b")
+    argv = ["--size", str(h), str(w), "--iters", str(SPATIAL_ITERS), "--spatial", "2",
+            *DP_CARD, "--save", outdir]
+    codes, outs, seconds = _dp_ranks(outdir, argv, 2, "gloo", torchrun=False,
+                                     module="raft_ncup_tpu_torch.highres_forward")
+    check(codes == [0, 0], f"spatial (b): exits {codes}:\n{outs[0][1][-3000:]}\n"
+                           f"{outs[1][1][-3000:]}")
+    reps = [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
+    f2_bytes = (h // 8) * (w // 8) * 256 * 4
+    rows, paths = [], {}
+    for r, rep in enumerate(reps):
+        flows = torch.load(os.path.join(outdir, f"flows_rank{r}.pt"), weights_only=True)
+        e_lr, ok_lr = max_err(torch, flows["flow_lr"], want[0], **FLOW_LR_TOL)
+        e_up, ok_up = max_err(torch, flows["flow_up"], want[1], **FLOW_UP_TOL)
+        launches = {k: rep["launches"].get(k, 0) for k in SPATIAL_WANT}
+        by_op = rep["by_op"]
+        rows.append({"rank": r, "mesh": rep["mesh"], "flow_lr_vs_one_process": e_lr,
+                     "flow_up_vs_one_process": e_up, "launches": launches,
+                     "collectives": rep["collectives"],
+                     "collective_bytes": rep["collective_bytes"], "by_op": by_op,
+                     "peak_bytes": rep["peak_bytes"], "first_s": rep["first_s"],
+                     "wall_ms": rep["wall_ms"], "device_ms": rep["device_ms"]})
+        check(ok_lr and ok_up, f"spatial (b): rank {r}'s flows against (a)'s: flow_lr {e_lr}, "
+                               f"flow_up {e_up}")
+        check(launches == SPATIAL_WANT, f"spatial (b): rank {r} launched {launches}")
+        check(rep["mesh"] == "mesh(data=1,spatial=2:gpu)" and rep["finite"]
+              and by_op["collective-permute"]["count"] > 0
+              and by_op["all-gather"]["bytes"] > f2_bytes,
+              f"spatial (b): rank {r}: {rep['mesh']}, {by_op}")
+        paths[f"spatial (b) rank {r}"] = launches
+    _spatial_print("b", {"card": card, "seconds": seconds, "per_rank": rows,
+                         "gathered_f2_bytes": f2_bytes,
+                         "note": "two ranks time-slice one card under gloo: memory per rank "
+                                 "and answers, not scaling"})
+    return paths
+
+
+def _spatial_evaluation(tmp: str) -> None:
+    """(c) ``validate_sintel`` through the evaluate entry with ``--mesh
+    1,2`` (two ranks on the one card, gloo) against one process (this one)
+    on a Sintel-layout tree at ``SPATIAL_EVAL_SIZE``."""
+    import io
+
+    from raft_ncup_tpu_torch import evaluate as eval_mod
+
+    sintel = os.path.join(tmp, "SintelSpatial")
+    write_sintel_sequences(sintel, size=SPATIAL_EVAL_SIZE)
+    eargv = ["--model", "raft_nc_dbl", "--dataset", "sintel", "--root_sintel", sintel,
+             "--iters", "12", "--batch_size", "1", "--seed", "0", *DP_CARD]
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code1 = eval_mod.main(eargv)
+    seconds1 = time.perf_counter() - t0
+    codes, outs, seconds = _dp_ranks(os.path.join(tmp, "spatial_c"), eargv + ["--mesh", "1,2"],
+                                     2, "gloo", torchrun=False,
+                                     module="raft_ncup_tpu_torch.evaluate")
+    check(code1 == 0 and codes == [0, 0],
+          f"spatial (c): exits {code1} {codes}:\n{outs[0][1][-3000:]}")
+    one = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ranks = [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
+
+    def diff(k, v, got):
+        if k.endswith("px"):
+            return abs(got - v), abs(got - v) <= SPATIAL_FRACTION_ATOL
+        rel = abs(got - v) / max(abs(v), 1e-12)
+        return rel, rel <= SPATIAL_EPE_RTOL
+
+    diffs = {k: max(diff(k, v, r["results"][k])[0] for r in ranks)
+             for k, v in one["results"].items()}
+    ok = all(diff(k, v, r["results"][k])[1] for r in ranks for k, v in one["results"].items())
+    _spatial_print("c", {"one_process": one["results"], "two_ranks": ranks[0]["results"],
+                         "diff (relative for EPE, absolute for px fractions)": diffs,
+                         "meshes": [r["mesh"] for r in ranks],
+                         "collectives": [r["collectives"]["by_op"] for r in ranks],
+                         "seconds": [seconds1, seconds]})
+    check(one["results"] and all(set(r["results"]) == set(one["results"]) for r in ranks)
+          and ok and ranks[0]["results"] == ranks[1]["results"]
+          and all(r["mesh"] == "mesh(data=1,spatial=2:gpu)" and r["world"] == 2
+                  and r["collectives"]["by_op"]["collective-permute"]["count"] > 0
+                  for r in ranks),
+          f"spatial (c): {[r['results'] for r in ranks]} against {one['results']}")
+
+
+def check_spatial(torch, card: str, tmp: str) -> dict:
+    """The spatial axis (``parallel/halo.py``): (a) the flagship's whole f32
+    forward at 1088x1920 and 2176x3840, batch 1, ``SPATIAL_ITERS``
+    iterations, in this process as graph replays (wall and device ms, pool
+    and peak bytes, A 32 and B 4 a forward), the 1088x1920 one held against
+    the plain versions at ``SPATIAL_PLAIN_ITERS`` iterations; (b) the same
+    1088x1920 forward split by rows over two ranks sharing the card under
+    gloo, each rank's flows against (a)'s; (c) the evaluate entry with
+    ``--mesh 1,2`` against one process. Returns each path's launches."""
+    t0 = time.perf_counter()
+    paths, want = {}, None
+    for size in SPATIAL_SIZES:
+        model, fwd, frames, flows, row = _spatial_one_process(torch, card, size)
+        if want is None:
+            want = tuple(t.cpu() for t in flows)
+            _spatial_vs_plain(torch, model, fwd, frames, row)
+        label = f"spatial (a) {size[0]}x{size[1]}"
+        paths[label] = row["launches"]
+        _spatial_print(f"a) {size[0]}x{size[1]}", row)
+        del model, fwd, frames, flows
+        torch.cuda.empty_cache()
+    paths.update(_spatial_two_ranks(torch, card, tmp, want))
+    _spatial_evaluation(tmp)
+    print(f"spatial: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
 
@@ -4739,6 +4972,12 @@ def main() -> int:
     # launches come from its own record.
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_data_parallel(torch, card, tmp))
+    # The spatial axis: the flagship's whole forward at 1088x1920 and
+    # 2176x3840 in one process, then split by rows over two ranks sharing
+    # the card (gloo), and sharded evaluation; each rank's launches come
+    # from its own report.
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(check_spatial(torch, card, tmp))
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.
@@ -4843,6 +5082,9 @@ def main() -> int:
         k["data_parallel_launches_per_rank"] = [
             paths[f"data parallel (b) rank {r}"][name] for r in range(2)]
         k["data_parallel_steps"] = DP_STEPS
+        k["spatial_one_process_launches"] = {
+            f"{h}x{w}": paths[f"spatial (a) {h}x{w}"][name] for h, w in SPATIAL_SIZES}
+        k["spatial_launches_per_rank"] = [paths[f"spatial (b) rank {r}"][name] for r in range(2)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

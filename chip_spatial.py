@@ -1,0 +1,173 @@
+#!/usr/bin/env python3
+"""The spatial axis across cards under NCCL: one process per card.
+
+Run from the root of the repository on a machine with four cards:
+``python3 chip_spatial.py``. It
+
+1. builds the kernels, then runs the highres entry
+   (``python -m raft_ncup_tpu_torch.highres_forward``, the flagship's f32
+   forward, batch 1, 32 iterations, seeded weights and frames) at 1088x1920
+   with the height split over 1, 2 and 4 cards and at 2176x3840 over 1 and
+   4, each rank on its own card (NCCL), and holds every rank's flows
+   against the one-card forward's at the flagship's tolerances (flow_lr atol
+   2e-3, flow_up atol 5e-3, rtol 1e-3);
+2. runs the evaluate entry (``validate_synthetic``, 12 iterations, batch 2)
+   on one card and on four with ``--mesh 2,2`` and ``--mesh 1,4``, and holds
+   the four-card results within 1e-5 of the one card's.
+
+Every rank is a process started with the launcher's environment, so each
+rank's report (its last JSON line) and exit code show. It prints one
+``spatial cards:`` JSON line per run (each rank's wall and device ms, peak
+bytes, collectives and launches, and its largest difference from one
+card), then the cards' names and power limits, and exits non-zero when a
+run fails or disagrees.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SIZES = (((1088, 1920), (1, 2, 4)), ((2176, 3840), (1, 4)))
+MESHES = ("2,2", "1,4")
+CARDS = 4
+TIMEOUT_S = 900
+FLOW_TOL = {"flow_lr": (2e-3, 1e-3), "flow_up": (5e-3, 1e-3)}  # (atol, rtol)
+EVAL_RTOL = 1e-5
+EVAL_ARGV = ["-m", "raft_ncup_tpu_torch.evaluate", "--model", "raft_nc_dbl", "--dataset",
+             "synthetic", "--iters", "12", "--batch_size", "2"]
+
+
+def _port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _last_json(text: str):
+    lines = [x for x in text.splitlines() if x.startswith("{")]
+    return json.loads(lines[-1]) if lines else None
+
+
+def ranks(argv: list, world: int) -> tuple:
+    """``world`` processes of ``python argv``, rank r on card r (one process
+    on card 0 for a world of one): (exit codes, reports, stderr tails,
+    seconds)."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("RAFT_TORCH_DIST_BACKEND", None)
+    if world == 1:
+        cmds = [([sys.executable, *argv, "--device", "cuda:0"], env)]
+    else:
+        port = _port()
+        cmds = [([sys.executable, *argv], dict(env, WORLD_SIZE=str(world), RANK=str(r),
+                                                LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                                                MASTER_PORT=str(port)))
+                for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=HERE, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c, e in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ([p.returncode for p in procs], [_last_json(o) for o, _ in outs],
+            [e[-3000:] for _, e in outs], time.perf_counter() - t0)
+
+
+def _diff(torch, got: dict, want: dict) -> tuple:
+    """Largest |got - want| of each flow, and whether both are within
+    tolerance."""
+    out, ok = {}, True
+    for k, (atol, rtol) in FLOW_TOL.items():
+        d = (got[k] - want[k]).abs()
+        out[k] = float(d.max())
+        ok = ok and bool((d <= atol + rtol * want[k].abs()).all())
+    return out, ok
+
+
+def highres(torch, tmp: str) -> bool:
+    ok = True
+    for (h, w), splits in SIZES:
+        want = None
+        for s in splits:
+            out = os.path.join(tmp, f"{h}x{w}_{s}")
+            argv = ["-m", "raft_ncup_tpu_torch.highres_forward", "--size", str(h), str(w),
+                    "--iters", "32", "--spatial", str(s), "--save", out]
+            codes, reps, errs, secs = ranks(argv, s)
+            row = {"size": [h, w], "spatial": s, "exits": codes, "seconds": secs}
+            good = codes == [0] * s and all(r is not None and r["finite"] for r in reps)
+            if good:
+                flows = [torch.load(os.path.join(out, f"flows_rank{r}.pt"), weights_only=True)
+                         for r in range(s)]
+                if want is None:
+                    want = flows[0]
+                diffs = [_diff(torch, f, want) for f in flows]
+                row["max_abs_diff_vs_one_card"] = [d for d, _ in diffs]
+                good = all(g for _, g in diffs)
+                row["ranks"] = [{k: r[k] for k in ("rank", "mesh", "wall_ms", "device_ms",
+                                                   "peak_bytes", "collectives",
+                                                   "collective_bytes", "by_op", "launches",
+                                                   "first_s")} for r in reps]
+            else:
+                row["stderr"] = errs
+            print(f"spatial cards: {json.dumps(row)}", flush=True)
+            ok = ok and good
+    return ok
+
+
+def evaluation() -> bool:
+    codes, reps, errs, secs = ranks(EVAL_ARGV, 1)
+    one = reps[0]["results"] if codes == [0] and reps[0] else None
+    print(f"spatial cards: {json.dumps({'evaluate': 'one card', 'exits': codes, 'seconds': secs, 'results': one})}",
+          flush=True)
+    ok = one is not None
+    for mesh in MESHES:
+        codes, reps, errs, secs = ranks(EVAL_ARGV + ["--mesh", mesh], CARDS)
+        good = ok and codes == [0] * CARDS and all(r is not None for r in reps)
+        row = {"evaluate": f"--mesh {mesh}", "exits": codes, "seconds": secs}
+        if good:
+            row["ranks"] = [{"rank": r["rank"], "mesh": r["mesh"], "results": r["results"],
+                             "collectives": r["collectives"]["by_op"]} for r in reps]
+            rel = max(abs(r["results"][k] - v) / abs(v) for r in reps for k, v in one.items())
+            row["max_rel_diff_vs_one_card"] = rel
+            good = rel <= EVAL_RTOL
+        else:
+            row["stderr"] = errs
+        print(f"spatial cards: {json.dumps(row)}", flush=True)
+        ok = ok and good
+    return ok
+
+
+def main() -> int:
+    import torch
+
+    if torch.cuda.device_count() < CARDS:
+        print(f"chip_spatial: {torch.cuda.device_count()} cards, {CARDS} needed",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from raft_ncup_tpu_torch.ops import cuda_build
+
+    print(f"build: {cuda_build.build()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ok = highres(torch, tmp)
+    ok = evaluation() and ok
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout,
+          flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

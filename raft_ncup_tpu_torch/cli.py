@@ -17,12 +17,14 @@ The serve entry's serving and streaming knobs (:func:`add_serve_args`,
 The train entry's parser (:func:`build_train_parser`, :func:`parse_train`)
 and the evaluate entry's (:func:`build_eval_parser`, :func:`parse_eval`)
 take the JAX CLI's flags, with ``--device`` in place of ``--platform``.
-The mesh flags name the data axis across processes, one per card
-(``parallel/``): ``--data_parallel D`` and ``--mesh D,1`` are accepted when
-D is the world size the launcher started (``torchrun --nproc_per_node D``;
-1 without one), and ``--data_parallel`` defaults to it. Any other D, and a
-spatial or pipe size above 1 (``--spatial_parallel``, ``--mesh D,S[,P]``:
-ROADMAP.md queue 1 item 9b), raise.
+The mesh flags name the axes across processes, one per card
+(``parallel/``). The train entry takes ``--data_parallel D`` when D is the
+world size the launcher started (``torchrun --nproc_per_node D``; 1
+without one), its default; ``--spatial_parallel`` above 1 raises there
+(ROADMAP.md queue 1 item 9b-iii). The evaluate entry takes ``--mesh D,S``
+(or ``--spatial_parallel S`` for ``1,S``) when D times S is the world
+size: S ranks split each forward by image rows. Any other size, and a
+pipe size above 1 (``--mesh D,S,P``: item 9b-iv), raise.
 """
 
 from __future__ import annotations
@@ -372,8 +374,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
                         "value: the launcher's world size); --batch_size is the global "
                         "batch, split across them")
     parser.add_argument("--spatial_parallel", type=int, default=1,
-                        help="spatial cards (above 1: not in the port yet, ROADMAP.md "
-                        "queue 1 item 9b)")
+                        help="spatial cards (above 1: not in the port's training yet, "
+                        "ROADMAP.md queue 1 item 9b-iii)")
     parser.add_argument("--profile_steps", type=int, default=0,
                         help="trace this many steps after the first with torch.profiler "
                         "into <checkpoint_dir>/<name>/profile (a Chrome trace)")
@@ -430,9 +432,17 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
         sentinel_warmup=args.sentinel_warmup,
         sentinel_halt_after=args.sentinel_halt_after,
         precision=model_config_from_args(args, args.stage).precision_policy.name,
-        data_parallel=check_mesh(args.data_parallel, args.spatial_parallel),
+        data_parallel=check_mesh(args.data_parallel, _refuse_spatial_training(args)),
         spatial_parallel=args.spatial_parallel,
     )
+
+
+def _refuse_spatial_training(args: argparse.Namespace) -> int:
+    """The train entry's spatial size: 1, else it raises (item 9b-iii)."""
+    from raft_ncup_tpu_torch.parallel.mesh import ITEM_9B_TRAINING, refuse_spatial
+
+    refuse_spatial(args.spatial_parallel, "training", ITEM_9B_TRAINING)
+    return 1
 
 
 def parse_train(argv: Optional[Sequence[str]] = None):
@@ -465,12 +475,13 @@ def build_eval_parser() -> argparse.ArgumentParser:
     parser.add_argument("--export_pth", default=None, metavar="PATH",
                         help="write the loaded weights as a reference-keyed .pth and exit")
     parser.add_argument("--spatial_parallel", type=int, default=1,
-                        help="shard the height over this many cards (above 1: not in the "
-                        "port yet, ROADMAP.md queue 1 item 9b)")
+                        help="split each forward's image height over this many cards "
+                        "(the mesh 1,N)")
     parser.add_argument("--mesh", type=str2mesh, default=None, metavar="DATA,SPATIAL[,PIPE]",
-                        help="the mesh: DATA processes, one per card, each validating its "
-                        "share of the frames (DATA must be the launcher's world size; "
-                        "SPATIAL and PIPE above 1 are not in the port yet)")
+                        help="the mesh: DATA x SPATIAL processes, one per card; each data "
+                        "index validates its share of the frames, its SPATIAL ranks split "
+                        "each forward by image rows (DATA x SPATIAL must be the launcher's "
+                        "world size; PIPE above 1 is not in the port yet)")
     parser.add_argument("--iters", type=int, default=None,
                         help="GRU iterations; default each validator's own (sintel 32, "
                         "chairs and kitti 24, synthetic 12)")
@@ -486,9 +497,12 @@ def build_eval_parser() -> argparse.ArgumentParser:
 
 def parse_eval(argv: Optional[Sequence[str]] = None):
     """``(args, model_cfg, data_cfg)`` of the evaluate entry. The dataset
-    decides BatchNorm in NCUP's weights net, as in the JAX CLI."""
+    decides BatchNorm in NCUP's weights net, as in the JAX CLI. The mesh
+    the flags resolve to is ``args.mesh_axes``, ``(data, spatial)``."""
     args = build_eval_parser().parse_args(argv)
     mesh = args.mesh or (None, 1)
-    check_mesh(mesh[0], max(mesh[1], args.spatial_parallel), mesh[2] if len(mesh) > 2 else 1)
+    spatial = max(mesh[1], args.spatial_parallel)
+    data = check_mesh(mesh[0], spatial, mesh[2] if len(mesh) > 2 else 1)
+    args.mesh_axes = (data, spatial)
     dataset = "sintel" if args.dataset.startswith("sintel") else args.dataset
     return args, model_config_from_args(args, dataset=dataset), data_config_from_args(args)

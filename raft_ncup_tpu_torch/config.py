@@ -14,11 +14,13 @@ packages, with these differences:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
   (the fused kernel, CUDA in the port). Its default is the JAX default.
 - ``ServeConfig`` and ``StreamConfig`` have no ``mesh``: the server and
-  the stream engine run in one process on one card (a mesh of several
-  cards in one process is ROADMAP.md queue 1 item 9b).
+  the stream engine run in one process on one card (their spatial meshes
+  are ROADMAP.md queue 1 item 9b-ii; the spatial axis across processes
+  serves the test-mode forward and evaluation, ``parallel/``).
 - ``TrainConfig.data_parallel`` is the data axis across processes, one
   per card (``parallel/``), and must divide the global ``batch_size``;
-  ``spatial_parallel`` above 1 raises (item 9b).
+  ``spatial_parallel`` above 1 raises (training's spatial axis is item
+  9b-iii).
 
 Precision (``precision/policy.py``): ``ModelConfig.precision`` names a
 preset (``f32``, ``bf16_infer``, ``bf16_train``); the legacy
@@ -335,7 +337,8 @@ class TrainConfig:
     load_pretrained: str | None = None
     checkpoint_dir: str = "checkpoints"
     # Parallelism: the data-parallel processes (None: the world size; the
-    # train entry sets the world's) and the spatial axis (1: not in the port).
+    # train entry sets the world's) and the spatial axis (1: training's
+    # spatial axis is not in the port yet).
     data_parallel: int | None = None
     spatial_parallel: int = 1
     # The divergence sentinel (``training/sentinel.py``): a step with a
@@ -364,9 +367,10 @@ class TrainConfig:
             raise NotImplementedError(f"{self.scheduler} scheduler is not implemented!")
         if self.val_freq < 1 or self.sum_freq < 1:
             raise ValueError("val_freq and sum_freq must be positive")
-        from raft_ncup_tpu_torch.parallel.mesh import check_axes
+        from raft_ncup_tpu_torch.parallel.mesh import ITEM_9B_TRAINING, check_axes, refuse_spatial
 
         check_axes(self.data_parallel, self.spatial_parallel)
+        refuse_spatial(self.spatial_parallel, "training", ITEM_9B_TRAINING)
         if self.data_parallel is not None and self.batch_size % self.data_parallel:
             raise ValueError(f"--batch_size {self.batch_size} not divisible by "
                              f"--data_parallel {self.data_parallel}")

@@ -20,10 +20,14 @@ Data-parallel across cards: ``torchrun --nproc_per_node N -m
 raft_ncup_tpu_torch.evaluate ...`` joins the launcher's world, each rank
 on ``--device`` or ``cuda:LOCAL_RANK``; each validates its share of the
 frames through its own graphs and every rank reports the global metrics
-(``evaluation._shard_for_validation``). ``--mesh N,1`` is accepted when N
-is the world size; a spatial or pipe size above 1 raises (ROADMAP.md
-queue 1 item 9b). Only the main process writes submissions and
-``--export_pth``.
+(``evaluation._shard_for_validation``). ``--mesh D,S`` (or
+``--spatial_parallel S``, the mesh ``1,S``) is accepted when D times S is
+the world size: the S ranks of each data index see the same frames and
+split each forward by image rows (``RAFT.forward(..., mesh=...)``, row
+halos over ``parallel/halo.py``), padded to a multiple of 8 S, eagerly,
+without a CUDA graph; the metric sums reduce over the data indices only.
+A pipe size above 1 raises (ROADMAP.md queue 1 item 9b-iv). Only the main
+process writes submissions and ``--export_pth``.
 
 Examples::
 
@@ -48,6 +52,7 @@ from raft_ncup_tpu_torch.evaluation import (
 )
 from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
 from raft_ncup_tpu_torch.models.raft import RAFT
+from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
 from raft_ncup_tpu_torch.parallel import multihost
 from raft_ncup_tpu_torch.training import checkpoint
 
@@ -87,7 +92,9 @@ def _evaluate(args, model_cfg, data_cfg, device) -> int:
             print(f"exported reference-keyed checkpoint to {args.export_pth}")
         return 0
 
-    fwd = ShapeCachedForward(model, cache_size=data_cfg.eval_cache_size)
+    data, spatial = args.mesh_axes
+    mesh = mesh_mod.make_mesh(data, spatial, device=device) if spatial > 1 else None
+    fwd = ShapeCachedForward(model, cache_size=data_cfg.eval_cache_size, mesh=mesh)
     kw = {"fwd": fwd}
     if args.iters is not None:
         kw["iters"] = args.iters
@@ -107,7 +114,8 @@ def _evaluate(args, model_cfg, data_cfg, device) -> int:
             kw["batch_size"] = args.batch_size
         results = VALIDATORS[args.dataset](model, data_cfg, **kw)
     report = {"results": results, "cache": dict(fwd.stats), "device": str(model.device),
-              "world": multihost.process_count(), "rank": multihost.process_index()}
+              "world": multihost.process_count(), "rank": multihost.process_index(),
+              "mesh": mesh_mod.mesh_fingerprint(mesh), "collectives": mesh_mod.collective_stats()}
     if model.device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(model.device)
         report["graph_pool_bytes"] = sum(fwd.pool_bytes.values())

@@ -18,17 +18,22 @@ and, warm, captures nothing (``tests/test_torch_guards.py``). Submissions
 copy each flow field to the host through :class:`AsyncDrain`, behind the
 next frame's dispatch.
 
-Data-parallel processes, one per card (``parallel/``), split a
-validation as the JAX package's host-local plan does
-(:func:`_shard_for_validation`): the ranks agree on the dataset's length
-(the smallest any of them sees, so a rank missing frames makes every rank
-skip alike), each validates the frames ``rank::world`` (:class:`_HostShard`)
-through its own cached forward and graphs, with no collective inside a
-captured graph, and the fixed-size sums and counts of the metric are
-summed over the ranks (``allreduce_sum_across_hosts``), so every rank
-returns the global metrics. Only the main process prints them and writes
-submissions; warm-start validation, a serial chain through each
-sequence, stays on one process. One process reads the whole dataset.
+Processes, one per card (``parallel/``), split a validation as the JAX
+package's host-local plan does (:func:`_shard_for_validation`): the ranks
+agree on the dataset's length (the smallest any of them sees, so a rank
+missing frames makes every rank skip alike), each data index validates
+the frames ``d::data`` (:class:`_HostShard`) through its own cached
+forward, with no collective inside a captured graph, and the fixed-size
+sums and counts of the metric are summed over the data indices
+(``allreduce_sum_across_hosts`` on ``mesh.data_group``), so every rank
+returns the global metrics. Under a mesh with a spatial axis above 1
+(``fwd.mesh``) the ranks of one data index see the same frames and split
+each forward by rows; their sums are equal and summed once, never over
+the spatial ranks. Images then pad to a multiple of 8 times the spatial
+size (``fwd.pad_divisor``). Only the main process prints the metrics and
+writes submissions (the ranks of its data index run the forwards with
+it); warm-start validation, a serial chain through each sequence, stays
+on one process. One process reads the whole dataset.
 
 Each validator and writer takes ``fwd``, the :class:`ShapeCachedForward`
 to run through (by default a new one over ``model``), so a caller can
@@ -58,6 +63,7 @@ from raft_ncup_tpu_torch.inference.pipeline import (
 from raft_ncup_tpu_torch.io import write_flo, write_flow_kitti, write_png
 from raft_ncup_tpu_torch.ops.padding import InputPadder
 from raft_ncup_tpu_torch.ops.warmstart import forward_interpolate_batch
+from raft_ncup_tpu_torch.parallel.mesh import data_group
 from raft_ncup_tpu_torch.parallel.multihost import (
     agreed_min,
     allreduce_sum_across_hosts,
@@ -70,14 +76,16 @@ from raft_ncup_tpu_torch.viz import flow_to_image
 
 
 class _HostShard:
-    """This rank's frames of a dataset, indices ``rank::world`` of the
-    first ``n_global`` (the length the ranks agreed on)."""
+    """This rank's frames of a dataset, indices ``index::count`` of the
+    first ``n_global`` (the length the ranks agreed on): by default the
+    rank's of the world, under a mesh its data index's of the data size."""
 
-    def __init__(self, dataset, n_global: int):
+    def __init__(self, dataset, n_global: int, index: Optional[int] = None,
+                 count: Optional[int] = None):
         self._ds = dataset
         self._n = n_global
-        self._pi = process_index()
-        self._pc = process_count()
+        self._pi = process_index() if index is None else int(index)
+        self._pc = process_count() if count is None else int(count)
 
     def __len__(self) -> int:
         return (self._n - self._pi + self._pc - 1) // self._pc
@@ -86,16 +94,26 @@ class _HostShard:
         return self._ds.sample(self._pi + index * self._pc, *a, **kw)
 
 
-def _shard_for_validation(dataset):
+def _shard_for_validation(dataset, mesh=None):
     """``(this rank's view, the agreed length, whether to reduce)``: the
     whole dataset with no reduction on one process; with several, the
-    smallest length any rank sees, this rank's frames of it, and a
-    reduction of the sums."""
+    smallest length any rank sees, this rank's frames of it (its data
+    index's under ``mesh``), and a reduction of the sums
+    (:func:`_reduce`)."""
     n = len(dataset)
     if not is_multihost():
         return dataset, n, False
     n = agreed_min(n)
-    return _HostShard(dataset, n), n, True
+    if mesh is None:
+        return _HostShard(dataset, n), n, True
+    return _HostShard(dataset, n, mesh.data_index, mesh.data), n, True
+
+
+def _reduce(acc: np.ndarray, fwd: ShapeCachedForward) -> np.ndarray:
+    """The sums of a sharded pass over the data indices: over the world
+    without a spatial axis, over this rank's data group with one (its
+    spatial ranks hold the same sums, which must count once)."""
+    return allreduce_sum_across_hosts(acc, group=data_group(fwd.mesh))
 
 
 def _print_main(msg: str) -> None:
@@ -158,7 +176,8 @@ def _run_metric_pass(
             arrays["band"] = np.stack([band_fn(s["flow"]) for s in group]).astype(np.float32)
         pad = None
         if pad_mode is not None:
-            pad = InputPadder(img1.shape, mode=pad_mode, bucket=bucket).pad_spec
+            pad = InputPadder(img1.shape, mode=pad_mode, divisor=fwd.pad_divisor,
+                              bucket=bucket).pad_spec
             img1, img2 = _pad_host(pad, img1, img2)
         arrays["image1"], arrays["image2"] = img1, img2
         return arrays, {"pad": pad}
@@ -206,7 +225,7 @@ def _run_warmstart_metric_pass(
             img1 = np.asarray(s["image1"], np.float32)[None]
             img2 = np.asarray(s["image2"], np.float32)[None]
             gt = np.asarray(s["flow"], np.float32)[None]
-            pad = InputPadder(img1.shape, mode=pad_mode).pad_spec
+            pad = InputPadder(img1.shape, mode=pad_mode, divisor=fwd.pad_divisor).pad_spec
             img1, img2 = _pad_host(pad, img1, img2)
             if flow_prev is None:
                 h8, w8 = img1.shape[1] // 8, img1.shape[2] // 8
@@ -227,15 +246,16 @@ def validate_chairs(model, data_cfg: Optional[DataConfig] = None, iters: int = 2
     cfg = data_cfg or DataConfig()
     dataset = ds_mod.FlyingChairs(split="validation", root=cfg.root_chairs,
                                   split_file=cfg.chairs_split_file)
-    dataset, n, reduce = _shard_for_validation(dataset)
+    fwd = _forward_for(model, cfg, precision, fwd)
+    dataset, n, reduce = _shard_for_validation(dataset, fwd.mesh)
     if n == 0:
         _print_main(f"validate_chairs: no data under {cfg.root_chairs}, skipping")
         return {}
     acc = _run_metric_pass(
-        _forward_for(model, cfg, precision, fwd), dataset, kind="epe", iters=iters,
+        fwd, dataset, kind="epe", iters=iters,
         batch_size=batch_size, num_workers=cfg.num_workers, depth=cfg.device_prefetch)
     if reduce:
-        acc = allreduce_sum_across_hosts(acc)
+        acc = _reduce(acc, fwd)
     epe = metrics_mod.finalize("epe", acc)["epe"]
     _print_main(f"Validation Chairs EPE: {epe:f}")
     return {"chairs": epe}
@@ -258,7 +278,7 @@ def validate_sintel(model, data_cfg: Optional[DataConfig] = None, iters: int = 3
     prefix = "warm_" if warm_start else ""
     for dstype in ("clean", "final"):
         dataset = ds_mod.MpiSintel(split="training", root=cfg.root_sintel, dstype=dstype)
-        dataset, n, reduce = _shard_for_validation(dataset)
+        dataset, n, reduce = _shard_for_validation(dataset, fwd.mesh)
         if n == 0:
             _print_main(f"validate_sintel: no {dstype} data under {cfg.root_sintel}, skipping")
             continue
@@ -270,7 +290,7 @@ def validate_sintel(model, data_cfg: Optional[DataConfig] = None, iters: int = 3
                 fwd, dataset, kind="px", iters=iters, batch_size=batch_size,
                 pad_mode="sintel", num_workers=cfg.num_workers, depth=cfg.device_prefetch)
         if reduce:
-            acc = allreduce_sum_across_hosts(acc)
+            acc = _reduce(acc, fwd)
         m = metrics_mod.finalize("px", acc)
         _print_main(f"Validation ({prefix}{dstype}) EPE: {m['epe']:f}, 1px: {m['1px']:f}, "
               f"3px: {m['3px']:f}, 5px: {m['5px']:f}")
@@ -291,16 +311,17 @@ def validate_kitti(model, data_cfg: Optional[DataConfig] = None, iters: int = 24
     EPE / |flow| > 0.05, pooled. Frames batch per native shape."""
     cfg = data_cfg or DataConfig()
     dataset = ds_mod.KITTI(split="training", root=cfg.root_kitti)
-    dataset, n, reduce = _shard_for_validation(dataset)
+    fwd = _forward_for(model, cfg, precision, fwd)
+    dataset, n, reduce = _shard_for_validation(dataset, fwd.mesh)
     if n == 0:
         _print_main(f"validate_kitti: no data under {cfg.root_kitti}, skipping")
         return {}
     acc = _run_metric_pass(
-        _forward_for(model, cfg, precision, fwd), dataset, kind="kitti", iters=iters,
+        fwd, dataset, kind="kitti", iters=iters,
         batch_size=batch_size, pad_mode="kitti", bucket=cfg.eval_pad_bucket,
         with_valid=True, num_workers=cfg.num_workers, depth=cfg.device_prefetch)
     if reduce:
-        acc = allreduce_sum_across_hosts(acc)
+        acc = _reduce(acc, fwd)
     m = metrics_mod.finalize("kitti", acc)
     _print_main(f"Validation KITTI: {m['epe']:f}, {m['f1']:f}")
     return {"kitti-epe": m["epe"], "kitti-f1": m["f1"]}
@@ -315,12 +336,14 @@ def create_sintel_submission(model, data_cfg: Optional[DataConfig] = None, iters
     With ``warm_start`` each frame starts from the splat of the previous
     frame's low-res flow, on the card. Each field reaches the host through
     an :class:`AsyncDrain`, behind the next frame's dispatch. Only the
-    main process runs it: its forwards issue no collective, and one writer
-    keeps ranks from interleaving the same files."""
-    if not is_main_process():
-        return
+    main process runs it (with the ranks of its data index under a spatial
+    axis, whose forwards it needs), and it alone writes: one writer keeps
+    ranks from interleaving the same files."""
     cfg = data_cfg or DataConfig()
     fwd = _forward_for(model, cfg, precision, fwd)
+    runs, writes = _submission_roles(fwd)
+    if not runs:
+        return
     for dstype in ("clean", "final"):
         dataset = ds_mod.MpiSintel(split="test", root=cfg.root_sintel, dstype=dstype)
         flow_prev, sequence_prev = None, None
@@ -332,14 +355,24 @@ def create_sintel_submission(model, data_cfg: Optional[DataConfig] = None, iters
                     flow_prev = None
                 img1 = np.asarray(s["image1"], np.float32)[None]
                 img2 = np.asarray(s["image2"], np.float32)[None]
-                padder = InputPadder(img1.shape)
+                padder = InputPadder(img1.shape, divisor=fwd.pad_divisor)
                 img1, img2 = _pad_host(padder.pad_spec, img1, img2)
                 flow_lr, flow_up = fwd.forward(img1, img2, iters, flow_init=flow_prev)
                 if warm_start:
                     flow_prev = forward_interpolate_batch(flow_lr)
-                drain.submit(flow_up, _sintel_writer(padder, output_path, dstype, sequence,
-                                                     frame, write_png))
+                if writes:
+                    drain.submit(flow_up, _sintel_writer(padder, output_path, dstype,
+                                                         sequence, frame, write_png))
                 sequence_prev = sequence
+
+
+def _submission_roles(fwd: ShapeCachedForward) -> tuple[bool, bool]:
+    """``(runs the forwards, writes the files)`` of this rank in a
+    submission: the main process does both; under a spatial axis the other
+    ranks of its data index run the forwards with it."""
+    mesh = fwd.mesh
+    writes = is_main_process()
+    return writes or (mesh is not None and mesh.spatial > 1 and mesh.data_index == 0), writes
 
 
 def _sintel_writer(padder, output_path, dstype, sequence, frame, png: bool):
@@ -367,13 +400,15 @@ def create_kitti_submission(model, data_cfg: Optional[DataConfig] = None, iters:
     ``<output_path>_png``; fields reach the host through an
     :class:`AsyncDrain`; the main process only, as
     :func:`create_sintel_submission`."""
-    if not is_main_process():
-        return
     cfg = data_cfg or DataConfig()
-    dataset = ds_mod.KITTI(split="testing", root=cfg.root_kitti)
     fwd = _forward_for(model, cfg, precision, fwd)
-    os.makedirs(output_path, exist_ok=True)
-    if write_png:
+    runs, writes = _submission_roles(fwd)
+    if not runs:
+        return
+    dataset = ds_mod.KITTI(split="testing", root=cfg.root_kitti)
+    if writes:
+        os.makedirs(output_path, exist_ok=True)
+    if writes and write_png:
         os.makedirs(output_path + "_png", exist_ok=True)
     with SamplePrefetcher(dataset, num_workers=cfg.num_workers) as samples, \
             AsyncDrain(depth=cfg.device_prefetch) as drain:
@@ -381,10 +416,12 @@ def create_kitti_submission(model, data_cfg: Optional[DataConfig] = None, iters:
             (frame_id,) = s["extra_info"]
             img1 = np.asarray(s["image1"], np.float32)[None]
             img2 = np.asarray(s["image2"], np.float32)[None]
-            padder = InputPadder(img1.shape, mode="kitti", bucket=cfg.eval_pad_bucket)
+            padder = InputPadder(img1.shape, mode="kitti", divisor=fwd.pad_divisor,
+                                 bucket=cfg.eval_pad_bucket)
             img1, img2 = _pad_host(padder.pad_spec, img1, img2)
             _, flow_up = fwd.forward(img1, img2, iters)
-            drain.submit(flow_up, _kitti_writer(padder, output_path, frame_id, write_png))
+            if writes:
+                drain.submit(flow_up, _kitti_writer(padder, output_path, frame_id, write_png))
 
 
 def _kitti_writer(padder, output_path: str, frame_id: str, png: bool):
@@ -416,19 +453,20 @@ def validate_synthetic(model, data_cfg: Optional[DataConfig] = None, iters: int 
         style = data_cfg.synthetic_style if data_cfg else "smooth"
     prefix = "synthetic" if style == "smooth" else f"synthetic_{style}"
     dataset = SyntheticFlowDataset(size_hw, length=length, seed=seed, style=style)
-    dataset, n, reduce = _shard_for_validation(dataset)
+    cfg = data_cfg or DataConfig()
+    fwd = _forward_for(model, cfg, precision, fwd)
+    dataset, n, reduce = _shard_for_validation(dataset, fwd.mesh)
     if n == 0:
         _print_main("validate_synthetic: no frames, skipping")
         return {}
-    cfg = data_cfg or DataConfig()
     kind = "epe_band" if style == "rigid" else "epe"
     acc = _run_metric_pass(
-        _forward_for(model, cfg, precision, fwd), dataset, kind=kind, iters=iters,
+        fwd, dataset, kind=kind, iters=iters,
         batch_size=batch_size, pad_mode="sintel",
         band_fn=flow_boundary_mask if style == "rigid" else None,
         num_workers=cfg.num_workers, depth=cfg.device_prefetch)
     if reduce:
-        acc = allreduce_sum_across_hosts(acc)
+        acc = _reduce(acc, fwd)
     m = metrics_mod.finalize(kind, acc)
     out = {prefix: m["epe"]}
     if style == "rigid":

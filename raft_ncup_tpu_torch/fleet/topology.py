@@ -12,7 +12,8 @@ torch): the router process holds this object without importing torch
 (an AST scan in ``tests/test_torch_fleet.py`` holds ``fleet/`` to that).
 
 The port serves on one card and has no mesh: a replica slot's mesh must
-be None (ROADMAP.md, queue 1 item 9b), so every pad divisor is 8. The
+be None (a spatial slot is ROADMAP.md, queue 1 item 9b-ii), so every pad
+divisor is 8. The
 device is the serve entry's ``--device``, given through ``extra_args``
 (``("--device", "cpu")`` on the CPU; nothing on the card).
 """
@@ -58,7 +59,7 @@ class ReplicaSpec:
     # per-replica export observability/aggregate.py merges into the
     # fleet-wide registry view.
     telemetry_jsonl: str = ""
-    # Always None in the port (one card, no mesh: ROADMAP.md item 9b).
+    # Always None in the port (one card, no mesh: ROADMAP.md item 9b-ii).
     mesh: Optional[Tuple[int, int]] = None
     # The wire address (the serve entry's --replica_socket): equals socket_path
     # under the UDS transport, "host:port" under TCP. Empty only when a
@@ -77,7 +78,8 @@ def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise ValueError(
             f"replica mesh {mesh!r}: the port serves on one card without "
-            "a mesh (ROADMAP.md, queue 1 item 9b)"
+            "a mesh (ROADMAP.md, queue 1 item 9b-ii: spatial serving, streaming "
+            "and fleet meshes)"
         )
 
 
@@ -101,7 +103,7 @@ class FleetConfig:
     serve: ServeConfig = field(default_factory=ServeConfig)
     stream: Optional[StreamConfig] = None
     # Per-replica mesh slices: None, or None for every slot (the port has
-    # no mesh; ROADMAP.md item 9b).
+    # no serving mesh; ROADMAP.md item 9b-ii).
     meshes: Optional[tuple] = None
     # Extra serve entry argv forwarded verbatim (model and device flags).
     extra_args: Tuple[str, ...] = ()

@@ -4,7 +4,8 @@
 
 The iteration budget's ``segments`` argument needs these two rules. The
 pipelined forward itself and its pipe axis are not ported (ROADMAP.md,
-queue 1 item 9b: ``parallel/`` has the data axis across processes only).
+queue 1 item 9b-iv: ``parallel/`` has the data and spatial axes across
+processes only).
 """
 
 from __future__ import annotations

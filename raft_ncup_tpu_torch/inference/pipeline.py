@@ -58,10 +58,20 @@ ring event carrying the key. Every new key's counted run
 the CPU) records its cost in the ledger (``inference/costs.py``) under the
 cache's key; an early-exit entry records its three graphs.
 
-The JAX package's mesh argument is not ported: a forward here is one
-process's on one card (data parallelism shards the frames across
-processes, ``evaluation._HostShard``; a mesh of several cards under one
-forward is ROADMAP.md queue 1 item 9b).
+**The mesh** (``mesh=``, ``parallel.mesh.make_mesh``): every key starts
+with its fingerprint (``mesh_fingerprint``, JAX's), so a sharded and an
+unsharded entry of one shape never collide. With a spatial axis above 1
+the forward is split by rows over this rank's spatial group
+(``RAFT.forward(..., mesh=...)``, ``parallel/halo.py``): every rank of the
+group passes the same whole frames and gets the same whole flow. Such an
+entry runs eagerly, not as a CUDA graph: its halo exchanges and gathers
+are collectives between processes, which a graph would have to capture
+(NCCL point-to-point capture: open, ROADMAP.md queue 1 item 9b-ii). Under
+gloo each one is a ``guards.collective_read``, a sanctioned read, so a
+guarded window around a sharded forward counts no implicit transfer. Early
+exit and the stream engine's entries refuse a spatial axis (item 9b-ii).
+Data parallelism shards the frames across the data indices
+(``evaluation._HostShard``).
 """
 
 from __future__ import annotations
@@ -92,14 +102,18 @@ from raft_ncup_tpu_torch.observability import get_telemetry
 from raft_ncup_tpu_torch.observability.telemetry import LEGACY_KEY_ALIASES
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
-from raft_ncup_tpu_torch.parallel.mesh import mesh_fingerprint
+from raft_ncup_tpu_torch.parallel.mesh import (
+    ITEM_9B_SERVING,
+    mesh_fingerprint,
+    pad_divisor,
+    refuse_spatial,
+)
 from raft_ncup_tpu_torch.precision import resolve_policy
 from raft_ncup_tpu_torch.utils.device import cudnn_autotune, f32_precision
 
 _EXEC_CANON = LEGACY_KEY_ALIASES["inference"]
-# A cached forward runs in one process on one card, so its keys, spans and
-# dumps carry JAX's fingerprint of an unsharded program; a data-parallel
-# validation runs one such forward per rank on its share of the frames.
+# The server and the stream engine run in one process on one card, so
+# their spans and dumps carry JAX's fingerprint of an unsharded program.
 MESH_FP = mesh_fingerprint(None)
 
 # Iterations per replayed segment of the early-exit forward: it divides
@@ -706,9 +720,9 @@ class _EarlyExitEntry:
 
 
 class ShapeCachedForward:
-    """A bounded LRU of the test-mode forward per key: (padded shape and
-    batch, iterations, warm start, metric kind and pad, precision preset,
-    early-exit tolerance), the JAX package's key without its mesh, and of
+    """A bounded LRU of the test-mode forward per key: (mesh fingerprint,
+    padded shape and batch, iterations, warm start, metric kind and pad,
+    precision preset, early-exit tolerance), the JAX package's key, and of
     the entries callers build (:meth:`custom`).
 
     On a CUDA model an entry is a captured CUDA graph (:class:`_GraphEntry`);
@@ -741,9 +755,17 @@ class ShapeCachedForward:
     ledger (see the module docstring)."""
 
     def __init__(self, model, cache_size: int = 8, policy=None, telemetry=None,
-                 cost_ledger=None):
+                 cost_ledger=None, mesh=None):
         self.model = model
         self.device = model.device
+        self.mesh = mesh
+        # Part of every key (see _get): a sharded and an unsharded entry of
+        # one shape never collide.
+        self.mesh_fp = mesh_fingerprint(mesh)
+        # The ranks that split each forward by rows; images pad to a
+        # multiple of 8 times it.
+        self.spatial = mesh.spatial if mesh is not None else 1
+        self.pad_divisor = pad_divisor(mesh)
         self.policy = resolve_policy(policy) if policy is not None else model.policy
         self.cache_size = max(1, int(cache_size))
         self._entries: OrderedDict = OrderedDict()
@@ -791,8 +813,8 @@ class ShapeCachedForward:
 
     def _pool_for_capture(self):
         """The graphs' shared pool on the card (made at the first capture),
-        None on the CPU."""
-        if self.device.type != "cuda":
+        None on the CPU and under a spatial axis (eager entries)."""
+        if self.device.type != "cuda" or self.spatial > 1:
             return None
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -802,7 +824,9 @@ class ShapeCachedForward:
         """The entry of ``key``, built by ``build()`` on a miss; counts a
         capture, a hit or an eviction, in ``stats`` and in the telemetry
         registry. Hits are counters only: a ring event per replayed batch
-        would crowd out the events the ring exists to keep."""
+        would crowd out the events the ring exists to keep. The key is
+        stored behind the mesh fingerprint."""
+        key = (self.mesh_fp,) + tuple(key)
         entry = self._entries.get(key)
         if entry is not None:
             self._entries.move_to_end(key)
@@ -828,7 +852,8 @@ class ShapeCachedForward:
     def _recorder(self, key: tuple) -> Callable:
         """The cost ledger's recorder of ``key``'s counted run:
         ``record(flops, ms, pool bytes)``."""
-        ledger_key = f"{self.device.type}|{key}"
+        ledger_key = (f"{self.device.type}|{key}" if self.mesh is None
+                      else f"{self.device.type}|{self.mesh_fp}|{key}")
         meta = _ledger_meta(key)
 
         def record(flops: dict, ms: float, pool_bytes: int) -> None:
@@ -840,6 +865,14 @@ class ShapeCachedForward:
     def _graph_or_eager(self, key: tuple, fn: Callable, args: tuple):
         pool = self._pool_for_capture()
         record = self._recorder(key)
+        if pool is None and self.device.type == "cuda":
+            # A spatial entry on the card runs eagerly: its staged host
+            # arguments go to the card first, and cuDNN's autotuner picks the
+            # algorithms, as a capture's would.
+            eager, device = cudnn_autotune()(fn), self.device
+
+            def fn(*a):
+                return eager(*(t.to(device, non_blocking=True) for t in a))
         return (_EagerEntry(fn, record) if pool is None
                 else _GraphEntry(key, fn, args, pool, record, self.device))
 
@@ -854,6 +887,8 @@ class ShapeCachedForward:
         replayed after, run eagerly on the CPU. The key is namespaced as
         ``("custom", *key)``; the stream engine's step per batch size is
         one. Returns the function's result."""
+        refuse_spatial(self.spatial, "a custom cached entry (the stream engine's "
+                       "step)", ITEM_9B_SERVING)
         full = ("custom",) + tuple(key)
         return self._get(full, lambda: self._graph_or_eager(full, build(), args))(*args)
 
@@ -870,6 +905,7 @@ class ShapeCachedForward:
             args += (self._tensor(flow_init),)
         key = (tuple(args[0].shape), int(iters), flow_init is not None, pol.name)
         if early_exit_tol is not None:
+            refuse_spatial(self.spatial, "early exit", ITEM_9B_SERVING)
             key += (("earlyexit", float(early_exit_tol)),)
 
             def build():
@@ -882,8 +918,10 @@ class ShapeCachedForward:
             self.last_earlyexit = entry.last
             return out
 
+        mesh = self.mesh
+
         def fn(i1, i2, finit=None):
-            return model(i1, i2, iters=iters, flow_init=finit)
+            return model(i1, i2, iters=iters, flow_init=finit, mesh=mesh)
 
         return self._run(key, fn, args)
 
@@ -904,12 +942,13 @@ class ShapeCachedForward:
             args += (self._tensor(flow_init),)
         key = ("metrics", tuple(args[0].shape), tuple(args[2].shape), names, int(iters),
                kind, pad, warm, pol.name)
+        mesh = self.mesh
 
         def fn(i1, i2, *rest):
             extra = dict(zip(names, rest))
             acc_in = rest[len(names)]
             finit = rest[len(names) + 1] if warm else None
-            flow_lr, flow_up = model(i1, i2, iters=iters, flow_init=finit)
+            flow_lr, flow_up = model(i1, i2, iters=iters, flow_init=finit, mesh=mesh)
             acc_out = metrics_mod.accumulate(
                 kind, acc_in, flow_up, extra["flow"], valid=extra.get("valid"),
                 band=extra.get("band"), pad=pad)

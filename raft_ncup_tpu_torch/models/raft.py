@@ -61,6 +61,15 @@ its masks from ``dropout_generator`` (the train step seeds one per step;
 world)`` (a data-parallel step) at the global batch's shape, keeping the
 rank's rows.
 
+The spatial axis (``forward(..., mesh=...)`` with a spatial size above 1,
+``parallel/halo.py``): the test-mode forward split by image rows over the
+ranks of this process's spatial group, JAX's ``mesh`` argument. Each rank
+takes its band of the whole inputs; the convolutions exchange row halos,
+instance norm sums its statistics over the group, the coordinates start
+at the band's global first row, the lookup reads the gathered fmap2, and
+the outputs are gathered, so every rank returns the whole flow. Training
+and early exit refuse it (ROADMAP.md queue 1 items 9b-iii and 9b-ii).
+
 The model lives on the card unless the caller passes ``device="cpu"``;
 with no device and no CUDA, construction raises.
 """
@@ -93,6 +102,13 @@ from raft_ncup_tpu_torch.ops.geometry import (
     coords_grid,
     upflow,
     upsample_nearest,
+)
+from raft_ncup_tpu_torch.parallel import halo
+from raft_ncup_tpu_torch.parallel.mesh import (
+    ITEM_9B_SERVING,
+    ITEM_9B_TRAINING,
+    refuse_spatial,
+    spatial_group,
 )
 from raft_ncup_tpu_torch.utils.device import f32_precision, resolve_device
 
@@ -203,7 +219,8 @@ class RAFT(nn.Module):
                 net = carried
             else:
                 net = torch.where(net_warm.to(torch.bool)[:, None, None, None], carried, net)
-        coords1 = coords_grid(B, H // 8, W // 8, device=image1.device)
+        coords1 = coords_grid(B, H // 8, W // 8, device=image1.device,
+                              y0=halo.first_row(H // 8))
         if flow_init is not None:
             coords1 = coords1 + flow_init
         return fmap1, fmap2, net, inp, coords1.contiguous()
@@ -217,6 +234,9 @@ class RAFT(nn.Module):
         in buffers of its own."""
         cfg = self.cfg
         dtype = self.policy.corr
+        # On a band of rows the lookup reads the whole fmap2, gathered once
+        # per pair (JAX's replicated f2), against the band's fmap1.
+        fmap2 = halo.all_gather_rows(fmap2, dim=1)
         if cfg.corr_impl == "volume":
             return build_corr_pyramid(fmap1, fmap2, cfg.corr_levels, dtype).levels
         if cfg.corr_impl == "onthefly":
@@ -255,7 +275,9 @@ class RAFT(nn.Module):
             hr = self.upsampler(flow2, net.to(up))
             return (8.0 * hr).permute(0, 2, 3, 1)
         if self.cfg.small:
-            return upflow(flow_lr, 8, self.cfg.align_corners)
+            # Bilinear resize reads across rows: the whole flow, then banded.
+            return halo.on_whole(lambda f: upflow(f, 8, self.cfg.align_corners), flow_lr,
+                                 dim=1)
         mask = self.update_block.mask_logits(net).to(up)
         return convex_upsample_nchw(flow_lr.permute(0, 3, 1, 2), mask, 8).permute(0, 2, 3, 1)
 
@@ -293,7 +315,7 @@ class RAFT(nn.Module):
         has converged (a read on the host)."""
         net, coords1 = carry["net"], carry["coords1"]
         B, h8, w8, _ = coords1.shape
-        coords0 = coords_grid(B, h8, w8, device=coords1.device)
+        coords0 = coords_grid(B, h8, w8, device=coords1.device, y0=halo.first_row(h8))
         converged = carry.get("converged")
         exec_iters = carry.get("exec_iters")
         for _ in range(int(iters)):
@@ -325,6 +347,7 @@ class RAFT(nn.Module):
         return_net: bool = False,
         early_exit_tol: Optional[float] = None,
         return_exec_iters: bool = False,
+        mesh=None,
     ):
         """In eval mode, the test-mode forward: ``(flow_lr, flow_up)``,
         (B, H/8, W/8, 2) and (B, H, W, 2) float32, without gradients, plus
@@ -333,7 +356,15 @@ class RAFT(nn.Module):
         (which needs ``early_exit_tol``). In training mode, the train-mode
         forward: the upsampled flow of every iteration, (iters, B, H, W,
         2) float32, each iteration under ``torch.utils.checkpoint`` when
-        ``remat``. ``net_init``/``net_warm`` warm-start the GRU in both."""
+        ``remat``. ``net_init``/``net_warm`` warm-start the GRU in both.
+
+        ``mesh`` (``parallel.mesh.make_mesh``) with a spatial axis above 1
+        splits the test-mode forward by rows over this rank's spatial group
+        (:meth:`_forward_spatial`); every rank of the group passes the same
+        whole inputs and gets the same whole outputs."""
+        if mesh is not None and mesh.spatial > 1:
+            return self._forward_spatial(mesh, image1, image2, iters, flow_init, net_init,
+                                         net_warm, return_net, early_exit_tol)
         if self.training and (early_exit_tol is not None or return_exec_iters or return_net):
             raise ValueError("early_exit_tol, return_exec_iters and return_net require "
                              "test_mode (eval mode)")
@@ -352,6 +383,31 @@ class RAFT(nn.Module):
             if return_exec_iters:
                 result = result + (carry["exec_iters"],)
             return result
+
+    def _forward_spatial(self, mesh, image1, image2, iters, flow_init, net_init, net_warm,
+                         return_net, early_exit_tol):
+        """The test-mode forward split by rows over this rank's spatial group
+        of ``mesh`` (``parallel/halo.py``): this rank takes its band of the whole
+        images (and of ``flow_init``, ``net_init``), runs the forward on it
+        with halo exchanges at every convolution that reads across the
+        band's edges, instance norm over the whole image and the lookup on
+        the gathered fmap2, and gathers the outputs, so every rank returns
+        the whole flow (JAX's replicated outputs). The height must divide
+        by 8 times the group's size."""
+        if self.training:
+            refuse_spatial(mesh.spatial, "the train-mode forward", ITEM_9B_TRAINING)
+        if early_exit_tol is not None:
+            refuse_spatial(mesh.spatial, "early exit", ITEM_9B_SERVING)
+        group = spatial_group(mesh)
+        H = image1.shape[1]
+        if H % (8 * group.size):
+            raise ValueError(f"image height {H} must divide by 8 * spatial = "
+                             f"{8 * group.size}; pad with InputPadder(divisor=...) first")
+        with halo.spatial(group):
+            out = self.forward(halo.band(image1), halo.band(image2), iters,
+                               flow_init=halo.band(flow_init), net_init=halo.band(net_init),
+                               net_warm=net_warm, return_net=return_net)
+            return tuple(halo.all_gather_rows(t.contiguous(), dim=1) for t in out)
 
     def _forward_train(self, image1, image2, iters, flow_init, remat, net_init, net_warm):
         fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init,
@@ -424,7 +480,8 @@ class RAFT(nn.Module):
         start's hand-off to the next frame)."""
         net, coords1 = carry["net"], carry["coords1"]
         B, h8, w8, _ = coords1.shape
-        flow_lr = coords1 - coords_grid(B, h8, w8, device=coords1.device)
+        flow_lr = coords1 - coords_grid(B, h8, w8, device=coords1.device,
+                                        y0=halo.first_row(h8))
         flow_up = self._upsample(flow_lr, net).to(self.policy.output)
         if return_net:
             return flow_lr, flow_up, net.permute(0, 2, 3, 1)

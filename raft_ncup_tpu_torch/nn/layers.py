@@ -22,6 +22,13 @@ dtype the bias is added after the convolution, in that dtype, as the JAX
 layer adds it (cuDNN's path in PyTorch adds a bias after the convolution
 too, so this costs the card nothing). Normalizations always compute in f32
 and return their input's dtype.
+
+Under the spatial axis (``parallel/halo.py``, a :func:`halo.spatial`
+context), the input is a band of rows: ``Conv2d`` pads its height with
+the neighbouring ranks' rows instead of zeros whenever its kernel is
+taller than 1 or its stride above 1, and ``InstanceNorm2d`` takes its
+statistics over the whole image, summed over the group. BatchNorm in eval
+mode uses its running statistics and stays local.
 """
 
 from __future__ import annotations
@@ -31,7 +38,10 @@ import math
 import threading
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from raft_ncup_tpu_torch.parallel import halo
 
 
 def _pair(v) -> tuple[int, int]:
@@ -69,9 +79,23 @@ class Conv2d(nn.Conv2d):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        padding = self.padding
+        kh, sh = self.kernel_size[0], self.stride[0]
+        if halo.current() is not None and (kh > 1 or sh > 1):
+            # A band of rows: the neighbours' rows stand in for the zeros.
+            rows = x.shape[2]  # the band starts at rank * rows
+            if rows % sh:
+                raise ValueError(f"a band of {rows} rows does not split at stride {sh}: "
+                                 "pad the height to a multiple of 8 times the spatial size")
+            top, bottom = halo.halo_rows(kh, sh, padding[0], self.dilation[0],
+                                         halo.first_row(rows), rows)
+            x = halo.extend(x, top, bottom)
+            padding = (0, padding[1])
         if self.dtype is None:
-            return self._conv_forward(x, self.weight, self.bias)
-        y = self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), None)
+            return F.conv2d(x, self.weight, self.bias, self.stride, padding, self.dilation,
+                            self.groups)
+        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None, self.stride, padding,
+                     self.dilation, self.groups)
         if self.bias is None:
             return y
         return y + self.bias.to(self.dtype).view(1, -1, 1, 1)
@@ -202,13 +226,22 @@ def synced_batch_stats(model: nn.Module, reduce_sum):
 
 class InstanceNorm2d(nn.InstanceNorm2d):
     """Per-sample, per-channel normalization without affine, eps 1e-5,
-    computed in f32 and returned in the input's dtype."""
+    computed in f32 and returned in the input's dtype. On a band of rows
+    the statistics are the whole image's, in two passes summed over the
+    spatial group: the mean, then the mean of the centred squares."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, affine=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(_norm_input(x)).to(x.dtype)
+        xf = _norm_input(x)
+        if halo.current() is None:
+            return super().forward(xf).to(x.dtype)
+        n = xf.shape[2] * xf.shape[3] * halo.current().size
+        mean = halo.group_sum_(xf.sum(dim=(2, 3), keepdim=True)) / n
+        centred = xf - mean
+        var = halo.group_sum_((centred * centred).sum(dim=(2, 3), keepdim=True)) / n
+        return (centred * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
 def Norm(kind: str, channels: int) -> nn.Module:

@@ -16,6 +16,12 @@ zero-stuffed data and the guidance resized bilinearly (align_corners),
 and step 3 falls away. The weights net is ``SimpleWeightsNet``,
 ``UNetWeightsNet`` or, for ``weights_est_net='binary'``, none: the
 confidence is 1 where the data is positive, else 0.
+
+On a band of rows (``parallel/halo.py``) the nearest x2, the area resize,
+the zero-stuffing and the U-Net's pooling are local under the pad divisor
+8 times the spatial size; the convolutions exchange halos; the resizes
+with aligned corners (``est_on_high_res``'s guidance, the bilinear
+upsampler) run on the gathered whole and keep the band.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from raft_ncup_tpu_torch.ops.geometry import (
     bilinear_resize_align_corners_nchw,
 )
 from raft_ncup_tpu_torch.ops.nconv import zero_stuff_upsample_nchw
+from raft_ncup_tpu_torch.parallel import halo
 
 
 class NConvUpsampler(nn.Module):
@@ -83,7 +90,9 @@ class NConvUpsampler(nn.Module):
         x_highres = zero_stuff_upsample_nchw(x_lowres, s, s)
         if cfg.est_on_high_res:
             data = x_highres
-            guid = bilinear_resize_align_corners_nchw(guidance, (oh, ow))
+            # Aligned corners read the whole height: resized whole, then banded.
+            guid = halo.on_whole(lambda g: bilinear_resize_align_corners_nchw(
+                g, (g.shape[2] * oh // guidance.shape[2], ow)), guidance)
         else:
             data = x_lowres
             guid = adaptive_area_resize_nchw(guidance, (H, W))
@@ -116,9 +125,9 @@ class BilinearUpsampler(nn.Module):
         self.cfg = cfg
 
     def forward(self, x_lowres: torch.Tensor, guidance: torch.Tensor) -> torch.Tensor:
-        _, _, H, W = x_lowres.shape
         s = self.cfg.scale
-        return bilinear_resize_align_corners_nchw(x_lowres, (H * s, W * s))
+        return halo.on_whole(lambda x: bilinear_resize_align_corners_nchw(
+            x, (x.shape[2] * s, x.shape[3] * s)), x_lowres)
 
 
 def build_upsampler(

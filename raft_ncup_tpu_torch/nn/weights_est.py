@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from raft_ncup_tpu_torch.nn.layers import Conv2d, ConvTranspose2d, Norm
+from raft_ncup_tpu_torch.parallel import halo
 
 
 class SimpleWeightsNet(nn.Module):
@@ -76,7 +77,10 @@ class UNetWeightsNet(nn.Module):
     ``up{i}_tconv`` (2x2 stride-2 transposed conv) zero-padded to its skip's
     size (the odd pixel at the bottom and right) and ``up{i}_conv`` over
     the skip and it, concatenated; ``outconv`` 1x1. Its BatchNorm trains
-    when the model's BatchNorm trains."""
+    when the model's BatchNorm trains. On a band of rows
+    (``parallel/halo.py``) the pooling and the transposed convolutions are
+    local only when the band's height divides by ``2 ** n_down``; another
+    band raises."""
 
     def __init__(self, in_ch: int, num_ch=(16, 32, 64), out_ch: int = 2):
         super().__init__()
@@ -92,6 +96,13 @@ class UNetWeightsNet(nn.Module):
         self.outconv = Conv2d(num_ch[0], out_ch, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if halo.current() is not None and x.shape[2] % (2 ** self.n_down):
+            # A band that pools to an odd row would pad it in the image's
+            # interior, where the whole image pads nothing.
+            raise ValueError(
+                f"the U-Net weights net pools a band of {x.shape[2]} rows {self.n_down} "
+                f"times: the band's height must divide by {2 ** self.n_down}; pad the height "
+                "to a multiple of that times 4 times the spatial size")
         feats = [self.inconv(x)]
         for i in range(self.n_down):
             feats.append(getattr(self, f"down{i}")(F.max_pool2d(feats[-1], 2, 2)))

@@ -51,11 +51,12 @@ def build_corr_pyramid(
     average pyramid, stored at ``dtype``: the maps are rounded to it, the
     dot products summed in f32 and the volume rounded to it."""
     B, H, W, C = fmap1.shape
+    H2, W2 = fmap2.shape[1], fmap2.shape[2]
     dtype = dtype or torch.float32
     f1 = fmap1.reshape(B, H * W, C).to(dtype).float()
-    f2 = fmap2.reshape(B, H * W, C).to(dtype).float()
+    f2 = fmap2.reshape(B, H2 * W2, C).to(dtype).float()
     corr = torch.einsum("bxc,byc->bxy", f1, f2) / math.sqrt(C)
-    corr = corr.to(dtype).reshape(B, H * W, H, W)
+    corr = corr.to(dtype).reshape(B, H * W, H2, W2)
     levels = [corr]
     for _ in range(num_levels - 1):
         n, q, h, w = levels[-1].shape

@@ -5,6 +5,11 @@ coordinates with x first, like the JAX package. The sampling semantics
 are PyTorch's ``grid_sample(align_corners=True, padding='zeros')`` after
 the pixel round trip the reference uses: each of the four corner taps
 contributes 0 iff that tap is out of bounds.
+
+Under the spatial axis (``parallel/halo.py``) the convex upsampler reads
+one halo row of the low-res flow from each neighbour; the resizes with
+aligned corners are not local in rows and run on the whole tensor, which
+their callers gather (``halo.on_whole``).
 """
 
 from __future__ import annotations
@@ -12,13 +17,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from raft_ncup_tpu_torch.parallel import halo
+
 
 def coords_grid(
-    batch: int, ht: int, wd: int, device=None, dtype=torch.float32
+    batch: int, ht: int, wd: int, device=None, dtype=torch.float32, y0: int = 0
 ) -> torch.Tensor:
-    """Pixel-coordinate grid (B, H, W, 2) with [..., 0] = x, [..., 1] = y."""
+    """Pixel-coordinate grid (B, H, W, 2) with [..., 0] = x, [..., 1] = y,
+    its rows starting at ``y0`` (a band's global first row)."""
     y, x = torch.meshgrid(
-        torch.arange(ht, device=device, dtype=dtype),
+        torch.arange(y0, y0 + ht, device=device, dtype=dtype),
         torch.arange(wd, device=device, dtype=dtype),
         indexing="ij",
     )
@@ -165,7 +173,12 @@ def convex_upsample_nchw(
     B, C, H, W = flow.shape
     f = factor
     m = torch.softmax(mask.reshape(B, 1, 9, f, f, H, W), dim=2)
-    patches = F.unfold(f * flow, [3, 3], padding=1).reshape(B, C, 9, 1, 1, H, W)
+    if halo.current() is not None:
+        # A band of rows: one halo row of the neighbours above and below.
+        patches = F.unfold(f * halo.extend(flow, 1, 1), [3, 3], padding=(0, 1))
+    else:
+        patches = F.unfold(f * flow, [3, 3], padding=1)
+    patches = patches.reshape(B, C, 9, 1, 1, H, W)
     up = (m * patches).sum(dim=2)  # (B, C, i, j, H, W)
     return up.permute(0, 1, 4, 2, 5, 3).reshape(B, C, H * f, W * f)
 

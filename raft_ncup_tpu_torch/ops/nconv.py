@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused, nconv2d_plain
+from raft_ncup_tpu_torch.parallel import halo
 
 
 def positivity(raw: torch.Tensor, pos_fn: str = "softplus") -> torch.Tensor:
@@ -47,12 +48,23 @@ def nconv2d_nchw(
     impl: str = "xla",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Normalized convolution on (B, Cin, H, W) with an OIHW weight that
-    is already non-negative; returns ``(out, conf_out)``."""
-    if impl == "pallas":
-        return nconv2d_fused(data, conf, weight, bias, eps)
-    if impl == "xla":
-        return nconv2d_plain(data, conf, weight, bias, eps)
-    raise ValueError(f"unknown nconv impl: {impl!r}")
+    is already non-negative; returns ``(out, conf_out)``.
+
+    On a band of rows (``parallel/halo.py``) data and confidence are
+    extended by k//2 rows of each neighbour in one exchange (zeros at the
+    image's edges: SAME padding's zero data and zero confidence), the op
+    runs on the extended band and its own rows are kept."""
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown nconv impl: {impl!r}")
+    op = nconv2d_fused if impl == "pallas" else nconv2d_plain
+    p = weight.shape[-1] // 2
+    if halo.current() is None or p == 0:
+        return op(data, conf, weight, bias, eps)
+    cin, rows = data.shape[1], data.shape[2]
+    both = halo.extend(torch.cat([data, conf], dim=1), p, p)
+    out, conf_out = op(both[:, :cin].contiguous(), both[:, cin:].contiguous(), weight, bias,
+                       eps)
+    return out[:, :, p:p + rows].contiguous(), conf_out[:, :, p:p + rows].contiguous()
 
 
 def nconv2d(
@@ -83,6 +95,9 @@ def downsample_data_conf_nchw(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`downsample_data_conf` on (B, C, H, W)."""
     B, C, H, W = conf.shape
+    if halo.current() is not None and H % 2:
+        raise ValueError(f"a band of {H} rows does not pool 2x2 alone: pad the height to "
+                         "a multiple of 8 times the spatial size")
 
     def blocks(x):  # (B, C, H/2, W/2, 4), window in row-major order
         x = x.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 1, 2, 4, 3, 5)

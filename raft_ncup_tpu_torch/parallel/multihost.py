@@ -20,9 +20,11 @@ synchronisation. Every collective waits :data:`COLLECTIVE_TIMEOUT_S`
 (1800 s) for the other ranks, long enough for cuDNN's autotuning
 of a first step on each of them.
 
-:func:`all_reduce_` is the port's one tensor collective; it counts each
-call and its bytes (``mesh.collective_stats`` reads them), and
-:func:`all_reduce_grad` is its differentiable form (sync-BN). Host-side
+:func:`all_reduce_` is the port's reduction, over the world or a
+subgroup; it counts each call and its bytes (``mesh.collective_stats``
+reads them, with the spatial axis's halo exchanges and gathers of
+``parallel/halo.py``), and :func:`all_reduce_grad` is its differentiable
+form (sync-BN). Host-side
 helpers: :func:`allreduce_sum_across_hosts` (numpy in and out, summed over
 the ranks: validation's sums and counts), :func:`agreed_min`, :func:`agreed_any` and
 :func:`barrier` on the process group's store.
@@ -218,36 +220,38 @@ def _refuse_shared_cards(dev: torch.device) -> None:
             "(RAFT_TORCH_DIST_BACKEND=gloo)")
 
 
-def _count(op: str, t: torch.Tensor) -> None:
+def count_collective(op: str, nbytes: int) -> None:
+    """Count one collective of JAX's op name ``op`` moving ``nbytes``."""
     c = _COUNTS.setdefault(op, {"count": 0, "bytes": 0})
     c["count"] += 1
-    c["bytes"] += t.numel() * t.element_size()
+    c["bytes"] += int(nbytes)
 
 
-def all_reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """Reduce ``t`` over the ranks in place (``op``: sum, min or max) and
-    return it. Under gloo a card tensor goes to the host through
-    :func:`analysis.guards.collective_read` and comes back by a
-    non-blocking copy; under NCCL a host tensor goes through the current
-    card. Without a process group it is ``t`` itself."""
+def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """Reduce ``t`` over the ranks of ``group`` (default: the world) in
+    place (``op``: sum, min or max) and return it. Under gloo a card tensor
+    goes to the host through :func:`analysis.guards.collective_read` and
+    comes back by a non-blocking copy; under NCCL a host tensor goes
+    through the current card. Without a process group it is ``t``
+    itself."""
     if not initialized():
         return t
     from raft_ncup_tpu_torch.analysis.guards import collective_read, host_read
 
     dist = _dist()
     red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}[op]
-    _count("all-reduce", t)
+    count_collective("all-reduce", t.numel() * t.element_size())
     name = backend()
     if name == "gloo" and t.device.type == "cuda":
         host = collective_read(t.detach())
-        dist.all_reduce(host, op=red)
+        dist.all_reduce(host, op=red, group=group)
         t.copy_(host, non_blocking=True)
     elif name == "nccl" and t.device.type == "cpu":
         card = t.to(torch.device("cuda", torch.cuda.current_device()))
-        dist.all_reduce(card, op=red)
+        dist.all_reduce(card, op=red, group=group)
         t.copy_(torch.from_numpy(host_read(card)))
     else:
-        dist.all_reduce(t, op=red)
+        dist.all_reduce(t, op=red, group=group)
     return t
 
 
@@ -270,16 +274,17 @@ def all_reduce_grad(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x)
 
 
-def allreduce_sum_across_hosts(x) -> np.ndarray:
-    """Sum a host-side accumulator over the ranks (numpy in and out; the
-    sums and counts of a sharded validation, never means), so every rank
-    returns the same global values. The shape must agree across ranks.
-    One process: ``x`` as an array."""
+def allreduce_sum_across_hosts(x, group=None) -> np.ndarray:
+    """Sum a host-side accumulator over the ranks of ``group`` (default:
+    the world; numpy in and out; the sums and counts of a sharded
+    validation, never means), so every rank returns the same global
+    values. The shape must agree across ranks. One process: ``x`` as an
+    array."""
     x = np.asarray(x)
     if not is_multihost():
         return x
     t = torch.from_numpy(np.array(x, dtype=np.float64))
-    return all_reduce_(t).numpy().astype(x.dtype, copy=False)
+    return all_reduce_(t, group=group).numpy().astype(x.dtype, copy=False)
 
 
 def agreed_min(n: int) -> int:

@@ -58,8 +58,8 @@ the process answers the wire's ``ping``, ``set_telemetry``, ``request`` and
 DRAINING before the flush, both tiers drain, and it exits 75 after
 printing one JSON report. ``fleet.ReplicaSupervisor`` spawns exactly this.
 
-Left out, refused with its ROADMAP.md item (queue 1): a mesh of several
-cards under one server (``--mesh``: item 9b).
+Left out, refused with its ROADMAP.md item (queue 1): a spatial mesh of
+several cards under one server or stream engine (``--mesh``: item 9b-ii).
 
 It runs on the card unless ``--device cpu`` is given; with no CUDA and
 no ``--device`` it raises.
@@ -133,7 +133,7 @@ from raft_ncup_tpu_torch.utils.knobs import knob_enabled, knob_raw
 
 # The root entry's flags of slices the port does not have yet, and the
 # ROADMAP.md (queue 1) item that brings each.
-_LATER = {"mesh": "9b"}
+_LATER = {"mesh": "9b-ii"}
 
 
 @contextlib.contextmanager

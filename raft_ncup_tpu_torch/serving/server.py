@@ -33,8 +33,8 @@ Data path (one dispatcher thread; clients submit from their own threads):
 Steady-state serving reads nothing else on the host and captures nothing
 (``tests/test_torch_guards.py`` holds a window to that under the
 runtime guards). ``inflight=1`` is the waiting server: each push waits
-for its own batch, with the same answers. Meshes land with a later slice
-(ROADMAP.md, queue 1 item 9b).
+for its own batch, with the same answers. A spatial mesh under one server
+lands with a later slice (ROADMAP.md, queue 1 item 9b-ii).
 
 **Telemetry** (``telemetry=``, the process's hub by default): the stats
 mirror into the registry under the JAX package's counter names; each

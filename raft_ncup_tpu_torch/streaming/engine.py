@@ -1,7 +1,7 @@
 """The multi-stream video engine: warm start on the card over a slot table
 of fixed capacity, with per-stream fault isolation (port of
-``raft_ncup_tpu/streaming/engine.py``, without the mesh: ROADMAP.md, queue 1
-item 9b).
+``raft_ncup_tpu/streaming/engine.py``, without the mesh: a spatial stream
+engine is ROADMAP.md, queue 1 item 9b-ii).
 
 Data path (one dispatcher thread; clients submit from their own threads):
 

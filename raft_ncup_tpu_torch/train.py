@@ -22,7 +22,7 @@ cards, gloo on the CPU, or ``RAFT_TORCH_DIST_BACKEND``), each rank feeds
 ``--device`` or ``cuda:LOCAL_RANK``, ``--batch_size`` is the global batch
 (each rank loads ``batch_size // N`` of it, and a batch N does not divide
 raises), ``--data_parallel`` defaults to N and any other value raises,
-and ``--spatial_parallel`` above 1 raises (ROADMAP.md queue 1 item 9b;
+and ``--spatial_parallel`` above 1 raises (ROADMAP.md queue 1 item 9b-iii;
 ``--gpus`` is accepted and ignored, as in JAX). Each step reduces the
 gradients, the loss and the metrics across the ranks
 (``training.step.make_train_step(mesh=...)``), so every rank logs,

@@ -72,7 +72,7 @@ from torch.profiler import record_function
 from raft_ncup_tpu_torch.config import TrainConfig
 from raft_ncup_tpu_torch.nn.layers import synced_batch_stats
 from raft_ncup_tpu_torch.parallel import multihost
-from raft_ncup_tpu_torch.parallel.mesh import Mesh
+from raft_ncup_tpu_torch.parallel.mesh import ITEM_9B_TRAINING, Mesh, data_group, refuse_spatial
 from raft_ncup_tpu_torch.training import sentinel as sentinel_mod
 from raft_ncup_tpu_torch.training.loss import finalize_metrics, sequence_loss_sums
 from raft_ncup_tpu_torch.training.optim import global_norm, select_into
@@ -240,7 +240,9 @@ def make_train_step(
     (B, H, W, 3) uint8 or float32 in [0, 255], flow (B, H, W, 2), valid
     (B, H, W), on the model's device: with ``mesh``, the rank's rows of the
     global batch. Updates ``state`` in place; with a mesh every rank
-    returns the global metrics."""
+    returns the global metrics. A mesh with a spatial axis above 1 raises
+    (training's spatial axis: ROADMAP.md queue 1 item 9b-iii)."""
+    refuse_spatial(mesh.spatial if mesh is not None else 1, "the train step", ITEM_9B_TRAINING)
 
     def step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         bn_old = [b.clone() for b in bn_buffers(state.model)]
@@ -267,15 +269,17 @@ def make_train_step(
 
 def make_eval_step(model, iters: int, mesh: Optional[Mesh] = None):
     """``eval_step(image1, image2) -> (flow_lr, flow_up)``: the test-mode
-    forward of ``model`` (JAX ``make_eval_step``). With ``mesh`` each rank
-    passes its rows of the global batch and gets the global batch's
+    forward of ``model`` (JAX ``make_eval_step``). With ``mesh`` each data
+    index passes its rows of the global batch and gets the global batch's
     outputs back, in its row order, on every rank (JAX's replicated
-    outputs), gathered by one sum over the ranks of zero-filled buffers."""
+    outputs), gathered by one sum over the data indices of zero-filled
+    buffers; the spatial ranks of a data index split its forward by rows
+    (``RAFT.forward(..., mesh=...)``)."""
 
     @torch.no_grad()
     def eval_step(image1: torch.Tensor, image2: torch.Tensor):
         model.eval()
-        flow_lr, flow_up = model(image1, image2, iters=iters)
+        flow_lr, flow_up = model(image1, image2, iters=iters, mesh=mesh)
         if mesh is None:
             return flow_lr, flow_up
         return tuple(_gather_rows(t, mesh) for t in (flow_lr, flow_up))
@@ -285,5 +289,5 @@ def make_eval_step(model, iters: int, mesh: Optional[Mesh] = None):
 
 def _gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     full = t.new_zeros((t.shape[0] * mesh.data,) + tuple(t.shape[1:]))
-    full.view(t.shape[0], mesh.data, *t.shape[1:])[:, mesh.rank] = t
-    return multihost.all_reduce_(full)
+    full.view(t.shape[0], mesh.data, *t.shape[1:])[:, mesh.data_index] = t
+    return multihost.all_reduce_(full, group=data_group(mesh))

@@ -58,10 +58,41 @@ def test_one_process_mesh_and_fingerprints_are_jaxs():
     assert mesh_mod.make_mesh(device="cuda:0").platform == "gpu"
 
 
-@pytest.mark.parametrize("kw", [dict(spatial=2), dict(pipe=2), dict(data=1, spatial=2, pipe=4)])
-def test_make_mesh_refuses_the_later_axes(kw):
-    with pytest.raises(ValueError, match="item 9b"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(spatial=2), "times spatial size 2 must equal the world size 1"),
+    (dict(data=1, spatial=2), "times spatial size 2 must equal the world size 1"),
+    (dict(pipe=2), "item 9b-iv"), (dict(data=1, spatial=2, pipe=4), "item 9b-iv")])
+def test_make_mesh_refuses_the_later_axes(kw, match):
+    # A spatial axis is one process per card: a world of one has none; the
+    # pipe axis is a later part of item 9b.
+    with pytest.raises(ValueError, match=match):
         mesh_mod.make_mesh(**kw)
+
+
+def test_rank_layout_is_jaxs_device_order():
+    """The (2, 2) grid: rank r is data index r // 2 and spatial index
+    r % 2, where JAX's make_mesh(data=2, spatial=2) puts device r."""
+    jmesh = jax_make_mesh(data=2, spatial=2, devices=jax.devices()[:4])
+    ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+    jax_layout = [tuple(int(v) for v in np.argwhere(ids == r)[0]) for r in range(4)]
+    assert jax_layout == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for r, (d, s) in enumerate(jax_layout):
+        m = mesh_mod.Mesh(data=2, rank=r, platform="cpu", spatial=2)
+        assert (m.data_index, m.spatial_index) == (d, s)
+        assert mesh_mod.batch_sharding(m) == slice(d, None, 2)
+    assert mesh_mod.mesh_fingerprint(mesh_mod.Mesh(2, 3, "cpu", spatial=2)) == \
+        jax_mesh_fingerprint(jmesh) == "mesh(data=2,spatial=2:cpu)"
+
+
+def test_check_axes_takes_the_spatial_axis_against_the_world():
+    assert mesh_mod.check_axes(None, 2, 1, world=4) == 2
+    assert mesh_mod.check_axes(1, 2, 1, world=2) == 1
+    assert mesh_mod.check_axes(2, 2, 1, world=4) == 2
+    for data, spatial, world in ((2, 2, 2), (1, 2, 4), (None, 3, 4)):
+        with pytest.raises(ValueError, match=f"must equal the world size {world}"):
+            mesh_mod.check_axes(data, spatial, 1, world=world)
+    with pytest.raises(ValueError, match="item 9b-iv"):
+        mesh_mod.check_axes(1, 1, 2, world=2)
 
 
 def test_make_mesh_data_must_be_the_world():
@@ -81,8 +112,11 @@ def test_resolve_config_mesh_follows_jaxs_rule():
             assert mesh_mod.mesh_fingerprint(mesh) == "mesh(data=1,spatial=1:" + mesh.platform + ")"
     explicit = mesh_mod.Mesh(2, 0, "cpu")
     assert mesh_mod.resolve_config_mesh(explicit, (1, 1)) == (explicit, 8)
-    assert jax_resolve_config_mesh(None, (1, 2))[1] == 16  # JAX's spatial axis ...
-    with pytest.raises(ValueError, match="item 9b"):  # ... is the port's item 9b
+    # A spatial mesh pads to 8 * spatial, as JAX's does.
+    spatial = mesh_mod.Mesh(1, 0, "cpu", spatial=2)
+    assert mesh_mod.resolve_config_mesh(spatial, None) == (spatial, 16)
+    assert jax_resolve_config_mesh(None, (1, 2))[1] == 16 == mesh_mod.pad_divisor(spatial)
+    with pytest.raises(ValueError, match="world size 1"):  # two processes, not one
         mesh_mod.resolve_config_mesh(None, (1, 2))
 
 
@@ -132,12 +166,37 @@ def test_eval_mesh_flag_is_jaxs_spec_and_follows_the_world(launched_world):
             jax_str2mesh(bad)
     args = ["--dataset", "sintel", "--device", "cpu"]
     assert cli.parse_eval(args + ["--mesh", "1,1"])[0].mesh == (1, 1)
-    for bad, match in ((["--mesh", "2,1"], "world size 1"), (["--mesh", "1,2"], "item 9b"),
-                       (["--mesh", "1,1,2"], "item 9b"), (["--spatial_parallel", "2"], "9b")):
+    for bad, match in ((["--mesh", "2,1"], "world size 1"), (["--mesh", "1,2"], "world size 1"),
+                       (["--mesh", "1,1,2"], "item 9b-iv"),
+                       (["--spatial_parallel", "2"], "world size 1")):
         with pytest.raises(ValueError, match=match):
             cli.parse_eval(args + bad)
     launched_world(2, rank=1)
-    assert cli.parse_eval(args + ["--mesh", "2,1"])[0].mesh == (2, 1)
+    assert cli.parse_eval(args + ["--mesh", "2,1"])[0].mesh_axes == (2, 1)
+    # Two ranks split each forward by rows: --mesh 1,2, or its shorthand.
+    assert cli.parse_eval(args + ["--mesh", "1,2"])[0].mesh_axes == (1, 2)
+    assert cli.parse_eval(args + ["--spatial_parallel", "2"])[0].mesh_axes == (1, 2)
+    for bad, match in ((["--mesh", "2,2"], "world size 2"), (["--mesh", "1,2,2"], "9b-iv")):
+        with pytest.raises(ValueError, match=match):
+            cli.parse_eval(args + bad)
+
+
+def test_highres_mesh_flags_follow_the_world(launched_world):
+    from raft_ncup_tpu_torch import highres_forward
+
+    def axes(argv):
+        return highres_forward.mesh_axes(highres_forward.build_parser().parse_args(argv))
+
+    assert axes([]) == (1, 1)
+    for bad, match in ((["--spatial", "2"], "world size 1"), (["--mesh", "1,2"], "world size 1"),
+                       (["--mesh", "1,1,2"], "item 9b-iv")):
+        with pytest.raises(ValueError, match=match):
+            axes(bad)
+    launched_world(2)
+    for spelling in (["--spatial", "2"], ["--spatial_parallel", "2"], ["--mesh", "1,2"]):
+        assert axes(spelling) == (1, 2)
+    launched_world(4)
+    assert axes(["--spatial", "2"]) == axes(["--mesh", "2,2"]) == (2, 2)
 
 
 @pytest.mark.parametrize("batch,data,ok", [(6, 1, True), (6, 2, True), (6, 3, True),
@@ -275,3 +334,55 @@ def test_collective_read_is_a_named_counted_read():
         assert tel.counter_value("guard_collective_reads_total") == 1
     finally:
         set_telemetry(prev)
+
+
+def _spatial_mesh():
+    return mesh_mod.Mesh(data=1, rank=0, platform="cpu", spatial=2)
+
+
+def _refusal(path, launched_world):
+    """Drive one path outside the spatial axis's first part with a spatial
+    size of 2."""
+    from raft_ncup_tpu_torch import serve as serve_mod
+    from raft_ncup_tpu_torch.config import small_model_config
+    from raft_ncup_tpu_torch.fleet import FleetConfig, ReplicaSpec
+    from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
+    from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.training import step as step_mod
+
+    if path == "server":
+        serve_mod.run(["--device", "cpu", "--mesh", "1", "2"])
+    elif path == "stream engine":
+        serve_mod.run(["--device", "cpu", "--stream", "--mesh", "1", "2"])
+    elif path == "fleet slot":
+        ReplicaSpec(index=0, socket_path="s", healthz_path="h", flight_dir="f", mesh=(1, 2))
+    elif path == "fleet":
+        FleetConfig(base_dir="/nonexistent", n_replicas=1, meshes=((1, 2),))
+    elif path == "train entry":
+        launched_world(2)
+        cli.parse_train(["--stage", "things", "--batch_size", "2", "--spatial_parallel", "2"])
+    elif path == "train step":
+        step_mod.make_train_step(TrainConfig(batch_size=2), mesh=_spatial_mesh())
+    else:
+        model = RAFT(small_model_config("raft"), device="cpu", seed=0)
+        frames = torch.zeros((1, 32, 32, 3))
+        if path == "early exit":
+            model(frames, frames, iters=1, early_exit_tol=0.05, mesh=_spatial_mesh())
+        elif path == "early exit cache":
+            ShapeCachedForward(model, mesh=_spatial_mesh()).forward(frames, frames, 1,
+                                                                   early_exit_tol=0.05)
+        elif path == "custom cache entry":
+            ShapeCachedForward(model, mesh=_spatial_mesh()).custom(("stream", 1), None, ())
+        else:
+            model.train()
+            model(frames, frames, iters=1, mesh=_spatial_mesh())
+
+
+@pytest.mark.parametrize("path,item", [
+    ("server", "9b-ii"), ("stream engine", "9b-ii"), ("fleet slot", "9b-ii"),
+    ("fleet", "9b-ii"), ("early exit", "9b-ii"), ("early exit cache", "9b-ii"),
+    ("custom cache entry", "9b-ii"), ("train entry", "9b-iii"), ("train step", "9b-iii"),
+    ("train-mode forward", "9b-iii")])
+def test_paths_outside_the_slice_refuse_a_spatial_axis(path, item, launched_world):
+    with pytest.raises(ValueError, match=f"item {item}"):
+        _refusal(path, launched_world)
