@@ -181,7 +181,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     and 2 at level 12, streams on) on the one card behind the port's
     supervisor and router, held against an in-process server and stream
     engine built from replica 0's argv (seed 0): both READY with their
-    identity in healthz; a burst of 16 pairs and 2 streams of 4 frames,
+    identity in healthz; a burst of 8 pairs and 2 streams of 2 frames,
     every answer ok and within ``FLEET_TOL`` of the in-process one (how
     many are bit for bit equal is printed: cuDNN's autotuning may pick
     other algorithms in another process); two timed fleet bursts against
@@ -224,9 +224,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     peak bytes (time-sliced: not scaling); (c) ``validate_sintel`` through
     the evaluate entry with ``--mesh 1,2`` against one process, on a
     Sintel-layout tree at 432x1024 (no padding under either divisor);
-19. prints one JSON line describing the kernels (with each kernel's
-    launches per rank on the data-parallel and spatial paths), the card's
-    name and power limit, and, last, the JSON result line.
+19. serves over the mesh (1, 2) (``parallel/lockstep.py``), all started at
+    once: (d) the serve entry ``--mesh 1,2`` as two ranks sharing the card
+    under gloo (each rank this script's ``--serve_worker``, the entry's
+    ``run``), the flagship f32 at 436x1024 (448 rows under the mesh),
+    batch sizes 1 and 2, level 12: 4 requests, the ``--stream`` branch's 2
+    streams of 2 frames, and 4 requests with early exit on at a tolerance
+    between the pairs' first-iteration norms; every answer ok and within
+    ``FLEET_TOL`` of this process's one-process server or engine on the
+    same pairs and weights (padded with a bucket of 16 to the same rows),
+    each rank's mesh, collectives and launches (A 12 and B 4 a batch), and
+    under early exit both ranks' forwards, segments and flag reads equal;
+    (e) a fleet of one (1, 2) slot behind the router: READY with the mesh
+    in healthz, 4 pairs against the same answers, ``stop()`` with both
+    ranks exiting 75, each rank's launches, and no ``--replica_socket``
+    process left;
+20. prints each phase's seconds (``phase NAME: S s``, then a ``phases:``
+    line), one JSON line describing the kernels (with each kernel's
+    launches per rank on the data-parallel, spatial and spatial serving
+    paths), the card's name and power limit, and, last, the JSON result
+    line.
 
 Any failed check exits non-zero before the last line. With no CUDA
 device it exits non-zero at once; it never falls back to the CPU.
@@ -3828,8 +3845,8 @@ def check_empty_level(torch, gen) -> dict:
 
 # ----------------------------------------------------------------- fleet
 
-FLEET_PAIRS = 16  # the paused burst through the router
-FLEET_STREAMS, FLEET_FRAMES = 2, 4
+FLEET_PAIRS = 8  # the paused burst through the router
+FLEET_STREAMS, FLEET_FRAMES = 2, 2
 FLEET_KILL_AT = 3  # killreplica@3 in an 8-pair burst
 # A replica's flow against the in-process server's for the same pair: the
 # same weights and configuration in another process, whose cuDNN autotuning
@@ -4264,11 +4281,20 @@ def _dp_ranks(outdir: str, argv: list, world: int, backend: str, torchrun: bool,
     with the launcher's environment (so each rank's exit code shows):
     (exit codes, stdout and stderr of each process, wall seconds). Without
     ``module``, each rank is this script's ``--dp_worker``."""
+    t0 = time.perf_counter()
+    procs = _start_ranks(outdir, argv, world, backend, torchrun, module, **extra)
+    codes, outs = _wait_ranks(procs)
+    return codes, outs, time.perf_counter() - t0
+
+
+def _start_ranks(outdir: str, argv: list, world: int, backend: str, torchrun: bool = False,
+                 module=None, worker: str = DP_WORKER, **extra) -> list:
+    """The processes of :func:`_dp_ranks`, started and not waited for;
+    without ``module`` each rank is this script's ``worker`` mode."""
     os.makedirs(outdir, exist_ok=True)
     port = _free_port()
-    target = ["-m", module] if module else [os.path.join(HERE, "chip_smoke.py"), DP_WORKER,
+    target = ["-m", module] if module else [os.path.join(HERE, "chip_smoke.py"), worker,
                                             outdir]
-    t0 = time.perf_counter()
     if torchrun:
         cmds = [([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
                   "--master_addr", "127.0.0.1", "--master_port", str(port), *target, *argv],
@@ -4276,8 +4302,13 @@ def _dp_ranks(outdir: str, argv: list, world: int, backend: str, torchrun: bool,
     else:
         cmds = [([sys.executable, *target, *argv], _dp_env(backend, world, r, port, **extra))
                 for r in range(world)]
-    procs = [subprocess.Popen(c, cwd=HERE, env=e, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for c, e in cmds]
+    return [subprocess.Popen(c, cwd=HERE, env=e, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True) for c, e in cmds]
+
+
+def _wait_ranks(procs: list) -> tuple:
+    """Each process's exit code and (stdout, stderr), within ``DP_TIMEOUT_S``
+    each; a process still there after it is killed."""
     outs = []
     try:
         for p in procs:
@@ -4287,7 +4318,7 @@ def _dp_ranks(outdir: str, argv: list, world: int, backend: str, torchrun: bool,
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return [p.returncode for p in procs], outs, time.perf_counter() - t0
+    return [p.returncode for p in procs], outs
 
 
 def _dp_records(outdir: str, world: int) -> list:
@@ -4759,6 +4790,234 @@ def _spatial_evaluation(tmp: str) -> None:
           f"spatial (c): {[r['results'] for r in ranks]} against {one['results']}")
 
 
+# Spatial serving (d, e): the serve entry over the mesh (1, 2), two ranks
+# sharing the card under gloo, against this process's one-process server
+# and engine on the same pairs and weights; then a fleet slot of two such
+# ranks behind the router. The mesh pads 436 rows to 448 (its divisor 16);
+# the one-process references pad with a bucket of 16 to the same pixels.
+SERVE_WORKER = "--serve_worker"
+SPATIAL_MESH = "mesh(data=1,spatial=2:gpu)"
+SPATIAL_BUCKET = 16
+SPATIAL_REQUESTS = 4
+SPATIAL_SERVE_ARGS = ["--model", "raft_nc_dbl", "--size", str(SERVE_SIZE[0]), str(SERVE_SIZE[1]),
+                      "--seed", "0", "--serve_batch_sizes", "1,2", "--iter_levels", "12",
+                      "--serve_pad_bucket", str(SPATIAL_BUCKET), "--flight_dir", "", *DP_CARD]
+SPATIAL_RUNS = {  # (d)'s runs of the entry, all at once, each as two ranks
+    "serve": ["--num_requests", str(SPATIAL_REQUESTS)],
+    "stream": ["--stream", "--n_streams", "2", "--frames_per_stream", "2", "--stream_iters",
+               "12", "--stream_batch_sizes", "1,2", "--stream_capacity", "4",
+               "--stream_pad_bucket", str(SPATIAL_BUCKET)],
+    "early exit": ["--num_requests", str(SPATIAL_REQUESTS)],
+}
+SPATIAL_FLEET_PAIRS = 4
+
+
+def serve_worker(outdir: str, argv: list) -> int:
+    """One rank of the serve entry over a mesh (``chip_smoke.py
+    --serve_worker OUTDIR <serve flags>``, started by the spatial phase
+    with the launcher's environment): the entry's exit code, report (the
+    leader's, or a follower's summary) and answers as
+    ``OUTDIR/rank<RANK>.pt``; exits with the entry's code."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from raft_ncup_tpu_torch import serve as serve_mod
+    from raft_ncup_tpu_torch.parallel import multihost
+
+    multihost.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    rank = int(os.environ.get("RANK", "0"))
+    t0 = time.perf_counter()
+    rc, report, responses, _ = serve_mod.run(argv)
+    torch.save({"rc": rc, "report": report, "seconds": time.perf_counter() - t0,
+                "answers": [{"status": r.status, "flow": r.flow, "detail": r.detail}
+                            for r in responses]},
+               os.path.join(outdir, f"rank{rank}.pt"))
+    return rc
+
+
+def _spatial_serve_refs(torch, tmp: str) -> dict:
+    """(d) and (e) started (the entry's three runs, each as two ranks, and
+    the fleet slot's supervisor), then this process's one-process answers
+    on the same pairs, stream frames and weights while they warm up."""
+    from raft_ncup_tpu_torch import serve as serve_mod
+    from raft_ncup_tpu_torch.cli import serve_config_from_args, stream_config_from_args
+    from raft_ncup_tpu_torch.config import ServeConfig
+    from raft_ncup_tpu_torch.fleet import FleetConfig, ReplicaSupervisor
+    from raft_ncup_tpu_torch.observability import Telemetry
+    from raft_ncup_tpu_torch.serving import FlowServer, SyntheticTraffic
+    from raft_ncup_tpu_torch.streaming import StreamEngine, StreamTraffic, replay_streams
+
+    model = flagship(torch)
+    pairs = [(a, b) for _, a, b in SyntheticTraffic(SERVE_SIZE, SPATIAL_REQUESTS, seed=0)]
+    tol, _ = first_iteration_tol(torch, model, pairs)
+    t0 = time.perf_counter()
+    runs = {}
+    for name, extra in SPATIAL_RUNS.items():
+        env = ({"RAFT_TORCH_EARLYEXIT": "1", "RAFT_TORCH_EARLYEXIT_TOL": repr(tol)}
+               if name == "early exit" else {})
+        runs[name] = _start_ranks(os.path.join(tmp, f"spatial_d_{name.replace(' ', '_')}"),
+                                  [*SPATIAL_SERVE_ARGS, *extra, "--mesh", "1,2"], 2, "gloo",
+                                  worker=SERVE_WORKER, **env)
+    cfg = FleetConfig(
+        base_dir=os.path.join(tmp, "spatial_fleet"), n_replicas=1, size_hw=SERVE_SIZE,
+        serve=ServeConfig(batch_sizes=(1, 2), iter_levels=(12,), queue_capacity=16,
+                          pad_bucket=SPATIAL_BUCKET),
+        stream=None, meshes=((1, 2),), extra_args=("--model", "raft_nc_dbl", "--seed", "0",
+                                                   *DP_CARD),
+        snapshot_interval_s=0.5, stale_after_factor=8.0, poll_interval_s=0.1,
+        spawn_timeout_s=DP_TIMEOUT_S, drain_timeout_s=120.0, max_restarts=0)
+    tel = Telemetry(flight_dir=os.path.join(cfg.base_dir, "router_flight"))
+    sup = ReplicaSupervisor(cfg, env=_dp_env("gloo", 2), telemetry=tel)
+    sup.start(wait_ready=False)
+    refs = {"runs": runs, "t0": t0, "fleet": (cfg, sup, tel), "tol": tol, "pairs": pairs}
+    # The answers of one process: the entry's own configurations without
+    # --mesh (its parser), the pad bucket giving the mesh's padded shape.
+    args = serve_mod.build_parser().parse_args(SPATIAL_SERVE_ARGS + SPATIAL_RUNS["stream"])
+    for name, tol_ in (("serve", None), ("early exit", tol)):
+        with earlyexit_env(tol_):
+            server = FlowServer(model, serve_config_from_args(args))
+        server.warmup(SERVE_SIZE)
+        refs[name] = paused_burst(server, pairs)[0]
+        server.drain()
+    engine = StreamEngine(model, stream_config_from_args(args, SERVE_SIZE))
+    traffic = list(StreamTraffic(SERVE_SIZE, 2, 2, seed=0, burst_size=args.burst_size))
+    handles, _ = replay_streams(engine, traffic)
+    refs["stream"] = [h.result(300) for h in handles]
+    engine.drain()
+    del model
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _rank_launches(rep: dict, batches: int, what: str) -> dict:
+    """A rank's kernel launches after the warm-up: A 12 and B 4 a batch."""
+    launches = {"corr_lookup": rep["corr_kernel_launches"], "corr_lookup_bwd": 0,
+                "nconv": rep["nconv_kernel_launches"], "nconv_bwd": 0}
+    check(batches > 0 and launches["corr_lookup"] == 12 * batches
+          and launches["nconv"] == 4 * batches,
+          f"{what}: launches {launches} for {batches} batches")
+    return launches
+
+
+def _spatial_entry(torch, card, tmp, refs) -> dict:
+    """(d) The serve entry's runs over the mesh (1, 2): both ranks exit 0,
+    name the mesh and launch A 12 and B 4 a batch; every answer ok and
+    within ``FLEET_TOL`` of one process's; under early exit both ranks ran
+    the same forwards, segments and flag reads."""
+    import types
+
+    paths, rows = {}, {}
+    for name, procs in refs["runs"].items():
+        codes, outs = _wait_ranks(procs)
+        check(codes == [0, 0], f"spatial (d) {name}: exits {codes}:\n{outs[0][1][-3000:]}\n"
+                               f"{outs[1][1][-3000:]}")
+        outdir = os.path.join(tmp, f"spatial_d_{name.replace(' ', '_')}")
+        lead, follow = (torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+                        for r in range(2))
+        rep, frep = lead["report"], follow["report"]
+        check(outs[0][0].strip() == outs[1][0].strip() == "" and frep.get("follower")
+              and rep["mesh"] == frep["mesh"] == SPATIAL_MESH and frep["rank"] == 1,
+              f"spatial (d) {name}: meshes {rep.get('mesh')} / {frep.get('mesh')}")
+        op = "stream" if name == "stream" else "serve"
+        batches = rep[f"{op}_batches"]
+        check(frep["lockstep_ops"].get(op) == batches == rep["lockstep_ops"].get(op),
+              f"spatial (d) {name}: {batches} batches, ops {rep['lockstep_ops']} / "
+              f"{frep['lockstep_ops']}")
+        got = [types.SimpleNamespace(**a) for a in lead["answers"]]
+        unit = "stream_frames_per_sec" if op == "stream" else "serve_pairs_per_sec"
+        row = {"card": card, "answers": _against(torch, got, refs[name], f"spatial (d) {name}"),
+               "batches": batches, "seconds": [lead["seconds"], follow["seconds"]],
+               "warmup_s": rep["warmup_s"], unit: rep[unit],
+               **{k: rep[f"{op}_{k}"] for k in ("wall_s", "p50_ms", "p99_ms")},
+               "collectives": [rep["collectives"], frep["collectives"]],
+               "lockstep": [rep["lockstep"], frep["lockstep"]]}
+        if name == "early exit":
+            check(rep["earlyexit"] == frep["earlyexit"] and rep["earlyexit"]["forwards"] > 0,
+                  f"spatial (d) early exit: {rep['earlyexit']} / {frep['earlyexit']}")
+            row.update(tol=refs["tol"], earlyexit=[rep["earlyexit"], frep["earlyexit"]])
+        else:
+            for r, rr in enumerate((rep, frep)):
+                paths[f"spatial (d) {name} rank {r}"] = _rank_launches(
+                    rr, batches, f"spatial (d) {name} rank {r}")
+            row["launches"] = [paths[f"spatial (d) {name} rank {r}"] for r in range(2)]
+        rows[name] = row
+        _spatial_print(f"d, {name}", row)
+    return paths
+
+
+def _spatial_fleet(torch, card, refs) -> dict:
+    """(e) The fleet slot of the mesh (1, 2): READY with the mesh in
+    healthz, ``SPATIAL_FLEET_PAIRS`` pairs through the router against one
+    process's answers, then ``stop()``: both ranks exit 75, the drain's
+    contract holds, each rank launched A 12 and B 4 a batch, and no
+    ``--replica_socket`` process is left."""
+    from raft_ncup_tpu_torch.fleet import FleetRouter, read_healthz
+    from raft_ncup_tpu_torch.fleet.replica import RankGroup
+
+    cfg, sup, tel = refs["fleet"]
+    router = None
+    try:
+        sup.wait_ready()
+        ready_s = time.perf_counter() - refs["t0"]
+        group = sup.replicas[0].child
+        hz = read_healthz(cfg.replica(0).healthz_path) or {}
+        check(isinstance(group, RankGroup) and hz.get("overall") == "ready"
+              and hz.get("mesh") == SPATIAL_MESH and hz.get("pid") == group.pid,
+              f"spatial (e): healthz {json.dumps(hz)[:400]}")
+        router = FleetRouter(cfg, sup, telemetry=tel)
+        n = SPATIAL_FLEET_PAIRS
+        rs, wall = _fleet_burst(router, refs["pairs"][:n])
+        answers = _against(torch, rs, refs["serve"][:n], "spatial (e) fleet")
+        router.drain()
+        router = None
+        reports = sup.stop()
+        codes = [c.returncode for c in group.children]
+        left = [f"{pid} {state} {cmd}" for pid, (state, cmd) in descendants().items()
+                if "--replica_socket" in cmd]
+        check(not left, f"spatial (e): replica processes outlive the supervisor's stop: {left}")
+        check(codes == [75, 75] and sup.report()["contract_violations"] == [],
+              f"spatial (e): exits {codes}, {sup.report()['contract_violations']}")
+        rep = reports[0]["report"]
+        frep = json.loads(group.stderr_so_far().split("lockstep follower: ")[-1].splitlines()[0])
+        check(rep["recompiles"] == 0 and rep["host_transfers"] == 0 and rep["mesh"] == SPATIAL_MESH
+              and frep["mesh"] == SPATIAL_MESH, f"spatial (e): {rep['recompiles']} recompiles, "
+              f"{rep['host_transfers']} host transfers, {rep['mesh']} / {frep['mesh']}")
+        batches = rep["serve_batches"]
+        check(frep["lockstep_ops"].get("serve") == batches,
+              f"spatial (e): {batches} batches, the follower ran {frep['lockstep_ops']}")
+        paths = {f"spatial (e) replica rank {r}": _rank_launches(
+            rr, batches, f"spatial (e) rank {r}") for r, rr in enumerate((rep, frep))}
+    finally:
+        if router is not None:
+            router.drain(timeout=5.0)
+        sup.stop(drain=False)
+    _spatial_print("e", {"card": card, "ready_s": ready_s, "answers": answers,
+                         "burst_wall_s": wall, "exits": codes, "batches": batches,
+                         "launches": list(paths.values()),
+                         "collectives": [rep["collectives"], frep["collectives"]]})
+    return paths
+
+
+def check_spatial_serving(torch, card: str, tmp: str) -> dict:
+    """(d) and (e): the serve entry's plain, ``--stream`` and early-exit
+    runs over the mesh (1, 2) and a fleet slot of it, all started at once,
+    against this process's one-process answers. Returns each rank's
+    launches."""
+    t0 = time.perf_counter()
+    refs = _spatial_serve_refs(torch, tmp)
+    try:
+        paths = _spatial_entry(torch, card, tmp, refs)
+        paths.update(_spatial_fleet(torch, card, refs))
+    finally:
+        for p in (p for procs in refs["runs"].values() for p in procs):
+            if p.poll() is None:  # a check failed first: no rank outlives the phase
+                p.kill()
+                p.wait()
+        refs["fleet"][1].stop(drain=False)
+    print(f"spatial serving: (d) and (e) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def check_spatial(torch, card: str, tmp: str) -> dict:
     """The spatial axis (``parallel/halo.py``): (a) the flagship's whole f32
     forward at 1088x1920 and 2176x3840, batch 1, ``SPATIAL_ITERS``
@@ -4805,6 +5064,7 @@ def main() -> int:
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    lap = _PhaseClock()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
 
@@ -4834,6 +5094,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    lap("build")
     check_codecs(card)
 
     gen = torch.Generator().manual_seed(0)
@@ -4877,6 +5138,7 @@ def main() -> int:
     check_wrappers_refuse(torch)
     # Kernels A and A' on a pyramid with an empty (0x0) level.
     check_empty_level(torch, torch.Generator().manual_seed(0))
+    lap("codecs and kernels alone")
 
     # The main paths, each with the kernel counts set to 0 just before it
     # and read just after: serving the flagship, raft and small raft, then
@@ -4904,6 +5166,7 @@ def main() -> int:
             check(profile["device_ms"] is not None, "the bf16 trace holds no device time")
         del model
         torch.cuda.empty_cache()
+    lap("serve and profile")
     # The evaluate paths: the flagship's synthetic validators in f32 and
     # under bf16_infer, the warm-start validator over sequences written with
     # the port's codecs, replayed forwards traced beside the eager ones, and
@@ -4921,6 +5184,7 @@ def main() -> int:
             check(profile["device_ms"] is not None, "the replay's trace holds no device time")
             torch.cuda.empty_cache()
         check_entries(torch, card, tmp)
+    lap("evaluate and entries")
     # The stages, early exit and streaming: the flagship's stage composition
     # against its forward, the serve entry with early exit off and on, and
     # its --stream branch in f32, under bf16_infer, under chaos and with
@@ -4931,11 +5195,13 @@ def main() -> int:
     paths["stream raft_nc_dbl bf16_infer"] = check_stream(torch, card, "bf16_infer")
     paths["stream chaos"] = check_stream_chaos(torch, card)
     paths["stream carry_net"] = check_stream(torch, card, carry_net=True)
+    lap("stages, early exit and stream")
     # Telemetry: the serve entry with every output on (plain and --stream
     # branches, under chaos), no synchronisation, its overhead and the cost
     # ledger's MFU.
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_telemetry(torch, card, tmp))
+    lap("telemetry")
     train_bf16 = check_train(torch, card, steps=VARIANT_TRAIN_STEPS, extras=False,
                              precision="bf16_train", profile=True)
     paths["train raft_nc_dbl bf16_train"] = train_bf16["launches"]
@@ -4949,6 +5215,7 @@ def main() -> int:
         paths[f"train {label}"] = check_train(
             torch, card, variant, small, steps=VARIANT_TRAIN_STEPS, extras=False)["launches"]
         check_train_vs_plain(torch, variant, small)
+    lap("train")
     # The flagship trained from files through the train entry (loader,
     # augmentation, device prefetch, validation, checkpoints, chaos).
     with tempfile.TemporaryDirectory() as tmp:
@@ -4956,28 +5223,42 @@ def main() -> int:
                                        train[f"median_ms_steps_2_to_{TRAIN_STEPS}"]))
         paths["telemetry profile_steps"] = check_profile_steps(
             torch, card, tmp, os.path.join(tmp, "Sintel"))
+    lap("train from files")
     # Pipelined serving and streaming against the waiting server and engine,
     # each under the runtime guards, and the train entry's --strict_guards.
     for phase in (check_pipelined_serve, check_pipelined_stream):
         paths.update(phase(torch, card)[1])
     with tempfile.TemporaryDirectory() as tmp:
         paths["train strict_guards"] = check_strict_guards(torch, card, tmp)
+    lap("pipelined and strict guards")
     # Fleet replicas: two flagship replica processes of the serve entry on
     # the card behind the router, under chaos; each replica's launches come
     # from its own report.
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_fleet(torch, card, tmp)[1])
+    lap("fleet")
     # Data parallelism: one process against two ranks on the one card
     # (gloo), agreed preemption, NCCL and sharded validation; each rank's
     # launches come from its own record.
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_data_parallel(torch, card, tmp))
+    lap("data parallel")
     # The spatial axis: the flagship's whole forward at 1088x1920 and
     # 2176x3840 in one process, then split by rows over two ranks sharing
     # the card (gloo), and sharded evaluation; each rank's launches come
     # from its own report.
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_spatial(torch, card, tmp))
+    lap("spatial")
+    # Spatial serving: the serve entry over the mesh (1, 2) as two ranks
+    # sharing the card (plain, --stream, early exit) and a fleet slot of
+    # two ranks, against one process; each rank's launches from its own
+    # report.
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(check_spatial_serving(torch, card, tmp))
+    lap("spatial serving")
+    print(f"phases: {json.dumps(lap.seconds)}, total {sum(lap.seconds.values()):.1f} s",
+          flush=True)
 
     # One CUDA kernel replaces both TPU tiers, so both corr rows give its
     # main-path count as `launches`; `check_launches` is the row's own check.
@@ -5085,11 +5366,29 @@ def main() -> int:
         k["spatial_one_process_launches"] = {
             f"{h}x{w}": paths[f"spatial (a) {h}x{w}"][name] for h, w in SPATIAL_SIZES}
         k["spatial_launches_per_rank"] = [paths[f"spatial (b) rank {r}"][name] for r in range(2)]
+        k["spatial_serving_launches_per_rank"] = {
+            run: [paths[f"{run} rank {r}"][name] for r in range(2)]
+            for run in ("spatial (d) serve", "spatial (d) stream", "spatial (e) replica")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+class _PhaseClock:
+    """``lap(name)``: the seconds since the previous lap (or since it was
+    made), kept in ``seconds`` and printed as ``phase NAME: S s``."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self._last, 1)
+        self._last = now
+        print(f"phase {name}: {self.seconds[name]} s", flush=True)
 
 
 def _summed_numbers(rows: list) -> dict:
@@ -5111,6 +5410,8 @@ def _kernel_numbers(row: dict) -> dict:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == DP_WORKER:
         sys.exit(dp_worker(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 2 and sys.argv[1] == SERVE_WORKER:
+        sys.exit(serve_worker(sys.argv[2], sys.argv[3:]))
     adopt_orphans()
     try:
         code = main()

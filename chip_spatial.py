@@ -13,7 +13,17 @@ Run from the root of the repository on a machine with four cards:
    2e-3, flow_up atol 5e-3, rtol 1e-3);
 2. runs the evaluate entry (``validate_synthetic``, 12 iterations, batch 2)
    on one card and on four with ``--mesh 2,2`` and ``--mesh 1,4``, and holds
-   the four-card results within 1e-5 of the one card's.
+   the four-card results within 1e-5 of the one card's;
+3. serves the flagship f32 at 436x1024 (448x1024 padded, a pad bucket of
+   32 in every run), batch sizes 1 and 2, level 12, a burst of 16
+   requests, through the serve entry on one card and with ``--mesh 1,2``
+   and ``--mesh 1,4`` (``parallel/lockstep.py``; each rank is
+   ``chip_smoke.py --serve_worker``, the entry's ``run``, which saves its
+   report and answers), and holds every answer against the one card's at
+   the flagship's flow_up tolerance; each run's pairs/s, p50 and p99.
+
+``python3 chip_spatial.py [PART ...]`` runs only the named parts
+(``highres``, ``evaluate``, ``serving``; all by default).
 
 Every rank is a process started with the launcher's environment, so each
 rank's report (its last JSON line) and exit code show. It prints one
@@ -42,6 +52,11 @@ FLOW_TOL = {"flow_lr": (2e-3, 1e-3), "flow_up": (5e-3, 1e-3)}  # (atol, rtol)
 EVAL_RTOL = 1e-5
 EVAL_ARGV = ["-m", "raft_ncup_tpu_torch.evaluate", "--model", "raft_nc_dbl", "--dataset",
              "synthetic", "--iters", "12", "--batch_size", "2"]
+SERVE_ENTRY = ["--model", "raft_nc_dbl", "--size", "436", "1024", "--seed", "0",
+               "--serve_batch_sizes", "1,2", "--iter_levels", "12", "--serve_pad_bucket", "32",
+               "--num_requests", "16", "--queue_capacity", "32", "--flight_dir", ""]
+SERVE_MESHES = ("1,2", "1,4")
+PARTS = ("highres", "evaluate", "serving")
 
 
 def _port() -> int:
@@ -149,9 +164,54 @@ def evaluation() -> bool:
     return ok
 
 
+def serving(torch, tmp: str) -> bool:
+    """The served burst on one card and over ``SERVE_MESHES``: each run's
+    rate and latency (the leader's report), each rank's collectives, and
+    every answer against the one card's."""
+    ok, want = True, None
+    for mesh in (None, *SERVE_MESHES):
+        world = 1 if mesh is None else int(mesh.split(",")[1])
+        out = os.path.join(tmp, f"serve_{world}")
+        os.makedirs(out)
+        argv = [os.path.join(HERE, "chip_smoke.py"), "--serve_worker", out, *SERVE_ENTRY,
+                *(["--mesh", mesh] if mesh else [])]
+        codes, _, errs, secs = ranks(argv, world)
+        row = {"serve": f"--mesh {mesh}" if mesh else "one card", "exits": codes,
+               "seconds": secs}
+        good = codes == [0] * world
+        if good:
+            recs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                    for r in range(world)]
+            rep = recs[0]["report"]
+            flows = [a["flow"] for a in recs[0]["answers"]]
+            row.update({k: rep[k] for k in ("serve_ok", "serve_batches", "serve_pairs_per_sec",
+                                            "serve_p50_ms", "serve_p99_ms", "warmup_s",
+                                            "mesh")})
+            row["ranks"] = [{k: r["report"].get(k) for k in ("rank", "mesh", "collectives",
+                                                              "lockstep")} for r in recs]
+            good = rep["serve_ok"] == len(flows) == 16
+            if want is None:
+                want = flows
+            elif good:
+                atol, rtol = FLOW_TOL["flow_up"]
+                diffs = [torch.from_numpy(a - b).abs() for a, b in zip(flows, want)]
+                row["max_abs_diff_vs_one_card"] = max(float(d.max()) for d in diffs)
+                good = all(bool((d <= atol + rtol * torch.from_numpy(b).abs()).all())
+                           for d, b in zip(diffs, want))
+        else:
+            row["stderr"] = errs
+        print(f"spatial cards: {json.dumps(row)}", flush=True)
+        ok = ok and good
+    return ok
+
+
 def main() -> int:
     import torch
 
+    parts = sys.argv[1:] or list(PARTS)
+    if set(parts) - set(PARTS):
+        print(f"chip_spatial: parts are {PARTS}, got {parts}", file=sys.stderr)
+        return 2
     if torch.cuda.device_count() < CARDS:
         print(f"chip_spatial: {torch.cuda.device_count()} cards, {CARDS} needed",
               file=sys.stderr)
@@ -160,9 +220,14 @@ def main() -> int:
     from raft_ncup_tpu_torch.ops import cuda_build
 
     print(f"build: {cuda_build.build()}", flush=True)
+    ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        ok = highres(torch, tmp)
-    ok = evaluation() and ok
+        if "highres" in parts:
+            ok = highres(torch, tmp) and ok
+        if "serving" in parts:
+            ok = serving(torch, tmp) and ok
+    if "evaluate" in parts:
+        ok = evaluation() and ok
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout,
           flush=True)

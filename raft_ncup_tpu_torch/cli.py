@@ -23,8 +23,10 @@ world size the launcher started (``torchrun --nproc_per_node D``; 1
 without one), its default; ``--spatial_parallel`` above 1 raises there
 (ROADMAP.md queue 1 item 9b-iii). The evaluate entry takes ``--mesh D,S``
 (or ``--spatial_parallel S`` for ``1,S``) when D times S is the world
-size: S ranks split each forward by image rows. Any other size, and a
-pipe size above 1 (``--mesh D,S,P``: item 9b-iv), raise.
+size: S ranks split each forward by image rows; so does the serve entry
+(``--mesh D,S``, which :func:`serve_config_from_args` and
+:func:`stream_config_from_args` carry into the configurations). Any other
+size, and a pipe size above 1 (``--mesh D,S,P``: item 9b-iv), raise.
 """
 
 from __future__ import annotations
@@ -288,6 +290,7 @@ def serve_config_from_args(args: argparse.Namespace) -> ServeConfig:
         pad_bucket=args.serve_pad_bucket,
         cache_size=args.serve_cache_size,
         precision=args.serve_precision,
+        mesh=getattr(args, "mesh", None),
     )
 
 
@@ -337,6 +340,7 @@ def stream_config_from_args(args: argparse.Namespace, frame_hw: tuple[int, int])
         carry_net=args.carry_net,
         anomaly_max_flow=args.anomaly_max_flow,
         precision=args.stream_precision,
+        mesh=getattr(args, "mesh", None),
     )
 
 

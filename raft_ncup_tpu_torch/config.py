@@ -13,10 +13,11 @@ packages, with these differences:
   that the JAX package reads from its ``RAFT_NCUP_NCONV_IMPL`` knob:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
   (the fused kernel, CUDA in the port). Its default is the JAX default.
-- ``ServeConfig`` and ``StreamConfig`` have no ``mesh``: the server and
-  the stream engine run in one process on one card (their spatial meshes
-  are ROADMAP.md queue 1 item 9b-ii; the spatial axis across processes
-  serves the test-mode forward and evaluation, ``parallel/``).
+- ``ServeConfig.mesh`` and ``StreamConfig.mesh`` size a mesh of
+  processes, one per card (``parallel/``), where JAX's size a mesh of
+  devices; the rules are JAX's (:func:`_check_mesh_field`), and a pipe
+  size above 1 raises where the mesh is built
+  (``parallel.mesh.check_axes``).
 - ``TrainConfig.data_parallel`` is the data axis across processes, one
   per card (``parallel/``), and must divide the global ``batch_size``;
   ``spatial_parallel`` above 1 raises (training's spatial axis is item
@@ -158,12 +159,33 @@ class ModelConfig:
         return self.corr_levels * (2 * r + 1) ** 2
 
 
+def _check_mesh_field(mesh, batch_sizes: tuple, pad_bucket: int = 0) -> None:
+    """The JAX package's rules for the ``(data, spatial[, pipe])`` field of
+    the serving and streaming configurations: every batch size divides by
+    ``data`` (each data index runs its rows of every batch), and a
+    ``pad_bucket`` is a multiple of the mesh's pad divisor ``8 * spatial``
+    (an error here, not one that escapes ``FlowServer.submit``)."""
+    if mesh is None:
+        return
+    m = tuple(int(x) for x in mesh)
+    if len(m) not in (2, 3) or any(x < 1 for x in m):
+        raise ValueError(f"mesh must be (data, spatial[, pipe]) positive sizes: {mesh!r}")
+    data, spatial = m[0], m[1]
+    bad = [b for b in batch_sizes if b % data]
+    if bad:
+        raise ValueError(
+            f"batch sizes {bad} are not divisible by mesh data={data}; every batch "
+            "splits its rows over the data axis")
+    if pad_bucket and pad_bucket % (8 * spatial):
+        raise ValueError(
+            f"pad_bucket {pad_bucket} must be a multiple of the mesh pad divisor "
+            f"8*spatial = {8 * spatial}")
+
+
 @dataclass(frozen=True)
 class ServeConfig:
-    """Online flow-serving knobs (see ``serving/server.py``).
-
-    Same fields and defaults as the JAX package's ``ServeConfig`` except
-    ``mesh``, which the port does not have.
+    """Online flow-serving knobs (see ``serving/server.py``): the JAX
+    package's fields and defaults.
     """
 
     # Admission-queue capacity: a full queue sheds with retry_after_s.
@@ -192,6 +214,10 @@ class ServeConfig:
     inflight: int | None = None
     # AsyncDrain queue depth (bounds the pinned result buffers in flight).
     drain_depth: int = 2
+    # (data, spatial[, pipe]) sizes of a mesh of processes, one per card:
+    # each batch's rows split over ``data``, each image's rows over
+    # ``spatial`` (pads round up to 8 * spatial). None: one process.
+    mesh: tuple[int, ...] | None = None
 
     def __post_init__(self) -> None:
         if self.precision is not None:
@@ -205,6 +231,7 @@ class ServeConfig:
             raise ValueError(
                 f"pad_bucket {self.pad_bucket} must be a multiple of 8"
             )
+        _check_mesh_field(self.mesh, bs, self.pad_bucket)
         lv = tuple(int(x) for x in self.iter_levels)
         if not lv or any(x <= 0 for x in lv) or list(lv) != sorted(
             lv, reverse=True
@@ -272,6 +299,10 @@ class StreamConfig:
     # table's state dtype (``PrecisionPolicy.state``); None inherits the
     # model's own.
     precision: str | None = None
+    # As ServeConfig.mesh: each step's rows split over ``data``, each
+    # frame's rows over ``spatial``; the slot table stays whole on every
+    # process.
+    mesh: tuple[int, ...] | None = None
 
     def __post_init__(self) -> None:
         if self.precision is not None:
@@ -285,6 +316,7 @@ class StreamConfig:
             raise ValueError(
                 f"pad_bucket {self.pad_bucket} must be a multiple of 8"
             )
+        _check_mesh_field(self.mesh, bs, self.pad_bucket)
         if self.cache_size < len(bs):
             raise ValueError(
                 f"cache_size {self.cache_size} must be >= len(batch_sizes) "

@@ -1,8 +1,9 @@
 """Fleet tier: a router over N replica processes of the port's serve
 entry (port of ``raft_ncup_tpu/fleet/``; ROADMAP.md item 7).
 
-Everything below this package is one process: one ``FlowServer``, one
-``StreamEngine``, one card. A fleet is a process topology: N replica
+Everything below this package is one replica: one ``FlowServer`` and one
+``StreamEngine``, on one card or over a mesh of rank processes in
+lockstep. A fleet is a process topology: N replica
 processes (``python -m raft_ncup_tpu_torch.serve --replica_socket ADDR``),
 each serving through its own ``FlowServer`` and ``StreamEngine`` (so the
 hand-written kernels run in every replica), behind a router that admits,
@@ -16,12 +17,14 @@ grammar are the JAX package's, so the frames are byte for byte the same.
 - :mod:`topology` — one frozen :class:`FleetConfig`: replica count,
   per-replica serve/stream knobs, socket and healthz paths, router
   admission bounds, failover and restart budgets. Every other piece reads
-  it. The port has no mesh: a replica slot's mesh must be None.
+  it. A slot's mesh ``(data, spatial)`` makes the replica ``data *
+  spatial`` rank processes (``--mesh D,S``), supervised as one.
 - :mod:`wire` — the frame protocol: a length-prefixed JSON header and raw
   C-order ndarray payloads over a Unix domain socket or TCP
   (:class:`wire.Transport` parses the family from the address).
 - :mod:`replica` — :class:`ChildProcess` (spawn, liveness and healthz
-  wait, drain, reap) and :class:`ReplicaSupervisor` (healthz staleness,
+  wait, drain, reap), :class:`RankGroup` (a mesh slot's rank processes as
+  one child) and :class:`ReplicaSupervisor` (healthz staleness,
   the SIGTERM → DRAINING → exit-75 drain, bounded restart with backoff,
   the circuit breaker).
 - :mod:`router` — :class:`FleetRouter`: admission that sheds before work

@@ -113,11 +113,16 @@ class ManifestConfig:
 
     def replica(self, i: int) -> ReplicaSpec:
         r = self._slots[i]
+        argv = r["argv"]
+        # A mesh slot's (data, spatial) rides its argv's --mesh D,S.
+        mesh = (tuple(int(x) for x in argv[argv.index("--mesh") + 1].split(","))
+                if "--mesh" in argv else None)
         return ReplicaSpec(
             index=i,
             socket_path=r["socket_path"],
             healthz_path=r["healthz_path"],
             flight_dir=r["flight_dir"],
+            mesh=mesh,
             address=r["address"],
             host=self.host,
         )

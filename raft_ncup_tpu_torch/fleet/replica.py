@@ -6,7 +6,10 @@
 implementation: spawn semantics, liveness checks, signal delivery and
 reap-with-timeout. The supervisor runs each replica as
 ``python -m raft_ncup_tpu_torch.serve --replica_socket ...`` through it,
-with the repository root as the child's working directory.
+with the repository root as the child's working directory; a slot with a
+mesh of ``data * spatial`` above 1 runs as a :class:`RankGroup` of that
+many rank processes, one replica whose every rank dies, drains and is
+reaped with it.
 
 :class:`ReplicaSupervisor` owns the fleet's robustness contracts:
 
@@ -40,6 +43,7 @@ from __future__ import annotations
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -224,6 +228,100 @@ class ChildProcess:
         return "".join(self._err_chunks)
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class RankGroup:
+    """A mesh slot's ``ranks`` processes of one argv, supervised as one
+    child with :class:`ChildProcess`'s interface. Each rank gets the
+    launcher's environment (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, and a free port of this host as ``MASTER_PORT``);
+    rank 0 is the leader, which alone binds the socket and writes healthz.
+    The slot is one replica: it runs while every rank runs, and its exit
+    code is the leader's, or, while the leader lives, that of the rank
+    that died. ``terminate`` signals the leader (it drains, then stops the
+    others); ``kill``, ``suspend`` and ``resume`` act on every rank;
+    ``reap`` waits for all of them and kills what is left at the
+    timeout."""
+
+    def __init__(self, argv: List[str], ranks: int, *, name: str = "child",
+                 env: Optional[dict] = None, cwd: Optional[str] = None):
+        base = dict(os.environ if env is None else env)
+        world = {"WORLD_SIZE": str(ranks), "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": str(_free_port())}
+        self.children = [
+            ChildProcess(argv, name=f"{name}-rank{r}", cwd=cwd,
+                         env={**base, **world, "RANK": str(r), "LOCAL_RANK": str(r)})
+            for r in range(int(ranks))
+        ]
+
+    def spawn(self) -> "RankGroup":
+        for child in self.children:
+            child.spawn()
+        return self
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self.children[0].pid
+
+    @property
+    def pids(self) -> List[Optional[int]]:
+        return [c.pid for c in self.children]
+
+    @property
+    def running(self) -> bool:
+        return all(c.running for c in self.children)
+
+    @property
+    def returncode(self) -> Optional[int]:
+        codes = [c.returncode for c in self.children]
+        if codes[0] is not None:
+            return codes[0]
+        return next((rc for rc in codes[1:] if rc is not None), None)
+
+    def terminate(self) -> bool:
+        return self.children[0].terminate()
+
+    def kill(self) -> bool:
+        return any([c.kill() for c in self.children])
+
+    def suspend(self) -> bool:
+        return any([c.suspend() for c in self.children])
+
+    def resume(self) -> bool:
+        return any([c.resume() for c in self.children])
+
+    def wait(self, timeout: Optional[float] = None) -> Optional[int]:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for c in self.children:
+            left = None if deadline is None else max(0.0, deadline - time.monotonic())
+            if c.wait(left) is None:
+                return None
+        return self.children[0].returncode
+
+    def reap(self, timeout: Optional[float] = None):
+        """Wait (bounded) for every rank, SIGKILL what is left at the
+        timeout; returns ``(leader's returncode, leader's stdout, every
+        rank's stderr)``."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        out = []
+        for c in self.children:
+            left = None if deadline is None else max(0.0, deadline - time.monotonic())
+            out.append(c.reap(timeout=left))
+        err = "".join(f"[rank {r}] {line}\n" for r, (_, _, e) in enumerate(out)
+                      for line in e.splitlines())
+        return out[0][0], out[0][1], err
+
+    def stdout_so_far(self) -> str:
+        return self.children[0].stdout_so_far()
+
+    def stderr_so_far(self) -> str:
+        return "".join(c.stderr_so_far() for c in self.children)
+
+
 def last_json_line(text: str) -> Optional[dict]:
     """The last parseable JSON object line of a child's stdout — the
     replica's final drain report (the serve entry prints exactly one)."""
@@ -363,10 +461,16 @@ class ReplicaSupervisor:
             except OSError:
                 pass
         argv = self._argv_prefix + self.cfg.replica_argv(spec.index)
-        handle.child = ChildProcess(
-            argv, name=f"replica-{spec.index}", env=self._env,
-            cwd=_REPO_ROOT,
-        ).spawn()
+        if spec.ranks > 1:
+            handle.child = RankGroup(
+                argv, spec.ranks, name=f"replica-{spec.index}", env=self._env,
+                cwd=_REPO_ROOT,
+            ).spawn()
+        else:
+            handle.child = ChildProcess(
+                argv, name=f"replica-{spec.index}", env=self._env,
+                cwd=_REPO_ROOT,
+            ).spawn()
         handle.state = SPAWNING
         handle.restart_at = None
         handle.spawned_at = time.monotonic()
@@ -487,6 +591,10 @@ class ReplicaSupervisor:
                 # drain() owns the contract bookkeeping.
                 return
             rc = child.returncode
+            # A mesh slot's surviving ranks die with it (a no-op for one
+            # process, which has exited).
+            child.kill()
+            child.wait(timeout=10.0)
             self._note_death(handle, f"process exited rc={rc}")
             return
         hz = read_healthz(handle.spec.healthz_path)
@@ -731,9 +839,8 @@ class ReplicaSupervisor:
             if handle.state in (UP, SPAWNING) and drain:
                 self.drain(handle.index)
             child = handle.child
-            if child is not None and child.running:
-                child.kill()
             if child is not None:
+                child.kill()  # every rank still there (a no-op once exited)
                 rc, out, err = child.reap(timeout=10.0)
                 if handle.final_report is None:
                     handle.final_report = last_json_line(out)

@@ -11,11 +11,14 @@ Host-only stdlib plus the port's own config dataclasses (which import no
 torch): the router process holds this object without importing torch
 (an AST scan in ``tests/test_torch_fleet.py`` holds ``fleet/`` to that).
 
-The port serves on one card and has no mesh: a replica slot's mesh must
-be None (a spatial slot is ROADMAP.md, queue 1 item 9b-ii), so every pad
-divisor is 8. The
-device is the serve entry's ``--device``, given through ``extra_args``
-(``("--device", "cpu")`` on the CPU; nothing on the card).
+A replica slot's mesh is None (one process on one card) or ``(data,
+spatial)``: the slot is then ``data * spatial`` rank processes of the
+serve entry with ``--mesh D,S``, whose leader alone binds the socket and
+writes healthz (``fleet/replica.py`` spawns and reaps them as one
+replica), and its pad divisor is ``8 * spatial``. The device is the serve
+entry's ``--device``, given through ``extra_args`` (``("--device",
+"cpu")`` on the CPU; nothing on the card: each rank takes the card of its
+``LOCAL_RANK``).
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ class ReplicaSpec:
     # per-replica export observability/aggregate.py merges into the
     # fleet-wide registry view.
     telemetry_jsonl: str = ""
-    # Always None in the port (one card, no mesh: ROADMAP.md item 9b-ii).
+    # None (one process), or the (data, spatial) mesh of the slot's ranks.
     mesh: Optional[Tuple[int, int]] = None
     # The wire address (the serve entry's --replica_socket): equals socket_path
     # under the UDS transport, "host:port" under TCP. Empty only when a
@@ -71,16 +74,17 @@ class ReplicaSpec:
     host: str = ""
 
     def __post_init__(self) -> None:
-        _refuse_mesh(self.mesh)
+        _check_slot_mesh(self.mesh)
+
+    @property
+    def ranks(self) -> int:
+        """The processes of this replica: ``data * spatial`` under a mesh."""
+        return 1 if self.mesh is None else int(self.mesh[0]) * int(self.mesh[1])
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise ValueError(
-            f"replica mesh {mesh!r}: the port serves on one card without "
-            "a mesh (ROADMAP.md, queue 1 item 9b-ii: spatial serving, streaming "
-            "and fleet meshes)"
-        )
+def _check_slot_mesh(mesh) -> None:
+    if mesh is not None and (len(mesh) != 2 or any(int(x) < 1 for x in mesh)):
+        raise ValueError(f"replica mesh {mesh!r}: want None or (data, spatial) positive sizes")
 
 
 @dataclass(frozen=True)
@@ -90,8 +94,8 @@ class FleetConfig:
     ``serve`` / ``stream`` are the per-replica subsystem configs (every
     replica runs a :class:`~raft_ncup_tpu_torch.serving.server.FlowServer`;
     ``stream=None`` disables the per-replica StreamEngine for
-    request-only fleets). ``meshes`` keeps the JAX field; every entry
-    must be None here (no mesh in the port).
+    request-only fleets). ``meshes`` optionally pins a per-replica
+    (data, spatial) mesh of processes.
     """
 
     # Directory holding every replica's socket, healthz file, and
@@ -102,8 +106,8 @@ class FleetConfig:
     size_hw: Tuple[int, int] = (96, 128)
     serve: ServeConfig = field(default_factory=ServeConfig)
     stream: Optional[StreamConfig] = None
-    # Per-replica mesh slices: None, or None for every slot (the port has
-    # no serving mesh; ROADMAP.md item 9b-ii).
+    # Per-replica (data, spatial) mesh slices; None = one process each.
+    # One entry a slot (scale_max of them) when given.
     meshes: Optional[tuple] = None
     # Extra serve entry argv forwarded verbatim (model and device flags).
     extra_args: Tuple[str, ...] = ()
@@ -212,7 +216,7 @@ class FleetConfig:
                     "n_replicas)"
                 )
             for mesh in self.meshes:
-                _refuse_mesh(mesh)
+                _check_slot_mesh(mesh)
         if self.transport not in ("unix", "tcp"):
             raise ValueError(
                 f"transport must be 'unix' or 'tcp': {self.transport!r}"
@@ -415,10 +419,9 @@ class FleetConfig:
         }
 
     def pad_divisor(self, i: int) -> int:
-        """Replica ``i``'s pad divisor: 8 (8 * spatial under a mesh, which
-        the port does not have)."""
-        self.replica(i)  # range check
-        return 8
+        """Replica ``i``'s pad divisor (8 * spatial under a mesh)."""
+        spec = self.replica(i)
+        return 8 * (int(spec.mesh[1]) if spec.mesh else 1)
 
     def shape_key(self, h: int, w: int, i: int = 0) -> Tuple[int, int]:
         """The padded shape a native (h, w) request batches under on
@@ -469,5 +472,7 @@ class FleetConfig:
                 "--idle_timeout_s", str(st.idle_timeout_s),
                 "--stream_pad_bucket", str(st.pad_bucket),
             ]
+        if spec.mesh is not None:
+            argv += ["--mesh", f"{spec.mesh[0]},{spec.mesh[1]}"]
         argv += list(self.extra_args)
         return argv

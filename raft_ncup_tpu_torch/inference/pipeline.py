@@ -63,15 +63,18 @@ with its fingerprint (``mesh_fingerprint``, JAX's), so a sharded and an
 unsharded entry of one shape never collide. With a spatial axis above 1
 the forward is split by rows over this rank's spatial group
 (``RAFT.forward(..., mesh=...)``, ``parallel/halo.py``): every rank of the
-group passes the same whole frames and gets the same whole flow. Such an
-entry runs eagerly, not as a CUDA graph: its halo exchanges and gathers
-are collectives between processes, which a graph would have to capture
-(NCCL point-to-point capture: open, ROADMAP.md queue 1 item 9b-ii). Under
-gloo each one is a ``guards.collective_read``, a sanctioned read, so a
-guarded window around a sharded forward counts no implicit transfer. Early
-exit and the stream engine's entries refuse a spatial axis (item 9b-ii).
-Data parallelism shards the frames across the data indices
-(``evaluation._HostShard``).
+group passes the same whole frames and gets the same whole flow; the
+early-exit entry runs its three stages on the rank's band, its flag the
+same on every rank. Under a mesh of more than one process every entry
+runs eagerly, not as a CUDA graph: its halo exchanges and gathers (and a
+stream step's gather over the data axis) are collectives between
+processes, which a graph would have to capture (NCCL point-to-point
+capture: open, ROADMAP.md's held list). Under gloo each one is a
+``guards.collective_read``, a sanctioned read, so a guarded window around
+a sharded forward counts no implicit transfer. The callers split the data
+axis: evaluation shards the frames across the data indices
+(``evaluation._HostShard``), the server and the stream engine a batch's
+rows (``parallel/lockstep.py``).
 """
 
 from __future__ import annotations
@@ -102,19 +105,12 @@ from raft_ncup_tpu_torch.observability import get_telemetry
 from raft_ncup_tpu_torch.observability.telemetry import LEGACY_KEY_ALIASES
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
-from raft_ncup_tpu_torch.parallel.mesh import (
-    ITEM_9B_SERVING,
-    mesh_fingerprint,
-    pad_divisor,
-    refuse_spatial,
-)
+from raft_ncup_tpu_torch.parallel import halo
+from raft_ncup_tpu_torch.parallel.mesh import mesh_fingerprint, pad_divisor, spatial_group
 from raft_ncup_tpu_torch.precision import resolve_policy
 from raft_ncup_tpu_torch.utils.device import cudnn_autotune, f32_precision
 
 _EXEC_CANON = LEGACY_KEY_ALIASES["inference"]
-# The server and the stream engine run in one process on one card, so
-# their spans and dumps carry JAX's fingerprint of an unsharded program.
-MESH_FP = mesh_fingerprint(None)
 
 # Iterations per replayed segment of the early-exit forward: it divides
 # every default level (the server's 24, 16 and 8, the stream's 12). A level
@@ -629,13 +625,16 @@ class _EarlyExitEntry:
     CUDA graph (:func:`_capture`) and the buffers, allocated before the
     captures and outside the pool, are read and written by address, so
     no graph's pool memory holds state another graph reads. On the CPU
-    the stages run eagerly. ``counters`` gains each call's forwards,
+    and under a mesh of processes the stages run eagerly; with a spatial
+    ``group`` (``halo.SpatialGroup``) each runs on this rank's band under
+    it, the encode taking the band of the whole frames and the finalize
+    gathering the whole flows. ``counters`` gains each call's forwards,
     replayed segments and flag reads; ``last`` holds the latest call's.
     ``record(stage)`` returns the cost ledger's recorder of one stage: each
     stage's counted run is recorded under a key of its own."""
 
     def __init__(self, key, model, iters: int, tol: float, args: tuple, pool, counters: dict,
-                 record: Callable):
+                 record: Callable, group=None):
         self.seg = segment_length(iters)
         self.n_seg = int(iters) // self.seg
         self.counters = counters
@@ -646,7 +645,8 @@ class _EarlyExitEntry:
         self._bufs = bufs
 
         def encode(i1, i2, finit=None):
-            carry = model.encode(i1, i2, flow_init=finit, early_exit=True)
+            carry = model.encode(halo.band(i1), halo.band(i2), flow_init=halo.band(finit),
+                                 early_exit=True)
             vals = {k: carry[k] for k in ("net", "coords1", "inp", "converged", "exec_iters")}
             with torch.no_grad():
                 vals["corr"] = model.corr_state(carry["fmap1"], carry["fmap2"])
@@ -668,14 +668,24 @@ class _EarlyExitEntry:
             bufs["done"].copy_(out["converged"].all())
 
         def finalize():
-            flow_lr, flow_up = model.finalize({"net": bufs["net"], "coords1": bufs["coords1"]})
-            return flow_lr, flow_up, bufs["exec_iters"]
+            flows = model.finalize({"net": bufs["net"], "coords1": bufs["coords1"]})
+            return (*(halo.all_gather_rows(t.contiguous(), dim=1) for t in flows),
+                    bufs["exec_iters"])
 
-        stages = (("encode", encode, self.static_in), ("segment", segment, ()),
-                  ("finalize", finalize, ()))
+        def banded(fn):
+            def run(*a):
+                with halo.spatial(group):
+                    return fn(*a)
+            return run
+
+        stages = (("encode", banded(encode), self.static_in), ("segment", banded(segment), ()),
+                  ("finalize", banded(finalize), ()))
         if pool is None:
+            # Eager on the card (a mesh of processes): cuDNN's autotuner
+            # picks the algorithms, as a capture's would.
+            tune = cudnn_autotune() if device.type == "cuda" else (lambda fn: fn)
             self._encode, self._segment, self._finalize = (
-                _EagerEntry(fn, record(name)) for name, fn, _ in stages)
+                _EagerEntry(tune(fn), record(name)) for name, fn, _ in stages)
             self.pool_bytes = 0
             return
         graphs = []
@@ -765,6 +775,7 @@ class ShapeCachedForward:
         # The ranks that split each forward by rows; images pad to a
         # multiple of 8 times it.
         self.spatial = mesh.spatial if mesh is not None else 1
+        self.processes = mesh.processes if mesh is not None else 1
         self.pad_divisor = pad_divisor(mesh)
         self.policy = resolve_policy(policy) if policy is not None else model.policy
         self.cache_size = max(1, int(cache_size))
@@ -813,8 +824,8 @@ class ShapeCachedForward:
 
     def _pool_for_capture(self):
         """The graphs' shared pool on the card (made at the first capture),
-        None on the CPU and under a spatial axis (eager entries)."""
-        if self.device.type != "cuda" or self.spatial > 1:
+        None on the CPU and under a mesh of processes (eager entries)."""
+        if self.device.type != "cuda" or self.processes > 1:
             return None
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -866,7 +877,7 @@ class ShapeCachedForward:
         pool = self._pool_for_capture()
         record = self._recorder(key)
         if pool is None and self.device.type == "cuda":
-            # A spatial entry on the card runs eagerly: its staged host
+            # An entry under a mesh of processes runs eagerly: its staged host
             # arguments go to the card first, and cuDNN's autotuner picks the
             # algorithms, as a capture's would.
             eager, device = cudnn_autotune()(fn), self.device
@@ -884,11 +895,10 @@ class ShapeCachedForward:
         the function, called on ``args`` (tensors on the model's device or,
         on the card, staged in pinned host memory: :func:`stage_pinned`),
         captured as a CUDA graph on the card at the key's first use and
-        replayed after, run eagerly on the CPU. The key is namespaced as
-        ``("custom", *key)``; the stream engine's step per batch size is
-        one. Returns the function's result."""
-        refuse_spatial(self.spatial, "a custom cached entry (the stream engine's "
-                       "step)", ITEM_9B_SERVING)
+        replayed after, run eagerly on the CPU and under a mesh of
+        processes. The key is namespaced as ``("custom", *key)``; the stream
+        engine's step per batch size is one. Returns the function's
+        result."""
         full = ("custom",) + tuple(key)
         return self._get(full, lambda: self._graph_or_eager(full, build(), args))(*args)
 
@@ -905,13 +915,13 @@ class ShapeCachedForward:
             args += (self._tensor(flow_init),)
         key = (tuple(args[0].shape), int(iters), flow_init is not None, pol.name)
         if early_exit_tol is not None:
-            refuse_spatial(self.spatial, "early exit", ITEM_9B_SERVING)
             key += (("earlyexit", float(early_exit_tol)),)
 
             def build():
                 return _EarlyExitEntry(key, model, iters, float(early_exit_tol), args,
                                        self._pool_for_capture(), self.earlyexit,
-                                       lambda stage: self._recorder((*key, stage)))
+                                       lambda stage: self._recorder((*key, stage)),
+                                       spatial_group(self.mesh))
 
             entry = self._get(key, build)
             out = entry(*args)

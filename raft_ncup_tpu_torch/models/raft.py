@@ -67,8 +67,10 @@ ranks of this process's spatial group, JAX's ``mesh`` argument. Each rank
 takes its band of the whole inputs; the convolutions exchange row halos,
 instance norm sums its statistics over the group, the coordinates start
 at the band's global first row, the lookup reads the gathered fmap2, and
-the outputs are gathered, so every rank returns the whole flow. Training
-and early exit refuse it (ROADMAP.md queue 1 items 9b-iii and 9b-ii).
+the outputs are gathered, so every rank returns the whole flow. Under
+early exit each band's sum of |delta| is summed over the group before a
+row's mean is taken, so every rank freezes the same rows and stops at the
+same iteration. Training refuses it (ROADMAP.md queue 1 item 9b-iii).
 
 The model lives on the card unless the caller passes ``device="cpu"``;
 with no device and no CUDA, construction raises.
@@ -104,12 +106,7 @@ from raft_ncup_tpu_torch.ops.geometry import (
     upsample_nearest,
 )
 from raft_ncup_tpu_torch.parallel import halo
-from raft_ncup_tpu_torch.parallel.mesh import (
-    ITEM_9B_SERVING,
-    ITEM_9B_TRAINING,
-    refuse_spatial,
-    spatial_group,
-)
+from raft_ncup_tpu_torch.parallel.mesh import ITEM_9B_TRAINING, refuse_spatial, spatial_group
 from raft_ncup_tpu_torch.utils.device import f32_precision, resolve_device
 
 
@@ -304,7 +301,14 @@ class RAFT(nn.Module):
         keep = converged[:, None, None, None]
         new_net = torch.where(keep, net, new_net)
         new_coords = torch.where(keep, coords1, new_coords)
-        dnorm = delta.abs().mean(dim=(1, 2, 3))
+        group = halo.current()
+        if group is None:
+            dnorm = delta.abs().mean(dim=(1, 2, 3))
+        else:
+            # A band holds part of each row's pixels: the mean is the
+            # group's sum over the whole image's count.
+            dnorm = halo.group_sum_(delta.abs().sum(dim=(1, 2, 3))) / (
+                delta[0].numel() * group.size)
         return new_net, new_coords, converged | (dnorm < tol)
 
     def _advance(self, carry: dict, iters: int, corr_fn, early_exit_tol=None,
@@ -364,7 +368,8 @@ class RAFT(nn.Module):
         whole inputs and gets the same whole outputs."""
         if mesh is not None and mesh.spatial > 1:
             return self._forward_spatial(mesh, image1, image2, iters, flow_init, net_init,
-                                         net_warm, return_net, early_exit_tol)
+                                         net_warm, return_net, early_exit_tol,
+                                         return_exec_iters)
         if self.training and (early_exit_tol is not None or return_exec_iters or return_net):
             raise ValueError("early_exit_tol, return_exec_iters and return_net require "
                              "test_mode (eval mode)")
@@ -385,19 +390,18 @@ class RAFT(nn.Module):
             return result
 
     def _forward_spatial(self, mesh, image1, image2, iters, flow_init, net_init, net_warm,
-                         return_net, early_exit_tol):
+                         return_net, early_exit_tol, return_exec_iters):
         """The test-mode forward split by rows over this rank's spatial group
         of ``mesh`` (``parallel/halo.py``): this rank takes its band of the whole
         images (and of ``flow_init``, ``net_init``), runs the forward on it
         with halo exchanges at every convolution that reads across the
         band's edges, instance norm over the whole image and the lookup on
         the gathered fmap2, and gathers the outputs, so every rank returns
-        the whole flow (JAX's replicated outputs). The height must divide
-        by 8 times the group's size."""
+        the whole flow (JAX's replicated outputs); the executed iterations
+        of early exit are every rank's already. The height must divide by 8
+        times the group's size."""
         if self.training:
             refuse_spatial(mesh.spatial, "the train-mode forward", ITEM_9B_TRAINING)
-        if early_exit_tol is not None:
-            refuse_spatial(mesh.spatial, "early exit", ITEM_9B_SERVING)
         group = spatial_group(mesh)
         H = image1.shape[1]
         if H % (8 * group.size):
@@ -406,8 +410,11 @@ class RAFT(nn.Module):
         with halo.spatial(group):
             out = self.forward(halo.band(image1), halo.band(image2), iters,
                                flow_init=halo.band(flow_init), net_init=halo.band(net_init),
-                               net_warm=net_warm, return_net=return_net)
-            return tuple(halo.all_gather_rows(t.contiguous(), dim=1) for t in out)
+                               net_warm=net_warm, return_net=return_net,
+                               early_exit_tol=early_exit_tol,
+                               return_exec_iters=return_exec_iters)
+            return tuple(halo.all_gather_rows(t.contiguous(), dim=1) if t.dim() > 1 else t
+                         for t in out)
 
     def _forward_train(self, image1, image2, iters, flow_init, remat, net_init, net_warm):
         fmap1, fmap2, net, inp, coords1 = self._encode(image1, image2, flow_init,

@@ -79,8 +79,9 @@ class UNetWeightsNet(nn.Module):
     the skip and it, concatenated; ``outconv`` 1x1. Its BatchNorm trains
     when the model's BatchNorm trains. On a band of rows
     (``parallel/halo.py``) the pooling and the transposed convolutions are
-    local only when the band's height divides by ``2 ** n_down``; another
-    band raises."""
+    local when the band's height divides by ``2 ** n_down``; the bands of
+    a group are equally high, so on another band every rank runs the net
+    on the gathered whole image and keeps its band (``halo.on_whole``)."""
 
     def __init__(self, in_ch: int, num_ch=(16, 32, 64), out_ch: int = 2):
         super().__init__()
@@ -99,10 +100,10 @@ class UNetWeightsNet(nn.Module):
         if halo.current() is not None and x.shape[2] % (2 ** self.n_down):
             # A band that pools to an odd row would pad it in the image's
             # interior, where the whole image pads nothing.
-            raise ValueError(
-                f"the U-Net weights net pools a band of {x.shape[2]} rows {self.n_down} "
-                f"times: the band's height must divide by {2 ** self.n_down}; pad the height "
-                "to a multiple of that times 4 times the spatial size")
+            return halo.on_whole(self._net, x)
+        return self._net(x)
+
+    def _net(self, x: torch.Tensor) -> torch.Tensor:
         feats = [self.inconv(x)]
         for i in range(self.n_down):
             feats.append(getattr(self, f"down{i}")(F.max_pool2d(feats[-1], 2, 2)))

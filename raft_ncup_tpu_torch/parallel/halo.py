@@ -192,11 +192,12 @@ def extend(x: torch.Tensor, top: int, bottom: int, dim: int = 2) -> torch.Tensor
     return torch.cat([p for p in parts if p is not None], dim=dim)
 
 
-def all_gather_rows(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, dim: int = 1,
+                    group: Optional[SpatialGroup] = None) -> torch.Tensor:
     """The whole tensor of which ``x`` is this rank's band along ``dim``, on
-    every rank of the group (``x`` itself with no active group). Counted as
-    an ``all-gather`` of the whole tensor's bytes."""
-    sp = current()
+    every rank of ``group`` (default: the active group; ``x`` itself with
+    none). Counted as an ``all-gather`` of the whole tensor's bytes."""
+    sp = group if group is not None else current()
     if sp is None:
         return x
     dist = multihost._dist()

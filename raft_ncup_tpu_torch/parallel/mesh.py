@@ -16,9 +16,10 @@ index ``d`` and spatial index ``s``, JAX's device order
   test-mode forward (``RAFT.forward(..., mesh=...)``): each holds a band
   of rows of every activation, the convolutions exchange row halos with
   the neighbours and the correlation reads the gathered fmap2
-  (``parallel/halo.py``). Training, the server, the stream engine, the
-  fleet's slots and early exit refuse a spatial size above 1 (ROADMAP.md
-  queue 1 items 9b-ii and 9b-iii), and a pipe axis above 1 raises
+  (``parallel/halo.py``). Evaluation, the highres entry, the server, the
+  stream engine and the fleet's slots run it (the served paths in
+  lockstep, ``parallel/lockstep.py``). Training refuses a spatial size
+  above 1 (ROADMAP.md queue 1 item 9b-iii), and a pipe axis above 1 raises
   everywhere (item 9b-iv).
 
 :func:`make_mesh` builds the process subgroups at once, on every rank in
@@ -49,8 +50,7 @@ import torch
 from raft_ncup_tpu_torch.parallel import multihost
 
 # The parts of ROADMAP.md queue 1 item 9b still to come, named by the
-# refusals (9b-i, the spatial axis of the test-mode forward, is this one).
-ITEM_9B_SERVING = "ROADMAP.md, queue 1 item 9b-ii (spatial serving, streaming and fleet meshes)"
+# refusals.
 ITEM_9B_TRAINING = "ROADMAP.md, queue 1 item 9b-iii (the spatial axis in training)"
 ITEM_9B_PIPE = "ROADMAP.md, queue 1 item 9b-iv (the pipe axis)"
 _COLLECTIVE_OPS = (
@@ -84,11 +84,14 @@ class Mesh:
     def spatial_index(self) -> int:
         return self.rank % self.spatial
 
+    @property
+    def processes(self) -> int:
+        return self.data * self.spatial
 
-def refuse_spatial(spatial, what: str, item: str = ITEM_9B_SERVING) -> None:
-    """Raise when ``spatial`` is above 1 on a path outside the spatial
-    axis's first part (the test-mode forward, evaluation and the highres
-    entry)."""
+
+def refuse_spatial(spatial, what: str, item: str = ITEM_9B_TRAINING) -> None:
+    """Raise when ``spatial`` is above 1 on a path the spatial axis does
+    not reach yet (training)."""
     if int(spatial) > 1:
         raise ValueError(f"{what} with a spatial axis of {spatial} is not in the port yet: "
                          f"{item} brings it")
@@ -186,13 +189,14 @@ def data_group(mesh: Optional[Mesh]):
     return None if by_spatial is None else by_spatial[mesh.spatial_index]
 
 
-def resolve_config_mesh(mesh: Optional[Mesh], cfg_mesh) -> tuple:
+def resolve_config_mesh(mesh: Optional[Mesh], cfg_mesh, device=None) -> tuple:
     """JAX's resolution rule: an explicit ``mesh`` wins, else a config's
-    ``(data, spatial[, pipe])`` sizes build one, else none. Returns
-    ``(mesh or None, pad divisor)``, the divisor ``8 * spatial``."""
+    ``(data, spatial[, pipe])`` sizes build one (:func:`make_mesh`, its
+    platform ``device``'s), else none. Returns ``(mesh or None, pad
+    divisor)``, the divisor ``8 * spatial``."""
     if mesh is None and cfg_mesh is not None:
         mesh = make_mesh(data=int(cfg_mesh[0]), spatial=int(cfg_mesh[1]),
-                         pipe=int(cfg_mesh[2]) if len(cfg_mesh) > 2 else 1)
+                         pipe=int(cfg_mesh[2]) if len(cfg_mesh) > 2 else 1, device=device)
     spatial = int(mesh.shape.get("spatial", 1)) if mesh is not None else 1
     return mesh, 8 * spatial
 

@@ -58,8 +58,18 @@ the process answers the wire's ``ping``, ``set_telemetry``, ``request`` and
 DRAINING before the flush, both tiers drain, and it exits 75 after
 printing one JSON report. ``fleet.ReplicaSupervisor`` spawns exactly this.
 
-Left out, refused with its ROADMAP.md item (queue 1): a spatial mesh of
-several cards under one server or stream engine (``--mesh``: item 9b-ii).
+``--mesh D,S`` serves over a mesh of D x S processes, one per card,
+started by the launcher (``torchrun --nproc_per_node D*S -m
+raft_ncup_tpu_torch.serve --mesh D,S ...``; two ranks sharing one card
+need ``RAFT_TORCH_DIST_BACKEND=gloo``): each batch's rows split over the
+D data indices and each image's rows over the S ranks of a data index, as
+JAX's ``P("data", "spatial")``. Rank 0, the leader, runs the entry as
+above (traffic, replica socket, healthz, telemetry, the report line) and
+broadcasts every dispatch to the followers (``parallel/lockstep.py``),
+which run the same cached entries and print one summary line on standard
+error, not standard output. A signal to the leader drains it, then stops
+the followers, and every rank exits 75; the followers ignore signals of
+their own.
 
 It runs on the card unless ``--device cpu`` is given; with no CUDA and
 no ``--device`` it raises.
@@ -98,15 +108,16 @@ from raft_ncup_tpu_torch.cli import (
     add_model_args,
     add_serve_args,
     add_stream_args,
+    check_mesh,
     model_config_from_args,
     serve_config_from_args,
     str2bool,
+    str2mesh,
     stream_config_from_args,
 )
 from raft_ncup_tpu_torch.evaluate import load_model
 from raft_ncup_tpu_torch.fleet.wire import Transport, recv_msg, send_msg
 from raft_ncup_tpu_torch.inference.costs import CostLedger, set_cost_ledger
-from raft_ncup_tpu_torch.inference.pipeline import MESH_FP
 from raft_ncup_tpu_torch.models.raft import RAFT
 from raft_ncup_tpu_torch.observability import (
     FlightRecorder,
@@ -126,14 +137,13 @@ from raft_ncup_tpu_torch.observability.export import TELEMETRY_ENV
 from raft_ncup_tpu_torch.observability.flight import FLIGHT_ENV
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
+from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
+from raft_ncup_tpu_torch.parallel import multihost
+from raft_ncup_tpu_torch.parallel.lockstep import Lockstep, lockstep_stats
 from raft_ncup_tpu_torch.resilience import EXIT_PREEMPTED, ChaosSpec, PreemptionHandler
 from raft_ncup_tpu_torch.serving import FlowServer, SyntheticTraffic, nearest_rank_ms, replay
 from raft_ncup_tpu_torch.streaming import StreamEngine, StreamTraffic, replay_streams
 from raft_ncup_tpu_torch.utils.knobs import knob_enabled, knob_raw
-
-# The root entry's flags of slices the port does not have yet, and the
-# ROADMAP.md (queue 1) item that brings each.
-_LATER = {"mesh": "9b-ii"}
 
 
 @contextlib.contextmanager
@@ -215,9 +225,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replica_streams", type=str2bool, nargs="?", const=True, default=True,
                    help="[--replica_socket] also run a stream engine for frame messages "
                    "(false: a request-only replica)")
-    for flag, item in _LATER.items():
-        p.add_argument(f"--{flag}", nargs="*", default=None,
-                       help=f"not in the port yet (ROADMAP.md, queue 1 item {item})")
+    p.add_argument("--mesh", type=str2mesh, default=None, metavar="DATA,SPATIAL",
+                   help="serve over a mesh of DATA x SPATIAL processes, one per card, started "
+                   "by the launcher: batches split over DATA, image rows over SPATIAL")
     add_serve_args(p)
     add_stream_args(p)
     add_model_args(p)
@@ -244,21 +254,24 @@ def _launches() -> tuple:
 
 
 def serve_traffic(model: RAFT, cfg, traffic, size_hw, *, preempt=None,
-                  sigterm_after=None, export=contextlib.nullcontext) -> tuple[dict, list, bool]:
+                  sigterm_after=None, export=contextlib.nullcontext,
+                  lockstep=None) -> tuple[dict, list, bool]:
     """Warm a :class:`FlowServer` up for ``size_hw``, replay ``traffic``
     (``(due_s, image1, image2)`` items), drain, and return ``(report,
     responses, interrupted)``. The report counts the kernel launches made
     while serving (after the warm-up). The server binds the process's
     telemetry hub; ``export()`` encloses the replay and the drain (the
     entry's telemetry cadence), and a drain after a signal banks a
-    ``preemption_drain`` flight dump."""
+    ``preemption_drain`` flight dump. ``lockstep`` is the leader's group
+    under a mesh of processes (``cfg.mesh``)."""
     tel = get_telemetry()
-    server = FlowServer(model, cfg)
+    server = FlowServer(model, cfg, lockstep=lockstep)
     t0 = time.monotonic()
     warmed = server.warmup(size_hw)
     warmup_s = time.monotonic() - t0
     # The identity the healthz file advertises: the warmed set and preset.
-    tel.identity.update({"mesh": MESH_FP, "precision": server.policy.name,
+    tel.identity.update({"mesh": mesh_mod.mesh_fingerprint(server.mesh),
+                         "precision": server.policy.name,
                          "warmed": [list(x) for x in server.warmed]})
     launches0 = _launches()
     t0 = time.monotonic()
@@ -305,18 +318,21 @@ def serve_pairs(model: RAFT, cfg, pairs, size_hw) -> tuple[dict, list]:
 
 
 def stream_traffic(model: RAFT, cfg, traffic, *, preempt=None, sigterm_after=None,
-                   export=contextlib.nullcontext) -> tuple[dict, list, bool, StreamEngine]:
+                   export=contextlib.nullcontext,
+                   lockstep=None) -> tuple[dict, list, bool, StreamEngine]:
     """Stand up a :class:`StreamEngine`, capture its steps, replay
     ``traffic`` (``(due_s, stream_id, frame_index, image1, image2)``
     items), drain, and return ``(report, responses, interrupted,
     engine)``. The report counts the kernel launches made while streaming
-    (after the warm-up). Telemetry as in :func:`serve_traffic`."""
+    (after the warm-up). Telemetry and ``lockstep`` as in
+    :func:`serve_traffic`."""
     tel = get_telemetry()
-    engine = StreamEngine(model, cfg)
+    engine = StreamEngine(model, cfg, lockstep=lockstep)
     t0 = time.monotonic()
     warmed = engine.warmup()
     warmup_s = time.monotonic() - t0
-    tel.identity.update({"mesh": MESH_FP, "precision": engine._policy.name,
+    tel.identity.update({"mesh": mesh_mod.mesh_fingerprint(engine.mesh),
+                         "precision": engine._policy.name,
                          "warmed": [list(x) for x in engine.warmed]})
     launches0 = _launches()
     t0 = time.monotonic()
@@ -361,10 +377,16 @@ def run(argv=None) -> tuple[int, dict, list, RAFT]:
     cost ledger are the process defaults while it runs; the previous ones
     come back after."""
     args = build_parser().parse_args(argv)
-    later = [f"--{k} (ROADMAP.md, queue 1 item {n})" for k, n in _LATER.items()
-             if getattr(args, k) is not None]
-    if later:
-        raise ValueError(f"not in the port yet: {', '.join(later)}")
+    joined = False
+    if args.mesh is not None:
+        # The mesh against the launcher's world, which this process joins.
+        check_mesh(args.mesh[0], args.mesh[1], args.mesh[2] if len(args.mesh) > 2 else 1)
+        device = multihost.local_device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        args.device = str(device)
+        already = multihost.initialized()
+        joined = multihost.initialize_distributed(device=device) and not already
     tel, ledger = Telemetry(enabled=knob_enabled(TELEMETRY_ENV)), CostLedger()
     prev_tel, prev_ledger = set_telemetry(tel), set_cost_ledger(ledger)
     try:
@@ -372,6 +394,8 @@ def run(argv=None) -> tuple[int, dict, list, RAFT]:
     finally:
         set_telemetry(prev_tel)
         set_cost_ledger(prev_ledger)
+        if joined:
+            multihost.shutdown()
     if args.report:
         report["telemetry"] = telemetry_report(tel)
         # Each captured key's cost, recorded when it was built: host
@@ -383,9 +407,79 @@ def run(argv=None) -> tuple[int, dict, list, RAFT]:
 def _run(args, tel: Telemetry) -> tuple[int, dict, list, RAFT]:
     model = load_model(model_config_from_args(args, dataset="sintel"), args.restore_ckpt,
                        args.device, args.seed)
+    group = None
+    if args.mesh is not None:
+        mesh = mesh_mod.make_mesh(*args.mesh, device=model.device)
+        if mesh.processes > 1:
+            group = Lockstep(mesh, model.device)
+            if not group.leader:
+                return _follow(args, model, group)
+    try:
+        rc, report, responses, model = _lead(args, tel, model, group)
+    except BaseException:
+        if group is not None:
+            group.stop(1)
+        raise
+    if group is not None:
+        group.stop(rc)
+        report.update(rank=0, world=multihost.process_count(),
+                      collectives=mesh_mod.collective_stats(), lockstep=lockstep_stats(),
+                      lockstep_ops=dict(group.ops))
+    return rc, report, responses, model
+
+
+def _follow(args, model: RAFT, group: Lockstep) -> tuple[int, dict, list, RAFT]:
+    """A follower of the leader's lockstep group: the server (and the
+    stream engine, with ``--stream`` or a replica's streams) built as the
+    leader's, the leader's dispatches run until it stops the group; no
+    traffic, socket, healthz or telemetry export of its own. Returns the
+    leader's exit code and this rank's summary: its mesh, the operations
+    it ran, its kernel launches after the warm-up and its collectives."""
+    size_hw = (args.size[0], args.size[1])
+    handlers: dict = {}
+    tiers = []
+    server = None
+    if not args.stream:
+        server = FlowServer(model, serve_config_from_args(args), lockstep=group)
+        tiers.append(server)
+    if args.stream or (args.replica_socket and args.replica_streams):
+        tiers.append(StreamEngine(model, stream_config_from_args(args, size_hw),
+                                  lockstep=group))
+    for tier in tiers:
+        handlers.update(tier.lockstep_handlers())
+    live: dict = {}
+
+    def counted(fn):
+        def run(header, tensors):
+            if not header.get("warmup") and not live:
+                live["launches"] = _launches()
+            fn(header, tensors)
+        return run
+
+    # A signal here is the leader's to act on: it drains, then stops the group.
+    with PreemptionHandler():
+        rc = group.follow({op: counted(fn) for op, fn in handlers.items()})
+    for tier in tiers:
+        tier.drain()
+    start = live.get("launches", _launches())
+    report = {
+        "follower": True, "rank": multihost.process_index(),
+        "world": multihost.process_count(), "mesh": mesh_mod.mesh_fingerprint(group.mesh),
+        "lockstep_ops": dict(group.ops),
+        "corr_kernel_launches": lookup_levels.launches - start[0],
+        "nconv_kernel_launches": nconv2d_fused.launches - start[1],
+        "collectives": mesh_mod.collective_stats(), "lockstep": lockstep_stats(),
+        "earlyexit": None if server is None else server.report()["earlyexit"],
+        "device": str(model.device),
+    }
+    return rc, report, [], model
+
+
+def _lead(args, tel: Telemetry, model: RAFT, group) -> tuple[int, dict, list, RAFT]:
+    """The entry's own run (one process, or a mesh's leader)."""
     _attach_observability(args, tel, stream=args.stream)
     if args.replica_socket:
-        return run_replica(args, tel, model)
+        return run_replica(args, tel, model, group)
 
     def export():
         return _telemetry_export(args, tel)
@@ -404,7 +498,7 @@ def _run(args, tel: Telemetry) -> tuple[int, dict, list, RAFT]:
                                          style=args.style))
             report, responses, interrupted, _ = stream_traffic(
                 model, stream_config_from_args(args, size_hw), traffic, preempt=preempt,
-                sigterm_after=chaos.sigterm_after, export=export)
+                sigterm_after=chaos.sigterm_after, export=export, lockstep=group)
         else:
             traffic = list(SyntheticTraffic(size_hw, args.num_requests, seed=args.seed,
                                             interval_s=args.interval_ms / 1000.0,
@@ -412,7 +506,7 @@ def _run(args, tel: Telemetry) -> tuple[int, dict, list, RAFT]:
                                             style=args.style))
             report, responses, interrupted = serve_traffic(
                 model, serve_config_from_args(args), traffic, size_hw, preempt=preempt,
-                sigterm_after=chaos.sigterm_after, export=export)
+                sigterm_after=chaos.sigterm_after, export=export, lockstep=group)
     report.update(variant=model.cfg.variant, small=model.cfg.small)
     if model.device.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(model.device)
@@ -522,7 +616,7 @@ def _serve_conn(conn, args, tel: Telemetry, server: FlowServer, engine, pool) ->
             pass
 
 
-def run_replica(args, tel: Telemetry, model: RAFT) -> tuple[int, dict, list, RAFT]:
+def run_replica(args, tel: Telemetry, model: RAFT, group=None) -> tuple[int, dict, list, RAFT]:
     """``--replica_socket`` mode: one fleet replica (the root entry's
     ``run_replica`` step for step). Warm up the server (and the stream
     engine), advertise the identity in healthz, then answer the router's
@@ -530,9 +624,11 @@ def run_replica(args, tel: Telemetry, model: RAFT) -> tuple[int, dict, list, RAF
     or a kernel load from here on is a recompile, an implicit read of a
     tensor a host transfer) until a signal; then DRAINING goes to healthz
     before the flush, both tiers drain, every connection closes, and the
-    exit code is 75. Returns ``(rc, report, [], model)``."""
+    exit code is 75. Under a mesh this is the leader, and ``group`` its
+    lockstep group, shared by both tiers. Returns ``(rc, report, [],
+    model)``."""
     size_hw = (args.size[0], args.size[1])
-    server = FlowServer(model, serve_config_from_args(args))
+    server = FlowServer(model, serve_config_from_args(args), lockstep=group)
     engine = None
     if args.replica_streams:
         # A replica serving both tiers declares both SLO sets: one that
@@ -540,13 +636,14 @@ def run_replica(args, tel: Telemetry, model: RAFT) -> tuple[int, dict, list, RAF
         tel.slo = SloEngine(
             serve_slos(window_scale=args.slo_window_scale)
             + stream_slos(args.stream_capacity, window_scale=args.slo_window_scale), tel)
-        engine = StreamEngine(model, stream_config_from_args(args, size_hw))
+        engine = StreamEngine(model, stream_config_from_args(args, size_hw), lockstep=group)
     t0 = time.monotonic()
     warmed = server.warmup(size_hw) + (engine.warmup() if engine is not None else 0)
     warmup_s = time.monotonic() - t0
     # The identity healthz advertises (write_healthz adds pid, start time
     # and stale_after_s): the warmed sets are what the router routes on.
-    tel.identity.update({"replica": args.replica_index, "mesh": MESH_FP,
+    tel.identity.update({"replica": args.replica_index,
+                         "mesh": mesh_mod.mesh_fingerprint(server.mesh),
                          "precision": server.policy.name,
                          "warmed": [list(x) for x in server.warmed]})
     if engine is not None:
@@ -565,6 +662,8 @@ def run_replica(args, tel: Telemetry, model: RAFT) -> tuple[int, dict, list, RAF
     with _telemetry_export(args, tel), PreemptionHandler() as preempt, \
             RecompileWatchdog() as wd, forbid_host_transfers(stats, raise_on_violation=False):
         while not preempt.requested:
+            if group is not None and group.broken is not None:
+                break  # the mesh's ranks no longer agree: this replica is dead
             try:
                 conn, _ = lsock.accept()
             except socket.timeout:
@@ -626,12 +725,16 @@ def run_replica(args, tel: Telemetry, model: RAFT) -> tuple[int, dict, list, RAF
         print(f"replica {args.replica_index}: drained after a signal; everything admitted "
               f"was answered; exiting {EXIT_PREEMPTED}", file=sys.stderr)
         return EXIT_PREEMPTED, report, [], model
-    return 0, report, [], model
+    return (0 if group is None or group.broken is None else 1), report, [], model
 
 
 def main(argv=None) -> int:
     rc, report, _, _ = run(argv)
-    print(json.dumps(report), flush=True)
+    if report.get("follower"):
+        # Only the leader prints the report line.
+        print(f"lockstep follower: {json.dumps(report)}", file=sys.stderr, flush=True)
+    else:
+        print(json.dumps(report), flush=True)
     return rc
 
 

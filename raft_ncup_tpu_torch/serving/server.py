@@ -33,8 +33,22 @@ Data path (one dispatcher thread; clients submit from their own threads):
 Steady-state serving reads nothing else on the host and captures nothing
 (``tests/test_torch_guards.py`` holds a window to that under the
 runtime guards). ``inflight=1`` is the waiting server: each push waits
-for its own batch, with the same answers. A spatial mesh under one server
-lands with a later slice (ROADMAP.md, queue 1 item 9b-ii).
+for its own batch, with the same answers.
+
+**The mesh** (``mesh=``, else ``ServeConfig.mesh`` through
+``parallel.mesh.resolve_config_mesh``): a ``(data, spatial)`` mesh of
+processes, one per card, serves as one server. Pads round up to ``8 *
+spatial``. Every rank builds the server with the same configuration; rank
+0, the leader, admits, batches, times out and delivers, and broadcasts
+each dispatch (``parallel/lockstep.py``: the batch's iterations, early-exit
+tolerance and staged frames) to the followers, which run :meth:`follow`
+and the same cached entry. Each data index runs its block of the batch's
+rows, split by rows over its spatial ranks (``RAFT.forward(...,
+mesh=...)``), and the flows are gathered over the data axis, so the
+leader delivers the whole batch. The dispatch throttle and the drain
+worker stay on the leader. A server that built its own lockstep group
+stops it when it drains; one given ``lockstep=`` (the serve entry's, shared
+with a stream engine) leaves that to its owner.
 
 **Telemetry** (``telemetry=``, the process's hub by default): the stats
 mirror into the registry under the JAX package's counter names; each
@@ -87,7 +101,6 @@ import numpy as np
 
 from raft_ncup_tpu_torch.config import ServeConfig
 from raft_ncup_tpu_torch.inference.pipeline import (
-    MESH_FP,
     AsyncDrain,
     DispatchThrottle,
     ShapeCachedForward,
@@ -96,6 +109,8 @@ from raft_ncup_tpu_torch.inference.pipeline import (
 )
 from raft_ncup_tpu_torch.observability import get_telemetry
 from raft_ncup_tpu_torch.ops.padding import InputPadder
+from raft_ncup_tpu_torch.parallel.lockstep import Lockstep, data_rows, gather_data
+from raft_ncup_tpu_torch.parallel.mesh import resolve_config_mesh
 from raft_ncup_tpu_torch.serving.admission import AdmissionQueue
 from raft_ncup_tpu_torch.serving.budget import IterationBudgetController
 from raft_ncup_tpu_torch.serving.request import (
@@ -119,27 +134,35 @@ _POLL_S = 0.05  # dispatcher wake cadence while the queue is idle
 class FlowServer:
     """Serve flow requests with one port ``RAFT`` model, on the model's
     device. ``clock`` is injectable and must be monotonic. The server owns
-    one dispatcher thread from construction until :meth:`drain`."""
+    one dispatcher thread from construction until :meth:`drain`. ``mesh``
+    and ``lockstep`` as in the module docstring."""
 
     def __init__(
         self,
         model,
         cfg: Optional[ServeConfig] = None,
         *,
+        mesh=None,
+        lockstep: Optional[Lockstep] = None,
         clock: Callable[[], float] = time.monotonic,
         telemetry=None,
     ):
         self.cfg = cfg or ServeConfig()
         self.model = model
+        self.device = model.device
         self._tel = telemetry if telemetry is not None else get_telemetry()
         self.stats = ServeStats(telemetry=self._tel)
         self.health = self._tel.health("serve", fresh=True)
+        self.mesh, self._pad_divisor = resolve_config_mesh(mesh, self.cfg.mesh, self.device)
+        self._owns_group = lockstep is None and self.mesh is not None \
+            and self.mesh.processes > 1
+        self._group = Lockstep(self.mesh, self.device) if self._owns_group else lockstep
         # One cached forward per (padded shape, batch size, iterations),
         # under the server's preset (the model's own when it inherits).
         self._fwd = ShapeCachedForward(model, cache_size=self.cfg.cache_size,
-                                       policy=self.cfg.precision, telemetry=self._tel)
+                                       policy=self.cfg.precision, telemetry=self._tel,
+                                       mesh=self.mesh)
         self.policy = self._fwd.policy
-        self.device = model.device
         self._earlyexit_tol = env_earlyexit_tol()
         self._clock = clock
         self._queue = AdmissionQueue(self.cfg.queue_capacity, telemetry=self._tel,
@@ -216,7 +239,8 @@ class FlowServer:
             handle.complete(FlowResponse(rid, STATUS_REJECTED, detail=err))
             return handle
         h, w = int(image1.shape[0]), int(image1.shape[1])
-        padder = InputPadder((h, w, 3), mode="sintel", bucket=self.cfg.pad_bucket)
+        padder = InputPadder((h, w, 3), mode="sintel", divisor=self._pad_divisor,
+                             bucket=self.cfg.pad_bucket)
         (t, b), (le, r) = padder.pad_spec
         if deadline_s is None:
             deadline_s = self.cfg.default_deadline_s
@@ -347,7 +371,7 @@ class FlowServer:
         trace_attrs = trace_ids_attr(live)
         with self._tel.span(
                 "serve_dispatch", batch_id=token, request_ids=[r.request_id for r in live],
-                iters=iters, mesh=MESH_FP, policy=self.policy.name, **trace_attrs,
+                iters=iters, mesh=self._fwd.mesh_fp, policy=self.policy.name, **trace_attrs,
                 **({"earlyexit_tol": ee_tol} if ee_tol is not None else {})), \
                 stage_annotation("serve.dispatch"):
             flow_up, exec_iters = self._forward(img1, img2, iters)
@@ -400,17 +424,42 @@ class FlowServer:
                 self._inflight.pop(token, None)
             raise
 
-    def _forward(self, img1, img2, iters: int) -> tuple:
+    def _forward(self, img1, img2, iters: int, warmup: bool = False) -> tuple:
         """Launch one test-mode forward through the cached forward, the
         early-exit one when detection is on: ``(flow_up, exec_iters)`` on
         the model's device, the (B, H, W, 2) full-resolution flow and the
         (B,) executed iterations (None without detection). Nothing is read
-        on the host (early exit's flag reads aside)."""
-        if self._earlyexit_tol is None:
-            return self._fwd.forward(img1, img2, iters)[1], None
-        _, flow_up, exec_iters = self._fwd.forward(img1, img2, iters,
-                                                   early_exit_tol=self._earlyexit_tol)
-        return flow_up, exec_iters
+        on the host (early exit's flag reads aside). Under a lockstep group
+        the leader broadcasts the dispatch first."""
+        tol = self._earlyexit_tol
+        if self._group is None:
+            return self._run(img1, img2, iters, tol)
+        header = {"iters": int(iters), "earlyexit_tol": tol, "warmup": warmup}
+        with self._group.dispatch("serve", header, (img1, img2)) as (img1, img2):
+            return self._run(img1, img2, iters, tol)
+
+    def _run(self, img1, img2, iters: int, tol: Optional[float]) -> tuple:
+        """The cached forward on this rank's block of the batch's rows,
+        its outputs gathered over the data axis."""
+        mesh = self.mesh
+        args = (data_rows(img1, mesh), data_rows(img2, mesh), iters)
+        if tol is None:
+            flow_up, exec_iters = self._fwd.forward(*args)[1], None
+        else:
+            _, flow_up, exec_iters = self._fwd.forward(*args, early_exit_tol=tol)
+        return gather_data(flow_up, mesh), gather_data(exec_iters, mesh)
+
+    def lockstep_handlers(self) -> dict:
+        """A follower's handler of the leader's ``serve`` dispatches."""
+        def serve(header, tensors):
+            self._run(*tensors, header["iters"], header["earlyexit_tol"])
+
+        return {"serve": serve}
+
+    def follow(self) -> int:
+        """On a follower of the server's own lockstep group: run the
+        leader's dispatches until it drains; returns its exit code."""
+        return self._group.follow(self.lockstep_handlers())
 
     def _fail_batch(self, token: int, exc: BaseException) -> None:
         """Answer ``error`` to every still-pending request of the in-flight
@@ -474,7 +523,8 @@ class FlowServer:
         Health goes WARMING, then READY."""
         self.health.warming()
         h, w = (int(v) for v in size_hw)
-        padder = InputPadder((h, w, 3), mode="sintel", bucket=self.cfg.pad_bucket)
+        padder = InputPadder((h, w, 3), mode="sintel", divisor=self._pad_divisor,
+                             bucket=self.cfg.pad_bucket)
         (t, b), (le, r) = padder.pad_spec
         ph, pw = h + t + b, w + le + r
         before = self._fwd.stats["compiles"]
@@ -482,7 +532,7 @@ class FlowServer:
         for n in self.cfg.batch_sizes:
             zeros = stage_frames([], [], n, (ph, pw), self.device)
             for iters in self.cfg.iter_levels:
-                self._forward(zeros, zeros, iters)
+                self._forward(zeros, zeros, iters, warmup=True)
                 warmed.append((ph, pw, n, iters))
         self.warmed = warmed
         captured = self._fwd.stats["compiles"] - before
@@ -524,6 +574,8 @@ class FlowServer:
                 # requests answer `error` (nothing admitted is lost silently).
                 print(f"serve drain worker failed: {e!r}", file=sys.stderr)
                 self._fail_inflight(e)
+            if self._owns_group and self._group.leader:
+                self._group.stop(0)
         return self.stats
 
     def report(self) -> dict:
@@ -544,7 +596,7 @@ class FlowServer:
             "graph_pool_bytes": sum(self._fwd.pool_bytes.values()),
             "earlyexit_tol": self._earlyexit_tol,
             "earlyexit": dict(self._fwd.earlyexit),
-            "mesh": MESH_FP,
+            "mesh": self._fwd.mesh_fp,
             "stages": stages,
             "health": self.health.snapshot(),
         }

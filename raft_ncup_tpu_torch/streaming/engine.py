@@ -1,7 +1,6 @@
 """The multi-stream video engine: warm start on the card over a slot table
 of fixed capacity, with per-stream fault isolation (port of
-``raft_ncup_tpu/streaming/engine.py``, without the mesh: a spatial stream
-engine is ROADMAP.md, queue 1 item 9b-ii).
+``raft_ncup_tpu/streaming/engine.py``).
 
 Data path (one dispatcher thread; clients submit from their own threads):
 
@@ -53,6 +52,18 @@ graphs are exactly ``len(batch_sizes)``, all captured at ``warmup`` (or,
 without it, at a batch size's first use), and always on scratch-slot,
 all-cold rows: a capture's eager run writes the slot table.
 
+The mesh (``mesh=``, else ``StreamConfig.mesh``), as the server's
+(``serving/server.py``): frames pad to ``8 * spatial``, rank 0 (the
+leader) admits, batches and delivers and broadcasts each step (its slot
+indices, cold flags and staged frames, ``parallel/lockstep.py``) to the
+followers, which run :meth:`follow`. The slot table stays whole and
+identical on every rank (JAX replicates it when ``capacity + 1`` does not
+divide by ``data``): the step reads each row's previous state from it,
+each data index runs its block of the rows, split by rows over its
+spatial ranks, and the outputs are gathered over the data axis before
+the anomaly test and the write back, so every rank writes the same
+values.
+
 Drain: ``drain()`` stops stream and frame admission, answers every
 admitted frame through compute, stops the dispatcher, waits for the
 throttle's steps, closes the drain worker and returns the stats (the serve
@@ -86,7 +97,6 @@ import torch
 
 from raft_ncup_tpu_torch.config import StreamConfig
 from raft_ncup_tpu_torch.inference.pipeline import (
-    MESH_FP,
     AsyncDrain,
     DispatchThrottle,
     ShapeCachedForward,
@@ -97,6 +107,8 @@ from raft_ncup_tpu_torch.observability import get_telemetry
 from raft_ncup_tpu_torch.observability.telemetry import LEGACY_KEY_ALIASES
 from raft_ncup_tpu_torch.ops.padding import InputPadder
 from raft_ncup_tpu_torch.ops.warmstart import forward_interpolate_batch
+from raft_ncup_tpu_torch.parallel.lockstep import Lockstep, data_rows, gather_data
+from raft_ncup_tpu_torch.parallel.mesh import resolve_config_mesh
 from raft_ncup_tpu_torch.serving.admission import AdmissionQueue
 from raft_ncup_tpu_torch.serving.request import (
     STATUS_ERROR,
@@ -176,25 +188,30 @@ class StreamEngine:
     """Serve many concurrent video streams with one port ``RAFT`` model, on
     the model's device. ``clock`` is injectable and must be monotonic. The
     engine owns one dispatcher thread from construction until
-    :meth:`drain`."""
+    :meth:`drain`. ``mesh`` and ``lockstep`` as ``FlowServer``'s."""
 
-    def __init__(self, model, cfg: Optional[StreamConfig] = None, *,
+    def __init__(self, model, cfg: Optional[StreamConfig] = None, *, mesh=None,
+                 lockstep: Optional[Lockstep] = None,
                  clock: Callable[[], float] = time.monotonic, telemetry=None):
         self.cfg = cfg or StreamConfig()
         self._clock = clock
+        self.device = model.device
         self._tel = telemetry if telemetry is not None else get_telemetry()
         self.stats = StreamStats(telemetry=self._tel)
         self.health = self._tel.health("stream", fresh=True)
+        self.mesh, self._pad_divisor = resolve_config_mesh(mesh, self.cfg.mesh, self.device)
+        self._owns_group = lockstep is None and self.mesh is not None \
+            and self.mesh.processes > 1
+        self._group = Lockstep(self.mesh, self.device) if self._owns_group else lockstep
         h, w = self.cfg.frame_hw
-        (t, b), (le, r) = InputPadder((int(h), int(w), 3), mode="sintel",
-                                      bucket=self.cfg.pad_bucket).pad_spec
+        (t, b), (le, r) = self._pad_spec_for((int(h), int(w)))
         self._ph, self._pw = int(h) + t + b, int(w) + le + r
         self._hidden = model.cfg.hidden_dim if self.cfg.carry_net else 0
         # The step entries, one per batch size, under the engine's preset.
         self._fwd = ShapeCachedForward(model, cache_size=self.cfg.cache_size,
-                                       policy=self.cfg.precision, telemetry=self._tel)
+                                       policy=self.cfg.precision, telemetry=self._tel,
+                                       mesh=self.mesh)
         self._policy = self._fwd.policy
-        self.device = model.device
         # Before any capture and outside the graphs' pool: the step graphs
         # read and write it by address.
         self._table = init_slot_table(self.cfg.capacity, self._ph // 8, self._pw // 8,
@@ -363,7 +380,8 @@ class StreamEngine:
 
     def _pad_spec_for(self, native_hw: Tuple[int, int]) -> tuple:
         h, w = native_hw
-        return InputPadder((h, w, 3), mode="sintel", bucket=self.cfg.pad_bucket).pad_spec
+        return InputPadder((h, w, 3), mode="sintel", divisor=self._pad_divisor,
+                           bucket=self.cfg.pad_bucket).pad_spec
 
     def _retry_after(self) -> float:
         with self._ema_lock:
@@ -402,9 +420,11 @@ class StreamEngine:
 
     def _step_fn(self):
         """The step of one batch: ``(img1, img2, slot_idx, cold) ->
-        (flow_up, bad)``, updating the slot table in place."""
+        (flow_up, bad)``, updating the slot table in place. Under a mesh
+        the model runs on this rank's block of the rows and its outputs are
+        gathered before the anomaly test."""
         model, policy = self._fwd.model_for()
-        table, cfg = self._table, self.cfg
+        table, cfg, mesh = self._table, self.cfg, self.mesh
         carry_net = bool(self._hidden)
 
         def step(img1, img2, slot_idx, cold):
@@ -415,9 +435,11 @@ class StreamEngine:
             finit = torch.where(warm[:, None, None, None], splat, torch.zeros_like(splat))
             kw = {}
             if carry_net:
-                kw = {"net_init": table["net"].index_select(0, slot_idx), "net_warm": warm}
-            flow_lr, flow_up, net = model(img1, img2, iters=cfg.iters, flow_init=finit,
-                                          return_net=True, **kw)
+                kw = {"net_init": data_rows(table["net"].index_select(0, slot_idx), mesh),
+                      "net_warm": data_rows(warm, mesh)}
+            out = model(data_rows(img1, mesh), data_rows(img2, mesh), iters=cfg.iters,
+                        flow_init=data_rows(finit, mesh), return_net=True, mesh=mesh, **kw)
+            flow_lr, flow_up, net = (gather_data(t, mesh) for t in out)
             bad = (~torch.isfinite(flow_lr).flatten(1).all(1)
                    | ~torch.isfinite(flow_up).flatten(1).all(1)
                    | (flow_lr.abs().flatten(1).amax(1) > cfg.anomaly_max_flow))
@@ -436,12 +458,35 @@ class StreamEngine:
 
         return step
 
-    def _step(self, img1: torch.Tensor, img2: torch.Tensor, slot_idx, cold) -> tuple:
+    def _step(self, img1: torch.Tensor, img2: torch.Tensor, slot_idx, cold,
+              warmup: bool = False) -> tuple:
         """One step through the cache; returns ``(flow_up, bad)`` on the
         card. ``img1``/``img2`` are staged batches (``stage_frames``); the
         slot indices and cold flags are staged beside them, so on the card
-        every input reaches it by a non-blocking copy. The caller holds the
+        every input reaches it by a non-blocking copy. Under a lockstep
+        group the leader broadcasts the step first. The caller holds the
         step lock."""
+        if self._group is None:
+            return self._run(img1, img2, slot_idx, cold)
+        header = {"slots": [int(i) for i in slot_idx], "cold": [float(c) for c in cold],
+                  "warmup": warmup}
+        with self._group.dispatch("stream", header, (img1, img2)) as (img1, img2):
+            return self._run(img1, img2, slot_idx, cold)
+
+    def lockstep_handlers(self) -> dict:
+        """A follower's handler of the leader's ``stream`` dispatches."""
+        def stream(header, tensors):
+            with self._step_lock:
+                self._run(*tensors, header["slots"], header["cold"])
+
+        return {"stream": stream}
+
+    def follow(self) -> int:
+        """On a follower of the engine's own lockstep group: run the
+        leader's steps until it drains; returns its exit code."""
+        return self._group.follow(self.lockstep_handlers())
+
+    def _run(self, img1: torch.Tensor, img2: torch.Tensor, slot_idx, cold) -> tuple:
         idx = stage_pinned(np.asarray(slot_idx, np.int64), torch.int64, self.device)
         cold_t = stage_pinned(np.asarray(cold, np.float32), torch.float32, self.device)
         return self._fwd.custom(("stream", img1.shape[0], self._policy.name), self._step_fn,
@@ -457,7 +502,7 @@ class StreamEngine:
         if n in self._captured:
             return
         zeros = stage_frames([], [], n, (self._ph, self._pw), self.device)
-        self._step(zeros, zeros, [self.cfg.capacity] * n, [1.0] * n)
+        self._step(zeros, zeros, [self.cfg.capacity] * n, [1.0] * n, warmup=True)
         self._captured.add(n)
 
     def _run_step(self, img1: torch.Tensor, img2: torch.Tensor, slot_idx, cold,
@@ -509,7 +554,7 @@ class StreamEngine:
             stack = contextlib.ExitStack()
             stack.enter_context(self._tel.span(
                 "stream_dispatch", batch_id=token, request_ids=[r.request_id for r in batch],
-                stream_ids=[r.stream_id for r in batch], mesh=MESH_FP,
+                stream_ids=[r.stream_id for r in batch], mesh=self._fwd.mesh_fp,
                 policy=self._policy.name, **trace_attrs))
             stack.enter_context(stage_annotation("stream.dispatch"))
             return stack
@@ -674,6 +719,8 @@ class StreamEngine:
             except Exception as e:
                 print(f"stream drain worker failed: {e!r}", file=sys.stderr)
                 self._fail_inflight(e)
+            if self._owns_group and self._group.leader:
+                self._group.stop(0)
         return self.stats
 
     def report(self) -> dict:
@@ -699,7 +746,7 @@ class StreamEngine:
                                     for t in self._table.values()),
             "graph_pool_bytes": sum(self._fwd.pool_bytes.values()),
             "device": str(self.device),
-            "mesh": MESH_FP,
+            "mesh": self._fwd.mesh_fp,
             "stages": stages,
             "health": self.health.snapshot(),
         }

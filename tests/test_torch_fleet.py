@@ -3,7 +3,7 @@ package's (``raft_ncup_tpu/fleet/``), on the CPU, without a model.
 
 - Topology: ``FleetConfig`` field for field, its derived replica specs
   and host manifests, ``replica_argv`` equal to JAX's apart from the
-  device flag, the same refusals (and the port's refusal of a mesh),
+  device flag, the same refusals (and the port's of a malformed mesh),
   ``padded_shape`` against the port's ``InputPadder``.
 - The wire: frames byte for byte the same in both directions (a frame one
   package sends parses with the other's ``recv_msg``), the same EOF,
@@ -125,7 +125,7 @@ def test_config_fields_specs_and_argv_match_jax(tmp_path, which):
         jv, pv = getattr(j, f.name), getattr(p, f.name)
         if f.name in ("serve", "stream"):
             assert (jv is None) == (pv is None)
-            if jv is not None:  # the port's configs have no mesh
+            if jv is not None:
                 for g in dataclasses.fields(pv):
                     assert getattr(pv, g.name) == getattr(jv, g.name), (f.name, g.name)
         elif f.name == "extra_args":
@@ -165,13 +165,14 @@ def test_validation_refuses_what_jax_refuses_and_a_mesh(tmp_path):
         for pkg in (_pkg("jax"), _pkg("port")):
             with pytest.raises(ValueError):
                 pkg.fleet.FleetConfig(**kw)
-    # A mesh slice: JAX's topology takes it, the port's refuses it by name.
-    jfleet.FleetConfig(base_dir=base, n_replicas=2, meshes=(None, (1, 2)))
-    with pytest.raises(ValueError, match="item 9"):
-        pfleet.FleetConfig(base_dir=base, n_replicas=2, meshes=(None, (1, 2)))
-    with pytest.raises(ValueError, match="item 9"):
-        pfleet.ReplicaSpec(index=0, socket_path="s", healthz_path="h", flight_dir="f",
-                           mesh=(1, 2))
+    # A mesh slice: both topologies take it; the port refuses a malformed one.
+    for pkg_fleet in (jfleet, pfleet):
+        pkg_fleet.FleetConfig(base_dir=base, n_replicas=2, meshes=(None, (1, 2)))
+    assert pfleet.ReplicaSpec(index=0, socket_path="s", healthz_path="h", flight_dir="f",
+                              mesh=(1, 2)).ranks == 2
+    for mesh in ((0, 2), (1, 2, 1)):
+        with pytest.raises(ValueError, match="positive sizes"):
+            pfleet.FleetConfig(base_dir=base, n_replicas=2, meshes=(None, mesh))
 
 
 def test_padded_shape_matches_the_ports_input_padder_and_jax():

@@ -341,24 +341,12 @@ def _spatial_mesh():
 
 
 def _refusal(path, launched_world):
-    """Drive one path outside the spatial axis's first part with a spatial
-    size of 2."""
-    from raft_ncup_tpu_torch import serve as serve_mod
+    """Drive one training path with a spatial size of 2."""
     from raft_ncup_tpu_torch.config import small_model_config
-    from raft_ncup_tpu_torch.fleet import FleetConfig, ReplicaSpec
-    from raft_ncup_tpu_torch.inference.pipeline import ShapeCachedForward
     from raft_ncup_tpu_torch.models.raft import RAFT
     from raft_ncup_tpu_torch.training import step as step_mod
 
-    if path == "server":
-        serve_mod.run(["--device", "cpu", "--mesh", "1", "2"])
-    elif path == "stream engine":
-        serve_mod.run(["--device", "cpu", "--stream", "--mesh", "1", "2"])
-    elif path == "fleet slot":
-        ReplicaSpec(index=0, socket_path="s", healthz_path="h", flight_dir="f", mesh=(1, 2))
-    elif path == "fleet":
-        FleetConfig(base_dir="/nonexistent", n_replicas=1, meshes=((1, 2),))
-    elif path == "train entry":
+    if path == "train entry":
         launched_world(2)
         cli.parse_train(["--stage", "things", "--batch_size", "2", "--spatial_parallel", "2"])
     elif path == "train step":
@@ -366,23 +354,12 @@ def _refusal(path, launched_world):
     else:
         model = RAFT(small_model_config("raft"), device="cpu", seed=0)
         frames = torch.zeros((1, 32, 32, 3))
-        if path == "early exit":
-            model(frames, frames, iters=1, early_exit_tol=0.05, mesh=_spatial_mesh())
-        elif path == "early exit cache":
-            ShapeCachedForward(model, mesh=_spatial_mesh()).forward(frames, frames, 1,
-                                                                   early_exit_tol=0.05)
-        elif path == "custom cache entry":
-            ShapeCachedForward(model, mesh=_spatial_mesh()).custom(("stream", 1), None, ())
-        else:
-            model.train()
-            model(frames, frames, iters=1, mesh=_spatial_mesh())
+        model.train()
+        model(frames, frames, iters=1, mesh=_spatial_mesh())
 
 
 @pytest.mark.parametrize("path,item", [
-    ("server", "9b-ii"), ("stream engine", "9b-ii"), ("fleet slot", "9b-ii"),
-    ("fleet", "9b-ii"), ("early exit", "9b-ii"), ("early exit cache", "9b-ii"),
-    ("custom cache entry", "9b-ii"), ("train entry", "9b-iii"), ("train step", "9b-iii"),
-    ("train-mode forward", "9b-iii")])
+    ("train entry", "9b-iii"), ("train step", "9b-iii"), ("train-mode forward", "9b-iii")])
 def test_paths_outside_the_slice_refuse_a_spatial_axis(path, item, launched_world):
     with pytest.raises(ValueError, match=f"item {item}"):
         _refusal(path, launched_world)

@@ -151,8 +151,10 @@ def test_stream_corruptframe_resets_one_stream(capsys):
 
 
 def test_later_slices_are_refused():
+    # The mesh is the port's since its spatial serving slice; its pipe axis
+    # is not yet.
     with pytest.raises(ValueError, match="ROADMAP.md, queue 1 item 9"):
-        serve_mod.main(SMALL + ["--mesh", "1", "2"])
+        serve_mod.main(SMALL + ["--mesh", "1,1,2"])
     # Fleet replicas are the port's since its fleet slice: the flags parse
     # into replica mode (tests/test_torch_replica.py drives it).
     args = serve_mod.build_parser().parse_args(

@@ -8,7 +8,8 @@ the 1x1/s2 downsample, the GRU's 5x1 and 1x5, a dilated 3x3, kernel B's
 plain version at K 3 and 5, the convex upsampler's 3x3 unfold) against the
 whole-image op: each band of S is run with ``halo.extend`` reading its
 neighbours' rows from the whole tensor, and the bands joined must equal
-the whole image's result within 1e-6.
+the whole image's result within 1e-6; so must the U-Net weights net on
+bands that pool to an odd row, which it runs on the gathered whole image.
 
 One two-rank gloo world for the module (``tests/_torch_spatial_child.py``,
 each rank in its own interpreter with its own timeout) on the mesh
@@ -181,13 +182,26 @@ def _bands_pair(monkeypatch, flow, mask, s):
     return out
 
 
-def test_unet_weights_net_refuses_a_band_that_pools_to_an_odd_row(monkeypatch):
+def test_unet_weights_net_on_a_band_that_pools_to_an_odd_row_is_the_whole_images(monkeypatch):
+    """The U-Net weights net (two poolings) on bands of 6 rows, which pool
+    to an odd row: each rank runs it on the gathered whole image and keeps
+    its band, so the bands joined equal the whole image's output."""
     from raft_ncup_tpu_torch.nn.weights_est import UNetWeightsNet
 
     net = UNetWeightsNet(4).eval()
-    x = torch.zeros((1, 4, 12, 8))
-    with _band(monkeypatch, 2, 0, x), pytest.raises(ValueError, match="must divide by 4"):
-        net(halo.band(x, 2))
+    init_weights(net, torch.Generator().manual_seed(6))
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 4, 12, 8)).astype(
+        np.float32))
+    gathered = []
+
+    def all_gather_rows(t, dim=1, group=None):
+        gathered.append(tuple(t.shape))
+        return x
+
+    monkeypatch.setattr(halo, "all_gather_rows", all_gather_rows)
+    got, calls = _bands(monkeypatch, 2, x, net)
+    assert calls == [] and gathered == [(2, 4, 6, 8)] * 2  # no halo: the whole image, banded
+    torch.testing.assert_close(got, net(x), atol=BAND_ATOL, rtol=0)
 
 
 # ------------------------------------------------------------ two ranks
