@@ -211,7 +211,18 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     uninterrupted batches; (d) a one-rank NCCL world under
     ``--strict_guards``, and two NCCL ranks on the one card, which raise
     before step 1 ((c) and (d) at a 200x360 crop); (e) ``validate_sintel``
-    through the evaluate entry with two ranks against one process;
+    through the evaluate entry with two ranks against one process; (b)'s
+    ranks and the spatial training phase's run beside (c)-(e), and (e)'s
+    beside (d), so their step times are under that load;
+17a. trains over the spatial axis (``spatial (f)``): the flagship's step
+    at 400x720, batch 2, 12 iterations, remat, 2 steps, split by rows over
+    two ranks sharing the card under gloo (``--mesh 1,2``, each rank this
+    script's ``--spatial_train_worker``), at stage chairs (BatchNorm trains)
+    and stage things (frozen), against one process: the losses, the step-1
+    gradients, the batches by hash, each rank's launches (A 24, A' 12, B 96,
+    B' 48 a step) and collectives (equal on both ranks, with bytes), each
+    rank's step ms and peak bytes; and each encoder on two bands in float64
+    against the whole image (exact) beside its float32 error;
 18. runs the spatial axis (``parallel/halo.py``): (a) the flagship's whole
     f32 forward, batch 1, 32 iterations, at 1088x1920 and at 2176x3840 in
     this process, captured and replayed 3 times (wall and device ms, the
@@ -241,9 +252,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     process left;
 20. prints each phase's seconds (``phase NAME: S s``, then a ``phases:``
     line), one JSON line describing the kernels (with each kernel's
-    launches per rank on the data-parallel, spatial and spatial serving
-    paths), the card's name and power limit, and, last, the JSON result
-    line.
+    launches per rank on the data-parallel, spatial, spatial serving and
+    spatial training paths), the card's name and power limit, and, last,
+    the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
 device it exits non-zero at once; it never falls back to the CPU.
@@ -4139,6 +4150,7 @@ DP_SMALL = ["--image_size", "200", "360"]
 # ranks' agreements on a SIGTERM (16 in the program), 1 in (c) for an
 # exact stop step.
 DP_CHECK_EVERY = "--preempt_check_every"
+DP_UNTIMED = "--untimed"
 DP_COLLECTIVE_TIMEOUT_S = 300.0  # a rank's collectives, inside DP_TIMEOUT_S
 DP_TIMEOUT_S = 600
 # Two ranks against one process: the first step's loss within
@@ -4159,10 +4171,11 @@ DP_VAL_RTOL = 1e-6
 DP_WANT = {"corr_lookup": 24, "corr_lookup_bwd": 12, "nconv": 96, "nconv_bwd": 48}
 
 
-def _dp_capture(torch, stack, outdir: str, rank: int) -> dict:
+def _dp_capture(torch, stack, outdir: str, rank: int, timed: bool = True) -> dict:
     """Hooks of a data-parallel run: the first step's (reduced) gradients
-    saved under ``outdir``, every collective's ms (synchronised around it)
-    and bytes by step, and this process's checkpoint writes."""
+    saved under ``outdir``, every all-reduce's ms (synchronised around it,
+    with ``timed``) and bytes by step, and this process's checkpoint
+    writes."""
     from raft_ncup_tpu_torch.analysis.guards import host_read
     from raft_ncup_tpu_torch.parallel import multihost
     from raft_ncup_tpu_torch.training import checkpoint as ckpt_mod
@@ -4197,16 +4210,19 @@ def _dp_capture(torch, stack, outdir: str, rank: int) -> dict:
         rec["checkpoint_writes"] += 1
         return real_save(*a, **kw)
 
-    for mod, name, fn in ((multihost, "all_reduce_", timed_ar), (step_mod, "apply_update", apply),
-                          (ckpt_mod, "save", save)):
+    hooks = [(step_mod, "apply_update", apply), (ckpt_mod, "save", save)]
+    if timed:
+        hooks.append((multihost, "all_reduce_", timed_ar))
+    for mod, name, fn in hooks:
         stack.callback(setattr, mod, name, getattr(mod, name))
         setattr(mod, name, fn)
     return rec
 
 
-def _dp_run(torch, outdir: str, argv: list) -> tuple:
+def _dp_run(torch, outdir: str, argv: list, timed: bool = True) -> tuple:
     """The train entry with ``argv`` in this process, instrumented: (exit
-    code or None, error, summary, the instruments' record)."""
+    code or None, error, summary, the instruments' record); ``timed`` times
+    each all-reduce (a synchronisation around it)."""
     import io
 
     from raft_ncup_tpu_torch import train as train_mod
@@ -4218,7 +4234,7 @@ def _dp_run(torch, outdir: str, argv: list) -> tuple:
     reset_launches()
     with contextlib.ExitStack() as stack:
         inst.install(stack)
-        rec = _dp_capture(torch, stack, outdir, rank)
+        rec = _dp_capture(torch, stack, outdir, rank, timed)
         try:
             with contextlib.redirect_stdout(out):
                 status = train_mod.main(argv)
@@ -4234,10 +4250,10 @@ def _dp_run(torch, outdir: str, argv: list) -> tuple:
 
 def dp_worker(outdir: str, argv: list) -> int:
     """One rank of a data-parallel run (``chip_smoke.py --dp_worker OUTDIR
-    [--preempt_check_every N] <train flags>``, started by the phase): its
-    record as
+    [--preempt_check_every N] [--untimed] <train flags>``, started by the
+    phase or by ``chip_spatial.py``): its record as
     ``OUTDIR/rank<RANK>.json``; exits with the train entry's code, 1 when
-    it raised."""
+    it raised. ``--untimed`` leaves the all-reduces unsynchronised."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -4247,7 +4263,9 @@ def dp_worker(outdir: str, argv: list) -> int:
     multihost.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
     if argv[:1] == [DP_CHECK_EVERY]:
         preemption.CHECK_EVERY, argv = int(argv[1]), argv[2:]
-    status, error, _, record = _dp_run(torch, outdir, argv)
+    timed = argv[:1] != [DP_UNTIMED]
+    argv = argv if timed else argv[1:]
+    status, error, _, record = _dp_run(torch, outdir, argv, timed)
     with open(os.path.join(outdir, f"rank{record['rank']}.json"), "w") as fh:
         json.dump(record, fh)
     if error:
@@ -4276,13 +4294,13 @@ def _free_port() -> int:
 
 
 def _dp_ranks(outdir: str, argv: list, world: int, backend: str, torchrun: bool,
-              module=None, **extra) -> tuple:
+              module=None, worker: str = DP_WORKER, **extra) -> tuple:
     """``world`` ranks started at once, by ``torchrun`` or each by hand
     with the launcher's environment (so each rank's exit code shows):
     (exit codes, stdout and stderr of each process, wall seconds). Without
     ``module``, each rank is this script's ``--dp_worker``."""
     t0 = time.perf_counter()
-    procs = _start_ranks(outdir, argv, world, backend, torchrun, module, **extra)
+    procs = _start_ranks(outdir, argv, world, backend, torchrun, module, worker, **extra)
     codes, outs = _wait_ranks(procs)
     return codes, outs, time.perf_counter() - t0
 
@@ -4331,22 +4349,36 @@ def _dp_records(outdir: str, world: int) -> list:
     return recs
 
 
-def _dp_grad_errs(torch, got: dict, want: dict) -> tuple:
+def _dp_grad_errs(torch, got: dict, want: dict, default_tol: float = STEP_GRAD_TOL,
+                  flipped: tuple = DP_FLIPPED, flip_tol: float = DP_FLIP_TOL,
+                  centred: tuple = (), ncup: tuple = (DP_NCUP,),
+                  ncup_tol: float = DP_NCUP_TOL) -> tuple:
     """(worst relative error by kind, failures) of step-1 gradients against
-    the one-process run's."""
+    the one-process run's. A conv bias of ``centred`` (a training
+    BatchNorm follows it: a gradient of exactly zero) is held by its size
+    on both sides against the step's largest gradient instead."""
     gmax = max(float(g.abs().max()) for g in want.values())
     worst = {"default": (0.0, ""), "flipped": (0.0, ""), "ncup": (0.0, "")}
+    if centred:
+        worst["centred"] = (0.0, "")
     failures = []
     for name, r in want.items():
         g = got[name]
         scale = float(r.abs().max())
+        if name.startswith(centred) and name.endswith(".0.bias"):
+            size = max(scale, float(g.abs().max())) / gmax
+            worst["centred"] = max(worst["centred"], (size, name))
+            if size > SPATIAL_TRAIN_CENTRED_TOL:
+                failures.append(f"{name}: {size:.3e} of the largest gradient (centred by a "
+                                f"training BatchNorm, tolerance {SPATIAL_TRAIN_CENTRED_TOL})")
+            continue
         if scale < NEGLIGIBLE * gmax:
             if float(g.abs().max()) >= NEGLIGIBLE * gmax:
                 failures.append(f"{name} is not negligible")
             continue
-        kind = ("flipped" if name in DP_FLIPPED else "ncup" if name.startswith(DP_NCUP)
+        kind = ("flipped" if name.startswith(flipped) else "ncup" if name.startswith(ncup)
                 else "default")
-        tol = {"flipped": DP_FLIP_TOL, "ncup": DP_NCUP_TOL, "default": STEP_GRAD_TOL}[kind]
+        tol = {"flipped": flip_tol, "ncup": ncup_tol, "default": default_tol}[kind]
         err = float((g - r).abs().max()) / scale
         worst[kind] = max(worst[kind], (err, name))
         if err > tol:
@@ -4404,13 +4436,21 @@ def _dp_one_process(torch, tmp: str, argv: list, stream: list) -> dict:
     return a
 
 
-def _dp_two_ranks(torch, card: str, tmp: str, argv: list, a: dict, want_rows: list) -> dict:
-    """(b) Two ranks on the one card under gloo, started by torchrun,
-    against (a). Returns each rank's launches."""
+def _dp_start_two_ranks(tmp: str, argv: list) -> tuple:
+    """(b)'s two ranks on the one card under gloo, started by torchrun and
+    not waited for: (processes, start time)."""
     outdir = os.path.join(tmp, "b")
-    codes, outs, seconds = _dp_ranks(
-        outdir, argv + ["--checkpoint_dir", outdir, *DP_CARD], 2, "gloo",
-        torchrun=True)
+    return (_start_ranks(outdir, argv + ["--checkpoint_dir", outdir, *DP_CARD], 2, "gloo",
+                         torchrun=True), time.perf_counter())
+
+
+def _dp_two_ranks(torch, card: str, tmp: str, a: dict, want_rows: list, started: tuple) -> dict:
+    """(b) Two ranks on the one card under gloo (``started`` by
+    :func:`_dp_start_two_ranks`), against (a). Returns each rank's
+    launches."""
+    outdir = os.path.join(tmp, "b")
+    codes, outs = _wait_ranks(started[0])
+    seconds = time.perf_counter() - started[1]
     check(codes == [0], f"data parallel (b): torchrun exited {codes}:\n"
                         f"{outs[0][0][-2000:]}\n{outs[0][1][-4000:]}")
     b = _dp_records(outdir, 2)
@@ -4438,7 +4478,8 @@ def _dp_two_ranks(torch, card: str, tmp: str, argv: list, a: dict, want_rows: li
             "one_process_step_ms": [s["ms"] for s in a["steps"]],
             "one_process_median_step_ms": _median([s["ms"] for s in a["steps"][1:]]),
             "two_ranks_median_step_ms": [_median([s["ms"] for s in r["steps"][1:]]) for r in b],
-            "note": "two ranks time-slice one card: not scaling"}})
+            "note": "two ranks time-slice one card beside (c)-(e) and spatial training's "
+                    "ranks: not scaling, and their times are under that load"}})
     check(all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0]),
           "data parallel (b): the ranks' reduced gradients differ")
     check(not failures, f"data parallel (b): step-1 gradients against (a): {failures}")
@@ -4535,23 +4576,27 @@ def _dp_nccl(tmp: str, argv: list) -> dict:
     return {"data parallel (d) nccl": _dp_launches(d)}
 
 
-def _dp_sharded_validation(tmp: str, sintel: str) -> None:
-    """(e) ``validate_sintel`` through the evaluate entry: two ranks
-    against one process (this one), the same seeded weights, each frame at
-    batch 1."""
+def _dp_validation_argv(sintel: str) -> list:
+    return ["--model", "raft_nc_dbl", "--dataset", "sintel", "--root_sintel", sintel,
+            "--iters", "12", "--batch_size", "1", "--seed", "0", *DP_CARD]
+
+
+def _dp_sharded_validation(tmp: str, sintel: str, started: tuple) -> None:
+    """(e) ``validate_sintel`` through the evaluate entry: two ranks (started
+    beside (d), ``started`` = their processes and start time) against one
+    process (this one), the same seeded weights, each frame at batch 1."""
     import io
 
     from raft_ncup_tpu_torch import evaluate as eval_mod
 
-    eargv = ["--model", "raft_nc_dbl", "--dataset", "sintel", "--root_sintel", sintel,
-             "--iters", "12", "--batch_size", "1", "--seed", "0", *DP_CARD]
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        code1 = eval_mod.main(eargv)
+        code1 = eval_mod.main(_dp_validation_argv(sintel))
     seconds1 = time.perf_counter() - t0
-    codes, outs, seconds = _dp_ranks(os.path.join(tmp, "e"), eargv, 2, "gloo", torchrun=False,
-                                     module="raft_ncup_tpu_torch.evaluate")
+    procs, t_start = started
+    codes, outs = _wait_ranks(procs)
+    seconds = time.perf_counter() - t_start
     check(code1 == 0 and codes == [0, 0],
           f"data parallel (e): exits {code1} {codes}:\n{outs[0][1][-3000:]}")
     one = json.loads(buf.getvalue().strip().splitlines()[-1])
@@ -4565,7 +4610,7 @@ def _dp_sharded_validation(tmp: str, sintel: str) -> None:
           f"data parallel (e): {[r['results'] for r in ranks]} against {one['results']}")
 
 
-def check_data_parallel(torch, card: str, tmp: str) -> dict:
+def check_data_parallel(torch, card: str, tmp: str, after_b=None) -> dict:
     """Train and validate the flagship data-parallel: (a) one process in
     this one, ``DP_STEPS`` steps; (b) two ranks on the one card under gloo,
     started by ``torch.distributed.run``, each with ``--device cuda:0`` and
@@ -4577,7 +4622,10 @@ def check_data_parallel(torch, card: str, tmp: str) -> dict:
     under ``--strict_guards`` (no implicit read, no steady recompile), then
     two NCCL ranks on the one card, which must raise before step 1 ((c) and
     (d) at the ``DP_SMALL`` crop); (e) ``validate_sintel`` through the evaluate entry
-    with two ranks against one process. Returns each rank's launches."""
+    with two ranks (run beside (d)) against one process; (b)'s ranks run
+    beside (c)-(e). ``after_b()``, when given, is called once (b)'s ranks
+    are started (the spatial training phase starts its ranks there, so
+    they too run beside (c)-(e)). Returns each rank's launches."""
     t0 = time.perf_counter()
     things, sintel = os.path.join(tmp, "FlyingThings3D"), os.path.join(tmp, "Sintel")
     write_things_tree(things)
@@ -4591,10 +4639,17 @@ def check_data_parallel(torch, card: str, tmp: str) -> dict:
     stream = _dp_stream(base + ["--num_steps", str(DP_RESUME_STEPS)], DP_RESUME_STEPS)
     want_rows = [[_rows_digest(b, r, 2) for r in range(2)] for b in stream]
     a = _dp_one_process(torch, tmp, argv, stream)
-    paths = _dp_two_ranks(torch, card, tmp, argv, a, want_rows)
+    # (b)'s ranks, and the spatial training phase's, run beside (c)-(e);
+    # (e)'s beside (d).
+    b_ranks = _dp_start_two_ranks(tmp, argv)
+    if after_b is not None:
+        after_b()
     _dp_preemption(tmp, base)
-    paths.update(_dp_nccl(tmp, argv + DP_SMALL))
-    _dp_sharded_validation(tmp, sintel)
+    e_ranks = (_start_ranks(os.path.join(tmp, "e"), _dp_validation_argv(sintel), 2, "gloo",
+                            module="raft_ncup_tpu_torch.evaluate"), time.perf_counter())
+    paths = _dp_nccl(tmp, argv + DP_SMALL)
+    _dp_sharded_validation(tmp, sintel, e_ranks)
+    paths.update(_dp_two_ranks(torch, card, tmp, a, want_rows, b_ranks))
     print(f"data parallel: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
@@ -5045,6 +5100,270 @@ def check_spatial(torch, card: str, tmp: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------- spatial training (f)
+
+# The flagship's train step split by image rows over two ranks sharing the
+# card under gloo (``--mesh 1,2``), at the things crop 400x720, batch 2, 12
+# iterations, remat on, against one process: at stage chairs (BatchNorm
+# trains, its statistics summed over both ranks) and at stage things
+# (BatchNorm frozen). Both stages run in the same two rank processes, one
+# after the other, so the launcher, the join and cuDNN's autotuning are paid
+# once.
+SPATIAL_TRAIN_WORKER = "--spatial_train_worker"
+SPATIAL_TRAIN_STAGES = ("chairs", "things")
+SPATIAL_TRAIN_STEPS = 2
+SPATIAL_TRAIN_ARGS = ["--batch_size", "2", "--num_steps", str(SPATIAL_TRAIN_STEPS)]
+SPATIAL_TRAIN_MESH = "mesh(data=1,spatial=2:gpu)"
+# Two ranks on bands against one process: the loss within 1e-5 relative,
+# every gradient within 1e-4 of its largest value, the upsampler's within
+# 1e-3 (below) and the two encoders' (``fnet.*``, ``cnet.*``) within 5e-2:
+# at 400x720 their float32 gradients are themselves that far from float64's
+# (the probe below: up to 1.9e-2 for one process), small differences of
+# large sums behind instance and batch norm; the phase prints the one
+# process's own float32
+# error against a float64 run of each encoder, and holds the encoders on
+# two bands in float64 within 1e-10 of the whole image (the exchanges and
+# the group sums exact).
+SPATIAL_TRAIN_LOSS_RTOL = 1e-5
+SPATIAL_TRAIN_GRAD_TOL = 1e-4
+SPATIAL_TRAIN_FLIPPED = ("fnet.", "cnet.")
+SPATIAL_TRAIN_ENCODER_TOL = 5e-2
+# A bias whose output a training BatchNorm centres has a gradient of exactly
+# zero (the weights net's at stage chairs): a sum over the batch's 576,000
+# pixels of terms that cancel, float32 noise of up to 4.4e-4 of the step's
+# largest gradient (measured), held below 2e-3 of it on each side.
+SPATIAL_TRAIN_CENTRED = ("upsampler.weights_est_net.conv.",)
+SPATIAL_TRAIN_CENTRED_TOL = 2e-3
+# The upsampler's gradients: normalized convolution does not change when
+# its confidence is scaled, so the weights net's gradient, like the NConv
+# weights' (ROADMAP.md queue 3 entry 2), is a small difference of large
+# terms; at 400x720 the bands moved it by up to 4.8e-4 of its largest value
+# (stage things, measured), the NConv weights' by 3.8e-5.
+SPATIAL_TRAIN_UPSAMPLER = ("upsampler.",)
+SPATIAL_TRAIN_UPSAMPLER_TOL = 1e-3
+SPATIAL_TRAIN_F64_TOL = 1e-10
+# The encoder probe: each encoder of the flagship (instance-norm fnet,
+# batch-norm cnet, training) on a seeded (2, 3, 400, 720) input with a
+# seeded gradient at its output.
+SPATIAL_PROBE_SHAPE = (2, 3, 400, 720)
+SPATIAL_PROBE_ENCODERS = {"fnet": (256, "instance"), "cnet": (256, "batch")}
+
+
+def encoder_probe(torch, name: str, dtype, group=None, world_sum=None) -> dict:
+    """The probe's gradients of encoder ``name`` at ``dtype`` on the card:
+    of the whole image, or of this rank's band of it under ``group`` (the
+    batch norm's statistics summed by ``world_sum``), by parameter name."""
+    from raft_ncup_tpu_torch.nn.extractor import Encoder
+    from raft_ncup_tpu_torch.nn.layers import init_weights, synced_batch_stats
+    from raft_ncup_tpu_torch.parallel import halo
+    from raft_ncup_tpu_torch.utils.device import cudnn_autotune, f32_precision
+
+    dim, norm = SPATIAL_PROBE_ENCODERS[name]
+    enc = Encoder(dim, norm)
+    init_weights(enc, torch.Generator().manual_seed(1))
+    enc = enc.to("cuda", dtype).train()
+    gen = torch.Generator().manual_seed(2)
+    x = (2 * torch.rand(SPATIAL_PROBE_SHAPE, generator=gen) - 1).to("cuda", dtype)
+    B, _, H, W = SPATIAL_PROBE_SHAPE
+    up = torch.randn((B, dim, H // 8, W // 8), generator=gen).to("cuda", dtype)
+    named = list(enc.named_parameters())
+    synced = (synced_batch_stats(enc, world_sum) if world_sum is not None
+              else contextlib.nullcontext())
+    with f32_precision(), cudnn_autotune(), synced, halo.spatial(group):
+        y = enc(halo.band(x, 2))
+        grads = torch.autograd.grad((y * halo.band(up, 2)).sum(), [p for _, p in named])
+    return {n: g for (n, _), g in zip(named, grads)}
+
+
+def _rel_worst(want: dict, got: dict) -> tuple:
+    """The largest per-tensor error of ``got`` against ``want`` over each
+    tensor's largest value, with its name (tensors below 1e-6 of the
+    largest gradient, rounding noise, left out)."""
+    gmax = max(float(w.abs().max()) for w in want.values())
+    return max((float((got[n].double() - w.double()).abs().max()) / float(w.abs().max()), n)
+               for n, w in want.items() if float(w.abs().max()) > NEGLIGIBLE * gmax)
+
+
+def _spatial_train_argv(base: list, stage: str) -> list:
+    """The train entry's flags for ``stage``: stage chairs trains on the
+    procedural pairs (no FlyingChairs tree), stage things on the written
+    FlyingThings3D tree."""
+    argv = list(base)
+    argv[argv.index("--stage") + 1] = stage
+    if stage == "chairs":
+        argv.append("--synthetic_ok")
+    return argv + SPATIAL_TRAIN_ARGS
+
+
+def spatial_train_worker(outdir: str, argv: list) -> int:
+    """One rank of the spatial training run (``chip_smoke.py
+    --spatial_train_worker OUTDIR <train flags>`` under the launcher): it
+    joins the world once and runs the train entry at each stage of
+    ``SPATIAL_TRAIN_STAGES``, writing ``OUTDIR/<stage>/rank<RANK>.json``;
+    exits 1 when a run failed."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from raft_ncup_tpu_torch.parallel import multihost
+
+    multihost.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    device = multihost.local_device(argv[argv.index("--device") + 1])
+    torch.cuda.set_device(device)
+    multihost.initialize_distributed(device=device)
+    code = 0
+    try:
+        from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
+
+        # The encoders on two bands in float64 (this rank's share, summed over
+        # the ranks), written beside the stages' records.
+        group = mesh_mod.spatial_group(mesh_mod.make_mesh(1, 2, device=device))
+        probe = {}
+        for name in SPATIAL_PROBE_ENCODERS:
+            grads = encoder_probe(torch, name, torch.float64, group, multihost.all_reduce_grad)
+            probe[name] = {n: multihost.all_reduce_(g.clone()).cpu() for n, g in grads.items()}
+        torch.save(probe, os.path.join(outdir, f"probe_rank{multihost.process_index()}.pt"))
+        for stage in SPATIAL_TRAIN_STAGES:
+            sdir = os.path.join(outdir, stage)
+            os.makedirs(sdir, exist_ok=True)
+            status, error, _, record = _dp_run(
+                torch, sdir, _spatial_train_argv(argv, stage) + ["--checkpoint_dir", sdir],
+                timed=False)
+            with open(os.path.join(sdir, f"rank{record['rank']}.json"), "w") as fh:
+                json.dump(record, fh)
+            if error or status:
+                print(f"spatial_train_worker rank {record['rank']} {stage}: exit {status}, "
+                      f"{error}", file=sys.stderr)
+                code = 1
+    finally:
+        multihost.shutdown()
+    return code
+
+
+def _spatial_train_base(tmp: str) -> list:
+    """The train entry's flags of the phase: ``train_raft_nc_things.sh``'s
+    (no pretrained load, no in-run validation) on a FlyingThings3D tree
+    under ``tmp``, on the card ``DP_CARD``."""
+    things = os.path.join(tmp, "FlyingThings3D")
+    base = [t for t in script_flags("train_raft_nc_things.sh") if t != "--compressed_ft"]
+    for flag in ("--load_pretrained", "--validation"):
+        i = base.index(flag)
+        del base[i:i + 2]
+    return base + ["--root_things", things, "--sum_freq", "1", *DP_CARD]
+
+
+def start_spatial_train(tmp: str) -> dict:
+    """(f)'s two ranks, started (``torch.distributed.run``, gloo, ``--mesh
+    1,2``) and not waited for: ``check_spatial_train`` waits for them. The
+    script starts them beside the data-parallel phase's (c)-(e), whose
+    numbers it does not hold, so their step times are under that load."""
+    write_things_tree(os.path.join(tmp, "FlyingThings3D"))
+    outdir = os.path.join(tmp, "f2")
+    return {"t0": time.perf_counter(), "outdir": outdir,
+            "procs": _start_ranks(outdir, _spatial_train_base(tmp) + ["--mesh", "1,2"], 2,
+                                  "gloo", True, None, SPATIAL_TRAIN_WORKER)}
+
+
+def check_spatial_train(torch, card: str, tmp: str, ranks_started: dict) -> dict:
+    """(f) The flagship's train step split by rows over two ranks sharing the
+    card (gloo, ``--mesh 1,2`` through ``torch.distributed.run``, started by
+    :func:`start_spatial_train`), at stage chairs and stage things, against
+    one process in this one: the losses, the step-1 gradients (reduced,
+    equal on both ranks), the batches (each rank's the whole one-process
+    batch, by hash), each rank's launches a step (the one-process counts)
+    and collectives (the same on both ranks); and the encoders on two bands
+    in float64 against the whole image. Returns each rank's launches at each
+    stage."""
+    t0 = time.perf_counter()
+    base = _spatial_train_base(tmp)
+    ones = {}
+    for stage in SPATIAL_TRAIN_STAGES:
+        argv = _spatial_train_argv(base, stage)
+        stream = [_digest(b) for b in _dp_stream(argv, SPATIAL_TRAIN_STEPS)]
+        sdir = os.path.join(tmp, "f1", stage)
+        t1 = time.perf_counter()
+        status, error, _, a = _dp_run(torch, sdir, argv + ["--checkpoint_dir", sdir],
+                                      timed=False)
+        check(status == 0 and error is None, f"spatial (f) one process, {stage}: exit "
+                                             f"{status}, {error}")
+        check(a["host"] == stream and a["card_equal"],
+              f"spatial (f) one process, {stage}: the batches are not the loader's stream")
+        check(all(s["launches"] == DP_WANT for s in a["steps"]),
+              f"spatial (f) one process, {stage}: launches "
+              f"{[s['launches'] for s in a['steps']]}")
+        a["grad_tensors"] = torch.load(a["grads"], weights_only=True)
+        a["seconds"] = time.perf_counter() - t1
+        ones[stage] = (a, stream)
+    outdir = ranks_started["outdir"]
+    codes, outs = _wait_ranks(ranks_started["procs"])
+    seconds = time.perf_counter() - ranks_started["t0"]
+    check(codes == [0], f"spatial (f): torchrun exited {codes}:\n{outs[0][0][-2000:]}\n"
+                        f"{outs[0][1][-4000:]}")
+    paths = {}
+    # The encoder probe: the bands' float64 gradients against the whole
+    # image's, and the one process's float32 against its float64.
+    probe = torch.load(os.path.join(outdir, "probe_rank0.pt"), weights_only=True)
+    row = {}
+    for name in SPATIAL_PROBE_ENCODERS:
+        f64 = {n: g.cpu() for n, g in encoder_probe(torch, name, torch.float64).items()}
+        f32 = {n: g.cpu() for n, g in encoder_probe(torch, name, torch.float32).items()}
+        row[name] = {"bands_f64_vs_whole_f64": _rel_worst(f64, probe[name]),
+                     "whole_f32_vs_whole_f64": _rel_worst(f64, f32)}
+        check(row[name]["bands_f64_vs_whole_f64"][0] <= SPATIAL_TRAIN_F64_TOL,
+              f"spatial (f) {name} probe: two bands in float64 against the whole image: "
+              f"{row[name]}")
+    _spatial_print("f) encoders", {"card": card, "shape": list(SPATIAL_PROBE_SHAPE), **row})
+    for stage in SPATIAL_TRAIN_STAGES:
+        a, stream = ones[stage]
+        ranks = _dp_records(os.path.join(outdir, stage), 2)
+        grads = [torch.load(r["grads"], weights_only=True) for r in ranks]
+        worst, failures = _dp_grad_errs(
+            torch, grads[0], a["grad_tensors"], SPATIAL_TRAIN_GRAD_TOL, SPATIAL_TRAIN_FLIPPED,
+            SPATIAL_TRAIN_ENCODER_TOL, SPATIAL_TRAIN_CENTRED if stage == "chairs" else (),
+            SPATIAL_TRAIN_UPSAMPLER, SPATIAL_TRAIN_UPSAMPLER_TOL)
+        a_losses = [s["loss"] for s in a["steps"]]
+        losses = [s["loss"] for s in ranks[0]["steps"]]
+        loss_rel = [abs(x - y) / abs(y) for x, y in zip(losses, a_losses)]
+        colls = [r["summary"]["collectives"] for r in ranks]
+        _spatial_print(f"f) {stage}", {
+            "card": card, "bn": "trains" if stage == "chairs" else "frozen",
+            "losses": losses, "one_process_losses": a_losses, "loss_rel_diff": loss_rel,
+            "grad_rel_diff_step1": worst,
+            "launches_per_step": [[s["launches"] for s in r["steps"]] for r in ranks],
+            "collectives_per_rank": colls,
+            "per_rank": [{"rank": r["rank"], "mesh": r["summary"]["mesh"],
+                          "step_ms": [s["ms"] for s in r["steps"]],
+                          "peak_gib": max(s["peak_gib"] or 0.0 for s in r["steps"])}
+                         for r in ranks],
+            "one_process_step_ms": [s["ms"] for s in a["steps"]],
+            "one_process_peak_gib": max(s["peak_gib"] or 0.0 for s in a["steps"]),
+            "one_process_seconds": a["seconds"],
+            "note": "two ranks time-slice one card beside the data-parallel phase's (c)-(e): "
+                    "not scaling, and their step times are under that load"})
+        check(all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0]),
+              f"spatial (f) {stage}: the ranks' reduced gradients differ")
+        check(not failures, f"spatial (f) {stage}: step-1 gradients against one process: "
+                            f"{failures}")
+        check(len(losses) == SPATIAL_TRAIN_STEPS
+              and [s["loss"] for s in ranks[1]["steps"]] == losses
+              and max(loss_rel) <= SPATIAL_TRAIN_LOSS_RTOL,
+              f"spatial (f) {stage}: losses {losses} against one process's {a_losses}")
+        check(colls[0] == colls[1] and colls[0]["by_op"]["collective-permute"]["count"] > 0
+              and colls[0]["by_op"]["reduce-scatter"]["count"] > 0,
+              f"spatial (f) {stage}: the ranks' collectives differ or miss a kind: {colls}")
+        for r, rec in enumerate(ranks):
+            check(rec["host"] == stream and rec["card_equal"],
+                  f"spatial (f) {stage}: rank {r}'s batches are not the one-process batches")
+            check(all(s["launches"] == DP_WANT for s in rec["steps"]),
+                  f"spatial (f) {stage}: rank {r} launched "
+                  f"{[s['launches'] for s in rec['steps']]}")
+            check(rec["summary"]["mesh"] == SPATIAL_TRAIN_MESH,
+                  f"spatial (f) {stage}: rank {r}'s mesh {rec['summary']['mesh']}")
+            paths[f"spatial (f) {stage} rank {r}"] = _dp_launches(rec)
+    print(f"spatial (f): the ranks took {seconds:.1f} s from their start, the phase "
+          f"{time.perf_counter() - t0:.1f} s after the data-parallel phase", flush=True)
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -5240,9 +5559,20 @@ def main() -> int:
     # Data parallelism: one process against two ranks on the one card
     # (gloo), agreed preemption, NCCL and sharded validation; each rank's
     # launches come from its own record.
+    # Its (c)-(e) run beside the two ranks of the spatial training phase,
+    # which are started once (b) is done and held right after.
+    f_tmp = tempfile.TemporaryDirectory()
+    f_ranks = {}
     with tempfile.TemporaryDirectory() as tmp:
-        paths.update(check_data_parallel(torch, card, tmp))
+        paths.update(check_data_parallel(
+            torch, card, tmp, after_b=lambda: f_ranks.update(start_spatial_train(f_tmp.name))))
     lap("data parallel")
+    # Spatial training: the flagship's train step split by rows over two
+    # ranks sharing the card, at stage chairs and stage things, against one
+    # process; each rank's launches from its own record.
+    with f_tmp:
+        paths.update(check_spatial_train(torch, card, f_tmp.name, f_ranks))
+    lap("spatial training")
     # The spatial axis: the flagship's whole forward at 1088x1920 and
     # 2176x3840 in one process, then split by rows over two ranks sharing
     # the card (gloo), and sharded evaluation; each rank's launches come
@@ -5369,6 +5699,10 @@ def main() -> int:
         k["spatial_serving_launches_per_rank"] = {
             run: [paths[f"{run} rank {r}"][name] for r in range(2)]
             for run in ("spatial (d) serve", "spatial (d) stream", "spatial (e) replica")}
+        k["spatial_train_launches_per_rank"] = {
+            stage: [paths[f"spatial (f) {stage} rank {r}"][name] for r in range(2)]
+            for stage in SPATIAL_TRAIN_STAGES}
+        k["spatial_train_steps"] = SPATIAL_TRAIN_STEPS
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5412,6 +5746,8 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2], sys.argv[3:]))
     if len(sys.argv) > 2 and sys.argv[1] == SERVE_WORKER:
         sys.exit(serve_worker(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 2 and sys.argv[1] == SPATIAL_TRAIN_WORKER:
+        sys.exit(spatial_train_worker(sys.argv[2], sys.argv[3:]))
     adopt_orphans()
     try:
         code = main()

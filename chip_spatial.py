@@ -22,8 +22,15 @@ Run from the root of the repository on a machine with four cards:
    report and answers), and holds every answer against the one card's at
    the flagship's flow_up tolerance; each run's pairs/s, p50 and p99.
 
+4. trains the flagship (stage chairs, BatchNorm training, procedural
+   pairs) at 1088x1920, batch 1, 12 iterations, remat on, 2 steps, through
+   the train entry on one card and with ``--mesh 1,2`` and ``--mesh 1,4``
+   (each rank ``chip_smoke.py --dp_worker``), and holds every rank's losses
+   and step-1 gradients against the one card's; each rank's ms a step and
+   peak bytes.
+
 ``python3 chip_spatial.py [PART ...]`` runs only the named parts
-(``highres``, ``evaluate``, ``serving``; all by default).
+(``highres``, ``evaluate``, ``serving``, ``train``; all by default).
 
 Every rank is a process started with the launcher's environment, so each
 rank's report (its last JSON line) and exit code show. It prints one
@@ -56,7 +63,11 @@ SERVE_ENTRY = ["--model", "raft_nc_dbl", "--size", "436", "1024", "--seed", "0",
                "--serve_batch_sizes", "1,2", "--iter_levels", "12", "--serve_pad_bucket", "32",
                "--num_requests", "16", "--queue_capacity", "32", "--flight_dir", ""]
 SERVE_MESHES = ("1,2", "1,4")
-PARTS = ("highres", "evaluate", "serving")
+TRAIN_FLAGS = ["--untimed", "--name", "exp", "--model", "raft_nc_dbl", "--stage", "chairs",
+               "--synthetic_ok", "--image_size", "1088", "1920", "--batch_size", "1",
+               "--num_steps", "2", "--iters", "12", "--sum_freq", "1", "--num_workers", "2"]
+TRAIN_SPLITS = (1, 2, 4)
+PARTS = ("highres", "evaluate", "serving", "train")
 
 
 def _port() -> int:
@@ -205,6 +216,57 @@ def serving(torch, tmp: str) -> bool:
     return ok
 
 
+def train(torch, tmp: str) -> bool:
+    """The train entry at 1088x1920 on one card and split over
+    ``TRAIN_SPLITS`` cards: each rank's losses and step-1 (reduced)
+    gradients against the one card's, at ``chip_smoke.py``'s spatial
+    training bounds."""
+    import chip_smoke
+
+    ok, want = True, None
+    for s in TRAIN_SPLITS:
+        out = os.path.join(tmp, f"train_{s}")
+        os.makedirs(out)
+        argv = [os.path.join(HERE, "chip_smoke.py"), "--dp_worker", out, *TRAIN_FLAGS,
+                "--checkpoint_dir", out, *(["--mesh", f"1,{s}"] if s > 1 else [])]
+        codes, _, errs, secs = ranks(argv, s)
+        row = {"train": "one card" if s == 1 else f"--mesh 1,{s}", "exits": codes,
+               "seconds": secs}
+        good = codes == [0] * s
+        if good:
+            recs = []
+            for r in range(s):
+                with open(os.path.join(out, f"rank{r}.json")) as fh:
+                    recs.append(json.load(fh))
+            grads = torch.load(recs[0]["grads"], weights_only=True)
+            losses = [st["loss"] for st in recs[0]["steps"]]
+            row["ranks"] = [{"rank": rec["rank"], "mesh": rec["summary"]["mesh"],
+                             "losses": [st["loss"] for st in rec["steps"]],
+                             "step_ms": [st["ms"] for st in rec["steps"]],
+                             "peak_gib": max(st["peak_gib"] or 0.0 for st in rec["steps"]),
+                             "launches": [st["launches"] for st in rec["steps"]],
+                             "collectives": rec["summary"]["collectives"]["by_op"]}
+                            for rec in recs]
+            if want is None:
+                want = (losses, grads)
+            else:
+                worst, failures = chip_smoke._dp_grad_errs(
+                    torch, grads, want[1], chip_smoke.SPATIAL_TRAIN_GRAD_TOL,
+                    chip_smoke.SPATIAL_TRAIN_FLIPPED, chip_smoke.SPATIAL_TRAIN_ENCODER_TOL,
+                    chip_smoke.SPATIAL_TRAIN_CENTRED, chip_smoke.SPATIAL_TRAIN_UPSAMPLER,
+                    chip_smoke.SPATIAL_TRAIN_UPSAMPLER_TOL)
+                rel = [abs(a - b) / abs(b) for a, b in zip(losses, want[0])]
+                row.update(loss_rel_diff_vs_one_card=rel, grad_rel_diff_step1=worst,
+                           grad_failures=failures)
+                good = (not failures and max(rel) <= chip_smoke.SPATIAL_TRAIN_LOSS_RTOL
+                        and all([st["loss"] for st in rec["steps"]] == losses for rec in recs))
+        else:
+            row["stderr"] = errs
+        print(f"spatial cards: {json.dumps(row)}", flush=True)
+        ok = ok and good
+    return ok
+
+
 def main() -> int:
     import torch
 
@@ -226,6 +288,8 @@ def main() -> int:
             ok = highres(torch, tmp) and ok
         if "serving" in parts:
             ok = serving(torch, tmp) and ok
+        if "train" in parts:
+            ok = train(torch, tmp) and ok
     if "evaluate" in parts:
         ok = evaluation() and ok
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

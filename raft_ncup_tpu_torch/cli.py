@@ -19,9 +19,10 @@ and the evaluate entry's (:func:`build_eval_parser`, :func:`parse_eval`)
 take the JAX CLI's flags, with ``--device`` in place of ``--platform``.
 The mesh flags name the axes across processes, one per card
 (``parallel/``). The train entry takes ``--data_parallel D`` when D is the
-world size the launcher started (``torchrun --nproc_per_node D``; 1
-without one), its default; ``--spatial_parallel`` above 1 raises there
-(ROADMAP.md queue 1 item 9b-iii). The evaluate entry takes ``--mesh D,S``
+world size the launcher started over the spatial size (``torchrun
+--nproc_per_node D``; 1 without one), its default, and ``--mesh D,S`` (or
+``--spatial_parallel S``) when D times S is the world size: S ranks split
+each training image by rows. The evaluate entry takes ``--mesh D,S``
 (or ``--spatial_parallel S`` for ``1,S``) when D times S is the world
 size: S ranks split each forward by image rows; so does the serve entry
 (``--mesh D,S``, which :func:`serve_config_from_args` and
@@ -378,8 +379,13 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
                         "value: the launcher's world size); --batch_size is the global "
                         "batch, split across them")
     parser.add_argument("--spatial_parallel", type=int, default=1,
-                        help="spatial cards (above 1: not in the port's training yet, "
-                        "ROADMAP.md queue 1 item 9b-iii)")
+                        help="split each training image's rows over this many cards "
+                        "(the mesh D,S with D the world over S)")
+    parser.add_argument("--mesh", type=str2mesh, default=None, metavar="DATA,SPATIAL[,PIPE]",
+                        help="the mesh: DATA x SPATIAL processes, one per card; each data "
+                        "index trains on its rows of the global batch, its SPATIAL ranks "
+                        "split each image by rows (DATA x SPATIAL must be the launcher's "
+                        "world size; PIPE above 1 is not in the port yet)")
     parser.add_argument("--profile_steps", type=int, default=0,
                         help="trace this many steps after the first with torch.profiler "
                         "into <checkpoint_dir>/<name>/profile (a Chrome trace)")
@@ -421,6 +427,7 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
     model flags' resolved preset (``--mixed_precision`` alone gives
     ``bf16_infer``)."""
     size = args.image_size
+    data, spatial = train_mesh_axes(args)
     return TrainConfig(
         name=args.name, stage=args.stage, lr=args.lr, num_steps=args.num_steps,
         batch_size=args.batch_size, image_size=(size[0], size[1]), iters=args.iters,
@@ -436,17 +443,16 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
         sentinel_warmup=args.sentinel_warmup,
         sentinel_halt_after=args.sentinel_halt_after,
         precision=model_config_from_args(args, args.stage).precision_policy.name,
-        data_parallel=check_mesh(args.data_parallel, _refuse_spatial_training(args)),
-        spatial_parallel=args.spatial_parallel,
+        data_parallel=data, spatial_parallel=spatial,
     )
 
 
-def _refuse_spatial_training(args: argparse.Namespace) -> int:
-    """The train entry's spatial size: 1, else it raises (item 9b-iii)."""
-    from raft_ncup_tpu_torch.parallel.mesh import ITEM_9B_TRAINING, refuse_spatial
-
-    refuse_spatial(args.spatial_parallel, "training", ITEM_9B_TRAINING)
-    return 1
+def train_mesh_axes(args: argparse.Namespace) -> tuple[int, int]:
+    """The train entry's ``(data, spatial)`` sizes: ``--mesh`` or
+    ``--data_parallel`` and ``--spatial_parallel``, against the world."""
+    mesh = args.mesh or (args.data_parallel, 1)
+    spatial = max(mesh[1], args.spatial_parallel)
+    return check_mesh(mesh[0], spatial, mesh[2] if len(mesh) > 2 else 1), spatial
 
 
 def parse_train(argv: Optional[Sequence[str]] = None):

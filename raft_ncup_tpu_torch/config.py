@@ -20,8 +20,8 @@ packages, with these differences:
   (``parallel.mesh.check_axes``).
 - ``TrainConfig.data_parallel`` is the data axis across processes, one
   per card (``parallel/``), and must divide the global ``batch_size``;
-  ``spatial_parallel`` above 1 raises (training's spatial axis is item
-  9b-iii).
+  ``spatial_parallel`` splits each image's rows over that many processes
+  of a data index, so the crop's height must divide by 8 times it.
 
 Precision (``precision/policy.py``): ``ModelConfig.precision`` names a
 preset (``f32``, ``bf16_infer``, ``bf16_train``); the legacy
@@ -368,9 +368,9 @@ class TrainConfig:
     # A reference .pth or a port run directory whose trunk warm-starts the model.
     load_pretrained: str | None = None
     checkpoint_dir: str = "checkpoints"
-    # Parallelism: the data-parallel processes (None: the world size; the
-    # train entry sets the world's) and the spatial axis (1: training's
-    # spatial axis is not in the port yet).
+    # Parallelism: the data-parallel processes (None: the world size over
+    # the spatial size; the train entry sets it) and the spatial axis (the
+    # processes that split each image's rows).
     data_parallel: int | None = None
     spatial_parallel: int = 1
     # The divergence sentinel (``training/sentinel.py``): a step with a
@@ -399,10 +399,13 @@ class TrainConfig:
             raise NotImplementedError(f"{self.scheduler} scheduler is not implemented!")
         if self.val_freq < 1 or self.sum_freq < 1:
             raise ValueError("val_freq and sum_freq must be positive")
-        from raft_ncup_tpu_torch.parallel.mesh import ITEM_9B_TRAINING, check_axes, refuse_spatial
+        from raft_ncup_tpu_torch.parallel.mesh import check_axes
 
         check_axes(self.data_parallel, self.spatial_parallel)
-        refuse_spatial(self.spatial_parallel, "training", ITEM_9B_TRAINING)
+        if self.image_size[0] % (8 * self.spatial_parallel):
+            raise ValueError(f"--image_size height {self.image_size[0]} must divide by 8 * "
+                             f"--spatial_parallel = {8 * self.spatial_parallel}: each rank "
+                             "trains on an equal band of rows")
         if self.data_parallel is not None and self.batch_size % self.data_parallel:
             raise ValueError(f"--batch_size {self.batch_size} not divisible by "
                              f"--data_parallel {self.data_parallel}")

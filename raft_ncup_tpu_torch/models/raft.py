@@ -70,7 +70,10 @@ at the band's global first row, the lookup reads the gathered fmap2, and
 the outputs are gathered, so every rank returns the whole flow. Under
 early exit each band's sum of |delta| is summed over the group before a
 row's mean is taken, so every rank freezes the same rows and stops at the
-same iteration. Training refuses it (ROADMAP.md queue 1 item 9b-iii).
+same iteration. In training mode each rank returns its band of every
+iteration's prediction, with no gather: the halo primitives are
+differentiable, and the recompute of a checkpointed iteration enters the
+forward's group again, so the backward exchanges as the forward did.
 
 The model lives on the card unless the caller passes ``device="cpu"``;
 with no device and no CUDA, construction raises.
@@ -106,7 +109,7 @@ from raft_ncup_tpu_torch.ops.geometry import (
     upsample_nearest,
 )
 from raft_ncup_tpu_torch.parallel import halo
-from raft_ncup_tpu_torch.parallel.mesh import ITEM_9B_TRAINING, refuse_spatial, spatial_group
+from raft_ncup_tpu_torch.parallel.mesh import spatial_group
 from raft_ncup_tpu_torch.utils.device import f32_precision, resolve_device
 
 
@@ -307,7 +310,7 @@ class RAFT(nn.Module):
         else:
             # A band holds part of each row's pixels: the mean is the
             # group's sum over the whole image's count.
-            dnorm = halo.group_sum_(delta.abs().sum(dim=(1, 2, 3))) / (
+            dnorm = halo.group_sum(delta.abs().sum(dim=(1, 2, 3))) / (
                 delta[0].numel() * group.size)
         return new_net, new_coords, converged | (dnorm < tol)
 
@@ -363,12 +366,13 @@ class RAFT(nn.Module):
         ``remat``. ``net_init``/``net_warm`` warm-start the GRU in both.
 
         ``mesh`` (``parallel.mesh.make_mesh``) with a spatial axis above 1
-        splits the test-mode forward by rows over this rank's spatial group
+        splits the forward by rows over this rank's spatial group
         (:meth:`_forward_spatial`); every rank of the group passes the same
-        whole inputs and gets the same whole outputs."""
+        whole inputs and gets the same whole outputs in test mode, its band
+        of every iteration's prediction in training mode."""
         if mesh is not None and mesh.spatial > 1:
-            return self._forward_spatial(mesh, image1, image2, iters, flow_init, net_init,
-                                         net_warm, return_net, early_exit_tol,
+            return self._forward_spatial(mesh, image1, image2, iters, flow_init, remat,
+                                         net_init, net_warm, return_net, early_exit_tol,
                                          return_exec_iters)
         if self.training and (early_exit_tol is not None or return_exec_iters or return_net):
             raise ValueError("early_exit_tol, return_exec_iters and return_net require "
@@ -389,19 +393,19 @@ class RAFT(nn.Module):
                 result = result + (carry["exec_iters"],)
             return result
 
-    def _forward_spatial(self, mesh, image1, image2, iters, flow_init, net_init, net_warm,
-                         return_net, early_exit_tol, return_exec_iters):
-        """The test-mode forward split by rows over this rank's spatial group
-        of ``mesh`` (``parallel/halo.py``): this rank takes its band of the whole
-        images (and of ``flow_init``, ``net_init``), runs the forward on it
-        with halo exchanges at every convolution that reads across the
-        band's edges, instance norm over the whole image and the lookup on
-        the gathered fmap2, and gathers the outputs, so every rank returns
-        the whole flow (JAX's replicated outputs); the executed iterations
-        of early exit are every rank's already. The height must divide by 8
-        times the group's size."""
-        if self.training:
-            refuse_spatial(mesh.spatial, "the train-mode forward", ITEM_9B_TRAINING)
+    def _forward_spatial(self, mesh, image1, image2, iters, flow_init, remat, net_init,
+                         net_warm, return_net, early_exit_tol, return_exec_iters):
+        """The forward split by rows over this rank's spatial group of
+        ``mesh`` (``parallel/halo.py``): this rank takes its band of the
+        whole images (and of ``flow_init``, ``net_init``), runs the forward
+        on it with halo exchanges at every convolution that reads across
+        the band's edges, instance norm over the whole image and the lookup
+        on the gathered fmap2. In test mode it gathers the outputs, so every
+        rank returns the whole flow (JAX's replicated outputs); the executed
+        iterations of early exit are every rank's already. In training mode
+        it returns its band of every iteration's prediction (iters, B, H/S,
+        W, 2), which the loss reads against its band of the ground truth.
+        The height must divide by 8 times the group's size."""
         group = spatial_group(mesh)
         H = image1.shape[1]
         if H % (8 * group.size):
@@ -409,10 +413,12 @@ class RAFT(nn.Module):
                              f"{8 * group.size}; pad with InputPadder(divisor=...) first")
         with halo.spatial(group):
             out = self.forward(halo.band(image1), halo.band(image2), iters,
-                               flow_init=halo.band(flow_init), net_init=halo.band(net_init),
-                               net_warm=net_warm, return_net=return_net,
-                               early_exit_tol=early_exit_tol,
+                               flow_init=halo.band(flow_init), remat=remat,
+                               net_init=halo.band(net_init), net_warm=net_warm,
+                               return_net=return_net, early_exit_tol=early_exit_tol,
                                return_exec_iters=return_exec_iters)
+            if self.training:
+                return out
             return tuple(halo.all_gather_rows(t.contiguous(), dim=1) if t.dim() > 1 else t
                          for t in out)
 
@@ -421,7 +427,8 @@ class RAFT(nn.Module):
                                                        net_init, net_warm)
         corr_fn = self._build_corr_fn(fmap1, fmap2)
         B, h8, w8, _ = coords1.shape
-        coords0 = coords_grid(B, h8, w8, device=coords1.device)
+        coords0 = coords_grid(B, h8, w8, device=coords1.device, y0=halo.first_row(h8))
+        group = halo.current()
 
         def step(net, coords1):
             net, coords1, _ = self._step(corr_fn, coords0, inp, net, coords1.detach())
@@ -432,7 +439,7 @@ class RAFT(nn.Module):
             if remat:
                 net, coords1, flow_up = checkpoint(
                     step, net, coords1, use_reentrant=False,
-                    context_fn=_remat_contexts,
+                    context_fn=lambda: _remat_contexts(group),
                 )
             else:
                 net, coords1, flow_up = step(net, coords1)
@@ -495,7 +502,16 @@ class RAFT(nn.Module):
         return flow_lr, flow_up
 
 
-def _remat_contexts():
+def _remat_contexts(group=None):
     """(forward, recompute) contexts of a checkpointed iteration: the
-    recompute leaves BatchNorm's running statistics alone."""
-    return contextlib.nullcontext(), frozen_batch_stats()
+    recompute leaves BatchNorm's running statistics alone and, on a band of
+    rows, runs under the forward's spatial ``group`` (the thread-local
+    context is not autograd's thread's), so it exchanges as the forward
+    did."""
+    return contextlib.nullcontext(), _recompute_context(group)
+
+
+@contextlib.contextmanager
+def _recompute_context(group):
+    with frozen_batch_stats(), halo.spatial(group):
+        yield

@@ -169,8 +169,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     as torch does, but updates the running variance with the biased
     variance (torch uses the unbiased one): ``running = 0.9 running + 0.1
     batch`` for both. The batch variance is E[x^2] - E[x]^2, clipped at
-    zero, as flax computes it. It computes in f32 and returns the input's
-    dtype."""
+    zero, as flax computes it. It computes in f32 (float64 for a float64
+    replay) and returns the input's dtype."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
@@ -181,7 +181,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(_norm_input(x)).to(x.dtype)
-        xf = x.float()
+        xf = _norm_input(x)
         if self.sync is None:
             mean = xf.mean(dim=(0, 2, 3))
             meansq = (xf * xf).mean(dim=(0, 2, 3))
@@ -238,9 +238,9 @@ class InstanceNorm2d(nn.InstanceNorm2d):
         if halo.current() is None:
             return super().forward(xf).to(x.dtype)
         n = xf.shape[2] * xf.shape[3] * halo.current().size
-        mean = halo.group_sum_(xf.sum(dim=(2, 3), keepdim=True)) / n
+        mean = halo.group_sum(xf.sum(dim=(2, 3), keepdim=True)) / n
         centred = xf - mean
-        var = halo.group_sum_((centred * centred).sum(dim=(2, 3), keepdim=True)) / n
+        var = halo.group_sum((centred * centred).sum(dim=(2, 3), keepdim=True)) / n
         return (centred * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 

@@ -53,7 +53,9 @@ def nconv2d_nchw(
     On a band of rows (``parallel/halo.py``) data and confidence are
     extended by k//2 rows of each neighbour in one exchange (zeros at the
     image's edges: SAME padding's zero data and zero confidence), the op
-    runs on the extended band and its own rows are kept."""
+    runs on the extended band and its own rows are kept: the fused op
+    keeps them itself (``rows``), so the rows it drops take no part in its
+    backward."""
     if impl not in ("pallas", "xla"):
         raise ValueError(f"unknown nconv impl: {impl!r}")
     op = nconv2d_fused if impl == "pallas" else nconv2d_plain
@@ -62,8 +64,10 @@ def nconv2d_nchw(
         return op(data, conf, weight, bias, eps)
     cin, rows = data.shape[1], data.shape[2]
     both = halo.extend(torch.cat([data, conf], dim=1), p, p)
-    out, conf_out = op(both[:, :cin].contiguous(), both[:, cin:].contiguous(), weight, bias,
-                       eps)
+    d, c = both[:, :cin].contiguous(), both[:, cin:].contiguous()
+    if impl == "pallas":
+        return nconv2d_fused(d, c, weight, bias, eps, rows=(p, rows))
+    out, conf_out = op(d, c, weight, bias, eps)
     return out[:, :, p:p + rows].contiguous(), conf_out[:, :, p:p + rows].contiguous()
 
 

@@ -22,6 +22,13 @@ hand-written backward kernel ``csrc/nconv_bwd.cu`` on the card
 the CPU. Both compute the VJP that the JAX op takes of its XLA
 composition (``nconv_pallas.py:179``) by JAX's own formulas, so a window
 without confidence gives the NaN that ``jax.vjp`` gives there.
+
+``rows=(first, count)`` keeps only those output rows (a band of rows
+extended by its neighbours' halos, ``ops/nconv.py``): the kernel runs on
+the whole input, and the backward sees the dropped rows as outputs with
+zero gradient whose saved denominator is nonzero, so they add exactly
+nothing, where their windows (which may hold no confidence at a band's
+edge) would otherwise bring JAX's NaN into the kept rows' gradients.
 """
 
 from __future__ import annotations
@@ -148,17 +155,26 @@ def nconv2d_fused(
     weight: torch.Tensor,
     bias: torch.Tensor | None = None,
     eps: float = 1e-20,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's wrapper: (B, Cin, H, W) data and conf, (Cout, Cin, k, k)
-    weight -> ``(out, conf_out)``, each (B, Cout, H, W) f32.
+    weight -> ``(out, conf_out)``, each (B, Cout, H, W) f32, or only the
+    output rows ``rows = (first, count)``.
 
     A CPU tensor takes :func:`nconv2d_plain`; a CUDA tensor launches the
     kernel on the current stream or raises. With an input that needs a
     gradient the call is differentiable (:class:`_NConv`)."""
     inputs = (data, conf, weight) + (() if bias is None else (bias,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _NConv.apply(data, conf, weight, bias, eps)
-    return _nconv_forward(data, conf, weight, bias, eps)
+        return _NConv.apply(data, conf, weight, bias, eps, rows)
+    out, conf_out = _nconv_forward(data, conf, weight, bias, eps)
+    if rows is None:
+        return out, conf_out
+    return _keep_rows(out, rows), _keep_rows(conf_out, rows)
+
+
+def _keep_rows(t: torch.Tensor, rows: tuple[int, int]) -> torch.Tensor:
+    return t[:, :, rows[0]:rows[0] + rows[1]].contiguous()
 
 
 nconv2d_fused.launches = 0
@@ -210,26 +226,49 @@ def _nconv_forward(data, conf, weight, bias, eps):
 class _NConv(torch.autograd.Function):
     """The fused NConv2d with its backward: the forward kernel (or plain
     version) forward, :func:`nconv2d_backward` backward. Saves its inputs
-    and outputs, from which the backward recovers N and D."""
+    and outputs, from which the backward recovers N and D. With ``rows``
+    it returns those output rows only; the saved outputs of the others
+    read as D = 1 (``conf_out = 1 / sum(w)``) and N = 0, and their
+    gradients are zero, so the backward adds nothing from them."""
 
     @staticmethod
-    def forward(ctx, data, conf, weight, bias, eps):
+    def forward(ctx, data, conf, weight, bias, eps, rows=None):
         out, conf_out = _nconv_forward(data, conf, weight, bias, eps)
-        ctx.eps = eps
-        ctx.has_bias = bias is not None
-        ctx.save_for_backward(data, conf, weight, bias, out, conf_out)
+        ctx.eps, ctx.rows = eps, rows
+        saved_out, saved_conf = out, conf_out
+        if rows is not None:
+            first, count = rows
+            dropped = torch.ones(out.shape[2], dtype=torch.bool, device=out.device)
+            dropped[first:first + count] = False
+            dropped = dropped.view(1, 1, -1, 1)
+            s = weight.sum(dim=(1, 2, 3)).view(1, -1, 1, 1)
+            saved_conf = torch.where(dropped, 1.0 / s, conf_out)
+            saved_out = torch.where(dropped, torch.zeros_like(out) if bias is None
+                                    else bias.view(1, -1, 1, 1).expand_as(out), out)
+            out, conf_out = _keep_rows(out, rows), _keep_rows(conf_out, rows)
+        ctx.save_for_backward(data, conf, weight, bias, saved_out, saved_conf)
         ctx.set_materialize_grads(False)
         return out, conf_out
 
     @staticmethod
     def backward(ctx, g_out, g_conf):
         data, conf, weight, bias, out, conf_out = ctx.saved_tensors
+        if ctx.rows is not None:
+            g_out, g_conf = (None if g is None else _full_rows(g, ctx.rows, out.shape[2])
+                             for g in (g_out, g_conf))
         d_data, d_conf, d_weight, d_bias = nconv2d_backward(
             data, conf, weight, bias, out, conf_out,
             None if g_out is None else g_out.contiguous(),
             None if g_conf is None else g_conf.contiguous(), ctx.eps,
         )
-        return d_data, d_conf, d_weight, d_bias, None
+        return d_data, d_conf, d_weight, d_bias, None, None
+
+
+def _full_rows(g: torch.Tensor, rows: tuple[int, int], height: int) -> torch.Tensor:
+    """The gradient of kept rows ``rows`` placed in zeros of ``height`` rows."""
+    full = g.new_zeros(g.shape[:2] + (height,) + g.shape[3:])
+    full[:, :, rows[0]:rows[0] + rows[1]] = g
+    return full
 
 
 _bwd_fn = None

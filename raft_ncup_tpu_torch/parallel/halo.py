@@ -17,11 +17,23 @@ convex upsampler (``ops/geometry.py``) do the same.
 needs above and below it for one convolution. :func:`extend` moves them,
 with ``torch.distributed.batch_isend_irecv`` between neighbours.
 :func:`all_gather_rows` gathers the bands of a tensor (the correlation's
-fmap2 and the outputs), :func:`group_sum_` sums over the group (the
+fmap2 and the outputs), :func:`group_sum` sums over the group (the
 instance norm's statistics). Each counts its calls and bytes under JAX's
 op name (``collective-permute``, ``all-gather``, ``all-reduce``:
 ``mesh.collective_stats`` reads them); a halo's bytes are its rows above
-and below, as the shape of JAX's permute result. Under gloo a card tensor
+and below, as the shape of JAX's permute result.
+
+The three are differentiable, so the train-mode forward runs on bands
+(``RAFT.forward(..., mesh=...)`` in training mode): the backward of
+:func:`extend` sends each halo row's gradient back to the rank that owns
+it, that of :func:`all_gather_rows` reduce-scatters (each rank keeps the
+group's sum of the whole tensor's gradient over its band), that of
+:func:`group_sum` sums the gradient over the group, and :func:`on_whole`'s
+follows from the gather's. Each backward issues its collectives in the
+same order on every rank, as autograd runs the same graph on each; the
+recompute of a checkpointed iteration, which autograd may run on a thread
+of its own, enters the forward's group again (``models/raft.py``'s
+remat contexts). Under gloo a card tensor
 goes through the host, as ``multihost.all_reduce_`` does: the copy is
 ``analysis.guards.collective_read``, a sanctioned and counted read.
 """
@@ -137,13 +149,95 @@ def _wire_buffer(like: torch.Tensor, shape) -> torch.Tensor:
     return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
+def _exchange(sp: SpatialGroup, up: Optional[torch.Tensor], down: Optional[torch.Tensor],
+              from_above: int, from_below: int, like: torch.Tensor, dim: int) -> tuple:
+    """One exchange with the neighbours: ``up`` goes to the rank above and
+    ``down`` to the rank below (None: nothing), and ``from_above`` and
+    ``from_below`` rows shaped as ``like`` come back from them; None for a
+    count of 0 or at the image's edge. Every rank of the group calls it
+    with the same counts."""
+    dist = multihost._dist()
+    s, ranks = sp.index, sp.ranks
+    shape = list(like.shape)
+    ops, above, below = [], None, None
+    if from_above and s > 0:
+        shape[dim] = from_above
+        above = _wire_buffer(like, shape)
+        ops.append(dist.P2POp(dist.irecv, above, ranks[s - 1], sp.group))
+    if up is not None and s > 0:
+        ops.append(dist.P2POp(dist.isend, _to_wire(up), ranks[s - 1], sp.group))
+    if down is not None and s < sp.size - 1:
+        ops.append(dist.P2POp(dist.isend, _to_wire(down), ranks[s + 1], sp.group))
+    if from_below and s < sp.size - 1:
+        shape[dim] = from_below
+        below = _wire_buffer(like, shape)
+        ops.append(dist.P2POp(dist.irecv, below, ranks[s + 1], sp.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    back = (lambda buf: None if buf is None else buf.to(like.device, non_blocking=True))
+    return back(above), back(below)
+
+
+class _Extend(torch.autograd.Function):
+    """The halo exchange of :func:`extend` (counts at least 0). Its
+    backward sends each halo row's gradient back to the rank that owns the
+    row, which adds it into its edge rows: one exchange, in the reverse
+    direction, of the same bytes."""
+
+    @staticmethod
+    def forward(ctx, x, sp, top, bottom, dim):
+        ctx.sp, ctx.top, ctx.bottom, ctx.dim = sp, top, bottom, dim
+        h = x.shape[dim]
+        multihost.count_collective("collective-permute", _halo_bytes(x, top + bottom, dim))
+        above, below = _exchange(sp, x.narrow(dim, 0, bottom) if bottom else None,
+                                 x.narrow(dim, h - top, top) if top else None,
+                                 top, bottom, x, dim)
+
+        def rows(buf, n):
+            if n == 0:
+                return None
+            if buf is None:  # the image's edge: the whole-image op's zero padding
+                shape = list(x.shape)
+                shape[dim] = n
+                return x.new_zeros(shape)
+            return buf
+
+        parts = [rows(above, top), x, rows(below, bottom)]
+        return torch.cat([p for p in parts if p is not None], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp, top, bottom, dim = ctx.sp, ctx.top, ctx.bottom, ctx.dim
+        h = g.shape[dim] - top - bottom
+        multihost.count_collective("collective-permute", _halo_bytes(g, top + bottom, dim))
+        g = g.contiguous()
+        # The rank above owns my top halo: its rows' gradient goes up; the
+        # rank above's bottom halo (my first rows) comes down, and so on.
+        from_above, from_below = _exchange(
+            sp, g.narrow(dim, 0, top) if top else None,
+            g.narrow(dim, top + h, bottom) if bottom else None, bottom, top, g, dim)
+        gx = g.narrow(dim, top, h).clone()
+        if from_above is not None:
+            gx.narrow(dim, 0, bottom).add_(from_above)
+        if from_below is not None:
+            gx.narrow(dim, h - top, top).add_(from_below)
+        return gx, None, None, None, None
+
+
+def _halo_bytes(x: torch.Tensor, rows: int, dim: int) -> int:
+    return rows * (x.numel() // max(x.shape[dim], 1)) * x.element_size()
+
+
 def extend(x: torch.Tensor, top: int, bottom: int, dim: int = 2) -> torch.Tensor:
     """``x``, this rank's band, with ``top`` rows of the rank above it and
     ``bottom`` rows of the rank below it joined along ``dim`` (zeros at the
     image's edges); a negative count drops that many of the band's own
     rows. One exchange with the neighbours, counted as a
     ``collective-permute`` of the halo's bytes; none when both counts are
-    at most 0. Every rank of the group must call it with the same counts."""
+    at most 0. Differentiable: the backward is one exchange of the halos'
+    gradients back to their owners. Every rank of the group must call it
+    with the same counts."""
     sp = current()
     if sp is None:
         raise RuntimeError("halo.extend needs an active spatial group")
@@ -157,66 +251,77 @@ def extend(x: torch.Tensor, top: int, bottom: int, dim: int = 2) -> torch.Tensor
     if top > h or bottom > h:
         raise ValueError(f"a halo of {top} rows above and {bottom} below is more than the "
                          f"band's {h} rows: split the height over fewer ranks")
-    shape = list(x.shape)
-    row_bytes = x.numel() // max(h, 1) * x.element_size()
-    multihost.count_collective("collective-permute", (top + bottom) * row_bytes)
-    dist = multihost._dist()
-    s, ranks = sp.index, sp.ranks
-    ops, above, below = [], None, None
-    if top and s > 0:
-        shape[dim] = top
-        above = _wire_buffer(x, shape)
-        ops.append(dist.P2POp(dist.irecv, above, ranks[s - 1], sp.group))
-    if bottom and s > 0:
-        ops.append(dist.P2POp(dist.isend, _to_wire(x.narrow(dim, 0, bottom)), ranks[s - 1],
-                              sp.group))
-    if top and s < sp.size - 1:
-        ops.append(dist.P2POp(dist.isend, _to_wire(x.narrow(dim, h - top, top)), ranks[s + 1],
-                              sp.group))
-    if bottom and s < sp.size - 1:
-        shape[dim] = bottom
-        below = _wire_buffer(x, shape)
-        ops.append(dist.P2POp(dist.irecv, below, ranks[s + 1], sp.group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    return _Extend.apply(x.contiguous(), sp, int(top), int(bottom), dim)
 
-    def rows(buf, n):
-        if n == 0:
-            return None
-        if buf is None:  # the image's edge: the whole-image op's zero padding
-            shape[dim] = n
-            return x.new_zeros(shape)
-        return buf.to(x.device, non_blocking=True)
 
-    parts = [rows(above, top), x, rows(below, bottom)]
-    return torch.cat([p for p in parts if p is not None], dim=dim)
+class _GatherRows(torch.autograd.Function):
+    """The all-gather of :func:`all_gather_rows`. Its backward is a
+    reduce-scatter: each rank keeps, for its own band, the sum over the
+    group of the whole tensor's gradient (every rank's loss reads the
+    whole tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, sp, dim):
+        ctx.sp, ctx.dim = sp, dim
+        dist = multihost._dist()
+        wire = _to_wire(x)
+        parts = [torch.empty_like(wire) for _ in range(sp.size)]
+        multihost.count_collective("all-gather", sp.size * x.numel() * x.element_size())
+        dist.all_gather(parts, wire, group=sp.group)
+        whole = torch.cat(parts, dim=dim)
+        return whole.to(x.device, non_blocking=True) if whole.device != x.device else whole
+
+    @staticmethod
+    def backward(ctx, g):
+        sp, dim = ctx.sp, ctx.dim
+        dist = multihost._dist()
+        multihost.count_collective("reduce-scatter", g.numel() * g.element_size())
+        h = g.shape[dim] // sp.size
+        if multihost.backend() == "nccl":
+            parts = [p.contiguous() for p in g.chunk(sp.size, dim)]
+            out = torch.empty_like(parts[sp.index])
+            dist.reduce_scatter(out, parts, group=sp.group)
+            return out, None, None
+        # gloo has no reduce-scatter: a sum of the whole, then the band.
+        wire = _to_wire(g)
+        wire = wire.clone() if wire.data_ptr() == g.data_ptr() else wire
+        dist.all_reduce(wire, group=sp.group)
+        band_ = wire.narrow(dim, sp.index * h, h).contiguous()
+        return band_.to(g.device, non_blocking=True), None, None
 
 
 def all_gather_rows(x: torch.Tensor, dim: int = 1,
                     group: Optional[SpatialGroup] = None) -> torch.Tensor:
     """The whole tensor of which ``x`` is this rank's band along ``dim``, on
     every rank of ``group`` (default: the active group; ``x`` itself with
-    none). Counted as an ``all-gather`` of the whole tensor's bytes."""
+    none). Counted as an ``all-gather`` of the whole tensor's bytes; its
+    gradient as a ``reduce-scatter`` of the same bytes."""
     sp = group if group is not None else current()
     if sp is None:
         return x
-    dist = multihost._dist()
-    wire = _to_wire(x)
-    parts = [torch.empty_like(wire) for _ in range(sp.size)]
-    multihost.count_collective("all-gather", sp.size * x.numel() * x.element_size())
-    dist.all_gather(parts, wire, group=sp.group)
-    whole = torch.cat(parts, dim=dim)
-    return whole.to(x.device, non_blocking=True) if whole.device != x.device else whole
+    return _GatherRows.apply(x, sp, dim)
 
 
-def group_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the group in place (``multihost.all_reduce_`` on the
-    group: an ``all-reduce``) and return it; ``t`` itself with no active
-    group."""
+class _GroupSum(torch.autograd.Function):
+    """A sum over the group whose gradient is the sum over the group of the
+    output's gradient (``multihost.all_reduce_grad`` on a subgroup)."""
+
+    @staticmethod
+    def forward(ctx, t, sp):
+        ctx.sp = sp
+        return multihost.all_reduce_(t.clone(), group=sp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return multihost.all_reduce_(g.clone(), group=ctx.sp.group), None
+
+
+def group_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the group (``multihost.all_reduce_`` on the group:
+    an ``all-reduce``), a new tensor whose gradient is summed over the group
+    too; ``t`` itself with no active group."""
     sp = current()
-    if sp is None:
-        return t
-    return multihost.all_reduce_(t, group=sp.group)
+    return t if sp is None else _GroupSum.apply(t, sp)
 
 
 def on_whole(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,

@@ -13,14 +13,14 @@ index ``d`` and spatial index ``s``, JAX's device order
   across the data indices (``training/step.py``) and BatchNorm's
   statistics taken over the global batch (``nn/layers.BatchNorm2d``).
 - ``spatial``: the ranks of one data index split the image height of the
-  test-mode forward (``RAFT.forward(..., mesh=...)``): each holds a band
-  of rows of every activation, the convolutions exchange row halos with
-  the neighbours and the correlation reads the gathered fmap2
+  forward (``RAFT.forward(..., mesh=...)``): each holds a band of rows of
+  every activation, the convolutions exchange row halos with the
+  neighbours and the correlation reads the gathered fmap2
   (``parallel/halo.py``). Evaluation, the highres entry, the server, the
-  stream engine and the fleet's slots run it (the served paths in
-  lockstep, ``parallel/lockstep.py``). Training refuses a spatial size
-  above 1 (ROADMAP.md queue 1 item 9b-iii), and a pipe axis above 1 raises
-  everywhere (item 9b-iv).
+  stream engine and the fleet's slots run the test-mode forward so (the
+  served paths in lockstep, ``parallel/lockstep.py``), training the
+  train-mode forward and its backward (``training/step.py``). A pipe axis
+  above 1 raises everywhere (ROADMAP.md queue 1 item 9b-iv).
 
 :func:`make_mesh` builds the process subgroups at once, on every rank in
 the same order: one per data index (its spatial ranks, for the halos and
@@ -49,9 +49,8 @@ import torch
 
 from raft_ncup_tpu_torch.parallel import multihost
 
-# The parts of ROADMAP.md queue 1 item 9b still to come, named by the
-# refusals.
-ITEM_9B_TRAINING = "ROADMAP.md, queue 1 item 9b-iii (the spatial axis in training)"
+# The part of ROADMAP.md queue 1 item 9b still to come, named by the
+# refusal.
 ITEM_9B_PIPE = "ROADMAP.md, queue 1 item 9b-iv (the pipe axis)"
 _COLLECTIVE_OPS = (
     "all-gather",
@@ -87,14 +86,6 @@ class Mesh:
     @property
     def processes(self) -> int:
         return self.data * self.spatial
-
-
-def refuse_spatial(spatial, what: str, item: str = ITEM_9B_TRAINING) -> None:
-    """Raise when ``spatial`` is above 1 on a path the spatial axis does
-    not reach yet (training)."""
-    if int(spatial) > 1:
-        raise ValueError(f"{what} with a spatial axis of {spatial} is not in the port yet: "
-                         f"{item} brings it")
 
 
 def check_axes(data: Optional[int] = None, spatial: int = 1, pipe: int = 1,

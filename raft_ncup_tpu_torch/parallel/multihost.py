@@ -113,8 +113,9 @@ def backend() -> Optional[str]:
 
 
 def local_device(device=None) -> torch.device:
-    """The card this rank feeds: ``device`` when given, else
-    ``cuda:LOCAL_RANK`` under a launcher, else the current card. With no
+    """The card this rank feeds: ``device`` when given (a bare ``cuda`` as
+    the current card's index), else ``cuda:LOCAL_RANK`` under a launcher,
+    else the current card. With no
     CUDA and no ``device="cpu"`` it raises."""
     from raft_ncup_tpu_torch.utils.device import resolve_device
 
@@ -123,7 +124,10 @@ def local_device(device=None) -> torch.device:
             raise RuntimeError("no CUDA device is available for this rank; pass "
                                "--device cpu to train on the CPU explicitly")
         return torch.device("cuda", local_rank())
-    return resolve_device(device)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:  # a bare "cuda": the current card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def resolve_backend(backend_name: Optional[str], device) -> str:

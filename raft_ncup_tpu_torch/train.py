@@ -21,16 +21,22 @@ launcher's world (``parallel.multihost.initialize_distributed``; NCCL on
 cards, gloo on the CPU, or ``RAFT_TORCH_DIST_BACKEND``), each rank feeds
 ``--device`` or ``cuda:LOCAL_RANK``, ``--batch_size`` is the global batch
 (each rank loads ``batch_size // N`` of it, and a batch N does not divide
-raises), ``--data_parallel`` defaults to N and any other value raises,
-and ``--spatial_parallel`` above 1 raises (ROADMAP.md queue 1 item 9b-iii;
-``--gpus`` is accepted and ignored, as in JAX). Each step reduces the
-gradients, the loss and the metrics across the ranks
+raises), ``--data_parallel`` defaults to N and any other value raises
+(``--gpus`` is accepted and ignored, as in JAX). Over the spatial axis,
+``--mesh D,S`` (or ``--spatial_parallel S``) with D times S ranks: the S
+ranks of a data index load the same rows of the global batch (the loader
+shards by data index only), draw the same augmentation and noise, and
+each trains on its band of every image's rows (the crop's height must
+divide by 8 S); for example ``torchrun --nproc_per_node 2 -m
+raft_ncup_tpu_torch.train ... --mesh 1,2 --device cpu`` on the CPU. Each
+step reduces the gradients, the loss and the metrics across the ranks
 (``training.step.make_train_step(mesh=...)``), so every rank logs,
 checkpoints and halts on the same global numbers; only the main process
 writes the log, the flight dumps, the profile and the checkpoints (rank 0
 writes, every rank waits at a barrier). Validation runs sharded: each
 rank validates its share of the frames and the sums are reduced
-(``evaluation._shard_for_validation``). A SIGTERM to any rank stops every
+(``evaluation._shard_for_validation``; whole frames, over the world, also
+under a spatial axis). A SIGTERM to any rank stops every
 rank at the same step (the ranks agree on it every 16 steps,
 ``resilience.preemption.CHECK_EVERY``), and all exit 75; a sentinel
 halt happens on every rank at once (exit 76). ``--chaos_rank R`` limits
@@ -195,9 +201,10 @@ def main(argv=None) -> int:
 def _train(args, model_cfg, cfg, data_cfg, device) -> int:
     world, rank = multihost.process_count(), multihost.process_index()
     main_process = multihost.is_main_process()
-    # cfg.data_parallel is the world's size (cli.check_mesh), which divides
-    # the global batch (TrainConfig checks it).
-    mesh = (mesh_mod.make_mesh(cfg.data_parallel, device=device)
+    # cfg.data_parallel times cfg.spatial_parallel is the world's size
+    # (cli.check_mesh), and the data size divides the global batch
+    # (TrainConfig checks it).
+    mesh = (mesh_mod.make_mesh(cfg.data_parallel, cfg.spatial_parallel, device=device)
             if multihost.initialized() else None)
     mesh_mod.reset_collective_stats()  # the summary counts this run's
     chaos = ChaosSpec.parse(
@@ -224,9 +231,12 @@ def _train(args, model_cfg, cfg, data_cfg, device) -> int:
     dataset = fetch_training_set(cfg.stage, cfg.image_size, data_cfg)
     if chaos.ioerror_reads:
         dataset = ChaosDataset(dataset, chaos.ioerror_reads)
-    # --batch_size is the global batch; each rank loads its share
-    # (FlowLoader shards the indices over the world).
-    loader = FlowLoader(dataset, cfg.batch_size // world, seed=cfg.seed,
+    # --batch_size is the global batch; each data index loads its share
+    # (FlowLoader shards the indices over the data indices), the same on
+    # each of its spatial ranks.
+    shard, shards = (mesh.data_index, mesh.data) if mesh is not None else (0, 1)
+    loader = FlowLoader(dataset, cfg.batch_size // shards, seed=cfg.seed,
+                        shard_index=shard, num_shards=shards,
                         num_workers=data_cfg.num_workers, prefetch=data_cfg.prefetch,
                         io_retries=data_cfg.io_retries,
                         io_retry_backoff_s=data_cfg.io_retry_backoff_s)

@@ -22,10 +22,14 @@ def sequence_loss_sums(
     valid: torch.Tensor,
     gamma: float = 0.8,
     max_flow: float = 400.0,
+    shards: int = 1,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The loss and the metrics' sums over valid pixels with their count
     (``"valid"``): what a data-parallel step reduces across ranks, since a
-    mean over valid pixels is not the mean of the ranks' means."""
+    mean over valid pixels is not the mean of the ranks' means. On one of
+    ``shards`` equal bands of rows (the spatial axis) each term's mean is
+    divided by ``shards``: the band's share of the whole image's mean, so
+    the sum over the bands is the whole image's loss."""
     n = flow_preds.shape[0]
     mag = torch.sqrt(torch.sum(flow_gt**2, dim=-1))
     valid = (valid >= 0.5) & (mag < max_flow)
@@ -33,7 +37,7 @@ def sequence_loss_sums(
     weights = gamma ** torch.arange(
         n - 1, -1, -1, dtype=flow_preds.dtype, device=flow_preds.device
     )
-    per_iter = torch.mean(vmask * (flow_preds - flow_gt[None]).abs(), dim=(1, 2, 3, 4))
+    per_iter = torch.mean(vmask * (flow_preds - flow_gt[None]).abs(), dim=(1, 2, 3, 4)) / shards
     loss = torch.sum(weights * per_iter)
 
     with torch.no_grad():

@@ -43,6 +43,17 @@ trains (stage chairs), takes its statistics over the global batch
 ranks; the recompute of a checkpointed iteration issues the same
 collectives on every rank, in the same order.
 
+With a spatial axis above 1 (a mesh ``(data, spatial)``) every rank of a
+data index holds the same rows of the global batch, whole images, and
+draws the same noise; the model runs on its band of rows
+(``RAFT.forward(..., mesh=...)``, the halo exchanges differentiable), the
+loss and the metrics' sums read its band of the ground truth (the loss as
+the band's share of the whole image's mean), and BatchNorm's statistics
+span the global batch's pixels (the sync-BN sum runs over the world,
+data times spatial). Each rank's gradient is then its part of the
+gradient of the group's summed loss, and the one reduction over the world
+sums them over the spatial group and averages them over the data indices.
+
 The forward and the backward (with the recompute that remat runs
 inside it) keep TF32 off (``utils.device.f32_precision``), as the
 model's forward does: cuDNN's convolutions would otherwise take TF32 in
@@ -72,7 +83,8 @@ from torch.profiler import record_function
 from raft_ncup_tpu_torch.config import TrainConfig
 from raft_ncup_tpu_torch.nn.layers import synced_batch_stats
 from raft_ncup_tpu_torch.parallel import multihost
-from raft_ncup_tpu_torch.parallel.mesh import ITEM_9B_TRAINING, Mesh, data_group, refuse_spatial
+from raft_ncup_tpu_torch.parallel import halo
+from raft_ncup_tpu_torch.parallel.mesh import Mesh, data_group, spatial_group
 from raft_ncup_tpu_torch.training import sentinel as sentinel_mod
 from raft_ncup_tpu_torch.training.loss import finalize_metrics, sequence_loss_sums
 from raft_ncup_tpu_torch.training.optim import global_norm, select_into
@@ -108,12 +120,13 @@ def noisy(img: torch.Tensor, stdv: torch.Tensor, noise: torch.Tensor) -> torch.T
 
 def global_rows(shape, gen: torch.Generator, device, mesh: Optional[Mesh]) -> torch.Tensor:
     """Standard normal draws of ``shape``; with a mesh, drawn at the global
-    batch's shape (``shape[0] * data`` rows) and the rank's rows
-    ``rank::data`` taken."""
+    batch's shape (``shape[0] * data`` rows) and the data index's rows
+    ``data_index::data`` taken (every spatial rank of a data index draws
+    the same)."""
     if mesh is None:
         return torch.randn(shape, generator=gen, device=device)
     full = torch.randn((shape[0] * mesh.data,) + tuple(shape[1:]), generator=gen, device=device)
-    return full.view(shape[0], mesh.data, *shape[1:])[:, mesh.rank]
+    return full.view(shape[0], mesh.data, *shape[1:])[:, mesh.data_index]
 
 
 def add_noise(img1: torch.Tensor, img2: torch.Tensor, gen: torch.Generator,
@@ -137,7 +150,11 @@ def forward_loss_sums(
     and valid count (``training.loss.sequence_loss_sums``). Updates the
     BatchNorm statistics when they train. The noise and the dropout masks
     draw from :func:`step_generators` of ``step`` (default:
-    ``state.step``), with a mesh at the global batch's shape."""
+    ``state.step``), with a mesh at the global batch's shape. With a
+    spatial axis above 1 the model runs on this rank's band of rows and the
+    loss and the sums read its band of the ground truth: the loss is the
+    band's share of the whole image's mean, so the group's sum is the one-
+    process loss."""
     model = state.model
     model.train()
     if cfg.freeze_bn:
@@ -149,13 +166,19 @@ def forward_loss_sums(
     if cfg.add_noise:
         img1, img2 = add_noise(img1, img2, noise_gen, mesh)
     model.dropout_generator = drop_gen
-    model.dropout_rows = None if mesh is None else (mesh.rank, mesh.data)
+    model.dropout_rows = None if mesh is None else (mesh.data_index, mesh.data)
     try:
-        preds = model(img1, img2, iters=cfg.iters, remat=remat)
+        preds = model(img1, img2, iters=cfg.iters, remat=remat, mesh=mesh)
     finally:
         model.dropout_generator = None
         model.dropout_rows = None
-    return sequence_loss_sums(preds, batch["flow"], batch["valid"], cfg.gamma, cfg.max_flow)
+    flow, valid = batch["flow"], batch["valid"]
+    shards = 1
+    if mesh is not None and mesh.spatial > 1:
+        with halo.spatial(spatial_group(mesh)):
+            flow, valid = halo.band(flow), halo.band(valid)
+        shards = mesh.spatial
+    return sequence_loss_sums(preds, flow, valid, cfg.gamma, cfg.max_flow, shards=shards)
 
 
 def forward_loss(
@@ -207,9 +230,10 @@ def apply_update(
 def reduce_across_ranks(
     loss: torch.Tensor, sums: dict, grads: list[torch.Tensor], mesh: Mesh,
 ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
-    """One all-reduce of a flat buffer of the gradients, the loss and the
-    metrics' sums and count: (the loss and gradients averaged over the
-    ranks, the global metrics, the gradients in their shapes)."""
+    """One all-reduce over the world of a flat buffer of the gradients, the
+    loss and the metrics' sums and count: (the loss and gradients summed
+    over the spatial group and averaged over the data indices, the global
+    metrics, the gradients in their shapes)."""
     keys = sorted(sums)
     flat = torch.cat([g.reshape(-1) for g in grads]
                      + [loss.reshape(1).to(torch.float32)]
@@ -238,11 +262,10 @@ def make_train_step(
 ) -> Callable[[TrainState, dict], dict[str, torch.Tensor]]:
     """``step(state, batch) -> metrics``. ``batch``: image1 / image2
     (B, H, W, 3) uint8 or float32 in [0, 255], flow (B, H, W, 2), valid
-    (B, H, W), on the model's device: with ``mesh``, the rank's rows of the
-    global batch. Updates ``state`` in place; with a mesh every rank
-    returns the global metrics. A mesh with a spatial axis above 1 raises
-    (training's spatial axis: ROADMAP.md queue 1 item 9b-iii)."""
-    refuse_spatial(mesh.spatial if mesh is not None else 1, "the train step", ITEM_9B_TRAINING)
+    (B, H, W), on the model's device: with ``mesh``, the data index's rows
+    of the global batch, the whole images on every spatial rank of it.
+    Updates ``state`` in place; with a mesh every rank returns the global
+    metrics."""
 
     def step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         bn_old = [b.clone() for b in bn_buffers(state.model)]

@@ -1,8 +1,8 @@
 """The port stands alone: it imports nothing of JAX, flax, the JAX
 package, OpenCV or Pillow (the card machine has none of them), at run
 time (a fresh interpreter) or in its source (an AST scan of every module
-and of ``chip_smoke.py``, ``chip_compare.py``, ``chip_spans.py`` and
-``chip_procs.py``)."""
+and of ``chip_smoke.py``, ``chip_compare.py``, ``chip_spans.py``,
+``chip_procs.py``, ``chip_spatial.py`` and ``chip_convergence.py``)."""
 
 import ast
 import os
@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "raft_ncup_tpu", "cv2", "PIL")
 
 def _port_sources():
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_compare.py", "chip_spans.py",
-                                             "chip_procs.py")]
+                                             "chip_procs.py", "chip_spatial.py",
+                                             "chip_convergence.py")]
     for root, _dirs, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -62,7 +63,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
      "raft_ncup_tpu_torch.evaluate", "raft_ncup_tpu_torch.demo",
      "raft_ncup_tpu_torch.streaming", "raft_ncup_tpu_torch.observability",
      "raft_ncup_tpu_torch.analysis", "raft_ncup_tpu_torch.parallel",
-     "raft_ncup_tpu_torch.io.codecs"],
+     "raft_ncup_tpu_torch.io.codecs", "raft_ncup_tpu_torch.synth_convergence",
+     "raft_ncup_tpu_torch.ncup_vs_bilinear"],
 )
 def test_fresh_import_loads_no_jax(module):
     code = (

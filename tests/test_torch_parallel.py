@@ -142,7 +142,7 @@ def test_cli_mesh_flags_follow_the_world(launched_world):
     assert cli.parse_train(base + ["--data_parallel", "1"])[2].data_parallel == 1
     with pytest.raises(ValueError, match="world size 1"):
         cli.parse_train(base + ["--data_parallel", "2"])
-    with pytest.raises(ValueError, match="item 9b"):
+    with pytest.raises(ValueError, match="world size 1"):
         cli.parse_train(base + ["--spatial_parallel", "2"])
     # --gpus is accepted and ignored, as in JAX.
     assert cli.parse_train(base + ["--gpus", "0", "1"])[2].data_parallel == 1
@@ -212,9 +212,11 @@ def test_train_config_divisibility_is_jaxs(batch, data, ok):
             TrainConfig(batch_size=batch, data_parallel=data)
 
 
-def test_train_config_refuses_the_spatial_axis():
-    with pytest.raises(ValueError, match="item 9b"):
-        TrainConfig(spatial_parallel=2)
+def test_train_config_takes_the_spatial_axis():
+    cfg = TrainConfig(spatial_parallel=2, data_parallel=1, image_size=(48, 64))
+    assert (cfg.data_parallel, cfg.spatial_parallel) == (1, 2)
+    with pytest.raises(ValueError, match="must divide by 8 \\* --spatial_parallel = 16"):
+        TrainConfig(spatial_parallel=2, image_size=(40, 64))
     with pytest.raises(ValueError, match=">= 1"):
         TrainConfig(data_parallel=0)
 
@@ -340,26 +342,40 @@ def _spatial_mesh():
     return mesh_mod.Mesh(data=1, rank=0, platform="cpu", spatial=2)
 
 
-def _refusal(path, launched_world):
-    """Drive one training path with a spatial size of 2."""
+def _spatial_path(path, launched_world, monkeypatch):
+    """Drive one training path with a spatial size of 2; returns what it
+    gave."""
     from raft_ncup_tpu_torch.config import small_model_config
+    from raft_ncup_tpu_torch.models import raft as raft_mod
     from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.parallel import halo
     from raft_ncup_tpu_torch.training import step as step_mod
 
     if path == "train entry":
         launched_world(2)
-        cli.parse_train(["--stage", "things", "--batch_size", "2", "--spatial_parallel", "2"])
-    elif path == "train step":
-        step_mod.make_train_step(TrainConfig(batch_size=2), mesh=_spatial_mesh())
-    else:
-        model = RAFT(small_model_config("raft"), device="cpu", seed=0)
-        frames = torch.zeros((1, 32, 32, 3))
-        model.train()
-        model(frames, frames, iters=1, mesh=_spatial_mesh())
+        cfg = cli.parse_train(["--stage", "things", "--batch_size", "2", "--image_size",
+                               "48", "64", "--spatial_parallel", "2"])[2]
+        return cfg.data_parallel, cfg.spatial_parallel
+    if path == "train step":
+        return callable(step_mod.make_train_step(
+            TrainConfig(batch_size=2, spatial_parallel=2, data_parallel=1,
+                        image_size=(48, 64)), mesh=_spatial_mesh()))
+    # The train-mode forward on band 0 of 2 with no second process: the
+    # exchanges return zeros and the sums their input, so it runs, with
+    # band shapes (tests/test_torch_spatial_train.py holds its values).
+    monkeypatch.setattr(raft_mod, "spatial_group", lambda mesh: halo.SpatialGroup(
+        size=2, index=0, ranks=(0, 1)))
+    monkeypatch.setattr(halo, "_exchange", lambda *args: (None, None))
+    monkeypatch.setattr(halo, "all_gather_rows", lambda x, dim=1, group=None: torch.cat(
+        [x, torch.zeros_like(x)], dim=dim))
+    monkeypatch.setattr(halo, "group_sum", lambda t: t)
+    model = RAFT(small_model_config("raft"), device="cpu", seed=0)
+    frames = torch.zeros((1, 48, 64, 3))
+    model.train()
+    return tuple(model(frames, frames, iters=1, mesh=_spatial_mesh()).shape)
 
 
-@pytest.mark.parametrize("path,item", [
-    ("train entry", "9b-iii"), ("train step", "9b-iii"), ("train-mode forward", "9b-iii")])
-def test_paths_outside_the_slice_refuse_a_spatial_axis(path, item, launched_world):
-    with pytest.raises(ValueError, match=f"item {item}"):
-        _refusal(path, launched_world)
+@pytest.mark.parametrize("path,took", [
+    ("train entry", (1, 2)), ("train step", True), ("train-mode forward", (1, 1, 24, 64, 2))])
+def test_training_paths_take_a_spatial_axis(path, took, launched_world, monkeypatch):
+    assert _spatial_path(path, launched_world, monkeypatch) == took
