@@ -89,7 +89,7 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     replayed forward beside each eager one (its ``profile ... graph:``
     line, with the graph pool's bytes); and the evaluate entry on a
     ``.pth`` written by ``save_reference_pth`` and the demo entry on PNG
-    frames, each in its own process;
+    frames, each in its own process, both at once;
 12. trains the flagship from files in-process through the train entry
     (``train.main``) with ``scripts/train_raft_nc_things.sh``'s flag lines
     (minus ``--compressed_ft`` in (a)-(e)): a FlyingThings3D-layout tree at
@@ -212,8 +212,8 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     ``--strict_guards``, and two NCCL ranks on the one card, which raise
     before step 1 ((c) and (d) at a 200x360 crop); (e) ``validate_sintel``
     through the evaluate entry with two ranks against one process; (b)'s
-    ranks and the spatial training phase's run beside (c)-(e), and (e)'s
-    beside (d), so their step times are under that load;
+    ranks and the spatial training phase's run beside (c)-(e), and (c)
+    beside (d) and (e), so their step times are under that load;
 17a. trains over the spatial axis (``spatial (f)``): the flagship's step
     at 400x720, batch 2, 12 iterations, remat, 2 steps, split by rows over
     two ranks sharing the card under gloo (``--mesh 1,2``, each rank this
@@ -223,6 +223,27 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     B' 48 a step) and collectives (equal on both ranks, with bytes), each
     rank's step ms and peak bytes; and each encoder on two bands in float64
     against the whole image (exact) beside its float32 error;
+17b. runs the PAC and DJIF heads (``pac``): the flagship with each
+    (``UpsamplerConfig(kind=...)``) served through the serve entry's
+    ``serve_pairs`` (4 requests at 436x1024, batch sizes 1 and 2, level
+    12, graph replays: A 12 a batch and no B; every answer finite, one
+    against the plain-version forward at the flagship tolerances) and
+    trained 2 steps at 400x720, batch 2, 12 iterations, remat on, in a
+    process of its own (``--pac_train_worker``) started beside phase 12
+    (finite losses, A 24 and A' 12 a step, no B or B', ms a step, peak
+    bytes);
+17c. pipelines the flagship's test-mode forward over the pipe axis
+    (``pipe (g)``, ``inference/pipe_schedule.py``): two ranks sharing the
+    card under gloo (``--mesh 1,1,2``, each this script's
+    ``--pipe_worker``, started beside phase 12), f32 at 440x1024, 12
+    iterations, 6 micro-batches of batch 1, two streams: every rank's
+    flows against this process's one-process forward at the flagship
+    tolerances; each rank's launches of the second stream by the schedule
+    (A 6 a micro-batch on both, B 4 a micro-batch on rank 1); rank 0's
+    hand-offs (one ``collective-permute`` of 21,683,200 B a micro-batch),
+    one output broadcast a micro-batch on both; the second stream under the
+    runtime guards with no capture, no implicit read and the same receive
+    buffers;
 18. runs the spatial axis (``parallel/halo.py``): (a) the flagship's whole
     f32 forward, batch 1, 32 iterations, at 1088x1920 and at 2176x3840 in
     this process, captured and replayed 3 times (wall and device ms, the
@@ -252,9 +273,9 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     process left;
 20. prints each phase's seconds (``phase NAME: S s``, then a ``phases:``
     line), one JSON line describing the kernels (with each kernel's
-    launches per rank on the data-parallel, spatial, spatial serving and
-    spatial training paths), the card's name and power limit, and, last,
-    the JSON result line.
+    launches per rank on the data-parallel, spatial, spatial serving,
+    spatial training and pipe paths and on the PAC and DJIF runs), the
+    card's name and power limit, and, last, the JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
 device it exits non-zero at once; it never falls back to the CPU.
@@ -276,6 +297,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -2055,12 +2077,21 @@ def check_eval_warm(torch, card, root: str) -> tuple[dict, dict]:
     return report, launches
 
 
-def _run_entry(args: list, what: str) -> str:
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=HERE, capture_output=True,
-                          text=True, timeout=900)
-    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                                f"{proc.stderr[-3000:]}")
-    return proc.stdout
+def _start_entry(args: list) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait_entry(proc: subprocess.Popen, what: str) -> str:
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{out[-3000:]}\n"
+                                f"{err[-3000:]}")
+    return out
 
 
 def check_entries(torch, card, tmp: str) -> dict:
@@ -2069,8 +2100,8 @@ def check_entries(torch, card, tmp: str) -> dict:
     ``python -m raft_ncup_tpu_torch.evaluate --dataset synthetic`` (12
     iterations, batch 4, 32 pairs at 96x128: the validator's defaults),
     whose results must equal the same validator run here within
-    ``ACC_RTOL``; then the demo runs on PNG frames the port's codec wrote
-    and its PNGs are read back."""
+    ``ACC_RTOL``; the demo runs at the same time on PNG frames the port's
+    codec wrote, and its PNGs are read back."""
     import numpy as np
     from raft_ncup_tpu_torch import evaluation
     from raft_ncup_tpu_torch.io import read_png, write_png
@@ -2080,14 +2111,6 @@ def check_entries(torch, card, tmp: str) -> dict:
     # in NCUP's weights net outside Sintel), the demo for Sintel.
     model = eval_model(torch, dataset="synthetic")
     pth = save_reference_pth(model, os.path.join(tmp, "synthetic.pth"))
-    want = evaluation.validate_synthetic(model)
-    out = _run_entry(["raft_ncup_tpu_torch.evaluate", "--model", "raft_nc_dbl", "--dataset",
-                      "synthetic", "--restore_ckpt", pth], "the evaluate entry")
-    got = json.loads(out.strip().splitlines()[-1])
-    err = _close(got["results"], want, ACC_RTOL)
-    check(err <= ACC_RTOL and got["cache"]["compiles"] == 1 and got["device"].startswith("cuda"),
-          f"the evaluate entry gave {got}, want {want}")
-    del model
     frames = os.path.join(tmp, "frames")
     os.makedirs(frames)
     rng = np.random.default_rng(2)
@@ -2098,9 +2121,19 @@ def check_entries(torch, card, tmp: str) -> dict:
                   np.roll(img, (f, 2 * f), axis=(0, 1)).astype(np.uint8))
     pth_sintel = save_reference_pth(eval_model(torch), os.path.join(tmp, "sintel.pth"))
     demo_out = os.path.join(tmp, "demo")
-    _run_entry(["raft_ncup_tpu_torch.demo", "--model", "raft_nc_dbl", "--path", frames,
-                "--output", demo_out,
-                "--restore_ckpt", pth_sintel, "--iters", "12"], "the demo entry")
+    # Both entries start up at once, beside this process's own validation.
+    evaluate = _start_entry(["raft_ncup_tpu_torch.evaluate", "--model", "raft_nc_dbl",
+                             "--dataset", "synthetic", "--restore_ckpt", pth])
+    demo = _start_entry(["raft_ncup_tpu_torch.demo", "--model", "raft_nc_dbl", "--path",
+                         frames, "--output", demo_out, "--restore_ckpt", pth_sintel,
+                         "--iters", "12"])
+    want = evaluation.validate_synthetic(model)
+    got = json.loads(_wait_entry(evaluate, "the evaluate entry").strip().splitlines()[-1])
+    err = _close(got["results"], want, ACC_RTOL)
+    check(err <= ACC_RTOL and got["cache"]["compiles"] == 1 and got["device"].startswith("cuda"),
+          f"the evaluate entry gave {got}, want {want}")
+    del model
+    _wait_entry(demo, "the demo entry")
     written = sorted(os.listdir(demo_out))
     check(written == ["f0_flow.png", "f1_flow.png"], f"the demo wrote {written}")
     for name in written:
@@ -4622,8 +4655,8 @@ def check_data_parallel(torch, card: str, tmp: str, after_b=None) -> dict:
     under ``--strict_guards`` (no implicit read, no steady recompile), then
     two NCCL ranks on the one card, which must raise before step 1 ((c) and
     (d) at the ``DP_SMALL`` crop); (e) ``validate_sintel`` through the evaluate entry
-    with two ranks (run beside (d)) against one process; (b)'s ranks run
-    beside (c)-(e). ``after_b()``, when given, is called once (b)'s ranks
+    with two ranks (run beside (d)) against one process; (c) runs beside
+    (d) and (e), and (b)'s ranks beside (c)-(e). ``after_b()``, when given, is called once (b)'s ranks
     are started (the spatial training phase starts its ranks there, so
     they too run beside (c)-(e)). Returns each rank's launches."""
     t0 = time.perf_counter()
@@ -4644,11 +4677,16 @@ def check_data_parallel(torch, card: str, tmp: str, after_b=None) -> dict:
     b_ranks = _dp_start_two_ranks(tmp, argv)
     if after_b is not None:
         after_b()
-    _dp_preemption(tmp, base)
-    e_ranks = (_start_ranks(os.path.join(tmp, "e"), _dp_validation_argv(sintel), 2, "gloo",
-                            module="raft_ncup_tpu_torch.evaluate"), time.perf_counter())
-    paths = _dp_nccl(tmp, argv + DP_SMALL)
-    _dp_sharded_validation(tmp, sintel, e_ranks)
+    # (c) on a thread of its own, beside (d) and (e): their processes start
+    # up and autotune at once.
+    with ThreadPoolExecutor(1) as pool:
+        preemption = pool.submit(_dp_preemption, tmp, base)
+        e_ranks = (_start_ranks(os.path.join(tmp, "e"), _dp_validation_argv(sintel), 2,
+                                "gloo", module="raft_ncup_tpu_torch.evaluate"),
+                   time.perf_counter())
+        paths = _dp_nccl(tmp, argv + DP_SMALL)
+        _dp_sharded_validation(tmp, sintel, e_ranks)
+        preemption.result()
     paths.update(_dp_two_ranks(torch, card, tmp, a, want_rows, b_ranks))
     print(f"data parallel: the phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
@@ -5364,6 +5402,367 @@ def check_spatial_train(torch, card: str, tmp: str, ranks_started: dict) -> dict
     return paths
 
 
+# --------------------------------------------------------------- pipe axis
+
+PIPE_WORKER = "--pipe_worker"
+PIPE_MICRO = 6  # micro-batches of batch 1 in the phase's stream
+PIPE_ITERS = 12
+PIPE_WORLD = 2
+PIPE_MESH = "mesh(data=1,spatial=1,pipe=2:gpu)"
+# One hand-off of the flagship's f32 carry at 440x1024, batch 1: net and
+# inp (128 channels at 55x128), fmap1 and fmap2 (256) and coords1.
+PIPE_CARRY_BYTES = 2 * 3_604_480 + 2 * 7_208_960 + 56_320
+
+
+def _pipe_pairs(torch, n: int, seed: int = 0) -> list:
+    """``n`` Sintel-size pairs edge-padded to 440x1024, each a (1, H, W, 3)
+    host tensor (the micro-batches of batch 1)."""
+    from raft_ncup_tpu_torch.serve import make_pairs
+
+    return [tuple(t.cpu() for t in padded_batch(torch, [p]))
+            for p in make_pairs(SERVE_SIZE, n, seed=seed)]
+
+
+def pipe_worker(outdir: str, argv: list) -> int:
+    """One rank of the pipelined forward (``chip_smoke.py --pipe_worker
+    OUTDIR [--micro M] [--iters N] [--device DEV] [--stage_timing]``, under
+    the launcher's environment, or alone as one stage): the flagship f32,
+    seeded weights, ``M`` micro-batches of batch 1 at 440x1024, S = the
+    world's size. A first stream captures the stage programs; a second,
+    timed, runs under the runtime guards. Writes ``OUTDIR/rank<RANK>.pt``:
+    both streams' launches and collectives, the second's flows, wall
+    seconds, per-program device ms and hand-off waits, the guards' counts,
+    whether the receive buffers stayed the same, peak bytes; with
+    ``--stage_timing`` (one stage) the device ms of the encode, one
+    iteration and the finalize, timed alone."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from raft_ncup_tpu_torch.analysis import guards
+    from raft_ncup_tpu_torch.inference import pipe_schedule
+    from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
+    from raft_ncup_tpu_torch.parallel import multihost
+
+    opts = {"--micro": str(PIPE_MICRO), "--iters": str(PIPE_ITERS), "--device": None}
+    timing_alone = "--stage_timing" in argv
+    for i, a in enumerate(argv):
+        if a in opts:
+            opts[a] = argv[i + 1]
+    micro, iters = int(opts["--micro"]), int(opts["--iters"])
+    multihost.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    device = multihost.local_device(opts["--device"])
+    torch.cuda.set_device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    joined = world > 1 and multihost.initialize_distributed(device=device)
+    rank = multihost.process_index() if joined else 0
+    try:
+        model = flagship(torch)
+        mesh = mesh_mod.make_mesh(1, 1, world, device=device) if world > 1 else None
+        pf = pipe_schedule.PipelinedForward(model, mesh=mesh, timing=True)
+        pairs = _pipe_pairs(torch, micro)
+        rec = {"rank": rank, "world": world, "mesh": mesh_mod.mesh_fingerprint(mesh),
+               "backend": multihost.backend(), "micro": micro, "iters": iters}
+        for name in ("first", "second"):
+            reset_launches()
+            mesh_mod.reset_collective_stats()
+            compiles = pf.cache.stats["compiles"]
+            ptrs = {k: [t.data_ptr() for t in v] for k, v in pf._inputs.items()}
+            torch.cuda.synchronize()
+            if name == "second":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            # The second stream under the runtime guards (the native layer
+            # raises on an implicit synchronisation); the first captures.
+            guard = (guards.forbid_host_transfers() if name == "second"
+                     else contextlib.nullcontext(guards.GuardStats()))
+            with guards.RecompileWatchdog() as wd, guard as st:
+                outs = pf.forward_many(pairs, iters)
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+            seconds = time.perf_counter() - t0
+            rec[name] = {
+                "seconds": seconds, "pairs_per_sec": micro / seconds,
+                "launches": read_launches(), "collectives": mesh_mod.collective_stats(),
+                "outputs": pipe_schedule.output_stats(), "timing": pf.last_timing,
+                "captures": pf.cache.stats["compiles"] - compiles, "recompiles": wd.count,
+                "host_transfers": st.host_transfers, "sanctioned_gets": st.sanctioned_gets,
+                "same_buffers": name == "first" or ptrs == {
+                    k: [t.data_ptr() for t in v] for k, v in pf._inputs.items()},
+                "stats": dict(pf.stats)}
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        rec["flows"] = [tuple(t.cpu() for t in o) for o in outs]
+        if timing_alone:
+            rec["stage_ms"] = _stage_timing(torch, model, pairs[0])
+        torch.save(rec, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        if joined:
+            multihost.shutdown()
+    return 0
+
+
+def _stage_timing(torch, model, pair) -> dict:
+    """Device ms of the flagship's encode, one refinement iteration and
+    the finalize at 440x1024, batch 1, each alone (the median of 10 after
+    2 warm runs, CUDA events): the numbers a pipe's gain is predicted
+    from."""
+    i1, i2 = (t.cuda() for t in pair)
+    carry = model.encode(i1, i2)
+    runs = {"encode": lambda: model.encode(i1, i2),
+            "iteration": lambda: model.refine_segment(carry, 1),
+            "finalize": lambda: model.finalize(carry)}
+    out = {}
+    for name, fn in runs.items():
+        ms = []
+        for k in range(12):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            if k >= 2:
+                ms.append(a.elapsed_time(b))
+        out[name] = statistics.median(ms)
+    return out
+
+
+def start_pipe(tmp: str) -> dict:
+    """(g)'s two ranks sharing the card (gloo, ``torch.distributed.run``),
+    started and not waited for: :func:`check_pipe` waits for them. The
+    script starts them beside the train-from-files phase, so their times
+    are under its load."""
+    outdir = os.path.join(tmp, "g")
+    return {"t0": time.perf_counter(), "outdir": outdir,
+            "procs": _start_ranks(outdir, DP_CARD, PIPE_WORLD, "gloo", True, None,
+                                  PIPE_WORKER)}
+
+
+def check_pipe(torch, card: str, tmp: str, started: dict) -> dict:
+    """(g) The flagship's test-mode forward pipelined over two ranks sharing
+    the card (``--mesh 1,1,2``, gloo): every rank's flows of the second
+    stream against this process's one-process forward of the same frames
+    and weights at the flagship tolerances; each rank's launches per stream
+    against the schedule (kernel A ``seg_len`` a micro-batch on both, B 4 a
+    micro-batch on rank 1 only); rank 0's hand-offs (one
+    ``collective-permute`` of the carry's bytes a micro-batch), one output
+    broadcast a micro-batch on both; the second stream with no capture, no
+    implicit transfer and the same receive buffers. Returns each rank's
+    launches over both streams."""
+    t0 = time.perf_counter()
+    codes, outs = _wait_ranks(started["procs"])
+    check(codes == [0], f"pipe (g): torchrun exited {codes}:\n{outs[0][0][-2000:]}\n"
+                        f"{outs[0][1][-4000:]}")
+    recs = [torch.load(os.path.join(started["outdir"], f"rank{r}.pt"), weights_only=False)
+            for r in range(PIPE_WORLD)]
+    model = flagship(torch)
+    pairs = _pipe_pairs(torch, PIPE_MICRO)
+    want = [model(a.cuda(), b.cuda(), iters=PIPE_ITERS) for a, b in pairs]
+    seg_len = PIPE_ITERS // PIPE_WORLD
+    paths = {}
+    for r, rec in enumerate(recs):
+        errs = []
+        for (lr, up), (wlr, wup) in zip(rec["flows"], want):
+            e_lr, ok_lr = max_err(torch, lr.cuda(), wlr, **FLOW_LR_TOL)
+            e_up, ok_up = max_err(torch, up.cuda(), wup, **FLOW_UP_TOL)
+            errs.append((e_lr, e_up))
+            check(ok_lr and ok_up, f"pipe (g) rank {r}: flows against one process "
+                                   f"{e_lr:.3e} / {e_up:.3e}")
+        last = r == PIPE_WORLD - 1
+        sched = {"corr_lookup": PIPE_MICRO * seg_len, "corr_lookup_bwd": 0,
+                 "nconv": 4 * PIPE_MICRO if last else 0, "nconv_bwd": 0}
+        second = rec["second"]
+        cp = second["collectives"]["by_op"]["collective-permute"]
+        row = {"card": card, "rank": r, "mesh": rec["mesh"], "backend": rec["backend"],
+               "micro_batches": PIPE_MICRO, "iters": PIPE_ITERS,
+               "max_abs_err_lr_up": [max(e[0] for e in errs), max(e[1] for e in errs)],
+               "launches_first_stream": rec["first"]["launches"],
+               "launches_second_stream": second["launches"], "schedule": sched,
+               "handoffs": cp, "outputs": second["outputs"],
+               "captures": [rec["first"]["captures"], second["captures"]],
+               "second_stream": {k: second[k] for k in ("recompiles", "host_transfers",
+                                                        "sanctioned_gets", "same_buffers",
+                                                        "pairs_per_sec", "timing")},
+               "peak_gib": rec["peak_bytes"] / 2**30,
+               "note": "two ranks time-slice one card beside the train-from-files "
+                       "phase: not a pipeline's speed"}
+        print(f"pipe (g) rank {r}: {json.dumps(row)}", flush=True)
+        check(rec["mesh"] == PIPE_MESH and rec["backend"] == "gloo",
+              f"pipe (g) rank {r}: mesh {rec['mesh']} backend {rec['backend']}")
+        check(second["launches"] == sched, f"pipe (g) rank {r}: launches {second['launches']} "
+                                            f"of the second stream, want {sched}")
+        check(rec["first"]["launches"]["corr_lookup"] >= sched["corr_lookup"]
+              and (rec["first"]["launches"]["nconv"] > 0) == last,
+              f"pipe (g) rank {r}: first stream's launches {rec['first']['launches']}")
+        check(cp == {"count": 0 if last else PIPE_MICRO,
+                     "bytes": 0 if last else PIPE_MICRO * PIPE_CARRY_BYTES},
+              f"pipe (g) rank {r}: hand-offs {cp}")
+        check(second["outputs"]["broadcasts"] == PIPE_MICRO,
+              f"pipe (g) rank {r}: output broadcasts {second['outputs']}")
+        check(rec["first"]["captures"] > 0 and second["captures"] == 0
+              and second["recompiles"] == 0 and second["host_transfers"] == 0
+              and second["same_buffers"],
+              f"pipe (g) rank {r}: second stream {row['second_stream']}, captures "
+              f"{row['captures']}")
+        paths[f"pipe (g) rank {r}"] = {k: rec["first"]["launches"][k]
+                                       + second["launches"][k] for k in sched}
+    print(f"pipe (g): the ranks took {time.perf_counter() - started['t0']:.1f} s from their "
+          f"start, the phase {time.perf_counter() - t0:.1f} s after the PAC phase",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ------------------------------------------------------------- PAC and DJIF
+
+PAC_HEADS = ("pac", "djif")
+PAC_REQUESTS = 4
+PAC_TRAIN_STEPS = 2
+PAC_TRAIN = dict(TRAIN_CFG, batch_size=2)  # 400x720, 12 iterations, remat on
+PAC_TRAIN_WORKER = "--pac_train_worker"
+
+
+def pac_model_config(kind: str, plain: bool = False, **kw):
+    """The flagship's configuration with the ``kind`` head, through the
+    kernels or (``plain``) their plain versions."""
+    from raft_ncup_tpu_torch.config import UpsamplerConfig
+
+    impl = (dict(corr_impl="onthefly", nconv_impl="xla") if plain
+            else dict(corr_impl="pallas", nconv_impl="pallas"))
+    return model_config("raft_nc_dbl", False, upsampler=UpsamplerConfig(kind=kind), **impl,
+                        **kw)
+
+
+def pac_train_worker(outdir: str, argv: list) -> int:
+    """``chip_smoke.py --pac_train_worker OUTDIR``: ``PAC_TRAIN_STEPS`` train
+    steps of the flagship with each head at 400x720, batch 2, 12
+    iterations, remat on, every kernel count set to 0 before each head's
+    steps; writes ``OUTDIR/pac_train.json`` (losses, ms a step, peak bytes,
+    launches, plain-version calls) for :func:`check_pac` to judge."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from raft_ncup_tpu_torch.config import TrainConfig
+    from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
+    from raft_ncup_tpu_torch.training.state import create_train_state
+    from raft_ncup_tpu_torch.training.step import make_train_step
+
+    rows = {}
+    for kind in PAC_HEADS:
+        tcfg = TrainConfig(**PAC_TRAIN)
+        state = create_train_state(pac_model_config(kind, dataset=tcfg.stage), tcfg, "cuda")
+        data = SyntheticFlowDataset(tcfg.image_size, seed=tcfg.seed)
+        batches = [data.batch(i, tcfg.batch_size, "cuda") for i in range(PAC_TRAIN_STEPS)]
+        step = make_train_step(tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, step_ms = [], []
+        with counting_plain_versions() as plain_calls:
+            for batch in batches:
+                t0 = time.perf_counter()
+                metrics = step(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(metrics["loss"]))
+        rows[kind] = {"train": f"batch {tcfg.batch_size} at {tcfg.image_size[0]}x"
+                               f"{tcfg.image_size[1]}, {tcfg.iters} iterations, remat on",
+                      "iters": tcfg.iters, "losses": losses, "step_ms": step_ms,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": read_launches(), "plain_version_calls": dict(plain_calls)}
+        del state, batches
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, "pac_train.json"), "w") as fh:
+        json.dump(rows, fh)
+    return 0
+
+
+def start_pac_train(tmp: str) -> dict:
+    """The PAC and DJIF train steps in a process of their own, started and
+    not waited for (:func:`check_pac` waits); the script starts it beside
+    the train-from-files phase, whose loader leaves the card idle."""
+    return {"t0": time.perf_counter(), "outdir": tmp,
+            "procs": [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                                        PAC_TRAIN_WORKER, tmp], cwd=HERE,
+                                       env=dict(os.environ, PYTHONPATH=HERE),
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)]}
+
+
+def check_pac(torch, card, started: dict) -> dict:
+    """The flagship with each of the PAC and DJIF heads
+    (``--final_upsampling PacJointUpsampleFull | DjifOriginal``): served
+    through the serve entry's ``serve_pairs`` (``PAC_REQUESTS`` requests at
+    436x1024, batch sizes 1 and 2, level 12, graph replays), every answer
+    finite and one against the plain-version forward at the flagship
+    tolerances, kernel A 12 launches a batch and kernel B none; then the
+    ``PAC_TRAIN_STEPS`` train steps of each (``started`` by
+    :func:`start_pac_train`): finite losses, no plain version called, A 24
+    and A' 12 launches a step and no B or B'. Returns each run's launches."""
+    from raft_ncup_tpu_torch.config import ServeConfig
+    from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.ops.padding import InputPadder
+    from raft_ncup_tpu_torch.serve import make_pairs, serve_pairs
+
+    paths, rows = {}, {}
+    none = {"corr_lookup_bwd": 0, "nconv": 0, "nconv_bwd": 0}
+    for kind in PAC_HEADS:
+        model = RAFT(pac_model_config(kind), device="cuda", seed=0)
+        cfg = ServeConfig(batch_sizes=(1, 2), iter_levels=(12,), queue_capacity=16)
+        pairs = make_pairs(SERVE_SIZE, PAC_REQUESTS, seed=0)
+        reset_launches()
+        t0 = time.perf_counter()
+        report, responses = serve_pairs(model, cfg, pairs, SERVE_SIZE)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        serve_s = time.perf_counter() - t0
+        check(report["errors"] == 0 and all(r.ok for r in responses),
+              f"serve {kind}: {[r.detail for r in responses if not r.ok]}")
+        check(all(r.flow.shape == (*SERVE_SIZE, 2)
+                  and bool(torch.isfinite(torch.from_numpy(r.flow)).all()) for r in responses),
+              f"serve {kind}: a flow of the wrong shape or not finite")
+        per_batch = report["corr_kernel_launches"] / report["serve_batches"]
+        check(per_batch == 12 and launches["corr_lookup"] > 0
+              and {k: launches[k] for k in none} == none,
+              f"serve {kind}: launches {launches}, {per_batch} lookups a batch")
+        plain = RAFT(pac_model_config(kind, plain=True), device="cuda", seed=0)
+        plain.load_state_dict(model.state_dict(), strict=True)
+        padder = InputPadder((*SERVE_SIZE, 3), mode="sintel")
+        p1, p2 = padder.pad(*(torch.from_numpy(x)[None].cuda() for x in pairs[0]))
+        lr_p, up_p = plain(p1, p2, iters=12)
+        lr_k, _ = model(p1, p2, iters=12)
+        e_lr, ok_lr = max_err(torch, lr_k, lr_p, **FLOW_LR_TOL)
+        e_up, ok_up = max_err(torch, torch.from_numpy(responses[0].flow).cuda(),
+                              padder.unpad(up_p)[0], **FLOW_UP_TOL)
+        check(ok_lr and ok_up, f"serve {kind}: against the plain versions {e_lr} / {e_up}")
+        paths[f"serve raft_nc_dbl {kind}"] = launches
+        rows[kind] = {"card": card, "head": kind,
+                      "serve_pairs_per_sec": report["serve_pairs_per_sec"],
+                      "serve_p50_ms": report["serve_p50_ms"], "serve_seconds": serve_s,
+                      "serve_launches": launches, "max_abs_err_vs_plain": [e_lr, e_up]}
+        del plain, model
+        torch.cuda.empty_cache()
+    codes, outs = _wait_ranks(started["procs"])
+    check(codes == [0], f"pac: the train worker exited {codes}:\n{outs[0][1][-4000:]}")
+    with open(os.path.join(started["outdir"], "pac_train.json")) as fh:
+        trained = json.load(fh)
+    for kind in PAC_HEADS:
+        t = trained[kind]
+        per_step = {k: v / PAC_TRAIN_STEPS for k, v in t["launches"].items()}
+        want = {"corr_lookup": 2 * t["iters"], "corr_lookup_bwd": t["iters"], "nconv": 0,
+                "nconv_bwd": 0}
+        print(f"pac {kind}: {json.dumps({**rows[kind], **t, 'launches_per_step': per_step})}",
+              flush=True)
+        check(not t["plain_version_calls"], f"train {kind}: plain versions ran: "
+                                            f"{t['plain_version_calls']}")
+        check(all(math.isfinite(x) for x in t["losses"]), f"train {kind}: losses {t['losses']}")
+        check(per_step == want, f"train {kind}: launches a step {per_step}, want {want}")
+        paths[f"train raft_nc_dbl {kind}"] = t["launches"]
+    print(f"pac: the train worker took {time.perf_counter() - started['t0']:.1f} s from its "
+          "start", flush=True)
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -5536,7 +5935,11 @@ def main() -> int:
         check_train_vs_plain(torch, variant, small)
     lap("train")
     # The flagship trained from files through the train entry (loader,
-    # augmentation, device prefetch, validation, checkpoints, chaos).
+    # augmentation, device prefetch, validation, checkpoints, chaos). Beside
+    # it, where the loader leaves the card idle, the PAC and DJIF train
+    # steps and the pipe phase's two ranks, judged later.
+    pac_tmp, g_tmp = tempfile.TemporaryDirectory(), tempfile.TemporaryDirectory()
+    pac_train, g_ranks = start_pac_train(pac_tmp.name), start_pipe(g_tmp.name)
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_train_files(torch, card, tmp,
                                        train[f"median_ms_steps_2_to_{TRAIN_STEPS}"]))
@@ -5573,6 +5976,16 @@ def main() -> int:
     with f_tmp:
         paths.update(check_spatial_train(torch, card, f_tmp.name, f_ranks))
     lap("spatial training")
+    # The PAC and DJIF heads: the flagship with each, served here; their
+    # train steps' records. The pipe axis: the flagship's forward pipelined
+    # over two ranks sharing the card (--mesh 1,1,2), held against one
+    # process; each rank's launches from its own record.
+    with pac_tmp:
+        paths.update(check_pac(torch, card, pac_train))
+    lap("pac")
+    with g_tmp:
+        paths.update(check_pipe(torch, card, g_tmp.name, g_ranks))
+    lap("pipe")
     # The spatial axis: the flagship's whole forward at 1088x1920 and
     # 2176x3840 in one process, then split by rows over two ranks sharing
     # the card (gloo), and sharded evaluation; each rank's launches come
@@ -5703,6 +6116,10 @@ def main() -> int:
             stage: [paths[f"spatial (f) {stage} rank {r}"][name] for r in range(2)]
             for stage in SPATIAL_TRAIN_STAGES}
         k["spatial_train_steps"] = SPATIAL_TRAIN_STEPS
+        k["pipe_launches_per_rank"] = [paths[f"pipe (g) rank {r}"][name]
+                                       for r in range(PIPE_WORLD)]
+        k["pac_launches"] = {f"{run} {kind}": paths[f"{run} raft_nc_dbl {kind}"][name]
+                             for run in ("serve", "train") for kind in PAC_HEADS}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5748,6 +6165,10 @@ if __name__ == "__main__":
         sys.exit(serve_worker(sys.argv[2], sys.argv[3:]))
     if len(sys.argv) > 2 and sys.argv[1] == SPATIAL_TRAIN_WORKER:
         sys.exit(spatial_train_worker(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 2 and sys.argv[1] == PIPE_WORKER:
+        sys.exit(pipe_worker(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 2 and sys.argv[1] == PAC_TRAIN_WORKER:
+        sys.exit(pac_train_worker(sys.argv[2], sys.argv[3:]))
     adopt_orphans()
     try:
         code = main()

@@ -29,8 +29,20 @@ Run from the root of the repository on a machine with four cards:
    and step-1 gradients against the one card's; each rank's ms a step and
    peak bytes.
 
+5. pipelines the flagship's test-mode forward over the pipe axis
+   (``inference/pipe_schedule.PipelinedForward``): f32 at 440x1024, 32
+   iterations, a stream of 16 micro-batches of batch 1 on one card (one
+   stage, the monolithic forward) and over 2 and 4 cards (``--mesh 1,1,S``
+   under NCCL, each rank ``chip_smoke.py --pipe_worker``): each run's
+   pairs/s over the whole second stream (fill and flush included) beside
+   one card's, each rank's device ms per stage program, host ms waiting on
+   hand-offs, hand-offs with their bytes and peak bytes, and every rank's
+   flows against one card's at the flagship's tolerances; the one-card run
+   also times the encode, one iteration and the finalize alone.
+
 ``python3 chip_spatial.py [PART ...]`` runs only the named parts
-(``highres``, ``evaluate``, ``serving``, ``train``; all by default).
+(``highres``, ``evaluate``, ``serving``, ``train``, ``pipe``; all by
+default).
 
 Every rank is a process started with the launcher's environment, so each
 rank's report (its last JSON line) and exit code show. It prints one
@@ -67,7 +79,9 @@ TRAIN_FLAGS = ["--untimed", "--name", "exp", "--model", "raft_nc_dbl", "--stage"
                "--synthetic_ok", "--image_size", "1088", "1920", "--batch_size", "1",
                "--num_steps", "2", "--iters", "12", "--sum_freq", "1", "--num_workers", "2"]
 TRAIN_SPLITS = (1, 2, 4)
-PARTS = ("highres", "evaluate", "serving", "train")
+PIPE_SPLITS = (1, 2, 4)
+PIPE_FLAGS = ["--micro", "16", "--iters", "32"]
+PARTS = ("highres", "evaluate", "serving", "train", "pipe")
 
 
 def _port() -> int:
@@ -267,6 +281,69 @@ def train(torch, tmp: str) -> bool:
     return ok
 
 
+def _summed(timing: dict) -> dict:
+    """A rank's per-program device ms over the stream: sum and median."""
+    out = {}
+    for k, v in timing.items():
+        if isinstance(v, list) and v:
+            out[k] = {"sum": sum(v), "median": sorted(v)[len(v) // 2], "n": len(v)}
+        else:
+            out[k] = v
+    return out
+
+
+def pipe(torch, tmp: str) -> bool:
+    """The pipelined forward on one card and over ``PIPE_SPLITS`` cards:
+    pairs/s of the timed (second) stream beside one card's, each rank's
+    stage programs, waits, hand-offs and peak bytes, and every rank's flows
+    against one card's."""
+    ok, want, one = True, None, None
+    for s in PIPE_SPLITS:
+        out = os.path.join(tmp, f"pipe_{s}")
+        os.makedirs(out)
+        argv = [os.path.join(HERE, "chip_smoke.py"), "--pipe_worker", out, *PIPE_FLAGS,
+                *(["--stage_timing"] if s == 1 else [])]
+        codes, _, errs, secs = ranks(argv, s)
+        row = {"pipe": "one card" if s == 1 else f"--mesh 1,1,{s}", "exits": codes,
+               "seconds": secs}
+        good = codes == [0] * s
+        if good:
+            recs = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                    for r in range(s)]
+            micro = recs[0]["micro"]
+            wall = max(r["second"]["seconds"] for r in recs)
+            row.update(micro_batches=micro, iters=recs[0]["iters"], stream_seconds=wall,
+                       pairs_per_sec=micro / wall, pairs_per_sec_one_card=one)
+            if s == 1:
+                one = row["pairs_per_sec"]
+                row["stage_ms"] = recs[0]["stage_ms"]
+            row["ranks"] = [{"rank": r["rank"], "mesh": r["mesh"], "backend": r["backend"],
+                             "timing": _summed(r["second"]["timing"]),
+                             "handoffs": r["second"]["collectives"]["by_op"][
+                                 "collective-permute"],
+                             "outputs": r["second"]["outputs"],
+                             "launches": r["second"]["launches"],
+                             "captures": [r["first"]["captures"], r["second"]["captures"]],
+                             "host_transfers": r["second"]["host_transfers"],
+                             "same_buffers": r["second"]["same_buffers"],
+                             "peak_bytes": r["peak_bytes"]} for r in recs]
+            if want is None:
+                want = recs[0]["flows"]
+            diffs = [_diff(torch, {"flow_lr": lr, "flow_up": up},
+                           {"flow_lr": wlr, "flow_up": wup})
+                     for r in recs for (lr, up), (wlr, wup) in zip(r["flows"], want)]
+            row["max_abs_diff_vs_one_card"] = {
+                k: max(d[k] for d, _ in diffs) for k in FLOW_TOL}
+            good = all(g for _, g in diffs) and all(
+                r["second"]["captures"] == 0 and r["second"]["host_transfers"] == 0
+                for r in recs)
+        else:
+            row["stderr"] = errs
+        print(f"spatial cards: {json.dumps(row)}", flush=True)
+        ok = ok and good
+    return ok
+
+
 def main() -> int:
     import torch
 
@@ -290,6 +367,8 @@ def main() -> int:
             ok = serving(torch, tmp) and ok
         if "train" in parts:
             ok = train(torch, tmp) and ok
+        if "pipe" in parts:
+            ok = pipe(torch, tmp) and ok
     if "evaluate" in parts:
         ok = evaluation() and ok
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

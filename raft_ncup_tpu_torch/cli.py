@@ -9,7 +9,8 @@ flags included (``--final_upsampling=NConvUpsampler``,
 flag lines parse as they are written. ``--corr_impl`` is left out: the
 port's model always runs the hand-written kernels (``corr_impl="pallas"``,
 ``nconv_impl="pallas"``), on the card kernels A and B and their backward
-kernels. The PAC and DJIF upsamplers raise (ROADMAP.md, queue 1 item 5).
+kernels. ``--final_upsampling PacJointUpsampleFull | DjifOriginal`` selects
+the PAC or DJIF head (``nn/pac.py``), as the JAX CLI does.
 
 The serve entry's serving and streaming knobs (:func:`add_serve_args`,
 :func:`add_stream_args`) take the JAX CLI's names and defaults.
@@ -26,8 +27,11 @@ each training image by rows. The evaluate entry takes ``--mesh D,S``
 (or ``--spatial_parallel S`` for ``1,S``) when D times S is the world
 size: S ranks split each forward by image rows; so does the serve entry
 (``--mesh D,S``, which :func:`serve_config_from_args` and
-:func:`stream_config_from_args` carry into the configurations). Any other
-size, and a pipe size above 1 (``--mesh D,S,P``: item 9b-iv), raise.
+:func:`stream_config_from_args` carry into the configurations). The
+evaluate and serve entries also take ``--mesh 1,1,P`` over P ranks, each
+running the same forward (JAX replicates it over ``pipe``); a pipe size
+beside a data or spatial size above 1 raises (item 9b-v), and the train
+entry refuses a pipe size above 1. Any other size raises.
 """
 
 from __future__ import annotations
@@ -138,10 +142,6 @@ def upsampler_config_from_args(args: argparse.Namespace) -> UpsamplerConfig:
     """The reference's upsampler flags, field by field, as the JAX CLI maps
     them; ``--upsampler_bi`` selects the bilinear upsampler."""
     kind = "bilinear" if args.upsampler_bi else _UPSAMPLER_CLASSES[args.final_upsampling]
-    if kind in ("pac", "djif"):
-        raise NotImplementedError(
-            f"--final_upsampling={args.final_upsampling} is not in the port yet: the PAC "
-            "and DJIF upsamplers land with ROADMAP.md queue 1 item 5")
     return UpsamplerConfig(
         kind=kind,
         scale=args.final_upsampling_scale,
@@ -450,9 +450,12 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
 def train_mesh_axes(args: argparse.Namespace) -> tuple[int, int]:
     """The train entry's ``(data, spatial)`` sizes: ``--mesh`` or
     ``--data_parallel`` and ``--spatial_parallel``, against the world."""
+    from raft_ncup_tpu_torch.parallel.mesh import check_no_pipe
+
     mesh = args.mesh or (args.data_parallel, 1)
     spatial = max(mesh[1], args.spatial_parallel)
-    return check_mesh(mesh[0], spatial, mesh[2] if len(mesh) > 2 else 1), spatial
+    check_no_pipe(mesh[2] if len(mesh) > 2 else 1, "train")
+    return check_mesh(mesh[0], spatial, 1), spatial
 
 
 def parse_train(argv: Optional[Sequence[str]] = None):
@@ -508,11 +511,16 @@ def build_eval_parser() -> argparse.ArgumentParser:
 def parse_eval(argv: Optional[Sequence[str]] = None):
     """``(args, model_cfg, data_cfg)`` of the evaluate entry. The dataset
     decides BatchNorm in NCUP's weights net, as in the JAX CLI. The mesh
-    the flags resolve to is ``args.mesh_axes``, ``(data, spatial)``."""
+    the flags resolve to is ``args.mesh_axes``, ``(data, spatial)``, and
+    ``args.mesh_pipe``, the pipe size."""
+    from raft_ncup_tpu_torch.parallel.mesh import check_replicated_pipe
+
     args = build_eval_parser().parse_args(argv)
     mesh = args.mesh or (None, 1)
     spatial = max(mesh[1], args.spatial_parallel)
-    data = check_mesh(mesh[0], spatial, mesh[2] if len(mesh) > 2 else 1)
-    args.mesh_axes = (data, spatial)
+    pipe = mesh[2] if len(mesh) > 2 else 1
+    check_replicated_pipe(mesh[0] or 1, spatial, pipe)
+    data = check_mesh(mesh[0], spatial, pipe)
+    args.mesh_axes, args.mesh_pipe = (data, spatial), pipe
     dataset = "sintel" if args.dataset.startswith("sintel") else args.dataset
     return args, model_config_from_args(args, dataset=dataset), data_config_from_args(args)

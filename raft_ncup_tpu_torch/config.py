@@ -7,8 +7,8 @@ The port's own copy of ``raft_ncup_tpu/config.py``'s ``UpsamplerConfig``,
 are the JAX package's, so one configuration means the same in both
 packages, with these differences:
 
-- Settings of later slices raise here rather than being ignored: the
-  ``pac`` and ``djif`` upsampler kinds (the PAC slice).
+- ``UpsamplerConfig.kind`` takes the JAX package's four kinds: ``nconv``,
+  ``bilinear`` and the PAC and DJIF heads (``pac``, ``djif``: ``nn/pac.py``).
 - ``ModelConfig.nconv_impl`` carries the normalized-convolution switch
   that the JAX package reads from its ``RAFT_NCUP_NCONV_IMPL`` knob:
   ``"xla"`` (plain composition of two convolutions) or ``"pallas"``
@@ -16,8 +16,8 @@ packages, with these differences:
 - ``ServeConfig.mesh`` and ``StreamConfig.mesh`` size a mesh of
   processes, one per card (``parallel/``), where JAX's size a mesh of
   devices; the rules are JAX's (:func:`_check_mesh_field`), and a pipe
-  size above 1 raises where the mesh is built
-  (``parallel.mesh.check_axes``).
+  size above 1 beside a data or spatial size above 1 raises where the
+  mesh is built (``parallel.mesh.check_replicated_pipe``).
 - ``TrainConfig.data_parallel`` is the data axis across processes, one
   per card (``parallel/``), and must divide the global ``batch_size``;
   ``spatial_parallel`` splits each image's rows over that many processes
@@ -40,7 +40,7 @@ from raft_ncup_tpu_torch.precision import PrecisionPolicy, resolve_policy
 CORR_IMPLS = ("volume", "onthefly", "pallas")
 STAGES = ("chairs", "things", "sintel", "kitti")
 NCONV_IMPLS = ("xla", "pallas")
-UPSAMPLER_KINDS = ("nconv", "bilinear")
+UPSAMPLER_KINDS = ("nconv", "bilinear", "pac", "djif")
 WEIGHTS_EST_NETS = ("simple", "unet", "binary")
 
 
@@ -78,10 +78,6 @@ class UpsamplerConfig:
     weights_est_dilation: tuple[int, ...] = (1, 1, 1)
 
     def __post_init__(self) -> None:
-        if self.kind in ("pac", "djif"):
-            raise NotImplementedError(
-                f"upsampler kind {self.kind!r} lands with the PAC slice of the port"
-            )
         if self.kind not in UPSAMPLER_KINDS:
             raise ValueError(f"unknown upsampler kind: {self.kind!r}")
         if self.weights_est_net not in WEIGHTS_EST_NETS:

@@ -26,8 +26,11 @@ the world size: the S ranks of each data index see the same frames and
 split each forward by image rows (``RAFT.forward(..., mesh=...)``, row
 halos over ``parallel/halo.py``), padded to a multiple of 8 S, eagerly,
 without a CUDA graph; the metric sums reduce over the data indices only.
-A pipe size above 1 raises (ROADMAP.md queue 1 item 9b-iv). Only the main
-process writes submissions and ``--export_pth``.
+``--mesh 1,1,P`` runs the whole evaluation on each of the P pipe ranks
+(JAX replicates the forward over ``pipe``), through its own graphs, with no
+reduction; a pipe size beside a data or spatial size above 1 raises
+(ROADMAP.md queue 1 item 9b-v). Only the main process writes submissions
+and ``--export_pth``.
 
 Examples::
 
@@ -93,7 +96,9 @@ def _evaluate(args, model_cfg, data_cfg, device) -> int:
         return 0
 
     data, spatial = args.mesh_axes
-    mesh = mesh_mod.make_mesh(data, spatial, device=device) if spatial > 1 else None
+    pipe = getattr(args, "mesh_pipe", 1)
+    mesh = (mesh_mod.make_mesh(data, spatial, pipe, device=device)
+            if spatial > 1 or pipe > 1 else None)
     fwd = ShapeCachedForward(model, cache_size=data_cfg.eval_cache_size, mesh=mesh)
     kw = {"fwd": fwd}
     if args.iters is not None:

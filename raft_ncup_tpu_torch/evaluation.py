@@ -112,7 +112,10 @@ def _shard_for_validation(dataset, mesh=None):
 def _reduce(acc: np.ndarray, fwd: ShapeCachedForward) -> np.ndarray:
     """The sums of a sharded pass over the data indices: over the world
     without a spatial axis, over this rank's data group with one (its
-    spatial ranks hold the same sums, which must count once)."""
+    spatial ranks hold the same sums, which must count once); none under a
+    pipe axis, whose ranks each run the whole pass."""
+    if fwd.mesh is not None and fwd.mesh.pipe > 1:
+        return acc
     return allreduce_sum_across_hosts(acc, group=data_group(fwd.mesh))
 
 

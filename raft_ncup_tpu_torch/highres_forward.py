@@ -156,11 +156,12 @@ def run(args, device: torch.device) -> dict:
 
 def mesh_axes(args) -> tuple[int, int]:
     """``(data, spatial)`` of the flags against the world the launcher
-    started: ``--mesh`` and ``--spatial`` as the evaluate entry takes them."""
+    started: ``--mesh`` and ``--spatial`` as the evaluate entry takes them,
+    without a pipe axis (JAX's highres forward has none)."""
     mesh = args.mesh or (None, 1)
     spatial = max(mesh[1], args.spatial)
-    pipe = mesh[2] if len(mesh) > 2 else 1
-    return mesh_mod.check_axes(mesh[0], spatial, pipe, multihost.world_size_hint()), spatial
+    mesh_mod.check_no_pipe(mesh[2] if len(mesh) > 2 else 1, "highres")
+    return mesh_mod.check_axes(mesh[0], spatial, 1, multihost.world_size_hint()), spatial
 
 
 def main(argv=None) -> int:

@@ -31,6 +31,14 @@ Entries are keyed ``"<device type>|<cache key>"``, the cache's own key, so
 a re-warm of a cached key records nothing twice. An early-exit entry is
 three graphs (encode, segment, finalize) and records three keys.
 
+A pipelined forward's stage programs (``inference/pipe_schedule.py``)
+carry ``segments`` in their meta. JAX derives each segment's share of a
+tick that runs all S segments (``flops_per_segment = flops / S``); the
+port's ``pipe_segment`` program is one stage's segment already, so its
+``flops_per_segment`` is its own count, and ``flops_per_tick`` is the S
+stages' segments of one steady-state tick. ``bytes_per_segment`` stays
+None, as ``bytes_accessed`` does.
+
 **MFU** = achieved FLOP/s over the card's peak: :func:`peak_flops` reads
 ``utils/flops.GPU_PEAK_FLOPS`` by the card's name and the preset's compute
 dtype; the CPU takes a nominal per-core figure (``RAFT_TORCH_CPU_PEAK_FLOPS``
@@ -139,6 +147,11 @@ class CostLedger:
             "memory_stats": {"graph_pool_reserved_bytes": int(pool_bytes)},
             "meta": {k: v for k, v in meta.items() if v is not None},
         }
+        segs = entry["meta"].get("segments")
+        if entry["meta"].get("kind") == "pipe_segment" and isinstance(segs, int) and segs > 1:
+            entry["flops_per_segment"] = entry["flops"]
+            entry["flops_per_tick"] = entry["flops"] * segs
+            entry["bytes_per_segment"] = None
         with self._lock:
             self._entries[str(key)] = entry
         return entry
@@ -146,6 +159,17 @@ class CostLedger:
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
+
+    def lookup(self, **meta) -> Optional[dict]:
+        """The first entry whose ``meta`` matches every given item (e.g.
+        ``lookup(kind="pipe_segment", segments=2)``), JAX's lookup."""
+        with self._lock:
+            entries = list(self._entries.values())
+        for e in entries:
+            m = e.get("meta") or {}
+            if all(m.get(k) == v for k, v in meta.items()):
+                return e
+        return None
 
     def snapshot(self) -> dict:
         """JSON-able dump of every entry (tuples as lists), in the JAX

@@ -65,11 +65,14 @@ the forward is split by rows over this rank's spatial group
 (``RAFT.forward(..., mesh=...)``, ``parallel/halo.py``): every rank of the
 group passes the same whole frames and gets the same whole flow; the
 early-exit entry runs its three stages on the rank's band, its flag the
-same on every rank. Under a mesh of more than one process every entry
-runs eagerly, not as a CUDA graph: its halo exchanges and gathers (and a
-stream step's gather over the data axis) are collectives between
-processes, which a graph would have to capture (NCCL point-to-point
-capture: open, ROADMAP.md's held list). Under gloo each one is a
+same on every rank. Under a mesh with a data or spatial axis above 1
+every entry runs eagerly, not as a CUDA graph: its halo exchanges and
+gathers (and a stream step's gather over the data axis) are collectives
+between processes, which a graph would have to capture (NCCL
+point-to-point capture: open, ROADMAP.md's held list). A pipe axis adds
+no collective inside an entry (the pipelined forward's hand-offs sit
+between its stage programs, ``inference/pipe_schedule.py``), so under a
+mesh ``(1, 1, P)`` the entries are CUDA graphs. Under gloo each one is a
 ``guards.collective_read``, a sanctioned read, so a guarded window around
 a sharded forward counts no implicit transfer. The callers split the data
 axis: evaluation shards the frames across the data indices
@@ -604,6 +607,12 @@ class _GraphEntry:
     def __call__(self, *args):
         for dst, src in zip(self.static_in, args):
             dst.copy_(src, non_blocking=True)
+        return self.replay()
+
+    def replay(self):
+        """Replay on what the static inputs hold now (a caller that writes
+        them itself, as the pipe's hand-offs are received into them), and
+        return copies of the static outputs."""
         self.graph.replay()
         _add_launches(self.launches)
         outs = tuple(t.clone() for t in self.static_out)
@@ -625,10 +634,10 @@ class _EarlyExitEntry:
     CUDA graph (:func:`_capture`) and the buffers, allocated before the
     captures and outside the pool, are read and written by address, so
     no graph's pool memory holds state another graph reads. On the CPU
-    and under a mesh of processes the stages run eagerly; with a spatial
-    ``group`` (``halo.SpatialGroup``) each runs on this rank's band under
-    it, the encode taking the band of the whole frames and the finalize
-    gathering the whole flows. ``counters`` gains each call's forwards,
+    and under a data or spatial axis of processes the stages run eagerly;
+    with a spatial ``group`` (``halo.SpatialGroup``) each runs on this
+    rank's band under it, the encode taking the band of the whole frames
+    and the finalize gathering the whole flows. ``counters`` gains each call's forwards,
     replayed segments and flag reads; ``last`` holds the latest call's.
     ``record(stage)`` returns the cost ledger's recorder of one stage: each
     stage's counted run is recorded under a key of its own."""
@@ -681,7 +690,7 @@ class _EarlyExitEntry:
         stages = (("encode", banded(encode), self.static_in), ("segment", banded(segment), ()),
                   ("finalize", banded(finalize), ()))
         if pool is None:
-            # Eager on the card (a mesh of processes): cuDNN's autotuner
+            # Eager on the card (a data or spatial axis of processes): cuDNN's autotuner
             # picks the algorithms, as a capture's would.
             tune = cudnn_autotune() if device.type == "cuda" else (lambda fn: fn)
             self._encode, self._segment, self._finalize = (
@@ -775,7 +784,9 @@ class ShapeCachedForward:
         # The ranks that split each forward by rows; images pad to a
         # multiple of 8 times it.
         self.spatial = mesh.spatial if mesh is not None else 1
-        self.processes = mesh.processes if mesh is not None else 1
+        # Ranks that hold a collective inside an entry (data and spatial; a
+        # pipe axis has none): their entries run eagerly.
+        self.sharded = mesh is not None and mesh.data * mesh.spatial > 1
         self.pad_divisor = pad_divisor(mesh)
         self.policy = resolve_policy(policy) if policy is not None else model.policy
         self.cache_size = max(1, int(cache_size))
@@ -824,8 +835,9 @@ class ShapeCachedForward:
 
     def _pool_for_capture(self):
         """The graphs' shared pool on the card (made at the first capture),
-        None on the CPU and under a mesh of processes (eager entries)."""
-        if self.device.type != "cuda" or self.processes > 1:
+        None on the CPU and under a mesh with a data or spatial axis above 1
+        (eager entries)."""
+        if self.device.type != "cuda" or self.sharded:
             return None
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -877,7 +889,7 @@ class ShapeCachedForward:
         pool = self._pool_for_capture()
         record = self._recorder(key)
         if pool is None and self.device.type == "cuda":
-            # An entry under a mesh of processes runs eagerly: its staged host
+            # An entry under a data or spatial axis of processes runs eagerly: its staged host
             # arguments go to the card first, and cuDNN's autotuner picks the
             # algorithms, as a capture's would.
             eager, device = cudnn_autotune()(fn), self.device
@@ -895,12 +907,19 @@ class ShapeCachedForward:
         the function, called on ``args`` (tensors on the model's device or,
         on the card, staged in pinned host memory: :func:`stage_pinned`),
         captured as a CUDA graph on the card at the key's first use and
-        replayed after, run eagerly on the CPU and under a mesh of
-        processes. The key is namespaced as ``("custom", *key)``; the stream
+        replayed after, run eagerly on the CPU and under a data or spatial
+        axis of processes. The key is namespaced as ``("custom", *key)``; the stream
         engine's step per batch size is one. Returns the function's
         result."""
+        return self.entry(key, build, args)(*args)
+
+    def entry(self, key: tuple, build: Callable, args: tuple):
+        """The entry :meth:`custom` runs, without running it: built on
+        ``args`` at the key's first use (counted as a capture), a hit after.
+        A :class:`_GraphEntry` exposes its static inputs, which a caller may
+        fill itself before :meth:`_GraphEntry.replay`."""
         full = ("custom",) + tuple(key)
-        return self._get(full, lambda: self._graph_or_eager(full, build(), args))(*args)
+        return self._get(full, lambda: self._graph_or_eager(full, build(), args))
 
     def forward(self, image1, image2, iters: int, flow_init=None, policy=None,
                 early_exit_tol: Optional[float] = None):
@@ -985,5 +1004,20 @@ def _ledger_meta(key: tuple) -> dict:
         # ("metrics", img_shape, flow_shape, extras, iters, kind, pad, warm, policy)
         return {"kind": "metrics", "shape": key[1], "iters": key[4], "policy": key[8]}
     if key and key[0] == "custom":
-        return {"kind": "custom", "name": key[1] if len(key) > 1 else None}
+        # The pipelined forward's stage programs (inference/pipe_schedule.py)
+        # carry JAX's structured identity: ("custom", "pipe_encode", shape,
+        # policy) and ("custom", "pipe_segment" | "pipe_finalize", shape,
+        # iters, segments, policy), each with an optional ("earlyexit", tol).
+        meta = None
+        if len(key) >= 6 and key[1] in ("pipe_segment", "pipe_finalize"):
+            meta = {"kind": key[1], "shape": key[2], "iters": key[3], "segments": key[4],
+                    "policy": key[5]}
+        elif len(key) >= 4 and key[1] == "pipe_encode":
+            meta = {"kind": "pipe_encode", "shape": key[2], "policy": key[3]}
+        if meta is None:
+            return {"kind": "custom", "name": key[1] if len(key) > 1 else None}
+        for part in key[4:]:
+            if isinstance(part, tuple) and len(part) == 2 and part[0] == "earlyexit":
+                meta["earlyexit_tol"] = part[1]
+        return meta
     return {}

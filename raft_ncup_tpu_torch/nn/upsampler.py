@@ -1,5 +1,6 @@
 """Final flow upsamplers (port of ``raft_ncup_tpu/nn/upsampler.py``'s
-``NConvUpsampler``, ``BilinearUpsampler`` and ``build_upsampler``), NCHW.
+``NConvUpsampler``, ``BilinearUpsampler`` and ``build_upsampler``, whose
+``pac`` and ``djif`` kinds build the heads of ``nn/pac.py``), NCHW.
 
 NCUP forward (shipped config: scale 4, data used for guidance, channels
 folded into the batch, estimation at low resolution, no residuals):
@@ -135,8 +136,8 @@ def build_upsampler(
     guidance_ch: int = 128,
 ) -> nn.Module:
     """Upsampler factory. BatchNorm in the simple weights-estimation net
-    is on iff the model is configured for Sintel. ``UpsamplerConfig``
-    refuses the PAC and DJIF kinds, a later slice."""
+    is on iff the model is configured for Sintel; the ``pac`` and ``djif``
+    kinds are the heads of ``nn/pac.py``."""
     if cfg.kind == "nconv":
         return NConvUpsampler(
             cfg, guidance_ch=guidance_ch, use_bn=(dataset == "sintel"),
@@ -144,4 +145,8 @@ def build_upsampler(
         )
     if cfg.kind == "bilinear":
         return BilinearUpsampler(cfg)
+    if cfg.kind in ("pac", "djif"):
+        from raft_ncup_tpu_torch.nn.pac import build_pac_upsampler
+
+        return build_pac_upsampler(cfg, guidance_ch=guidance_ch)
     raise ValueError(f"unknown upsampler kind: {cfg.kind!r}")

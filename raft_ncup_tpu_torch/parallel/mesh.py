@@ -1,12 +1,12 @@
-"""The mesh of the port: the data and spatial axes over processes (port
-of ``raft_ncup_tpu/parallel/mesh.py``).
+"""The mesh of the port: the data, spatial and pipe axes over processes
+(port of ``raft_ncup_tpu/parallel/mesh.py``).
 
 JAX's mesh is a grid of devices with axes ``data``, ``spatial`` and
 ``pipe``, and XLA partitions one program over it. The port's mesh
 describes the process world instead, one process per card, as a
-``(data, spatial)`` grid with spatial fastest: rank ``d * S + s`` is data
-index ``d`` and spatial index ``s``, JAX's device order
-(``np.asarray(devices).reshape(data, spatial)``).
+``(data, spatial, pipe)`` grid with pipe fastest: rank ``(d * S + s) * P +
+p`` is data index ``d``, spatial index ``s`` and pipe index ``p``, JAX's
+device order (``np.asarray(devices).reshape(data, spatial, pipe)``).
 
 - ``data``: each data index runs the whole model on its rows of the
   global batch, with the gradients, the loss and the metrics reduced
@@ -19,13 +19,21 @@ index ``d`` and spatial index ``s``, JAX's device order
   (``parallel/halo.py``). Evaluation, the highres entry, the server, the
   stream engine and the fleet's slots run the test-mode forward so (the
   served paths in lockstep, ``parallel/lockstep.py``), training the
-  train-mode forward and its backward (``training/step.py``). A pipe axis
-  above 1 raises everywhere (ROADMAP.md queue 1 item 9b-iv).
+  train-mode forward and its backward (``training/step.py``).
+- ``pipe``: the ranks of the pipe group split the refinement iterations
+  into contiguous segments and stream micro-batches through them
+  (``inference/pipe_schedule.PipelinedForward``, JAX's v1 rule: data and
+  spatial of 1). The server and evaluation take ``(1, 1, P)`` and run the
+  same forward on every pipe rank, as JAX replicates it over ``pipe``; a
+  pipe axis beside a data or spatial axis above 1 raises there
+  (:data:`ITEM_9B_V`), and the train and highres entries have no pipe axis
+  (JAX has none there).
 
 :func:`make_mesh` builds the process subgroups at once, on every rank in
 the same order: one per data index (its spatial ranks, for the halos and
-gathers, :func:`spatial_group`) and one per spatial index (its data ranks,
-for the metric sums, :func:`data_group`).
+gathers, :func:`spatial_group`), one per spatial index (its data ranks,
+for the metric sums, :func:`data_group`) and the pipe group
+(:func:`pipe_group`).
 
 A data index holds the global batch's rows ``d::data`` (:func:`batch_sharding`):
 the loader's shard of an epoch is every ``data``-th index, so the union of
@@ -35,9 +43,10 @@ noise and dropout draws of the global shape take the same rows, so a
 sample gets the draws it gets in one process.
 
 :func:`mesh_fingerprint` gives JAX's strings (``nomesh``,
-``mesh(data=1,spatial=2:gpu)``), and :func:`collective_stats` counts the
-collectives this process issued in JAX's format, from the counters of
-``multihost.all_reduce_`` and ``halo`` (the port has no HLO to parse).
+``mesh(data=1,spatial=2:gpu)``, ``mesh(data=1,spatial=1,pipe=2:gpu)``), and
+:func:`collective_stats` counts the collectives this process issued in
+JAX's format, from the counters of ``multihost.all_reduce_``, ``halo`` and
+the pipe's hand-offs (the port has no HLO to parse).
 """
 
 from __future__ import annotations
@@ -49,9 +58,9 @@ import torch
 
 from raft_ncup_tpu_torch.parallel import multihost
 
-# The part of ROADMAP.md queue 1 item 9b still to come, named by the
-# refusal.
-ITEM_9B_PIPE = "ROADMAP.md, queue 1 item 9b-iv (the pipe axis)"
+# What the served and evaluated paths refuse: a pipe axis beside a data or
+# spatial axis above 1 (JAX replicates the (data, spatial) work over pipe).
+ITEM_9B_V = "ROADMAP.md, queue 1 item 9b-v (a pipe axis beside a data or spatial axis)"
 _COLLECTIVE_OPS = (
     "all-gather",
     "all-reduce",
@@ -63,63 +72,88 @@ _COLLECTIVE_OPS = (
 
 @dataclass(frozen=True)
 class Mesh:
-    """``data`` x ``spatial`` processes, this one ``rank``, on ``platform``
-    (``gpu`` or ``cpu``, JAX's platform names)."""
+    """``data`` x ``spatial`` x ``pipe`` processes, this one ``rank``, on
+    ``platform`` (``gpu`` or ``cpu``, JAX's platform names). ``shape``
+    names ``pipe`` only above 1, as JAX's mesh does."""
 
     data: int
     rank: int
     platform: str
     spatial: int = 1
+    pipe: int = 1
 
     @property
     def shape(self) -> dict:
-        return {"data": self.data, "spatial": self.spatial}
+        axes = {"data": self.data, "spatial": self.spatial}
+        if self.pipe > 1:
+            axes["pipe"] = self.pipe
+        return axes
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.spatial
+        return self.rank // (self.spatial * self.pipe)
 
     @property
     def spatial_index(self) -> int:
-        return self.rank % self.spatial
+        return (self.rank // self.pipe) % self.spatial
+
+    @property
+    def pipe_index(self) -> int:
+        return self.rank % self.pipe
 
     @property
     def processes(self) -> int:
-        return self.data * self.spatial
+        return self.data * self.spatial * self.pipe
 
 
 def check_axes(data: Optional[int] = None, spatial: int = 1, pipe: int = 1,
                world: Optional[int] = None) -> Optional[int]:
     """The port's mesh rule, which the mesh, the CLI and the train
-    configuration all apply: every size is at least 1; a pipe axis above
-    1 raises (not in the port yet); with ``world`` given, ``data`` (None:
-    the world over ``spatial``) times ``spatial`` must equal it. Returns
-    the data size."""
+    configuration all apply: every size is at least 1; with ``world``
+    given, ``data`` (None: the world over ``spatial`` times ``pipe``) times
+    ``spatial`` times ``pipe`` must equal it. Returns the data size."""
     if min(int(spatial), int(pipe), 1 if data is None else int(data)) < 1:
         raise ValueError(f"mesh axes must be >= 1, got data={data} spatial={spatial} "
                          f"pipe={pipe}")
-    if int(pipe) > 1:
-        raise ValueError(
-            f"the multi-GPU pipe axis ({pipe}) is not in the port yet, only the data and "
-            f"spatial axes across processes are: {ITEM_9B_PIPE} brings it")
     if world is None:
         return data
-    spatial = int(spatial)
-    data = world // spatial if data is None else int(data)
-    if data * spatial != world:
+    spatial, pipe = int(spatial), int(pipe)
+    data = world // (spatial * pipe) if data is None else int(data)
+    if data * spatial * pipe != world:
+        names = f"spatial size {spatial}" + (f" times pipe size {pipe}" if pipe > 1 else "")
         raise ValueError(
-            f"mesh data size (--data_parallel / --mesh) {data} times spatial size "
-            f"{spatial} must equal the world size {world}: the port's multi-GPU mesh is one "
-            f"process per card (ROADMAP.md, queue 1 items 9a and 9b), started by the launcher "
-            f"(torchrun --nproc_per_node {data * spatial} -m raft_ncup_tpu_torch.evaluate "
-            "...)")
+            f"mesh data size (--data_parallel / --mesh) {data} times {names} must equal the "
+            f"world size {world}: the port's multi-GPU mesh is one process per card "
+            f"(ROADMAP.md, queue 1 items 9a and 9b), started by the launcher (torchrun "
+            f"--nproc_per_node {data * spatial * pipe} -m raft_ncup_tpu_torch.evaluate ...)")
     return data
 
 
+def check_replicated_pipe(data: int, spatial: int, pipe: int) -> None:
+    """The served and evaluated paths' rule: a pipe axis above 1 runs the
+    same forward on every pipe rank, beside a data and a spatial axis of 1
+    only (JAX replicates the ``(data, spatial)`` work over ``pipe``, which
+    the port's mesh of processes does not yet)."""
+    if int(pipe) > 1 and (int(data) > 1 or int(spatial) > 1):
+        raise ValueError(
+            f"a pipe axis ({pipe}) beside data={data} spatial={spatial} is not in the port "
+            f"yet; the served and evaluated paths take (1, 1, P): {ITEM_9B_V}")
+
+
+def check_no_pipe(pipe: int, entry: str) -> None:
+    """The train and highres entries have no pipe axis (nor has JAX)."""
+    if int(pipe) > 1:
+        raise ValueError(f"the {entry} entry has no pipe axis (got pipe={pipe}); the pipe "
+                         "axis runs the pipelined test-mode forward "
+                         "(inference/pipe_schedule.PipelinedForward), the server and "
+                         "evaluation")
+
+
 # Process subgroups by (data, spatial): (one per data index, one per
-# spatial index). ``torch.distributed.new_group`` is collective, so every
-# rank builds all of them once, in the same order.
+# spatial index); the pipe groups by (data, spatial, pipe). ``torch.distributed.new_group``
+# is collective, so every rank builds all of them once, in the same order.
 _GROUPS: dict = {}
+_PIPE_GROUPS: dict = {}
 
 
 def _subgroups(data: int, spatial: int) -> tuple:
@@ -148,10 +182,29 @@ def make_mesh(
         platform = "gpu" if torch.cuda.is_available() else "cpu"
     else:
         platform = "gpu" if torch.device(device).type == "cuda" else "cpu"
-    if int(spatial) > 1:
+    if int(spatial) > 1 and int(pipe) == 1:
         _subgroups(data, int(spatial))
-    return Mesh(data=data, rank=multihost.process_index(), platform=platform,
-                spatial=int(spatial))
+    mesh = Mesh(data=data, rank=multihost.process_index(), platform=platform,
+                spatial=int(spatial), pipe=int(pipe))
+    if mesh.pipe > 1:
+        pipe_group(mesh)
+    return mesh
+
+
+def pipe_group(mesh: Optional[Mesh]):
+    """The process group of ``mesh.rank``'s pipe axis (the ``pipe`` ranks
+    of its data and spatial index, in pipe order), or None without a pipe
+    axis above 1. Every rank builds all of them once, in the same order."""
+    if mesh is None or mesh.pipe <= 1:
+        return None
+    if not multihost.initialized():
+        raise RuntimeError(f"a mesh with pipe={mesh.pipe} needs the process world joined "
+                           "(parallel.multihost.initialize_distributed)")
+    key, P = (mesh.data, mesh.spatial, mesh.pipe), mesh.pipe
+    if key not in _PIPE_GROUPS:
+        _PIPE_GROUPS[key] = [multihost._dist().new_group(list(range(g * P, (g + 1) * P)))
+                             for g in range(mesh.data * mesh.spatial)]
+    return _PIPE_GROUPS[key][mesh.rank // P]
 
 
 def spatial_group(mesh: Optional[Mesh]):
@@ -161,6 +214,8 @@ def spatial_group(mesh: Optional[Mesh]):
 
     if mesh is None or mesh.spatial <= 1:
         return None
+    if mesh.pipe > 1:
+        raise ValueError(f"a spatial group beside pipe={mesh.pipe}: {ITEM_9B_V}")
     by_data, _ = _subgroups(mesh.data, mesh.spatial)
     if by_data is None:
         raise RuntimeError(f"a mesh with spatial={mesh.spatial} needs the process world "
@@ -183,18 +238,25 @@ def data_group(mesh: Optional[Mesh]):
 def resolve_config_mesh(mesh: Optional[Mesh], cfg_mesh, device=None) -> tuple:
     """JAX's resolution rule: an explicit ``mesh`` wins, else a config's
     ``(data, spatial[, pipe])`` sizes build one (:func:`make_mesh`, its
-    platform ``device``'s), else none. Returns ``(mesh or None, pad
-    divisor)``, the divisor ``8 * spatial``."""
+    platform ``device``'s), else none; a pipe axis beside a data or spatial
+    axis above 1 raises (:func:`check_replicated_pipe`: the served paths
+    take ``(1, 1, P)``). Returns ``(mesh or None, pad divisor)``, the
+    divisor ``8 * spatial``."""
     if mesh is None and cfg_mesh is not None:
-        mesh = make_mesh(data=int(cfg_mesh[0]), spatial=int(cfg_mesh[1]),
-                         pipe=int(cfg_mesh[2]) if len(cfg_mesh) > 2 else 1, device=device)
+        pipe = int(cfg_mesh[2]) if len(cfg_mesh) > 2 else 1
+        check_replicated_pipe(int(cfg_mesh[0]), int(cfg_mesh[1]), pipe)
+        mesh = make_mesh(data=int(cfg_mesh[0]), spatial=int(cfg_mesh[1]), pipe=pipe,
+                         device=device)
+    if mesh is not None:
+        check_replicated_pipe(mesh.data, mesh.spatial, mesh.pipe)
     spatial = int(mesh.shape.get("spatial", 1)) if mesh is not None else 1
     return mesh, 8 * spatial
 
 
 def mesh_fingerprint(mesh: Optional[Mesh]) -> str:
-    """JAX's identity string of a mesh: ``nomesh``, or
-    ``mesh(data=N,spatial=1:gpu)``."""
+    """JAX's identity string of a mesh: ``nomesh``,
+    ``mesh(data=N,spatial=1:gpu)``, or ``mesh(data=1,spatial=1,pipe=S:gpu)``
+    with a pipe axis above 1."""
     if mesh is None:
         return "nomesh"
     axes = ",".join(f"{k}={v}" for k, v in mesh.shape.items())

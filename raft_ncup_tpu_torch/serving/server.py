@@ -37,7 +37,10 @@ for its own batch, with the same answers.
 
 **The mesh** (``mesh=``, else ``ServeConfig.mesh`` through
 ``parallel.mesh.resolve_config_mesh``): a ``(data, spatial)`` mesh of
-processes, one per card, serves as one server. Pads round up to ``8 *
+processes, one per card, serves as one server; so does ``(1, 1, P)``, whose
+P pipe ranks each run the same forward (JAX replicates it over ``pipe``)
+as CUDA graphs, and whose iteration levels must land on segment
+boundaries (the budget's ``segments=P``, checked at construction). Pads round up to ``8 *
 spatial``. Every rank builds the server with the same configuration; rank
 0, the leader, admits, batches, times out and delivers, and broadcasts
 each dispatch (``parallel/lockstep.py``: the batch's iterations, early-exit
@@ -154,6 +157,17 @@ class FlowServer:
         self.stats = ServeStats(telemetry=self._tel)
         self.health = self._tel.health("serve", fresh=True)
         self.mesh, self._pad_divisor = resolve_config_mesh(mesh, self.cfg.mesh, self.device)
+        # Under a pipe axis every level must land on a segment boundary
+        # (inference/pipe_schedule.py): a mismatch raises here, at
+        # construction, as JAX's server does.
+        self.budget = IterationBudgetController(
+            self.cfg.iter_levels,
+            capacity=self.cfg.queue_capacity,
+            high_water=self.cfg.high_water,
+            low_water=self.cfg.low_water,
+            recover_patience=self.cfg.recover_patience,
+            segments=self.mesh.pipe if self.mesh is not None else 1,
+        )
         self._owns_group = lockstep is None and self.mesh is not None \
             and self.mesh.processes > 1
         self._group = Lockstep(self.mesh, self.device) if self._owns_group else lockstep
@@ -167,13 +181,6 @@ class FlowServer:
         self._clock = clock
         self._queue = AdmissionQueue(self.cfg.queue_capacity, telemetry=self._tel,
                                      name="serve")
-        self.budget = IterationBudgetController(
-            self.cfg.iter_levels,
-            capacity=self.cfg.queue_capacity,
-            high_water=self.cfg.high_water,
-            low_water=self.cfg.low_water,
-            recover_patience=self.cfg.recover_patience,
-        )
         self._throttle = DispatchThrottle(self.cfg.inflight)
         self._drainer = AsyncDrain(depth=self.cfg.drain_depth)
         self._handles: dict[int, ServeHandle] = {}

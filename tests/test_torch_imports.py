@@ -50,6 +50,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     assert {os.path.join("parallel", n) for n in ("__init__.py", "mesh.py", "multihost.py")
             } <= scanned
     assert {os.path.join("io", n) for n in ("codecs.py", "codec_build.py")} <= scanned
+    assert {os.path.join("inference", "pipe_schedule.py"), os.path.join("nn", "pac.py"),
+            os.path.join("ops", "pac.py")} <= scanned
     bad = {
         os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
         for f in files
@@ -64,7 +66,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
      "raft_ncup_tpu_torch.streaming", "raft_ncup_tpu_torch.observability",
      "raft_ncup_tpu_torch.analysis", "raft_ncup_tpu_torch.parallel",
      "raft_ncup_tpu_torch.io.codecs", "raft_ncup_tpu_torch.synth_convergence",
-     "raft_ncup_tpu_torch.ncup_vs_bilinear"],
+     "raft_ncup_tpu_torch.ncup_vs_bilinear", "raft_ncup_tpu_torch.inference.pipe_schedule",
+     "raft_ncup_tpu_torch.nn.pac"],
 )
 def test_fresh_import_loads_no_jax(module):
     code = (

@@ -193,9 +193,8 @@ def test_unported_configurations_raise():
         assert model.fnet.conv1.weight.dtype == torch.float32
     with pytest.raises(ValueError, match="unknown precision preset"):
         flagship_config(precision="fp8")
-    for kind in ("pac", "djif"):
-        with pytest.raises(NotImplementedError, match="PAC slice"):
-            UpsamplerConfig(kind=kind)
+    for kind in ("pac", "djif"):  # the port's since the PAC slice (nn/pac.py)
+        assert UpsamplerConfig(kind=kind).kind == kind
     for knob in ({"dropout": 0.1}, {"freeze_raft": True}):
         assert RAFT(flagship_config(**knob), device="cpu").cfg == flagship_config(**knob)
     with pytest.raises(ValueError, match="dropout"):

@@ -61,10 +61,12 @@ def test_one_process_mesh_and_fingerprints_are_jaxs():
 @pytest.mark.parametrize("kw,match", [
     (dict(spatial=2), "times spatial size 2 must equal the world size 1"),
     (dict(data=1, spatial=2), "times spatial size 2 must equal the world size 1"),
-    (dict(pipe=2), "item 9b-iv"), (dict(data=1, spatial=2, pipe=4), "item 9b-iv")])
+    (dict(pipe=2), "times spatial size 1 times pipe size 2 must equal the world size 1"),
+    (dict(data=1, spatial=2, pipe=4),
+     "times spatial size 2 times pipe size 4 must equal the world size 1")])
 def test_make_mesh_refuses_the_later_axes(kw, match):
-    # A spatial axis is one process per card: a world of one has none; the
-    # pipe axis is a later part of item 9b.
+    # A spatial or pipe axis is one process per card: a world of one has
+    # neither (tests/test_torch_pipe_axis.py builds pipe meshes in worlds).
     with pytest.raises(ValueError, match=match):
         mesh_mod.make_mesh(**kw)
 
@@ -91,8 +93,10 @@ def test_check_axes_takes_the_spatial_axis_against_the_world():
     for data, spatial, world in ((2, 2, 2), (1, 2, 4), (None, 3, 4)):
         with pytest.raises(ValueError, match=f"must equal the world size {world}"):
             mesh_mod.check_axes(data, spatial, 1, world=world)
-    with pytest.raises(ValueError, match="item 9b-iv"):
-        mesh_mod.check_axes(1, 1, 2, world=2)
+    # The pipe axis is accepted against the world, as JAX's make_mesh(1, 1, P).
+    assert mesh_mod.check_axes(1, 1, 2, world=2) == 1
+    with pytest.raises(ValueError, match="times pipe size 2 must equal the world size 4"):
+        mesh_mod.check_axes(1, 1, 2, world=4)
 
 
 def test_make_mesh_data_must_be_the_world():
@@ -151,6 +155,9 @@ def test_cli_mesh_flags_follow_the_world(launched_world):
     assert cli.parse_train(base + ["--data_parallel", "2"])[2].data_parallel == 2
     with pytest.raises(ValueError, match="world size 2"):
         cli.parse_train(base + ["--data_parallel", "3"])
+    # The train entry has no pipe axis (nor has JAX's trainer).
+    with pytest.raises(ValueError, match="the train entry has no pipe axis"):
+        cli.parse_train(base + ["--mesh", "1,1,2"])
     with pytest.raises(ValueError, match="not divisible by --data_parallel 4"):
         launched_world(4)
         cli.parse_train(base)
@@ -167,7 +174,7 @@ def test_eval_mesh_flag_is_jaxs_spec_and_follows_the_world(launched_world):
     args = ["--dataset", "sintel", "--device", "cpu"]
     assert cli.parse_eval(args + ["--mesh", "1,1"])[0].mesh == (1, 1)
     for bad, match in ((["--mesh", "2,1"], "world size 1"), (["--mesh", "1,2"], "world size 1"),
-                       (["--mesh", "1,1,2"], "item 9b-iv"),
+                       (["--mesh", "1,1,2"], "times pipe size 2 must equal the world size 1"),
                        (["--spatial_parallel", "2"], "world size 1")):
         with pytest.raises(ValueError, match=match):
             cli.parse_eval(args + bad)
@@ -176,9 +183,16 @@ def test_eval_mesh_flag_is_jaxs_spec_and_follows_the_world(launched_world):
     # Two ranks split each forward by rows: --mesh 1,2, or its shorthand.
     assert cli.parse_eval(args + ["--mesh", "1,2"])[0].mesh_axes == (1, 2)
     assert cli.parse_eval(args + ["--spatial_parallel", "2"])[0].mesh_axes == (1, 2)
-    for bad, match in ((["--mesh", "2,2"], "world size 2"), (["--mesh", "1,2,2"], "9b-iv")):
+    for bad, match in ((["--mesh", "2,2"], "world size 2"), (["--mesh", "1,2,2"], "item 9b-v")):
         with pytest.raises(ValueError, match=match):
             cli.parse_eval(args + bad)
+    # A pipe axis over the world: each rank evaluates the whole set (JAX
+    # replicates the forward over pipe); beside a spatial axis it raises.
+    parsed = cli.parse_eval(args + ["--mesh", "1,1,2"])[0]
+    assert (parsed.mesh_axes, parsed.mesh_pipe) == ((1, 1), 2)
+    launched_world(4, rank=1)
+    with pytest.raises(ValueError, match="item 9b-v"):
+        cli.parse_eval(args + ["--mesh", "1,2,2"])
 
 
 def test_highres_mesh_flags_follow_the_world(launched_world):
@@ -189,7 +203,7 @@ def test_highres_mesh_flags_follow_the_world(launched_world):
 
     assert axes([]) == (1, 1)
     for bad, match in ((["--spatial", "2"], "world size 1"), (["--mesh", "1,2"], "world size 1"),
-                       (["--mesh", "1,1,2"], "item 9b-iv")):
+                       (["--mesh", "1,1,2"], "the highres entry has no pipe axis")):
         with pytest.raises(ValueError, match=match):
             axes(bad)
     launched_world(2)

@@ -309,8 +309,16 @@ def test_config_rejects_a_malformed_mesh(mesh):
 
 
 def test_a_pipe_axis_still_refuses():
-    with pytest.raises(ValueError, match="item 9b-iv"):
-        FlowServer(RAFT(child.model_cfg("raft"), device="cpu"), ServeConfig(mesh=(1, 1, 2)))
+    # A pipe axis is the server's since the pipe slice, over (1, 1, P) only
+    # (tests/test_torch_pipe_axis.py serves one): beside a spatial or data
+    # axis it raises, naming item 9b-v; alone in a world of one it is a
+    # size the world does not have.
+    model = RAFT(child.model_cfg("raft"), device="cpu")
+    for mesh in ((1, 2, 2), (2, 1, 2)):
+        with pytest.raises(ValueError, match="item 9b-v"):
+            FlowServer(model, ServeConfig(mesh=mesh, batch_sizes=(2,)))
+    with pytest.raises(ValueError, match="times pipe size 2 must equal the world size 1"):
+        FlowServer(model, ServeConfig(mesh=(1, 1, 2)))
 
 
 # ------------------------------------------------------- the serve entry

@@ -227,9 +227,9 @@ def test_model_flag_defaults_match_jax():
     got, want = vars(ours.parse_args([])), vars(ref.parse_args([]))
     assert got == {k: v for k, v in want.items() if k != "corr_impl"}
     assert got["model"] == "raft"
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        cli.model_config_from_args(ours.parse_args(["--final_upsampling=DjifOriginal"]),
-                                   "sintel")
+    # The PAC and DJIF heads are the port's since the PAC slice.
+    assert cli.model_config_from_args(ours.parse_args(["--final_upsampling=DjifOriginal"]),
+                                      "sintel").upsampler.kind == "djif"
     with pytest.raises(ValueError, match="ROADMAP"):
         cli.parse_train(["--stage", "things", "--data_parallel", "2"])
     # --strict_guards is the port's since its runtime-guards slice.
