@@ -271,11 +271,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     in healthz, 4 pairs against the same answers, ``stop()`` with both
     ranks exiting 75, each rank's launches, and no ``--replica_socket``
     process left;
+19b. serves over a pipe axis beside a data or spatial axis (``mixed
+    (h)``, item 9b-v): one world of four gloo ranks sharing the card (each
+    this script's ``--mixed_worker``, started beside phase 12) runs the
+    serve entry three times: the flagship f32 at 436x1024 (448 rows, a pad
+    bucket of 16), batch size 2, levels 12 and 6, a burst of 8 requests,
+    over ``--mesh 1,2,2`` and then ``--mesh 2,1,2``, and 2 streams of 2
+    frames over ``--mesh 2,1,2``. Every rank records each forward it ran;
+    every pipe index's answers (cut from its forwards as the leader's
+    are) within the flagship's flow_up tolerance of this process's
+    one-process server at the level each request got, the stream's
+    answers against the one-process engine's, the largest difference
+    between the pipe indices of a place printed; each rank's mesh,
+    lockstep operations, collectives and launches (B 4 a batch, A the
+    batch's level; the same on all four ranks);
 20. prints each phase's seconds (``phase NAME: S s``, then a ``phases:``
     line), one JSON line describing the kernels (with each kernel's
     launches per rank on the data-parallel, spatial, spatial serving,
-    spatial training and pipe paths and on the PAC and DJIF runs), the
-    card's name and power limit, and, last, the JSON result line.
+    spatial training, pipe and mixed-mesh paths and on the PAC and DJIF
+    runs), the card's name and power limit, and, last, the JSON result
+    line.
 
 Any failed check exits non-zero before the last line. With no CUDA
 device it exits non-zero at once; it never falls back to the CPU.
@@ -517,7 +532,8 @@ def check_codecs(card) -> dict:
     """The host image decoders (``csrc/webp_decode.cpp``,
     ``csrc/jpeg_decode.cpp``): every committed fixture of
     ``tests/data/codecs`` decoded through ``read_image``, its RGB bytes'
-    sha256 against the manifest's digest of Pillow's decode; then the
+    sha256 against the manifest's digest of Pillow's decode, and every
+    fixture of a form Pillow refuses raising ``ValueError``; then the
     decode ms per 540x960 lossy frame with 1 thread (each call timed) and
     with 4 threads (wall over frames: throughput), on the host."""
     import concurrent.futures
@@ -535,6 +551,13 @@ def check_codecs(card) -> dict:
         if digest != entry["sha256_rgb"] or list(img.shape) != entry["shape"]:
             bad.append(name)
     check(not bad, f"codecs: decodes differ from Pillow's (manifest digests): {bad}")
+    for name in sorted(manifest["refused_by_pillow"]):
+        try:
+            flow_io.read_image(os.path.join(CODEC_FIXTURES, name))
+            bad.append(name)
+        except ValueError:
+            pass
+    check(not bad, f"codecs: forms Pillow refuses decoded: {bad}")
     frames = [open(os.path.join(CODEC_FIXTURES, f"frame_540x960_{i}.webp"), "rb").read()
               for i in range(4)]
     for data in frames:
@@ -551,6 +574,7 @@ def check_codecs(card) -> dict:
         list(pool.map(decode_webp, work))
         wall4 = time.perf_counter() - t0
     row = {"card": card, "fixtures": len(manifest["files"]), "digests_equal": True,
+           "refused_raise": len(manifest["refused_by_pillow"]),
            "pillow_versions": manifest["versions"],
            "frame_bytes": [len(d) for d in frames],
            "webp_540x960_ms_1_thread_median": statistics.median(one),
@@ -5111,6 +5135,278 @@ def check_spatial_serving(torch, card: str, tmp: str) -> dict:
     return paths
 
 
+# ----------------------------------------------------------- mixed mesh (h)
+# A pipe axis beside a data or spatial axis (parallel/mesh.py): each pipe
+# index runs the (data, spatial) forward on the same batch, as JAX
+# replicates it over pipe. Four gloo ranks share the card; the serve entry
+# runs three times in their one world.
+MIXED_WORKER = "--mixed_worker"
+MIXED_WORLD = 4
+MIXED_REQUESTS = 8
+MIXED_BUCKET = 16  # 436 rows pad to 448 under either mesh and in one process
+MIXED_LEVELS = (12, 6)  # segment boundaries of the pipe axis of 2
+MIXED_SERVE_ARGS = ["--model", "raft_nc_dbl", "--size", str(SERVE_SIZE[0]), str(SERVE_SIZE[1]),
+                    "--seed", "0", "--serve_batch_sizes", "2", "--iter_levels",
+                    ",".join(map(str, MIXED_LEVELS)), "--num_requests", str(MIXED_REQUESTS),
+                    "--burst_size", str(MIXED_REQUESTS), "--queue_capacity", "16",
+                    "--serve_pad_bucket", str(MIXED_BUCKET), "--flight_dir", "", *DP_CARD]
+MIXED_STREAM_ITERS = 12
+MIXED_STREAM_ARGS = ["--stream", "--n_streams", "2", "--frames_per_stream", "2",
+                     "--stream_iters", str(MIXED_STREAM_ITERS), "--stream_batch_sizes", "2",
+                     "--stream_capacity", "4", "--stream_pad_bucket", str(MIXED_BUCKET)]
+MIXED_RUNS = {  # in this order, in one world
+    "serve 1,2,2": [*MIXED_SERVE_ARGS, "--mesh", "1,2,2"],
+    "serve 2,1,2": [*MIXED_SERVE_ARGS, "--mesh", "2,1,2"],
+    "stream 2,1,2": [*MIXED_SERVE_ARGS, *MIXED_STREAM_ARGS, "--mesh", "2,1,2"],
+}
+MIXED_MESHES = {"1,2,2": "mesh(data=1,spatial=2,pipe=2:gpu)",
+                "2,1,2": "mesh(data=2,spatial=1,pipe=2:gpu)"}
+
+
+def mixed_worker(outdir: str, argv: list) -> int:
+    """One rank of a world serving over a mesh with a pipe axis
+    (``chip_smoke.py --mixed_worker OUTDIR <serve flags> [--then <serve
+    flags> ...]``, under the launcher's environment): joins the world once,
+    runs the serve entry's ``run`` for each flag list in order, and
+    records every forward this rank ran (the server's and the stream
+    engine's ``_run``, their flows gathered over the data axis, cloned on
+    the card and copied to the host after the run, so that recording adds
+    no wait to a dispatch) and, on the leader, each batch's request ids. Writes
+    ``OUTDIR/rank<RANK>_<k>.pt`` for run ``k`` (its exit code, report or
+    follower summary, answers, forwards and batches); exits with the last
+    run's code, or the first that is not 0."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from raft_ncup_tpu_torch import serve as serve_mod
+    from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
+    from raft_ncup_tpu_torch.parallel import multihost
+    from raft_ncup_tpu_torch.serving import FlowServer
+    from raft_ncup_tpu_torch.streaming import StreamEngine
+
+    # Three entries' output would outgrow a pipe the script reads only at
+    # the end: this rank writes it to OUTDIR/rank<RANK>.log.
+    log = open(os.path.join(outdir, f"rank{os.environ.get('RANK', '0')}.log"), "w")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    runs = [[]]
+    for a in argv:
+        if a == "--then":
+            runs.append([])
+        else:
+            runs[-1].append(a)
+    multihost.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    device = multihost.local_device(runs[0][runs[0].index("--device") + 1]
+                                    if "--device" in runs[0] else None)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    joined = world > 1 and multihost.initialize_distributed(device=device)
+    rank = multihost.process_index() if joined else 0
+    rec = {"flows": [], "batches": []}
+
+    def recording(run):
+        def wrapped(self, *a, **kw):
+            out = run(self, *a, **kw)
+            rec["flows"].append(out[0].detach().clone())
+            return out
+        return wrapped
+
+    process = FlowServer._process
+
+    def batches(self, batch, depth):
+        rec["batches"].append([r.request_id for r in batch])
+        return process(self, batch, depth)
+
+    FlowServer._run = recording(FlowServer._run)
+    StreamEngine._run = recording(StreamEngine._run)
+    FlowServer._process = batches
+    code = 0
+    try:
+        for k, run_argv in enumerate(runs):
+            rec["flows"], rec["batches"] = [], []
+            mesh_mod.reset_collective_stats()  # each run's report counts its own
+            t0 = time.perf_counter()
+            rc, report, responses, _ = serve_mod.run(run_argv)
+            torch.save({"rc": rc, "report": report, "seconds": time.perf_counter() - t0,
+                        "answers": [{"request_id": r.request_id, "status": r.status,
+                                     "flow": r.flow, "iters": r.iters, "detail": r.detail}
+                                    for r in responses],
+                        "flows": [f.cpu() for f in rec["flows"]], "batches": rec["batches"]},
+                       os.path.join(outdir, f"rank{rank}_{k}.pt"))
+            code = code or rc
+    finally:
+        if joined:
+            multihost.shutdown()
+    return code
+
+
+def start_mixed(tmp: str) -> dict:
+    """(h)'s four ranks sharing the card (gloo), started and not waited
+    for: :func:`check_mixed` waits for them. The script starts them beside
+    the train-from-files phase, so their times are under its load."""
+    outdir = os.path.join(tmp, "h")
+    argv = []
+    for k, run in enumerate(MIXED_RUNS.values()):
+        argv += (["--then"] if k else []) + run
+    return {"t0": time.perf_counter(), "outdir": outdir,
+            "procs": _start_ranks(outdir, argv, MIXED_WORLD, "gloo", worker=MIXED_WORKER)}
+
+
+def _mixed_refs(torch, levels: set) -> dict:
+    """This process's one-process answers: the burst's pairs through a
+    server at each level in ``levels`` (batch size 2, the pad bucket of
+    16), and the stream run's frames through an engine."""
+    from raft_ncup_tpu_torch import serve as serve_mod
+    from raft_ncup_tpu_torch.cli import stream_config_from_args
+    from raft_ncup_tpu_torch.config import ServeConfig
+    from raft_ncup_tpu_torch.serving import FlowServer, SyntheticTraffic
+    from raft_ncup_tpu_torch.streaming import StreamEngine, StreamTraffic, replay_streams
+
+    model = flagship(torch)
+    pairs = [(a, b) for _, a, b in SyntheticTraffic(SERVE_SIZE, MIXED_REQUESTS, seed=0)]
+    refs = {}
+    for level in sorted(levels):
+        server = FlowServer(model, ServeConfig(batch_sizes=(2,), iter_levels=(level,),
+                                               queue_capacity=16, pad_bucket=MIXED_BUCKET))
+        refs[level] = paused_burst(server, pairs)[0]
+        server.drain()
+    args = serve_mod.build_parser().parse_args(MIXED_SERVE_ARGS + MIXED_STREAM_ARGS)
+    engine = StreamEngine(model, stream_config_from_args(args, SERVE_SIZE))
+    traffic = list(StreamTraffic(SERVE_SIZE, 2, 2, seed=0, burst_size=args.burst_size))
+    handles, _ = replay_streams(engine, traffic)
+    refs["stream"] = [h.result(300) for h in handles]
+    engine.drain()
+    del model
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _mixed_launches(rep: dict, levels: list, what: str) -> dict:
+    """A rank's kernel launches after the warm-up: B 4 a batch, A the
+    batch's level (the iterations it ran)."""
+    launches = {"corr_lookup": rep["corr_kernel_launches"], "corr_lookup_bwd": 0,
+                "nconv": rep["nconv_kernel_launches"], "nconv_bwd": 0}
+    check(levels and launches["corr_lookup"] == sum(levels)
+          and launches["nconv"] == 4 * len(levels),
+          f"{what}: launches {launches} for batches at levels {levels}")
+    return launches
+
+
+def _pipe_spread(recs: list, P: int = 2) -> float:
+    """The largest |difference| between the forwards of the pipe indices
+    of one (data, spatial) place, over every forward of the run."""
+    worst = 0.0
+    for g in range(len(recs) // P):
+        base = recs[g * P]["flows"]
+        for other in recs[g * P + 1:(g + 1) * P]:
+            check(len(other["flows"]) == len(base), "mixed (h): the pipe indices ran "
+                                                    f"{len(base)} and {len(other['flows'])} "
+                                                    "forwards")
+            for a, b in zip(base, other["flows"]):
+                worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def _mixed_answers(torch, recs: list, want: dict, what: str, n: int = MIXED_REQUESTS) -> dict:
+    """Every rank's answers, cut from the forwards it recorded as the
+    leader's are cut from its own (the leader's batches name the requests;
+    its answers give the rows' offset), held against the one-process
+    answers (``want[level]``, in the burst's order) at each request's
+    level within ``FLEET_TOL``."""
+    lead = recs[0]
+    answers = {a["request_id"]: a for a in lead["answers"]}
+    order = sorted(answers)  # the burst's pairs in request order
+    check(len(answers) == n and all(a["status"] == "ok" for a in answers.values()),
+          f"{what}: answers {[(a['status'], a['detail']) for a in answers.values()]}")
+    n_warm = len(lead["flows"]) - len(lead["batches"])
+    first = answers[lead["batches"][0][0]]["flow"]
+    h, w = first.shape[:2]
+    row0 = lead["flows"][n_warm][0]
+    top = next((t for t in range(row0.shape[0] - h + 1)
+                if torch.equal(row0[t:t + h, :w], torch.from_numpy(first))), None)
+    check(top is not None, f"{what}: the leader's answer is no crop of its forward")
+    worst = 0.0
+    for r, rec in enumerate(recs):
+        for k, ids in enumerate(lead["batches"]):
+            for j, rid in enumerate(ids):
+                got = rec["flows"][n_warm + k][j][top:top + h, :w]
+                ref = want[answers[rid]["iters"]][order.index(rid)]
+                check(ref.status == "ok", f"{what}: the one-process answer {rid} {ref.status}")
+                err, ok = max_err(torch, got, torch.tensor(ref.flow), **FLEET_TOL)
+                check(ok, f"{what} rank {r} request {rid}: {err:.3e} from one process")
+                worst = max(worst, err)
+    return {"n": len(answers), "ranks": len(recs), "max_abs_diff": worst}
+
+
+def check_mixed(torch, card: str, started: dict) -> dict:
+    """(h) The serve entry over ``--mesh 1,2,2`` and ``--mesh 2,1,2`` and
+    its stream over ``--mesh 2,1,2``, four ranks in one world: every rank
+    exits 0 and names the mesh; every pipe index's answers against this
+    process's one-process answers; the largest difference between pipe
+    indices; each rank's lockstep operations, collectives and launches,
+    the same on all four. Returns each rank's launches by run."""
+    import types
+
+    t0 = time.perf_counter()
+    codes, _ = _wait_ranks(started["procs"])
+    if codes != [0] * MIXED_WORLD:
+        tails = []
+        for r in range(MIXED_WORLD):
+            with open(os.path.join(started["outdir"], f"rank{r}.log")) as fh:
+                tails.append(f"rank {r}: {fh.read()[-2000:]}")
+        check(False, f"mixed (h): exits {codes}:\n" + "\n".join(tails))
+    ranks_s = time.perf_counter() - started["t0"]
+    recs = {run: [torch.load(os.path.join(started["outdir"], f"rank{r}_{k}.pt"),
+                             weights_only=False) for r in range(MIXED_WORLD)]
+            for k, run in enumerate(MIXED_RUNS)}
+    levels = {a["iters"] for run, rs in recs.items() if run.startswith("serve")
+              for a in rs[0]["answers"]}
+    check(levels <= set(MIXED_LEVELS), f"mixed (h): levels {levels}")
+    want = _mixed_refs(torch, levels)
+    paths = {}
+    for run, rs in recs.items():
+        kind, mesh = run.split()
+        reps = [r["report"] for r in rs]
+        op = "stream" if kind == "stream" else "serve"
+        batches = reps[0][f"{op}_batches"]
+        check(all(r["rc"] == 0 for r in rs) and all(rep.get("follower") for rep in reps[1:])
+              and all(rep["mesh"] == MIXED_MESHES[mesh] for rep in reps)
+              and [rep["rank"] for rep in reps[1:]] == [1, 2, 3],
+              f"mixed (h) {run}: meshes {[rep.get('mesh') for rep in reps]}")
+        check(all(rep["lockstep_ops"].get(op) == batches for rep in reps),
+              f"mixed (h) {run}: {batches} batches, ops {[rep['lockstep_ops'] for rep in reps]}")
+        n_warm = len(rs[0]["flows"]) - batches
+        if kind == "serve":
+            answers = _mixed_answers(torch, rs, want, f"mixed (h) {run}")
+            by_id = {a["request_id"]: a["iters"] for a in rs[0]["answers"]}
+            levels_run = [by_id[ids[0]] for ids in rs[0]["batches"]]
+        else:
+            got = [types.SimpleNamespace(**a) for a in rs[0]["answers"]]
+            answers = _against(torch, got, want["stream"], f"mixed (h) {run}")
+            levels_run = [MIXED_STREAM_ITERS] * batches
+        launches = [_mixed_launches(rep, levels_run, f"mixed (h) {run} rank {r}")
+                    for r, rep in enumerate(reps)]
+        check(all(l == launches[0] for l in launches),
+              f"mixed (h) {run}: the ranks' launches differ: {launches}")
+        for r, l in enumerate(launches):
+            paths[f"mixed (h) {run} rank {r}"] = l
+        unit = "stream_frames_per_sec" if op == "stream" else "serve_pairs_per_sec"
+        row = {"card": card, "mesh": MIXED_MESHES[mesh], "answers": answers,
+               "pipe_max_abs_diff": _pipe_spread(rs), "batches": batches,
+               "warmup_forwards": n_warm, "levels": levels_run,
+               "seconds": [r["seconds"] for r in rs], unit: reps[0][unit],
+               **{k: reps[0][f"{op}_{k}"] for k in ("wall_s", "p50_ms", "p99_ms")},
+               "launches": launches, "collectives": [rep["collectives"] for rep in reps],
+               "lockstep": [rep["lockstep"] for rep in reps],
+               "note": "four ranks time-slice one card beside the train-from-files phase: "
+                       "not a mesh's speed"}
+        print(f"mixed (h) {run}: {json.dumps(row)}", flush=True)
+    print(f"mixed (h): the ranks took {ranks_s:.1f} s from their start, the check "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def check_spatial(torch, card: str, tmp: str) -> dict:
     """The spatial axis (``parallel/halo.py``): (a) the flagship's whole f32
     forward at 1088x1920 and 2176x3840, batch 1, ``SPATIAL_ITERS``
@@ -5939,7 +6235,9 @@ def main() -> int:
     # it, where the loader leaves the card idle, the PAC and DJIF train
     # steps and the pipe phase's two ranks, judged later.
     pac_tmp, g_tmp = tempfile.TemporaryDirectory(), tempfile.TemporaryDirectory()
+    h_tmp = tempfile.TemporaryDirectory()
     pac_train, g_ranks = start_pac_train(pac_tmp.name), start_pipe(g_tmp.name)
+    h_ranks = start_mixed(h_tmp.name)
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_train_files(torch, card, tmp,
                                        train[f"median_ms_steps_2_to_{TRAIN_STEPS}"]))
@@ -6000,6 +6298,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_spatial_serving(torch, card, tmp))
     lap("spatial serving")
+    # A pipe axis beside a data or spatial axis: the serve entry over the
+    # meshes (1, 2, 2) and (2, 1, 2) in one world of four ranks sharing the
+    # card (started beside train from files), every pipe index's answers
+    # against one process; each rank's launches from its own report.
+    with h_tmp:
+        paths.update(check_mixed(torch, card, h_ranks))
+    lap("mixed (h)")
     print(f"phases: {json.dumps(lap.seconds)}, total {sum(lap.seconds.values()):.1f} s",
           flush=True)
 
@@ -6120,6 +6425,9 @@ def main() -> int:
                                        for r in range(PIPE_WORLD)]
         k["pac_launches"] = {f"{run} {kind}": paths[f"{run} raft_nc_dbl {kind}"][name]
                              for run in ("serve", "train") for kind in PAC_HEADS}
+        k["mixed_launches_per_rank"] = {run: [paths[f"mixed (h) {run} rank {r}"][name]
+                                              for r in range(MIXED_WORLD)]
+                                        for run in MIXED_RUNS}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6169,6 +6477,8 @@ if __name__ == "__main__":
         sys.exit(pipe_worker(sys.argv[2], sys.argv[3:]))
     if len(sys.argv) > 2 and sys.argv[1] == PAC_TRAIN_WORKER:
         sys.exit(pac_train_worker(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 2 and sys.argv[1] == MIXED_WORKER:
+        sys.exit(mixed_worker(sys.argv[2], sys.argv[3:]))
     adopt_orphans()
     try:
         code = main()

@@ -40,9 +40,18 @@ Run from the root of the repository on a machine with four cards:
    flows against one card's at the flagship's tolerances; the one-card run
    also times the encode, one iteration and the finalize alone.
 
+6. serves the flagship f32 at 436x1024 (448x1024 padded, a pad bucket of
+   32), batch size 2, level 12, a burst of 16 requests over a pipe axis
+   beside a data or spatial axis (``mixed``): on one card, with ``--mesh
+   1,2`` and ``--mesh 2,1`` on two cards and with ``--mesh 1,2,2`` and
+   ``--mesh 2,1,2`` on four (each rank ``chip_smoke.py --mixed_worker``,
+   which records every forward the rank ran): each run's pairs/s, p50 and
+   p99, and every rank's answers (cut from its own forwards) against the
+   one card's at the flagship's flow_up tolerance.
+
 ``python3 chip_spatial.py [PART ...]`` runs only the named parts
-(``highres``, ``evaluate``, ``serving``, ``train``, ``pipe``; all by
-default).
+(``highres``, ``evaluate``, ``serving``, ``train``, ``pipe``, ``mixed``;
+all by default).
 
 Every rank is a process started with the launcher's environment, so each
 rank's report (its last JSON line) and exit code show. It prints one
@@ -81,7 +90,12 @@ TRAIN_FLAGS = ["--untimed", "--name", "exp", "--model", "raft_nc_dbl", "--stage"
 TRAIN_SPLITS = (1, 2, 4)
 PIPE_SPLITS = (1, 2, 4)
 PIPE_FLAGS = ["--micro", "16", "--iters", "32"]
-PARTS = ("highres", "evaluate", "serving", "train", "pipe")
+MIXED_ENTRY = ["--model", "raft_nc_dbl", "--size", "436", "1024", "--seed", "0",
+               "--serve_batch_sizes", "2", "--iter_levels", "12", "--serve_pad_bucket", "32",
+               "--num_requests", "16", "--burst_size", "16", "--queue_capacity", "32",
+               "--flight_dir", ""]
+MIXED_MESHES = ("1,2", "2,1", "1,2,2", "2,1,2")
+PARTS = ("highres", "evaluate", "serving", "train", "pipe", "mixed")
 
 
 def _port() -> int:
@@ -344,6 +358,62 @@ def pipe(torch, tmp: str) -> bool:
     return ok
 
 
+def mixed(torch, tmp: str) -> bool:
+    """The served burst on one card and over ``MIXED_MESHES``: each run's
+    rate and latency (the leader's report), each rank's collectives and
+    lockstep broadcasts, and every rank's answers, cut from the forwards
+    it ran, against the one card's."""
+    import types
+
+    import chip_smoke
+
+    ok, want = True, None
+    for mesh in (None, *MIXED_MESHES):
+        world = 1
+        for size in (mesh or "1").split(","):
+            world *= int(size)
+        out = os.path.join(tmp, f"mixed_{(mesh or 'one').replace(',', '')}")
+        os.makedirs(out)
+        argv = [os.path.join(HERE, "chip_smoke.py"), "--mixed_worker", out, *MIXED_ENTRY,
+                *(["--mesh", mesh] if mesh else ["--device", "cuda:0"])]
+        codes, _, _, secs = ranks(argv, world)
+        row = {"mixed": f"--mesh {mesh}" if mesh else "one card", "exits": codes,
+               "seconds": secs}
+        good = codes == [0] * world
+        if good:
+            recs = [torch.load(os.path.join(out, f"rank{r}_0.pt"), weights_only=False)
+                    for r in range(world)]
+            rep = recs[0]["report"]
+            row.update({k: rep[k] for k in ("serve_ok", "serve_batches", "serve_pairs_per_sec",
+                                            "serve_p50_ms", "serve_p99_ms", "warmup_s",
+                                            "mesh")})
+            row["ranks"] = [{k: r["report"].get(k) for k in ("rank", "mesh", "collectives",
+                                                              "lockstep")} for r in recs]
+            good = rep["serve_ok"] == 16
+            if want is None:  # one level: every answer ran the one card's iterations
+                one = sorted(recs[0]["answers"], key=lambda a: a["request_id"])
+                want = {a["iters"]: [types.SimpleNamespace(**b) for b in one] for a in one}
+            elif good:
+                try:
+                    row["answers_vs_one_card"] = chip_smoke._mixed_answers(
+                        torch, recs, want, f"mixed {mesh}", n=16)
+                    row["pipe_max_abs_diff"] = (chip_smoke._pipe_spread(recs)
+                                                if mesh.count(",") == 2 else None)
+                except chip_smoke.CheckFailed as e:
+                    row["failed"], good = str(e), False
+        else:
+            logs = []
+            for r in range(world):
+                path = os.path.join(out, f"rank{r}.log")
+                if os.path.exists(path):
+                    with open(path) as fh:
+                        logs.append(fh.read()[-3000:])
+            row["logs"] = logs
+        print(f"spatial cards: {json.dumps(row)}", flush=True)
+        ok = ok and good
+    return ok
+
+
 def main() -> int:
     import torch
 
@@ -369,6 +439,8 @@ def main() -> int:
             ok = train(torch, tmp) and ok
         if "pipe" in parts:
             ok = pipe(torch, tmp) and ok
+        if "mixed" in parts:
+            ok = mixed(torch, tmp) and ok
     if "evaluate" in parts:
         ok = evaluation() and ok
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -28,10 +28,10 @@ each training image by rows. The evaluate entry takes ``--mesh D,S``
 size: S ranks split each forward by image rows; so does the serve entry
 (``--mesh D,S``, which :func:`serve_config_from_args` and
 :func:`stream_config_from_args` carry into the configurations). The
-evaluate and serve entries also take ``--mesh 1,1,P`` over P ranks, each
-running the same forward (JAX replicates it over ``pipe``); a pipe size
-beside a data or spatial size above 1 raises (item 9b-v), and the train
-entry refuses a pipe size above 1. Any other size raises.
+evaluate and serve entries also take ``--mesh D,S,P`` over D times S times
+P ranks: each pipe index runs the ``(D, S)`` forward on the same batch (JAX
+replicates it over ``pipe``), and the train entry refuses a pipe size above
+1. Any other size raises.
 """
 
 from __future__ import annotations
@@ -513,13 +513,10 @@ def parse_eval(argv: Optional[Sequence[str]] = None):
     decides BatchNorm in NCUP's weights net, as in the JAX CLI. The mesh
     the flags resolve to is ``args.mesh_axes``, ``(data, spatial)``, and
     ``args.mesh_pipe``, the pipe size."""
-    from raft_ncup_tpu_torch.parallel.mesh import check_replicated_pipe
-
     args = build_eval_parser().parse_args(argv)
     mesh = args.mesh or (None, 1)
     spatial = max(mesh[1], args.spatial_parallel)
     pipe = mesh[2] if len(mesh) > 2 else 1
-    check_replicated_pipe(mesh[0] or 1, spatial, pipe)
     data = check_mesh(mesh[0], spatial, pipe)
     args.mesh_axes, args.mesh_pipe = (data, spatial), pipe
     dataset = "sintel" if args.dataset.startswith("sintel") else args.dataset

@@ -15,9 +15,9 @@ packages, with these differences:
   (the fused kernel, CUDA in the port). Its default is the JAX default.
 - ``ServeConfig.mesh`` and ``StreamConfig.mesh`` size a mesh of
   processes, one per card (``parallel/``), where JAX's size a mesh of
-  devices; the rules are JAX's (:func:`_check_mesh_field`), and a pipe
-  size above 1 beside a data or spatial size above 1 raises where the
-  mesh is built (``parallel.mesh.check_replicated_pipe``).
+  devices; the rules are JAX's (:func:`_check_mesh_field`). A pipe size
+  P runs the ``(data, spatial)`` forward on each of P replicas of the
+  group, as JAX replicates it over ``pipe`` (``parallel/mesh.py``).
 - ``TrainConfig.data_parallel`` is the data axis across processes, one
   per card (``parallel/``), and must divide the global ``batch_size``;
   ``spatial_parallel`` splits each image's rows over that many processes

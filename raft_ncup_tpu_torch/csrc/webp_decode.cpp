@@ -1,6 +1,9 @@
 // Host WebP decoder: the RIFF container, VP8 (lossy, RFC 6386 key frames)
 // and VP8L (lossless), to 8-bit RGB. Alpha (ALPH, VP8L's alpha channel) is
-// dropped. The lossy path turns YUV 4:2:0 into RGB as libwebp does for
+// dropped. An animation gives its first frame as libwebp's WebPAnimDecoder
+// (Pillow's reader) composites it: a key frame, decoded at its offset onto
+// a canvas cleared to transparent black, with no blending (the ANIM
+// background colour is a hint it does not use). The lossy path turns YUV 4:2:0 into RGB as libwebp does for
 // RGB(A) output: "fancy" chroma upsampling and 14-bit fixed-point
 // conversion. Every read is bounds-checked; a malformed file returns an
 // error code and a message, never a partial image.
@@ -2058,8 +2061,64 @@ struct Bitstream {
   const uint8_t* data;
   size_t size;
   int kind;  // 1 VP8, 2 VP8L
-  int width, height;
+  int width, height;  // the image's (the canvas's, for an animation)
+  int frame_x = 0, frame_y = 0, frame_w = 0, frame_h = 0;  // the bitstream's rectangle
 };
+
+// The image chunk of a still file or of an animation frame (ALPH chunks
+// before it and unknown ones are skipped): kind, data and size.
+bool image_chunk(const uint8_t* tag, const uint8_t* payload, uint32_t csize, Bitstream& bs) {
+  if (memcmp(tag, "VP8 ", 4) != 0 && memcmp(tag, "VP8L", 4) != 0) return false;
+  bs.data = payload;
+  bs.size = csize;
+  bs.kind = tag[3] == 'L' ? 2 : 1;
+  if (bs.kind == 1) {
+    if (csize < 10) fail("VP8: truncated frame header");
+    bs.frame_w = le16(payload + 6) & 0x3fff;
+    bs.frame_h = le16(payload + 8) & 0x3fff;
+  } else {
+    if (csize < 5 || payload[0] != 0x2f) fail("VP8L: bad header");
+    const uint32_t b = le32(payload + 1);
+    bs.frame_w = (b & 0x3fff) + 1;
+    bs.frame_h = ((b >> 14) & 0x3fff) + 1;
+  }
+  if (bs.frame_w <= 0 || bs.frame_h <= 0) fail("zero image size");
+  return true;
+}
+
+// One ANMF chunk (WebPDemux's rules): its rectangle inside the canvas, one
+// image chunk of the rectangle's size, an ALPH chunk only before a VP8 one.
+Bitstream anim_frame(const uint8_t* payload, uint32_t csize, int canvas_w, int canvas_h) {
+  if (csize < 16) fail("truncated ANMF chunk");
+  Bitstream bs;
+  const int x = 2 * (int)le24(payload), y = 2 * (int)le24(payload + 3);
+  const int w = 1 + (int)le24(payload + 6), h = 1 + (int)le24(payload + 9);
+  const uint8_t* p = payload + 16;
+  const uint8_t* end = payload + csize;
+  bool found = false, alpha = false;
+  while (end - p >= 8) {
+    const uint32_t n = le32(p + 4);
+    if ((size_t)n > (size_t)(end - p - 8)) fail("truncated chunk in an ANMF frame");
+    if (image_chunk(p, p + 8, n, bs)) {
+      if (found) fail("two images in one ANMF frame");
+      if (alpha && bs.kind == 2) fail("an ALPH chunk before a VP8L frame");
+      found = true;
+    } else if (memcmp(p, "ALPH", 4) == 0) {
+      if (found) fail("an ALPH chunk after its frame's image");
+      alpha = true;
+    }
+    const size_t step = 8 + (size_t)n + (n & 1);
+    if (step > (size_t)(end - p)) break;
+    p += step;
+  }
+  if (!found) fail("an ANMF frame without an image");
+  if (bs.frame_w != w || bs.frame_h != h) fail("an ANMF frame's image differs from its size");
+  if ((int64_t)x + w > canvas_w || (int64_t)y + h > canvas_h)
+    fail("an ANMF frame reaches past the canvas");
+  bs.frame_x = x;
+  bs.frame_y = y;
+  return bs;
+}
 
 Bitstream parse_container(const uint8_t* data, size_t size) {
   if (size < 12 || memcmp(data, "RIFF", 4) != 0 || memcmp(data + 8, "WEBP", 4) != 0)
@@ -2070,41 +2129,46 @@ Bitstream parse_container(const uint8_t* data, size_t size) {
   const uint8_t* end = data + 8 + riff_size;
   const uint8_t* p = data + 12;
   int canvas_w = -1, canvas_h = -1;
-  bool first = true;
+  bool first = true, animated = false, saw_anim = false;
+  Bitstream frame0;
+  int frames = 0;
   while (true) {
-    if (end - p < 8) fail("no VP8 or VP8L chunk");
+    if (end - p < 8) {
+      if (!animated) fail("no VP8 or VP8L chunk");
+      if (frames == 0) fail("an animation without frames");
+      frame0.width = canvas_w;
+      frame0.height = canvas_h;
+      return frame0;
+    }
     const uint8_t* tag = p;
     const uint32_t csize = le32(p + 4);
     if ((size_t)csize > (size_t)(end - p - 8)) fail("truncated chunk");
     const uint8_t* payload = p + 8;
+    Bitstream bs;
     if (memcmp(tag, "VP8X", 4) == 0) {
       if (!first) fail("misplaced VP8X chunk");
       if (csize != 10) fail("bad VP8X chunk size");
-      const uint8_t flags = payload[0];
-      if (flags & 0x02) fail("animated WebP is not supported (ROADMAP item 3c)");
+      animated = (payload[0] & 0x02) != 0;
       canvas_w = 1 + le24(payload + 4);
       canvas_h = 1 + le24(payload + 7);
-    } else if (memcmp(tag, "ANIM", 4) == 0 || memcmp(tag, "ANMF", 4) == 0) {
-      fail("animated WebP is not supported (ROADMAP item 3c)");
-    } else if (memcmp(tag, "VP8 ", 4) == 0 || memcmp(tag, "VP8L", 4) == 0) {
-      Bitstream bs;
-      bs.data = payload;
-      bs.size = csize;
-      bs.kind = tag[3] == 'L' ? 2 : 1;
-      if (bs.kind == 1) {
-        if (csize < 10) fail("VP8: truncated frame header");
-        bs.width = le16(payload + 6) & 0x3fff;
-        bs.height = le16(payload + 8) & 0x3fff;
-      } else {
-        if (csize < 5 || payload[0] != 0x2f) fail("VP8L: bad header");
-        const uint32_t b = le32(payload + 1);
-        bs.width = (b & 0x3fff) + 1;
-        bs.height = ((b >> 14) & 0x3fff) + 1;
-      }
-      if (bs.width <= 0 || bs.height <= 0) fail("zero image size");
-      if (canvas_w >= 0 && (canvas_w != bs.width || canvas_h != bs.height))
+    } else if (memcmp(tag, "ANIM", 4) == 0) {
+      if (!animated) fail("an ANIM chunk in a still image");
+      if (csize < 6) fail("truncated ANIM chunk");
+      saw_anim = true;
+    } else if (memcmp(tag, "ANMF", 4) == 0) {
+      if (!animated) fail("an ANMF chunk in a still image");
+      if (!saw_anim) fail("an ANMF chunk before the ANIM chunk");
+      // every frame is checked, as WebPDemux checks them; the first is drawn
+      const Bitstream f = anim_frame(payload, csize, canvas_w, canvas_h);
+      if (frames++ == 0) frame0 = f;
+    } else if (!animated && image_chunk(tag, payload, csize, bs)) {
+      if (canvas_w >= 0 && (canvas_w != bs.frame_w || canvas_h != bs.frame_h))
         fail("image size differs from the VP8X canvas");
+      bs.width = bs.frame_w;
+      bs.height = bs.frame_h;
       return bs;
+    } else if (animated && (memcmp(tag, "VP8 ", 4) == 0 || memcmp(tag, "VP8L", 4) == 0)) {
+      fail("an image chunk outside the frames of an animation");
     }
     // ALPH, ICCP, EXIF, XMP and unknown chunks are skipped
     first = false;
@@ -2141,10 +2205,23 @@ int webp_decode_rgb(const uint8_t* data, size_t size, uint8_t* out, int width, i
   try {
     const Bitstream bs = parse_container(data, size);
     if (bs.width != width || bs.height != height) fail("output size differs from the image");
+    const bool whole = bs.frame_w == width && bs.frame_h == height;
+    std::vector<uint8_t> frame;
+    uint8_t* dst = out;
+    if (!whole) {
+      frame.resize((size_t)bs.frame_w * bs.frame_h * 3);
+      dst = frame.data();
+    }
     if (bs.kind == 1) {
-      vp8_decode(bs.data, bs.size, width, height, out);
+      vp8_decode(bs.data, bs.size, bs.frame_w, bs.frame_h, dst);
     } else {
-      vp8l_decode(bs.data, bs.size, width, height, out);
+      vp8l_decode(bs.data, bs.size, bs.frame_w, bs.frame_h, dst);
+    }
+    if (!whole) {  // the frame at its offset on the cleared canvas
+      memset(out, 0, (size_t)width * height * 3);
+      for (int y = 0; y < bs.frame_h; ++y)
+        memcpy(out + ((size_t)(bs.frame_y + y) * width + bs.frame_x) * 3,
+               frame.data() + (size_t)y * bs.frame_w * 3, (size_t)bs.frame_w * 3);
     }
     return 0;
   } catch (const std::bad_alloc&) {

@@ -26,11 +26,12 @@ the world size: the S ranks of each data index see the same frames and
 split each forward by image rows (``RAFT.forward(..., mesh=...)``, row
 halos over ``parallel/halo.py``), padded to a multiple of 8 S, eagerly,
 without a CUDA graph; the metric sums reduce over the data indices only.
-``--mesh 1,1,P`` runs the whole evaluation on each of the P pipe ranks
-(JAX replicates the forward over ``pipe``), through its own graphs, with no
-reduction; a pipe size beside a data or spatial size above 1 raises
-(ROADMAP.md queue 1 item 9b-v). Only the main process writes submissions
-and ``--export_pth``.
+``--mesh D,S,P`` runs that ``(D, S)`` evaluation on each of the P pipe
+indices (JAX replicates the forward over ``pipe``), each summing its
+metrics over its own data group only, so no frame counts twice; under
+``1,1,P`` each rank runs the whole evaluation through its own graphs,
+with no reduction. Only the main process writes submissions and
+``--export_pth``.
 
 Examples::
 

@@ -29,8 +29,10 @@ sums and counts of the metric are summed over the data indices
 returns the global metrics. Under a mesh with a spatial axis above 1
 (``fwd.mesh``) the ranks of one data index see the same frames and split
 each forward by rows; their sums are equal and summed once, never over
-the spatial ranks. Images then pad to a multiple of 8 times the spatial
-size (``fwd.pad_divisor``). Only the main process prints the metrics and
+the spatial ranks. Under a pipe axis each pipe index runs that pass on
+its own ranks, as JAX replicates it over ``pipe``, and sums over its own
+data group only, so every pipe index holds the one-process sums. Images
+then pad to a multiple of 8 times the spatial size (``fwd.pad_divisor``). Only the main process prints the metrics and
 writes submissions (the ranks of its data index run the forwards with
 it); warm-start validation, a serial chain through each sequence, stays
 on one process. One process reads the whole dataset.
@@ -111,12 +113,15 @@ def _shard_for_validation(dataset, mesh=None):
 
 def _reduce(acc: np.ndarray, fwd: ShapeCachedForward) -> np.ndarray:
     """The sums of a sharded pass over the data indices: over the world
-    without a spatial axis, over this rank's data group with one (its
-    spatial ranks hold the same sums, which must count once); none under a
-    pipe axis, whose ranks each run the whole pass."""
-    if fwd.mesh is not None and fwd.mesh.pipe > 1:
+    without a mesh, else over this rank's data group (the ranks of its
+    spatial and pipe index), so that the spatial ranks of a data index,
+    which hold the same sums, and the pipe indices, each a replica of the
+    ``(data, spatial)`` pass, count once. A pipe axis with a data size of
+    1 needs no reduction: each rank ran the whole pass."""
+    mesh = fwd.mesh
+    if mesh is not None and mesh.pipe > 1 and mesh.data == 1:
         return acc
-    return allreduce_sum_across_hosts(acc, group=data_group(fwd.mesh))
+    return allreduce_sum_across_hosts(acc, group=data_group(mesh))
 
 
 def _print_main(msg: str) -> None:

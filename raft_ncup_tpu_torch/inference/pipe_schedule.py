@@ -161,8 +161,8 @@ class PipelinedForward:
             if extra:
                 raise ValueError(
                     f"pipe axis composes with data/spatial sizes of 1 only (got "
-                    f"{dict(mesh.shape)}); spatially-sharded pipeline stages are not in the "
-                    f"port: {mesh_mod.ITEM_9B_V}")
+                    f"{dict(mesh.shape)}); the pipelined forward's v1 rule, as in the JAX "
+                    f"package: its stages are not sharded by batch or rows")
         self.segments = s
         self.mesh = mesh if s > 1 else None
         self.model = model

@@ -61,10 +61,11 @@ cache's key; an early-exit entry records its three graphs.
 **The mesh** (``mesh=``, ``parallel.mesh.make_mesh``): every key starts
 with its fingerprint (``mesh_fingerprint``, JAX's), so a sharded and an
 unsharded entry of one shape never collide. With a spatial axis above 1
-the forward is split by rows over this rank's spatial group
-(``RAFT.forward(..., mesh=...)``, ``parallel/halo.py``): every rank of the
-group passes the same whole frames and gets the same whole flow; the
-early-exit entry runs its three stages on the rank's band, its flag the
+the forward is split by rows over this rank's spatial group, the spatial
+ranks of its data and pipe index (``RAFT.forward(..., mesh=...)``,
+``parallel/halo.py``): every rank of the group passes the same whole
+frames and gets the same whole flow; the early-exit entry runs its three
+stages on the rank's band, its flag summed over that group and so the
 same on every rank. Under a mesh with a data or spatial axis above 1
 every entry runs eagerly, not as a CUDA graph: its halo exchanges and
 gathers (and a stream step's gather over the data axis) are collectives

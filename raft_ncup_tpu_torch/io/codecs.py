@@ -1,13 +1,15 @@
 """WebP and JPEG decoding on the host, through the C++ decoders of
 ``csrc/`` (built and loaded by :mod:`raft_ncup_tpu_torch.io.codec_build`).
 
-:func:`decode_webp` covers lossy (VP8) and lossless (VP8L) still images;
-alpha is dropped. :func:`decode_jpeg` covers 8-bit Huffman-coded
-sequential and progressive JPEG with 1 or 3 components. Both give the
-pixels libwebp and libjpeg-turbo give with their default settings (what
-Pillow returns). A malformed or unsupported file raises ``ValueError``
-naming the file and the decoder's reason; nothing falls back to another
-decoder.
+:func:`decode_webp` covers lossy (VP8) and lossless (VP8L) still images
+and the first frame of an animation, as libwebp's ``WebPAnimDecoder``
+composites it (on a cleared canvas, at its offset); alpha is dropped.
+:func:`decode_jpeg` covers 8-bit sequential, progressive and lossless
+JPEG, Huffman or arithmetic coded, with 1, 3 or 4 components. Both give
+the pixels libwebp and libjpeg-turbo give with their default settings
+(what Pillow returns). A malformed file, or a form Pillow refuses too,
+raises ``ValueError`` naming the file and the decoder's reason; nothing
+falls back to another decoder.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def _error(name: str, codec: str, msg) -> ValueError:
 
 
 def decode_webp(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A WebP file's pixels -> (H, W, 3) uint8 RGB."""
+    """A WebP file's pixels -> (H, W, 3) uint8 RGB (an animation's first
+    frame on its canvas)."""
     lib = codec_build.load("webp_decode")
     data = bytes(data)
     w, h, kind = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -55,7 +58,9 @@ def decode_webp(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A JPEG file's pixels -> (H, W, 3) uint8 RGB, or (H, W) for grey."""
+    """A JPEG file's pixels -> (H, W, 3) uint8 RGB, (H, W) for grey, or
+    (H, W, 4) for four components, as Pillow's ``CMYK`` image holds them
+    (CMYK inverted, YCCK as RGB and inverted K)."""
     lib = codec_build.load("jpeg_decode")
     data = bytes(data)
     w, h, ch = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()

@@ -170,9 +170,10 @@ _IMAGE_EXTS = (".png", ".jpeg", ".jpg", ".ppm", ".pgm", ".webp")
 
 def read_image(path: Union[str, os.PathLike]) -> np.ndarray:
     """Read an image file -> (H, W, 3) uint8 RGB (gray broadcast, alpha
-    dropped). Among the image extensions the decoder is picked by the
-    file's magic bytes, as Pillow picks it: PNG, binary PPM/PGM, JPEG and
-    WebP (an animated WebP raises)."""
+    dropped, a four-component JPEG's first three channels as JAX's
+    ``[..., :3]`` keeps them of Pillow's CMYK). Among the image extensions
+    the decoder is picked by the file's magic bytes, as Pillow picks it:
+    PNG, binary PPM/PGM, JPEG and WebP (an animation's first frame)."""
     ext = os.path.splitext(str(path))[-1].lower()
     if ext not in _IMAGE_EXTS:
         raise ValueError(f"{path}: unsupported image extension {ext!r}")

@@ -27,7 +27,11 @@ meaning.
 A batch's rows split over the data axis in contiguous blocks, as JAX's
 ``P("data", ...)`` lays them out: :func:`data_rows` takes this rank's
 block, :func:`gather_data` joins an output's blocks on every rank (an
-``all-gather`` over the data group).
+``all-gather`` over the data group of this rank's spatial and pipe
+index). Under a pipe axis every pipe index runs the same ``(data,
+spatial)`` forward on the same batch, JAX's replication over ``pipe``:
+the header still goes to every rank of the world, and each pipe index's
+halos, gathers and sums stay among its own ranks.
 
 The group serves as one replica: an operation that fails on the leader
 breaks it (every later dispatch raises), since the followers may have
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 from raft_ncup_tpu_torch.parallel import halo, multihost
-from raft_ncup_tpu_torch.parallel.mesh import Mesh, data_group
+from raft_ncup_tpu_torch.parallel.mesh import Mesh, data_group, data_ranks
 
 OPS = ("serve", "stream", "stop")
 # Bytes of one header: its length (4 bytes, little-endian) and its JSON.
@@ -224,13 +228,12 @@ def data_rows(t: Optional[torch.Tensor], mesh: Optional[Mesh]) -> Optional[torch
 
 def gather_data(t: Optional[torch.Tensor], mesh: Optional[Mesh]) -> Optional[torch.Tensor]:
     """The global batch of which ``t`` is this rank's block, on every rank:
-    an ``all-gather`` over the ranks of this rank's spatial index (the
-    spatial ranks of a data index hold equal outputs); ``t`` itself without
-    a data axis above 1."""
+    an ``all-gather`` over this rank's data group, the ranks of its spatial
+    and pipe index (the spatial ranks of a data index hold equal outputs,
+    and so do the pipe indices); ``t`` itself without a data axis above
+    1."""
     if t is None or mesh is None or mesh.data == 1:
         return t
-    S, s = mesh.spatial, mesh.spatial_index
-    group = halo.SpatialGroup(size=mesh.data, index=mesh.data_index,
-                              ranks=tuple(d * S + s for d in range(mesh.data)),
+    group = halo.SpatialGroup(size=mesh.data, index=mesh.data_index, ranks=data_ranks(mesh),
                               group=data_group(mesh))
     return halo.all_gather_rows(t.contiguous(), dim=0, group=group)

@@ -23,17 +23,19 @@ device order (``np.asarray(devices).reshape(data, spatial, pipe)``).
 - ``pipe``: the ranks of the pipe group split the refinement iterations
   into contiguous segments and stream micro-batches through them
   (``inference/pipe_schedule.PipelinedForward``, JAX's v1 rule: data and
-  spatial of 1). The server and evaluation take ``(1, 1, P)`` and run the
-  same forward on every pipe rank, as JAX replicates it over ``pipe``; a
-  pipe axis beside a data or spatial axis above 1 raises there
-  (:data:`ITEM_9B_V`), and the train and highres entries have no pipe axis
-  (JAX has none there).
+  spatial of 1). The server, the stream engine and evaluation take any
+  ``(D, S, P)``: each pipe index runs the ``(D, S)`` forward on the same
+  batch, as XLA replicates a program over an axis that shards nothing, so
+  the pipe indices are replicas of one another. The train and highres
+  entries have no pipe axis (JAX has none there).
 
 :func:`make_mesh` builds the process subgroups at once, on every rank in
-the same order: one per data index (its spatial ranks, for the halos and
-gathers, :func:`spatial_group`), one per spatial index (its data ranks,
-for the metric sums, :func:`data_group`) and the pipe group
-(:func:`pipe_group`).
+the same order, each of them per pipe index: one per ``(d, p)`` (its
+spatial ranks, for the halos and gathers, :func:`spatial_group`), one per
+``(s, p)`` (its data ranks, for the metric sums and the outputs' gather,
+:func:`data_group`) and one per ``(d, s)`` (its pipe ranks,
+:func:`pipe_group`). A halo, gather or sum of pipe index ``p`` so runs
+only among the ranks ``(d * S + s) * P + p``.
 
 A data index holds the global batch's rows ``d::data`` (:func:`batch_sharding`):
 the loader's shard of an epoch is every ``data``-th index, so the union of
@@ -43,7 +45,7 @@ noise and dropout draws of the global shape take the same rows, so a
 sample gets the draws it gets in one process.
 
 :func:`mesh_fingerprint` gives JAX's strings (``nomesh``,
-``mesh(data=1,spatial=2:gpu)``, ``mesh(data=1,spatial=1,pipe=2:gpu)``), and
+``mesh(data=1,spatial=2:gpu)``, ``mesh(data=2,spatial=1,pipe=2:gpu)``), and
 :func:`collective_stats` counts the collectives this process issued in
 JAX's format, from the counters of ``multihost.all_reduce_``, ``halo`` and
 the pipe's hand-offs (the port has no HLO to parse).
@@ -58,9 +60,6 @@ import torch
 
 from raft_ncup_tpu_torch.parallel import multihost
 
-# What the served and evaluated paths refuse: a pipe axis beside a data or
-# spatial axis above 1 (JAX replicates the (data, spatial) work over pipe).
-ITEM_9B_V = "ROADMAP.md, queue 1 item 9b-v (a pipe axis beside a data or spatial axis)"
 _COLLECTIVE_OPS = (
     "all-gather",
     "all-reduce",
@@ -129,17 +128,6 @@ def check_axes(data: Optional[int] = None, spatial: int = 1, pipe: int = 1,
     return data
 
 
-def check_replicated_pipe(data: int, spatial: int, pipe: int) -> None:
-    """The served and evaluated paths' rule: a pipe axis above 1 runs the
-    same forward on every pipe rank, beside a data and a spatial axis of 1
-    only (JAX replicates the ``(data, spatial)`` work over ``pipe``, which
-    the port's mesh of processes does not yet)."""
-    if int(pipe) > 1 and (int(data) > 1 or int(spatial) > 1):
-        raise ValueError(
-            f"a pipe axis ({pipe}) beside data={data} spatial={spatial} is not in the port "
-            f"yet; the served and evaluated paths take (1, 1, P): {ITEM_9B_V}")
-
-
 def check_no_pipe(pipe: int, entry: str) -> None:
     """The train and highres entries have no pipe axis (nor has JAX)."""
     if int(pipe) > 1:
@@ -149,113 +137,120 @@ def check_no_pipe(pipe: int, entry: str) -> None:
                          "evaluation")
 
 
-# Process subgroups by (data, spatial): (one per data index, one per
-# spatial index); the pipe groups by (data, spatial, pipe). ``torch.distributed.new_group``
-# is collective, so every rank builds all of them once, in the same order.
+# Process subgroups by (data, spatial, pipe): the spatial groups by (d, p),
+# the data groups by (s, p) and the pipe groups by (d, s).
+# ``torch.distributed.new_group`` is collective, so every rank builds all
+# of them once, in the same order.
 _GROUPS: dict = {}
-_PIPE_GROUPS: dict = {}
 
 
-def _subgroups(data: int, spatial: int) -> tuple:
+def _rank(d: int, s: int, p: int, spatial: int, pipe: int) -> int:
+    return (d * spatial + s) * pipe + p
+
+
+def _subgroups(data: int, spatial: int, pipe: int) -> Optional[dict]:
     if not multihost.initialized():
-        return None, None
-    key = (data, spatial)
+        return None
+    key = (data, spatial, pipe)
     if key not in _GROUPS:
-        dist = multihost._dist()
-        by_data = [dist.new_group([d * spatial + s for s in range(spatial)])
-                   for d in range(data)]
-        by_spatial = [dist.new_group([d * spatial + s for d in range(data)])
-                      for s in range(spatial)]
-        _GROUPS[key] = (by_data, by_spatial)
+        new = multihost._dist().new_group
+        D, S, P = key
+        # A spatial or pipe axis of 1 has no group; the data groups exist
+        # whenever they are not the world, of one rank each when D = 1.
+        _GROUPS[key] = {
+            "spatial": {(d, p): new([_rank(d, s, p, S, P) for s in range(S)])
+                        for d in range(D) for p in range(P)} if S > 1 else {},
+            "data": {(s, p): new([_rank(d, s, p, S, P) for d in range(D)])
+                     for s in range(S) for p in range(P)},
+            "pipe": {(d, s): new([_rank(d, s, p, S, P) for p in range(P)])
+                     for d in range(D) for s in range(S)} if P > 1 else {},
+        }
     return _GROUPS[key]
+
+
+def _groups(mesh: Mesh, axis: str) -> dict:
+    groups = _subgroups(mesh.data, mesh.spatial, mesh.pipe)
+    if groups is None:
+        raise RuntimeError(f"a mesh of {mesh.processes} processes needs the process world "
+                           "joined (parallel.multihost.initialize_distributed)")
+    return groups[axis]
 
 
 def make_mesh(
     data: Optional[int] = None, spatial: int = 1, pipe: int = 1, device=None,
 ) -> Mesh:
     """The mesh of this process world (:func:`check_axes` against its
-    size), with its subgroups built (a collective when ``spatial`` is
-    above 1: every rank calls it). ``device`` (default: a card when CUDA is
-    present) names the platform."""
+    size), with its subgroups built (a collective: every rank calls it)
+    whenever a spatial or pipe axis is above 1; a mesh ``(D, 1, 1)`` needs
+    none, its data group being the world. ``device`` (default: a card when
+    CUDA is present) names the platform."""
     data = check_axes(data, spatial, pipe, multihost.process_count())
     if device is None:
         platform = "gpu" if torch.cuda.is_available() else "cpu"
     else:
         platform = "gpu" if torch.device(device).type == "cuda" else "cpu"
-    if int(spatial) > 1 and int(pipe) == 1:
-        _subgroups(data, int(spatial))
     mesh = Mesh(data=data, rank=multihost.process_index(), platform=platform,
                 spatial=int(spatial), pipe=int(pipe))
-    if mesh.pipe > 1:
-        pipe_group(mesh)
+    if mesh.spatial * mesh.pipe > 1:
+        _groups(mesh, "data")
     return mesh
 
 
 def pipe_group(mesh: Optional[Mesh]):
     """The process group of ``mesh.rank``'s pipe axis (the ``pipe`` ranks
     of its data and spatial index, in pipe order), or None without a pipe
-    axis above 1. Every rank builds all of them once, in the same order."""
+    axis above 1."""
     if mesh is None or mesh.pipe <= 1:
         return None
-    if not multihost.initialized():
-        raise RuntimeError(f"a mesh with pipe={mesh.pipe} needs the process world joined "
-                           "(parallel.multihost.initialize_distributed)")
-    key, P = (mesh.data, mesh.spatial, mesh.pipe), mesh.pipe
-    if key not in _PIPE_GROUPS:
-        _PIPE_GROUPS[key] = [multihost._dist().new_group(list(range(g * P, (g + 1) * P)))
-                             for g in range(mesh.data * mesh.spatial)]
-    return _PIPE_GROUPS[key][mesh.rank // P]
+    return _groups(mesh, "pipe")[(mesh.data_index, mesh.spatial_index)]
 
 
 def spatial_group(mesh: Optional[Mesh]):
-    """The ``halo.SpatialGroup`` of ``mesh.rank`` (its data index's spatial
-    ranks), or None without a spatial axis above 1."""
+    """The ``halo.SpatialGroup`` of ``mesh.rank`` (the spatial ranks of its
+    data and pipe index, whose neighbours are ``rank - pipe`` and ``rank +
+    pipe``), or None without a spatial axis above 1."""
     from raft_ncup_tpu_torch.parallel.halo import SpatialGroup
 
     if mesh is None or mesh.spatial <= 1:
         return None
-    if mesh.pipe > 1:
-        raise ValueError(f"a spatial group beside pipe={mesh.pipe}: {ITEM_9B_V}")
-    by_data, _ = _subgroups(mesh.data, mesh.spatial)
-    if by_data is None:
-        raise RuntimeError(f"a mesh with spatial={mesh.spatial} needs the process world "
-                           "joined (parallel.multihost.initialize_distributed)")
-    d, S = mesh.data_index, mesh.spatial
+    d, p, S, P = mesh.data_index, mesh.pipe_index, mesh.spatial, mesh.pipe
     return SpatialGroup(size=S, index=mesh.spatial_index,
-                        ranks=tuple(d * S + s for s in range(S)), group=by_data[d])
+                        ranks=tuple(_rank(d, s, p, S, P) for s in range(S)),
+                        group=_groups(mesh, "spatial")[(d, p)])
+
+
+def data_ranks(mesh: Mesh) -> tuple:
+    """The global ranks of ``mesh.rank``'s data group, in data order."""
+    s, p, S, P = mesh.spatial_index, mesh.pipe_index, mesh.spatial, mesh.pipe
+    return tuple(_rank(d, s, p, S, P) for d in range(mesh.data))
 
 
 def data_group(mesh: Optional[Mesh]):
-    """The process group of ``mesh.rank``'s spatial index (its data ranks),
-    over which the metric sums reduce; None (the world) without a spatial
-    axis above 1."""
-    if mesh is None or mesh.spatial <= 1:
+    """The process group of ``mesh.rank``'s spatial and pipe index (its
+    data ranks), over which the metric sums and the outputs' gather run;
+    None (the world) when that is the whole world: no mesh, or spatial and
+    pipe sizes of 1."""
+    if mesh is None or mesh.spatial * mesh.pipe == 1:
         return None
-    _, by_spatial = _subgroups(mesh.data, mesh.spatial)
-    return None if by_spatial is None else by_spatial[mesh.spatial_index]
+    return _groups(mesh, "data")[(mesh.spatial_index, mesh.pipe_index)]
 
 
 def resolve_config_mesh(mesh: Optional[Mesh], cfg_mesh, device=None) -> tuple:
     """JAX's resolution rule: an explicit ``mesh`` wins, else a config's
     ``(data, spatial[, pipe])`` sizes build one (:func:`make_mesh`, its
-    platform ``device``'s), else none; a pipe axis beside a data or spatial
-    axis above 1 raises (:func:`check_replicated_pipe`: the served paths
-    take ``(1, 1, P)``). Returns ``(mesh or None, pad divisor)``, the
-    divisor ``8 * spatial``."""
+    platform ``device``'s), else none. Returns ``(mesh or None, pad
+    divisor)``, the divisor ``8 * spatial`` (the pipe axis shards no image
+    dimension)."""
     if mesh is None and cfg_mesh is not None:
-        pipe = int(cfg_mesh[2]) if len(cfg_mesh) > 2 else 1
-        check_replicated_pipe(int(cfg_mesh[0]), int(cfg_mesh[1]), pipe)
-        mesh = make_mesh(data=int(cfg_mesh[0]), spatial=int(cfg_mesh[1]), pipe=pipe,
-                         device=device)
-    if mesh is not None:
-        check_replicated_pipe(mesh.data, mesh.spatial, mesh.pipe)
+        mesh = make_mesh(data=int(cfg_mesh[0]), spatial=int(cfg_mesh[1]),
+                         pipe=int(cfg_mesh[2]) if len(cfg_mesh) > 2 else 1, device=device)
     spatial = int(mesh.shape.get("spatial", 1)) if mesh is not None else 1
     return mesh, 8 * spatial
 
 
 def mesh_fingerprint(mesh: Optional[Mesh]) -> str:
     """JAX's identity string of a mesh: ``nomesh``,
-    ``mesh(data=N,spatial=1:gpu)``, or ``mesh(data=1,spatial=1,pipe=S:gpu)``
+    ``mesh(data=N,spatial=1:gpu)``, or ``mesh(data=D,spatial=S,pipe=P:gpu)``
     with a pipe axis above 1."""
     if mesh is None:
         return "nomesh"

@@ -380,9 +380,7 @@ def run(argv=None) -> tuple[int, dict, list, RAFT]:
     joined = False
     if args.mesh is not None:
         # The mesh against the launcher's world, which this process joins.
-        pipe = args.mesh[2] if len(args.mesh) > 2 else 1
-        mesh_mod.check_replicated_pipe(args.mesh[0], args.mesh[1], pipe)
-        check_mesh(args.mesh[0], args.mesh[1], pipe)
+        check_mesh(args.mesh[0], args.mesh[1], args.mesh[2] if len(args.mesh) > 2 else 1)
         device = multihost.local_device(args.device)
         if device.type == "cuda":
             torch.cuda.set_device(device)

@@ -36,12 +36,13 @@ runtime guards). ``inflight=1`` is the waiting server: each push waits
 for its own batch, with the same answers.
 
 **The mesh** (``mesh=``, else ``ServeConfig.mesh`` through
-``parallel.mesh.resolve_config_mesh``): a ``(data, spatial)`` mesh of
-processes, one per card, serves as one server; so does ``(1, 1, P)``, whose
-P pipe ranks each run the same forward (JAX replicates it over ``pipe``)
-as CUDA graphs, and whose iteration levels must land on segment
-boundaries (the budget's ``segments=P``, checked at construction). Pads round up to ``8 *
-spatial``. Every rank builds the server with the same configuration; rank
+``parallel.mesh.resolve_config_mesh``): a ``(data, spatial, pipe)`` mesh
+of processes, one per card, serves as one server. Each of the P pipe
+indices runs the ``(data, spatial)`` forward on the same batch (JAX
+replicates it over ``pipe``), its halos and gathers among its own ranks;
+under ``(1, 1, P)`` as CUDA graphs. Under a pipe axis the iteration levels
+must land on segment boundaries (the budget's ``segments=P``, checked at
+construction). Pads round up to ``8 * spatial``. Every rank builds the server with the same configuration; rank
 0, the leader, admits, batches, times out and delivers, and broadcasts
 each dispatch (``parallel/lockstep.py``: the batch's iterations, early-exit
 tolerance and staged frames) to the followers, which run :meth:`follow`

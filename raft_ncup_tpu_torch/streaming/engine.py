@@ -60,7 +60,8 @@ followers, which run :meth:`follow`. The slot table stays whole and
 identical on every rank (JAX replicates it when ``capacity + 1`` does not
 divide by ``data``): the step reads each row's previous state from it,
 each data index runs its block of the rows, split by rows over its
-spatial ranks, and the outputs are gathered over the data axis before
+spatial ranks (on each pipe index alike: the pipe indices are replicas),
+and the outputs are gathered over the data axis before
 the anomaly test and the write back, so every rank writes the same
 values.
 

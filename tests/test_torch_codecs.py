@@ -5,7 +5,14 @@ the JAX package's ``read_image`` decodes with, on the CPU.
 - Every committed fixture (``tests/data/codecs``): the port's
   ``read_image`` equals Pillow's decode and JAX's ``read_image`` bit for
   bit (tolerance 0 for WebP and JPEG alike), and the manifest's digests
-  equal Pillow's decodes.
+  equal Pillow's decodes. The fixtures include animated WebP (the first
+  frame on its canvas), CMYK and YCCK JPEG, sampling factors of 3 and 4,
+  arithmetic coding (sequential and progressive) and lossless frames.
+- Every fixture of a form Pillow refuses (12-bit samples, a DNL height, a
+  hierarchical frame, lossless YCbCr, fractional sampling, an oversized
+  MCU, an animation frame past its canvas) raises on both sides: Pillow
+  and JAX's ``read_image`` raise, and the port's ``read_image`` raises a
+  ``ValueError`` naming the file and the reason.
 - A seeded hypothesis sweep over size, quality, method and subsampling,
   encoded by Pillow here, decodes bit-exact.
 - Truncations at 64 cut points and seeded byte flips of small fixtures
@@ -42,9 +49,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data", "codecs")
 MANIFEST = json.load(open(os.path.join(FIXTURES, "manifest.json")))
 NAMES = sorted(MANIFEST["files"])
+REFUSED = sorted(MANIFEST["refused_by_pillow"])
 SMALL = ["lossy_37x53_q50_m6.webp", "lossy_partitions4_sharp.webp", "lossless_rgba.webp",
          "lossless_palette4.webp", "jpeg_420_33x17.jpg", "jpeg_progressive_420.jpg",
-         "jpeg_restart.jpg"]
+         "jpeg_restart.jpg", "anim_lossy_first.webp", "jpeg_cmyk.jpg",
+         "jpeg_arith_progressive_restart.jpg", "jpeg_arith_dac_restart.jpg",
+         "jpeg_lossless_p4.jpg", "jpeg_lossless_subsampled.jpg", "jpeg_ycck.jpg",
+         "jpeg_h4_fancy.jpg"]
 
 
 def _pillow(data):
@@ -65,13 +76,16 @@ def _decode(data):
 
 
 def test_fixtures_cover_the_decoder_branches():
-    assert len(NAMES) >= 40
+    assert len(NAMES) >= 70 and len(REFUSED) >= 7
     assert sum(e["bytes"] for e in MANIFEST["files"].values()) < 600_000
     assert MANIFEST["versions"]["libwebp"] == "1.6.0"
     what = " ".join(e["exercises"] for e in MANIFEST["files"].values())
     for branch in ("simple loop filter", "normal loop filter", "8 token partitions",
                    "ALPH", "VP8L colour indexing", "progressive", "restart", "4:4:0",
-                   "SOF1", "Adobe", "one component"):
+                   "SOF1", "Adobe", "one component", "animated", "CMYK", "YCCK",
+                   "sampling factor 4", "sampling factor 3", "4:1:1", "arithmetic coding (SOF9)",
+                   "arithmetic progressive (SOF10)", "DAC", "lossless (SOF3)",
+                   "point transform", *(f"predictor {p}" for p in range(1, 8))):
         assert branch in what, branch
     assert MANIFEST["not_held_against_a_reference"] == []
 
@@ -128,26 +142,51 @@ def test_decoders_run_in_parallel_threads():
 
 
 def test_unsupported_forms_raise_with_a_reason(tmp_path):
+    # What raised in the earlier decoders and Pillow reads now decodes as
+    # Pillow does: an animation's first frame, CMYK and arithmetic coding.
     anim = io.BytesIO()
     frames = [Image.fromarray(np.full((8, 8, 3), v, np.uint8)) for v in (0, 200)]
     frames[0].save(anim, "WEBP", save_all=True, append_images=frames[1:], duration=40)
-    with pytest.raises(ValueError, match="animated"):
-        codecs.decode_webp(anim.getvalue(), "anim.webp")
+    np.testing.assert_array_equal(codecs.decode_webp(anim.getvalue(), "anim.webp"),
+                                  _pillow(anim.getvalue()))
     cmyk = io.BytesIO()
-    Image.new("CMYK", (8, 8)).save(cmyk, "JPEG")
-    with pytest.raises(ValueError, match="CMYK.*ROADMAP"):
-        codecs.decode_jpeg(cmyk.getvalue(), "cmyk.jpg")
-    sof = bytearray(open(os.path.join(FIXTURES, "jpeg_444_45x67.jpg"), "rb").read())
-    i = sof.index(b"\xff\xc0")
-    sof[i + 1] = 0xC9  # arithmetic coding
-    with pytest.raises(ValueError, match="arithmetic.*ROADMAP"):
-        codecs.decode_jpeg(bytes(sof), "arith.jpg")
+    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(cmyk, "JPEG")
+    got = codecs.decode_jpeg(cmyk.getvalue(), "cmyk.jpg")
+    assert got.shape == (8, 8, 4)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(cmyk.getvalue()))))
+    arith = open(os.path.join(FIXTURES, "jpeg_arith.jpg"), "rb").read()
+    np.testing.assert_array_equal(codecs.decode_jpeg(arith, "arith.jpg"), _pillow(arith))
     (tmp_path / "x.webp").write_bytes(b"RIFF\x04\x00\x00\x00WEBP")
     with pytest.raises(ValueError, match="x.webp"):
         pio.read_image(tmp_path / "x.webp")
     (tmp_path / "y.jpg").write_bytes(b"GIF89a")
     with pytest.raises(ValueError, match="not a PNG, PPM/PGM, JPEG or WebP"):
         pio.read_image(tmp_path / "y.jpg")
+
+
+# The reason each refused form's ValueError names.
+_REASONS = {"refused_12bit.jpg": "12-bit samples", "refused_dnl.jpg": "DNL",
+            "refused_sof5.jpg": "hierarchical frame", "refused_lossless_ycc.jpg": "lossless",
+            "refused_fractional_sampling.jpg": "fractional sampling",
+            "refused_mcu_too_large.jpg": "MCU of 18 blocks",
+            "refused_anim_frame_off_canvas.webp": "past the canvas"}
+
+
+@pytest.mark.parametrize("name", REFUSED)
+def test_forms_pillow_refuses_raise_on_both_sides(name):
+    path = os.path.join(FIXTURES, name)
+    data = open(path, "rb").read()
+    assert len(data) == MANIFEST["refused_by_pillow"][name]["bytes"]
+    with pytest.raises(Exception):  # noqa: B017 - Pillow's own errors vary by form
+        _pillow(data)
+    with pytest.raises(Exception):  # noqa: B017
+        jio.read_image(path)
+    with pytest.raises(ValueError, match=f"{name}.*{_REASONS[name]}"):
+        pio.read_image(path)
+
+
+def test_every_refused_form_has_a_reason():
+    assert sorted(_REASONS) == REFUSED
 
 
 _CHILD = textwrap.dedent("""

@@ -183,16 +183,21 @@ def test_eval_mesh_flag_is_jaxs_spec_and_follows_the_world(launched_world):
     # Two ranks split each forward by rows: --mesh 1,2, or its shorthand.
     assert cli.parse_eval(args + ["--mesh", "1,2"])[0].mesh_axes == (1, 2)
     assert cli.parse_eval(args + ["--spatial_parallel", "2"])[0].mesh_axes == (1, 2)
-    for bad, match in ((["--mesh", "2,2"], "world size 2"), (["--mesh", "1,2,2"], "item 9b-v")):
+    for bad, match in ((["--mesh", "2,2"], "world size 2"),
+                       (["--mesh", "1,2,2"], "times pipe size 2 must equal the world size 2")):
         with pytest.raises(ValueError, match=match):
             cli.parse_eval(args + bad)
-    # A pipe axis over the world: each rank evaluates the whole set (JAX
-    # replicates the forward over pipe); beside a spatial axis it raises.
+    # A pipe axis over the world: each pipe index evaluates the (data,
+    # spatial) pass (JAX replicates the forward over pipe), beside a data or
+    # spatial axis too, when the three sizes make the world.
     parsed = cli.parse_eval(args + ["--mesh", "1,1,2"])[0]
     assert (parsed.mesh_axes, parsed.mesh_pipe) == ((1, 1), 2)
     launched_world(4, rank=1)
-    with pytest.raises(ValueError, match="item 9b-v"):
-        cli.parse_eval(args + ["--mesh", "1,2,2"])
+    for mesh, axes in (("1,2,2", (1, 2)), ("2,1,2", (2, 1)), ("1,1,4", (1, 1))):
+        parsed = cli.parse_eval(args + ["--mesh", mesh])[0]
+        assert (parsed.mesh_axes, parsed.mesh_pipe) == (axes, int(mesh[-1]))
+    with pytest.raises(ValueError, match="times pipe size 2 must equal the world size 4"):
+        cli.parse_eval(args + ["--mesh", "2,2,2"])
 
 
 def test_highres_mesh_flags_follow_the_world(launched_world):

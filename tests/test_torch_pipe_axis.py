@@ -207,12 +207,21 @@ def test_rank_layout_and_fingerprint_are_jaxs(S):
 
 
 def test_mixed_pipe_meshes_raise_for_the_served_paths():
+    # The served and evaluated paths take a pipe axis beside a data or
+    # spatial axis (JAX replicates the (data, spatial) work over pipe):
+    # such a mesh passes the world rule when its sizes make the world, and
+    # what still raises is a world of the wrong size, the train and highres
+    # entries and the pipelined forward (JAX's v1 rule).
     assert mesh_mod.check_axes(1, 1, 2, world=2) == 1
     assert mesh_mod.check_axes(None, 1, 4, world=4) == 1
-    mesh_mod.check_replicated_pipe(1, 1, 4)
+    assert mesh_mod.check_axes(1, 2, 2, world=4) == 1
+    assert mesh_mod.check_axes(None, 1, 2, world=4) == 2
     for data, spatial in ((2, 1), (1, 2)):
-        with pytest.raises(ValueError, match="item 9b-v"):
-            mesh_mod.check_replicated_pipe(data, spatial, 2)
+        with pytest.raises(ValueError, match="times pipe size 2 must equal the world size 2"):
+            mesh_mod.check_axes(data, spatial, 2, world=2)
+        m = mesh_mod.Mesh(data, 0, "cpu", spatial=spatial, pipe=2)
+        with pytest.raises(ValueError, match="the pipelined forward's v1 rule"):
+            PipelinedForward(RAFT(child.model_cfg("raft"), device="cpu"), mesh=m)
     for entry in ("train", "highres"):
         with pytest.raises(ValueError, match=f"the {entry} entry has no pipe axis"):
             mesh_mod.check_no_pipe(2, entry)

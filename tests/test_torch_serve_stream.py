@@ -151,13 +151,15 @@ def test_stream_corruptframe_resets_one_stream(capsys):
 
 
 def test_later_slices_are_refused():
-    # The mesh is the port's since its spatial serving slice and its pipe
-    # axis since the pipe slice (over the launcher's world: a world of one
-    # has no second pipe rank); beside a spatial axis the pipe axis raises.
+    # The mesh is the port's since its spatial serving slice, its pipe axis
+    # since the pipe slice and a pipe axis beside a data or spatial axis
+    # since the mixed-mesh slice, each over the launcher's world: a world of
+    # one has no second rank, which the world rule says.
     with pytest.raises(ValueError, match="ROADMAP.md, queue 1 items 9a and 9b"):
         serve_mod.main(SMALL + ["--mesh", "1,1,2"])
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 1 item 9b-v"):
-        serve_mod.main(SMALL + ["--mesh", "1,2,2"])
+    for mesh in ("1,2,2", "2,1,2"):
+        with pytest.raises(ValueError, match="times pipe size 2 must equal the world size 1"):
+            serve_mod.main(SMALL + ["--mesh", mesh])
     # Fleet replicas are the port's since its fleet slice: the flags parse
     # into replica mode (tests/test_torch_replica.py drives it).
     args = serve_mod.build_parser().parse_args(

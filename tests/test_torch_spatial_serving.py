@@ -309,16 +309,18 @@ def test_config_rejects_a_malformed_mesh(mesh):
 
 
 def test_a_pipe_axis_still_refuses():
-    # A pipe axis is the server's since the pipe slice, over (1, 1, P) only
-    # (tests/test_torch_pipe_axis.py serves one): beside a spatial or data
-    # axis it raises, naming item 9b-v; alone in a world of one it is a
-    # size the world does not have.
+    # A pipe axis is the server's beside a data or spatial axis too
+    # (tests/test_torch_mixed_mesh.py serves (1, 2, 2) and (2, 1, 2) over
+    # four ranks): the configurations take the triple, and only a world
+    # of the wrong size refuses it, by the world rule.
     model = RAFT(child.model_cfg("raft"), device="cpu")
-    for mesh in ((1, 2, 2), (2, 1, 2)):
-        with pytest.raises(ValueError, match="item 9b-v"):
+    for mesh in ((1, 2, 2), (2, 1, 2), (1, 1, 2)):
+        assert ServeConfig(mesh=mesh, batch_sizes=(2,)).mesh == mesh
+        assert StreamConfig(mesh=mesh, batch_sizes=(2,)).mesh == mesh
+        with pytest.raises(ValueError, match="times pipe size 2 must equal the world size 1"):
             FlowServer(model, ServeConfig(mesh=mesh, batch_sizes=(2,)))
-    with pytest.raises(ValueError, match="times pipe size 2 must equal the world size 1"):
-        FlowServer(model, ServeConfig(mesh=(1, 1, 2)))
+        with pytest.raises(ValueError, match="times pipe size 2 must equal the world size 1"):
+            StreamEngine(model, StreamConfig(mesh=mesh, batch_sizes=(2,)))
 
 
 # ------------------------------------------------------- the serve entry
