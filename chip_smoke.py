@@ -12,7 +12,11 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
    committed fixture of ``tests/data/codecs`` and holds its RGB bytes'
    sha256 against the manifest's digest of Pillow's decode, and times the
    decode of the committed 540x960 lossy WebP frames with 1 and 4 host
-   threads (its ``codecs:`` line);
+   threads (its ``codecs:`` line); beside the build, on the host, it runs
+   the port's static lint (``python -m raft_ncup_tpu_torch.analysis
+   --strict-allowlist raft_ncup_tpu_torch/ chip_*.py``) in a process of its
+   own and prints ``lint: files N findings 0 allowlisted K cpu_s X``; a
+   finding, a stale allowlist entry or a parse error fails the run;
 3. holds the correlation-lookup kernel (A) against its plain PyTorch
    version at the served shape (batch 2, 55x128 level 0, C=256, 4 levels,
    r=4) with random and with smooth flow, at 1088x1920 (136x240 level 0)
@@ -304,6 +308,7 @@ also checks that no replica process outlives its supervisor's ``stop``.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
 import os
@@ -433,6 +438,41 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def start_lint() -> tuple:
+    """The port's static lint over this checkout (the package and the root
+    ``chip_*.py``), started in a process of its own on the host; its output
+    goes to unnamed files, read by :func:`check_lint`."""
+    chips = sorted(os.path.basename(p) for p in glob.glob(os.path.join(HERE, "chip_*.py")))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "raft_ncup_tpu_torch.analysis", "--strict-allowlist",
+         "--format", "json", "raft_ncup_tpu_torch/", *chips],
+        cwd=HERE, stdout=out, stderr=err)
+    return proc, out, err
+
+
+def check_lint(lint: tuple) -> dict:
+    """Wait for the lint started by :func:`start_lint` and print its line:
+    the files it read, its findings (0, or the run fails), the findings the
+    allowlist holds, and the CPU seconds of its process (user and system,
+    from ``wait4``)."""
+    proc, out, err = lint
+    _, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    out.seek(0)
+    err.seek(0)
+    text, errors = out.read(), err.read()
+    check(proc.returncode == 0,
+          f"the static lint failed (exit {proc.returncode}):\n{text[-4000:]}\n{errors[-2000:]}")
+    doc = json.loads(text)
+    row = dict(files=doc["files_checked"],
+               findings=sum(not f["suppressed"] for f in doc["findings"]),
+               allowlisted=sum(f["suppressed"] for f in doc["findings"]),
+               cpu_s=round(usage.ru_utime + usage.ru_stime, 2))
+    print("lint: " + " ".join(f"{k} {v}" for k, v in row.items()), flush=True)
+    return row
 
 
 def cuda_ms(torch, fn, reps: int, flush) -> float:
@@ -6087,6 +6127,7 @@ def main() -> int:
     from raft_ncup_tpu_torch.io import codec_build
 
     t0 = time.perf_counter()
+    lint = start_lint()
     codec_result = {}
 
     def build_codecs():
@@ -6109,6 +6150,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     lap("build")
+    check_lint(lint)
     check_codecs(card)
 
     gen = torch.Generator().manual_seed(0)

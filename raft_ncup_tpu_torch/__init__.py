@@ -28,12 +28,24 @@ video streams with ``--stream``), ``python -m raft_ncup_tpu_torch.train``,
 ``evaluate`` and ``demo``.
 """
 
-from raft_ncup_tpu_torch.config import (  # noqa: F401
-    ModelConfig,
-    ServeConfig,
-    StreamConfig,
-    TrainConfig,
-    UpsamplerConfig,
-    flagship_config,
-    small_model_config,
+# The config's names, imported at their first use: importing the package
+# imports no torch, so its pure-stdlib tools (the static lint,
+# ``python -m raft_ncup_tpu_torch.analysis``) start without it.
+_CONFIG_EXPORTS = (
+    "ModelConfig",
+    "ServeConfig",
+    "StreamConfig",
+    "TrainConfig",
+    "UpsamplerConfig",
+    "flagship_config",
+    "small_model_config",
 )
+__all__ = list(_CONFIG_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name in _CONFIG_EXPORTS:
+        from raft_ncup_tpu_torch import config
+
+        return getattr(config, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,432 @@
+"""The port's static lint: file discovery, allowlist, rule driving, CLI.
+
+Run as ``python -m raft_ncup_tpu_torch.analysis [paths...]``; the
+contract is that ``python -m raft_ncup_tpu_torch.analysis
+--strict-allowlist raft_ncup_tpu_torch/ chip_*.py`` exits 0 on the
+shipped tree. Pure stdlib: the lint imports no torch and runs on any
+host. ``raft_ncup_tpu/analysis/lint.py`` is the JAX package's
+counterpart, with the same allowlist format, CLI and JSON document.
+
+Allowlist format (default file: ``raft_ncup_tpu_torch/analysis/allowlist.txt``)
+-- one audited exception per line::
+
+    path/suffix.py::RULE::qualname  # justification (mandatory)
+
+``qualname`` is the finding's enclosing-function path (``<module>`` at
+top level) or ``*`` to cover the whole file for that rule. The path
+matches by suffix so the file works from any checkout root. Entries
+without a ``#`` justification are a configuration error (exit 2);
+entries that suppress nothing are reported as stale (exit 1 under
+``--strict-allowlist``, a warning otherwise).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import json
+import os
+import sys
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+from raft_ncup_tpu_torch.analysis.astutil import (
+    Finding,
+    ModuleContext,
+    TracedIndex,
+    attach_parents,
+    collect_aliases,
+)
+from raft_ncup_tpu_torch.analysis.rules import ALL_RULES, RULES_BY_ID
+
+DEFAULT_ALLOWLIST = os.path.join(os.path.dirname(__file__), "allowlist.txt")
+
+_SKIP_DIRS = frozenset({"__pycache__", ".git", ".venv", "node_modules"})
+
+
+class AllowlistError(Exception):
+    """Malformed allowlist (bad syntax or missing justification)."""
+
+
+@dataclass
+class AllowEntry:
+    path_suffix: str
+    rule: str
+    qual: str
+    justification: str
+    lineno: int
+    used: bool = False
+
+    def matches(self, f: Finding) -> bool:
+        path = f.path.replace("\\", "/")
+        if not (path == self.path_suffix or path.endswith("/" + self.path_suffix)):
+            return False
+        if self.rule != "*" and self.rule != f.rule:
+            return False
+        return self.qual in ("*", f.qualname)
+
+    def render(self) -> str:
+        return f"{self.path_suffix}::{self.rule}::{self.qual} (line {self.lineno})"
+
+
+@dataclass
+class LintResult:
+    findings: list = field(default_factory=list)  # unsuppressed, reportable
+    suppressed: list = field(default_factory=list)  # (finding, entry)
+    stale_entries: list = field(default_factory=list)
+    parse_errors: list = field(default_factory=list)  # (path, message)
+    files_checked: int = 0
+    declared_axes: frozenset = frozenset()
+
+
+def load_allowlist(path: str) -> list:
+    entries = []
+    with open(path, encoding="utf-8") as fh:
+        for lineno, raw in enumerate(fh, start=1):
+            line = raw.strip()
+            if not line or line.startswith("#"):
+                continue
+            body, sep, justification = line.partition("#")
+            justification = justification.strip()
+            if not sep or not justification:
+                raise AllowlistError(
+                    f"{path}:{lineno}: allowlist entry has no justification "
+                    "(append `# why this is an audited exception`)"
+                )
+            parts = [p.strip() for p in body.strip().split("::")]
+            if len(parts) == 2:
+                parts.append("*")
+            if len(parts) != 3 or not all(parts[:2]):
+                raise AllowlistError(
+                    f"{path}:{lineno}: expected `path::RULE[::qualname]  "
+                    f"# justification`, got {body.strip()!r}"
+                )
+            path_suffix, rule, qual = parts
+            if rule != "*" and rule not in RULES_BY_ID:
+                raise AllowlistError(
+                    f"{path}:{lineno}: unknown rule {rule!r} "
+                    f"(known: {sorted(RULES_BY_ID)})"
+                )
+            entries.append(
+                AllowEntry(
+                    path_suffix.replace("\\", "/"),
+                    rule,
+                    qual or "*",
+                    justification,
+                    lineno,
+                )
+            )
+    return entries
+
+
+def find_py_files(paths: Sequence[str]) -> list:
+    out = []
+    for p in paths:
+        if os.path.isdir(p):
+            for root, dirs, names in os.walk(p):
+                dirs[:] = sorted(
+                    d for d in dirs
+                    if d not in _SKIP_DIRS and not d.startswith(".")
+                )
+                out.extend(
+                    os.path.join(root, n) for n in sorted(names)
+                    if n.endswith(".py")
+                )
+        elif p.endswith(".py"):
+            out.append(p)
+        else:
+            raise FileNotFoundError(f"not a directory or .py file: {p}")
+    # de-dupe while preserving order (overlapping path arguments)
+    seen: set = set()
+    uniq = []
+    for f in out:
+        key = os.path.abspath(f)
+        if key not in seen:
+            seen.add(key)
+            uniq.append(f)
+    return uniq
+
+
+def discover_declared_axes(trees: dict) -> frozenset:
+    """Mesh axis names declared anywhere in the linted set: the string
+    keys that the ``shape`` property of a class named ``Mesh`` puts in its
+    dict (``{"data": ..., "spatial": ...}`` and ``axes["pipe"] = ...``).
+    parallel/mesh.py is the only production declarer."""
+    axes: set = set()
+    for tree, _aliases in trees.values():
+        axes |= _axes_in_tree(tree)
+    return frozenset(axes)
+
+
+def production_declared_axes() -> frozenset:
+    """Axis names declared by the package's production mesh
+    (``parallel/mesh.py``), parsed directly so JGL006 judges axis strings
+    even when the linted set does not include it (a standalone lint of
+    ``inference/`` or ``serving/``). The empty set when the file is missing
+    or unparseable: silence, never a crash."""
+    path = os.path.join(
+        os.path.dirname(os.path.dirname(__file__)), "parallel", "mesh.py"
+    )
+    try:
+        with open(path, encoding="utf-8") as fh:
+            tree = ast.parse(fh.read(), filename=path)
+    except (OSError, SyntaxError):
+        return frozenset()
+    return frozenset(_axes_in_tree(tree))
+
+
+def _axes_in_tree(tree) -> set:
+    axes: set = set()
+    for cls in ast.walk(tree):
+        if not (isinstance(cls, ast.ClassDef) and cls.name == "Mesh"):
+            continue
+        for fn in cls.body:
+            if not (isinstance(fn, ast.FunctionDef) and fn.name == "shape"):
+                continue
+            for node in ast.walk(fn):
+                keys = []
+                if isinstance(node, ast.Dict):
+                    keys = node.keys
+                elif isinstance(node, ast.Subscript) and isinstance(
+                    node.ctx, ast.Store
+                ):
+                    keys = [node.slice]
+                axes |= {
+                    k.value for k in keys
+                    if isinstance(k, ast.Constant) and isinstance(k.value, str)
+                }
+    return axes
+
+
+def run_lint(
+    paths: Sequence[str],
+    allowlist_path: Optional[str] = None,
+    select: Optional[Sequence[str]] = None,
+    declared_axes: Optional[frozenset] = None,
+) -> LintResult:
+    """Lint ``paths`` and return the full result (the CLI renders it).
+
+    ``select`` restricts to the given rule IDs. ``declared_axes``
+    overrides mesh-axis discovery (fixture tests use this).
+    """
+    result = LintResult()
+    entries = []
+    if allowlist_path:
+        entries = load_allowlist(allowlist_path)
+
+    rules = ALL_RULES
+    if select:
+        unknown = set(select) - set(RULES_BY_ID)
+        if unknown:
+            raise AllowlistError(f"unknown rule id(s): {sorted(unknown)}")
+        rules = tuple(RULES_BY_ID[r] for r in sorted(select))
+
+    # Pass 1: parse everything once (axis discovery and the
+    # whole-program graph need the full set before any rule runs).
+    trees: dict = {}
+    for path in find_py_files(paths):
+        display = path.replace("\\", "/")
+        try:
+            with open(path, encoding="utf-8") as fh:
+                source = fh.read()
+            tree = ast.parse(source, filename=path)
+        except (OSError, SyntaxError) as e:
+            result.parse_errors.append((display, str(e)))
+            continue
+        attach_parents(tree)
+        trees[display] = (tree, collect_aliases(tree))
+    result.files_checked = len(trees)
+    if declared_axes is not None:
+        result.declared_axes = declared_axes
+    else:
+        result.declared_axes = discover_declared_axes(trees)
+        if not result.declared_axes:
+            # No Mesh declaration in the linted set (standalone lint of
+            # inference//serving//streaming/): fall back to the
+            # production declarer so axis strings there are still judged
+            # instead of silently skipped.
+            result.declared_axes = production_declared_axes()
+
+    # Pass 2: per-module rules, then whole-program rules once over the
+    # full graph (JGL011+ expose check_project instead of check).
+    module_rules = tuple(r for r in rules if hasattr(r, "check"))
+    project_rules = tuple(r for r in rules if hasattr(r, "check_project"))
+
+    def _record(finding) -> None:
+        entry = next((e for e in entries if e.matches(finding)), None)
+        if entry is not None:
+            entry.used = True
+            result.suppressed.append((finding, entry))
+        else:
+            result.findings.append(finding)
+
+    for display, (tree, aliases) in trees.items():
+        ctx = ModuleContext(
+            path=display,
+            tree=tree,
+            aliases=aliases,
+            traced=TracedIndex(tree, aliases, display),
+            declared_axes=result.declared_axes,
+        )
+        for rule in module_rules:
+            for finding in rule.check(ctx):
+                _record(finding)
+
+    if project_rules:
+        from raft_ncup_tpu_torch.analysis.project import ProjectIndex
+
+        proj = ProjectIndex.build(trees)
+        for rule in project_rules:
+            for finding in rule.check_project(proj):
+                _record(finding)
+
+    # Staleness is only decidable for entries whose rule actually ran:
+    # under --select, an entry for a deselected rule (or a "*" entry) is
+    # unused because the rule was skipped, not because the finding went
+    # away — marking it stale would fail lint.sh --select spuriously.
+    if select:
+        ran = {r.RULE_ID for r in rules}
+        result.stale_entries = [
+            e for e in entries if not e.used and e.rule in ran
+        ]
+    else:
+        result.stale_entries = [e for e in entries if not e.used]
+    result.findings.sort(key=lambda f: (f.path, f.line, f.col, f.rule))
+    return result
+
+
+def render_json(result: LintResult, failed: bool) -> dict:
+    """The ``--format json`` document. STABLE schema (pinned by
+    tests/test_torch_lint.py, the same as the JAX lint's): tooling diffs
+    lint runs on it, so
+    fields are only ever added, never renamed or removed. Findings are
+    the union of reported and allowlist-suppressed ones, each carrying a
+    ``suppressed`` flag (suppressed entries add the justification)."""
+    findings = [
+        {
+            "rule": f.rule,
+            "path": f.path,
+            "line": f.line,
+            "col": f.col,
+            "qualname": f.qualname,
+            "message": f.message,
+            "suppressed": False,
+        }
+        for f in result.findings
+    ] + [
+        {
+            "rule": f.rule,
+            "path": f.path,
+            "line": f.line,
+            "col": f.col,
+            "qualname": f.qualname,
+            "message": f.message,
+            "suppressed": True,
+            "justification": entry.justification,
+        }
+        for f, entry in result.suppressed
+    ]
+    findings.sort(
+        key=lambda d: (d["path"], d["line"], d["col"], d["rule"])
+    )
+    return {
+        "files_checked": result.files_checked,
+        "findings": findings,
+        "parse_errors": [
+            {"path": p, "message": m} for p, m in result.parse_errors
+        ],
+        "stale_allowlist_entries": [
+            e.render() for e in result.stale_entries
+        ],
+        "exit_code": 1 if failed else 0,
+    }
+
+
+def _print_catalog() -> None:
+    print("graftlint rule catalog:")
+    for mod in ALL_RULES:
+        print(f"  {mod.RULE_ID}  {mod.SUMMARY}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m raft_ncup_tpu_torch.analysis",
+        description="graftlint for the PyTorch/CUDA port: static analysis "
+        "enforcing the sync-free hot path (CUDA-graph captures, autograd "
+        "functions, module forwards), honest error handling, and the "
+        "cross-module control-plane contracts: lock discipline, "
+        "wire-protocol keys, the env-knob registry (rules "
+        "JGL001-JGL013).",
+    )
+    parser.add_argument("paths", nargs="*", default=["raft_ncup_tpu_torch"],
+                        help="files/directories to lint (default: the "
+                        "package)")
+    parser.add_argument("--allowlist", default=DEFAULT_ALLOWLIST,
+                        help="audited-exception file (default: "
+                        "%(default)s)")
+    parser.add_argument("--no-allowlist", action="store_true",
+                        help="report raw findings, ignoring the allowlist")
+    parser.add_argument("--select", nargs="+", metavar="RULE",
+                        help="run only these rule IDs")
+    parser.add_argument("--strict-allowlist", action="store_true",
+                        help="fail when an allowlist entry suppresses "
+                        "nothing (stale)")
+    parser.add_argument("--list-rules", action="store_true",
+                        help="print the rule catalog and exit")
+    parser.add_argument("--show-suppressed", action="store_true",
+                        help="also print allowlisted findings with their "
+                        "justifications")
+    parser.add_argument("--format", choices=("text", "json"),
+                        default="text",
+                        help="output format; 'json' emits one machine-"
+                        "readable document (the JAX lint's schema, pinned "
+                        "in tests/test_torch_lint.py)")
+    args = parser.parse_args(argv)
+
+    if args.list_rules:
+        _print_catalog()
+        return 0
+
+    allowlist = None if args.no_allowlist else args.allowlist
+    if allowlist and not os.path.exists(allowlist):
+        allowlist = None  # a missing default allowlist is simply empty
+    try:
+        result = run_lint(args.paths, allowlist, args.select)
+    except (AllowlistError, FileNotFoundError) as e:
+        print(f"graftlint: {e}", file=sys.stderr)
+        return 2
+
+    failed = bool(
+        result.findings
+        or result.parse_errors
+        or (args.strict_allowlist and result.stale_entries)
+    )
+
+    if args.format == "json":
+        print(json.dumps(render_json(result, failed), indent=2,
+                         sort_keys=True))
+        return 1 if failed else 0
+
+    for path, msg in result.parse_errors:
+        print(f"{path}: parse error: {msg}")
+    for f in result.findings:
+        print(f.render())
+    if args.show_suppressed:
+        for f, entry in result.suppressed:
+            print(f"[allowed] {f.render()}  # {entry.justification}")
+    for entry in result.stale_entries:
+        stream = sys.stdout if args.strict_allowlist else sys.stderr
+        print(
+            f"graftlint: stale allowlist entry suppresses nothing: "
+            f"{entry.render()}",
+            file=stream,
+        )
+
+    print(
+        f"graftlint: {result.files_checked} files, "
+        f"{len(result.findings)} finding(s), "
+        f"{len(result.suppressed)} allowlisted, "
+        f"{len(result.stale_entries)} stale allowlist entr(y/ies)",
+        file=sys.stderr,
+    )
+    return 1 if failed else 0

@@ -1,0 +1,655 @@
+"""Whole-program symbol/usage graph for the port's cross-module rules
+(``raft_ncup_tpu/analysis/project.py`` is the JAX package's
+counterpart; only the knob registry's form differs).
+
+Per-module rules (JGL001-JGL010) see one file at a time; the invariants
+the fleet/observability control plane lives by are cross-file — an
+attribute is written under ``self._lock`` in one method and read without
+it in another, a wire header key is produced in ``serve.py`` and
+consumed in ``fleet/router.py``, an env knob is read in ``serve.py`` and
+declared (or not) in ``utils/knobs.py``. :class:`ProjectIndex` walks
+every parsed module ONCE and collects the per-site facts those rules
+need:
+
+- classes that own a ``threading.Lock/RLock/Condition`` instance
+  attribute, with every ``self.<attr>`` data access classified
+  read/write and tagged with its lexical lock-guard state, enclosing
+  method, and whether it sits directly in ``__init__`` (construction
+  time, single-threaded by definition) or inside a nested function
+  (a closure runs later — a ``with self._lock`` around its *definition*
+  guards nothing);
+- the per-class method call graph over ``self._method(...)`` calls plus
+  the set of methods whose *references* escape (``target=self._loop``)
+  — rule JGL011 runs an "always locked" fixpoint over it;
+- cross-module attribute accesses to private (``_name``) attributes,
+  with the ``with``-held dotted expressions at the site, so
+  ``with router._lock: router._pending[...]`` counts as guarded;
+- wire header key writes (constant keys of any dict literal that
+  carries a ``"kind"`` key — every frame does — and ``header[...] =``
+  store subscripts) and reads (``header.get("k")`` / bare subscripts)
+  for JGL012;
+- ``os.environ`` reads with their names resolved through module-level
+  string constants and import aliases (``os.environ.get(TELEMETRY_ENV)``
+  resolves even when the constant lives in another module), plus every
+  ``knob_*`` getter call and every key of the ``KNOBS`` registry dict
+  (``utils/knobs.py``) for JGL013.
+
+Like the rest of the analysis package: pure stdlib, syntactic only.
+The guard analysis is deliberately lexical — ``with self._lock:`` in
+the same function body, or a call reached only from such bodies — and
+its known blind spots (locks passed across objects, ``Condition.wait``
+temporarily releasing) are documented in docs/ANALYSIS.md; the
+allowlist absorbs what the approximation cannot see.
+
+Trees handed to :meth:`ProjectIndex.build` must already have parents
+attached (``astutil.attach_parents``) — the engine does this in its
+parse pass.
+"""
+
+from __future__ import annotations
+
+import ast
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from raft_ncup_tpu_torch.analysis.astutil import dotted_name, parent, qualname
+
+# Callables whose result is a lock-like object worth guard-tracking.
+_LOCK_FACTORIES = frozenset(
+    {"threading.Lock", "threading.RLock", "threading.Condition"}
+)
+_LOCK_TAILS = frozenset({"Lock", "RLock", "Condition"})
+
+# Method calls on a container attribute that mutate it in place:
+# ``self._pending.pop(...)`` is a WRITE to ``_pending`` for lock
+# discipline even though the attribute itself is only loaded.
+MUTATOR_METHODS = frozenset(
+    {
+        "add", "append", "appendleft", "clear", "discard", "extend",
+        "insert", "pop", "popleft", "put", "remove", "setdefault",
+        "update",
+    }
+)
+
+# Variable names (last dotted segment) that hold a decoded wire header
+# on the consumer side. Producer-side writes additionally come from
+# dict literals carrying a "kind" key.
+WIRE_READ_BASES = frozenset({"header", "hdr", "reply", "republish"})
+WIRE_WRITE_BASES = frozenset({"header", "reply"})
+
+# The wire layer strips/injects this key itself; it is reserved, not a
+# protocol field (wire.send_msg rejects it in user headers).
+WIRE_RESERVED_KEYS = frozenset({"arrays"})
+
+KNOB_GETTERS = frozenset({"knob_raw", "knob_enabled"})
+# The module-level dict that declares the knobs, name -> (default, doc).
+KNOB_REGISTRY = "KNOBS"
+
+
+@dataclass(frozen=True)
+class Site:
+    """One source location, pre-rendered for Finding construction."""
+
+    path: str
+    line: int
+    col: int
+    qual: str
+
+
+@dataclass
+class AttrAccess:
+    """One ``self.<attr>`` data access inside a lock-owning class."""
+
+    attr: str
+    kind: str  # "read" | "write"
+    guarded: bool  # lexically inside `with self.<lock>` in this function
+    method: str  # directly-enclosing method of the class ("" at class level)
+    in_init: bool  # directly in __init__'s body (not in a nested def)
+    in_nested: bool  # inside a def/lambda nested in the method (closure)
+    site: Site = None  # type: ignore[assignment]
+
+
+@dataclass
+class CallEvent:
+    """One ``self.<method>(...)`` call or escaped method reference."""
+
+    callee: str
+    guarded: bool
+    method: str
+    in_init: bool
+    in_nested: bool
+    is_call: bool  # False: the method object escaped (e.g. thread target)
+    site: Site = None  # type: ignore[assignment]
+
+
+@dataclass
+class ExtAccess:
+    """A private-attribute access through something other than ``self``
+    (``router._pending``, ``self.sup._dead_hosts``)."""
+
+    attr: str
+    kind: str  # "read" | "write"
+    base: Optional[str]  # dotted base expression, None when dynamic
+    held: frozenset  # dotted `with` expressions held at the site
+    site: Site = None  # type: ignore[assignment]
+
+
+@dataclass
+class ClassInfo:
+    """One class that owns at least one lock-like instance attribute."""
+
+    name: str
+    path: str
+    lock_attrs: frozenset
+    methods: frozenset = frozenset()
+    accesses: List[AttrAccess] = field(default_factory=list)
+    call_events: List[CallEvent] = field(default_factory=list)
+
+
+@dataclass
+class EnvRead:
+    """One ``os.environ`` read (``.get``/``[]``/``getenv``/``in``)."""
+
+    name: Optional[str]  # resolved constant name; None when dynamic
+    form: str  # "get" | "subscript" | "getenv" | "in"
+    site: Site = None  # type: ignore[assignment]
+
+
+@dataclass
+class KnobCall:
+    """One ``knob_*`` getter call (utils/knobs.py API)."""
+
+    getter: str
+    name: Optional[str]  # resolved constant first argument
+    site: Site = None  # type: ignore[assignment]
+
+
+@dataclass
+class KnobDecl:
+    """One knob declaration: a string key of the ``KNOBS`` dict."""
+
+    name: str
+    site: Site = None  # type: ignore[assignment]
+
+
+@dataclass
+class WireKey:
+    """One wire header key production or consumption site."""
+
+    key: str
+    kind: str  # "write" | "read_get" | "read_subscript"
+    site: Site = None  # type: ignore[assignment]
+
+
+class _Ref:
+    """A not-yet-resolved constant reference (``Name``/``Attribute``
+    pointing at a module-level string constant, possibly in another
+    module). Resolved after every module has been walked."""
+
+    __slots__ = ("fq",)
+
+    def __init__(self, fq: str):
+        self.fq = fq
+
+
+@dataclass
+class ProjectIndex:
+    """Everything the cross-module rules see, from one walk of every
+    parsed module. Built by :meth:`build`; all ``name``/``key`` fields
+    are fully resolved strings (or None for dynamic expressions)."""
+
+    paths: frozenset = frozenset()
+    classes: List[ClassInfo] = field(default_factory=list)
+    ext_accesses: List[ExtAccess] = field(default_factory=list)
+    env_reads: List[EnvRead] = field(default_factory=list)
+    knob_calls: List[KnobCall] = field(default_factory=list)
+    knob_decls: List[KnobDecl] = field(default_factory=list)
+    wire_keys: List[WireKey] = field(default_factory=list)
+    # module dotted path -> {CONST_NAME: string value}
+    constants: Dict[str, Dict[str, str]] = field(default_factory=dict)
+
+    # ------------------------------------------------------------ build
+
+    @classmethod
+    def build(cls, trees: Dict[str, Tuple[ast.AST, dict]]) -> "ProjectIndex":
+        proj = cls(paths=frozenset(trees))
+        # Module-level string constants first: name resolution inside
+        # the main walk may reference a constant declared later in the
+        # same module (or in a module walked later).
+        for display, (tree, _aliases) in trees.items():
+            proj.constants[_module_dotted(display)] = _module_constants(tree)
+        for display, (tree, aliases) in trees.items():
+            _ModuleWalker(proj, display, tree, aliases).walk()
+        proj._resolve_refs()
+        return proj
+
+    def _resolve_refs(self) -> None:
+        for read in self.env_reads:
+            read.name = self._resolve(read.name)
+        for call in self.knob_calls:
+            call.name = self._resolve(call.name)
+        for wk in self.wire_keys:
+            wk.key = self._resolve(wk.key)
+        self.wire_keys = [w for w in self.wire_keys if w.key is not None]
+
+    def _resolve(self, value):
+        if not isinstance(value, _Ref):
+            return value
+        module, _, name = value.fq.rpartition(".")
+        if not module:
+            return None
+        for mod_dotted, consts in self.constants.items():
+            if mod_dotted == module or mod_dotted.endswith("." + module):
+                if name in consts:
+                    return consts[name]
+        return None
+
+
+def _module_dotted(display: str) -> str:
+    p = display.replace("\\", "/")
+    if p.endswith(".py"):
+        p = p[: -len(".py")]
+    return p.strip("/").replace("/", ".")
+
+
+def _module_constants(tree: ast.AST) -> Dict[str, str]:
+    consts: Dict[str, str] = {}
+    for stmt in getattr(tree, "body", ()):
+        if isinstance(stmt, ast.Assign) and len(stmt.targets) == 1:
+            tgt = stmt.targets[0]
+            if (
+                isinstance(tgt, ast.Name)
+                and isinstance(stmt.value, ast.Constant)
+                and isinstance(stmt.value.value, str)
+            ):
+                consts[tgt.id] = stmt.value.value
+    return consts
+
+
+def registry_keys(stmt: ast.AST) -> list:
+    """``(name, key node)`` for each string key of a module-level
+    ``KNOBS = {...}`` (or annotated ``KNOBS: ... = {...}``) statement."""
+    if isinstance(stmt, ast.Assign) and len(stmt.targets) == 1:
+        target, value = stmt.targets[0], stmt.value
+    elif isinstance(stmt, ast.AnnAssign):
+        target, value = stmt.target, stmt.value
+    else:
+        return []
+    if not (
+        isinstance(target, ast.Name)
+        and target.id == KNOB_REGISTRY
+        and isinstance(value, ast.Dict)
+    ):
+        return []
+    return [
+        (k.value, k) for k in value.keys
+        if isinstance(k, ast.Constant) and isinstance(k.value, str)
+    ]
+
+
+@dataclass
+class _State:
+    """Lexical walk state threaded through one module's AST."""
+
+    cls: Optional[ClassInfo] = None
+    method: str = ""
+    fn_depth: int = -1  # -1: not inside any function
+    held_locks: frozenset = frozenset()  # self lock attrs held here
+    held_dotted: frozenset = frozenset()  # all dotted `with` exprs held
+
+
+class _ModuleWalker:
+    def __init__(self, proj: ProjectIndex, display: str,
+                 tree: ast.AST, aliases: dict):
+        self.proj = proj
+        self.display = display
+        self.tree = tree
+        self.aliases = aliases
+        self.local_consts = proj.constants.get(_module_dotted(display), {})
+
+    # ------------------------------------------------------- utilities
+
+    def _site(self, node: ast.AST) -> Site:
+        return Site(
+            path=self.display,
+            line=getattr(node, "lineno", 1),
+            col=getattr(node, "col_offset", 0),
+            qual=qualname(node),
+        )
+
+    def _const_or_ref(self, node: Optional[ast.AST]):
+        """A string value for ``node``: literal, local module constant,
+        or a :class:`_Ref` to another module's constant; None when the
+        expression is dynamic."""
+        if node is None:
+            return None
+        if isinstance(node, ast.Constant):
+            return node.value if isinstance(node.value, str) else None
+        if isinstance(node, ast.Name):
+            if node.id in self.local_consts:
+                return self.local_consts[node.id]
+            fq = self.aliases.get(node.id)
+            return _Ref(fq) if fq and "." in fq else None
+        if isinstance(node, ast.Attribute):
+            fq = dotted_name(node, self.aliases)
+            return _Ref(fq) if fq else None
+        return None
+
+    def _is_lock_call(self, node: ast.AST) -> bool:
+        if not isinstance(node, ast.Call):
+            return False
+        dn = dotted_name(node.func, self.aliases)
+        if dn is None:
+            return False
+        return dn in _LOCK_FACTORIES or dn.split(".")[-1] in _LOCK_TAILS
+
+    # ------------------------------------------------------------ walk
+
+    def walk(self) -> None:
+        for stmt in self.tree.body:
+            for name, key in registry_keys(stmt):
+                self.proj.knob_decls.append(KnobDecl(
+                    name=name, site=self._site(key),
+                ))
+        self._visit_body(self.tree.body, _State())
+
+    def _visit_body(self, body, st: _State) -> None:
+        for stmt in body:
+            self._visit(stmt, st)
+
+    def _visit(self, node: ast.AST, st: _State) -> None:
+        if isinstance(node, ast.ClassDef):
+            self._enter_class(node, st)
+            return
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            self._enter_function(node, st)
+            return
+        if isinstance(node, (ast.With, ast.AsyncWith)):
+            self._enter_with(node, st)
+            return
+        self._collect(node, st)
+        for child in ast.iter_child_nodes(node):
+            self._visit(child, st)
+
+    def _enter_class(self, node: ast.ClassDef, st: _State) -> None:
+        lock_attrs = self._scan_lock_attrs(node)
+        if not lock_attrs:
+            # Still walk the body for env/wire facts; a nested class in
+            # a method keeps the outer class context deliberately off.
+            inner = _State()
+            self._visit_body(node.body, inner)
+            return
+        methods = frozenset(
+            s.name for s in node.body
+            if isinstance(s, (ast.FunctionDef, ast.AsyncFunctionDef))
+        )
+        info = ClassInfo(
+            name=node.name, path=self.display,
+            lock_attrs=lock_attrs, methods=methods,
+        )
+        self.proj.classes.append(info)
+        for stmt in node.body:
+            if isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                mst = _State(cls=info, method=stmt.name, fn_depth=0)
+                for deco in stmt.decorator_list:
+                    self._visit(deco, _State())
+                self._visit_defaults(stmt, _State())
+                self._visit_body(stmt.body, mst)
+            else:
+                self._visit(stmt, _State(cls=info, method="", fn_depth=-1))
+
+    def _scan_lock_attrs(self, node: ast.ClassDef) -> frozenset:
+        """Attributes of ``node`` bound to a lock-like object: any
+        ``self.X = threading.Lock()`` in a method, or a class-level
+        ``X = threading.Lock()`` (shared lock)."""
+        locks = set()
+        for sub in ast.walk(node):
+            if not isinstance(sub, ast.Assign):
+                continue
+            if not self._is_lock_call(sub.value):
+                continue
+            for tgt in sub.targets:
+                if (
+                    isinstance(tgt, ast.Attribute)
+                    and isinstance(tgt.value, ast.Name)
+                    and tgt.value.id == "self"
+                ):
+                    locks.add(tgt.attr)
+                elif isinstance(tgt, ast.Name):
+                    # class-level only: sub's parent chain is not
+                    # checked — a local `lock = Lock()` in a method is
+                    # not a self attribute and never matches self.X.
+                    locks.add(tgt.id)
+        return frozenset(locks)
+
+    def _visit_defaults(self, node, st: _State) -> None:
+        """Default argument values evaluate at def time, in the
+        enclosing scope — walk them with the OUTER state."""
+        a = getattr(node, "args", None)
+        if a is None:
+            return
+        for d in list(a.defaults) + list(a.kw_defaults):
+            if d is not None:
+                self._visit(d, st)
+
+    def _enter_function(self, node, st: _State) -> None:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for deco in node.decorator_list:
+                self._visit(deco, st)
+        self._visit_defaults(node, st)
+        if isinstance(node, ast.Lambda):
+            # Lambdas in this codebase are sort keys and tiny adapters
+            # that run where they are written (min(..., key=lambda ...))
+            # — treat them as executing at the definition site, locks
+            # included. A lambda STORED for later execution is the rare
+            # case and allowlist material.
+            self._visit(node.body, st)
+            return
+        # A nested def's body runs LATER: whatever locks are held
+        # around its definition are not held at its call time.
+        inner = _State(
+            cls=st.cls,
+            method=st.method,
+            fn_depth=(st.fn_depth + 1) if st.fn_depth >= 0 else -1,
+        )
+        self._visit_body(node.body, inner)
+
+    def _enter_with(self, node, st: _State) -> None:
+        held_locks = set(st.held_locks)
+        held_dotted = set(st.held_dotted)
+        for item in node.items:
+            self._visit(item.context_expr, st)
+            dn = dotted_name(item.context_expr, {})
+            if dn is None:
+                continue
+            held_dotted.add(dn)
+            if st.cls is not None and dn.startswith("self."):
+                attr = dn[len("self."):]
+                if attr in st.cls.lock_attrs:
+                    held_locks.add(attr)
+        inner = _State(
+            cls=st.cls, method=st.method, fn_depth=st.fn_depth,
+            held_locks=frozenset(held_locks),
+            held_dotted=frozenset(held_dotted),
+        )
+        self._visit_body(node.body, inner)
+
+    # ------------------------------------------------------ collection
+
+    def _collect(self, node: ast.AST, st: _State) -> None:
+        if isinstance(node, ast.Call):
+            self._collect_call(node, st)
+        elif isinstance(node, ast.Subscript):
+            self._collect_subscript(node, st)
+        elif isinstance(node, ast.Compare):
+            self._collect_compare(node)
+        elif isinstance(node, ast.Dict):
+            self._collect_dict(node)
+        elif isinstance(node, ast.Attribute):
+            self._collect_attribute(node, st)
+
+    # -- env / knobs
+
+    def _collect_call(self, node: ast.Call, st: _State) -> None:
+        dn = dotted_name(node.func, self.aliases)
+        if dn is not None:
+            tail = dn.split(".")[-1]
+            if dn in ("os.environ.get", "os.getenv"):
+                self.proj.env_reads.append(EnvRead(
+                    name=self._const_or_ref(
+                        node.args[0] if node.args else None
+                    ),
+                    form="getenv" if dn == "os.getenv" else "get",
+                    site=self._site(node),
+                ))
+            elif tail in KNOB_GETTERS:
+                self.proj.knob_calls.append(KnobCall(
+                    getter=tail,
+                    name=self._const_or_ref(
+                        node.args[0] if node.args else None
+                    ),
+                    site=self._site(node),
+                ))
+        # header.get("k") consumer reads.
+        if (
+            isinstance(node.func, ast.Attribute)
+            and node.func.attr == "get"
+            and node.args
+        ):
+            base = dotted_name(node.func.value, {})
+            if base and base.split(".")[-1] in WIRE_READ_BASES:
+                key = self._const_or_ref(node.args[0])
+                if key is not None:
+                    self.proj.wire_keys.append(WireKey(
+                        key=key, kind="read_get", site=self._site(node),
+                    ))
+
+    def _collect_subscript(self, node: ast.Subscript, st: _State) -> None:
+        base = dotted_name(node.value, {})
+        if base == "os.environ":
+            if isinstance(node.ctx, ast.Load):
+                self.proj.env_reads.append(EnvRead(
+                    name=self._const_or_ref(node.slice),
+                    form="subscript",
+                    site=self._site(node),
+                ))
+            return
+        if base is None:
+            return
+        tail = base.split(".")[-1]
+        key = self._const_or_ref(node.slice)
+        if key is None:
+            return
+        if isinstance(node.ctx, ast.Store) and tail in WIRE_WRITE_BASES:
+            self.proj.wire_keys.append(WireKey(
+                key=key, kind="write", site=self._site(node),
+            ))
+        elif isinstance(node.ctx, ast.Load) and tail in WIRE_READ_BASES:
+            self.proj.wire_keys.append(WireKey(
+                key=key, kind="read_subscript", site=self._site(node),
+            ))
+
+    def _collect_compare(self, node: ast.Compare) -> None:
+        if len(node.ops) != 1 or not isinstance(node.ops[0], ast.In):
+            return
+        if dotted_name(node.comparators[0], self.aliases) != "os.environ":
+            return
+        self.proj.env_reads.append(EnvRead(
+            name=self._const_or_ref(node.left),
+            form="in",
+            site=self._site(node),
+        ))
+
+    def _collect_dict(self, node: ast.Dict) -> None:
+        keys = []
+        has_kind = False
+        for k in node.keys:
+            if k is None:  # **spread
+                continue
+            key = self._const_or_ref(k)
+            if key is None:
+                continue
+            keys.append((key, k))
+            if key == "kind":
+                has_kind = True
+        if not has_kind:
+            return
+        for key, knode in keys:
+            self.proj.wire_keys.append(WireKey(
+                key=key, kind="write", site=self._site(knode),
+            ))
+
+    # -- lock discipline
+
+    def _collect_attribute(self, node: ast.Attribute, st: _State) -> None:
+        is_self = isinstance(node.value, ast.Name) and node.value.id == "self"
+        par = parent(node)
+
+        if is_self and st.cls is not None:
+            info = st.cls
+            attr = node.attr
+            if attr in info.lock_attrs:
+                return
+            guarded = bool(st.held_locks)
+            in_init = st.method == "__init__" and st.fn_depth == 0
+            in_nested = st.fn_depth > 0
+            if attr in info.methods:
+                is_call = isinstance(par, ast.Call) and par.func is node
+                info.call_events.append(CallEvent(
+                    callee=attr, guarded=guarded, method=st.method,
+                    in_init=in_init, in_nested=in_nested,
+                    is_call=is_call, site=self._site(node),
+                ))
+                return
+            kind = self._access_kind(node, par)
+            if kind is None:
+                return
+            info.accesses.append(AttrAccess(
+                attr=attr, kind=kind, guarded=guarded,
+                method=st.method, in_init=in_init, in_nested=in_nested,
+                site=self._site(node),
+            ))
+            return
+
+        # Cross-object access to a private attribute.
+        if is_self:
+            return
+        attr = node.attr
+        if not attr.startswith("_") or attr.startswith("__"):
+            return
+        kind = self._access_kind(node, par)
+        if kind is None:
+            return
+        self.proj.ext_accesses.append(ExtAccess(
+            attr=attr,
+            kind=kind,
+            base=dotted_name(node.value, {}),
+            held=st.held_dotted,
+            site=self._site(node),
+        ))
+
+    @staticmethod
+    def _access_kind(node: ast.Attribute, par) -> Optional[str]:
+        """Classify one attribute node as a data read or write; None for
+        non-data uses (a method call on the attribute that does not
+        mutate, handled as "read"; the call's own func attribute)."""
+        if isinstance(node.ctx, (ast.Store, ast.Del)):
+            return "write"
+        # self.x[...] = / del self.x[...] / self.x[...] += ...
+        if (
+            isinstance(par, ast.Subscript)
+            and par.value is node
+            and isinstance(par.ctx, (ast.Store, ast.Del))
+        ):
+            return "write"
+        # self.x.append(...) and friends.
+        if isinstance(par, ast.Attribute) and par.value is node:
+            grand = parent(par)
+            if (
+                isinstance(grand, ast.Call)
+                and grand.func is par
+                and par.attr in MUTATOR_METHODS
+            ):
+                return "write"
+        return "read"

@@ -80,6 +80,9 @@ CARRY_KEYS = ("net", "coords1", "inp", "fmap1", "fmap2")
 EARLY_EXIT_KEYS = ("converged", "exec_iters")
 HANDOFF_OP = "collective-permute"
 OUTPUT_OP = "pipe-output"
+# The flows leave every preset as f32 (PrecisionPolicy.output), so the
+# finished micro-batch crosses the ranks as one f32 buffer.
+OUTPUT_DTYPE = torch.float32
 
 
 def split_iters(iters: int, segments: int) -> int:
@@ -354,15 +357,15 @@ class PipelinedForward:
         every rank: one broadcast from the last stage of one packed f32
         buffer."""
         B, H, W = shape[:3]
-        parts = [((B, H // 8, W // 8, 2), torch.float32), ((B, H, W, 2), torch.float32)]
+        parts = [((B, H // 8, W // 8, 2), OUTPUT_DTYPE), ((B, H, W, 2), OUTPUT_DTYPE)]
         if ee:
             parts.append(((B,), torch.int32))
         sizes = [torch.Size(s).numel() for s, _ in parts]
         src = self.segments - 1
         if self.stage == src:
-            packed = torch.cat([t.reshape(-1).to(torch.float32) for t in finished])
+            packed = torch.cat([t.reshape(-1).to(OUTPUT_DTYPE) for t in finished])
         else:
-            packed = torch.empty(sum(sizes), dtype=torch.float32, device=self.device)
+            packed = torch.empty(sum(sizes), dtype=OUTPUT_DTYPE, device=self.device)
         if self.stage == src:
             wire = halo._to_wire(packed)
         else:

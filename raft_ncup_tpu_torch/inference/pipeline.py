@@ -84,7 +84,6 @@ rows (``parallel/lockstep.py``).
 from __future__ import annotations
 
 import math
-import os
 import queue
 import sys
 import threading
@@ -113,6 +112,7 @@ from raft_ncup_tpu_torch.parallel import halo
 from raft_ncup_tpu_torch.parallel.mesh import mesh_fingerprint, pad_divisor, spatial_group
 from raft_ncup_tpu_torch.precision import resolve_policy
 from raft_ncup_tpu_torch.utils.device import cudnn_autotune, f32_precision
+from raft_ncup_tpu_torch.utils.knobs import knob_raw
 
 _EXEC_CANON = LEGACY_KEY_ALIASES["inference"]
 
@@ -120,6 +120,9 @@ _EXEC_CANON = LEGACY_KEY_ALIASES["inference"]
 # every default level (the server's 24, 16 and 8, the stream's 12). A level
 # it does not divide replays segments of ``gcd(level, 4)``.
 EARLYEXIT_SEGMENT = 4
+# Images are staged, and enter every preset's forward, as f32: the model
+# normalizes them in f32 and casts to PrecisionPolicy.compute inside.
+IMAGE_DTYPE = torch.float32
 
 
 def segment_length(iters: int) -> int:
@@ -135,9 +138,9 @@ def env_earlyexit_tol() -> Optional[float]:
     ``RAFT_NCUP_EARLYEXIT_TOL`` under the port's prefix. The model and the
     cache take the tolerance as an argument and never read the
     environment."""
-    if os.environ.get("RAFT_TORCH_EARLYEXIT") != "1":
+    if knob_raw("RAFT_TORCH_EARLYEXIT") != "1":
         return None
-    return float(os.environ.get("RAFT_TORCH_EARLYEXIT_TOL", "0.05"))
+    return float(knob_raw("RAFT_TORCH_EARLYEXIT_TOL"))
 
 
 class SamplePrefetcher:
@@ -431,7 +434,7 @@ class AsyncDrain:
         self.close()
 
 
-def stage_pinned(x, dtype=torch.float32, device="cuda") -> torch.Tensor:
+def stage_pinned(x, dtype=IMAGE_DTYPE, device="cuda") -> torch.Tensor:
     """``x`` (numpy or a host tensor) as a new host tensor of ``dtype``, in
     pinned memory when ``device`` is a card, ready for a non-blocking copy
     to it. The caching host allocator keeps a pinned buffer until every
@@ -454,7 +457,7 @@ def stage_frames(images: list, pad_specs: list, n_rows: int, shape_hw: tuple,
     lies in pinned memory (a fresh buffer: :func:`stage_pinned`), so the
     entry's copy to the card queues without a wait."""
     ph, pw = shape_hw
-    out = torch.empty((n_rows, ph, pw, 3), dtype=torch.float32,
+    out = torch.empty((n_rows, ph, pw, 3), dtype=IMAGE_DTYPE,
                       pin_memory=torch.device(device).type == "cuda")
     for row, img, ((t, b), (le, r)) in zip(out, images, pad_specs):
         h, w = ph - t - b, pw - le - r
@@ -821,7 +824,7 @@ class ShapeCachedForward:
         self._entries.clear()
         self._pool = None
 
-    def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
+    def _tensor(self, x, dtype=IMAGE_DTYPE) -> torch.Tensor:
         """``x`` as an entry argument: a tensor on the model's device; on
         the card a host input instead stays on the host, in pinned memory
         (already pinned at ``dtype``, as the server stages its batches, it

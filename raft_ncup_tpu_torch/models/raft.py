@@ -112,6 +112,10 @@ from raft_ncup_tpu_torch.parallel import halo
 from raft_ncup_tpu_torch.parallel.mesh import spatial_group
 from raft_ncup_tpu_torch.utils.device import f32_precision, resolve_device
 
+# The images are normalized in f32 under every preset (the encoders cast
+# to PrecisionPolicy.compute after).
+IMAGE_DTYPE = torch.float32
+
 
 class RAFT(nn.Module):
     """Usage::
@@ -197,8 +201,8 @@ class RAFT(nn.Module):
                 f"image H, W must be divisible by 8, got {(H, W)}; pad inputs "
                 "with raft_ncup_tpu_torch.ops.padding.InputPadder first"
             )
-        img1 = 2.0 * (image1.float() / 255.0) - 1.0
-        img2 = 2.0 * (image2.float() / 255.0) - 1.0
+        img1 = 2.0 * (image1.to(IMAGE_DTYPE) / 255.0) - 1.0
+        img2 = 2.0 * (image2.to(IMAGE_DTYPE) / 255.0) - 1.0
         img1 = img1.permute(0, 3, 1, 2)
         img2 = img2.permute(0, 3, 1, 2)
         gen, rows = self.dropout_generator, self.dropout_rows

@@ -43,6 +43,9 @@ from torch import nn
 
 from raft_ncup_tpu_torch.parallel import halo
 
+# Normalizations compute in f32 under every preset: PrecisionPolicy.norm.
+NORM_DTYPE = torch.float32
+
 
 def _pair(v) -> tuple[int, int]:
     if isinstance(v, (tuple, list)):
@@ -141,7 +144,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 def _norm_input(x: torch.Tensor) -> torch.Tensor:
     """A normalization's input at its compute dtype: f32, or float64 for a
     float64 input (a replay in float64 stays float64)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+    return x.to(torch.promote_types(x.dtype, NORM_DTYPE))
 
 
 _frozen = threading.local()

@@ -174,11 +174,13 @@ class Lockstep:
                                device=torch.device("cuda", torch.cuda.current_device()))
         return torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
 
-    def follow(self, handlers: dict) -> int:
+    def follow(self, handlers: dict, on_live: Optional[Callable] = None) -> int:
         """On a follower: run each operation the leader dispatches, in
         order, as ``handlers[op](header, tensors)``, until the leader stops
-        the group; returns the leader's exit code. A handler that raises
-        ends the loop with its error (the group cannot go on)."""
+        the group; returns the leader's exit code. ``on_live()``, when
+        given, runs once, just before the handler of the first operation
+        that is not a warm-up. A handler that raises ends the loop with its
+        error (the group cannot go on)."""
         if self.leader:
             raise RuntimeError("the leader (rank 0) does not follow")
         while True:
@@ -190,6 +192,9 @@ class Lockstep:
             if handler is None:
                 raise RuntimeError(f"lockstep: no handler for {op!r} on rank "
                                    f"{multihost.process_index()}")
+            if on_live is not None and not header.get("warmup"):
+                on_live()
+                on_live = None
             handler(header, tensors)
             self._count(op, header)
 

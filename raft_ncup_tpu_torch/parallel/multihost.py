@@ -228,7 +228,7 @@ def count_collective(op: str, nbytes: int) -> None:
     """Count one collective of JAX's op name ``op`` moving ``nbytes``."""
     c = _COUNTS.setdefault(op, {"count": 0, "bytes": 0})
     c["count"] += 1
-    c["bytes"] += int(nbytes)
+    c["bytes"] += nbytes
 
 
 def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:

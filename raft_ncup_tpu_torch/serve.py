@@ -448,17 +448,9 @@ def _follow(args, model: RAFT, group: Lockstep) -> tuple[int, dict, list, RAFT]:
     for tier in tiers:
         handlers.update(tier.lockstep_handlers())
     live: dict = {}
-
-    def counted(fn):
-        def run(header, tensors):
-            if not header.get("warmup") and not live:
-                live["launches"] = _launches()
-            fn(header, tensors)
-        return run
-
     # A signal here is the leader's to act on: it drains, then stops the group.
     with PreemptionHandler():
-        rc = group.follow({op: counted(fn) for op, fn in handlers.items()})
+        rc = group.follow(handlers, on_live=lambda: live.update(launches=_launches()))
     for tier in tiers:
         tier.drain()
     start = live.get("launches", _launches())

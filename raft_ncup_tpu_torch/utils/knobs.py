@@ -25,6 +25,10 @@ KNOBS: Dict[str, Tuple[Optional[str], str]] = {
     "RAFT_TORCH_DIST_BACKEND": (
         None, "the process group's backend, nccl or gloo (default: nccl for a rank on a "
         "card, gloo for a rank on the CPU)"),
+    "RAFT_TORCH_EARLYEXIT": (
+        None, "1 turns the served forward's early exit on (read once by FlowServer)"),
+    "RAFT_TORCH_EARLYEXIT_TOL": (
+        "0.05", "the early exit's convergence tolerance, in low-res pixels"),
 }
 
 

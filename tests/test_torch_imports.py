@@ -46,7 +46,10 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     scanned = {os.path.relpath(f, PKG) for f in files}
     assert {os.path.join("streaming", n) for n in
             ("__init__.py", "engine.py", "slots.py", "traffic.py")} <= scanned
-    assert {os.path.join("analysis", n) for n in ("__init__.py", "guards.py")} <= scanned
+    assert {os.path.join("analysis", n) for n in ("__init__.py", "guards.py", "astutil.py",
+                                                   "lint.py", "project.py", "__main__.py")
+            } <= scanned
+    assert os.path.join("analysis", "rules", "jgl013_env_knobs.py") in scanned
     assert {os.path.join("parallel", n) for n in ("__init__.py", "mesh.py", "multihost.py")
             } <= scanned
     assert {os.path.join("io", n) for n in ("codecs.py", "codec_build.py")} <= scanned

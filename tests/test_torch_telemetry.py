@@ -467,7 +467,8 @@ def test_cpu_peak_and_telemetry_knobs(monkeypatch):
     with pytest.raises(KeyError):
         knobs.knob_raw("RAFT_NCUP_TELEMETRY")
     assert set(knobs.KNOBS) == {"RAFT_TORCH_TELEMETRY", "RAFT_TORCH_FLIGHT_DIR",
-                                "RAFT_TORCH_CPU_PEAK_FLOPS", "RAFT_TORCH_DIST_BACKEND"}
+                                "RAFT_TORCH_CPU_PEAK_FLOPS", "RAFT_TORCH_DIST_BACKEND",
+                                "RAFT_TORCH_EARLYEXIT", "RAFT_TORCH_EARLYEXIT_TOL"}
 
 
 def test_legacy_alias_table_is_jaxs():
