@@ -289,12 +289,27 @@ Run from the root of the repository: ``python3 chip_smoke.py``. It
     between the pipe indices of a place printed; each rank's mesh,
     lockstep operations, collectives and launches (B 4 a batch, A the
     batch's level; the same on all four ranks);
+19c. runs the PAC and DJIF heads and the bf16 preset on a band of rows
+    (``pac (i)``, item 9b-vi): one world of two gloo ranks sharing the card
+    (each this script's ``--pac_mesh_worker``, started beside phase 12)
+    runs the serve entry over ``--mesh 1,2`` with ``--final_upsampling
+    PacJointUpsampleFull``, with ``DjifOriginal`` and with the flagship
+    under ``--serve_precision bf16_infer`` (436x1024, 448 rows, batch size
+    2, level 4, a burst of 4), every rank's answers (cut from its own
+    forwards) within 1e-4 of this process's one-process server (the bf16
+    run's within ``FORWARD_EPE_BUDGET`` in mean EPE), A 4 a batch on every
+    rank (B 4 under NCUP, none with a head); then, once the PAC train worker
+    has written its record, two PAC train steps over the mesh at 400x720,
+    batch 2, 12 iterations, remat on:
+    the losses within ``SPATIAL_TRAIN_LOSS_RTOL`` of the PAC phase's one
+    process, A 24 and A' 12 a step, no B or B', no plain version called,
+    each rank's peak bytes beside one process's;
 20. prints each phase's seconds (``phase NAME: S s``, then a ``phases:``
     line), one JSON line describing the kernels (with each kernel's
     launches per rank on the data-parallel, spatial, spatial serving,
-    spatial training, pipe and mixed-mesh paths and on the PAC and DJIF
-    runs), the card's name and power limit, and, last, the JSON result
-    line.
+    spatial training, pipe, mixed-mesh and PAC-on-bands paths and on the
+    PAC and DJIF runs), the card's name and power limit, and, last, the
+    JSON result line.
 
 Any failed check exits non-zero before the last line. With no CUDA
 device it exits non-zero at once; it never falls back to the CPU.
@@ -5203,11 +5218,12 @@ MIXED_MESHES = {"1,2,2": "mesh(data=1,spatial=2,pipe=2:gpu)",
                 "2,1,2": "mesh(data=2,spatial=1,pipe=2:gpu)"}
 
 
-def mixed_worker(outdir: str, argv: list) -> int:
+def mixed_worker(outdir: str, argv: list, after=None) -> int:
     """One rank of a world serving over a mesh with a pipe axis
     (``chip_smoke.py --mixed_worker OUTDIR <serve flags> [--then <serve
     flags> ...]``, under the launcher's environment): joins the world once,
-    runs the serve entry's ``run`` for each flag list in order, and
+    runs the serve entry's ``run`` for each flag list in order (then
+    ``after(torch, outdir, rank, device)`` in the same world, if given), and
     records every forward this rank ran (the server's and the stream
     engine's ``_run``, their flows gathered over the data axis, cloned on
     the card and copied to the host after the run, so that recording adds
@@ -5275,6 +5291,8 @@ def mixed_worker(outdir: str, argv: list) -> int:
                         "flows": [f.cpu() for f in rec["flows"]], "batches": rec["batches"]},
                        os.path.join(outdir, f"rank{rank}_{k}.pt"))
             code = code or rc
+        if after is not None:
+            code = code or after(torch, outdir, rank, device)
     finally:
         if joined:
             multihost.shutdown()
@@ -5348,12 +5366,14 @@ def _pipe_spread(recs: list, P: int = 2) -> float:
     return worst
 
 
-def _mixed_answers(torch, recs: list, want: dict, what: str, n: int = MIXED_REQUESTS) -> dict:
+def _mixed_answers(torch, recs: list, want: dict, what: str, n: int = MIXED_REQUESTS,
+                   tol: dict = FLEET_TOL, epe_budget=None) -> dict:
     """Every rank's answers, cut from the forwards it recorded as the
     leader's are cut from its own (the leader's batches name the requests;
     its answers give the rows' offset), held against the one-process
     answers (``want[level]``, in the burst's order) at each request's
-    level within ``FLEET_TOL``."""
+    level within ``tol``, or with ``epe_budget`` within that mean EPE (a
+    bf16 preset, whose bands round differently from the whole image)."""
     lead = recs[0]
     answers = {a["request_id"]: a for a in lead["answers"]}
     order = sorted(answers)  # the burst's pairs in request order
@@ -5366,17 +5386,22 @@ def _mixed_answers(torch, recs: list, want: dict, what: str, n: int = MIXED_REQU
     top = next((t for t in range(row0.shape[0] - h + 1)
                 if torch.equal(row0[t:t + h, :w], torch.from_numpy(first))), None)
     check(top is not None, f"{what}: the leader's answer is no crop of its forward")
-    worst = 0.0
+    worst, worst_epe = 0.0, 0.0
     for r, rec in enumerate(recs):
         for k, ids in enumerate(lead["batches"]):
             for j, rid in enumerate(ids):
                 got = rec["flows"][n_warm + k][j][top:top + h, :w]
                 ref = want[answers[rid]["iters"]][order.index(rid)]
                 check(ref.status == "ok", f"{what}: the one-process answer {rid} {ref.status}")
-                err, ok = max_err(torch, got, torch.tensor(ref.flow), **FLEET_TOL)
-                check(ok, f"{what} rank {r} request {rid}: {err:.3e} from one process")
-                worst = max(worst, err)
-    return {"n": len(answers), "ranks": len(recs), "max_abs_diff": worst}
+                err, ok = max_err(torch, got, torch.tensor(ref.flow), **tol)
+                epe = float((got - torch.tensor(ref.flow)).norm(dim=-1).mean())
+                if epe_budget is not None:
+                    ok = epe <= epe_budget
+                check(ok, f"{what} rank {r} request {rid}: {err:.3e} (mean EPE {epe:.3e}) "
+                          "from one process")
+                worst, worst_epe = max(worst, err), max(worst_epe, epe)
+    return {"n": len(answers), "ranks": len(recs), "max_abs_diff": worst,
+            "max_mean_epe": worst_epe}
 
 
 def check_mixed(torch, card: str, started: dict) -> dict:
@@ -6081,7 +6106,7 @@ def check_pac(torch, card, started: dict) -> dict:
     codes, outs = _wait_ranks(started["procs"])
     check(codes == [0], f"pac: the train worker exited {codes}:\n{outs[0][1][-4000:]}")
     with open(os.path.join(started["outdir"], "pac_train.json")) as fh:
-        trained = json.load(fh)
+        trained = started["trained"] = json.load(fh)
     for kind in PAC_HEADS:
         t = trained[kind]
         per_step = {k: v / PAC_TRAIN_STEPS for k, v in t["launches"].items()}
@@ -6096,6 +6121,225 @@ def check_pac(torch, card, started: dict) -> dict:
         paths[f"train raft_nc_dbl {kind}"] = t["launches"]
     print(f"pac: the train worker took {time.perf_counter() - started['t0']:.1f} s from its "
           "start", flush=True)
+    return paths
+
+# ------------------------------------------------------- PAC on bands (i)
+# The PAC and DJIF heads and the bf16 preset on a band of rows (item 9b-vi):
+# one world of two gloo ranks sharing the card runs the serve entry over the
+# mesh (1, 2) with each head and with the flagship under bf16_infer, then
+# two PAC train steps over the mesh. The ranks start beside train from
+# files, where the loader leaves the card idle; their train steps wait for
+# the PAC train worker's record (its 20.5 GiB gone before theirs come), and
+# the script judges them last.
+PAC_MESH_WORKER = "--pac_mesh_worker"
+PAC_MESH_AFTER = "--train_after"
+PAC_MESH_LEVEL = 4  # few iterations: the band, not the loop, is under test
+PAC_MESH_REQUESTS = 4
+PAC_MESH_TOL = dict(atol=1e-4, rtol=0.0)
+PAC_MESH_SERVE_ARGS = ["--model", "raft_nc_dbl", "--size", str(SERVE_SIZE[0]),
+                       str(SERVE_SIZE[1]), "--seed", "0", "--serve_batch_sizes", "2",
+                       "--iter_levels", str(PAC_MESH_LEVEL), "--num_requests",
+                       str(PAC_MESH_REQUESTS), "--burst_size", str(PAC_MESH_REQUESTS),
+                       "--queue_capacity", "16", "--serve_pad_bucket", str(SPATIAL_BUCKET),
+                       "--flight_dir", "", *DP_CARD, "--mesh", "1,2"]
+PAC_MESH_RUNS = {  # in this order, in one world; then the PAC train steps
+    "pac": [*PAC_MESH_SERVE_ARGS, "--final_upsampling", "PacJointUpsampleFull"],
+    "djif": [*PAC_MESH_SERVE_ARGS, "--final_upsampling", "DjifOriginal"],
+    "bf16_infer": [*PAC_MESH_SERVE_ARGS, "--serve_precision", "bf16_infer"],
+}
+
+
+def pac_mesh_worker(outdir: str, argv: list) -> int:
+    """One rank of (i) (``chip_smoke.py --pac_mesh_worker OUTDIR
+    --train_after PATH <serve flags> [--then <serve flags> ...]``, under the
+    launcher's environment): :func:`mixed_worker`'s serve runs, then, once
+    ``PATH`` exists, :func:`_pac_mesh_train`, every call of a kernel's plain
+    version counted over both."""
+    after = argv[argv.index(PAC_MESH_AFTER) + 1]
+    argv = [a for a in argv if a not in (PAC_MESH_AFTER, after)]
+    with counting_plain_versions() as plain:
+        return mixed_worker(outdir, argv, after=lambda *a: _pac_mesh_train(*a, plain, after))
+
+
+def _pac_mesh_train(torch, outdir: str, rank: int, device, plain: dict, after: str) -> int:
+    """``PAC_TRAIN_STEPS`` train steps of the flagship with the PAC head over
+    the mesh (1, 2), the configuration and batches of
+    :func:`pac_train_worker` (400x720, batch 2, 12 iterations, remat on),
+    once the file ``after`` exists (that worker's record: its memory is
+    free), every kernel count set to 0 before them; writes
+    ``OUTDIR/rank<R>_train.json`` (losses, ms a step, this rank's peak
+    bytes, launches, collectives, and the plain-version calls of the whole
+    worker)."""
+    from raft_ncup_tpu_torch.config import TrainConfig
+    from raft_ncup_tpu_torch.data.synthetic import SyntheticFlowDataset
+    from raft_ncup_tpu_torch.parallel import mesh as mesh_mod
+    from raft_ncup_tpu_torch.training.state import create_train_state
+    from raft_ncup_tpu_torch.training.step import make_train_step
+
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    while not os.path.exists(after):
+        if time.perf_counter() > deadline:
+            print(f"pac_mesh_worker: no {after} after {DP_TIMEOUT_S} s", file=sys.stderr)
+            return 1
+        time.sleep(1.0)
+    tcfg = TrainConfig(**PAC_TRAIN)
+    mesh = mesh_mod.make_mesh(1, 2, device=device)
+    state = create_train_state(pac_model_config("pac", dataset=tcfg.stage), tcfg, device)
+    data = SyntheticFlowDataset(tcfg.image_size, seed=tcfg.seed)
+    batches = [data.batch(i, tcfg.batch_size, device) for i in range(PAC_TRAIN_STEPS)]
+    step = make_train_step(tcfg, mesh=mesh)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    mesh_mod.reset_collective_stats()
+    losses, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize(device)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+    row = {"iters": tcfg.iters, "losses": losses, "step_ms": step_ms,
+           "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+           "launches": read_launches(), "collectives": mesh_mod.collective_stats(),
+           "mesh": mesh_mod.mesh_fingerprint(mesh), "plain_version_calls": dict(plain)}
+    with open(os.path.join(outdir, f"rank{rank}_train.json"), "w") as fh:
+        json.dump(row, fh)
+    return 0
+
+
+def start_pac_mesh(tmp: str, after: str) -> dict:
+    """(i)'s two ranks, started and not waited for (:func:`check_pac_mesh`
+    waits); their train steps start once the file ``after`` (the PAC train
+    worker's record) exists."""
+    outdir = os.path.join(tmp, "i")
+    argv = [PAC_MESH_AFTER, after]
+    for k, run in enumerate(PAC_MESH_RUNS.values()):
+        argv += (["--then"] if k else []) + run
+    return {"t0": time.perf_counter(), "outdir": outdir,
+            "procs": _start_ranks(outdir, argv, 2, "gloo", worker=PAC_MESH_WORKER)}
+
+
+def _pac_mesh_refs(torch) -> dict:
+    """This process's one-process answers of (i)'s runs: the burst's pairs
+    through a server of each run's model (batch size 2, the level, the pad
+    bucket of 16: the mesh's 448 rows)."""
+    from raft_ncup_tpu_torch.config import ServeConfig
+    from raft_ncup_tpu_torch.models.raft import RAFT
+    from raft_ncup_tpu_torch.serving import FlowServer, SyntheticTraffic
+
+    pairs = [(a, b) for _, a, b in SyntheticTraffic(SERVE_SIZE, PAC_MESH_REQUESTS, seed=0)]
+    refs = {}
+    for run in PAC_MESH_RUNS:
+        model = (flagship(torch) if run == "bf16_infer"
+                 else RAFT(pac_model_config(run), device="cuda", seed=0))
+        server = FlowServer(model, ServeConfig(
+            batch_sizes=(2,), iter_levels=(PAC_MESH_LEVEL,), queue_capacity=16,
+            pad_bucket=SPATIAL_BUCKET, precision="bf16_infer" if run == "bf16_infer" else None))
+        refs[run] = {PAC_MESH_LEVEL: paused_burst(server, pairs)[0]}
+        server.drain()
+        del model, server
+        torch.cuda.empty_cache()
+    return refs
+
+
+def check_pac_mesh(torch, card: str, started: dict, one_process: dict) -> dict:
+    """(i) The serve entry over the mesh (1, 2) with the PAC head, the DJIF
+    head and the flagship under bf16_infer, then two PAC train steps over
+    it, in one world of two ranks: every rank exits 0 and names the mesh;
+    every rank's answers (cut from its own forwards) within ``PAC_MESH_TOL``
+    of this process's one-process server (the bf16 run's within
+    ``FORWARD_EPE_BUDGET`` in mean EPE: its bands round bf16 at other
+    places); A ``PAC_MESH_LEVEL`` a batch on every rank, B none with a head
+    and 4 a batch with NCUP; the train steps' losses equal on both ranks
+    and within ``SPATIAL_TRAIN_LOSS_RTOL`` of the PAC phase's one process
+    (``one_process``, its ``pac_train.json``), A 24 and A' 12 a step, no B
+    or B', each rank's peak bytes beside one process's; no plain version
+    called in the worker. Returns each rank's launches by run."""
+    from raft_ncup_tpu_torch.precision import FORWARD_EPE_BUDGET
+
+    t0 = time.perf_counter()
+    codes, _ = _wait_ranks(started["procs"])
+    outdir = started["outdir"]
+    if codes != [0, 0]:
+        tails = []
+        for r in range(2):
+            path = os.path.join(outdir, f"rank{r}.log")
+            if os.path.exists(path):
+                with open(path) as fh:
+                    tails.append(f"rank {r}: {fh.read()[-3000:]}")
+        check(False, f"pac (i): exits {codes}:\n" + "\n".join(tails))
+    ranks_s = time.perf_counter() - started["t0"]
+    recs = {run: [torch.load(os.path.join(outdir, f"rank{r}_{k}.pt"), weights_only=False)
+                  for r in range(2)] for k, run in enumerate(PAC_MESH_RUNS)}
+    want = _pac_mesh_refs(torch)
+    paths = {}
+    for run, rs in recs.items():
+        reps = [r["report"] for r in rs]
+        batches = reps[0]["serve_batches"]
+        check(all(r["rc"] == 0 for r in rs) and reps[1].get("follower")
+              and all(rep["mesh"] == SPATIAL_MESH for rep in reps)
+              and all(rep["lockstep_ops"].get("serve") == batches for rep in reps),
+              f"pac (i) {run}: meshes {[rep.get('mesh') for rep in reps]}, ops "
+              f"{[rep.get('lockstep_ops') for rep in reps]}")
+        bf16 = run == "bf16_infer"
+        answers = _mixed_answers(torch, rs, want[run], f"pac (i) {run}", n=PAC_MESH_REQUESTS,
+                                 tol=PAC_MESH_TOL,
+                                 epe_budget=FORWARD_EPE_BUDGET if bf16 else None)
+        for r, rep in enumerate(reps):
+            launches = {"corr_lookup": rep["corr_kernel_launches"], "corr_lookup_bwd": 0,
+                        "nconv": rep["nconv_kernel_launches"], "nconv_bwd": 0}
+            want_l = {"corr_lookup": PAC_MESH_LEVEL * batches, "corr_lookup_bwd": 0,
+                      "nconv": 4 * batches if bf16 else 0, "nconv_bwd": 0}
+            check(batches > 0 and launches == want_l,
+                  f"pac (i) {run} rank {r}: launches {launches}, want {want_l}")
+            paths[f"pac (i) {run} rank {r}"] = launches
+        row = {"card": card, "mesh": SPATIAL_MESH, "answers": answers, "batches": batches,
+               "level": PAC_MESH_LEVEL, "seconds": [r["seconds"] for r in rs],
+               "warmup_s": reps[0]["warmup_s"],
+               "serve_pairs_per_sec": reps[0]["serve_pairs_per_sec"],
+               **{k: reps[0][f"serve_{k}"] for k in ("wall_s", "p50_ms", "p99_ms")},
+               "launches": [paths[f"pac (i) {run} rank {r}"] for r in range(2)],
+               "collectives": [rep["collectives"] for rep in reps],
+               "note": "two ranks time-slice one card beside other phases: not a mesh's speed"}
+        print(f"pac (i) {run}: {json.dumps(row)}", flush=True)
+    trained = []
+    for r in range(2):
+        with open(os.path.join(outdir, f"rank{r}_train.json")) as fh:
+            trained.append(json.load(fh))
+    one = one_process["pac"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(trained[0]["losses"], one["losses"])]
+    want_step = {"corr_lookup": 2 * one["iters"], "corr_lookup_bwd": one["iters"], "nconv": 0,
+                 "nconv_bwd": 0}
+    for r, t in enumerate(trained):
+        per_step = {k: v / PAC_TRAIN_STEPS for k, v in t["launches"].items()}
+        check(not t["plain_version_calls"], f"pac (i) rank {r}: plain versions ran: "
+                                            f"{t['plain_version_calls']}")
+        check(per_step == want_step and t["mesh"] == SPATIAL_MESH,
+              f"pac (i) train rank {r}: launches a step {per_step}, want {want_step}, "
+              f"mesh {t['mesh']}")
+        paths[f"pac (i) train rank {r}"] = t["launches"]
+    check(trained[0]["losses"] == trained[1]["losses"]
+          and len(loss_rel) == PAC_TRAIN_STEPS and max(loss_rel) <= SPATIAL_TRAIN_LOSS_RTOL,
+          f"pac (i) train: losses {[t['losses'] for t in trained]} against one process's "
+          f"{one['losses']}")
+    check(trained[0]["collectives"] == trained[1]["collectives"]
+          and trained[0]["collectives"]["by_op"]["collective-permute"]["count"] > 0,
+          f"pac (i) train: the ranks' collectives differ: "
+          f"{[t['collectives'] for t in trained]}")
+    row = {"card": card, "mesh": SPATIAL_MESH, "train": one["train"],
+           "losses": trained[0]["losses"], "one_process_losses": one["losses"],
+           "loss_rel_diff": loss_rel,
+           "per_rank": [{"rank": r, "step_ms": t["step_ms"], "peak_gib": t["peak_gib"],
+                         "launches": t["launches"], "collectives": t["collectives"]}
+                        for r, t in enumerate(trained)],
+           "one_process_peak_gib": one["peak_gib"], "one_process_step_ms": one["step_ms"],
+           "peak_share_of_one_process": [t["peak_gib"] / one["peak_gib"] for t in trained],
+           "note": "two ranks time-slice one card beside other phases: peak bytes per rank, "
+                   "not a mesh's speed"}
+    print(f"pac (i) train: {json.dumps(row)}", flush=True)
+    print(f"pac (i): the ranks took {ranks_s:.1f} s from their start, the check "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
 
@@ -6280,6 +6524,8 @@ def main() -> int:
     h_tmp = tempfile.TemporaryDirectory()
     pac_train, g_ranks = start_pac_train(pac_tmp.name), start_pipe(g_tmp.name)
     h_ranks = start_mixed(h_tmp.name)
+    i_tmp = tempfile.TemporaryDirectory()
+    i_ranks = start_pac_mesh(i_tmp.name, os.path.join(pac_tmp.name, "pac_train.json"))
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(check_train_files(torch, card, tmp,
                                        train[f"median_ms_steps_2_to_{TRAIN_STEPS}"]))
@@ -6347,6 +6593,14 @@ def main() -> int:
     with h_tmp:
         paths.update(check_mixed(torch, card, h_ranks))
     lap("mixed (h)")
+    # The PAC and DJIF heads and bf16_infer on a band of rows: the serve
+    # entry over the mesh (1, 2) and two PAC train steps over it, in one
+    # world of two ranks sharing the card (started beside train from files),
+    # against this process and the PAC phase's one process; each rank's
+    # launches from its own report and record.
+    with i_tmp:
+        paths.update(check_pac_mesh(torch, card, i_ranks, pac_train["trained"]))
+    lap("pac (i)")
     print(f"phases: {json.dumps(lap.seconds)}, total {sum(lap.seconds.values()):.1f} s",
           flush=True)
 
@@ -6470,6 +6724,9 @@ def main() -> int:
         k["mixed_launches_per_rank"] = {run: [paths[f"mixed (h) {run} rank {r}"][name]
                                               for r in range(MIXED_WORLD)]
                                         for run in MIXED_RUNS}
+        k["pac_mesh_launches_per_rank"] = {run: [paths[f"pac (i) {run} rank {r}"][name]
+                                                 for r in range(2)]
+                                           for run in (*PAC_MESH_RUNS, "train")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6521,6 +6778,8 @@ if __name__ == "__main__":
         sys.exit(pac_train_worker(sys.argv[2], sys.argv[3:]))
     if len(sys.argv) > 2 and sys.argv[1] == MIXED_WORKER:
         sys.exit(mixed_worker(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 2 and sys.argv[1] == PAC_MESH_WORKER:
+        sys.exit(pac_mesh_worker(sys.argv[2], sys.argv[3:]))
     adopt_orphans()
     try:
         code = main()

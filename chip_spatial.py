@@ -49,9 +49,17 @@ Run from the root of the repository on a machine with four cards:
    p99, and every rank's answers (cut from its own forwards) against the
    one card's at the flagship's flow_up tolerance.
 
+7. runs the highres entry with the PAC head (``pac``: ``--final_upsampling
+   PacJointUpsampleFull``, the flagship's trunk at 32 iterations) at
+   1088x1920 and 2176x3840 over 1, 2 and 4 cards: each rank's peak bytes
+   and wall and device ms, every rank's flows against the run on the
+   fewest cards that held it. A run whose ranks run out of card memory is
+   a finding, printed as ``out_of_memory``, and not a failure; its other
+   ranks are stopped at once.
+
 ``python3 chip_spatial.py [PART ...]`` runs only the named parts
-(``highres``, ``evaluate``, ``serving``, ``train``, ``pipe``, ``mixed``;
-all by default).
+(``highres``, ``evaluate``, ``serving``, ``train``, ``pipe``, ``mixed``,
+``pac``; all by default).
 
 Every rank is a process started with the launcher's environment, so each
 rank's report (its last JSON line) and exit code show. It prints one
@@ -95,7 +103,10 @@ MIXED_ENTRY = ["--model", "raft_nc_dbl", "--size", "436", "1024", "--seed", "0",
                "--num_requests", "16", "--burst_size", "16", "--queue_capacity", "32",
                "--flight_dir", ""]
 MIXED_MESHES = ("1,2", "2,1", "1,2,2", "2,1,2")
-PARTS = ("highres", "evaluate", "serving", "train", "pipe", "mixed")
+PAC_SIZES = (((1088, 1920), (1, 2, 4)), ((2176, 3840), (1, 2, 4)))
+PAC_FLAGS = ["--final_upsampling", "PacJointUpsampleFull"]
+OOM = ("OutOfMemoryError", "CUDA out of memory")
+PARTS = ("highres", "evaluate", "serving", "train", "pipe", "mixed", "pac")
 
 
 def _port() -> int:
@@ -109,10 +120,11 @@ def _last_json(text: str):
     return json.loads(lines[-1]) if lines else None
 
 
-def ranks(argv: list, world: int) -> tuple:
+def ranks(argv: list, world: int, fail_fast: bool = False) -> tuple:
     """``world`` processes of ``python argv``, rank r on card r (one process
     on card 0 for a world of one): (exit codes, reports, stderr tails,
-    seconds)."""
+    seconds). With ``fail_fast`` the others are stopped as soon as one
+    exits non-zero (they would wait in a collective for the one gone)."""
     env = dict(os.environ, PYTHONPATH=HERE)
     env.pop("RAFT_TORCH_DIST_BACKEND", None)
     if world == 1:
@@ -128,6 +140,8 @@ def ranks(argv: list, world: int) -> tuple:
                               stderr=subprocess.PIPE, text=True) for c, e in cmds]
     outs = []
     try:
+        if fail_fast:
+            _stop_on_first_failure(procs, t0)
         for p in procs:
             outs.append(p.communicate(timeout=TIMEOUT_S))
     finally:
@@ -150,22 +164,54 @@ def _diff(torch, got: dict, want: dict) -> tuple:
     return out, ok
 
 
-def highres(torch, tmp: str) -> bool:
+def _stop_on_first_failure(procs: list, t0: float, grace_s: float = 20.0) -> None:
+    """Wait until every process has exited, or one has exited non-zero;
+    then give the rest ``grace_s`` seconds and kill those still running.
+    The processes' pipes are read later: the reports are short, and an
+    out-of-memory trace fits the pipe."""
+    while time.perf_counter() - t0 < TIMEOUT_S:
+        codes = [p.poll() for p in procs]
+        if all(c is not None for c in codes):
+            return
+        if any(c not in (None, 0) for c in codes):
+            break
+        time.sleep(1.0)
+    deadline = time.perf_counter() + grace_s
+    while time.perf_counter() < deadline and any(p.poll() is None for p in procs):
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+
+
+def highres(torch, tmp: str, sizes=SIZES, extra: tuple = (), label: str = "",
+            oom_ok: bool = False) -> bool:
+    """The highres entry (with the flags ``extra``) at each size over each
+    split, every rank's flows against the first run of the size that
+    completed; with ``oom_ok`` a run that ran out of card memory is printed
+    as such and is no failure."""
     ok = True
-    for (h, w), splits in SIZES:
+    for (h, w), splits in sizes:
         want = None
         for s in splits:
-            out = os.path.join(tmp, f"{h}x{w}_{s}")
+            out = os.path.join(tmp, f"{label}{h}x{w}_{s}")
             argv = ["-m", "raft_ncup_tpu_torch.highres_forward", "--size", str(h), str(w),
-                    "--iters", "32", "--spatial", str(s), "--save", out]
-            codes, reps, errs, secs = ranks(argv, s)
+                    "--iters", "32", "--spatial", str(s), "--save", out, *extra]
+            codes, reps, errs, secs = ranks(argv, s, fail_fast=oom_ok)
             row = {"size": [h, w], "spatial": s, "exits": codes, "seconds": secs}
+            if label:
+                row["run"] = label.strip("_")
             good = codes == [0] * s and all(r is not None and r["finite"] for r in reps)
+            if not good and oom_ok and any(m in e for e in errs for m in OOM):
+                row.update(out_of_memory=True, stderr=[e[-600:] for e in errs])
+                print(f"spatial cards: {json.dumps(row)}", flush=True)
+                continue
             if good:
                 flows = [torch.load(os.path.join(out, f"flows_rank{r}.pt"), weights_only=True)
                          for r in range(s)]
                 if want is None:
                     want = flows[0]
+                    row["reference"] = True
                 diffs = [_diff(torch, f, want) for f in flows]
                 row["max_abs_diff_vs_one_card"] = [d for d, _ in diffs]
                 good = all(g for _, g in diffs)
@@ -441,6 +487,8 @@ def main() -> int:
             ok = pipe(torch, tmp) and ok
         if "mixed" in parts:
             ok = mixed(torch, tmp) and ok
+        if "pac" in parts:
+            ok = highres(torch, tmp, PAC_SIZES, tuple(PAC_FLAGS), "pac_", oom_ok=True) and ok
     if "evaluate" in parts:
         ok = evaluation() and ok
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

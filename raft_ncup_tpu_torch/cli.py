@@ -79,7 +79,7 @@ def str2ints(v: str) -> tuple[int, ...]:
 
 
 # The reference's upsampler class names and the kinds they select.
-_UPSAMPLER_CLASSES = {
+UPSAMPLER_CLASSES = {
     "NConvUpsampler": "nconv",
     "Bilinear": "bilinear",
     "PacJointUpsampleFull": "pac",
@@ -113,7 +113,7 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                         "directory; the upsampler stays at its initial values")
     # The reference's reflective upsampler flags.
     parser.add_argument("--final_upsampling", default="NConvUpsampler",
-                        choices=sorted(_UPSAMPLER_CLASSES))
+                        choices=sorted(UPSAMPLER_CLASSES))
     parser.add_argument("--final_upsampling_scale", type=int, default=4)
     parser.add_argument("--final_upsampling_use_data_for_guidance", type=str2bool,
                         default=True)
@@ -141,7 +141,7 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 def upsampler_config_from_args(args: argparse.Namespace) -> UpsamplerConfig:
     """The reference's upsampler flags, field by field, as the JAX CLI maps
     them; ``--upsampler_bi`` selects the bilinear upsampler."""
-    kind = "bilinear" if args.upsampler_bi else _UPSAMPLER_CLASSES[args.final_upsampling]
+    kind = "bilinear" if args.upsampler_bi else UPSAMPLER_CLASSES[args.final_upsampling]
     return UpsamplerConfig(
         kind=kind,
         scale=args.final_upsampling_scale,

@@ -8,6 +8,9 @@ default; 2176x3840 is the 4K case) for ``--iters`` iterations, eagerly,
 with cuDNN's autotuner on: a first forward (the kernels' load, the
 autotuning), then the timed one.
 
+``--final_upsampling PacJointUpsampleFull | DjifOriginal`` swaps NCUP for
+the PAC or DJIF head, which splits by rows as every other layer does.
+
 ``--spatial S`` (or ``--spatial_parallel S``, or ``--mesh D,S`` with D
 times S processes) above 1 splits the height over S processes, one per
 card, started by a launcher::
@@ -45,8 +48,8 @@ import time
 import numpy as np
 import torch
 
-from raft_ncup_tpu_torch.cli import add_device_arg, str2mesh
-from raft_ncup_tpu_torch.config import flagship_config, small_model_config
+from raft_ncup_tpu_torch.cli import UPSAMPLER_CLASSES, add_device_arg, str2mesh
+from raft_ncup_tpu_torch.config import UpsamplerConfig, flagship_config, small_model_config
 from raft_ncup_tpu_torch.models.raft import RAFT
 from raft_ncup_tpu_torch.ops.corr_cuda import lookup_levels
 from raft_ncup_tpu_torch.ops.nconv_cuda import nconv2d_fused
@@ -67,6 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", default="f32", choices=["f32", "bf16_infer"])
     p.add_argument("--small", action="store_true",
                    help="the small raft_nc_dbl (a quick drive on the CPU)")
+    p.add_argument("--final_upsampling", default="NConvUpsampler",
+                   choices=sorted(UPSAMPLER_CLASSES),
+                   help="the final upsampler: NCUP (the flagship's), or the PAC or DJIF "
+                   "head (PacJointUpsampleFull, DjifOriginal), each on a band under a mesh")
     p.add_argument("--save", default=None, metavar="DIR",
                    help="write this rank's flows to DIR/flows_rank<r>.pt")
     add_device_arg(p)
@@ -86,8 +93,9 @@ def frames(h: int, w: int, seed: int = SEED) -> tuple[torch.Tensor, torch.Tensor
     return torch.from_numpy(img1), torch.from_numpy(img2)
 
 
-def model_config(small: bool, precision: str):
-    kw = dict(corr_impl="pallas", nconv_impl="pallas", precision=precision)
+def model_config(small: bool, precision: str, final_upsampling: str = "NConvUpsampler"):
+    kw = dict(corr_impl="pallas", nconv_impl="pallas", precision=precision,
+              upsampler=UpsamplerConfig(kind=UPSAMPLER_CLASSES[final_upsampling]))
     if small:
         return small_model_config("raft_nc_dbl", dataset="sintel", **kw)
     return flagship_config(dataset="sintel", **kw)
@@ -108,7 +116,8 @@ def run(args, device: torch.device) -> dict:
             raise SystemExit(f"--size height {h} must divide by 8 * spatial = "
                              f"{mesh_mod.pad_divisor(mesh)} (pad with "
                              "InputPadder(divisor=...) first)")
-    model = RAFT(model_config(args.small, args.precision), device=device, seed=SEED)
+    model = RAFT(model_config(args.small, args.precision, args.final_upsampling),
+                 device=device, seed=SEED)
     img1, img2 = (t.to(device) for t in frames(h, w))
     cuda = device.type == "cuda"
 
@@ -141,6 +150,7 @@ def run(args, device: torch.device) -> dict:
                    os.path.join(args.save, f"flows_rank{multihost.process_index()}.pt"))
     return {
         "shape": [1, h, w, 3], "iters": args.iters, "precision": args.precision,
+        "final_upsampling": args.final_upsampling,
         "small": args.small, "platform": "gpu" if cuda else "cpu",
         "mesh": mesh_mod.mesh_fingerprint(mesh), "devices": multihost.process_count(),
         "rank": multihost.process_index(),

@@ -12,7 +12,18 @@ guidance to the output resolution with JAX's half-pixel bilinear
 (``ops.pac.resize_half_pixel``) and runs the PAC joint upsampler or DJIF;
 channels fold into the batch as the reference's
 ``convert_to_single_channel`` does. JAX computes these with XLA, so there
-is no kernel here; the heads run unsharded (a spatial group raises).
+is no kernel here.
+
+On a band of rows of a spatial mesh (``parallel/halo.py``) a head computes
+the band's rows of the whole image's output, as JAX's partitioner does:
+the guidance resizes take their weights from global rows (``ops.pac``'s
+banded ``resize_half_pixel``), the PAC primitives exchange the rows their
+windows read, and the 'same' convolutions exchange halos as everywhere
+else. DJIF's target and guidance branches pad unevenly, ``(2, 2, 2)`` for
+``fs=(9, 1, 5)``, so their inner heights differ from the image's: a branch
+exchanges its whole receptive field once, runs its convolutions valid in
+the rows, zeroes the rows the whole image's zero padding holds, and keeps
+the band's rows (:func:`_banded_branch`).
 
 Parameter names follow the JAX modules', so ``utils.jax_weights`` carries
 them as ``export_torch_state`` keys them: convolutions ``weight`` (OIHW)
@@ -28,6 +39,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from raft_ncup_tpu_torch.config import UpsamplerConfig
@@ -40,7 +52,7 @@ from raft_ncup_tpu_torch.ops.pac import (
     pacpool2d,
     resize_half_pixel,
     smooth_kernel_2d,
-    zero_stuff_mask,
+    stuffed_mask,
 )
 from raft_ncup_tpu_torch.parallel import halo
 
@@ -258,11 +270,11 @@ class PacConvTranspose2d(_PacKernel):
         if self.normalize_kernel:
             # Taps on stuffed zeros contribute nothing: normalise over the
             # real samples' taps (reference: core/pac_modules.py:352-360,417-424).
-            pattern = zero_stuff_mask(x.shape[1:3], self.stride, x.dtype, x.device)
+            pattern, rows = stuffed_mask(x, self.stride, k, 1, self.padding,
+                                         self.output_padding)
             pad = span - self.padding
-            pat = extract_patches(pattern, k, pad_lo=(pad, pad),
-                                  pad_hi=(pad + self.output_padding,
-                                          pad + self.output_padding))[..., 0]
+            pat = extract_patches(pattern, k, pad_lo=(rows[0], pad),
+                                  pad_hi=(rows[1], pad + self.output_padding))[..., 0]
             kernel = kernel * pat
             kernel = kernel / torch.clamp(kernel.sum(dim=3, keepdim=True), min=1e-12)
         return pacconv_transpose2d(x, kernel, self.weight, self.bias, stride=self.stride,
@@ -356,9 +368,12 @@ class DJIF(nn.Module):
             cin = nc
 
     def _branch(self, v: torch.Tensor, prefix: str) -> torch.Tensor:
-        for li in range(len(self.ns_tg)):
-            v = _conv(getattr(self, f"{prefix}_conv{li + 1}"), v)
-            if li < len(self.ns_tg) - 1:
+        convs = [getattr(self, f"{prefix}_conv{li + 1}") for li in range(len(self.ns_tg))]
+        if halo.current() is not None:
+            return _banded_branch(convs, v)
+        for li, conv in enumerate(convs):
+            v = _conv(conv, v)
+            if li < len(convs) - 1:
                 v = torch.relu(v)
         return v
 
@@ -374,6 +389,44 @@ class DJIF(nn.Module):
             if li < len(self.chans) - 1:
                 v = torch.relu(v)
         return _unfold_channels(v, ch0)
+
+
+def _banded_branch(convs: Sequence[nn.Module], v: torch.Tensor) -> torch.Tensor:
+    """A stack of stride-1 convolutions with a ReLU between them, whose
+    paddings may differ from their kernels' halves (DJIF's branches), on
+    this rank's band of rows of (B, H, W, C) ``v``: the band's rows of the
+    whole image's output, which must have the image's height. The rows
+    each layer's band needs are worked back from the last layer's band
+    rows; the input's whole receptive field comes from the neighbours in
+    one exchange (zeros past the image's edges); each convolution runs
+    valid in the rows (padded in the columns), and the rows of its output
+    that lie outside the whole image's output of that layer, where the
+    next layer reads zero padding, are zeroed."""
+    rows = v.shape[1]
+    first = halo.first_row(rows)
+    heights = [rows * halo.current().size]
+    for conv in convs:
+        span = conv.dilation[0] * (conv.kernel_size[0] - 1)
+        heights.append(heights[-1] + 2 * conv.padding[0] - span)
+    if heights[-1] != heights[0]:
+        raise ValueError(f"a branch that takes {heights[0]} rows to {heights[-1]} cannot run "
+                         "on a band of rows")
+    starts = [first]  # each layer's first output row, from the last layer back
+    for conv in reversed(convs):
+        starts.insert(0, starts[0] - conv.padding[0])
+    end = first + rows  # the input's end row: the same walk with each span
+    for conv in reversed(convs):
+        end += conv.dilation[0] * (conv.kernel_size[0] - 1) - conv.padding[0]
+    x = halo.extend(v, first - starts[0], end - first - rows, dim=1).permute(0, 3, 1, 2)
+    for li, conv in enumerate(convs):
+        x = F.conv2d(x, conv.weight, conv.bias, conv.stride, (0, conv.padding[1]),
+                     conv.dilation, conv.groups)
+        if li < len(convs) - 1:
+            x = torch.relu(x)
+            g = torch.arange(x.shape[2], device=x.device) + starts[li + 1]
+            inside = (g >= 0) & (g < heights[li + 1])
+            x = torch.where(inside[None, None, :, None], x, torch.zeros_like(x))
+    return x.permute(0, 2, 3, 1)
 
 
 class JointBilateral(nn.Module):
@@ -394,7 +447,8 @@ class JointBilateral(nn.Module):
     def forward(self, x_lowres: torch.Tensor, guidance: torch.Tensor) -> torch.Tensor:
         x, ch0 = _fold_channels(x_lowres)
         B, H, W, _ = guidance.shape
-        yy = torch.arange(H, dtype=guidance.dtype, device=guidance.device)
+        # The position channel counts global rows (on a band, from its first).
+        yy = torch.arange(H, dtype=guidance.dtype, device=guidance.device) + halo.first_row(H)
         xx = torch.arange(W, dtype=guidance.dtype, device=guidance.device)
         guide = torch.cat([
             guidance * self.scale_color,
@@ -425,9 +479,6 @@ class _PacHead(nn.Module):
             raise ValueError(f"not a PAC head kind: {cfg.kind!r}")
 
     def forward(self, x_lowres: torch.Tensor, guidance: torch.Tensor) -> torch.Tensor:
-        if halo.current() is not None:
-            raise NotImplementedError("the PAC and DJIF heads run on the whole image, not on "
-                                      "a band of rows of a spatial mesh")
         x = x_lowres.permute(0, 2, 3, 1)
         H, W = x.shape[1:3]
         s = self.cfg.scale

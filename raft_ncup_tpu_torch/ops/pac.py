@@ -16,6 +16,23 @@ so does the port (autograd, no ``torch.autograd.Function``):
 
 JAX runs these with XLA, not Pallas: there is no TPU kernel here, and the
 port has no CUDA kernel for them either.
+
+On a band of rows (a :func:`halo.spatial` context, ``parallel/halo.py``)
+each op computes the band's rows of the whole image's result, as JAX's
+partitioner does with the mesh's ``spatial`` axis:
+
+- a window op that keeps the height (the patches, the adapting kernel,
+  the PAC convolution and pooling, the smoothed centre) takes its rows of
+  padding from the neighbouring bands (:func:`halo.extend`; zero rows only
+  at the image's global top and bottom); a stride subsamples from the
+  band's first row, which the stride divides;
+- the transposed convolution exchanges the input rows its band's output
+  rows read (one low-resolution row each side for the heads' k=5,
+  stride-2 stage) and zero-stuffs them from a global row the stride
+  divides, so the stuffing's parity is the whole image's;
+- the half-pixel resize takes its weights from global row indices
+  (``halo.resize_rows``) with the one input row of halo above and below
+  that an upsampling or a halving resize reads.
 """
 
 from __future__ import annotations
@@ -25,11 +42,36 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from raft_ncup_tpu_torch.parallel import halo
+
 
 def _pad_nhwc(x: torch.Tensor, lo: tuple[int, int], hi: tuple[int, int]) -> torch.Tensor:
     """Zero padding of (B, H, W, C) rows by ``(lo[0], hi[0])`` and columns
     by ``(lo[1], hi[1])``; a negative amount crops."""
     return F.pad(x, (0, 0, lo[1], hi[1], lo[0], hi[0]))
+
+
+def _band_rows(x: torch.Tensor, span: int, pad_lo: tuple[int, int],
+               pad_hi: tuple[int, int]) -> tuple:
+    """The rows of padding of a window op over ``span + 1`` rows: on a band
+    of rows, the neighbouring bands' rows (zeros past the image's edges) in
+    place of the zeros, and no row padding left to add; else ``x`` and the
+    paddings as they are. On a band the op must keep the height (a stride
+    subsamples after), or its output would not be the band's rows."""
+    if halo.current() is None or (pad_lo[0] == 0 and pad_hi[0] == 0):
+        return x, pad_lo, pad_hi
+    if pad_lo[0] + pad_hi[0] != span:
+        raise ValueError(f"a window of {span + 1} rows padded ({pad_lo[0]}, {pad_hi[0]}) "
+                         "changes the height: it cannot run on a band of rows")
+    x = halo.extend(x, pad_lo[0], pad_hi[0], dim=1)
+    return x, (0, pad_lo[1]), (0, pad_hi[1])
+
+
+def _strided_band(x: torch.Tensor, stride: int) -> None:
+    """A stride on a band subsamples from the band's first row: the whole
+    image's rows only where the stride divides the band's height."""
+    if stride > 1 and halo.current() is not None and x.shape[1] % stride:
+        raise ValueError(f"a band of {x.shape[1]} rows does not split at stride {stride}")
 
 
 def extract_patches(
@@ -47,6 +89,7 @@ def extract_patches(
         pad_lo = (span // 2, span // 2)
     if pad_hi is None:
         pad_hi = (span - span // 2, span - span // 2)
+    x, pad_lo, pad_hi = _band_rows(x, span, pad_lo, pad_hi)
     x = _pad_nhwc(x, pad_lo, pad_hi)
     h_out = x.shape[1] - span
     w_out = x.shape[2] - span
@@ -93,7 +136,8 @@ def _smoothed_center(guide: torch.Tensor, smooth_kernel: torch.Tensor, ksize: in
     sh, sw = smooth_kernel.shape
     sp_h = pad[0] - (ksize - sh) // 2
     sp_w = pad[1] - (ksize - sw) // 2
-    g = _pad_nhwc(guide, (sp_h, sp_w), (sp_h, sp_w)).to(smooth_kernel.dtype)
+    guide, lo, hi = _band_rows(guide, sh - 1, (sp_h, sp_w), (sp_h, sp_w))
+    g = _pad_nhwc(guide, lo, hi).to(smooth_kernel.dtype)
     C = g.shape[-1]
     w = smooth_kernel[None, None].expand(C, 1, sh, sw)
     out = F.conv2d(g.permute(0, 3, 1, 2), w, stride=stride, groups=C)
@@ -131,6 +175,7 @@ def pac_kernel2d(
     pad = (padding, padding)
     lo = pad if pad_lo is None else pad_lo
     hi = pad if pad_hi is None else pad_hi
+    _strided_band(guide, stride)
     patches = extract_patches(guide, ksize, dilation, lo, hi)[:, ::stride, ::stride]
     if smooth_kernel is None:
         center = patches[:, :, :, (ksize * ksize) // 2, :]
@@ -234,6 +279,7 @@ def pacconv2d(
     ``weight`` (k*k, Cin, Cout), or (k*k,) with ``shared_filters`` (one
     spatial filter for every channel)."""
     ksize = int(round(weight.shape[0] ** 0.5))
+    _strided_band(x, stride)
     patches = extract_patches(x, ksize, dilation, pad_lo, pad_hi)[:, ::stride, ::stride]
     return _pac_contract(patches, kernel, weight, bias, shared_filters)
 
@@ -253,11 +299,74 @@ def pacconv_transpose2d(
     the bottom and right), then the stride-1 PAC convolution. ``kernel`` is
     computed from guidance at the output resolution; ``weight`` is (k*k,
     Cin, Cout)."""
-    stuffed = _zero_stuff(x, stride)
     ksize = int(round(weight.shape[0] ** 0.5))
     pad = (ksize - 1) * dilation - padding
-    return pacconv2d(stuffed, kernel, weight, bias, dilation, pad_lo=(pad, pad),
-                     pad_hi=(pad + output_padding, pad + output_padding))
+    stuffed, rows = stuffed_rows(x, stride, ksize, dilation, padding, output_padding)
+    return pacconv2d(stuffed, kernel, weight, bias, dilation, pad_lo=(rows[0], pad),
+                     pad_hi=(rows[1], pad + output_padding))
+
+
+def transpose_band_rows(rows: int, stride: int, ksize: int, dilation: int, padding: int,
+                        output_padding: int) -> tuple[int, int, int, int]:
+    """``(top, bottom, lo, hi)`` of a transposed convolution on a band of
+    ``rows`` input rows whose output rows are the band's ``stride * rows``:
+    the input rows of halo it reads above and below, and the zero rows (a
+    negative count crops) the zero-stuffed, halo-extended band takes above
+    and below before the stride-1 window. Output row ``o`` reads stuffed row
+    ``o - p + j * dilation`` (``p = (k-1) d - padding``, ``j < k``), which
+    is input row ``r / stride`` where the stride divides ``r``. The same on
+    every band: the band's first row drops out."""
+    s, span = int(stride), (int(ksize) - 1) * int(dilation)
+    p = span - int(padding)
+    whole_rows = (rows - 1) * s + 1 + 2 * p + int(output_padding) - span
+    if whole_rows != s * rows:
+        raise ValueError(f"a transposed convolution that makes {whole_rows} rows of {rows} "
+                         f"at stride {s} cannot run on a band of rows")
+    # The stuffed rows the band's outputs read, counted from stuffed row
+    # s * first (the band's first input row): [-p, s rows - 1 - p + span].
+    lo_r, hi_r = -p, s * rows - 1 - p + span
+    top = (-lo_r) // s  # the input rows (stuffed rows the stride divides) among them
+    bottom = hi_r // s - (rows - 1)
+    return top, bottom, -s * top - lo_r, hi_r - s * (rows - 1 + bottom)
+
+
+def stuffed_rows(x: torch.Tensor, stride: int, ksize: int, dilation: int, padding: int,
+                 output_padding: int) -> tuple:
+    """``x`` (B, H, W, C) zero-stuffed by ``stride`` and the rows of zero
+    padding the stride-1 window of a transposed convolution adds to it,
+    ``(stuffed, (lo, hi))``. On a band of rows the band first takes the
+    input rows of halo its output reads (:func:`transpose_band_rows`), is
+    stuffed from there, and is padded (or cropped) by the rows that
+    function gives."""
+    span = (int(ksize) - 1) * int(dilation)
+    pad = span - int(padding)
+    if halo.current() is None:
+        return _zero_stuff(x, stride), (pad, pad + int(output_padding))
+    top, bottom, lo, hi = transpose_band_rows(x.shape[1], stride, ksize, dilation, padding,
+                                              output_padding)
+    wide = _zero_stuff(halo.extend(x, top, bottom, dim=1), stride)
+    return _pad_nhwc(wide, (lo, 0), (hi, 0)), (0, 0)
+
+
+def stuffed_mask(x: torch.Tensor, stride: int, ksize: int, dilation: int, padding: int,
+                 output_padding: int) -> tuple:
+    """The indicator of the real (not stuffed) samples of ``x`` (B, H, W, C)
+    zero-stuffed by ``stride``, shaped and padded as :func:`stuffed_rows`
+    gives ``x``: ``(mask (1, H', W', 1), (lo, hi))``. On a band the rows
+    with their halo, 1 on the image's rows and 0 past its edges (known
+    without an exchange)."""
+    sp = halo.current()
+    if sp is None:
+        pad = (int(ksize) - 1) * int(dilation) - int(padding)
+        return (zero_stuff_mask(x.shape[1:3], stride, x.dtype, x.device),
+                (pad, pad + int(output_padding)))
+    H, W = x.shape[1:3]
+    top, bottom, lo, hi = transpose_band_rows(H, stride, ksize, dilation, padding,
+                                              output_padding)
+    rows = torch.arange(top + H + bottom, device=x.device) + (halo.first_row(H) - top)
+    real = ((rows >= 0) & (rows < H * sp.size)).to(x.dtype)
+    ones = real[None, :, None, None].expand(1, -1, W, 1)
+    return _pad_nhwc(_zero_stuff(ones, stride), (lo, 0), (hi, 0)), (0, 0)
 
 
 def pacpool2d(x: torch.Tensor, kernel: torch.Tensor, ksize: int, dilation: int = 1,
@@ -267,26 +376,39 @@ def pacpool2d(x: torch.Tensor, kernel: torch.Tensor, ksize: int, dilation: int =
     the channels, or (B, H', W', k*k, C); ``padding=None`` is the 'same'
     default."""
     pad = None if padding is None else (padding, padding)
+    _strided_band(x, stride)
     patches = extract_patches(x, ksize, dilation, pad, pad)[:, ::stride, ::stride]
     if kernel.dim() == 5:
         return torch.einsum("bhwkc,bhwkc->bhwc", patches, kernel)
     return torch.einsum("bhwkc,bhwk->bhwc", patches, kernel)
 
 
-def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+def _resize_weights(in_size: int, out_size: int, device, in_first: int = 0,
+                    in_count: Optional[int] = None, out_first: int = 0,
+                    out_count: Optional[int] = None) -> torch.Tensor:
     """(in, out) weights of ``jax.image.resize``'s 'bilinear' along one
     axis: half-pixel centres and a triangle kernel widened by the
     downsampling factor (JAX's default antialiasing), each column
     normalised, columns whose sample falls outside the input zeroed.
     Computed in float32 as JAX computes them, on ``device`` (nothing is
-    copied from the host, so a CUDA graph can hold it)."""
+    copied from the host, so a CUDA graph can hold it). The block of input
+    rows ``[in_first, in_first + in_count)`` and output rows ``[out_first,
+    out_first + out_count)`` of the whole matrix (all of it by default), the
+    input rows past the axis's ends weighing 0: a band's block, each element
+    computed as the whole matrix computes it, each column normalised over
+    the block, which holds every row the column reads."""
     f32 = torch.float32
+    in_count = in_size if in_count is None else int(in_count)
+    out_count = out_size if out_count is None else int(out_count)
     inv_scale = torch.full((), out_size / in_size, dtype=f32, device=device).reciprocal()
     kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) * inv_scale - 0.5
-    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None]
-         ).abs() / kernel_scale
+    sample_f = (torch.arange(out_first, out_first + out_count, dtype=f32, device=device)
+                + 0.5) * inv_scale - 0.5
+    rows = torch.arange(in_first, in_first + in_count, dtype=f32, device=device)
+    x = (sample_f[None, :] - rows[:, None]).abs() / kernel_scale
     w = torch.clamp(1.0 - x, min=0.0)
+    if in_first < 0 or in_first + in_count > in_size:
+        w = torch.where(((rows >= 0) & (rows < in_size))[:, None], w, torch.zeros_like(w))
     total = w.sum(dim=0, keepdim=True)
     eps = float(torch.finfo(f32).eps)
     w = torch.where(total.abs() > 1000.0 * eps,
@@ -299,7 +421,14 @@ def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
 def resize_half_pixel(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of (B, H, W, C) to ``out_hw`` with half-pixel centres,
     as ``jax.image.resize(method="bilinear")`` computes it (antialiased when
-    it shrinks): the JAX heads' ``_resize_half_pixel``."""
-    wh = _resize_weights(x.shape[1], int(out_hw[0]), x.device).to(x.dtype)
+    it shrinks): the JAX heads' ``_resize_half_pixel``. On a band of rows,
+    ``x`` and ``out_hw[0]`` are the band's rows of the whole image's input and
+    output: the weights come from global rows, over the band and its halo
+    (``halo.resize_rows``)."""
+    if halo.current() is None:
+        wh = _resize_weights(x.shape[1], int(out_hw[0]), x.device)
+    else:
+        x, wh = halo.resize_rows(x, int(out_hw[0]), lambda *rows: _resize_weights(
+            *rows[:2], x.device, *rows[2:]))
     ww = _resize_weights(x.shape[2], int(out_hw[1]), x.device).to(x.dtype)
-    return torch.einsum("bhwc,hi,wj->bijc", x, wh, ww)
+    return torch.einsum("bhwc,hi,wj->bijc", x, wh.to(x.dtype), ww)

@@ -35,12 +35,18 @@ recompute of a checkpointed iteration, which autograd may run on a thread
 of its own, enters the forward's group again (``models/raft.py``'s
 remat contexts). Under gloo a card tensor
 goes through the host, as ``multihost.all_reduce_`` does: the copy is
-``analysis.guards.collective_read``, a sanctioned and counted read.
+``analysis.guards.collective_read``, a sanctioned and counted read, and a
+bf16 tensor crosses as float32 (:func:`_wire_dtype`), cast back on arrival.
+
+:func:`resize_rows` is the banded linear resize (the PAC and DJIF heads'
+half-pixel bilinear): the band with the halo rows :func:`resize_halo`
+counts, and the block of the whole resize's weights for those rows.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -115,6 +121,49 @@ def halo_rows(kernel: int, stride: int, padding: int, dilation: int, first: int,
     return top, bottom
 
 
+def resize_halo(in_rows: int, out_rows: int, size: int) -> tuple[int, int]:
+    """Rows a band of ``in_rows`` input rows needs above and below it for a
+    linear resize with half-pixel centres of the whole height ``size *
+    in_rows`` to ``size * out_rows`` (``jax.image.resize``'s 'bilinear': a
+    triangle of radius 1, widened by the factor when it shrinks), when the
+    band owns the output rows from ``index * out_rows``: the most over the
+    ``size`` bands, so that every rank of the group asks the same. Output
+    row ``o`` reads the input rows strictly within ``radius`` of its sample
+    ``(o + 1/2) * scale - 1/2``; exact, in rationals."""
+    from fractions import Fraction
+
+    in_rows, out_rows, size = int(in_rows), int(out_rows), int(size)
+    scale = Fraction(in_rows, out_rows)
+    radius = max(Fraction(1), scale)
+    half = Fraction(1, 2)
+    top = bottom = 0
+    for s in range(size):
+        i0, o0 = s * in_rows, s * out_rows
+        first = math.floor((o0 + half) * scale - half - radius) + 1
+        last = math.ceil((o0 + out_rows - half) * scale - half + radius) - 1
+        top = max(top, i0 - first)
+        bottom = max(bottom, last - (i0 + in_rows - 1))
+    return top, bottom
+
+
+def resize_rows(x: torch.Tensor, out_rows: int, weights: Callable, dim: int = 1) -> tuple:
+    """The rows of this rank's band of a linear resize along ``dim``:
+    ``x``, the band, joined with the halo rows the resize reads
+    (:func:`resize_halo`; zeros past the image's edges), and the ``(rows
+    in, out_rows)`` block of the whole resize's weights for those input rows
+    and the band's ``out_rows`` output rows, from ``weights(in_size,
+    out_size, in_first, in_count, out_first, out_count)`` (global sizes and
+    first rows; the block's rows past the image's edges must weigh 0). The
+    caller contracts the two along the rows. One halo exchange."""
+    sp = current()
+    rows, out_rows = x.shape[dim], int(out_rows)
+    top, bottom = resize_halo(rows, out_rows, sp.size)
+    wide = extend(x, top, bottom, dim=dim)
+    w = weights(rows * sp.size, out_rows * sp.size, first_row(rows) - top, wide.shape[dim],
+                first_row(out_rows), out_rows)
+    return wide, w
+
+
 def band(x: Optional[torch.Tensor], dim: int = 1) -> Optional[torch.Tensor]:
     """This rank's band of the whole tensor ``x`` along ``dim`` (``x`` itself
     with no active group, None for None)."""
@@ -143,9 +192,17 @@ def _to_wire(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a card tensor of ``dtype`` crosses gloo in: the host copy
+    of ``collective_read`` holds bf16 as float32 (numpy has no bfloat16),
+    so a bf16 halo, gather or hand-off travels as float32, which round
+    trips exactly; the receiver casts it back."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def _wire_buffer(like: torch.Tensor, shape) -> torch.Tensor:
     if _on_host(like):
-        return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+        return torch.empty(shape, dtype=_wire_dtype(like.dtype), pin_memory=True)
     return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
@@ -175,7 +232,8 @@ def _exchange(sp: SpatialGroup, up: Optional[torch.Tensor], down: Optional[torch
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    back = (lambda buf: None if buf is None else buf.to(like.device, non_blocking=True))
+    back = (lambda buf: None if buf is None else buf.to(like.device, like.dtype,
+                                                         non_blocking=True))
     return back(above), back(below)
 
 
@@ -269,7 +327,7 @@ class _GatherRows(torch.autograd.Function):
         multihost.count_collective("all-gather", sp.size * x.numel() * x.element_size())
         dist.all_gather(parts, wire, group=sp.group)
         whole = torch.cat(parts, dim=dim)
-        return whole.to(x.device, non_blocking=True) if whole.device != x.device else whole
+        return whole.to(x.device, x.dtype, non_blocking=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -287,7 +345,7 @@ class _GatherRows(torch.autograd.Function):
         wire = wire.clone() if wire.data_ptr() == g.data_ptr() else wire
         dist.all_reduce(wire, group=sp.group)
         band_ = wire.narrow(dim, sp.index * h, h).contiguous()
-        return band_.to(g.device, non_blocking=True), None, None
+        return band_.to(g.device, g.dtype, non_blocking=True), None, None
 
 
 def all_gather_rows(x: torch.Tensor, dim: int = 1,
